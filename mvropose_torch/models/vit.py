@@ -1,0 +1,301 @@
+"""Vision Transformer backbone (DINOv2/v3-compatible), float path.
+
+Port of `mvropose_tpu/models/vit.py::ViTBackbone`: patch embedding, CLS and
+register tokens, LayerScale, bicubic position-embedding interpolation
+reproducing torch's `F.interpolate`, DINOv3 axial RoPE, pre-norm blocks.
+Images enter NCHW; module attribute names equal the flax module names, so
+`utils/weights.load_jax_params` maps a JAX checkpoint onto them by name.
+
+Precision follows the reference: matmuls and convs run in the compute dtype
+(weights are held in it), LayerNorms in f32, the residual stream in the
+compute dtype, the final norm's output in f32. Attention is a plain
+matmul + softmax in the compute dtype, like the reference's XLA branch
+(`mvropose_tpu/ops/attention.py:102-114`), which is what it runs at the
+backbone's T = 1025 on every backend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _cubic_kernel(x: np.ndarray, a: float) -> np.ndarray:
+    """Cubic convolution kernel (torch bicubic: a=-0.75; its antialiased,
+    PIL-adapted path: a=-0.5)."""
+    ax = np.abs(x)
+    return np.where(
+        ax <= 1.0,
+        (a + 2.0) * ax**3 - (a + 3.0) * ax**2 + 1.0,
+        np.where(ax < 2.0, a * (ax**3 - 5.0 * ax**2 + 8.0 * ax - 4.0), 0.0),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _torch_bicubic_matrix(n_in: int, n_out: int, antialias: bool = False) -> np.ndarray:
+    """(n_out, n_in) 1-D resize matrix reproducing torch
+    `F.interpolate(mode="bicubic", align_corners=False, antialias=...)`.
+    A copy of the reference's numpy helper, so both packages interpolate
+    position embeddings with the same matrix."""
+    scale = n_in / n_out
+    M = np.zeros((n_out, n_in), np.float64)
+    if antialias:
+        ks = max(scale, 1.0)  # kernel stretch on downscale
+        support = 2.0 * ks
+        for i in range(n_out):
+            center = (i + 0.5) * scale
+            jmin = max(int(center - support + 0.5), 0)
+            js = np.arange(jmin, min(int(center + support + 0.5), n_in))
+            w = _cubic_kernel((js - center + 0.5) / ks, a=-0.5)
+            M[i, js] = w / w.sum()
+    else:
+        for i in range(n_out):
+            x = (i + 0.5) * scale - 0.5
+            x0 = int(np.floor(x))
+            js = np.arange(x0 - 1, x0 + 3)
+            w = _cubic_kernel(x - js, a=-0.75)
+            np.add.at(M[i], np.clip(js, 0, n_in - 1), w)  # border replication
+    return M
+
+
+def _resize_matrices(g0: int, gh: int, gw: int):
+    return _torch_bicubic_matrix(g0, gh), _torch_bicubic_matrix(g0, gw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """Same fields as the reference's ViTConfig, so model_config.json files
+    round-trip. `quant`/`quant_attn` (int8 serving) are not ported yet;
+    `fused_ln` selects the reference's Pallas LayerNorm, whose function is
+    the plain LayerNorm run here."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    num_register_tokens: int = 0
+    layerscale_init: Optional[float] = 1e-5  # None disables LayerScale
+    dtype: str = "bfloat16"
+    use_rope: bool = False
+    rope_theta: float = 100.0
+    layer_norm_eps: float = 1e-6
+    quant: Optional[str] = None
+    quant_attn: Optional[str] = None
+    fused_ln: bool = False
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+def _rope_cos_sin(gh: int, gw: int, head_dim: int, theta: float):
+    """(N, head_dim) f64 cos/sin tables for axial RoPE over a gh x gw patch
+    grid (HF DINOv3ViTRopePositionEmbedding): patch-centre coords in [-1, 1],
+    angles = 2*pi*coords x inv_freq over the (h, w) pair, tiled to head_dim."""
+    inv_freq = 1.0 / theta ** np.arange(0, 1, 4 / head_dim, dtype=np.float64)
+    ch = 2.0 * ((np.arange(gh, dtype=np.float64) + 0.5) / gh) - 1.0
+    cw = 2.0 * ((np.arange(gw, dtype=np.float64) + 0.5) / gw) - 1.0
+    coords = np.stack(np.meshgrid(ch, cw, indexing="ij"), axis=-1).reshape(-1, 2)
+    angles = 2.0 * np.pi * coords[:, :, None] * inv_freq[None, None, :]
+    angles = np.tile(angles.reshape(coords.shape[0], -1), (1, 2))
+    return np.cos(angles), np.sin(angles)
+
+
+@functools.lru_cache(maxsize=64)
+def device_constant(fn, args: tuple, device: torch.device) -> tuple:
+    """numpy tables `fn(*args)` as f32 tensors on `device`, built once.
+
+    Copying a pageable numpy array to the card inside a step would
+    synchronize the stream and stall the host each call; cached, the copy
+    happens once. Built outside inference mode, so later autograd use is
+    allowed."""
+    out = fn(*args)
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.asarray(t)).float().to(device) for t in out)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_prefix: int):
+    """Rotate the patch tokens of (B, H, T, dh) q or k; the n_prefix tokens
+    (cls + registers) pass through unrotated."""
+    prefix, patches = x[:, :, :n_prefix], x[:, :, n_prefix:]
+    x1, x2 = patches.chunk(2, dim=-1)
+    rotated = torch.cat([-x2, x1], dim=-1)
+    patches = patches * cos.to(x.dtype) + rotated * sin.to(x.dtype)
+    return torch.cat([prefix, patches], dim=2)
+
+
+def dot_product_attention(q, k, v, key_mask: Optional[torch.Tensor] = None):
+    """Softmax attention on (B, H, T, dh) tensors in their own dtype.
+
+    flax semantics: q is divided by sqrt(dh) rounded to the dtype, masked
+    logits (key_mask (B, Tk) False) are set to the dtype's lowest finite
+    value, softmax runs in the compute dtype."""
+    q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype).item()
+    logits = q @ k.transpose(-2, -1)
+    if key_mask is not None:
+        logits = logits.masked_fill(~key_mask[:, None, None, :], torch.finfo(logits.dtype).min)
+    return torch.softmax(logits, dim=-1) @ v
+
+
+class MultiHeadAttention(nn.Module):
+    """flax `MultiHeadDotProductAttention` / the reference's `FusedMHA`:
+    q/k/v/out projections with bias, in the compute dtype."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        kw = dict(dtype=dtype, device=device)
+        self.query = nn.Linear(dim, dim, **kw)
+        self.key = nn.Linear(dim, dim, **kw)
+        self.value = nn.Linear(dim, dim, **kw)
+        self.out = nn.Linear(dim, dim, **kw)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, D = x.shape
+        return x.view(B, T, self.num_heads, D // self.num_heads).transpose(1, 2)
+
+    def forward(self, x, kv=None, key_mask=None, rope=None):
+        kv = x if kv is None else kv
+        q = self._heads(self.query(x))
+        k = self._heads(self.key(kv))
+        v = self._heads(self.value(kv))
+        if rope is not None:
+            cos, sin, n_prefix = rope
+            q = _apply_rope(q, cos, sin, n_prefix)
+            k = _apply_rope(k, cos, sin, n_prefix)
+        o = dot_product_attention(q, k, v, key_mask)
+        B, _, T, _ = o.shape
+        return self.out(o.transpose(1, 2).reshape(B, T, -1))
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden, dtype=dtype, device=device)
+        self.fc2 = nn.Linear(hidden, dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init: float, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), init, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return x * self.gamma
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTConfig, device=None):
+        super().__init__()
+        D, dt, eps = cfg.hidden_size, cfg.compute_dtype, cfg.layer_norm_eps
+        self.norm1 = nn.LayerNorm(D, eps=eps, device=device)
+        self.attn = MultiHeadAttention(D, cfg.num_heads, dt, device)
+        self.norm2 = nn.LayerNorm(D, eps=eps, device=device)
+        self.mlp = Mlp(D, int(D * cfg.mlp_ratio), dt, device)
+        if cfg.layerscale_init is not None:
+            self.ls1 = LayerScale(D, cfg.layerscale_init, dt, device)
+            self.ls2 = LayerScale(D, cfg.layerscale_init, dt, device)
+        else:
+            self.ls1 = self.ls2 = nn.Identity()
+
+    def forward(self, x, rope=None):
+        dt = x.dtype
+        h = self.ls1(self.attn(self.norm1(x.float()).to(dt), rope=rope))
+        x = x + h
+        h = self.ls2(self.mlp(self.norm2(x.float()).to(dt)))
+        return x + h
+
+
+class ViTBackbone(nn.Module):
+    """images (B, 3, H, W) -> dict of normalized tokens (f32):
+    patch_tokens (B, N, D), cls_token (B, D), register_tokens (B, R, D),
+    grid_hw (gh, gw)."""
+
+    def __init__(self, cfg: ViTConfig, device=None):
+        super().__init__()
+        if cfg.quant is not None or cfg.quant_attn is not None:
+            raise NotImplementedError(
+                "int8 backbone/attention is not ported yet (ROADMAP.md queue 1, item 8)"
+            )
+        self.cfg = cfg
+        D, dt = cfg.hidden_size, cfg.compute_dtype
+        self.patch_embed = nn.Conv2d(
+            3, D, cfg.patch_size, stride=cfg.patch_size, dtype=dt, device=device
+        )
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, D, device=device))
+        if not cfg.use_rope:
+            self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D, device=device))
+        if cfg.num_register_tokens > 0:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, cfg.num_register_tokens, D, dtype=dt, device=device)
+            )
+        for i in range(cfg.num_layers):
+            self.add_module(f"block_{i}", Block(cfg, device))
+        self.norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps, device=device)
+
+    def _patch_pos(self, gh: int, gw: int) -> torch.Tensor:
+        """(1, gh*gw, D) f32 patch position embeddings for a gh x gw grid,
+        bicubic-interpolated from the config grid when the grid differs
+        (compared as a grid, not a count: 28x7 is not 14x14)."""
+        c = self.cfg
+        patch_pos = self.pos_embed[:, 1:, :]
+        if (gh, gw) == (c.grid_size, c.grid_size):
+            return patch_pos
+        g0 = c.grid_size
+        Mh, Mw = device_constant(_resize_matrices, (g0, gh, gw), patch_pos.device)
+        grid = patch_pos.reshape(g0, g0, c.hidden_size)
+        grid = torch.einsum("Hh,hwd->Hwd", Mh, grid)
+        grid = torch.einsum("Ww,hwd->hWd", Mw, grid)
+        return grid.reshape(1, gh * gw, c.hidden_size)
+
+    def forward(self, images: torch.Tensor) -> dict:
+        c = self.cfg
+        dt, D = c.compute_dtype, c.hidden_size
+        B = images.shape[0]
+        x = self.patch_embed(images.to(dt))  # (B, D, gh, gw)
+        gh, gw = x.shape[-2:]
+        x = x.flatten(2).transpose(1, 2)  # (B, gh*gw, D), row-major over the grid
+        rope = None
+        if c.use_rope:
+            cos, sin = device_constant(
+                _rope_cos_sin, (gh, gw, D // c.num_heads, c.rope_theta), x.device
+            )
+            rope = (cos, sin, 1 + c.num_register_tokens)
+            cls_tok = self.cls_token.to(dt)
+        else:
+            x = x + self._patch_pos(gh, gw).to(dt)
+            cls_tok = (self.cls_token + self.pos_embed[:, :1, :]).to(dt)
+        toks = [cls_tok.expand(B, 1, D)]
+        if c.num_register_tokens > 0:
+            toks.append(self.register_tokens.expand(B, -1, -1))
+        x = torch.cat(toks + [x], dim=1)
+        for i in range(c.num_layers):
+            x = getattr(self, f"block_{i}")(x, rope=rope)
+        x = self.norm(x.float())
+        n_prefix = 1 + c.num_register_tokens
+        return {
+            "cls_token": x[:, 0, :],
+            "register_tokens": x[:, 1:n_prefix, :],
+            "patch_tokens": x[:, n_prefix:, :],
+            "grid_hw": (gh, gw),
+        }

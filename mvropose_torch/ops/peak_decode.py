@@ -1,0 +1,95 @@
+"""Heatmap peak decode: the CUDA kernel and its plain-torch version.
+
+Port of `mvropose_tpu/ops/peak_decode.py::fused_peak_decode`. Per heatmap it
+computes the first-index hard argmax (x, y), the temperature-softmax
+soft-argmax (x, y), sigmoid(peak) and the raw peak, as one (M, 8) f32 row
+`[ax, ay, sx, sy, sigmoid(peak), peak, 0, 0]`. The kernel is
+`csrc/peak_decode.cu`; its source note says what bounds it on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mvropose_torch.ops._build import load_library
+
+# Kernel launches made through `peak_decode_cuda`.
+launches = 0
+
+
+def peak_decode_reference(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """Plain torch version: (M, H, W) -> (M, 8) f32 on the input's device."""
+    M, H, W = heatmaps.shape
+    flat = heatmaps.reshape(M, H * W).float()
+    idx = flat.argmax(dim=-1)  # first index of the maximum
+    peak = flat.gather(-1, idx[:, None])[:, 0]
+    p = torch.exp((flat - peak[:, None]) * temperature)
+    z = p.sum(-1)
+    pos = torch.arange(H * W, device=flat.device)
+    soft_x = (p * (pos % W).float()).sum(-1) / z
+    soft_y = (p * (pos // W).float()).sum(-1) / z
+    zero = torch.zeros_like(peak)
+    return torch.stack(
+        [(idx % W).float(), (idx // W).float(), soft_x, soft_y,
+         torch.sigmoid(peak), peak, zero, zero],
+        dim=-1,
+    )
+
+
+@functools.cache
+def _kernel():
+    fn = load_library().peak_decode_f32
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def peak_decode_cuda(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """Launch the kernel on (M, H, W) CUDA maps -> (M, 8) f32, on the current stream."""
+    global launches
+    if heatmaps.device.type != "cuda":
+        raise ValueError(f"peak_decode_cuda needs a CUDA tensor, got {heatmaps.device}")
+    if heatmaps.dim() != 3:
+        raise ValueError(f"expected (M, H, W) maps, got shape {tuple(heatmaps.shape)}")
+    M, H, W = heatmaps.shape
+    if H * W == 0 or M * H * W >= 2**31:
+        raise ValueError(f"maps of shape {tuple(heatmaps.shape)}: need 0 < H*W and M*H*W < 2**31")
+    rows = heatmaps.float().contiguous()
+    out = torch.empty((M, 8), dtype=torch.float32, device=rows.device)
+    if M == 0:
+        return out
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = _kernel()(rows.data_ptr(), out.data_ptr(), M, H, W, float(temperature), stream)
+    if err != 0:
+        raise RuntimeError(f"peak_decode_f32 launch failed with CUDA error {err}")
+    launches += 1
+    return out
+
+
+def fused_peak_decode(heatmaps: torch.Tensor, temperature: float = 1.0) -> dict:
+    """Decode heatmaps (..., H, W) -> dict of per-map peak statistics.
+
+    Returns argmax_xy (..., 2), soft_xy (..., 2), confidence (...,) =
+    sigmoid(peak) and peak (...,), as the JAX function does. A CUDA tensor
+    goes through the kernel; a CPU tensor through `peak_decode_reference`.
+    """
+    *lead, H, W = heatmaps.shape
+    rows = heatmaps.reshape(-1, H, W)
+    if heatmaps.device.type == "cpu":
+        out = peak_decode_reference(rows, temperature)
+    else:
+        out = peak_decode_cuda(rows, temperature)
+    out = out.reshape(*lead, 8)
+    return {
+        "argmax_xy": out[..., 0:2],
+        "soft_xy": out[..., 2:4],
+        "confidence": out[..., 4],
+        "peak": out[..., 5],
+    }

@@ -1,0 +1,140 @@
+"""Weights across the two packages, and seeded random weights.
+
+`load_jax_params` fills a port model from the flat names that the
+reference's `save_params_npz` writes (`mvropose_tpu/train/checkpoint.py`):
+`backbone/block_0/attn/query/kernel`, ..., plus `batch_stats/.../mean|var`.
+The port's module attribute names equal the flax module names, except the
+stem's auto-named flax submodules (`Conv_0`, `BatchNorm_0`), which are `conv`
+and `bn` here. Layouts:
+
+  Dense kernel (in, out), DenseGeneral (D, H, dh) / (H, dh, D)
+                                   -> Linear weight (out, in), bias (out,)
+  Conv kernel HWIO                 -> Conv2d weight OIHW
+  BatchNorm scale/bias + batch_stats mean/var
+                                   -> weight/bias/running_mean/running_var
+  LayerNorm scale                  -> weight
+  Embed embedding                  -> Embedding weight
+  raw parameters (cls_token, pos_embed, ls*/gamma, *_queries) -> as is
+
+`random_state` mirrors `mvropose_tpu/utils/initializers.py::random_variables`.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_MODULE_RENAMES = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+_LEAF_RENAMES = {
+    nn.Linear: {"kernel": "weight", "bias": "bias"},
+    nn.Conv2d: {"kernel": "weight", "bias": "bias"},
+    nn.LayerNorm: {"scale": "weight", "bias": "bias"},
+    nn.BatchNorm2d: {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"},
+    nn.Embedding: {"embedding": "weight"},
+}
+
+
+def _targets(model: nn.Module) -> dict[str, torch.Tensor]:
+    """Every tensor a checkpoint must fill: parameters and buffers, except
+    BatchNorm's training-step counter."""
+    out = dict(model.named_parameters())
+    out.update(
+        (n, b) for n, b in model.named_buffers() if not n.endswith("num_batches_tracked")
+    )
+    return out
+
+
+def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
+    if isinstance(module, nn.Linear) and leaf == "kernel":
+        return arr.reshape(module.in_features, -1).T
+    if isinstance(module, nn.Linear) and leaf == "bias":
+        return arr.reshape(-1)
+    if isinstance(module, nn.Conv2d) and leaf == "kernel":
+        return arr.transpose(3, 2, 0, 1)
+    return arr
+
+
+def plan_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> dict:
+    """Map every flat JAX leaf onto the model tensor it fills.
+
+    Returns {torch_name: (target tensor, converted numpy array)}. Strict both
+    ways: raises KeyError for a leaf the model has no place for or a model
+    tensor no leaf fills, ValueError for a shape mismatch. Arrays are only
+    reshaped and transposed, so zero-strided placeholders
+    (`np.broadcast_to`) check a layout from shapes alone.
+    """
+    targets = _targets(model)
+    plan = {}
+    for jax_name, arr in flat.items():
+        parts = jax_name.split("/")
+        if parts[0] == "batch_stats":
+            parts = parts[1:]
+        *path, leaf = (_MODULE_RENAMES.get(p, p) for p in parts)
+        try:
+            module = model.get_submodule(".".join(path))
+        except AttributeError as e:
+            raise KeyError(f"{jax_name}: the model has no module {'.'.join(path)!r}") from e
+        attr = next(
+            (names[leaf] for cls, names in _LEAF_RENAMES.items()
+             if isinstance(module, cls) and leaf in names),
+            leaf,
+        )
+        torch_name = ".".join([*path, attr])
+        if torch_name not in targets:
+            raise KeyError(f"{jax_name}: the model has no tensor {torch_name!r}")
+        value = _convert(module, leaf, np.asarray(arr))
+        if tuple(value.shape) != tuple(targets[torch_name].shape):
+            raise ValueError(
+                f"{jax_name} {tuple(np.shape(arr))} -> {torch_name}: got "
+                f"{tuple(value.shape)}, the model holds {tuple(targets[torch_name].shape)}"
+            )
+        plan[torch_name] = (targets[torch_name], value)
+    missing = sorted(set(targets) - set(plan))
+    if missing:
+        stats = [n for n in targets if n.endswith(("running_mean", "running_var"))]
+        n_stats = sum(n in plan for n in stats)
+        if 0 < n_stats < len(stats):
+            # A partial match means the file comes from a different
+            # architecture whose parameter shapes happen to coincide.
+            raise KeyError(
+                f"batch_stats only partially match the model ({n_stats}/{len(stats)} "
+                "leaves): the file was exported from a different architecture"
+            )
+        raise KeyError(f"{len(missing)} model tensors have no checkpoint leaf, e.g. {missing[:5]}")
+    return plan
+
+
+def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray] | str | Path) -> None:
+    """Fill `model` in place from a `save_params_npz` file (path) or its
+    flat name -> array dict. Every leaf is consumed and every parameter and
+    buffer filled, or it raises (see `plan_jax_params`)."""
+    if isinstance(flat, (str, Path)):
+        with np.load(flat) as data:
+            flat = {k: data[k] for k in data.files}
+    plan = plan_jax_params(model, flat)
+    with torch.no_grad():
+        for target, value in plan.values():
+            target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+
+
+def random_state(model: nn.Module, seed: int = 0, scale: float = 0.02) -> dict[str, torch.Tensor]:
+    """Seeded random state dict for `model` (load it with `load_state_dict`).
+
+    N(0, scale) for every float tensor, drawn in f32 on the CPU in state-dict
+    order, so models that differ only in dtype or device get the same
+    weights. BatchNorm running variances get 1 + noise, never a bare normal
+    (a negative variance makes rsqrt(var + eps) NaN); integer buffers zeros.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in model.state_dict().items():
+        if not t.is_floating_point():
+            state[name] = torch.zeros(t.shape, dtype=t.dtype)
+            continue
+        noise = scale * torch.randn(t.shape, generator=gen)
+        state[name] = 1.0 + noise if name.endswith("running_var") else noise
+    return state

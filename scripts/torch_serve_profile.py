@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Where the port's serve step spends its time on the GPU.
+
+    python3 scripts/torch_serve_profile.py [--steps 20] [--trace trace.json]
+
+Runs `mvropose_torch.cli.main.serve_step` (bf16, ViT-B/16 at 512 px, 4
+resident 720x1280 uint8 frames, random weights from seed 0) and prints:
+  * wall time per step: host clock around `--steps` steps ending in a
+    synchronize, without the profiler;
+  * device busy time per step: the summed durations of the GPU kernels and
+    copies that `torch.profiler` records over the same number of steps, and
+    from the two the device's idle share;
+  * the operators by device time.
+With --trace, the profiler's chrome trace is written there. Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from mvropose_torch.cli.main import serve_step  # noqa: E402
+from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig  # noqa: E402
+from mvropose_torch.utils.weights import random_state  # noqa: E402
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--trace", default=None, help="write the chrome trace to this path")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_serve_profile: needs a CUDA GPU")
+    dev = torch.device("cuda")
+    cfg = EstimatorConfig(
+        vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
+        num_joints=8, num_angles=7, max_views=4,
+    )
+    model = MultiViewPoseEstimator(cfg, device=dev).eval()
+    model.load_state_dict(random_state(model, seed=0))
+    frames = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, size=(4, 720, 1280, 3), dtype=np.uint8)
+    ).to(dev)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    step = lambda: serve_step(model, frames, mask, 512, (720, 1280))  # noqa: E731
+
+    with torch.inference_mode():
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.steps):
+                step()
+            torch.cuda.synchronize()
+
+    device_events = [
+        e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / args.steps
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"serve step: wall {wall_ms:.3f} ms/step (host clock, {args.steps} steps, no profiler); "
+          f"device busy {busy_ms:.3f} ms/step over {len(device_events) / args.steps:.0f} "
+          f"device events/step (profiler); idle share "
+          f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
+    print(table)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

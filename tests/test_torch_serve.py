@@ -1,0 +1,217 @@
+"""The serve slice: the port's serve step vs the reference's, plus the CLI.
+
+The reference's serve step is the body of `infer` in
+`mvropose_tpu/cli/main.py::_cmd_serve` (u8/255, bilinear resize, ImageNet
+normalize, model, decode); it is a closure there, so `_jax_infer` below
+restates it line for line. Tolerances, in f32 on the CPU:
+  * heatmaps and angles 1e-3: the whole model's f32 reductions in another
+    order (each module alone agrees to 1e-4, see test_torch_heads.py);
+  * keypoints exact: the argmax of heatmaps whose top two values are ten
+    times further apart than the two packages' heatmaps, which the test checks.
+"""
+
+import ast
+import dataclasses
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mvropose_tpu.cli.main import _write_model_config
+from mvropose_tpu.data.dataset import IMAGENET_MEAN, IMAGENET_STD
+from mvropose_tpu.decode import decode_keypoints as jax_decode_keypoints
+from mvropose_tpu.models import EstimatorConfig as JaxEstimatorConfig
+from mvropose_tpu.models import MultiViewPoseEstimator as JaxEstimator
+from mvropose_tpu.models.vit import ViTConfig as JaxViTConfig
+
+from mvropose_torch.cli.main import main, preprocess, read_model_config, serve_step
+from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
+from mvropose_torch.utils.weights import load_jax_params, plan_jax_params
+from torch_parity import export_npz, np32, random_variables
+
+PORT_ROOT = Path(__file__).resolve().parents[1] / "mvropose_torch"
+MODEL_SIZE = 32
+FRAME_HW = (40, 56)  # non-square frames, downscaled to the model size
+JAX_CFG = JaxEstimatorConfig(
+    vit=JaxViTConfig(image_size=MODEL_SIZE, patch_size=8, hidden_size=64, num_layers=2,
+                     num_heads=4, dtype="float32"),
+    num_joints=4, num_angles=3, heatmap_size=(32, 32), max_views=4, num_fusion_queries=4,
+    dtype="float32",
+)
+
+
+def port_config(cfg) -> EstimatorConfig:
+    d = dataclasses.asdict(cfg)
+    return EstimatorConfig(vit=ViTConfig(**d.pop("vit")), **d)
+
+
+def _jax_infer(model, variables, images_u8, mask, views, hw):
+    """`infer` of the reference's serve (cli/main.py:1712-1733), multi-view."""
+    imgs = images_u8.astype(jnp.float32) / 255.0
+    imgs = jax.image.resize(imgs, (views, MODEL_SIZE, MODEL_SIZE, 3), "bilinear")
+    imgs = (imgs - jnp.asarray(IMAGENET_MEAN)) / jnp.asarray(IMAGENET_STD)
+    view_ids = jnp.arange(views, dtype=jnp.int32)[None]
+    hm, ang = model.apply(variables, imgs[None], view_ids, mask[None])
+    xy, conf = jax_decode_keypoints(hm[0], image_hw=hw, use_pallas=False)
+    return hm, xy, conf, ang
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """A random JAX multi-view model exported as a training run would leave
+    it: best_params.npz beside model_config.json."""
+    model = JaxEstimator(JAX_CFG)
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, 3, MODEL_SIZE, MODEL_SIZE, 3)),
+                             jnp.zeros((1, 3), jnp.int32), jnp.ones((1, 3), bool)),
+        jax.random.PRNGKey(0),
+    )
+    variables = random_variables(shapes, seed=12)
+    workdir = tmp_path_factory.mktemp("run")
+    _write_model_config(workdir, JAX_CFG, multi_view=True, model_size=MODEL_SIZE)
+    return model, variables, export_npz(variables, workdir / "best_params.npz")
+
+
+def test_serve_step_matches_jax(checkpoint):
+    jax_model, variables, npz = checkpoint
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 256, size=(3, *FRAME_HW, 3), dtype=np.uint8)
+    mask = np.array([True, False, True])
+    hm_ref, xy_ref, conf_ref, ang_ref = _jax_infer(
+        jax_model, variables, jnp.asarray(frames), jnp.asarray(mask), 3, FRAME_HW
+    )
+    model = MultiViewPoseEstimator(port_config(JAX_CFG)).eval()
+    load_jax_params(model, npz)
+    tf, tm = torch.from_numpy(frames), torch.from_numpy(mask)
+    with torch.no_grad():
+        imgs = preprocess(tf, MODEL_SIZE)
+        hm, _ = model(imgs[None], torch.arange(3)[None], tm[None])
+        xy, conf, ang = serve_step(model, tf, tm, MODEL_SIZE, FRAME_HW)
+
+    hm_ref = np32(hm_ref)
+    np.testing.assert_allclose(np32(hm), hm_ref, rtol=1e-3, atol=1e-3)
+    top2 = np.sort(hm_ref.reshape(*hm_ref.shape[:3], -1), axis=-1)[..., -2:]
+    margin = np.min(top2[..., 1] - top2[..., 0])
+    assert margin > 10 * np.abs(np32(hm) - hm_ref).max(), "argmax margin too thin to compare"
+    np.testing.assert_allclose(np32(ang), np32(ang_ref), rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(np32(xy), np32(xy_ref))
+    np.testing.assert_allclose(np32(conf), np32(conf_ref), atol=1e-3)
+
+
+def test_preprocess_matches_jax_resize():
+    """u8 -> /255 -> antialiased bilinear downscale -> normalize, as jax.image.resize."""
+    frames = np.random.default_rng(13).integers(0, 256, size=(2, 72, 128, 3), dtype=np.uint8)
+    want = jax.image.resize(jnp.asarray(frames, jnp.float32) / 255.0, (2, 48, 48, 3), "bilinear")
+    want = (want - IMAGENET_MEAN) / IMAGENET_STD
+    got = preprocess(torch.from_numpy(frames), 48)
+    # f32 resampling weights computed two ways: agreement to ~1e-6.
+    np.testing.assert_allclose(got.numpy(), np32(want), atol=1e-5)
+
+
+def test_full_width_structure_matches_jax():
+    """The serve default (ViT-B/16 at 512 px, 4 views) has the same leaves
+    and shapes in both packages, after the layout map; nothing is computed
+    (JAX eval_shape, torch meta device)."""
+    vit = JaxViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12,
+                       num_heads=12, dtype="bfloat16")
+    cfg = JaxEstimatorConfig(vit=vit, num_joints=8, num_angles=7, max_views=4)
+    shapes = jax.eval_shape(
+        lambda k: JaxEstimator(cfg).init(k, jnp.zeros((1, 4, 512, 512, 3)),
+                                         jnp.zeros((1, 4), jnp.int32), jnp.ones((1, 4), bool)),
+        jax.random.PRNGKey(0),
+    )
+    flat = {}
+    for prefix, tree in (("", shapes["params"]), ("batch_stats/", shapes["batch_stats"])):
+        for path, s in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            name = prefix + "/".join(str(k.key) for k in path)
+            flat[name] = np.broadcast_to(np.float32(0), s.shape)
+    model = MultiViewPoseEstimator(port_config(cfg), device="meta")
+    plan = plan_jax_params(model, flat)
+    assert len(plan) == len(flat)
+    n_jax = sum(int(np.prod(a.shape)) for a in flat.values())
+    n_torch = sum(t.numel() for t, _ in plan.values())
+    assert n_jax == n_torch > 85_000_000
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted(PORT_ROOT.rglob("*.py"))
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), (f, mod)
+            if root == "mvropose_tpu":
+                assert mod == "mvropose_tpu.rig", (f, mod)
+
+
+def test_model_config_round_trips(checkpoint):
+    _, _, npz = checkpoint
+    cfg, model_size, kind = read_model_config(npz)
+    assert (model_size, kind) == (MODEL_SIZE, "multi_view")
+    # The file does not hold the heads' compute dtype: it reads back as the
+    # default, bf16, in both packages.
+    want = dataclasses.replace(port_config(JAX_CFG), dtype="bfloat16")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+
+
+SERVE_TINY = ["serve", "--views", "2", "--fps", "60", "--frame-hw", "32", "48",
+              "--model-size", "32", "--hidden-size", "64", "--num-layers", "1",
+              "--duration", "1.0", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_cli_serve_synthetic(capsys, overlap):
+    rc = main(SERVE_TINY + ([] if overlap else ["--no-overlap"]))
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "random weights from seed 0" in out
+    assert "tick/s" in out and "camera-frames/s" in out
+
+
+def test_cli_serve_with_params(checkpoint, capsys):
+    _, _, npz = checkpoint
+    argv = ["serve", "--views", "3", "--fps", "60", "--frame-hw", *map(str, FRAME_HW),
+            "--duration", "1.0", "--device", "cpu", "--params", npz]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "model architecture restored" in out
+    served = int(out.split("served ")[1].split(" ticks")[0])
+    assert served >= 1
+
+
+@pytest.mark.parametrize(
+    "extra, item",
+    [
+        (["--recover-pose"], "item 6"),
+        (["--refine-pose"], "item 6"),
+        (["--int8-backbone"], "item 8"),
+        (["--int8-attention"], "item 8"),
+        (["--calib-dir", "calib"], "item 7"),
+        (["--angle-head", "geometric"], "item 4"),
+    ],
+)
+def test_cli_serve_rejects_unported(extra, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
+        main(SERVE_TINY + extra)
+
+
+def test_cli_serve_rejects_single_view_checkpoint(tmp_path):
+    (tmp_path / "model_config.json").write_text(json.dumps({
+        "kind": "single_view", "model_size": 32, "vit": dataclasses.asdict(JAX_CFG.vit),
+        "num_joints": 4, "num_angles": 3, "heatmap_size": [32, 32], "max_views": 4,
+        "num_fusion_queries": 4, "num_angle_queries": 4, "angle_head": "query",
+    }))
+    with pytest.raises(SystemExit, match="item 4"):
+        main(SERVE_TINY + ["--params", str(tmp_path / "best_params.npz")])

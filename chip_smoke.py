@@ -4,19 +4,31 @@
 Phases, in order; any failure exits non-zero and no phase's failure is caught:
   1. device: require CUDA (there is no CPU fallback), print the card and its
      power limit, turn TF32 off for the comparisons;
-  2. build: compile `mvropose_torch/csrc/*.cu` with nvcc for sm_90a;
-  3. kernel vs plain: the peak-decode kernel against its plain-torch version
-     on the card (serve shape, a non-multiple M, planted ties), then both
-     timed with CUDA events at the serve shape (32 maps of 128x128), as
-     eager calls and as CUDA-graph replays (device time, in the JSON line);
-  4. the slice: the `serve` subcommand of `mvropose_torch.cli`, parsed by the
-     CLI's own parser at its defaults (4 synthetic 720x1280 cameras, ViT-B/16
-     at 512 px, random weights from seed 0), for a few seconds, with the
-     kernel's launches counted over that run only; the bare serve step timed
-     on a resident batch and checked to never synchronize with the host; the
-     same weights in f32 for the bf16 gap; and a small model on the card
-     against the same model on the CPU;
-  5. a JSON line per kernel, the card and its power limit, then the last line
+  2. build: compile `mvropose_torch/csrc/*.cu` with nvcc for sm_90a, one
+     nvcc per source, all started together;
+  3. kernels vs plain on the card, each then timed with CUDA events at the
+     serve shape, as eager calls and as CUDA-graph replays (device time, in
+     the JSON line), in turns plain/kernel/kernel/plain:
+       * peak decode (32 maps of 128x128, a non-multiple M, planted ties);
+       * LayerNorm and residual LayerNorm ((4100, 768) bf16 -> bf16 and
+         bf16 -> f32, a non-multiple M, narrow and non-multiple-of-8 D);
+       * int8 P@V ((48, 1025, 1025) x (48, 1025, 64), a small odd T, masked
+         keys and all-zero rows, pq padded as the serve path writes it, and
+         contiguous at T = 128), its int32 sums read back exactly;
+     then every launch counter: an empty input counts nothing, one launch one;
+  4. the slices, each through `mvropose_torch.cli`'s own parser, with every
+     kernel's launches counted over that run only:
+       * `serve` at its defaults (4 synthetic 720x1280 cameras, ViT-B/16 at
+         512 px, random weights from seed 0, bf16): the peak decode;
+       * `serve --params RUN/best_params.npz --int8-backbone
+         --int8-attention` on a temporary run directory under build/, whose
+         model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
+         weights, exported with `export_jax_params`): all four kernels;
+  5. the bare serve steps, bf16 and int8 + fused LN, timed in turns on a
+     resident batch and checked to never synchronize with the host; the
+     int8 heatmaps against the bf16 model's, the bf16 ones against f32; and
+     small f32 and int8 + fused-LN models on the card against the CPU;
+  6. a JSON line per kernel, the card and its power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -27,6 +39,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,16 +48,28 @@ import torch
 
 from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
-from mvropose_torch.ops import _build, peak_decode
-from mvropose_torch.utils.weights import random_state
+from mvropose_torch.ops import _build, int8_attention, layernorm, peak_decode
+from mvropose_torch.utils.weights import export_jax_params, int8ify, load_jax_params, random_state
 
+ROOT = Path(__file__).resolve().parent
 SERVE_SECONDS = 8.0
-REPLACES = "mvropose_tpu/ops/peak_decode.py:28"  # _decode_kernel
+# name: (wrapper module, its launch counter, source, the TPU kernel it replaces)
+KERNELS = {
+    "peak_decode": (peak_decode, "launches", "mvropose_torch/csrc/peak_decode.cu",
+                    "mvropose_tpu/ops/peak_decode.py:28"),  # _decode_kernel
+    "layernorm": (layernorm, "launches", "mvropose_torch/csrc/layernorm.cu",
+                  "mvropose_tpu/ops/layernorm.py:30"),  # _ln_kernel
+    "residual_layernorm": (layernorm, "residual_launches", "mvropose_torch/csrc/layernorm.cu",
+                           "mvropose_tpu/ops/layernorm.py:39"),  # _res_ln_kernel
+    "int8_pv": (int8_attention, "launches", "mvropose_torch/csrc/int8_pv.cu",
+                "mvropose_tpu/ops/attention.py:29"),  # int8_prob_attention's P@V
+}
 # The serve default: ViT-B/16 at 512 px (T = 1024 + 1), 4 views, J=8, A=7.
 FULL = EstimatorConfig(
     vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
     num_joints=8, num_angles=7, max_views=4,
 )
+FULL_LN = dataclasses.replace(FULL, vit=dataclasses.replace(FULL.vit, fused_ln=True))
 
 
 def check(ok: bool, what: str) -> None:
@@ -68,7 +93,7 @@ def cuda_ms(fn, iters: int, samples: int = 50) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, iters: int = 20) -> float:
+def graph_ms(fn, iters: int = 20, samples: int = 50) -> float:
     """Device time per call: `iters` calls captured in one CUDA graph,
     replayed in CUDA-event windows, so Python launch overhead is excluded."""
     side = torch.cuda.Stream()
@@ -80,7 +105,19 @@ def graph_ms(fn, iters: int = 20) -> float:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    return cuda_ms(graph.replay, 1) / iters
+    return cuda_ms(graph.replay, 1, samples) / iters
+
+
+def time_in_turns(name: str, shape: str, plain, kernel, iters: int = 20, samples: int = 50):
+    """Eager and graph-replay times in turns plain/kernel/kernel/plain ->
+    (kernel ms, plain ms), the medians of the graph-replay (device) times."""
+    eager = [cuda_ms(f, iters, samples) for f in (plain, kernel, kernel, plain)]
+    graph = [graph_ms(f, iters, samples) for f in (plain, kernel, kernel, plain)]
+    us = lambda v: "/".join(f"{1e3 * t:.2f}" for t in v)  # noqa: E731
+    print(f"{name} {shape}, median of {samples} CUDA-event windows, in turns "
+          f"plain/kernel/kernel/plain: eager calls {us(eager)} us per call; "
+          f"CUDA-graph replay (device time) {us(graph)} us per call")
+    return statistics.median(graph[1:3]), statistics.median(graph[0::3])
 
 
 def phase_device() -> dict:
@@ -105,7 +142,7 @@ def phase_build() -> None:
     _build.load_library()
     seconds = time.perf_counter() - t0
     lib = _build.library_path()
-    print(f"build: {lib.relative_to(Path(__file__).resolve().parent)} in {seconds:.2f} s")
+    print(f"build: {lib.relative_to(ROOT)} in {seconds:.2f} s")
     log = lib.with_name(lib.name + ".log")
     if log.exists():
         print(log.read_text().strip())
@@ -120,7 +157,7 @@ def _tie_maps(rng) -> np.ndarray:
     return maps
 
 
-def phase_kernel() -> dict:
+def phase_peak_decode() -> dict:
     """Kernel vs plain on the card. Argmax exact, confidence 1e-6, soft-argmax
     1e-3 px (f32 sums in another order), raw peak exact."""
     rng = np.random.default_rng(0)
@@ -146,17 +183,224 @@ def phase_kernel() -> dict:
         print(f"kernel vs plain [{name} {tuple(maps.shape)} T={temperature}]: "
               f"max abs err per column {np.array2string(err, precision=9)}")
     x = torch.from_numpy(serve_maps).cuda()
-    kernel = lambda: peak_decode.peak_decode_cuda(x)  # noqa: E731
-    plain = lambda: peak_decode.peak_decode_reference(x)  # noqa: E731
-    # Each timing in turns: plain, kernel, kernel, plain.
-    eager = [cuda_ms(f, iters=20) for f in (plain, kernel, kernel, plain)]
-    graph = [graph_ms(f) for f in (plain, kernel, kernel, plain)]
-    us = lambda v: "/".join(f"{1e3 * t:.2f}" for t in v)  # noqa: E731
-    print(f"peak decode (32, 128, 128), median of 50 CUDA-event windows, in turns "
-          f"plain/kernel/kernel/plain: eager calls {us(eager)} us per call; "
-          f"CUDA-graph replay (device time) {us(graph)} us per call")
-    return {"max_abs_err": max_err,
-            "ms": statistics.median(graph[1:3]), "plain_ms": statistics.median(graph[0::3])}
+    ms, plain_ms = time_in_turns("peak decode", "(32, 128, 128)",
+                                 lambda: peak_decode.peak_decode_reference(x),
+                                 lambda: peak_decode.peak_decode_cuda(x))
+    return {"peak_decode": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}}
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, slack: float = 1e-5) -> float:
+    """The largest gap beyond `slack`, in bf16 ulps of the larger of the two
+    values. The slack is the f32 outputs' bound: near y = 0 the f32 results
+    (bias minus a near-equal product) differ by f32 rounding of their
+    operands, which is many bf16 ulps of y itself."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    gap = ((g - w).abs() - slack).clamp_min(0.0)
+    return float((gap / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _ln_operands(M: int, D: int, dtype, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    x = (0.5 + 3.0 * torch.randn(M, D, generator=gen)).to(dtype)
+    h = torch.randn(M, D, generator=gen).to(dtype)
+    g = 1.0 + 0.1 * torch.randn(D, generator=gen)
+    b = 0.1 * torch.randn(D, generator=gen)
+    return [t.cuda() for t in (x, h, g, b)]
+
+
+def phase_layernorm() -> dict:
+    """LayerNorm and residual LayerNorm kernels vs their plain versions on
+    the card: f32 outputs within 1e-5 abs, bf16 outputs within one bf16 ulp
+    beyond that, the residual x + h exact."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("serve", 4100, 768, bf16, bf16), ("serve_final", 4100, 768, bf16, f32),
+             ("nonmultiple_m", 37, 768, bf16, bf16), ("narrow_d", 4100, 192, bf16, bf16),
+             ("tail_d", 37, 100, bf16, f32), ("f32", 37, 768, f32, f32)]
+    err = {"layernorm": 0.0, "residual_layernorm": 0.0}
+    for i, (name, M, D, inp, out) in enumerate(cases):
+        x, h, g, b = _ln_operands(M, D, inp, seed=10 + i)
+        y = layernorm.layernorm_cuda(x, g, b, 1e-6, out)
+        xn, yr = layernorm.residual_layernorm_cuda(x, h, g, b, 1e-6, out)
+        torch.cuda.synchronize()
+        xn_ref, yr_ref = layernorm.residual_layernorm_reference(x, h, g, b, 1e-6, out)
+        check(torch.equal(xn, xn_ref), f"{name}: the residual x + h is not exact")
+        gaps = []
+        y_ref = layernorm.layernorm_reference(x, g, b, 1e-6, out)
+        for kname, got, want in (("layernorm", y, y_ref), ("residual_layernorm", yr, yr_ref)):
+            gap = float((got.float() - want.float()).abs().max())
+            if out == bf16:
+                ulps = _bf16_ulps(got, want)
+                check(ulps <= 1.0, f"{name}: {kname} is {ulps} bf16 ulps from the plain version")
+            else:
+                check(gap <= 1e-5, f"{name}: {kname} differs by {gap}")
+            err[kname] = max(err[kname], gap)
+            gaps.append(gap)
+        print(f"kernel vs plain [{name} ({M}, {D}) {inp} -> {out}]: LayerNorm max abs err "
+              f"{gaps[0]:.3g}, residual LayerNorm {gaps[1]:.3g}, residual sum exact")
+    x, h, g, b = _ln_operands(4100, 768, bf16, seed=20)
+    def two_pass():  # the float path's LayerNorm: another function, timed for scale
+        return torch.nn.functional.layer_norm(x.float(), (768,), g, b, 1e-6).to(bf16)
+
+    print(f"for scale: torch F.layer_norm (two-pass variance, f32 in, bf16 out; the float "
+          f"path's LayerNorm) {1e3 * graph_ms(two_pass):.2f} us per call (CUDA-graph replay)")
+    out = {}
+    for kname, plain, kernel in (
+        ("layernorm", lambda: layernorm.layernorm_reference(x, g, b, 1e-6),
+         lambda: layernorm.layernorm_cuda(x, g, b, 1e-6)),
+        ("residual_layernorm", lambda: layernorm.residual_layernorm_reference(x, h, g, b, 1e-6),
+         lambda: layernorm.residual_layernorm_cuda(x, h, g, b, 1e-6)),
+    ):
+        ms, plain_ms = time_in_turns(kname, "(4100, 768) bf16 -> bf16", plain, kernel)
+        out[kname] = {"max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def _pv_operands(BH: int, T: int, seed: int, masked: float = 0.0, zero_rows: int = 0,
+                 padded: bool = True):
+    """pq in the padded row layout the serve path writes (`padded_probs`), or
+    contiguous (which the kernel reads as it is when T is a multiple of 64)."""
+    gen = torch.Generator().manual_seed(seed)
+    pq = torch.randint(0, 128, (BH, T, T), generator=gen, dtype=torch.int8)
+    if masked:
+        pq[:, :, torch.rand(T, generator=gen) < masked] = 0  # masked keys: probability 0
+    if zero_rows:
+        pq[:, T - zero_rows:] = 0
+    vq = torch.randint(-127, 128, (BH, T, 64), generator=gen, dtype=torch.int8)
+    z = 1.0 + 100.0 * torch.rand(BH, T, generator=gen)
+    sv = 1e-4 + torch.rand(BH, 64, generator=gen) / 127.0
+    pq = int8_attention.padded_probs(BH, T, "cuda").copy_(pq) if padded else pq.cuda()
+    return [pq, *(t.cuda() for t in (vq, z, sv))]
+
+
+def phase_int8_pv() -> dict:
+    """int8 P@V kernel vs its plain version on the card. With z = 1/127 and
+    sv = 1 the dequant multiplies by exactly 1, so the f32 output is the int32
+    sums themselves (< 2**24 here): they must equal the f64 sums. With real z
+    and sv the output must be within 1e-6 relative (the same f32 multiplies
+    in the same order: expected equal)."""
+    cases = [("serve", 48, 1025, 0.0, 0, True), ("odd_t", 6, 37, 0.0, 0, True),
+             ("masked_zero_rows", 12, 1025, 0.3, 5, True),
+             ("t_128_contiguous", 4, 128, 0.0, 0, False)]
+    max_abs = max_rel = 0.0
+    for i, (name, BH, T, masked, zero_rows, padded) in enumerate(cases):
+        pq, vq, z, sv = _pv_operands(BH, T, seed=30 + i, masked=masked, zero_rows=zero_rows,
+                                     padded=padded)
+        sums = int8_attention.int8_pv_cuda(pq, vq, torch.full_like(z, 1.0 / 127.0),
+                                           torch.ones_like(sv), torch.float32)
+        torch.cuda.synchronize()
+        exact = torch.bmm(pq.double(), vq.double())
+        check(bool((sums.double() == exact).all()), f"{name}: int32 sums differ")
+        rels = []
+        for dtype in (torch.float32, torch.bfloat16):
+            got = int8_attention.int8_pv_cuda(pq, vq, z, sv, dtype)
+            want = int8_attention.int8_pv_reference(pq, vq, z, sv, dtype)
+            gap = (got.float() - want.float()).abs()
+            rel = float((gap / want.float().abs().clamp_min(1e-30)).max())
+            check(rel <= 1e-6, f"{name} {dtype}: dequantized output {rel} relative apart")
+            rels.append(rel)
+            max_abs = max(max_abs, float(gap.max()))
+        max_rel = max(max_rel, *rels)
+        print(f"kernel vs plain [{name} pq ({BH}, {T}, {T}) masked {masked} zero rows "
+              f"{zero_rows}]: int32 sums exact; max relative err f32 {rels[0]:.3g}, "
+              f"bf16 {rels[1]:.3g}")
+    pq, vq, z, sv = _pv_operands(48, 1025, seed=40)
+    ms, plain_ms = time_in_turns(
+        "int8 P@V", "(48, 1025, 1025) x (48, 1025, 64) -> bf16",
+        lambda: int8_attention.int8_pv_reference(pq, vq, z, sv, torch.bfloat16),
+        lambda: int8_attention.int8_pv_cuda(pq, vq, z, sv, torch.bfloat16), samples=20,
+    )
+    print(f"int8 P@V kernel vs plain: max abs err {max_abs:.3g}, max relative err {max_rel:.3g}")
+    return {"int8_pv": {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}}
+
+
+def _reset_launches() -> None:
+    for module, counter, _, _ in KERNELS.values():
+        setattr(module, counter, 0)
+
+
+def _read_launches() -> dict:
+    return {name: getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
+
+
+def phase_counters() -> None:
+    """Each wrapper counts where it launches its kernel and nowhere else: an
+    empty input launches nothing and counts nothing, one launch counts one."""
+    g, b = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
+    calls = {
+        "peak_decode": lambda n: peak_decode.peak_decode_cuda(torch.ones(n, 4, 4, device="cuda")),
+        "layernorm": lambda n: layernorm.layernorm_cuda(torch.ones(n, 8, device="cuda"), g, b),
+        "residual_layernorm": lambda n: layernorm.residual_layernorm_cuda(
+            torch.ones(n, 8, device="cuda"), torch.ones(n, 8, device="cuda"), g, b),
+        "int8_pv": lambda n: int8_attention.int8_pv_cuda(
+            int8_attention.padded_probs(2, n, "cuda").zero_(),
+            torch.zeros(2, n, 64, dtype=torch.int8, device="cuda"),
+            torch.ones(2, n, device="cuda"), torch.ones(2, 64, device="cuda"), torch.float32),
+    }
+    for name, call in calls.items():
+        for n, want in ((0, 0), (3, 1)):
+            _reset_launches()
+            call(n)
+            got = _read_launches()
+            check(got == {k: want if k == name else 0 for k in KERNELS},
+                  f"{name} on {n} rows counted {got}")
+    torch.cuda.synchronize()
+    print("launch counters: an empty input counts nothing, one launch counts one, "
+          "for every kernel")
+
+
+def _serve(argv: list, label: str, kernels: list) -> dict:
+    """`cli serve` through the CLI's parser -> every kernel's launches in that run."""
+    args = build_parser().parse_args(["serve", "--views", "4", "--duration", str(SERVE_SECONDS),
+                                      *argv])
+    _reset_launches()
+    stats, last = serve(args)
+    launches = _read_launches()
+    check(last is not None, f"{label}: serve returned no result")
+    xy, conf, ang = last
+    check(xy.shape == (4, 8, 2) and conf.shape == (4, 8) and ang.shape == (1, 7),
+          f"{label}: serve output shapes {xy.shape}, {conf.shape}, {ang.shape}")
+    check(all(np.isfinite(a).all() for a in last), f"{label}: serve output is not finite")
+    check(stats.ticks >= 10, f"{label}: served only {stats.ticks} ticks")
+    for name in kernels:
+        check(launches[name] > 0, f"{label}: the serve run launched no {name} kernel")
+    print(f"serve [{label}]: {stats.ticks} ticks ({stats.frames_processed} camera frames) in "
+          f"{SERVE_SECONDS:.0f} s: {stats.fps:.2f} tick/s = {stats.camera_fps:.2f} "
+          f"camera-frames/s; kernel launches {launches}; host "
+          f"{1e3 * stats.total_step_time_s / stats.ticks:.2f} ms/tick, fetch "
+          f"{1e3 * stats.total_fetch_time_s / stats.ticks:.2f} ms/tick")
+    return launches
+
+
+def seed0_flat() -> dict:
+    """The serve default's seed-0 random weights as a reference checkpoint's
+    flat dict (f32): `random_state`'s CPU tensors assigned into a model on
+    the meta device, so no other copy of the weights is made."""
+    model = MultiViewPoseEstimator(FULL, device="meta")
+    model.load_state_dict(random_state(model, seed=0), assign=True)
+    return export_jax_params(model)
+
+
+def write_run_dir(flat: dict, run: Path) -> None:
+    """A run directory as training leaves it: model_config.json (fused_ln on)
+    beside best_params.npz."""
+    c = FULL_LN
+    (run / "model_config.json").write_text(json.dumps({
+        "kind": "multi_view", "model_size": 512, "vit": dataclasses.asdict(c.vit),
+        "num_joints": c.num_joints, "num_angles": c.num_angles,
+        "heatmap_size": list(c.heatmap_size), "max_views": c.max_views,
+        "num_fusion_queries": c.num_fusion_queries, "num_angle_queries": c.num_angle_queries,
+        "angle_head": c.angle_head,
+    }, indent=2))
+    np.savez(run / "best_params.npz", **flat)
+
+
+def _int8_model(flat: dict, device) -> MultiViewPoseEstimator:
+    """What `serve --int8-backbone --int8-attention` builds from the run dir."""
+    model = MultiViewPoseEstimator(FULL_LN, device=device).eval()
+    load_jax_params(model, flat)
+    int8ify(model, flat, attn=True)
+    return model
 
 
 def _model(cfg: EstimatorConfig, device, state) -> MultiViewPoseEstimator:
@@ -165,30 +409,23 @@ def _model(cfg: EstimatorConfig, device, state) -> MultiViewPoseEstimator:
     return model
 
 
-def phase_serve() -> int:
-    """`cli serve` at its defaults -> the kernel launches of that run alone."""
-    args = build_parser().parse_args(["serve", "--views", "4", "--duration", str(SERVE_SECONDS)])
-    peak_decode.launches = 0
-    stats, last = serve(args)
-    launches = peak_decode.launches
-    check(last is not None, "serve returned no result")
-    xy, conf, ang = last
-    check(xy.shape == (4, 8, 2) and conf.shape == (4, 8) and ang.shape == (1, 7),
-          f"serve output shapes {xy.shape}, {conf.shape}, {ang.shape}")
-    check(all(np.isfinite(a).all() for a in last), "serve output is not finite")
-    check(stats.ticks >= 10, f"served only {stats.ticks} ticks")
-    check(launches > 0, "the serve run launched no peak-decode kernel")
-    print(f"serve: {stats.ticks} ticks ({stats.frames_processed} camera frames) in "
-          f"{SERVE_SECONDS:.0f} s: {stats.fps:.2f} tick/s = {stats.camera_fps:.2f} "
-          f"camera-frames/s; peak-decode launches {launches}; host "
-          f"{1e3 * stats.total_step_time_s / stats.ticks:.2f} ms/tick, fetch "
-          f"{1e3 * stats.total_fetch_time_s / stats.ticks:.2f} ms/tick")
-    return launches
+def _never_syncs(step) -> None:
+    # The double-buffered serve loop overlaps host and device only if the
+    # step never waits for the device (no pageable copy, no .item()).
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
-def phase_step() -> None:
-    """The bare serve step on a resident batch (bf16), then the same weights
-    in f32 with TF32 off: the bf16 heatmap gap and argmax agreement."""
+def phase_step(flat: dict) -> None:
+    """The bare serve steps on a resident batch, bf16 and int8 + fused LN,
+    timed in turns; the int8 backbone tokens and heatmaps against the bf16
+    model's on the same weights, and the bf16 heatmaps against the same
+    weights in f32 (TF32 off). With random N(0, 0.02) weights the blocks
+    add little to the residual stream, so these gaps are small by
+    construction: accuracy against the reference is held by the CPU tests."""
     dev = torch.device("cuda")
     state = random_state(MultiViewPoseEstimator(FULL, device="meta"), seed=0)
     frames = torch.from_numpy(
@@ -196,51 +433,56 @@ def phase_step() -> None:
     ).to(dev)
     mask = torch.ones(4, dtype=torch.bool, device=dev)
     view_ids = torch.arange(4, device=dev)[None]
-    bf16 = _model(FULL, dev, state)
+    bf16, int8 = _model(FULL, dev, state), _int8_model(flat, dev)
     with torch.inference_mode():
-        step = lambda: serve_step(bf16, frames, mask, 512, (720, 1280))  # noqa: E731
-        step_ms = cuda_ms(step, 1, samples=30)
-        # The double-buffered serve loop overlaps host and device only if the
-        # step never waits for the device (no pageable copy, no .item()).
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        steps = {name: (lambda m=m: serve_step(m, frames, mask, 512, (720, 1280)))
+                 for name, m in (("bf16", bf16), ("int8_ln", int8))}
+        turns = [(n, cuda_ms(steps[n], 1, samples=30))
+                 for n in ("bf16", "int8_ln", "int8_ln", "bf16")]
+        for step in steps.values():
+            _never_syncs(step)
+        graph = {name: graph_ms(step, iters=1, samples=30) for name, step in steps.items()}
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         imgs = preprocess(frames, 512)[None]
-        hm16, ang16 = bf16(imgs, view_ids, mask[None])
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        del bf16
+        outs, tokens = {}, {}
+        for name, model in (("bf16", bf16), ("int8_ln", int8)):
+            torch.cuda.reset_peak_memory_stats()
+            outs[name] = model(imgs, view_ids, mask[None])
+            print(f"forward peak memory [{name}]: "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            tokens[name] = model.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
+        del bf16, int8
         f32_cfg = dataclasses.replace(FULL, dtype="float32",
                                       vit=dataclasses.replace(FULL.vit, dtype="float32"))
         f32 = _model(f32_cfg, dev, state)
-        hm32, ang32 = f32(imgs, view_ids, mask[None])
+        outs["f32"] = f32(imgs, view_ids, mask[None])
         del f32
-    check(bool(torch.isfinite(hm16).all() and torch.isfinite(hm32).all()), "heatmaps not finite")
-    gap = float((hm16 - hm32).abs().max())
-    scale = float(hm32.abs().max())
-    agree = float((hm16.flatten(3).argmax(-1) == hm32.flatten(3).argmax(-1)).float().mean())
-    ang_gap = float((ang16 - ang32).abs().max())
-    print(f"serve step (preprocess + model + decode, 4x720x1280 u8 resident, bf16): "
-          f"{step_ms:.3f} ms/step (median of 30), no host-device sync inside; "
-          f"forward peak memory {peak_gib:.2f} GiB")
-    print(f"bf16 vs f32 (TF32 off), same weights: heatmap max abs diff {gap:.6g} "
-          f"(f32 heatmap max abs {scale:.6g}), argmax agreement {agree:.4f} of 32 maps, "
-          f"angle max abs diff {ang_gap:.6g}")
+    print("serve step (preprocess + model + decode, 4x720x1280 u8 resident), ms/step, "
+          "median of 30, in turns: " + ", ".join(f"{n} {t:.3f}" for n, t in turns)
+          + "; CUDA-graph replay (device time): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in graph.items())
+          + "; no host-device sync inside either step")
+    a, b = tokens["int8_ln"], tokens["bf16"]
+    check(bool(torch.isfinite(a).all()), "int8 backbone tokens not finite")
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    print(f"int8 + fused-LN vs bf16 backbone, same weights: patch-token cosine min "
+          f"{float(cos.min()):.6f}, mean {float(cos.mean()):.6f}; max abs diff "
+          f"{float((a - b).abs().max()):.6g} (bf16 tokens max abs {float(b.abs().max()):.6g})")
+    for name, ref in (("bf16 vs f32 (TF32 off)", "f32"), ("int8 + fused LN vs bf16", "bf16")):
+        a = "bf16" if ref == "f32" else "int8_ln"
+        hm, ang = outs[a]
+        hm_ref, ang_ref = outs[ref]
+        check(bool(torch.isfinite(hm).all() and torch.isfinite(ang).all()), f"{a} not finite")
+        gap = float((hm.float() - hm_ref.float()).abs().max())
+        agree = float((hm.flatten(3).argmax(-1) == hm_ref.flatten(3).argmax(-1)).float().mean())
+        print(f"{name}, same weights: heatmap max abs diff {gap:.6g} ({ref} heatmap max abs "
+              f"{float(hm_ref.abs().max()):.6g}), argmax agreement {agree:.4f} of 32 maps, "
+              f"angle max abs diff {float((ang - ang_ref).abs().max()):.6g}")
 
 
-def phase_small_reference() -> None:
-    """A small f32 model on the card against the same model on the CPU:
-    heatmaps and angles 1e-3 (f32 convolution and matmul algorithms differ),
-    keypoints equal wherever the top-2 heatmap margin is 10x that gap."""
-    cfg = EstimatorConfig(
-        vit=ViTConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2, num_heads=2,
-                      dtype="float32"),
-        num_joints=8, num_angles=7, heatmap_size=(32, 32), max_views=4, dtype="float32",
-    )
-    state = random_state(MultiViewPoseEstimator(cfg, device="meta"), seed=2, scale=0.2)
+def _small_reference(label: str, cfg: EstimatorConfig, scale: float, int8: bool,
+                     hm_tol: float, ang_tol: float) -> None:
+    state = random_state(MultiViewPoseEstimator(cfg, device="meta"), seed=2, scale=scale)
     for k in state:
         if k.endswith(("norm1.weight", "norm2.weight", "norm3.weight", "norm.weight")):
             state[k] = state[k] + 1.0  # LayerNorm gains near 1 keep activations O(1)
@@ -249,21 +491,41 @@ def phase_small_reference() -> None:
     outs = {}
     for dev in ("cpu", "cuda"):
         model = _model(cfg, dev, state)
+        if int8:
+            int8ify(model, attn=True)
         f, m = torch.from_numpy(frames).to(dev), torch.from_numpy(mask).to(dev)
         with torch.inference_mode():
             hm, ang = model(preprocess(f, 64)[None], torch.arange(3, device=dev)[None], m[None])
             xy, _, _ = serve_step(model, f, m, 64, (96, 120))
         outs[dev] = [t.float().cpu().numpy() for t in (hm, ang, xy)]
     (hm_c, ang_c, xy_c), (hm_g, ang_g, xy_g) = outs["cpu"], outs["cuda"]
-    gap = float(np.abs(hm_g - hm_c).max())
-    check(gap <= 1e-3 and np.abs(ang_g - ang_c).max() <= 1e-3, f"card vs CPU gap {gap}")
+    gap, ang_gap = float(np.abs(hm_g - hm_c).max()), float(np.abs(ang_g - ang_c).max())
+    check(gap <= hm_tol and ang_gap <= ang_tol, f"{label}: card vs CPU gap {gap}, {ang_gap}")
     top2 = np.sort(hm_c[0].reshape(3, 8, -1), axis=-1)[..., -2:]
     clear = (top2[..., 1] - top2[..., 0]) > 10 * gap
-    check(bool(clear.any()), "no heatmap with a clear peak to compare")
-    check(bool((xy_g[clear] == xy_c[clear]).all()), "keypoints differ between card and CPU")
-    print(f"small model card vs CPU (f32, TF32 off): heatmap max abs diff {gap:.3g}, angle "
-          f"max abs diff {np.abs(ang_g - ang_c).max():.3g}, keypoints equal on "
-          f"{int(clear.sum())}/24 clear maps")
+    check(bool(clear.any()), f"{label}: no heatmap with a clear peak to compare")
+    check(bool((xy_g[clear] == xy_c[clear]).all()), f"{label}: keypoints differ, card vs CPU")
+    print(f"small {label} model card vs CPU (f32, TF32 off): heatmap max abs diff {gap:.3g} "
+          f"(bound {hm_tol:g}), angle max abs diff {ang_gap:.3g} (bound {ang_tol:g}), "
+          f"keypoints equal on {int(clear.sum())}/24 clear maps")
+
+
+def phase_small_reference() -> None:
+    """Small models on the card against the same models on the CPU, in f32.
+    Float: heatmaps and angles 1e-3 (f32 convolution and matmul algorithms
+    differ). int8 + fused LN (hidden 128 and M = 51 rows, as torch._int_mm
+    wants on the card): heatmaps 1e-4 and angles 1e-2, about 10x and 3x what
+    a value on an int8 rounding boundary rounding the other way can move them
+    (on the CPU alone, a 1e-4 relative input perturbation moved this model's
+    heatmaps by 9e-6 and its angles by 3.5e-3). Keypoints equal wherever the
+    top-2 heatmap margin is 10x the gap."""
+    vit = ViTConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2, num_heads=2,
+                    dtype="float32")
+    cfg = EstimatorConfig(vit=vit, num_joints=8, num_angles=7, heatmap_size=(32, 32),
+                          max_views=4, dtype="float32")
+    _small_reference("float", cfg, 0.2, False, 1e-3, 1e-3)
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(vit, fused_ln=True))
+    _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
 
 
 def main() -> int:
@@ -271,14 +533,24 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
     device = phase_device()
     phase_build()
-    kernel = phase_kernel()
-    launches = phase_serve()
-    phase_step()
+    measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv()}
+    phase_counters()
+    launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
+    flat = seed0_flat()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as run:  # ~350 MB of weights
+        write_run_dir(flat, Path(run))
+        int8_launches = _serve(
+            ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
+             "--int8-attention"], "int8 + fused LN", list(KERNELS),
+        )
+    launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
+    phase_step(flat)
     phase_small_reference()
     print(json.dumps({"kernels": [{
-        "name": "peak_decode", "route": "cuda", "source": "mvropose_torch/csrc/peak_decode.cu",
-        "replaces": REPLACES, "launches": launches, **kernel,
-    }]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], **measured[name],
+    } for name, (_, _, source, replaces) in KERNELS.items()]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"],

@@ -3,9 +3,12 @@
 Port of the reference's `cli serve` (`mvropose_tpu/cli/main.py::_cmd_serve`)
 for the multi-view checkpoint with the query angle head: N camera sources ->
 one batched step (preprocess + model + peak decode) per rig tick through the
-shared `mvropose_tpu.rig.StreamingPipeline`. The serve flags that belong to
-modules not ported yet exit with an error naming the ROADMAP.md item that
-ports them; they never fall back to something else.
+shared `mvropose_tpu.rig.StreamingPipeline`. `--int8-backbone` (and
+`--int8-attention` with it) quantize the loaded model as the reference's
+flags do; a checkpoint whose model_config.json says `fused_ln` runs the
+fused LayerNorm. The serve flags that belong to modules not ported yet exit
+with an error naming the ROADMAP.md item that ports them; they never fall
+back to something else.
 """
 
 from __future__ import annotations
@@ -24,14 +27,12 @@ from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
 from mvropose_torch.models.heads import resize_bilinear
 from mvropose_torch.models.vit import device_constant
-from mvropose_torch.utils.weights import load_jax_params, random_state
+from mvropose_torch.utils.weights import int8ify, load_jax_params, random_state
 
 # Serve options of the reference whose modules are not ported yet.
 _UNPORTED = {
     "recover_pose": ("--recover-pose", "queue 1, item 6 (pose recovery)"),
     "refine_pose": ("--refine-pose", "queue 1, item 6 (pose recovery)"),
-    "int8_backbone": ("--int8-backbone", "queue 1, item 8 (int8 serve variants)"),
-    "int8_attention": ("--int8-attention", "queue 1, item 8 (int8 serve variants)"),
     "calib_dir": ("--calib-dir", "queue 1, item 7 (serve undistortion)"),
 }
 
@@ -167,11 +168,20 @@ def _serve_model(args):
             "item 4: geometric angle heads)"
         )
     model = MultiViewPoseEstimator(cfg, device=args.device).eval()
+    flat = None
     if args.params:
-        load_jax_params(model, args.params)
+        with np.load(args.params) as data:
+            flat = {k: data[k] for k in data.files}
+        load_jax_params(model, flat)
     else:
         model.load_state_dict(random_state(model, seed=0))
         print("no --params: random weights from seed 0")
+    if args.int8_backbone:
+        int8ify(model, flat, attn=args.int8_attention)
+        print(
+            "backbone quantized to int8 (per-channel weights, dynamic per-token "
+            "activations)" + (" + int8-prob attention" if args.int8_attention else "")
+        )
     return model, model_size
 
 
@@ -185,6 +195,8 @@ def serve(args):
     for attr, (flag, item) in _UNPORTED.items():
         if getattr(args, attr):
             raise SystemExit(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if args.int8_attention and not args.int8_backbone:
+        raise SystemExit("--int8-attention runs only with --int8-backbone")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
     hw = tuple(args.frame_hw)
@@ -287,6 +299,12 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--device", default="cuda", help="torch device (default cuda)")
     pv.add_argument("--angle-head", choices=["query", "geometric", "geometric3d"],
                     default="query", help="only 'query' is ported")
+    pv.add_argument("--int8-backbone", action="store_true",
+                    help="serve with the backbone quantized to int8 "
+                         "(models/quantize.py)")
+    pv.add_argument("--int8-attention", action="store_true",
+                    help="with --int8-backbone: also run int8-probability "
+                         "attention (ops/int8_attention.py)")
     for attr, (flag, item) in _UNPORTED.items():
         if attr == "calib_dir":
             pv.add_argument(flag, default=None, help=f"not ported yet (ROADMAP.md {item})")

@@ -1,4 +1,4 @@
-"""Vision Transformer backbone (DINOv2/v3-compatible), float path.
+"""Vision Transformer backbone (DINOv2/v3-compatible).
 
 Port of `mvropose_tpu/models/vit.py::ViTBackbone`: patch embedding, CLS and
 register tokens, LayerScale, bicubic position-embedding interpolation
@@ -12,6 +12,12 @@ compute dtype, the final norm's output in f32. Attention is a plain
 matmul + softmax in the compute dtype, like the reference's XLA branch
 (`mvropose_tpu/ops/attention.py:102-114`), which is what it runs at the
 backbone's T = 1025 on every backend.
+
+The serve variants of the reference run here too: `fused_ln` normalizes
+through `ops/layernorm.py` (the reference's fused kernels' arithmetic: fast
+variance, the residual LayerNorm of the unrounded f32 sum), `quant="int8"`
+makes the blocks' q/k/v/out and fc1/fc2 `Int8Linear`s, and
+`quant_attn="int8"` runs `ops/int8_attention.py::int8_prob_attention`.
 """
 
 from __future__ import annotations
@@ -25,6 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mvropose_torch.models.quantize import Int8Linear
+from mvropose_torch.ops.int8_attention import int8_prob_attention
+from mvropose_torch.ops.layernorm import fused_layernorm, fused_residual_layernorm
 
 
 def _cubic_kernel(x: np.ndarray, a: float) -> np.ndarray:
@@ -72,9 +82,10 @@ def _resize_matrices(g0: int, gh: int, gw: int):
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
     """Same fields as the reference's ViTConfig, so model_config.json files
-    round-trip. `quant`/`quant_attn` (int8 serving) are not ported yet;
-    `fused_ln` selects the reference's Pallas LayerNorm, whose function is
-    the plain LayerNorm run here."""
+    round-trip. `fused_ln` runs the LayerNorms through `ops/layernorm.py`
+    (the CUDA kernel on the card), `quant="int8"` the blocks' Dense layers
+    through `Int8Linear`, `quant_attn="int8"` the attention through
+    `int8_prob_attention` (its P@V is a CUDA kernel on the card)."""
 
     image_size: int = 224
     patch_size: int = 16
@@ -154,18 +165,26 @@ def dot_product_attention(q, k, v, key_mask: Optional[torch.Tensor] = None):
     return torch.softmax(logits, dim=-1) @ v
 
 
+def _dense(din: int, dout: int, dtype: torch.dtype, quant: Optional[str], device=None):
+    if quant == "int8":
+        return Int8Linear(din, dout, dtype, device)
+    return nn.Linear(din, dout, dtype=dtype, device=device)
+
+
 class MultiHeadAttention(nn.Module):
     """flax `MultiHeadDotProductAttention` / the reference's `FusedMHA`:
-    q/k/v/out projections with bias, in the compute dtype."""
+    q/k/v/out projections with bias, in the compute dtype (`Int8Linear`s
+    with quant="int8"); `int8_attention` runs `int8_prob_attention`."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None, int8_attention: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        kw = dict(dtype=dtype, device=device)
-        self.query = nn.Linear(dim, dim, **kw)
-        self.key = nn.Linear(dim, dim, **kw)
-        self.value = nn.Linear(dim, dim, **kw)
-        self.out = nn.Linear(dim, dim, **kw)
+        self.int8_attention = int8_attention
+        self.query = _dense(dim, dim, dtype, quant, device)
+        self.key = _dense(dim, dim, dtype, quant, device)
+        self.value = _dense(dim, dim, dtype, quant, device)
+        self.out = _dense(dim, dim, dtype, quant, device)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
@@ -180,16 +199,20 @@ class MultiHeadAttention(nn.Module):
             cos, sin, n_prefix = rope
             q = _apply_rope(q, cos, sin, n_prefix)
             k = _apply_rope(k, cos, sin, n_prefix)
-        o = dot_product_attention(q, k, v, key_mask)
-        B, _, T, _ = o.shape
-        return self.out(o.transpose(1, 2).reshape(B, T, -1))
+        if self.int8_attention:
+            o = int8_prob_attention(*(t.transpose(1, 2) for t in (q, k, v)), key_mask=key_mask)
+        else:
+            o = dot_product_attention(q, k, v, key_mask).transpose(1, 2)
+        B, T = o.shape[:2]
+        return self.out(o.reshape(B, T, -1))
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(hidden, dim, dtype=dtype, device=device)
+        self.fc1 = _dense(dim, hidden, dtype, quant, device)
+        self.fc2 = _dense(hidden, dim, dtype, quant, device)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -205,13 +228,19 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm block. With `fused_ln`, norm1 and norm2 run the reference's
+    fused kernels' arithmetic (norm2 with the residual add folded in); the
+    `nn.LayerNorm`s then only hold their parameters."""
+
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
         D, dt, eps = cfg.hidden_size, cfg.compute_dtype, cfg.layer_norm_eps
+        self.fused_ln = cfg.fused_ln
         self.norm1 = nn.LayerNorm(D, eps=eps, device=device)
-        self.attn = MultiHeadAttention(D, cfg.num_heads, dt, device)
+        self.attn = MultiHeadAttention(D, cfg.num_heads, dt, device, quant=cfg.quant,
+                                       int8_attention=cfg.quant_attn == "int8")
         self.norm2 = nn.LayerNorm(D, eps=eps, device=device)
-        self.mlp = Mlp(D, int(D * cfg.mlp_ratio), dt, device)
+        self.mlp = Mlp(D, int(D * cfg.mlp_ratio), dt, device, quant=cfg.quant)
         if cfg.layerscale_init is not None:
             self.ls1 = LayerScale(D, cfg.layerscale_init, dt, device)
             self.ls2 = LayerScale(D, cfg.layerscale_init, dt, device)
@@ -220,9 +249,18 @@ class Block(nn.Module):
 
     def forward(self, x, rope=None):
         dt = x.dtype
-        h = self.ls1(self.attn(self.norm1(x.float()).to(dt), rope=rope))
-        x = x + h
-        h = self.ls2(self.mlp(self.norm2(x.float()).to(dt)))
+        n1, n2 = self.norm1, self.norm2
+        if self.fused_ln:
+            h = fused_layernorm(x, n1.weight, n1.bias, n1.eps, out_dtype=dt)
+        else:
+            h = n1(x.float()).to(dt)
+        h = self.ls1(self.attn(h, rope=rope))
+        if self.fused_ln:
+            x, h = fused_residual_layernorm(x, h, n2.weight, n2.bias, n2.eps, out_dtype=dt)
+        else:
+            x = x + h
+            h = n2(x.float()).to(dt)
+        h = self.ls2(self.mlp(h))
         return x + h
 
 
@@ -233,10 +271,6 @@ class ViTBackbone(nn.Module):
 
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
-        if cfg.quant is not None or cfg.quant_attn is not None:
-            raise NotImplementedError(
-                "int8 backbone/attention is not ported yet (ROADMAP.md queue 1, item 8)"
-            )
         self.cfg = cfg
         D, dt = cfg.hidden_size, cfg.compute_dtype
         self.patch_embed = nn.Conv2d(
@@ -291,7 +325,11 @@ class ViTBackbone(nn.Module):
         x = torch.cat(toks + [x], dim=1)
         for i in range(c.num_layers):
             x = getattr(self, f"block_{i}")(x, rope=rope)
-        x = self.norm(x.float())
+        if c.fused_ln:
+            x = fused_layernorm(x, self.norm.weight, self.norm.bias, self.norm.eps,
+                                out_dtype=torch.float32)
+        else:
+            x = self.norm(x.float())
         n_prefix = 1 + c.num_register_tokens
         return {
             "cls_token": x[:, 0, :],

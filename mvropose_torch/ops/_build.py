@@ -1,11 +1,11 @@
 """Build `csrc/*.cu` with nvcc into one shared library and load it with ctypes.
 
 The kernels expose plain C entry points (no PyTorch headers), so a build
-takes seconds. The library goes to `build/mvropose_torch/` at the repository
-root, named by a hash of the sources and flags: an edited `.cu` rebuilds, an
-unchanged one loads the existing file. nvcc's output (with `-Xptxas -v`:
-registers, shared memory and spills per kernel) is kept beside the library
-as `<name>.log`.
+takes seconds: one nvcc per source, all started together, then one link.
+The library goes to `build/mvropose_torch/` at the repository root, named by
+a hash of the sources and flags: an edited `.cu` rebuilds, an unchanged one
+loads the existing file. nvcc's output (with `-Xptxas -v`: registers, shared
+memory and spills per kernel) is kept beside the library as `<name>.log`.
 """
 
 from __future__ import annotations
@@ -20,10 +20,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvropose_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def find_nvcc() -> str:
@@ -46,7 +45,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -59,15 +58,23 @@ def load_library() -> ctypes.CDLL:
     lib = library_path()
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc, sources = find_nvcc(), sorted(CSRC_DIR.glob("*.cu"))
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+        objs = [f"{tmp}.{src.stem}.o" for src in sources]
+        cmds = [[nvcc, *COMPILE_FLAGS, "-o", obj, str(src)] for obj, src in zip(objs, sources)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]  # every compile started before any is waited for
+        outs = [proc.communicate()[0] for proc in procs]
+        if not any(proc.returncode for proc in procs):
+            cmds.append([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs])
+            procs.append(subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True, check=False))
+            outs.append(procs[-1].stdout)
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+        log = "\n".join(f"$ {' '.join(cmd)}\n{out}" for cmd, out in zip(cmds, outs))
+        lib.with_name(lib.name + ".log").write_text(log)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return ctypes.CDLL(str(lib))

@@ -14,13 +14,18 @@ and `bn` here. Layouts:
                                    -> weight/bias/running_mean/running_var
   LayerNorm scale                  -> weight
   Embed embedding                  -> Embedding weight
+  Int8Dense kernel_q (Din, Dout) int8, scale, bias (Dout,)
+                                   -> Int8Linear kernel_q, scale, bias
   raw parameters (cls_token, pos_embed, ls*/gamma, *_queries) -> as is
 
-`random_state` mirrors `mvropose_tpu/utils/initializers.py::random_variables`.
+`export_jax_params` is the inverse map, `int8ify` the port of the
+reference's `_int8ify` (`mvropose_tpu/cli/main.py`), and `random_state`
+mirrors `mvropose_tpu/utils/initializers.py::random_variables`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Mapping
 
@@ -28,8 +33,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from mvropose_torch.models.quantize import QUANTIZED, Int8Linear, quantize_backbone
+from mvropose_torch.models.vit import MultiHeadAttention
+
 _MODULE_RENAMES = {"Conv_0": "conv", "BatchNorm_0": "bn"}
 _LEAF_RENAMES = {
+    Int8Linear: {"kernel_q": "kernel_q", "scale": "scale", "bias": "bias"},
     nn.Linear: {"kernel": "weight", "bias": "bias"},
     nn.Conv2d: {"kernel": "weight", "bias": "bias"},
     nn.LayerNorm: {"scale": "weight", "bias": "bias"},
@@ -119,6 +128,84 @@ def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray] | str | Pat
     with torch.no_grad():
         for target, value in plan.values():
             target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+
+
+def _jax_layout(model: nn.Module, path: list[str], module: nn.Module, leaf: str,
+                arr: np.ndarray) -> np.ndarray:
+    """The inverse of `_convert`, with the DenseGeneral shapes of the
+    attention projections: query/key/value kernel (D, H, dh) and bias
+    (H, dh), out kernel (H, dh, D)."""
+    if isinstance(module, nn.Conv2d) and leaf == "kernel":
+        return arr.transpose(2, 3, 1, 0)
+    if not isinstance(module, nn.Linear):
+        return arr
+    if leaf == "kernel":
+        arr = arr.T
+    parent = model.get_submodule(".".join(path[:-1]))
+    if isinstance(parent, MultiHeadAttention):
+        H = parent.num_heads
+        if path[-1] == "out" and leaf == "kernel":
+            return arr.reshape(H, -1, arr.shape[-1])
+        if path[-1] != "out":
+            return arr.reshape(*arr.shape[:-1], H, -1)
+    return arr
+
+
+def export_jax_params(model: nn.Module) -> dict[str, np.ndarray]:
+    """The flat name -> array dict that `save_params_npz` would write for
+    `model`'s weights, in the reference's layouts; float tensors as f32
+    (a bf16 model's weights widened), int8 ones as int8. The inverse of
+    `load_jax_params`: loading the result fills every tensor with its value."""
+    inverse_modules = {v: k for k, v in _MODULE_RENAMES.items()}
+    flat = {}
+    for name, t in _targets(model).items():
+        *path, attr = name.split(".")
+        module = model.get_submodule(".".join(path))
+        leaf = next(
+            (jax_leaf for cls, names in _LEAF_RENAMES.items() if isinstance(module, cls)
+             for jax_leaf, torch_attr in names.items() if torch_attr == attr),
+            attr,
+        )
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.is_floating_point() else arr).numpy()
+        arr = _jax_layout(model, path, module, leaf, arr)
+        stats = isinstance(module, nn.BatchNorm2d) and leaf in ("mean", "var")
+        jax_name = "/".join([*(inverse_modules.get(p, p) for p in path), leaf])
+        flat[("batch_stats/" if stats else "") + jax_name] = np.ascontiguousarray(arr)
+    return flat
+
+
+def int8ify(model: nn.Module, flat: Mapping[str, np.ndarray] | None = None,
+            attn: bool = False) -> None:
+    """Quantize a loaded float `MultiViewPoseEstimator`'s backbone to int8 in
+    place (the reference's `_int8ify`): every block's q/k/v/out and fc1/fc2
+    become `Int8Linear`s, and `attn` also turns on the int8-probability
+    attention. The heads stay float.
+
+    The float kernels come from `flat`, the checkpoint's flat dict, when it
+    is given, as the reference quantizes its f32 checkpoint (a bf16 model
+    holds rounded weights); else from the model's own weights."""
+    backbone = model.backbone
+    if flat is None:
+        src = export_jax_params(backbone)
+    else:
+        src = {k.split("/", 1)[1]: v for k, v in flat.items() if k.startswith("backbone/")}
+    quantized = quantize_backbone(src)
+    vit = dataclasses.replace(backbone.cfg, quant="int8", quant_attn="int8" if attn else None)
+    device = backbone.cls_token.device
+    for i in range(vit.num_layers):
+        block = getattr(backbone, f"block_{i}")
+        for layer in QUANTIZED:
+            parent_name, child = layer.split("/")
+            parent = getattr(block, parent_name)
+            old = getattr(parent, child)
+            new = Int8Linear(old.in_features, old.out_features, vit.compute_dtype, device)
+            load_jax_params(new, {leaf: quantized[f"block_{i}/{layer}/{leaf}"]
+                                  for leaf in ("kernel_q", "scale", "bias")})
+            setattr(parent, child, new)
+        block.attn.int8_attention = attn
+    backbone.cfg = vit
+    model.cfg = dataclasses.replace(model.cfg, vit=vit)
 
 
 def random_state(model: nn.Module, seed: int = 0, scale: float = 0.02) -> dict[str, torch.Tensor]:

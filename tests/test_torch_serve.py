@@ -196,8 +196,6 @@ def test_cli_serve_with_params(checkpoint, capsys):
     [
         (["--recover-pose"], "item 6"),
         (["--refine-pose"], "item 6"),
-        (["--int8-backbone"], "item 8"),
-        (["--int8-attention"], "item 8"),
         (["--calib-dir", "calib"], "item 7"),
         (["--angle-head", "geometric"], "item 4"),
     ],
@@ -205,6 +203,35 @@ def test_cli_serve_with_params(checkpoint, capsys):
 def test_cli_serve_rejects_unported(extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(SERVE_TINY + extra)
+
+
+def test_cli_serve_int8_attention_needs_int8_backbone():
+    with pytest.raises(SystemExit, match="--int8-attention runs only with --int8-backbone"):
+        main(SERVE_TINY + ["--int8-attention"])
+
+
+def test_cli_serve_int8_fused_ln_run_directory(tmp_path, capsys):
+    """`serve --int8-backbone --int8-attention` on a run directory whose
+    model_config.json (written by the reference) says fused_ln: true."""
+    cfg = dataclasses.replace(
+        JAX_CFG, vit=dataclasses.replace(JAX_CFG.vit, hidden_size=128, num_heads=2,
+                                         num_layers=1, fused_ln=True)
+    )
+    shapes = jax.eval_shape(
+        lambda k: JaxEstimator(cfg).init(k, jnp.zeros((1, 2, MODEL_SIZE, MODEL_SIZE, 3)),
+                                         jnp.zeros((1, 2), jnp.int32), jnp.ones((1, 2), bool)),
+        jax.random.PRNGKey(0),
+    )
+    _write_model_config(tmp_path, cfg, multi_view=True, model_size=MODEL_SIZE)
+    npz = export_npz(random_variables(shapes, seed=14), tmp_path / "best_params.npz")
+    assert read_model_config(npz)[0].vit.fused_ln
+    argv = ["serve", "--views", "2", "--fps", "60", "--frame-hw", *map(str, FRAME_HW),
+            "--duration", "1.0", "--device", "cpu", "--params", npz,
+            "--int8-backbone", "--int8-attention"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "backbone quantized to int8" in out and "+ int8-prob attention" in out
+    assert int(out.split("served ")[1].split(" ticks")[0]) >= 1
 
 
 def test_cli_serve_rejects_single_view_checkpoint(tmp_path):

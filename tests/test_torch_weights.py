@@ -1,8 +1,9 @@
-"""The weight bridge (`load_jax_params`) and seeded random weights.
+"""The weight bridge (`load_jax_params`, `export_jax_params`) and seeded random weights.
 
 A random JAX multi-view estimator is exported with the reference's own
 `save_params_npz`; the port must consume every leaf, fill every parameter
-and buffer, and map each layout exactly (values compared bit for bit).
+and buffer, and map each layout exactly (values compared bit for bit), and
+its export must give the same file back.
 """
 
 import dataclasses
@@ -18,7 +19,13 @@ from mvropose_tpu.models import MultiViewPoseEstimator as JaxEstimator
 from mvropose_tpu.models.vit import ViTConfig as JaxViTConfig
 
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
-from mvropose_torch.utils.weights import load_jax_params, plan_jax_params, random_state
+from mvropose_torch.utils.weights import (
+    export_jax_params,
+    int8ify,
+    load_jax_params,
+    plan_jax_params,
+    random_state,
+)
 from torch_parity import export_npz, random_variables
 
 JAX_CFG = JaxEstimatorConfig(
@@ -148,3 +155,57 @@ def test_random_state_is_seeded_and_shared_across_dtypes():
     ffn1 = bf16.fusion_module.layer_0.ffn1.weight
     assert ffn1.dtype == torch.bfloat16
     assert torch.equal(ffn1, a["fusion_module.layer_0.ffn1.weight"].to(torch.bfloat16))
+
+
+def test_export_is_the_inverse_of_the_bridge(exported):
+    """export(load(flat)) gives back the reference's file: the same names,
+    shapes (DenseGeneral kernels 3-D again) and values, bit for bit."""
+    flat, _ = exported
+    model = MultiViewPoseEstimator(port_config(JAX_CFG))
+    load_jax_params(model, flat)
+    back = export_jax_params(model)
+    assert sorted(back) == sorted(flat)
+    for name, arr in flat.items():
+        assert back[name].shape == arr.shape, name
+        np.testing.assert_array_equal(back[name], arr, err_msg=name)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_load_of_export_is_the_identity(exported, quant):
+    """load(export(model)) fills a fresh model with every tensor equal, for a
+    float model and for one with an int8 backbone (`kernel_q`, `scale`, flat
+    `bias` leaves)."""
+    flat, _ = exported
+    cfg = port_config(JAX_CFG)
+    if quant:
+        cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, quant=quant,
+                                                               quant_attn="int8"))
+    model = MultiViewPoseEstimator(port_config(JAX_CFG))
+    load_jax_params(model, flat)
+    if quant:
+        int8ify(model, flat, attn=True)
+        assert model.backbone.block_0.attn.query.kernel_q.dtype == torch.int8
+    out = export_jax_params(model)
+    if quant:
+        assert out["backbone/block_0/attn/out/kernel_q"].shape == (64, 64)
+        assert "backbone/block_0/attn/out/kernel" not in out
+    fresh = MultiViewPoseEstimator(cfg)
+    load_jax_params(fresh, out)
+    for (n, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+
+
+def test_int8_layout_is_strict(exported):
+    """A float checkpoint does not load into an int8 model (its first
+    quantized leaf is a (H, dh) bias or a `kernel` with no place), nor the
+    reverse."""
+    flat, _ = exported
+    f32 = port_config(JAX_CFG)
+    q = dataclasses.replace(f32, vit=dataclasses.replace(f32.vit, quant="int8"))
+    with pytest.raises((KeyError, ValueError), match="backbone/block_0/(attn|mlp)/"):
+        load_jax_params(MultiViewPoseEstimator(q), flat)
+    model = MultiViewPoseEstimator(f32)
+    load_jax_params(model, flat)
+    int8ify(model, flat)
+    with pytest.raises(KeyError, match="backbone/block_0/(attn|mlp)/.*(kernel_q|scale)"):
+        load_jax_params(MultiViewPoseEstimator(f32), export_jax_params(model))

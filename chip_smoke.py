@@ -15,6 +15,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * int8 P@V ((48, 1025, 1025) x (48, 1025, 64), a small odd T, masked
          keys and all-zero rows, pq padded as the serve path writes it, and
          contiguous at T = 128), its int32 sums read back exactly;
+       * heatmap render ((576, 128, 128) and (576, 512, 512), the full-width
+         train batch; (336, 64, 64) and (336, 128, 128), the synthetic
+         trainer's; a non-multiple M and W, per-map and small sigma,
+         half-pixel ties, keypoints just and far outside the map);
      then every launch counter: an empty input counts nothing, one launch one;
   4. the slices, each through `mvropose_torch.cli`'s own parser, with every
      kernel's launches counted over that run only:
@@ -28,13 +32,22 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      resident batch and checked to never synchronize with the host; the
      int8 heatmaps against the bf16 model's, the bf16 ones against f32; and
      small f32 and int8 + fused-LN models on the card against the CPU;
-  6. a JSON line per kernel, the card and its power limit, then the last line
+  6. training, with the render's launches counted over each run only:
+       * the full-width multi-view train step (frozen ViT-B/16 at 512 px,
+         fr3, 18 groups x 4 views, 128x128 heatmaps, bf16) on batches made
+         by `synthesize_multiview_batch`: finite losses, the backbone
+         bit-identical, heads and BatchNorm statistics moved, no host-device
+         sync; step time, peak memory and the device's busy share;
+       * `scripts/torch_train_synthetic.py --mode multi` at its defaults for
+         a few hundred steps: the loss must fall;
+  7. a JSON line per kernel, the card and its power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -46,10 +59,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from torch.profiler import ProfilerActivity, profile
+
 from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step
+from mvropose_torch.data.synthetic import make_rig, rig_tuple, synthesize_multiview_batch
+from mvropose_torch.geometry.robots import get_robot
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
-from mvropose_torch.ops import _build, int8_attention, layernorm, peak_decode
-from mvropose_torch.utils.weights import export_jax_params, int8ify, load_jax_params, random_state
+from mvropose_torch.ops import _build, heatmap_render, int8_attention, layernorm, peak_decode
+from mvropose_torch.train import TrainConfig, create_train_state, make_multi_view_train_step
+from mvropose_torch.train.state import ANG_MODULES, KPT_MODULES
+from mvropose_torch.utils.weights import (
+    export_jax_params,
+    flax_init_state,
+    int8ify,
+    load_jax_params,
+    random_state,
+)
 
 ROOT = Path(__file__).resolve().parent
 SERVE_SECONDS = 8.0
@@ -63,7 +88,10 @@ KERNELS = {
                            "mvropose_tpu/ops/layernorm.py:39"),  # _res_ln_kernel
     "int8_pv": (int8_attention, "launches", "mvropose_torch/csrc/int8_pv.cu",
                 "mvropose_tpu/ops/attention.py:29"),  # int8_prob_attention's P@V
+    "heatmap_render": (heatmap_render, "launches", "mvropose_torch/csrc/heatmap_render.cu",
+                       "mvropose_tpu/ops/heatmap_render.py:25"),  # _render_kernel
 }
+SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_pv"]
 # The serve default: ViT-B/16 at 512 px (T = 1024 + 1), 4 views, J=8, A=7.
 FULL = EstimatorConfig(
     vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
@@ -314,6 +342,70 @@ def phase_int8_pv() -> dict:
     return {"int8_pv": {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}}
 
 
+def _render_rows(M: int, H: int, W: int, seed: int, sigma=(2.0, 2.0), ties: bool = False,
+                 outside: bool = False) -> torch.Tensor:
+    """(M, 3) rows [x, y, 1/(2 sigma^2)] on the card, made as the dispatcher
+    makes them: keypoints anywhere in the map and up to 8 px past its edge;
+    sigma uniform in the given range (per map when it is a range); optional
+    half-pixel ties and points just and far outside."""
+    rng = np.random.default_rng(seed)
+    kp = np.stack([rng.uniform(-8, W + 8, M), rng.uniform(-8, H + 8, M)], -1).astype(np.float32)
+    if ties:
+        kp[: M // 2] = np.floor(kp[: M // 2]) + 0.5  # (c - x)^2 equal for c = x -/+ 0.5
+    if outside:
+        edge = np.array([[-0.5, H / 2], [W - 0.3, H / 2], [W / 2, -1.7], [-1000.0, -1000.0],
+                         [1e4, 30.0], [W / 2, 1e5]], np.float32)
+        kp[: len(edge)] = edge
+    sig = torch.from_numpy(rng.uniform(*sigma, M).astype(np.float32))
+    inv = 1.0 / (2.0 * (sig * sig))
+    return torch.cat([torch.from_numpy(kp), inv[:, None]], dim=1).cuda()
+
+
+def phase_heatmap_render() -> dict:
+    """Render kernel vs its plain version on the card. Bound: 1e-6 absolute
+    on values in [0, 1] (the Pallas-vs-jnp bound of tests/test_ops.py:39);
+    the kernel runs the plain version's f32 operations in the same order with
+    the same expf, so it is expected to agree bit for bit, and the number of
+    differing values is printed."""
+    cases = [
+        ("train_gt", 576, 128, 128, (2.0, 2.0), False, False),
+        ("train_blob", 576, 512, 512, (3.0, 3.0), False, False),
+        ("twin_gt", 336, 64, 64, (2.0, 2.0), False, False),
+        ("twin_blob", 336, 128, 128, (3.0, 3.0), False, False),
+        ("nonmultiple_m_w", 37, 50, 70, (2.0, 2.0), False, False),
+        ("per_map_sigma_small", 64, 64, 64, (0.3, 6.0), False, False),
+        ("half_pixel_ties", 40, 64, 64, (2.0, 2.0), True, False),
+        ("outside", 12, 64, 64, (2.0, 5.0), False, True),
+    ]
+    max_err = 0.0
+    for i, (name, M, H, W, sigma, ties, outside) in enumerate(cases):
+        rows = _render_rows(M, H, W, seed=50 + i, sigma=sigma, ties=ties, outside=outside)
+        got = heatmap_render.render_heatmaps_cuda(rows, H, W)
+        torch.cuda.synchronize()
+        want = heatmap_render.render_heatmaps_reference(rows, H, W)
+        err = float((got - want).abs().max())
+        differ = int((got != want).sum())
+        check(err <= 1e-6, f"{name}: render kernel differs from the plain version by {err}")
+        if outside:
+            far = got[3:6].flatten(1).amax(1)
+            check(bool((far == 0).all()), f"{name}: a far-outside map is not all zeros")
+        max_err = max(max_err, err)
+        print(f"kernel vs plain [{name} ({M}, {H}, {W}) sigma {sigma}]: max abs err {err:.3g}, "
+              f"{differ} of {got.numel()} values differ; {int((got == 0).sum())} zeros")
+    out = {}
+    for shape, (M, H, W, s) in (("(576, 128, 128)", (576, 128, 128, 2.0)),
+                                ("(576, 512, 512)", (576, 512, 512, 3.0))):
+        rows = _render_rows(M, H, W, seed=60, sigma=(s, s))
+        out[shape] = time_in_turns(
+            "heatmap render", f"{shape} f32, sigma {s}",
+            lambda: heatmap_render.render_heatmaps_reference(rows, H, W),
+            lambda: heatmap_render.render_heatmaps_cuda(rows, H, W),
+            iters=5 if H == 512 else 20, samples=20,
+        )
+    ms, plain_ms = out["(576, 512, 512)"]
+    return {"heatmap_render": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}}
+
+
 def _reset_launches() -> None:
     for module, counter, _, _ in KERNELS.values():
         setattr(module, counter, 0)
@@ -336,6 +428,8 @@ def phase_counters() -> None:
             int8_attention.padded_probs(2, n, "cuda").zero_(),
             torch.zeros(2, n, 64, dtype=torch.int8, device="cuda"),
             torch.ones(2, n, device="cuda"), torch.ones(2, 64, device="cuda"), torch.float32),
+        "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
+            torch.zeros(n, 3, device="cuda"), 4, 4),
     }
     for name, call in calls.items():
         for n, want in ((0, 0), (3, 1)):
@@ -528,12 +622,131 @@ def phase_small_reference() -> None:
     _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
 
 
+# The reference's FR3 training shape (bench_train.py:178-191): frozen ViT-B/16
+# at 512 px (= FULL), 18 groups x 4 views, fr3 (J = 8, A = 7), 128x128 heatmaps.
+TRAIN_GROUPS = 18
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 10, 3
+# The trainer run: scripts/torch_train_synthetic.py --mode multi at its
+# defaults (fr5, 3 views, 128 px, batch 64, lr 1e-3), for TRAINER_STEPS steps.
+TRAINER_STEPS = 300
+TRAINER_EVAL_BATCHES = 4  # the script's default --eval-batches
+TRAINER_LOSS_DROP = 0.7  # the last logged loss must be below this share of the first
+
+
+def phase_train_step(device: dict) -> int:
+    """The full-width multi-view train step on the card, its batches made by
+    the port's `synthesize_multiview_batch` (image 512, heatmaps 128): a few
+    warm steps, one step and one batch under the no-sync check, timed steps
+    (CUDA events), a profiled window. Checks: finite losses, the backbone
+    bit-identical, every head module and BatchNorm running statistic moved,
+    two render launches per batch and no other kernel. -> render launches."""
+    dev = torch.device("cuda")
+    robot = get_robot("fr3")
+    rig = rig_tuple(make_rig(n_views=4, image_hw=(512, 512)), dev)
+    model = MultiViewPoseEstimator(FULL, device=dev)
+    model.load_state_dict(flax_init_state(model, seed=1))
+    state = create_train_state(model, TrainConfig())
+    step = make_multi_view_train_step(state.cfg)
+    data_gen = torch.Generator(dev).manual_seed(0)
+    dropout_gen = torch.Generator(dev).manual_seed(1)
+    batches = [0]
+
+    def make_batch() -> dict:
+        batches[0] += 1
+        return synthesize_multiview_batch(robot, rig, data_gen, TRAIN_GROUPS,
+                                          image_hw=(512, 512), heatmap_hw=(128, 128))
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _reset_launches()
+    losses = [step(state, make_batch(), dropout_gen)["loss"] for _ in range(TRAIN_WARM)]
+    made = {}
+    _never_syncs(lambda: made.update(batch=make_batch()))
+    _never_syncs(lambda: losses.append(step(state, made["batch"], dropout_gen)["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(TRAIN_TIMED)]
+    t0 = time.perf_counter()
+    for e in events:
+        e[0].record()
+        batch = make_batch()
+        e[1].record()
+        losses.append(step(state, batch, dropout_gen)["loss"])
+        e[2].record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    render_ms = statistics.median(e[0].elapsed_time(e[1]) for e in events)
+    step_ms = statistics.median(e[1].elapsed_time(e[2]) for e in events)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_PROFILED):
+            losses.append(step(state, make_batch(), dropout_gen)["loss"])
+        torch.cuda.synchronize()
+    launches = _read_launches()
+    check(launches == {k: 2 * batches[0] if k == "heatmap_render" else 0 for k in KERNELS},
+          f"train step: {batches[0]} batches launched {launches}, not 2 renders each")
+    loss = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(loss).all()), f"train step: loss not finite: {loss.tolist()}")
+    after = model.state_dict()
+    moved = {k for k, v in after.items() if not torch.equal(v, before[k])}
+    check(not any(k.startswith("backbone.") for k in moved), "train step: the frozen backbone moved")
+    for name in KPT_MODULES + ANG_MODULES:
+        check(any(k.startswith(name + ".") and "running_" not in k for k in moved),
+              f"train step: no parameter of {name} moved")
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    check(stats and all(k in moved for k in stats), "train step: a BatchNorm statistic did not move")
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / TRAIN_PROFILED
+    print(f"train step [{device['nvidia_smi']}; frozen ViT-B/16 at 512 px, fr3, "
+          f"{TRAIN_GROUPS} groups x 4 views, 128x128 heatmaps, bf16]: train step "
+          f"{step_ms:.3f} ms (CUDA events, median of {TRAIN_TIMED}) = "
+          f"{1e3 * TRAIN_GROUPS / step_ms:.2f} groups/s; batch render {render_ms:.3f} ms; "
+          f"host wall {wall_ms:.3f} ms per batch + step; peak memory {peak_gib:.2f} GiB; device "
+          f"busy {busy_ms:.3f} ms per batch + step over {len(device_events) / TRAIN_PROFILED:.0f} "
+          f"device events (profiler), busy share {min(1.0, busy_ms / wall_ms):.3f}; no host-device "
+          f"sync in the batch render or the step; losses {[round(v, 4) for v in loss.tolist()]}; "
+          f"backbone bit-identical, {len(moved)} head tensors and all {len(stats)} BatchNorm "
+          f"statistics moved; render launches {launches['heatmap_render']} for {batches[0]} batches")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+    return launches["heatmap_render"]
+
+
+def phase_trainer() -> int:
+    """`scripts/torch_train_synthetic.py --mode multi` at its defaults for
+    TRAINER_STEPS steps: finite losses, the last logged loss below
+    TRAINER_LOSS_DROP of the first, two render launches per batch made
+    (the eval batches and one per step). -> render launches."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_synthetic", ROOT / "scripts" / "torch_train_synthetic.py")
+    trainer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trainer)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        _reset_launches()
+        final = trainer.main(["--mode", "multi", "--steps", str(TRAINER_STEPS), "--workdir", work])
+        launches = _read_launches()
+        log = [json.loads(line) for line in
+               (Path(work) / "logs" / "metrics.jsonl").read_text().splitlines()]
+    want = 2 * (TRAINER_STEPS + TRAINER_EVAL_BATCHES)
+    check(launches == {k: want if k == "heatmap_render" else 0 for k in KERNELS},
+          f"trainer: launched {launches}, want {want} renders")
+    curve = [(int(r["step"]), r["loss"], r["pck5"]) for r in log]
+    print(f"trainer ({TRAINER_STEPS} steps at its defaults): (step, loss, pck5) {curve}; "
+          f"final pck5 {final['pck5']}, angle_mae {final['angle_mae']}, "
+          f"{final['train_samples_per_sec']} samples/s; render launches "
+          f"{launches['heatmap_render']}")
+    check(all(np.isfinite(r["loss"]) for r in log), "trainer: a logged loss is not finite")
+    check(log[-1]["loss"] < TRAINER_LOSS_DROP * log[0]["loss"],
+          f"trainer: loss {log[0]['loss']} -> {log[-1]['loss']}, not below "
+          f"{TRAINER_LOSS_DROP} of the first")
+    return launches["heatmap_render"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
     device = phase_device()
     phase_build()
-    measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv()}
+    measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv(),
+                **phase_heatmap_render()}
     phase_counters()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
     flat = seed0_flat()
@@ -542,11 +755,12 @@ def main() -> int:
         write_run_dir(flat, Path(run))
         int8_launches = _serve(
             ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
-             "--int8-attention"], "int8 + fused LN", list(KERNELS),
+             "--int8-attention"], "int8 + fused LN", SERVE_KERNELS,
         )
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
     phase_step(flat)
     phase_small_reference()
+    launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], **measured[name],

@@ -22,13 +22,12 @@ class MultiViewFusion(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.num_layers = num_layers
-        self.global_queries = nn.Parameter(
-            torch.zeros(1, num_queries, dim, dtype=dtype, device=device)
-        )
+        self.dtype = dtype
+        self.global_queries = nn.Parameter(torch.zeros(1, num_queries, dim, device=device))
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(dim, num_heads, dtype, device))
 
-    def forward(self, view_tokens, view_mask=None):
+    def forward(self, view_tokens, view_mask=None, generator=None):
         B, V, N, D = view_tokens.shape
         memory = view_tokens.reshape(B, V * N, D)
         key_mask = None
@@ -36,7 +35,7 @@ class MultiViewFusion(nn.Module):
             # jnp.repeat(view_mask, N, axis=1), written as an expand: no
             # output-size computation that would wait for the device.
             key_mask = view_mask.bool()[:, :, None].expand(B, V, N).reshape(B, V * N)
-        x = self.global_queries.expand(B, -1, -1)
+        x = self.global_queries.to(self.dtype).expand(B, -1, -1)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, memory, memory_mask=key_mask)
+            x = getattr(self, f"layer_{i}")(x, memory, memory_mask=key_mask, generator=generator)
         return x

@@ -1,9 +1,10 @@
 """Prediction heads: UNet-style keypoint heatmap head and query angle head.
 
 Port of `mvropose_tpu/models/heads.py` (TokenFuser, FusedUpsampleBlock,
-UNetViTKeypointHead, DecoderLayer, JointAngleHead), NCHW inside. Inference
-only: BatchNorm uses running statistics and the decoder layers' dropout is
-off, as in the reference's eval path.
+UNetViTKeypointHead, DecoderLayer, JointAngleHead), NCHW inside. As in the
+reference, `module.train()` turns on batch statistics in every BatchNorm
+(`stem.batch_norm`) and dropout 0.1 in the decoder layers, whose masks come
+from the `generator` passed to `forward`; `module.eval()` turns both off.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvropose_torch.models.stem import batch_norm_eval
+from mvropose_torch.models.layers import Conv2d, Linear, dropout
+from mvropose_torch.models.stem import batch_norm
 from mvropose_torch.models.vit import MultiHeadAttention
 
 
@@ -30,7 +32,7 @@ def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 
 def _conv3(in_ch, out_ch, dtype, device, bias=False):
-    return nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=bias, dtype=dtype, device=device)
+    return Conv2d(in_ch, out_ch, 3, dtype, device, padding=1, bias=bias)
 
 
 class TokenFuser(nn.Module):
@@ -39,18 +41,18 @@ class TokenFuser(nn.Module):
     def __init__(self, in_ch: int, out_features: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.projection = nn.Conv2d(in_ch, out_features, 1, dtype=dtype, device=device)
+        self.projection = Conv2d(in_ch, out_features, 1, dtype, device)
         self.refine1 = _conv3(out_features, out_features, dtype, device)
         self.bn1 = nn.BatchNorm2d(out_features, device=device)
         self.refine2 = _conv3(out_features, out_features, dtype, device)
         self.bn2 = nn.BatchNorm2d(out_features, device=device)
-        self.residual = nn.Conv2d(in_ch, out_features, 1, dtype=dtype, device=device)
+        self.residual = Conv2d(in_ch, out_features, 1, dtype, device)
 
     def forward(self, x):
         dt = self.dtype
         x = x.to(dt)
-        h = F.gelu(batch_norm_eval(self.bn1, self.refine1(self.projection(x))).to(dt))
-        h = batch_norm_eval(self.bn2, self.refine2(h)).to(dt)
+        h = F.gelu(batch_norm(self.bn1, self.refine1(self.projection(x))).to(dt))
+        h = batch_norm(self.bn2, self.refine2(h)).to(dt)
         return F.gelu(h + self.residual(x))
 
 
@@ -71,8 +73,8 @@ class FusedUpsampleBlock(nn.Module):
         x = resize_bilinear(x.to(dt), (H, W))
         skip = resize_bilinear(skip, (H, W))
         x = torch.cat([x, skip.to(dt)], dim=1)
-        x = F.gelu(batch_norm_eval(self.bn1, self.conv1(x)).to(dt))
-        return F.gelu(batch_norm_eval(self.bn2, self.conv2(x)).to(dt))
+        x = F.gelu(batch_norm(self.bn1, self.conv1(x)).to(dt))
+        return F.gelu(batch_norm(self.bn2, self.conv2(x)).to(dt))
 
 
 class UNetViTKeypointHead(nn.Module):
@@ -107,27 +109,34 @@ class UNetViTKeypointHead(nn.Module):
 class DecoderLayer(nn.Module):
     """Post-LN transformer decoder layer (torch nn.TransformerDecoderLayer
     semantics, norm_first=False): self-attn -> cross-attn -> FFN. The
-    LayerNorms use flax's eps, 1e-6, in f32."""
+    LayerNorms use flax's eps, 1e-6, in f32. In train mode both attentions
+    drop weights (one (Tq, Tk) mask per call) and the FFN drops elementwise
+    after its GELU, at `dropout`."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
+                 dropout: float = 0.1):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.self_attn = MultiHeadAttention(dim, num_heads, dtype, device)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.cross_attn = MultiHeadAttention(dim, num_heads, dtype, device)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6, device=device)
-        self.ffn1 = nn.Linear(dim, dim * 4, dtype=dtype, device=device)
-        self.ffn2 = nn.Linear(dim * 4, dim, dtype=dtype, device=device)
+        self.ffn1 = Linear(dim, dim * 4, dtype, device)
+        self.ffn2 = Linear(dim * 4, dim, dtype, device)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6, device=device)
 
-    def forward(self, tgt, memory, memory_mask=None):
+    def forward(self, tgt, memory, memory_mask=None, generator=None):
         """memory_mask: (B, Nk) bool, False = key not attended."""
         dt = self.dtype
+        rate = self.dropout if self.training else 0.0
         tgt = tgt.to(dt)
-        tgt = self.norm1((tgt + self.self_attn(tgt)).float()).to(dt)
-        h = self.cross_attn(tgt, memory.to(dt), key_mask=memory_mask)
+        h = self.self_attn(tgt, dropout_rate=rate, generator=generator)
+        tgt = self.norm1((tgt + h).float()).to(dt)
+        h = self.cross_attn(tgt, memory.to(dt), key_mask=memory_mask, dropout_rate=rate,
+                            generator=generator)
         tgt = self.norm2((tgt + h).float()).to(dt)
-        h = self.ffn2(F.gelu(self.ffn1(tgt)))
+        h = self.ffn2(dropout(F.gelu(self.ffn1(tgt)), rate, generator))
         return self.norm3((tgt + h).float()).to(dt)
 
 
@@ -142,7 +151,7 @@ class JointAngleHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
-        self.pose_queries = nn.Parameter(torch.zeros(1, num_queries, dim, dtype=dtype, device=device))
+        self.pose_queries = nn.Parameter(torch.zeros(1, num_queries, dim, device=device))
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(dim, num_heads, dtype, device))
         width = num_queries * dim
@@ -153,11 +162,12 @@ class JointAngleHead(nn.Module):
         self.mlp_norm2 = nn.LayerNorm(256, eps=1e-6, device=device)
         self.mlp_out = nn.Linear(256, num_angles, device=device)
 
-    def forward(self, memory, memory_mask=None):
+    def forward(self, memory, memory_mask=None, generator=None):
         B = memory.shape[0]
-        x = self.pose_queries.expand(B, -1, -1)
+        x = self.pose_queries.to(self.dtype).expand(B, -1, -1)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, memory, memory_mask=memory_mask)
+            x = getattr(self, f"layer_{i}")(x, memory, memory_mask=memory_mask,
+                                            generator=generator)
         x = self.mlp_norm0(x.reshape(B, -1).float())
         x = self.mlp_norm1(F.gelu(self.mlp_fc1(x)))
         x = self.mlp_norm2(F.gelu(self.mlp_fc2(x)))

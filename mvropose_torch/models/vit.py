@@ -6,8 +6,9 @@ reproducing torch's `F.interpolate`, DINOv3 axial RoPE, pre-norm blocks.
 Images enter NCHW; module attribute names equal the flax module names, so
 `utils/weights.load_jax_params` maps a JAX checkpoint onto them by name.
 
-Precision follows the reference: matmuls and convs run in the compute dtype
-(weights are held in it), LayerNorms in f32, the residual stream in the
+Precision follows the reference: parameters are held in f32 and cast to the
+compute dtype at use (flax's `param_dtype`, `models/layers.py`), matmuls and
+convs run in the compute dtype, LayerNorms in f32, the residual stream in the
 compute dtype, the final norm's output in f32. Attention is a plain
 matmul + softmax in the compute dtype, like the reference's XLA branch
 (`mvropose_tpu/ops/attention.py:102-114`), which is what it runs at the
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvropose_torch.models.layers import Conv2d, Linear
 from mvropose_torch.models.quantize import Int8Linear
 from mvropose_torch.ops.int8_attention import int8_prob_attention
 from mvropose_torch.ops.layernorm import fused_layernorm, fused_residual_layernorm
@@ -152,29 +154,53 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_prefix:
     return torch.cat([prefix, patches], dim=2)
 
 
-def dot_product_attention(q, k, v, key_mask: Optional[torch.Tensor] = None):
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float (no device copy)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def attention_dropout_multiplier(shape, rate: float, dtype: torch.dtype, device,
+                                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's attention dropout (`broadcast_dropout=True`): one (Tq, Tk) keep
+    mask of probability 1 - rate, shared by every batch element and head, as
+    keep / (1 - rate) in the attention dtype."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(tuple(shape), generator=generator, device=device) < keep_prob
+    return keep.to(dtype) / _rounded(keep_prob, dtype)
+
+
+def dot_product_attention(q, k, v, key_mask: Optional[torch.Tensor] = None,
+                          dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None):
     """Softmax attention on (B, H, T, dh) tensors in their own dtype.
 
     flax semantics: q is divided by sqrt(dh) rounded to the dtype, masked
     logits (key_mask (B, Tk) False) are set to the dtype's lowest finite
-    value, softmax runs in the compute dtype."""
-    q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype).item()
+    value, softmax runs in the compute dtype; with `dropout_rate` the
+    attention weights are multiplied by `attention_dropout_multiplier`."""
+    q = q / _rounded(math.sqrt(q.shape[-1]), q.dtype)
     logits = q @ k.transpose(-2, -1)
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask[:, None, None, :], torch.finfo(logits.dtype).min)
-    return torch.softmax(logits, dim=-1) @ v
+    weights = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        weights = weights * attention_dropout_multiplier(
+            weights.shape[-2:], dropout_rate, weights.dtype, weights.device, generator)
+    return weights @ v
 
 
 def _dense(din: int, dout: int, dtype: torch.dtype, quant: Optional[str], device=None):
     if quant == "int8":
         return Int8Linear(din, dout, dtype, device)
-    return nn.Linear(din, dout, dtype=dtype, device=device)
+    return Linear(din, dout, dtype, device)
 
 
 class MultiHeadAttention(nn.Module):
     """flax `MultiHeadDotProductAttention` / the reference's `FusedMHA`:
     q/k/v/out projections with bias, in the compute dtype (`Int8Linear`s
-    with quant="int8"); `int8_attention` runs `int8_prob_attention`."""
+    with quant="int8"); `int8_attention` runs `int8_prob_attention`.
+    `dropout_rate` drops attention weights (train mode of the decoder
+    layers; the backbone never drops)."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
                  quant: Optional[str] = None, int8_attention: bool = False):
@@ -190,7 +216,8 @@ class MultiHeadAttention(nn.Module):
         B, T, D = x.shape
         return x.view(B, T, self.num_heads, D // self.num_heads).transpose(1, 2)
 
-    def forward(self, x, kv=None, key_mask=None, rope=None):
+    def forward(self, x, kv=None, key_mask=None, rope=None, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         kv = x if kv is None else kv
         q = self._heads(self.query(x))
         k = self._heads(self.key(kv))
@@ -202,7 +229,7 @@ class MultiHeadAttention(nn.Module):
         if self.int8_attention:
             o = int8_prob_attention(*(t.transpose(1, 2) for t in (q, k, v)), key_mask=key_mask)
         else:
-            o = dot_product_attention(q, k, v, key_mask).transpose(1, 2)
+            o = dot_product_attention(q, k, v, key_mask, dropout_rate, generator).transpose(1, 2)
         B, T = o.shape[:2]
         return self.out(o.reshape(B, T, -1))
 
@@ -219,12 +246,12 @@ class Mlp(nn.Module):
 
 
 class LayerScale(nn.Module):
-    def __init__(self, dim: int, init: float, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, init: float, device=None):
         super().__init__()
-        self.gamma = nn.Parameter(torch.full((dim,), init, dtype=dtype, device=device))
+        self.gamma = nn.Parameter(torch.full((dim,), init, device=device))
 
     def forward(self, x):
-        return x * self.gamma
+        return x * self.gamma.to(x.dtype)
 
 
 class Block(nn.Module):
@@ -242,8 +269,8 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(D, eps=eps, device=device)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio), dt, device, quant=cfg.quant)
         if cfg.layerscale_init is not None:
-            self.ls1 = LayerScale(D, cfg.layerscale_init, dt, device)
-            self.ls2 = LayerScale(D, cfg.layerscale_init, dt, device)
+            self.ls1 = LayerScale(D, cfg.layerscale_init, device)
+            self.ls2 = LayerScale(D, cfg.layerscale_init, device)
         else:
             self.ls1 = self.ls2 = nn.Identity()
 
@@ -273,15 +300,13 @@ class ViTBackbone(nn.Module):
         super().__init__()
         self.cfg = cfg
         D, dt = cfg.hidden_size, cfg.compute_dtype
-        self.patch_embed = nn.Conv2d(
-            3, D, cfg.patch_size, stride=cfg.patch_size, dtype=dt, device=device
-        )
+        self.patch_embed = Conv2d(3, D, cfg.patch_size, dt, device, stride=cfg.patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D, device=device))
         if not cfg.use_rope:
             self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D, device=device))
         if cfg.num_register_tokens > 0:
             self.register_tokens = nn.Parameter(
-                torch.zeros(1, cfg.num_register_tokens, D, dtype=dt, device=device)
+                torch.zeros(1, cfg.num_register_tokens, D, device=device)
             )
         for i in range(cfg.num_layers):
             self.add_module(f"block_{i}", Block(cfg, device))
@@ -321,7 +346,7 @@ class ViTBackbone(nn.Module):
             cls_tok = (self.cls_token + self.pos_embed[:, :1, :]).to(dt)
         toks = [cls_tok.expand(B, 1, D)]
         if c.num_register_tokens > 0:
-            toks.append(self.register_tokens.expand(B, -1, -1))
+            toks.append(self.register_tokens.to(dt).expand(B, -1, -1))
         x = torch.cat(toks + [x], dim=1)
         for i in range(c.num_layers):
             x = getattr(self, f"block_{i}")(x, rope=rope)

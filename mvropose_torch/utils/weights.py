@@ -19,13 +19,16 @@ and `bn` here. Layouts:
   raw parameters (cls_token, pos_embed, ls*/gamma, *_queries) -> as is
 
 `export_jax_params` is the inverse map, `int8ify` the port of the
-reference's `_int8ify` (`mvropose_tpu/cli/main.py`), and `random_state`
-mirrors `mvropose_tpu/utils/initializers.py::random_variables`.
+reference's `_int8ify` (`mvropose_tpu/cli/main.py`), `random_state`
+mirrors `mvropose_tpu/utils/initializers.py::random_variables`, and
+`flax_init_state` draws from flax's default initializers, as `model.init`
+does, for training from scratch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 from typing import Mapping
 
@@ -34,7 +37,7 @@ import torch
 from torch import nn
 
 from mvropose_torch.models.quantize import QUANTIZED, Int8Linear, quantize_backbone
-from mvropose_torch.models.vit import MultiHeadAttention
+from mvropose_torch.models.vit import LayerScale, MultiHeadAttention
 
 _MODULE_RENAMES = {"Conv_0": "conv", "BatchNorm_0": "bn"}
 _LEAF_RENAMES = {
@@ -224,4 +227,45 @@ def random_state(model: nn.Module, seed: int = 0, scale: float = 0.02) -> dict[s
             continue
         noise = scale * torch.randn(t.shape, generator=gen)
         state[name] = 1.0 + noise if name.endswith("running_var") else noise
+    return state
+
+
+def _truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's truncated normal: N(0, std) cut at +-2 std."""
+    return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def flax_init_state(model: nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded state dict (CPU, f32) from flax's default initializers, tensor
+    by tensor as the reference's modules declare them: Dense and Conv
+    kernels lecun_normal (truncated normal of variance 1/fan_in), biases 0,
+    LayerNorm and BatchNorm scales 1, running means 0 and variances 1, Embed
+    tables N(0, 1/dim), cls/pos/register tokens truncated N(0, 0.02), learned
+    queries N(0, 1), LayerScale gammas their init value. The draws are
+    torch's, not jax.random's: the distributions are flax's, the numbers not."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split(".")
+        module = model.get_submodule(".".join(path))
+        shape = tuple(t.shape)
+        if not t.is_floating_point():
+            value = torch.zeros(shape, dtype=t.dtype)
+        elif isinstance(module, (nn.Linear, nn.Conv2d)) and leaf == "weight":
+            fan_in = math.prod(shape[1:])  # (out, in[, kh, kw])
+            value = _truncated_normal(shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, gen)
+        elif isinstance(module, nn.Embedding):
+            value = torch.randn(shape, generator=gen) / math.sqrt(shape[1])
+        elif isinstance(module, (nn.LayerNorm, nn.BatchNorm2d)) and leaf in ("weight",
+                                                                              "running_var"):
+            value = torch.ones(shape)
+        elif leaf in ("cls_token", "pos_embed", "register_tokens"):
+            value = _truncated_normal(shape, 0.02, gen)
+        elif leaf in ("pose_queries", "global_queries"):
+            value = torch.randn(shape, generator=gen)
+        elif isinstance(module, LayerScale):
+            value = t.detach().float().cpu().clone()
+        else:  # biases, BatchNorm shifts and running means
+            value = torch.zeros(shape)
+        state[name] = value
     return state

@@ -100,13 +100,21 @@ def test_dict_and_path_load_the_same(exported):
 
 
 def test_bf16_model_holds_the_rounded_weights(exported):
+    """A bf16 model stores the checkpoint's f32 weights exactly, as flax's
+    param_dtype does, and computes with their bf16 rounding: each layer
+    casts its weights at use."""
     flat, _ = exported
     model = MultiViewPoseEstimator(port_config(JAX_CFG, dtype="bfloat16"))
     load_jax_params(model, flat)
-    w = model.fusion_module.layer_0.ffn1.weight
-    assert w.dtype == torch.bfloat16
-    want = torch.from_numpy(flat["fusion_module/layer_0/ffn1/kernel"].T.copy()).to(torch.bfloat16)
-    assert torch.equal(w, want)
+    layer = model.fusion_module.layer_0.ffn1
+    want = torch.from_numpy(flat["fusion_module/layer_0/ffn1/kernel"].T.copy())
+    bias = torch.from_numpy(flat["fusion_module/layer_0/ffn1/bias"].copy())
+    assert layer.weight.dtype == torch.float32 and torch.equal(layer.weight, want)
+    x = torch.randn(3, layer.in_features, generator=torch.Generator().manual_seed(0))
+    bf16 = torch.bfloat16
+    got = layer(x)
+    assert got.dtype == bf16
+    assert torch.equal(got, torch.nn.functional.linear(x.to(bf16), want.to(bf16), bias.to(bf16)))
     assert model.fusion_module.layer_0.norm1.weight.dtype == torch.float32  # norms stay f32
 
 
@@ -153,8 +161,8 @@ def test_random_state_is_seeded_and_shared_across_dtypes():
     assert torch.all((var - 1.0).abs() < 0.2)
     bf16.load_state_dict(b)
     ffn1 = bf16.fusion_module.layer_0.ffn1.weight
-    assert ffn1.dtype == torch.bfloat16
-    assert torch.equal(ffn1, a["fusion_module.layer_0.ffn1.weight"].to(torch.bfloat16))
+    assert ffn1.dtype == torch.float32  # f32 storage; cast to bf16 at use
+    assert torch.equal(ffn1, a["fusion_module.layer_0.ffn1.weight"])
 
 
 def test_export_is_the_inverse_of_the_bridge(exported):

@@ -40,12 +40,26 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          sync; step time, peak memory and the device's busy share;
        * `scripts/torch_train_synthetic.py --mode multi` at its defaults for
          a few hundred steps: the loss must fall;
-  7. a JSON line per kernel, the card and its power limit, then the last line
+  7. the flash-attention path (T >= 2048), each run's launches counted:
+       * the three kernels against the plain branch (bf16 against f32, 7
+         shapes: the 768-px serve and train backbones, the fusion bench, the
+         fusion's default heads, T = 37 at d = 48, an all-masked batch
+         element, T = 1), then timed beside SDPA, at T = 1025 too (phase 3);
+       * `serve --model-size 768`: 12 forward launches per tick; the bare
+         768-px step timed, never synchronizing, against the plain path;
+       * the unfrozen 768-px train step (fr3, 2 groups x 4 views): backbone
+         gradients against the plain path, then steps with 12 launches of
+         each kernel per step (phase 6);
+       * `SelfAttentionFusion` at B 4, V 8, N 513, D 768 against the plain
+         path, and its mask invariance. Every other path launches no flash
+         kernel;
+  8. a JSON line per kernel, the card and its power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -64,8 +78,20 @@ from torch.profiler import ProfilerActivity, profile
 from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step
 from mvropose_torch.data.synthetic import make_rig, rig_tuple, synthesize_multiview_batch
 from mvropose_torch.geometry.robots import get_robot
-from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
-from mvropose_torch.ops import _build, heatmap_render, int8_attention, layernorm, peak_decode
+from mvropose_torch.models import (
+    EstimatorConfig,
+    MultiViewPoseEstimator,
+    SelfAttentionFusion,
+    ViTConfig,
+)
+from mvropose_torch.ops import (
+    _build,
+    attention,
+    heatmap_render,
+    int8_attention,
+    layernorm,
+    peak_decode,
+)
 from mvropose_torch.train import TrainConfig, create_train_state, make_multi_view_train_step
 from mvropose_torch.train.state import ANG_MODULES, KPT_MODULES
 from mvropose_torch.utils.weights import (
@@ -90,14 +116,37 @@ KERNELS = {
                 "mvropose_tpu/ops/attention.py:29"),  # int8_prob_attention's P@V
     "heatmap_render": (heatmap_render, "launches", "mvropose_torch/csrc/heatmap_render.cu",
                        "mvropose_tpu/ops/heatmap_render.py:25"),  # _render_kernel
+    # JAX's stock Pallas flash attention (jax 0.9.0), which
+    # mvropose_tpu/ops/attention.py:161 calls at T >= 2048 on a TPU.
+    "flash_fwd": (attention, "launches", "mvropose_torch/csrc/flash_attention.cu",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
+    "flash_bwd_dkv": (attention, "dkv_launches", "mvropose_torch/csrc/flash_attention.cu",
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+    "flash_bwd_dq": (attention, "dq_launches", "mvropose_torch/csrc/flash_attention.cu",
+                     "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
 }
 SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_pv"]
+FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
+# The least time the card could take: the H100 SXM's published dense rates
+# at 700 W (NVIDIA's data sheet).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 # The serve default: ViT-B/16 at 512 px (T = 1024 + 1), 4 views, J=8, A=7.
 FULL = EstimatorConfig(
     vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
     num_joints=8, num_angles=7, max_views=4,
 )
 FULL_LN = dataclasses.replace(FULL, vit=dataclasses.replace(FULL.vit, fused_ln=True))
+# `serve --model-size 768`: the same ViT-B/16 at 768 px, T = 48^2 + 1 = 2305 >= 2048.
+FULL_768 = dataclasses.replace(FULL, vit=dataclasses.replace(FULL.vit, image_size=768))
+
+
+def _script(name: str):
+    """A script of scripts/ as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def check(ok: bool, what: str) -> None:
@@ -134,6 +183,14 @@ def graph_ms(fn, iters: int = 20, samples: int = 50) -> float:
         for _ in range(iters):
             fn()
     return cuda_ms(graph.replay, 1, samples) / iters
+
+
+def bound(nbytes: float, ops: float = 0.0, kind: str = "bf16") -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def time_in_turns(name: str, shape: str, plain, kernel, iters: int = 20, samples: int = 50):
@@ -214,7 +271,9 @@ def phase_peak_decode() -> dict:
     ms, plain_ms = time_in_turns("peak decode", "(32, 128, 128)",
                                  lambda: peak_decode.peak_decode_reference(x),
                                  lambda: peak_decode.peak_decode_cuda(x))
-    return {"peak_decode": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}}
+    # Reads the maps once, writes (32, 8) f32 rows; no PyTorch call decodes peaks.
+    return {"peak_decode": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                            **bound(x.numel() * 4 + 32 * 8 * 4), "library_ms": None}}
 
 
 def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, slack: float = 1e-5) -> float:
@@ -267,20 +326,35 @@ def phase_layernorm() -> dict:
         print(f"kernel vs plain [{name} ({M}, {D}) {inp} -> {out}]: LayerNorm max abs err "
               f"{gaps[0]:.3g}, residual LayerNorm {gaps[1]:.3g}, residual sum exact")
     x, h, g, b = _ln_operands(4100, 768, bf16, seed=20)
-    def two_pass():  # the float path's LayerNorm: another function, timed for scale
-        return torch.nn.functional.layer_norm(x.float(), (768,), g, b, 1e-6).to(bf16)
-
-    print(f"for scale: torch F.layer_norm (two-pass variance, f32 in, bf16 out; the float "
-          f"path's LayerNorm) {1e3 * graph_ms(two_pass):.2f} us per call (CUDA-graph replay)")
+    g16, b16 = g.to(bf16), b.to(bf16)
+    # The library call: torch's LayerNorm on bf16 in and out, a near relative
+    # (two-pass variance, bf16 gain and bias); no call fuses the residual.
+    library_ms = graph_ms(lambda: torch.nn.functional.layer_norm(x, (768,), g16, b16, 1e-6))
+    print(f"library: torch F.layer_norm (4100, 768) bf16 -> bf16 {1e3 * library_ms:.2f} us per "
+          f"call (CUDA-graph replay)")
+    row = 4100 * 768 * 2  # bytes of one bf16 (4100, 768) tensor
     out = {}
-    for kname, plain, kernel in (
+    for kname, plain, kernel, nbytes, lib in (
         ("layernorm", lambda: layernorm.layernorm_reference(x, g, b, 1e-6),
-         lambda: layernorm.layernorm_cuda(x, g, b, 1e-6)),
+         lambda: layernorm.layernorm_cuda(x, g, b, 1e-6), 2 * row, library_ms),
         ("residual_layernorm", lambda: layernorm.residual_layernorm_reference(x, h, g, b, 1e-6),
-         lambda: layernorm.residual_layernorm_cuda(x, h, g, b, 1e-6)),
+         lambda: layernorm.residual_layernorm_cuda(x, h, g, b, 1e-6), 4 * row, None),
     ):
         ms, plain_ms = time_in_turns(kname, "(4100, 768) bf16 -> bf16", plain, kernel)
-        out[kname] = {"max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms}
+        out[kname] = {"max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
+                      **bound(nbytes + 2 * 768 * 4), "library_ms": lib}
+    # At the serve shape the operands (12.6 and 25.2 MB) stay in the 50 MB L2
+    # across graph replays, so the kernels can beat the memory bound; at 8x
+    # the rows (100 and 200 MB) they cannot stay there.
+    x, h, g, b = _ln_operands(8 * 4100, 768, bf16, seed=21)
+    for kname, kernel, nbytes in (
+        ("layernorm", lambda: layernorm.layernorm_cuda(x, g, b, 1e-6), 16 * row),
+        ("residual_layernorm", lambda: layernorm.residual_layernorm_cuda(x, h, g, b, 1e-6),
+         32 * row),
+    ):
+        print(f"{kname} (32800, 768) bf16 -> bf16, operands beyond L2: "
+              f"{1e3 * graph_ms(kernel, iters=10, samples=20):.2f} us per call (CUDA-graph "
+              f"replay), bound {1e3 * bound(nbytes)['bound_ms']:.2f} us")
     return out
 
 
@@ -339,7 +413,11 @@ def phase_int8_pv() -> dict:
         lambda: int8_attention.int8_pv_cuda(pq, vq, z, sv, torch.bfloat16), samples=20,
     )
     print(f"int8 P@V kernel vs plain: max abs err {max_abs:.3g}, max relative err {max_rel:.3g}")
-    return {"int8_pv": {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}}
+    # pq, vq, z, sv read once, the bf16 output written once; the int8
+    # product's operations; torch has no batched int8 product on CUDA.
+    nbytes = pq.numel() + vq.numel() + 4 * (z.numel() + sv.numel()) + 2 * vq.numel()
+    return {"int8_pv": {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                        **bound(nbytes, 2 * 48 * 1025 * 1025 * 64, "int8"), "library_ms": None}}
 
 
 def _render_rows(M: int, H: int, W: int, seed: int, sigma=(2.0, 2.0), ties: bool = False,
@@ -403,7 +481,153 @@ def phase_heatmap_render() -> dict:
             iters=5 if H == 512 else 20, samples=20,
         )
     ms, plain_ms = out["(576, 512, 512)"]
-    return {"heatmap_render": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}}
+    # The f32 maps written once (the rows read are 7 KB); no PyTorch call renders.
+    return {"heatmap_render": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                               **bound(576 * 512 * 512 * 4 + 576 * 3 * 4), "library_ms": None}}
+
+
+# Flash-attention cases: (name, B, T, H, d, mask). Masks: "view" masks view
+# b % V of batch element b (views of 513 tokens), "random" drops 30 % of the
+# keys, "all" drops 30 % and every key of batch element 1.
+FLASH_CASES = [
+    ("serve_768", 4, 2305, 12, 64, None),  # the 768-px serve backbone
+    ("train_768", 8, 2305, 12, 64, None),  # the 768-px train backbone
+    ("fusion_bench", 4, 4104, 12, 64, "view"),  # 8 views of 513, one masked
+    ("fusion_default_heads", 2, 2052, 8, 96, "view"),  # SelfAttentionFusion's 8 heads at D = 768
+    ("t37_d48", 2, 37, 4, 48, "random"),
+    ("all_masked", 3, 300, 2, 64, "all"),
+    ("t1", 3, 1, 2, 32, None),
+]
+# Times, graph replay in turns: the full-width shapes and the backbone at
+# 512 px (T = 1025: train 72 images, serve 4), which stays on the plain path.
+FLASH_TIMED = [("serve_768", 4, 2305, None), ("train_768", 8, 2305, None),
+               ("fusion_bench", 4, 4104, "view"), ("train_512", 72, 1025, None),
+               ("serve_512", 4, 1025, None)]
+# A kernel's error may exceed the bf16 plain branch's by this much: at T = 1
+# the plain branch's dQ and dK are exactly 0 (a softmax over one key), the
+# kernels' a difference of two f32 sums of the same products (5e-8 on the card).
+FLASH_ERR_FLOOR = 1e-6
+
+
+def _flash_mask(kind, B: int, T: int, gen):
+    if kind is None:
+        return None
+    if kind == "view":
+        views = torch.arange(T) // 513
+        return (views[None, :] != (torch.arange(B) % (T // 513))[:, None]).cuda()
+    mask = torch.rand(B, T, generator=gen) > 0.3
+    if kind == "all":
+        mask[1] = False
+    return mask.cuda()
+
+
+def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, d, generator=gen).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    return [t.requires_grad_() for t in (q, k, v)], do, _flash_mask(mask_kind, B, T, gen)
+
+
+def _grads(fn, qkv, mask, do):
+    """O, dQ, dK, dV of fn on the leaves qkv, cotangent do."""
+    out = fn(*qkv, mask)
+    return [out.detach(), *torch.autograd.grad(out, qkv, do.to(out.dtype))]
+
+
+def _flash_bounds(B: int, T: int, H: int, d: int, mask) -> dict:
+    """Per kernel: its products over the keys this data attends (2 B H T^2 d
+    FLOPs each without a mask), the bf16 operands read once and outputs
+    written once. Forward: 2 products, reads q, k, v, writes O (the timed
+    call saves no statistics); dK/dV: 4 products, reads q, k, v, dO and the
+    f32 m, l, di, writes dK, dV; dQ: 3 products, reads the same, writes dQ."""
+    pairs = H * T * (B * T if mask is None else int(mask.sum()))
+    x, stat, mbytes = B * T * H * d * 2, B * H * T * 4, 0 if mask is None else B * T
+    return {"flash_fwd": bound(4 * x + mbytes, 2 * 2 * pairs * d),
+            "flash_bwd_dkv": bound(6 * x + 3 * stat + mbytes, 4 * 2 * pairs * d),
+            "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d)}
+
+
+def phase_flash() -> dict:
+    """The three flash-attention kernels against the plain branch on the
+    card, bf16, with a random dO: O, dQ, dK and dV of the kernels must be no
+    further from the plain branch in f32 on the same bf16 values than the
+    bf16 plain branch is (FLASH_ERR_FLOOR aside). Then times by CUDA-graph
+    replay, in turns plain/kernel/kernel/plain, of the forward and the
+    forward + backward, beside torch's SDPA (the library yardstick, timed
+    only here), at the full-width shapes and at T = 1025; and of the dK/dV
+    and dQ kernels alone at the 768-px train shape."""
+    bench = _script("torch_bench_attention_fusion")
+    err = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for i, (name, B, T, H, d, mask_kind) in enumerate(FLASH_CASES):
+        qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=70 + i)
+        ref = _grads(attention.flash_attention_reference,
+                     [t.detach().float().requires_grad_() for t in qkv], mask, do)
+        gaps = {}
+        for path, fn in (("kernel", attention.flash_attention_cuda),
+                         ("plain", attention.flash_attention_reference)):
+            got = _grads(fn, qkv, mask, do)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: {path} not finite")
+            gaps[path] = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+            del got
+        del ref
+        for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), gaps["kernel"], gaps["plain"]):
+            check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
+                  f"{name}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
+                  f"branch's {e_plain}")
+        ek = gaps["kernel"]
+        err["flash_fwd"] = max(err["flash_fwd"], ek[0])
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], ek[1])
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], ek[2], ek[3])
+        fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+        print(f"flash kernels vs f32 plain [{name} (B, T, H, d) = {(B, T, H, d)} mask "
+              f"{mask_kind}]: O/dQ/dK/dV max abs err kernel {fmt(ek)}, bf16 plain "
+              f"{fmt(gaps['plain'])}")
+
+    def timer(fn):
+        return graph_ms(fn, iters=2, samples=10)
+
+    out = {}
+    for name, B, T, mask_kind in FLASH_TIMED:
+        qkv, do, mask = _flash_operands(B, T, 12, 64, mask_kind, seed=80)
+        times = bench.attention_times(*qkv, mask, do, timer)
+        bounds = _flash_bounds(B, T, 12, 64, mask)
+        print(f"flash attention [{name} (B, T, H, d) = {(B, T, 12, 64)} mask {mask_kind}], ms "
+              f"per call, CUDA-graph replay, plain/kernel/kernel/plain: "
+              + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
+                          f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
+                          for part in ("fwd", "fwd_bwd"))
+              + f"; forward bound {bounds['flash_fwd']['bound_ms']:.4f} "
+              f"({bounds['flash_fwd']['bound_by']})")
+        out[name] = times
+        del qkv, do
+    # The backward kernels alone at the train shape, from one forward's
+    # statistics; their plain versions: dK, dV (or dQ) of the plain branch.
+    qkv, do, mask = _flash_operands(8, 2305, 12, 64, None, seed=81)
+    q, k, v = (t.detach() for t in qkv)
+    o, m, l = attention.flash_forward_cuda(q, k, v)
+    args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
+    kernel_ms = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
+                 "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
+    plain = attention.flash_attention_reference
+    plain_ms = {
+        "flash_bwd_dkv": timer(lambda: torch.autograd.grad(plain(*qkv), qkv[1:], do)),
+        "flash_bwd_dq": timer(lambda: torch.autograd.grad(plain(*qkv), qkv[:1], do)),
+    }
+    bounds = _flash_bounds(8, 2305, 12, 64, None)
+    train = out["train_768"]
+    result = {"flash_fwd": {"max_abs_err": err["flash_fwd"], "ms": train["kernel"]["fwd"],
+                            "plain_ms": train["plain"]["fwd"], **bounds["flash_fwd"],
+                            "library_ms": train["library"]["fwd"]}}
+    for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
+        # No one PyTorch call computes dK, dV (or dQ) alone: SDPA's backward
+        # computes all three, printed above as forward + backward.
+        result[kname] = {"max_abs_err": err[kname], "ms": kernel_ms[kname],
+                         "plain_ms": plain_ms[kname], **bounds[kname], "library_ms": None}
+        print(f"{kname} alone [(8, 2305, 12, 64)]: kernel {kernel_ms[kname]:.4f} ms, plain "
+              f"(forward + its gradients) {plain_ms[kname]:.4f} ms, bound "
+              f"{bounds[kname]['bound_ms']:.4f} ms ({bounds[kname]['bound_by']}), CUDA-graph replay")
+    return result
 
 
 def _reset_launches() -> None:
@@ -413,6 +637,13 @@ def _reset_launches() -> None:
 
 def _read_launches() -> dict:
     return {name: getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
+
+
+def _flash_zeros(n: int):
+    """Operands of the flash kernels for n tokens: q, k, v, mask, dO, m, l, di."""
+    q = torch.zeros(1, n, 2, 32, dtype=torch.bfloat16, device="cuda")
+    stat = torch.ones(1, 2, n, device="cuda")
+    return q, q, q, None, q, stat, stat, stat
 
 
 def phase_counters() -> None:
@@ -430,6 +661,9 @@ def phase_counters() -> None:
             torch.ones(2, n, device="cuda"), torch.ones(2, 64, device="cuda"), torch.float32),
         "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
             torch.zeros(n, 3, device="cuda"), 4, 4),
+        "flash_fwd": lambda n: attention.flash_attention_cuda(*_flash_zeros(n)[:3]),
+        "flash_bwd_dkv": lambda n: attention.flash_backward_dkv_cuda(*_flash_zeros(n)),
+        "flash_bwd_dq": lambda n: attention.flash_backward_dq_cuda(*_flash_zeros(n)),
     }
     for name, call in calls.items():
         for n, want in ((0, 0), (3, 1)):
@@ -456,8 +690,11 @@ def _serve(argv: list, label: str, kernels: list) -> dict:
           f"{label}: serve output shapes {xy.shape}, {conf.shape}, {ang.shape}")
     check(all(np.isfinite(a).all() for a in last), f"{label}: serve output is not finite")
     check(stats.ticks >= 10, f"{label}: served only {stats.ticks} ticks")
-    for name in kernels:
-        check(launches[name] > 0, f"{label}: the serve run launched no {name} kernel")
+    for name in KERNELS:
+        if name in kernels:
+            check(launches[name] > 0, f"{label}: the serve run launched no {name} kernel")
+        else:
+            check(launches[name] == 0, f"{label}: the serve run launched {name}: {launches}")
     print(f"serve [{label}]: {stats.ticks} ticks ({stats.frames_processed} camera frames) in "
           f"{SERVE_SECONDS:.0f} s: {stats.fps:.2f} tick/s = {stats.camera_fps:.2f} "
           f"camera-frames/s; kernel launches {launches}; host "
@@ -513,13 +750,14 @@ def _never_syncs(step) -> None:
         torch.cuda.set_sync_debug_mode("default")
 
 
-def phase_step(flat: dict) -> None:
+def phase_step(flat: dict) -> float:
     """The bare serve steps on a resident batch, bf16 and int8 + fused LN,
     timed in turns; the int8 backbone tokens and heatmaps against the bf16
     model's on the same weights, and the bf16 heatmaps against the same
     weights in f32 (TF32 off). With random N(0, 0.02) weights the blocks
     add little to the residual stream, so these gaps are small by
-    construction: accuracy against the reference is held by the CPU tests."""
+    construction: accuracy against the reference is held by the CPU tests.
+    -> the bf16 vs f32 heatmap gap."""
     dev = torch.device("cuda")
     state = random_state(MultiViewPoseEstimator(FULL, device="meta"), seed=0)
     frames = torch.from_numpy(
@@ -562,16 +800,278 @@ def phase_step(flat: dict) -> None:
     print(f"int8 + fused-LN vs bf16 backbone, same weights: patch-token cosine min "
           f"{float(cos.min()):.6f}, mean {float(cos.mean()):.6f}; max abs diff "
           f"{float((a - b).abs().max()):.6g} (bf16 tokens max abs {float(b.abs().max()):.6g})")
+    gaps = {}
     for name, ref in (("bf16 vs f32 (TF32 off)", "f32"), ("int8 + fused LN vs bf16", "bf16")):
         a = "bf16" if ref == "f32" else "int8_ln"
         hm, ang = outs[a]
         hm_ref, ang_ref = outs[ref]
         check(bool(torch.isfinite(hm).all() and torch.isfinite(ang).all()), f"{a} not finite")
-        gap = float((hm.float() - hm_ref.float()).abs().max())
+        gap = gaps[ref] = float((hm.float() - hm_ref.float()).abs().max())
         agree = float((hm.flatten(3).argmax(-1) == hm_ref.flatten(3).argmax(-1)).float().mean())
         print(f"{name}, same weights: heatmap max abs diff {gap:.6g} ({ref} heatmap max abs "
               f"{float(hm_ref.abs().max()):.6g}), argmax agreement {agree:.4f} of 32 maps, "
               f"angle max abs diff {float((ang - ang_ref).abs().max()):.6g}")
+    return gaps["f32"]
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within this block every attention takes the plain branch: the flash
+    threshold raised in this process, for the comparisons of this script."""
+    saved, attention.FLASH_MIN_TOKENS = attention.FLASH_MIN_TOKENS, 2**62
+    try:
+        yield
+    finally:
+        attention.FLASH_MIN_TOKENS = saved
+
+
+def phase_serve_768() -> dict:
+    """`serve --model-size 768` through the CLI's parser at its other
+    defaults (4 synthetic 720x1280 cameras, ViT-B/16 at T = 2305, seed-0
+    random weights, bf16): the forward kernel 12 times per tick (one per
+    block), the peak decode once, no other kernel. -> launches."""
+    launches = _serve(["--model-size", "768"], "bf16 768 px", ["peak_decode", "flash_fwd"])
+    ticks = launches["peak_decode"]
+    check(launches["flash_fwd"] == 12 * ticks,
+          f"serve 768: {launches['flash_fwd']} forward launches for {ticks} ticks, not 12 each")
+    return launches
+
+
+def phase_step_768(gap_512: float) -> None:
+    """The bare 768-px serve step on a resident batch: its launches, device
+    time by graph replay (beside the same step with the plain attention),
+    the no-host-sync check, and its heatmaps against the same weights on the
+    plain path (argmax agreement, bf16 gap), beside 512 px's bf16-vs-f32 gap."""
+    dev = torch.device("cuda")
+    model = _model(FULL_768, dev, random_state(MultiViewPoseEstimator(FULL_768, device="meta"),
+                                                seed=0))
+    frames = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, size=(4, 720, 1280, 3), dtype=np.uint8)
+    ).to(dev)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    view_ids = torch.arange(4, device=dev)[None]
+    with torch.inference_mode():
+        step = lambda: serve_step(model, frames, mask, 768, (720, 1280))  # noqa: E731
+        step()
+        _reset_launches()
+        step()
+        torch.cuda.synchronize()
+        got = _read_launches()
+        check(got == {k: {"flash_fwd": 12, "peak_decode": 1}.get(k, 0) for k in KERNELS},
+              f"768-px step launched {got}")
+        _never_syncs(step)
+        device_ms = graph_ms(step, iters=1, samples=30)
+        eager_ms = cuda_ms(step, 1, samples=30)
+        imgs = preprocess(frames, 768)[None]
+        torch.cuda.reset_peak_memory_stats()
+        hm = model(imgs, view_ids, mask[None])[0]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        tokens = model.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
+        with plain_attention():
+            plain_device_ms = graph_ms(step, iters=1, samples=30)
+            torch.cuda.reset_peak_memory_stats()
+            hm_plain = model(imgs, view_ids, mask[None])[0]
+            plain_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            tokens_plain = model.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
+    check(bool(torch.isfinite(hm).all()), "768-px heatmaps not finite")
+    tok_cos = torch.nn.functional.cosine_similarity(tokens, tokens_plain, dim=-1)
+    gap = float((hm.float() - hm_plain.float()).abs().max())
+    agree = float((hm.flatten(3).argmax(-1) == hm_plain.flatten(3).argmax(-1)).float().mean())
+    check(agree >= 0.9, f"768-px heatmaps: argmax agreement {agree} with the plain path")
+    print(f"serve step 768 px (preprocess + model + decode, 4x720x1280 u8 resident): eager "
+          f"{eager_ms:.3f} ms/step (CUDA events, median of 30); CUDA-graph replay (device "
+          f"time) {device_ms:.3f} ms with the kernel, {plain_device_ms:.3f} ms with the plain "
+          f"attention; forward peak memory {peak_gib:.2f} GiB kernel, {plain_peak_gib:.2f} GiB "
+          f"plain; 12 forward launches + 1 peak decode per step; no host-device sync")
+    print(f"768 px kernel vs plain attention, same weights (bf16): heatmap max abs diff "
+          f"{gap:.6g} (heatmap max abs {float(hm_plain.abs().max()):.6g}), argmax agreement "
+          f"{agree:.4f} of 32 maps; for scale, 512 px bf16 vs f32 heatmap gap {gap_512:.6g}; "
+          f"backbone patch tokens: cosine min {float(tok_cos.min()):.6f}, max abs diff "
+          f"{float((tokens - tokens_plain).abs().max()):.6g} (plain max abs "
+          f"{float(tokens_plain.abs().max()):.6g}); the seed-0 N(0, 0.02) weights keep the "
+          f"blocks' share of the residual stream small, so these gaps are small by construction")
+
+
+def _cosines(a: dict, b: dict) -> dict:
+    return {k: float(torch.nn.functional.cosine_similarity(a[k].flatten().float(),
+                                                           b[k].flatten().float(), dim=0))
+            for k in a}
+
+
+def _rel_errs(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| per tensor."""
+    return {k: float((got[k].float() - want[k].float()).norm()
+                     / want[k].float().norm().clamp_min(1e-30)) for k in want}
+
+
+# The unfrozen 768-px train step (`cli train --no-freeze-backbone --model-size
+# 768` on the port): ViT-B/16 at 768 px, fr3, 2 groups x 4 views, 128x128
+# heatmaps, bf16, flax_init_state seed 1.
+UNFROZEN_768 = dataclasses.replace(FULL_768, freeze_backbone=False)
+TRAIN_768_GROUPS, TRAIN_768_STEPS, TRAIN_768_TIMED = 2, 3, 5
+
+
+def phase_train_768() -> dict:
+    """One step from the same state and batch with the kernels and with the
+    plain attention: per backbone tensor the gradients' cosine >= 0.999
+    (the attention key biases aside: their gradient is 0 in exact arithmetic,
+    softmax being invariant to a per-query constant, so both are rounding
+    noise), the worst relative error, both step times and peak memories.
+    Then TRAIN_768_STEPS steps with the kernels: finite losses, the backbone
+    and every head module moved, 12 launches of each flash kernel per step,
+    two renders per batch, no host-device sync. -> launches of those steps."""
+    dev = torch.device("cuda")
+    robot = get_robot("fr3")
+    rig = rig_tuple(make_rig(n_views=4, image_hw=(768, 768)), dev)
+    model = MultiViewPoseEstimator(UNFROZEN_768, device=dev)
+    init = flax_init_state(model, seed=1)
+    tcfg = TrainConfig(freeze_backbone=False)
+    data_gen = torch.Generator(dev).manual_seed(0)
+
+    def make_batch() -> dict:
+        return synthesize_multiview_batch(robot, rig, data_gen, TRAIN_768_GROUPS,
+                                          image_hw=(768, 768), heatmap_hw=(128, 128))
+
+    batch = make_batch()
+    runs = {}
+    for path in ("kernel", "plain"):
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                stack.enter_context(plain_attention())
+            for _ in range(2):  # a warm-up step, then the compared one
+                model.load_state_dict(init)
+                state = create_train_state(model, tcfg)
+                step = make_multi_view_train_step(state.cfg)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_launches()
+                loss = step(state, batch, torch.Generator(dev).manual_seed(1))["loss"]
+            runs[path] = {
+                "loss": float(loss), "launches": _read_launches(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                          if n.startswith("backbone.")},
+            }
+            times = []  # then TRAIN_768_TIMED more steps on the same batch, timed
+            for _ in range(TRAIN_768_TIMED):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(state, batch, torch.Generator(dev).manual_seed(1))
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            runs[path]["ms"] = statistics.median(times)
+    want = {k: 12 if k in FLASH_KERNELS else 0 for k in KERNELS}
+    check(runs["kernel"]["launches"] == want, f"train 768: {runs['kernel']['launches']}")
+    check(runs["plain"]["launches"] == dict.fromkeys(KERNELS, 0),
+          f"train 768 plain: {runs['plain']['launches']}")
+    gk, gp = runs["kernel"]["grads"], runs["plain"]["grads"]
+    noise = [k for k in gk if k.endswith("attn.key.bias")]
+    cos = _cosines({k: v for k, v in gk.items() if k not in noise}, gp)
+    worst_cos = min(cos, key=cos.get)
+    rels = _rel_errs({k: v for k, v in gk.items() if k not in noise},
+                     {k: v for k, v in gp.items() if k not in noise})
+    rel_name = max(rels, key=rels.get)
+    rel = rels[rel_name]
+    check(cos[worst_cos] >= 0.999, f"train 768: {worst_cos} gradient cosine {cos[worst_cos]}")
+    del gk, gp, runs["kernel"]["grads"], runs["plain"]["grads"]
+    print(f"train step 768 px unfrozen [ViT-B/16, fr3, {TRAIN_768_GROUPS} groups x 4 views, "
+          f"128x128 heatmaps, bf16], one step from the same state and batch, then "
+          f"{TRAIN_768_TIMED} more timed (median, CUDA events): kernel "
+          f"{runs['kernel']['ms']:.3f} ms, peak memory {runs['kernel']['peak_gib']:.2f} GiB, loss "
+          f"{runs['kernel']['loss']:.6f}; plain attention {runs['plain']['ms']:.3f} ms, "
+          f"{runs['plain']['peak_gib']:.2f} GiB, loss {runs['plain']['loss']:.6f}; "
+          f"backbone gradients, kernel vs plain: min cosine {cos[worst_cos]:.6f} ({worst_cos}; "
+          f"{len(noise)} key biases aside), worst relative error {rel:.4g} ({rel_name})")
+
+    model.load_state_dict(init)
+    state = create_train_state(model, tcfg)
+    step = make_multi_view_train_step(state.cfg)
+    dropout_gen = torch.Generator(dev).manual_seed(2)
+    _reset_launches()
+    losses = [step(state, make_batch(), dropout_gen)["loss"] for _ in range(TRAIN_768_STEPS - 1)]
+    made = {}
+    _never_syncs(lambda: made.update(batch=make_batch()))
+    _never_syncs(lambda: losses.append(step(state, made["batch"], dropout_gen)["loss"]))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want = {k: (TRAIN_768_STEPS * 12 if k in FLASH_KERNELS else
+                2 * TRAIN_768_STEPS if k == "heatmap_render" else 0) for k in KERNELS}
+    check(launches == want, f"train 768: {TRAIN_768_STEPS} steps launched {launches}, want {want}")
+    loss = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(loss).all()), f"train 768: loss not finite: {loss.tolist()}")
+    moved = {k for k, v in model.state_dict().items() if not torch.equal(v, init[k].to(v.device))}
+    for name in ("backbone", *KPT_MODULES, *ANG_MODULES):
+        check(any(k.startswith(name + ".") and "running_" not in k for k in moved),
+              f"train 768: no parameter of {name} moved")
+    print(f"train 768 px unfrozen, {TRAIN_768_STEPS} steps with the kernels: losses "
+          f"{[round(v, 4) for v in loss.tolist()]}; the backbone and every head module moved; "
+          f"launches {launches}; no host-device sync in the batch render or the step")
+    return launches
+
+
+def phase_fusion() -> None:
+    """`SelfAttentionFusion` on the card (B = 4, V = 8, N = 513, D = 768, 12
+    heads, view 8 masked and filled with large garbage), run three ways:
+    bf16 through the kernels (one launch of each), bf16 on the plain path,
+    and f32 on the plain path (the yardstick; TF32 off). The output and the
+    gradients of the tokens and of every parameter (the key bias aside, as
+    in the train phase): the kernel path's relative error against f32 must
+    be at most 1.5x the bf16 plain path's. (The key projection's weight
+    gradient is a sum with much cancellation, sum_t x_t dk_t with
+    sum_t dk_t = 0, so both bf16 paths are far from each other there.) Then
+    the reference's mask-invariance check: the 7 real views' outputs equal
+    those of the 7 views alone."""
+    dev = torch.device("cuda")
+    B, V, N, D = 4, 8, 513, 768
+    init = flax_init_state(SelfAttentionFusion(D, num_heads=12, device="meta"), seed=3)
+    gen = torch.Generator(dev).manual_seed(4)
+    toks = torch.randn(B, V, N, D, generator=gen, device=dev)
+    toks[:, 7] *= 40.0
+    mask = torch.ones(B, V, dtype=torch.bool, device=dev)
+    mask[:, 7] = False
+    ct = torch.randn(B, V, N, D, generator=gen, device=dev)
+    runs, launched = {}, {}
+    for path, dtype in (("kernel", torch.bfloat16), ("plain", torch.bfloat16),
+                        ("f32", torch.float32)):
+        fusion = SelfAttentionFusion(D, num_heads=12, dtype=dtype, device=dev)
+        fusion.load_state_dict(init)
+        with plain_attention() if path != "kernel" else contextlib.nullcontext():
+            t = toks.clone().requires_grad_()
+            _reset_launches()
+            out = fusion(t, mask)
+            (out.float() * ct).sum().backward()
+            launched[path] = _read_launches()
+        runs[path] = {"out": out.detach().float(), "tokens": t.grad,
+                      **{n: p.grad for n, p in fusion.named_parameters() if n != "self_attn.key.bias"}}
+        if path == "kernel":
+            kernel_fusion = fusion
+    check(launched["kernel"] == {k: int(k in FLASH_KERNELS) for k in KERNELS},
+          f"fusion: kernel pass launched {launched['kernel']}")
+    check(launched["plain"] == dict.fromkeys(KERNELS, 0), "fusion: plain pass launched")
+    rel = {path: _rel_errs(runs[path], runs["f32"]) for path in ("kernel", "plain")}
+    ratio = {k: rel["kernel"][k] / max(rel["plain"][k], 1e-30) for k in rel["kernel"]}
+    worst = max(ratio, key=ratio.get)
+    check(all(rel["kernel"][k] <= 1.5 * rel["plain"][k] for k in ratio),
+          f"fusion: {worst} is {rel['kernel'][worst]} from f32 through the kernels, "
+          f"{rel['plain'][worst]} on the bf16 plain path")
+    cos = _cosines({k: v for k, v in runs["kernel"].items()}, runs["plain"])
+    low = min(cos, key=cos.get)
+    with torch.no_grad():
+        out8 = kernel_fusion(toks, mask)[:, :7]
+        out7 = kernel_fusion(toks[:, :7].contiguous(), mask[:, :7])
+    inv = float((out8.float() - out7.float()).abs().max())
+    inv_cos = float(torch.nn.functional.cosine_similarity(out8.flatten().float(),
+                                                          out7.flatten().float(), dim=0))
+    check(inv <= 0.1 and inv_cos >= 0.9999,
+          f"fusion: masked garbage view moved the real views by {inv} (cosine {inv_cos})")
+    print(f"SelfAttentionFusion [B {B}, V {V}, N {N}, D {D}, 12 heads, view 8 masked]: relative "
+          f"error against f32, kernel / bf16 plain path: output {rel['kernel']['out']:.4g} / "
+          f"{rel['plain']['out']:.4g}, token gradient {rel['kernel']['tokens']:.4g} / "
+          f"{rel['plain']['tokens']:.4g}, largest ratio {ratio[worst]:.3f} ({worst}: "
+          f"{rel['kernel'][worst]:.4g} / {rel['plain'][worst]:.4g}); kernel vs plain cosine min "
+          f"{cos[low]:.6f} ({low}); mask invariance: 7 real views with the masked garbage view "
+          f"vs alone (T = 4104 vs 3591) max abs diff {inv:.4g}, cosine {inv_cos:.6f}")
 
 
 def _small_reference(label: str, cfg: EstimatorConfig, scale: float, int8: bool,
@@ -715,10 +1215,7 @@ def phase_trainer() -> int:
     TRAINER_STEPS steps: finite losses, the last logged loss below
     TRAINER_LOSS_DROP of the first, two render launches per batch made
     (the eval batches and one per step). -> render launches."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_train_synthetic", ROOT / "scripts" / "torch_train_synthetic.py")
-    trainer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(trainer)
+    trainer = _script("torch_train_synthetic")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         _reset_launches()
         final = trainer.main(["--mode", "multi", "--steps", str(TRAINER_STEPS), "--workdir", work])
@@ -746,7 +1243,7 @@ def main() -> int:
     device = phase_device()
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv(),
-                **phase_heatmap_render()}
+                **phase_heatmap_render(), **phase_flash()}
     phase_counters()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
     flat = seed0_flat()
@@ -758,9 +1255,15 @@ def main() -> int:
              "--int8-attention"], "int8 + fused LN", SERVE_KERNELS,
         )
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
-    phase_step(flat)
+    gap_512 = phase_step(flat)
+    serve_768 = phase_serve_768()
+    phase_step_768(gap_512)
     phase_small_reference()
     launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
+    train_768 = phase_train_768()
+    phase_fusion()
+    for name in ("peak_decode", "heatmap_render", *FLASH_KERNELS):
+        launches[name] = launches.get(name, 0) + serve_768[name] + train_768[name]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], **measured[name],

@@ -3,10 +3,12 @@
 Port of the reference's `cli serve` (`mvropose_tpu/cli/main.py::_cmd_serve`)
 for the multi-view checkpoint with the query angle head: N camera sources ->
 one batched step (preprocess + model + peak decode) per rig tick through the
-shared `mvropose_tpu.rig.StreamingPipeline`. `--int8-backbone` (and
-`--int8-attention` with it) quantize the loaded model as the reference's
-flags do; a checkpoint whose model_config.json says `fused_ln` runs the
-fused LayerNorm. The serve flags that belong to modules not ported yet exit
+port's `rig.StreamingPipeline` (a copy of the reference's).
+`--int8-backbone` (and `--int8-attention` with it) quantize the loaded model
+as the reference's flags do; a checkpoint whose model_config.json says
+`fused_ln` runs the fused LayerNorm. At `--model-size` 736 and above the
+backbone has T >= 2048 tokens and its attention runs the flash kernel on the
+card (`ops/attention.py`), as the reference's does on a TPU. The serve flags that belong to modules not ported yet exit
 with an error naming the ROADMAP.md item that ports them; they never fall
 back to something else.
 """
@@ -27,6 +29,7 @@ from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
 from mvropose_torch.models.heads import resize_bilinear
 from mvropose_torch.models.vit import device_constant
+from mvropose_torch.rig import FileReplaySource, StreamingPipeline, SyntheticSource
 from mvropose_torch.utils.weights import int8ify, load_jax_params, random_state
 
 # Serve options of the reference whose modules are not ported yet.
@@ -190,8 +193,6 @@ def serve(args):
 
     Returns (StreamStats, last fetched result (keypoints, confidence, angles)
     as numpy arrays)."""
-    from mvropose_tpu.rig import FileReplaySource, StreamingPipeline, SyntheticSource
-
     for attr, (flag, item) in _UNPORTED.items():
         if getattr(args, attr):
             raise SystemExit(f"{flag} is not ported yet (ROADMAP.md {item})")

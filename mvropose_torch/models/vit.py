@@ -9,10 +9,13 @@ Images enter NCHW; module attribute names equal the flax module names, so
 Precision follows the reference: parameters are held in f32 and cast to the
 compute dtype at use (flax's `param_dtype`, `models/layers.py`), matmuls and
 convs run in the compute dtype, LayerNorms in f32, the residual stream in the
-compute dtype, the final norm's output in f32. Attention is a plain
-matmul + softmax in the compute dtype, like the reference's XLA branch
-(`mvropose_tpu/ops/attention.py:102-114`), which is what it runs at the
-backbone's T = 1025 on every backend.
+compute dtype, the final norm's output in f32. The blocks' attention is
+the reference's `FusedMHA`: `ops/attention.py::fused_self_attention`, a
+plain matmul + softmax in the compute dtype (the reference's XLA branch,
+`mvropose_tpu/ops/attention.py:102-114`) below T = 2048 tokens or on the
+CPU, and the flash-attention kernels at T >= 2048 on the card, where the
+reference runs its Pallas flash kernel on a TPU (`--model-size` >= 736 at
+patch 16).
 
 The serve variants of the reference run here too: `fused_ln` normalizes
 through `ops/layernorm.py` (the reference's fused kernels' arithmetic: fast
@@ -35,6 +38,7 @@ from torch import nn
 
 from mvropose_torch.models.layers import Conv2d, Linear
 from mvropose_torch.models.quantize import Int8Linear
+from mvropose_torch.ops.attention import fused_self_attention, rounded
 from mvropose_torch.ops.int8_attention import int8_prob_attention
 from mvropose_torch.ops.layernorm import fused_layernorm, fused_residual_layernorm
 
@@ -154,11 +158,6 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_prefix:
     return torch.cat([prefix, patches], dim=2)
 
 
-def _rounded(value: float, dtype: torch.dtype) -> float:
-    """`value` rounded to `dtype`, as a Python float (no device copy)."""
-    return torch.tensor(value, dtype=dtype).item()
-
-
 def attention_dropout_multiplier(shape, rate: float, dtype: torch.dtype, device,
                                  generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's attention dropout (`broadcast_dropout=True`): one (Tq, Tk) keep
@@ -166,7 +165,7 @@ def attention_dropout_multiplier(shape, rate: float, dtype: torch.dtype, device,
     keep / (1 - rate) in the attention dtype."""
     keep_prob = 1.0 - rate
     keep = torch.rand(tuple(shape), generator=generator, device=device) < keep_prob
-    return keep.to(dtype) / _rounded(keep_prob, dtype)
+    return keep.to(dtype) / rounded(keep_prob, dtype)
 
 
 def dot_product_attention(q, k, v, key_mask: Optional[torch.Tensor] = None,
@@ -178,7 +177,7 @@ def dot_product_attention(q, k, v, key_mask: Optional[torch.Tensor] = None,
     logits (key_mask (B, Tk) False) are set to the dtype's lowest finite
     value, softmax runs in the compute dtype; with `dropout_rate` the
     attention weights are multiplied by `attention_dropout_multiplier`."""
-    q = q / _rounded(math.sqrt(q.shape[-1]), q.dtype)
+    q = q / rounded(math.sqrt(q.shape[-1]), q.dtype)
     logits = q @ k.transpose(-2, -1)
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask[:, None, None, :], torch.finfo(logits.dtype).min)
@@ -196,40 +195,56 @@ def _dense(din: int, dout: int, dtype: torch.dtype, quant: Optional[str], device
 
 
 class MultiHeadAttention(nn.Module):
-    """flax `MultiHeadDotProductAttention` / the reference's `FusedMHA`:
-    q/k/v/out projections with bias, in the compute dtype (`Int8Linear`s
-    with quant="int8"); `int8_attention` runs `int8_prob_attention`.
+    """flax `MultiHeadDotProductAttention` (the decoder layers): q/k/v/out
+    projections with bias in the compute dtype, `dot_product_attention`;
     `dropout_rate` drops attention weights (train mode of the decoder
-    layers; the backbone never drops)."""
+    layers)."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
-                 quant: Optional[str] = None, int8_attention: bool = False):
+                 quant: Optional[str] = None):
         super().__init__()
         self.num_heads = num_heads
-        self.int8_attention = int8_attention
         self.query = _dense(dim, dim, dtype, quant, device)
         self.key = _dense(dim, dim, dtype, quant, device)
         self.value = _dense(dim, dim, dtype, quant, device)
         self.out = _dense(dim, dim, dtype, quant, device)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) -> (B, T, H, D / H), a view."""
         B, T, D = x.shape
-        return x.view(B, T, self.num_heads, D // self.num_heads).transpose(1, 2)
+        return x.view(B, T, self.num_heads, D // self.num_heads)
 
-    def forward(self, x, kv=None, key_mask=None, rope=None, dropout_rate: float = 0.0,
+    def forward(self, x, kv=None, key_mask=None, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None):
         kv = x if kv is None else kv
-        q = self._heads(self.query(x))
-        k = self._heads(self.key(kv))
-        v = self._heads(self.value(kv))
+        q, k, v = (self._heads(t).transpose(1, 2)
+                   for t in (self.query(x), self.key(kv), self.value(kv)))
+        o = dot_product_attention(q, k, v, key_mask, dropout_rate, generator).transpose(1, 2)
+        B, T = o.shape[:2]
+        return self.out(o.reshape(B, T, -1))
+
+
+class FusedMHA(MultiHeadAttention):
+    """The reference's `FusedMHA` (`mvropose_tpu/models/vit.py:199-257`),
+    self-attention of the backbone blocks and `SelfAttentionFusion`: the
+    same parameters as `MultiHeadAttention` (`Int8Linear`s with
+    quant="int8"), RoPE on the patch tokens of q and k, then
+    `fused_self_attention` (the flash kernels at T >= 2048 on the card), or
+    `int8_prob_attention` with `int8_attention`."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
+                 quant: Optional[str] = None, int8_attention: bool = False):
+        super().__init__(dim, num_heads, dtype, device, quant)
+        self.int8_attention = int8_attention
+
+    def forward(self, x, key_mask=None, rope=None):
+        q, k, v = (self._heads(t) for t in (self.query(x), self.key(x), self.value(x)))
         if rope is not None:
             cos, sin, n_prefix = rope
-            q = _apply_rope(q, cos, sin, n_prefix)
-            k = _apply_rope(k, cos, sin, n_prefix)
-        if self.int8_attention:
-            o = int8_prob_attention(*(t.transpose(1, 2) for t in (q, k, v)), key_mask=key_mask)
-        else:
-            o = dot_product_attention(q, k, v, key_mask, dropout_rate, generator).transpose(1, 2)
+            q, k = (_apply_rope(t.transpose(1, 2), cos, sin, n_prefix).transpose(1, 2)
+                    for t in (q, k))
+        attend = int8_prob_attention if self.int8_attention else fused_self_attention
+        o = attend(q, k, v, key_mask=key_mask)
         B, T = o.shape[:2]
         return self.out(o.reshape(B, T, -1))
 
@@ -264,8 +279,8 @@ class Block(nn.Module):
         D, dt, eps = cfg.hidden_size, cfg.compute_dtype, cfg.layer_norm_eps
         self.fused_ln = cfg.fused_ln
         self.norm1 = nn.LayerNorm(D, eps=eps, device=device)
-        self.attn = MultiHeadAttention(D, cfg.num_heads, dt, device, quant=cfg.quant,
-                                       int8_attention=cfg.quant_attn == "int8")
+        self.attn = FusedMHA(D, cfg.num_heads, dt, device, quant=cfg.quant,
+                             int8_attention=cfg.quant_attn == "int8")
         self.norm2 = nn.LayerNorm(D, eps=eps, device=device)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio), dt, device, quant=cfg.quant)
         if cfg.layerscale_init is not None:

@@ -1,0 +1,240 @@
+"""Self-attention of the backbone blocks and `SelfAttentionFusion`: the
+flash-attention kernels and their plain-torch version.
+
+Port of `mvropose_tpu/ops/attention.py::fused_self_attention`. The reference
+runs its plain branch (einsums and a softmax in the operand dtype) below
+T = 2048 tokens or off the TPU, and JAX's stock Pallas flash attention
+(forward, dK/dV and dQ kernels under a `custom_vjp`) at T >= 2048 on a TPU.
+The port keeps that rule with "on the card" for "on a TPU": at T >=
+`FLASH_MIN_TOKENS` a CUDA tensor goes to the kernels of
+`csrc/flash_attention.cu` (their source note says what bounds them), else
+to `flash_attention_reference`, the plain branch. With a key mask the port
+follows the plain branch where the two branches of the reference disagree:
+a query with no valid key averages v over the T real keys (the reference's
+flash branch averages over T padded to 512).
+
+Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
+read them through their strides, so the projections' outputs go in as they
+are, and write O and the gradients in the same layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from mvropose_torch.ops._build import load_library
+
+# Launches of the forward, dK/dV and dQ kernels.
+launches = 0
+dkv_launches = 0
+dq_launches = 0
+
+FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
+HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
+
+
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float (no device copy): a
+    weakly typed JAX scalar meets a tensor in the tensor's dtype."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def flash_attention_reference(q, k, v, key_mask=None) -> torch.Tensor:
+    """The reference's plain branch (`ops/attention.py:102-114`): (B, T, H, d)
+    q, k, v and an optional (B, T) bool key mask (False = not attended) ->
+    (B, T, H, d) in q's dtype. q times 1/sqrt(d) rounded to q's dtype (the
+    reference's weakly typed scale), logits in q's dtype, masked logits set
+    to the dtype's lowest finite value, softmax in q's dtype."""
+    scale = rounded(1.0 / math.sqrt(q.shape[-1]), q.dtype)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, T, d) views
+    logits = (qh * scale) @ kh.transpose(-2, -1)
+    if key_mask is not None:
+        logits = logits.masked_fill(~key_mask[:, None, None, :], torch.finfo(logits.dtype).min)
+    return (torch.softmax(logits, dim=-1) @ vh).transpose(1, 2)
+
+
+def flash_attention_reference_f32(q, k, v, key_mask=None) -> torch.Tensor:
+    """The plain branch in f32 on the same values: the yardstick of the
+    kernels' and the bf16 plain branch's errors on the card."""
+    return flash_attention_reference(q.float(), k.float(), v.float(), key_mask)
+
+
+@functools.cache
+def _kernels():
+    lib = load_library()
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = lib.flash_attention_forward
+    fwd.argtypes = [ptr] * 7 + [i32] * 4 + [ptr, f32, ptr]
+    dkv = lib.flash_attention_backward_dkv
+    dkv.argtypes = [ptr] * 10 + [i32] * 4 + [ptr, f32, ptr]
+    dq = lib.flash_attention_backward_dq
+    dq.argtypes = [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr]
+    for fn in (fwd, dkv, dq):
+        fn.restype = ctypes.c_int
+    return fwd, dkv, dq
+
+
+def _kernel_layout(t: torch.Tensor) -> bool:
+    """Whether the kernels read `t` as it is: unit stride along d, the other
+    strides whole 16-byte rows, a 16-byte aligned base."""
+    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check(q, k, v, key_mask) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one (B, T, H, d) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"the flash-attention kernels take bf16 operands, got {name} "
+                             f"in {t.dtype}")
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {name} on {t.device}")
+    if B >= 65536 or H >= 65536:
+        raise ValueError(f"the flash-attention kernels take fewer than 65536 batch elements "
+                         f"and heads, got B = {B}, H = {H}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _kernel_layout(t):
+            raise ValueError(f"{name} of strides {t.stride()}: the kernels read unit-stride "
+                             "rows of d at 16-byte aligned addresses")
+    if key_mask is not None and (key_mask.shape != (B, T) or key_mask.dtype != torch.bool
+                                 or key_mask.device != q.device):
+        raise ValueError(f"key_mask must be (B, T) = {(B, T)} bool on {q.device}, got "
+                         f"{tuple(key_mask.shape)} {key_mask.dtype} on {key_mask.device}")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _strides(*tensors) -> ctypes.Array:
+    return (ctypes.c_int64 * 12)(*(s for t in tensors for s in t.stride()[:3]),
+                                 *([0] * (12 - 3 * len(tensors))))
+
+
+def mask_bytes(key_mask):
+    """A (B, T) bool key mask as the kernels read it: (B, T) bytes, a view."""
+    return None if key_mask is None else key_mask.contiguous().view(torch.uint8)
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash-attention {kernel} launch failed with CUDA error {err}")
+
+
+def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
+    """Launch the forward kernel on operands that `flash_attention_cuda`
+    takes (mask as `mask_bytes`) -> (O (B, T, H, d) bf16, m, l), with the
+    row statistics m (base 2) and l as (B, H, T) f32 when `save_stats`."""
+    global launches
+    B, T, H, d = q.shape
+    o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
+    m = l = None
+    if save_stats:
+        m = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    if B * T * H:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
+                                o.data_ptr(), _ptr(m), _ptr(l), B, H, T, d, _strides(q, k, v),
+                                1.0 / math.sqrt(d), stream)
+        _raise_on(err, "forward")
+        launches += 1
+    return o, m, l
+
+
+def row_dot(do, o) -> torch.Tensor:
+    """di = rowsum(dO o O) in f32, (B, H, T), as the reference computes it
+    in jnp beside its backward kernels."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _backward_args(q, k, v, mask_u8, do, m, l, di):
+    B, T, H, d = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8), do.data_ptr(),
+            m.data_ptr(), l.data_ptr(), di.data_ptr())
+    return ptrs, (B, H, T, d, _strides(q, k, v, do), 1.0 / math.sqrt(d))
+
+
+def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
+    """Launch the dK/dV kernel: the forward's operands and statistics, dO in
+    their layout and di = `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) bf16."""
+    global dkv_launches
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    if q.numel():
+        ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _kernels()[1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
+        _raise_on(err, "dK/dV")
+        dkv_launches += 1
+    return dk, dv
+
+
+def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
+    """Launch the dQ kernel (arguments as `flash_backward_dkv_cuda`) -> dQ."""
+    global dq_launches
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel():
+        ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _kernels()[2](*ptrs, dq.data_ptr(), *dims, stream)
+        _raise_on(err, "dQ")
+        dq_launches += 1
+    return dq
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward: di in plain torch, the dK/dV kernel, then
+    the dQ kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_u8):
+        o, m, l = flash_forward_cuda(q, k, v, mask_u8)
+        ctx.save_for_backward(q, k, v, mask_u8, o, m, l)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask_u8, o, m, l = ctx.saved_tensors
+        if not _kernel_layout(do):
+            do = do.contiguous()
+        args = (q, k, v, mask_u8, do, m, l, row_dot(do, o))
+        dk, dv = flash_backward_dkv_cuda(*args)
+        return flash_backward_dq_cuda(*args), dk, dv, None
+
+
+def flash_attention_cuda(q, k, v, key_mask=None) -> torch.Tensor:
+    """The kernels on CUDA bf16 (B, T, H, d) q, k, v with d in HEAD_DIMS and
+    an optional (B, T) bool key mask -> (B, T, H, d) bf16; differentiable
+    through the dK/dV and dQ kernels. Raises on any other input: it never
+    runs the plain version."""
+    _check(q, k, v, key_mask)
+    mask_u8 = mask_bytes(key_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, mask_u8)
+    return flash_forward_cuda(q, k, v, mask_u8, save_stats=False)[0]
+
+
+def fused_self_attention(q, k, v, use_flash: bool | None = None, key_mask=None) -> torch.Tensor:
+    """Self-attention on (B, T, H, d) q, k, v with an optional (B, T) bool
+    key mask (False = not attended) -> (B, T, H, d) in q's dtype.
+
+    use_flash=None takes the kernels for a CUDA q at T >= FLASH_MIN_TOKENS,
+    the reference's rule, else the plain branch; True takes the kernels
+    (raising for a CPU tensor), False the plain branch."""
+    if use_flash is None:
+        use_flash = q.device.type == "cuda" and q.shape[1] >= FLASH_MIN_TOKENS
+    if use_flash:
+        return flash_attention_cuda(q, k, v, key_mask)
+    return flash_attention_reference(q, k, v, key_mask)

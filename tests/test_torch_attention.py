@@ -1,0 +1,380 @@
+"""The flash-attention slice: the port's `fused_self_attention`, `FusedMHA`
+and `SelfAttentionFusion` against the reference's, on the CPU in f32.
+
+The reference's flash branch (JAX's stock Pallas flash attention, forward
+and backward) runs here in interpret mode under
+`pltpu.force_tpu_interpret_mode()`; for the modules, which pick the branch
+themselves, `mvropose_tpu.ops.attention.fused_self_attention` is replaced by
+its `use_flash=True` form for the test (`FusedMHA` imports it at call time),
+so nothing in the reference changes. On the CPU the port runs its plain
+branch; its CUDA kernels are held against that on the card by the
+`cuda`-marked tests below and by `chip_smoke.py`.
+
+Tolerances, f32, for sums taken in another order: the attention forward
+1e-5 and its q/k/v gradients 2e-5 absolute (measured gaps below 1e-6); the
+module's output and token gradient 1e-5 absolute (measured 2.4e-6), its
+parameter gradients 1e-5 absolute plus 1e-5 relative (measured 2.2e-5 on
+gradients of up to 61); the estimator at T >= 2048 as the serve-parity
+tests (`test_torch_serve.py`) and the train-step test (`test_torch_train.py`).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import mvropose_tpu.ops.attention as jax_attention
+from mvropose_tpu.models import EstimatorConfig as JaxEstimatorConfig
+from mvropose_tpu.models import MultiViewPoseEstimator as JaxEstimator
+from mvropose_tpu.models import SelfAttentionFusion as JaxSelfAttentionFusion
+from mvropose_tpu.models.vit import ViTConfig as JaxViTConfig
+from mvropose_tpu.train.losses import masked_multiview_heatmap_loss
+from mvropose_tpu.train.step import _huber_per_sample, _weighted_mean
+
+from mvropose_torch.models import MultiViewPoseEstimator, SelfAttentionFusion
+from mvropose_torch.models.heads import DecoderLayer
+from mvropose_torch.ops import attention
+from mvropose_torch.train import TrainConfig, create_train_state, make_multi_view_train_step
+from mvropose_torch.utils.weights import export_jax_params, load_jax_params, plan_jax_params
+from test_torch_serve import port_config
+from test_torch_train import jax_without_dropout  # noqa: F401 - a fixture
+from torch_parity import export_npz, np32, random_variables
+
+
+def _qkv(rng, B, T, H, d):
+    return [rng.normal(size=(B, T, H, d)).astype(np.float32) for _ in range(3)]
+
+
+def _jax_attention(q, k, v, ct, mask, use_flash):
+    """Output and q/k/v gradients of sum(out * ct) through the reference."""
+    km = None if mask is None else jnp.asarray(mask)
+    fn = lambda q, k, v: jax_attention.fused_self_attention(  # noqa: E731
+        q, k, v, use_flash=use_flash, key_mask=km)
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+        grads = vjp(jnp.asarray(ct))
+    return [np32(t) for t in (out, *grads)]
+
+
+def _port_attention(q, k, v, ct, mask):
+    """The same through the port (its plain branch, on the CPU)."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    km = None if mask is None else torch.from_numpy(mask)
+    out = attention.fused_self_attention(*ts, key_mask=km)
+    (out * torch.from_numpy(ct)).sum().backward()
+    return [np32(t) for t in (out, *(t.grad for t in ts))]
+
+
+@pytest.mark.parametrize("B, T, H, d, masked", [
+    (2, 37, 2, 64, True),
+    (1, 130, 3, 48, False),
+    (1, 520, 2, 32, True),  # T padded to 1024: two key blocks of the reference's kernel
+])
+def test_fused_self_attention_matches_jax_flash(B, T, H, d, masked):
+    rng = np.random.default_rng(T)
+    q, k, v = _qkv(rng, B, T, H, d)
+    ct = rng.normal(size=q.shape).astype(np.float32)
+    mask = None
+    if masked:
+        mask = rng.uniform(size=(B, T)) > 0.3
+        mask[:, 0] = True  # every batch element keeps a valid key
+    got = _port_attention(q, k, v, ct, mask)
+    for use_flash in (True, False):
+        want = _jax_attention(q, k, v, ct, mask, use_flash)
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5, err_msg=f"out {use_flash}")
+        for name, g, w in zip("qkv", got[1:], want[1:]):
+            np.testing.assert_allclose(g, w, rtol=0, atol=2e-5, err_msg=f"d{name} {use_flash}")
+    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+
+
+def _all_masked_case():
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 2, 37, 2, 64)
+    ct = rng.normal(size=q.shape).astype(np.float32)
+    mask = rng.uniform(size=(2, 37)) > 0.3
+    mask[1] = False  # batch element 1: no valid key
+    return q, k, v, ct, mask
+
+
+def test_all_masked_rows_follow_the_plain_branch():
+    """A query with no valid key: the plain branch's value, the mean of v
+    over the T real keys, with q and k gradients 0; the port equals the
+    reference's use_flash=False branch everywhere."""
+    q, k, v, ct, mask = _all_masked_case()
+    got = _port_attention(q, k, v, ct, mask)
+    want = _jax_attention(q, k, v, ct, mask, use_flash=False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-5)
+    mean_v = v[1].mean(axis=0)  # (H, d)
+    np.testing.assert_allclose(got[0][1], np.broadcast_to(mean_v, got[0][1].shape), atol=1e-6)
+    assert np.abs(got[1][1]).max() == 0 and np.abs(got[2][1]).max() == 0
+    # dv of each key of that element: the sum over its queries of ct / T.
+    np.testing.assert_allclose(got[3][1], np.broadcast_to(ct[1].sum(0) / 37, got[3][1].shape),
+                               atol=1e-5)
+
+
+def test_reference_flash_branch_averages_all_masked_rows_over_the_padded_length():
+    """The divergence the port does not follow, pinned: the reference's
+    flash branch gives sum(v) / T_pad (T = 37 padded to 512) where its plain
+    branch gives sum(v) / T. Should the reference change, this test shows it."""
+    q, k, v, ct, mask = _all_masked_case()
+    flash = _jax_attention(q, k, v, ct, mask, use_flash=True)
+    np.testing.assert_allclose(flash[0][1], np.broadcast_to(v[1].sum(0) / 512, flash[0][1].shape),
+                               atol=1e-6)
+    plain = _jax_attention(q, k, v, ct, mask, use_flash=False)
+    np.testing.assert_allclose(flash[0][0], plain[0][0], atol=1e-5)  # element 0 agrees
+
+
+def test_flash_kernels_refuse_cpu_and_unsupported_inputs():
+    """The wrapper never runs the plain version: a CPU tensor, a head width
+    without a kernel and f32 operands raise, and nothing is counted."""
+    bf = lambda d, dtype=torch.bfloat16: [torch.zeros(1, 8, 2, d, dtype=dtype)] * 3  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.flash_attention_cuda(*bf(64))
+    with pytest.raises(ValueError, match="d = 40"):
+        attention.flash_attention_cuda(*bf(40))
+    with pytest.raises(ValueError, match="float32"):
+        attention.flash_attention_cuda(*bf(64, torch.float32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.fused_self_attention(*bf(64), use_flash=True)
+    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+
+
+def test_cpu_tensors_take_the_plain_branch_at_any_t():
+    """use_flash=None: the kernels for a CUDA q at T >= 2048 (the reference:
+    a TPU at T >= 2048); a CPU q takes the plain branch at any T."""
+    q = torch.zeros(1, attention.FLASH_MIN_TOKENS, 1, 32)
+    out = attention.fused_self_attention(q, q, q)
+    assert out.shape == q.shape and attention.launches == 0
+    assert attention.FLASH_MIN_TOKENS == 2048
+
+
+# --- SelfAttentionFusion ------------------------------------------------------------
+
+
+@pytest.fixture
+def jax_flash_forced(monkeypatch):
+    """The reference's modules take the flash branch (in interpret mode)."""
+    monkeypatch.setattr(jax_attention, "fused_self_attention",
+                        functools.partial(jax_attention.fused_self_attention, use_flash=True))
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+B_F, V_F, N_F, D_F, H_F = 2, 3, 40, 128, 2
+
+
+def _fusion_case(tmp_path):
+    rng = np.random.default_rng(31)
+    toks = rng.normal(size=(B_F, V_F, N_F, D_F)).astype(np.float32)
+    mask = np.array([[True, False, True], [True, True, True]])
+    model = JaxSelfAttentionFusion(num_heads=H_F, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda key: model.init(key, toks, mask), jax.random.PRNGKey(0))
+    variables = random_variables(shapes, seed=32)
+    port = SelfAttentionFusion(D_F, num_heads=H_F, dtype=torch.float32)
+    load_jax_params(port, export_npz(variables, tmp_path / "fusion.npz"))
+    return model, variables, port, toks, mask, rng
+
+
+def test_self_attention_fusion_matches_jax_flash(jax_flash_forced, tmp_path):
+    """Forward, and the gradients of every parameter and of the tokens, with
+    one view masked, against the reference's module on its flash branch."""
+    model, variables, port, toks, mask, rng = _fusion_case(tmp_path)
+    ct = rng.normal(size=toks.shape).astype(np.float32)
+
+    def loss(params, toks):
+        out = model.apply({"params": params}, toks, jnp.asarray(mask))
+        return jnp.sum(out * ct), out
+
+    (_, want), (g_params, g_toks) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        variables["params"], jnp.asarray(toks))
+    t = torch.from_numpy(toks).requires_grad_()
+    got = port(t, torch.from_numpy(mask))
+    (got * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(np32(got), np32(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np32(t.grad), np32(g_toks), rtol=0, atol=1e-5)
+    grads = export_npz({"params": g_params}, tmp_path / "grads.npz")
+    with np.load(grads) as data:
+        g_want = {n: v for n, (_, v) in plan_jax_params(port, dict(data)).items()}
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(np32(p.grad), g_want[name], rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_self_attention_fusion_masked_views_contribute_nothing():
+    """The reference's mask-invariance check (tests/test_models.py:123-140)
+    on the port: a masked view of large garbage changes no real view's
+    output."""
+    rng = np.random.default_rng(42)
+    torch.manual_seed(0)
+    model = SelfAttentionFusion(32, num_heads=4, dtype=torch.float32)
+    toks = torch.from_numpy(rng.normal(size=(1, 2, 8, 32)).astype(np.float32))
+    out2 = model(toks, torch.ones(1, 2, dtype=torch.bool))
+    assert out2.shape == (1, 2, 8, 32)
+    garbage = torch.from_numpy(rng.normal(size=(1, 1, 8, 32)).astype(np.float32) * 40)
+    out3 = model(torch.cat([toks, garbage], dim=1), torch.tensor([[True, True, False]]))
+    np.testing.assert_allclose(np32(out3[:, :2]), np32(out2), atol=1e-4)
+
+
+def test_self_attention_fusion_weights_round_trip(tmp_path):
+    """The reference's parameter tree loads strictly and exports back
+    unchanged: the same names, shapes and values, DenseGeneral layouts
+    included; a missing or an extra leaf raises."""
+    _, variables, port, _, _, _ = _fusion_case(tmp_path)
+    with np.load(tmp_path / "fusion.npz") as data:
+        flat = dict(data)
+    assert "self_attn/query/kernel" in flat and flat["self_attn/query/kernel"].shape == (
+        D_F, H_F, D_F // H_F)
+    back = export_jax_params(port)
+    assert set(back) == set(flat)
+    for name, arr in flat.items():
+        np.testing.assert_array_equal(back[name], arr, err_msg=name)
+    with pytest.raises(KeyError):
+        load_jax_params(port, {k: v for k, v in flat.items() if k != "norm2/bias"})
+    with pytest.raises(KeyError):
+        load_jax_params(port, {**flat, "self_attn/extra/kernel": flat["mlp1/kernel"]})
+
+
+# --- the slice at T >= 2048 -----------------------------------------------------------
+
+# hidden 64, 1 layer, 2 heads (d = 32), 2 views; patch 2 at 92 px: T = 46^2 + 1 = 2117.
+LONG = JaxEstimatorConfig(
+    vit=JaxViTConfig(image_size=92, patch_size=2, hidden_size=64, num_layers=1, num_heads=2,
+                     dtype="float32"),
+    num_joints=4, num_angles=3, heatmap_size=(32, 32), max_views=2, num_fusion_queries=4,
+    num_angle_queries=2, freeze_backbone=False, dtype="float32",
+)
+
+
+@pytest.fixture(scope="module")
+def long_model(tmp_path_factory):
+    rng = np.random.default_rng(33)
+    images = rng.normal(size=(1, 2, 92, 92, 3)).astype(np.float32)
+    view_ids = np.arange(2, dtype=np.int32)[None]
+    mask = np.ones((1, 2), bool)
+    model = JaxEstimator(LONG)
+    shapes = jax.eval_shape(lambda key: model.init(key, images, view_ids, mask),
+                            jax.random.PRNGKey(0))
+    variables = random_variables(shapes, seed=34)
+    npz = export_npz(variables, tmp_path_factory.mktemp("long") / "p.npz")
+    return model, variables, npz, {"images": images, "view_ids": view_ids, "view_mask": mask}
+
+
+def test_estimator_at_t_2117_matches_jax(long_model):
+    """The backbone at T >= 2048: heatmaps and angles at the serve-parity
+    tolerance. On the CPU both packages take their plain branch."""
+    model, variables, npz, batch = long_model
+    assert (92 // 2) ** 2 + 1 >= attention.FLASH_MIN_TOKENS
+    hm_ref, ang_ref = jax.jit(model.apply)(variables, *map(jnp.asarray, batch.values()))
+    port = MultiViewPoseEstimator(port_config(LONG)).eval()
+    load_jax_params(port, npz)
+    with torch.no_grad():
+        hm, ang = port(*(torch.from_numpy(a) for a in batch.values()))
+    np.testing.assert_allclose(np32(hm), np32(hm_ref), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(np32(ang), np32(ang_ref), rtol=1e-3, atol=1e-3)
+    assert attention.launches == 0
+
+
+def test_unfrozen_train_step_at_t_2117_matches_jax(long_model, jax_without_dropout, tmp_path):
+    """`freeze_backbone=False`: one train step's backbone gradients against
+    the reference's, at the tolerance of test_torch_train.py's step test."""
+    model, variables, npz, batch = long_model
+    rng = np.random.default_rng(35)
+    batch = {**batch, "heatmaps": rng.uniform(0, 1, size=(1, 2, 4, 32, 32)).astype(np.float32),
+             "angles": rng.uniform(-1, 1, size=(1, 3)).astype(np.float32)}
+    tcfg = dict(num_epochs=1, steps_per_epoch=10, freeze_backbone=False)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(params):  # the reference's train-step loss (train/step.py)
+        (hm, ang), _ = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                                   jbatch["images"], jbatch["view_ids"], jbatch["view_mask"],
+                                   train=True, mutable=["batch_stats"])
+        loss_ang = _weighted_mean(_huber_per_sample(ang, jbatch["angles"], 1.0),
+                                  jnp.any(jbatch["view_mask"], axis=1))
+        loss_kpt = masked_multiview_heatmap_loss(hm, jbatch["heatmaps"], jbatch["view_mask"])
+        return loss_kpt * 100.0 + loss_ang
+
+    loss, g = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    export_npz({"params": g, "batch_stats": variables["batch_stats"]}, tmp_path / "g.npz")
+    with np.load(tmp_path / "g.npz") as data:
+        flat = dict(data)
+
+    port = MultiViewPoseEstimator(port_config(LONG))
+    load_jax_params(port, npz)
+    for m in port.modules():
+        if isinstance(m, DecoderLayer):
+            m.dropout = 0.0
+    state = create_train_state(port, TrainConfig(**tcfg))
+    got = make_multi_view_train_step(state.cfg)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()}, torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(float(got["loss"]), float(loss), rtol=1e-5)
+    g_want = {n: v for n, (_, v) in plan_jax_params(port, flat).items()}
+    params = dict(port.named_parameters())
+    top = max(float(np.abs(g_want[n]).max()) for n in params)
+    backbone = [n for n in params if n.startswith("backbone.")]
+    assert any("attn.query" in n for n in backbone)
+    for name in backbone:
+        want = g_want[name]
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(np32(params[name].grad), want, rtol=1e-3,
+                                   atol=1e-4 * scale + 1e-8 * top, err_msg=name)
+    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+
+
+# --- the kernels on the card ------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash-attention kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_case(device, B, T, H, d, masked, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H, d, generator=gen).to(device, torch.bfloat16)
+               for _ in range(3))
+    do = torch.randn(B, T, H, d, generator=gen).to(device, torch.bfloat16)
+    mask = None
+    if masked:
+        mask = (torch.rand(B, T, generator=gen) > 0.3).to(device)
+        mask[-1] = False  # the last batch element has no valid key
+    return q, k, v, do, mask
+
+
+def _errors(fn, q, k, v, do, mask):
+    """max |fn - f32 plain| of O, dQ, dK, dV."""
+    ref = [t.detach().requires_grad_() for t in (q.float(), k.float(), v.float())]
+    out_ref = attention.flash_attention_reference(*ref, mask)
+    out_ref.backward(do.float())
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*ts, mask)
+    out.backward(do)
+    return [float((a.float() - b).abs().max())
+            for a, b in zip((out, *(t.grad for t in ts)), (out_ref, *(t.grad for t in ref)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, H, d, masked", [
+    (2, 2305, 4, 64, False), (2, 1000, 3, 64, True), (1, 37, 2, 48, True), (3, 1, 2, 32, False),
+    (1, 300, 2, 96, True), (1, 200, 2, 128, False),
+])
+def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked):
+    """O, dQ, dK and dV of the kernels are no further from the f32 plain
+    branch than the bf16 plain branch is, or than 1e-6: at T = 1 the plain
+    branch's dQ and dK are exactly 0 (a softmax over one key) and the
+    kernels' a difference of two f32 sums of the same products."""
+    case = _card_case(cuda_device, B, T, H, d, masked, seed=T)
+    before = (attention.launches, attention.dkv_launches, attention.dq_launches)
+    kernel = _errors(attention.flash_attention_cuda, *case)
+    plain = _errors(attention.flash_attention_reference, *case)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention.dkv_launches, attention.dq_launches) == tuple(
+        n + 1 for n in before)
+    for name, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), kernel, plain):
+        assert e_kernel <= max(e_plain, 1e-6), (name, e_kernel, e_plain)

@@ -146,14 +146,49 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted(PORT_ROOT.rglob("*.py"))
+    """No file of the port, `chip_smoke.py` or `scripts/torch_*.py` imports
+    jax, flax or anything of the JAX package, not even a numpy-only module:
+    the port keeps its own copies."""
+    root_dir = PORT_ROOT.parent
+    files = sorted([*PORT_ROOT.rglob("*.py"), root_dir / "chip_smoke.py",
+                    *(root_dir / "scripts").glob("torch_*.py")])
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), (f, mod)
-            if root == "mvropose_tpu":
-                assert mod == "mvropose_tpu.rig", (f, mod)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "mvropose_tpu"), (f, mod)
+
+
+def test_rig_copy_matches_reference():
+    """The port's copy of the rig layer gives the reference's frames and
+    stream statistics for the same `SyntheticSource` arguments."""
+    from mvropose_tpu import rig as jax_rig
+    from mvropose_torch import rig as port_rig
+
+    stats, frames = {}, {}
+    for name, rig in (("jax", jax_rig), ("port", port_rig)):
+        sources = [rig.SyntheticSource(f"cam{i}", hw=(24, 40), fps=0.0) for i in range(3)]
+        pipe = rig.StreamingPipeline(sources, lambda images, mask: (images.copy(), mask.copy()),
+                                     frame_hw=(24, 40))
+        pipe.start()
+        try:
+            first = None
+            while first is None:
+                first = pipe.tick()
+        finally:
+            pipe.stop()
+        frames[name] = first
+        stats[name] = dataclasses.asdict(pipe.stats)
+        # The bases of the procedural frames: seq 0 of every source.
+        frames[name + "_base"] = [np.roll(s.latest().image, -(s.latest().seq % 24), axis=0)
+                                  for s in sources]
+    np.testing.assert_array_equal(frames["port"][1], frames["jax"][1])
+    for a, b in zip(frames["port_base"], frames["jax_base"]):
+        np.testing.assert_array_equal(a, b)
+    timing = ("total_step_time_s", "start_time_s", "end_time_s", "total_fetch_time_s")
+    assert set(stats["port"]) == set(stats["jax"])
+    assert {k: v for k, v in stats["port"].items() if k not in timing} == {
+        k: v for k, v in stats["jax"].items() if k not in timing}
 
 
 def test_model_config_round_trips(checkpoint):

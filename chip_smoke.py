@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
          weights, exported with `export_jax_params`): all four kernels;
   5. the bare serve steps, bf16 and int8 + fused LN, timed in turns on a
-     resident batch and checked to never synchronize with the host; the
+     resident batch and checked to never synchronize with the host, with
+     the int8 step's `int8_matmul` calls and their bound; the
      int8 heatmaps against the bf16 model's, the bf16 ones against f32; and
      small f32 and int8 + fused-LN models on the card against the CPU;
   6. training, with the render's launches counted over each run only:
@@ -41,10 +42,15 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * `scripts/torch_train_synthetic.py --mode multi` at its defaults for
          a few hundred steps: the loss must fall;
   7. the flash-attention path (T >= 2048), each run's launches counted:
-       * the three kernels against the plain branch (bf16 against f32, 7
+       * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
          fusion's default heads, T = 37 at d = 48, an all-masked batch
-         element, T = 1), then timed beside SDPA, at T = 1025 too (phase 3);
+         element, T = 1, T = 129); the backward kernels alone against
+         `flash_backward_plain` on the same saved statistics, on both
+         backward routes at d = 64 (wgmma, mma.sync), two calls
+         bit-identical; then timed beside SDPA, at T = 1025 too, and the
+         backward pair alone on both routes beside SDPA's backward alone
+         (phase 3);
        * `serve --model-size 768`: 12 forward launches per tick; the bare
          768-px step timed, never synchronizing, against the plain path;
        * the unfrozen 768-px train step (fr3, 2 groups x 4 views): backbone
@@ -84,6 +90,7 @@ from mvropose_torch.models import (
     SelfAttentionFusion,
     ViTConfig,
 )
+from mvropose_torch.models.quantize import Int8Linear
 from mvropose_torch.ops import (
     _build,
     attention,
@@ -170,16 +177,18 @@ def cuda_ms(fn, iters: int, samples: int = 50) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, iters: int = 20, samples: int = 50) -> float:
+def graph_ms(fn, iters: int = 20, samples: int = 50, stream=None) -> float:
     """Device time per call: `iters` calls captured in one CUDA graph,
-    replayed in CUDA-event windows, so Python launch overhead is excluded."""
-    side = torch.cuda.Stream()
+    replayed in CUDA-event windows, so Python launch overhead is excluded.
+    Captured on `stream` where given (the stream an autograd graph's forward
+    ran on, so its backward depends on no other stream)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     return cuda_ms(graph.replay, 1, samples) / iters
@@ -488,7 +497,9 @@ def phase_heatmap_render() -> dict:
 
 # Flash-attention cases: (name, B, T, H, d, mask). Masks: "view" masks view
 # b % V of batch element b (views of 513 tokens), "random" drops 30 % of the
-# keys, "all" drops 30 % and every key of batch element 1.
+# keys, "all" drops 30 % and every key of batch element 1. The train_768
+# operands lie as the backbone's do after RoPE: (B, H, T, d) storage seen as
+# (B, T, H, d); the others are contiguous (B, T, H, d), as a projection's.
 FLASH_CASES = [
     ("serve_768", 4, 2305, 12, 64, None),  # the 768-px serve backbone
     ("train_768", 8, 2305, 12, 64, None),  # the 768-px train backbone
@@ -497,7 +508,9 @@ FLASH_CASES = [
     ("t37_d48", 2, 37, 4, 48, "random"),
     ("all_masked", 3, 300, 2, 64, "all"),
     ("t1", 3, 1, 2, 32, None),
+    ("t129", 2, 129, 3, 64, "random"),  # one row past a 128-row block
 ]
+HEADS_OUTER = {"train_768"}
 # Times, graph replay in turns: the full-width shapes and the backbone at
 # 512 px (T = 1025: train 72 images, serve 4), which stays on the plain path.
 FLASH_TIMED = [("serve_768", 4, 2305, None), ("train_768", 8, 2305, None),
@@ -507,6 +520,13 @@ FLASH_TIMED = [("serve_768", 4, 2305, None), ("train_768", 8, 2305, None),
 # the plain branch's dQ and dK are exactly 0 (a softmax over one key), the
 # kernels' a difference of two f32 sums of the same products (5e-8 on the card).
 FLASH_ERR_FLOOR = 1e-6
+# A backward kernel alone against `flash_backward_plain` in f32 on the same
+# saved statistics: each gradient within this share of the plain gradient's
+# largest magnitude. The kernels round P and dS to bf16 before the second
+# products and their outputs to bf16 (half an ulp is up to 2^-8 of a value):
+# 2^-6 is four such roundings of the largest value; FLASH_ERR_FLOOR beside
+# it for gradients that are 0 in exact arithmetic (T = 1).
+BACKWARD_TOL = 2.0 ** -6
 
 
 def _flash_mask(kind, B: int, T: int, gen):
@@ -521,11 +541,60 @@ def _flash_mask(kind, B: int, T: int, gen):
     return mask.cuda()
 
 
-def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int):
+def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int,
+                    heads_outer: bool = False):
+    """bf16 (B, T, H, d) leaves q, k, v, a cotangent dO and a mask; with
+    `heads_outer` q, k, v are (B, H, T, d) storage seen as (B, T, H, d)."""
     gen = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(B, T, H, d, generator=gen).to("cuda", torch.bfloat16)
                    for _ in range(4))
+    if heads_outer:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     return [t.requires_grad_() for t in (q, k, v)], do, _flash_mask(mask_kind, B, T, gen)
+
+
+@contextlib.contextmanager
+def mma_sync_backward():
+    """Within this block every backward takes the mma.sync kernels (at d =
+    64 the Hopper kernels' predecessors), for the comparisons of this script."""
+    saved, attention.WGMMA_HEAD_DIMS = attention.WGMMA_HEAD_DIMS, ()
+    try:
+        yield
+    finally:
+        attention.WGMMA_HEAD_DIMS = saved
+
+
+def on_route(route: str):
+    """The backward on `route`: "wgmma" (d's own where d = 64) or "mma_sync"."""
+    return mma_sync_backward() if route == "mma_sync" else contextlib.nullcontext()
+
+
+def backward_alone(q, k, v, mask, do) -> dict:
+    """The dQ and dK/dV kernels alone against `flash_backward_plain` in f32
+    on the same saved statistics (the forward kernel's m and l, di of its O),
+    on d's own route and, where that is wgmma, on the mma.sync route too:
+    each gradient within BACKWARD_TOL of the plain one's largest magnitude
+    (plus FLASH_ERR_FLOOR), and two calls bit-identical. -> {route: [err dQ, dK, dV]}."""
+    mask_u8 = attention.mask_bytes(mask)
+    o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
+    args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
+    want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
+                                          *args[5:])
+    tols = [BACKWARD_TOL * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
+    routes = [attention.backward_route(q.shape[-1])]
+    routes += ["mma_sync"] if routes[0] == "wgmma" else []
+    errs = {}
+    for route in routes:
+        with on_route(route):
+            runs = [(attention.flash_backward_dq_cuda(*args),
+                     *attention.flash_backward_dkv_cuda(*args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{route}: two backward calls on the same inputs differ")
+        errs[route] = [float((g.float() - w).abs().max()) for g, w in zip(runs[0], want)]
+        for part, e, tol in zip(("dQ", "dK", "dV"), errs[route], tols):
+            check(e <= tol, f"{route} {part} alone is {e} from flash_backward_plain, above {tol}")
+    return errs
 
 
 def _grads(fn, qkv, mask, do):
@@ -547,42 +616,93 @@ def _flash_bounds(B: int, T: int, H: int, d: int, mask) -> dict:
             "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d)}
 
 
+def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> tuple:
+    """One FLASH_CASES shape: O, dQ, dK and dV of the kernels no further from
+    the plain branch in f32 on the same bf16 values than the bf16 plain
+    branch is (FLASH_ERR_FLOOR aside), with a random dO; then the backward
+    kernels alone (`backward_alone`). -> (the kernels' O/dQ/dK/dV errors,
+    the errors alone by route)."""
+    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=70 + i,
+                                    heads_outer=name in HEADS_OUTER)
+    ref = _grads(attention.flash_attention_reference,
+                 [t.detach().float().requires_grad_() for t in qkv], mask, do)
+    gaps = {}
+    for path, fn in (("kernel", attention.flash_attention_cuda),
+                     ("plain", attention.flash_attention_reference)):
+        got = _grads(fn, qkv, mask, do)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: {path} not finite")
+        gaps[path] = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+        del got
+    del ref
+    for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), gaps["kernel"], gaps["plain"]):
+        check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
+              f"{name}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
+              f"branch's {e_plain}")
+    alone = backward_alone(*(t.detach() for t in qkv), mask, do)
+    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+    layout = ", heads outer" if name in HEADS_OUTER else ""
+    print(f"flash kernels vs f32 plain [{name} (B, T, H, d) = {(B, T, H, d)} mask {mask_kind}"
+          f"{layout}; backward {attention.backward_route(d)}]: "
+          f"O/dQ/dK/dV max abs err kernel {fmt(gaps['kernel'])}, bf16 plain {fmt(gaps['plain'])}; "
+          f"backward alone vs flash_backward_plain, dQ/dK/dV: "
+          + ", ".join(f"{route} {fmt(e)}" for route, e in alone.items())
+          + "; two calls bit-identical")
+    return gaps["kernel"], alone
+
+
+def _in_turns(timer, first, second) -> tuple:
+    """timer() of first/second/second/first -> (median of second, of first)."""
+    t = [timer(f) for f in (first, second, second, first)]
+    return statistics.median(t[1:3]), statistics.median(t[0::3])
+
+
+def backward_times(B: int, T: int, mask_kind, timer) -> dict:
+    """At (B, T, 12, 64): the dK/dV and dQ kernels alone on one forward's
+    statistics, wgmma and mma.sync routes in turns; their plain versions
+    (the plain branch's forward and its gradients: dK, dV or dQ); SDPA's
+    backward alone (`torch.autograd.grad` on a saved SDPA forward, the
+    library yardstick of the pair, timed only here). -> ms by key."""
+    bench = _script("torch_bench_attention_fusion")
+    qkv, do, mask = _flash_operands(B, T, 12, 64, mask_kind, seed=81)
+    q, k, v = (t.detach() for t in qkv)
+    mask_u8 = attention.mask_bytes(mask)
+    o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
+    args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
+    out = {}
+    for kname, call in (("flash_bwd_dkv", attention.flash_backward_dkv_cuda),
+                        ("flash_bwd_dq", attention.flash_backward_dq_cuda)):
+        def mma(call=call):
+            with mma_sync_backward():
+                call(*args)
+        out[kname], out[kname + "_mma_sync"] = _in_turns(timer, mma, lambda call=call: call(*args))
+    plain = attention.flash_attention_reference
+    out["flash_bwd_dkv_plain"] = timer(lambda: torch.autograd.grad(plain(*qkv, mask), qkv[1:], do))
+    out["flash_bwd_dq_plain"] = timer(lambda: torch.autograd.grad(plain(*qkv, mask), qkv[:1], do))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        saved = bench.sdpa(*qkv, mask)
+    out["sdpa_bwd"] = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
+                               iters=2, samples=10, stream=side)
+    return out
+
+
 def phase_flash() -> dict:
     """The three flash-attention kernels against the plain branch on the
-    card, bf16, with a random dO: O, dQ, dK and dV of the kernels must be no
-    further from the plain branch in f32 on the same bf16 values than the
-    bf16 plain branch is (FLASH_ERR_FLOOR aside). Then times by CUDA-graph
+    card (`flash_case` at every FLASH_CASES shape). Then times by CUDA-graph
     replay, in turns plain/kernel/kernel/plain, of the forward and the
     forward + backward, beside torch's SDPA (the library yardstick, timed
     only here), at the full-width shapes and at T = 1025; and of the dK/dV
-    and dQ kernels alone at the 768-px train shape."""
+    and dQ kernels alone (`backward_times`) at the 768-px train shape and
+    the fusion bench shape."""
     bench = _script("torch_bench_attention_fusion")
     err = dict.fromkeys(FLASH_KERNELS, 0.0)
-    for i, (name, B, T, H, d, mask_kind) in enumerate(FLASH_CASES):
-        qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=70 + i)
-        ref = _grads(attention.flash_attention_reference,
-                     [t.detach().float().requires_grad_() for t in qkv], mask, do)
-        gaps = {}
-        for path, fn in (("kernel", attention.flash_attention_cuda),
-                         ("plain", attention.flash_attention_reference)):
-            got = _grads(fn, qkv, mask, do)
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: {path} not finite")
-            gaps[path] = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-            del got
-        del ref
-        for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), gaps["kernel"], gaps["plain"]):
-            check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
-                  f"{name}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
-                  f"branch's {e_plain}")
-        ek = gaps["kernel"]
+    for i, case in enumerate(FLASH_CASES):
+        ek, _ = flash_case(i, *case)
         err["flash_fwd"] = max(err["flash_fwd"], ek[0])
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], ek[1])
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], ek[2], ek[3])
-        fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
-        print(f"flash kernels vs f32 plain [{name} (B, T, H, d) = {(B, T, H, d)} mask "
-              f"{mask_kind}]: O/dQ/dK/dV max abs err kernel {fmt(ek)}, bf16 plain "
-              f"{fmt(gaps['plain'])}")
 
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
@@ -601,32 +721,30 @@ def phase_flash() -> dict:
               f"({bounds['flash_fwd']['bound_by']})")
         out[name] = times
         del qkv, do
-    # The backward kernels alone at the train shape, from one forward's
-    # statistics; their plain versions: dK, dV (or dQ) of the plain branch.
-    qkv, do, mask = _flash_operands(8, 2305, 12, 64, None, seed=81)
-    q, k, v = (t.detach() for t in qkv)
-    o, m, l = attention.flash_forward_cuda(q, k, v)
-    args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
-    kernel_ms = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
-                 "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
-    plain = attention.flash_attention_reference
-    plain_ms = {
-        "flash_bwd_dkv": timer(lambda: torch.autograd.grad(plain(*qkv), qkv[1:], do)),
-        "flash_bwd_dq": timer(lambda: torch.autograd.grad(plain(*qkv), qkv[:1], do)),
-    }
+    alone = {}
+    for name, B, T, mask_kind in (("train_768", 8, 2305, None), ("fusion_bench", 4, 4104, "view")):
+        alone[name] = t = backward_times(B, T, mask_kind, timer)
+        gen = torch.Generator().manual_seed(0)
+        bounds = _flash_bounds(B, T, 12, 64, _flash_mask(mask_kind, B, T, gen))
+        pair, pair_mma = (t["flash_bwd_dkv" + r] + t["flash_bwd_dq" + r] for r in ("", "_mma_sync"))
+        print(f"flash backward alone [{name} (B, T, H, d) = {(B, T, 12, 64)} mask {mask_kind}], ms "
+              f"per call, CUDA-graph replay, mma.sync/wgmma/wgmma/mma.sync: "
+              + "; ".join(f"{k}: wgmma {t[k]:.4f}, mma.sync {t[k + '_mma_sync']:.4f}, plain "
+                          f"(forward + its gradients) {t[k + '_plain']:.4f}, bound "
+                          f"{bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
+                          for k in ("flash_bwd_dkv", "flash_bwd_dq"))
+              + f"; pair wgmma {pair:.4f}, mma.sync {pair_mma:.4f}; SDPA backward alone "
+              f"{t['sdpa_bwd']:.4f}")
+    train, t = out["train_768"], alone["train_768"]
     bounds = _flash_bounds(8, 2305, 12, 64, None)
-    train = out["train_768"]
     result = {"flash_fwd": {"max_abs_err": err["flash_fwd"], "ms": train["kernel"]["fwd"],
                             "plain_ms": train["plain"]["fwd"], **bounds["flash_fwd"],
                             "library_ms": train["library"]["fwd"]}}
     for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
-        # No one PyTorch call computes dK, dV (or dQ) alone: SDPA's backward
-        # computes all three, printed above as forward + backward.
-        result[kname] = {"max_abs_err": err[kname], "ms": kernel_ms[kname],
-                         "plain_ms": plain_ms[kname], **bounds[kname], "library_ms": None}
-        print(f"{kname} alone [(8, 2305, 12, 64)]: kernel {kernel_ms[kname]:.4f} ms, plain "
-              f"(forward + its gradients) {plain_ms[kname]:.4f} ms, bound "
-              f"{bounds[kname]['bound_ms']:.4f} ms ({bounds[kname]['bound_by']}), CUDA-graph replay")
+        # No one PyTorch call computes dK, dV (or dQ) alone: the library time
+        # is SDPA's backward, which computes the pair's three gradients.
+        result[kname] = {"max_abs_err": err[kname], "ms": t[kname], "plain_ms": t[kname + "_plain"],
+                         **bounds[kname], "library_ms": t["sdpa_bwd"]}
     return result
 
 
@@ -639,9 +757,9 @@ def _read_launches() -> dict:
     return {name: getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
 
 
-def _flash_zeros(n: int):
+def _flash_zeros(n: int, d: int = 32):
     """Operands of the flash kernels for n tokens: q, k, v, mask, dO, m, l, di."""
-    q = torch.zeros(1, n, 2, 32, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(1, n, 2, d, dtype=torch.bfloat16, device="cuda")
     stat = torch.ones(1, 2, n, device="cuda")
     return q, q, q, None, q, stat, stat, stat
 
@@ -662,10 +780,14 @@ def phase_counters() -> None:
         "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
             torch.zeros(n, 3, device="cuda"), 4, 4),
         "flash_fwd": lambda n: attention.flash_attention_cuda(*_flash_zeros(n)[:3]),
-        "flash_bwd_dkv": lambda n: attention.flash_backward_dkv_cuda(*_flash_zeros(n)),
-        "flash_bwd_dq": lambda n: attention.flash_backward_dq_cuda(*_flash_zeros(n)),
     }
-    for name, call in calls.items():
+    calls = list(calls.items())
+    for d in (32, 64):  # both backward routes
+        calls += [
+            ("flash_bwd_dkv", lambda n, d=d: attention.flash_backward_dkv_cuda(*_flash_zeros(n, d))),
+            ("flash_bwd_dq", lambda n, d=d: attention.flash_backward_dq_cuda(*_flash_zeros(n, d))),
+        ]
+    for name, call in calls:
         for n, want in ((0, 0), (3, 1)):
             _reset_launches()
             call(n)
@@ -740,6 +862,28 @@ def _model(cfg: EstimatorConfig, device, state) -> MultiViewPoseEstimator:
     return model
 
 
+def int8_matmul_work(model, step) -> tuple:
+    """The `int8_matmul` calls of one `step()` of `model` and their work ->
+    (calls, operations, bytes): 2 M Din Dout int8 operations a call; x read
+    once in its dtype, kernel_q, scale and bias read once, the output
+    written once in its dtype."""
+    work = []
+
+    def count(module, inputs, out):
+        x, (din, dout) = inputs[0], module.kernel_q.shape
+        rows = x.numel() // din
+        work.append((2 * rows * din * dout, x.numel() * x.element_size() + din * dout + 8 * dout
+                     + out.numel() * out.element_size()))
+
+    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, Int8Linear)]
+    try:
+        step()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return len(work), sum(w[0] for w in work), sum(w[1] for w in work)
+
+
 def _never_syncs(step) -> None:
     # The double-buffered serve loop overlaps host and device only if the
     # step never waits for the device (no pageable copy, no .item()).
@@ -773,6 +917,11 @@ def phase_step(flat: dict) -> float:
                  for n in ("bf16", "int8_ln", "int8_ln", "bf16")]
         for step in steps.values():
             _never_syncs(step)
+        calls, ops, nbytes = int8_matmul_work(int8, steps["int8_ln"])
+        b = bound(nbytes, ops, "int8")
+        print(f"int8_matmul (plain torch: torch._int_mm) in one int8 + fused-LN serve step: "
+              f"{calls} calls, {ops / 1e9:.2f} G int8 operations, {nbytes / 1e6:.2f} MB read and "
+              f"written; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         graph = {name: graph_ms(step, iters=1, samples=30) for name, step in steps.items()}
         torch.cuda.synchronize()
         imgs = preprocess(frames, 512)[None]

@@ -5,8 +5,10 @@
 // mvropose_tpu/ops/attention.py::fused_self_attention calls at T >= 2048
 // (jax/experimental/pallas/ops/tpu/flash_attention.py in jax 0.9.0):
 //   * flash_fwd_kernel  <- _flash_attention_kernel (:331, pallas_call :758);
-//   * flash_dkv_kernel  <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
-//   * flash_dq_kernel   <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
+//   * flash_dkv_kernel, and at d = 64 flash_dkv_sm90_kernel
+//                       <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
+//   * flash_dq_kernel, and at d = 64 flash_dq_sm90_kernel
+//                       <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
 // The segment ids of the TPU call become what they encode: a (B, T) byte
 // mask of the keys (0 = not attended), and keys past T, which are skipped.
 //
@@ -27,30 +29,61 @@
 // products of 2 B H T^2 d FLOPs each, against q, k, v, o of 4 B T H d bytes:
 // at T = 2305, d = 64 the forward does ~720 FLOPs a byte, above the card's
 // ~295 bf16 FLOPs a byte, so it is compute-bound, and the exponentials
-// (B H T^2 of them) cost about as much again on the SFU. The design:
+// (B H T^2 of them) cost about as much again on the SFU.
+//
+// Two designs. The forward at every head width, and the backward at d in
+// {32, 48, 96, 128}, run on mma.sync:
 //   * mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments in registers; one
 //     block of 4 warps, each warp owning 16 rows of the block's tile, so the
 //     softmax statistics of a row stay in the 4 threads of a quad;
 //   * the operand that the block walks (K and V in the forward and dQ, Q,
 //     dO and the row statistics in dK/dV) streams through a 2-stage ring in
 //     shared memory, filled by 16-byte cp.async copies one tile ahead;
-//   * P and dS go from the accumulators straight into the A fragments of the
-//     next product, never through shared or device memory;
 //   * shared rows are padded by 16 bytes, so the fragment loads (32-bit
 //     loads, ldmatrix.trans for the transposed operands) are free of bank
-//     conflicts at every head width;
+//     conflicts at every head width.
+// The backward at d = 64, every main path's width, runs on Hopper's own
+// units (flash_dkv_sm90_kernel, flash_dq_sm90_kernel):
+//   * all seven products on wgmma.mma_async (bf16 x bf16 -> f32): S^T = K Q^T
+//     and dP^T = V dO^T (S = Q K^T and dP = dO V^T in dQ) as m64n128k16 with
+//     both operands in shared memory; dV += P^T dO and dK += dS^T Q (dQ +=
+//     dS K) as m64n64k16 with P^T, dS^T (dS) as the A operand in registers
+//     and B the streamed tile read MN-major (the transpose bit), so no
+//     transposed copy is made;
+//   * TMA loads (cp.async.bulk.tensor, 64 x 64 boxes, 128-byte swizzle, rows
+//     past T zero-filled) through tensor maps over the (B, T, H, 64)
+//     operands' own strides, built on the host per call with CUDA's
+//     cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, no
+//     link against libcuda) and passed as __grid_constant__ parameters, so a
+//     CUDA graph captures them;
+//   * a block owns 128 rows (keys in dK/dV, queries in dQ), loaded once, in
+//     two consumer warpgroups of 64; the streamed operand comes in tiles of
+//     128 rows through a 3-stage ring with full/empty mbarriers, filled by
+//     one producer warp; setmaxnreg moves registers from the producer
+//     warpgroup to the consumers; no __syncthreads in the main loop;
+//   * the row statistics m, l and di have a row stride of T floats, not a
+//     multiple of 16 bytes at T = 2305, so TMA cannot copy them: the producer
+//     warp copies them by plain loads (all of a stage's issued before any is
+//     used) into the stage, with 1/l taken there, and arrives on the stage's
+//     full barrier beside the bytes of its TMA copies; in dQ it writes a code
+//     per key (attended, masked, past T) the same way;
+//   * the two consumer warpgroups take turns to issue their products (two
+//     named barriers), so one's softmax runs beside the other's products.
+// Both designs:
+//   * P and dS go from the accumulators straight into the A operand of the
+//     next product, never through shared or device memory;
 //   * exp2 of S s log2(e), the base-2 form of the same exponent; m is saved
 //     in that base-2 unit;
 //   * dQ has its own kernel over key tiles, as the stock kernel splits it:
 //     no atomics, so every gradient is deterministic.
 // q, k, v and dO are read through their strides in the projections'
 // (B, T, H, d) layout, and O, dQ, dK and dV written in that layout, so no
-// transposed copy is made. wgmma, TMA and warp specialisation are left for
-// later work.
+// transposed copy is made.
 
 #include <cmath>
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its encoder's types; the encoder via the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -190,14 +223,14 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
 // Rows g and g + 8 of the warp's 16 into (B, T, H, D) at row index q0 + ...
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], float mul0,
-                                           float mul1, const Params& p, int b, int h, int row0,
+                                           float mul1, int T, int H, int b, int h, int row0,
                                            int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
-    if (row >= p.T) continue;
+    if (row >= T) continue;
     const float mul = r ? mul1 : mul0;
-    bf16* dst = out + (static_cast<int64_t>(b) * p.T + row) * p.H * D + static_cast<int64_t>(h) * D;
+    bf16* dst = out + (static_cast<int64_t>(b) * T + row) * H * D + static_cast<int64_t>(h) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + 2 * t) =
@@ -332,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
   }
-  store_rows<D>(p.o, o, 1.f / l_i[0], 1.f / l_i[1], p, b, h, q0 + warp * 16, g, t);
+  store_rows<D>(p.o, o, 1.f / l_i[0], 1.f / l_i[1], T, p.H, b, h, q0 + warp * 16, g, t);
   if (p.m != nullptr && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -468,8 +501,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
     }
     __syncthreads();
   }
-  store_rows<D>(p.dk, dk, p.scale, p.scale, p, b, h, n0 + warp * 16, g, t);
-  store_rows<D>(p.dv, dv, 1.f, 1.f, p, b, h, n0 + warp * 16, g, t);
+  store_rows<D>(p.dk, dk, p.scale, p.scale, T, p.H, b, h, n0 + warp * 16, g, t);
+  store_rows<D>(p.dv, dv, 1.f, 1.f, T, p.H, b, h, n0 + warp * 16, g, t);
 }
 
 // --------------------------------------------------------------------- dQ
@@ -583,7 +616,610 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
     }
     __syncthreads();
   }
-  store_rows<D>(p.dq, dq, p.scale, p.scale, p, b, h, q0 + warp * 16, g, t);
+  store_rows<D>(p.dq, dq, p.scale, p.scale, T, p.H, b, h, q0 + warp * 16, g, t);
+}
+
+// ------------------------------------------- Hopper backward (d = 64, sm_90a)
+//
+// The dK/dV and dQ kernels of the d = 64 path (every main path's head
+// width): wgmma, TMA and a warp-specialised mbarrier ring. Block: two
+// consumer warpgroups of 64 rows each (128 rows of the block's own operand:
+// keys in dK/dV, queries in dQ, loaded once) and a producer warpgroup, of
+// which one warp issues the loads and the other three only hand their
+// registers over (setmaxnreg). The streamed operand (Q and dO, or K and V)
+// comes in tiles of 128 rows through a 3-stage ring: S (S^T) and dP (dP^T)
+// are m64n128 products of two shared tiles; P and dS, converted to bf16 in
+// registers, are the A operand of the m64n64 products into dV, dK (dQ),
+// whose B is the streamed tile read MN-major.
+
+constexpr int kHD = 64;                        // head width of this path: one 128-byte row
+constexpr int kHRows = 64;                     // rows of a TMA box and of a consumer warpgroup
+constexpr int kHConsumers = 2;                 // consumer warpgroups
+constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operand
+constexpr int kHStream = 128;                  // rows of a streamed tile
+constexpr int kHStages = 3;                    // ring depth
+constexpr int kHThreads = 128 * (kHConsumers + 1);
+constexpr int kHBox = kHRows * kHD * 2;            // bytes of one 64 x 64 bf16 box: 8 KB
+constexpr int kHTile = kHStream / kHRows * kHBox;  // bytes of one streamed tile of one operand
+constexpr int kHConsumerRegs = 232, kHProducerRegs = 40;
+constexpr int kInnerQ = 1, kInnerK = 2, kInnerV = 4, kInnerDo = 8;  // bits of heads_inner
+
+struct HopperParams {
+  // (B, T, H, 64) bf16 through their strides, 64 x 64 boxes, 128-byte swizzle;
+  // dims (d, T, H, B), or (d, H, T, B) where heads lie inside rows (bit
+  // kInnerQ.. of `heads_inner`): a tensor map's strides grow with its dims.
+  CUtensorMap q, k, v, dout;
+  int heads_inner;
+  const uint8_t* mask;      // (B, T), 0 = key not attended; null: every key attended
+  bf16 *dq, *dk, *dv;       // (B, T, H, 64) contiguous
+  const float *m, *l, *di;  // (B, H, T)
+  int H, T;
+  float scale, scale_log2;
+};
+
+// Shared memory of both kernels: the block's two own operands (128 rows
+// each), kHStages stages of the two streamed ones (kHStream rows each), the
+// stages' row data (dK/dV: m, 1/l, di per query; dQ: a code per key), then
+// the barriers.
+struct HopperSmem {
+  static constexpr int kOwn = 0;
+  static constexpr int kRing = kOwn + 2 * kHBlock / kHRows * kHBox;
+  static constexpr int kRowData = kRing + kHStages * 2 * kHTile;
+  static constexpr int kBars = kRowData + kHStages * 3 * kHStream * 4;
+  static constexpr int kBytes = kBars + (2 * kHStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 64 x 64 box of a (B, T, H, 64) operand, rows [row, row + 64) of head
+// h of batch element b, into shared memory (128-byte swizzled); rows past T
+// are zero-filled and still counted in the barrier's bytes.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                        int h, int b, int heads_inner) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(heads_inner ? h : row),
+      "r"(heads_inner ? row : h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `rows` rows (whole boxes) of an operand from row `row` on.
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar, int rows,
+                                         int row, int h, int b, int heads_inner) {
+  for (int r = 0; r < rows; r += kHRows) {
+    tma_box(dst + r * kHD, map, bar, row + r, h, b, heads_inner);
+  }
+}
+
+// wgmma matrix descriptor of a 128-byte swizzled tile (1024-byte aligned,
+// 8-row groups 1024 bytes apart). K-major: the leading offset is unused
+// (1); MN-major: both offsets are 1024 bytes (the second atom along MN is
+// never reached at N = 64), whichever of the two the hardware reads.
+template <bool MnMajor>
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t lbo = MnMajor ? 1024 >> 4 : 1, sbo = 1024 >> 4;
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | lbo << 16 | sbo << 32 |
+         1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of products are still running.
+template <int N = 0>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous products' issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// The accumulator of m64nN: per warp 16 rows; d[i][e] is row g + 8 (e >> 1)
+// of the warp's 16, column 8 i + 2 t + (e & 1), as N / 8 m16n8 tiles.
+#define WGMMA_D64 \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
+  "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
+  "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
+  "+f"(d[7][2]), "+f"(d[7][3])
+#define WGMMA_D64_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_D128 \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
+  "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
+  "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
+  "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
+  "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), \
+  "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), \
+  "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
+  "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), \
+  "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), \
+  "+f"(d[15][2]), "+f"(d[15][3])
+#define WGMMA_D128_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+// D (+)= A B, m64n128k16, bf16 x bf16 -> f32, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[16][4], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D128
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D += A B, m64n64k16, A (16 x 16 per warp, the m16n8k16 A fragment) in
+// registers, B MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : WGMMA_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// D = A B^T over the head width, A 64 rows, B kHStream rows: 4 k-steps of
+// 16 columns (32 bytes) along the K-major rows of both tiles.
+__device__ __forceinline__ void product_kmajor(float (&d)[16][4], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk) wgmma_ss128(d, a + 2 * kk, b + 2 * kk, kk > 0);
+}
+
+// The 64 x kHStream accumulator as bf16 A fragments, 16 columns per k-step.
+__device__ __forceinline__ void to_a(uint32_t (&a)[kHStream / 16][4], const float (&acc)[16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kHStream / 16; ++kk) acc_to_a(a[kk], acc[2 * kk], acc[2 * kk + 1]);
+}
+
+// D += A B with A in registers (`to_a`) and B the kHStream rows of an
+// MN-major tile: k-step kk reads rows 16 kk.. of it (2048 bytes further).
+__device__ __forceinline__ void product_rs(float (&d)[8][4], const uint32_t (&a)[kHStream / 16][4],
+                                           uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kHStream / 16; ++kk) wgmma_rs64(d, a[kk], b + (2048 >> 4) * kk);
+}
+
+// The consumer warpgroups take turns to issue their products (ping-pong):
+// named barrier 1 + w is warpgroup w's turn, passed by the other one after
+// it has issued its own, so one warpgroup's softmax runs beside the other's
+// products instead of both waiting on the tensor cores at once.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// 2^x on the SFU (flushes results below 2^-126 to 0; P is scaled by 1/l later).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// The mbarriers: full[s] completes when stage s holds its tiles and row
+// data (the producer warp's 32 lanes arrive, lane 0 with the bytes); empty[s]
+// when the 8 consumer warps are done with it; own when the block's own
+// operands have landed.
+struct Ring {
+  uint64_t *full, *empty, *own;
+  __device__ explicit Ring(unsigned char* base) {
+    full = reinterpret_cast<uint64_t*>(base + HopperSmem::kBars);
+    empty = full + kHStages;
+    own = empty + kHStages;
+  }
+  __device__ void init() const {
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4 * kHConsumers);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+__global__ void __launch_bounds__(kHThreads, 1)
+    flash_dkv_sm90_kernel(const __grid_constant__ HopperParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(smem + HopperSmem::kOwn);  // 128 key rows
+  bf16* sV = sK + kHBlock * kHD;
+  bf16* ring = reinterpret_cast<bf16*>(smem + HopperSmem::kRing);  // [stage][Q, dO][128][64]
+  float* rows = reinterpret_cast<float*>(smem + HopperSmem::kRowData);  // [stage][m, 1/l, di][128]
+  const Ring bars(smem);
+
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kHBlock, T = p.T;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int m_tiles = (T + kHStream - 1) / kHStream;
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (wg == kHConsumers) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kHProducerRegs));
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.own, 2 * kHBlock * kHD * 2);
+      tma_rows(sK, &p.k, bars.own, kHBlock, n0, h, b, p.heads_inner & kInnerK);
+      tma_rows(sV, &p.v, bars.own, kHBlock, n0, h, b, p.heads_inner & kInnerV);
+    }
+    const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * T;
+    for (int i = 0; i < m_tiles; ++i) {
+      const int stage = i % kHStages, m0 = i * kHStream;
+      mbar_wait(&bars.empty[stage], ((i / kHStages) & 1) ^ 1);  // round 0 passes
+      // Every load of the stage issued before any is used. Queries past T
+      // get P = exp2(x - inf) * 0 = 0.
+      float* st = rows + stage * 3 * kHStream;
+      float mv[kHStream / 32], lv[kHStream / 32], dv[kHStream / 32];
+#pragma unroll
+      for (int u = 0; u < kHStream / 32; ++u) {
+        const int r = m0 + lane + 32 * u;
+        const bool valid = r < T;
+        mv[u] = valid ? p.m[stat0 + r] : INFINITY;
+        lv[u] = valid ? p.l[stat0 + r] : INFINITY;
+        dv[u] = valid ? p.di[stat0 + r] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kHStream / 32; ++u) {
+        st[lane + 32 * u] = mv[u];
+        st[kHStream + lane + 32 * u] = __frcp_rn(lv[u]);  // 1/inf = 0
+        st[2 * kHStream + lane + 32 * u] = dv[u];
+      }
+      if (lane == 0) {
+        bf16* q_s = ring + stage * 2 * kHStream * kHD;
+        mbar_arrive_expect_tx(&bars.full[stage], 2 * kHTile);
+        tma_rows(q_s, &p.q, &bars.full[stage], kHStream, m0, h, b, p.heads_inner & kInnerQ);
+        tma_rows(q_s + kHStream * kHD, &p.dout, &bars.full[stage], kHStream, m0, h, b,
+                 p.heads_inner & kInnerDo);
+      } else {
+        mbar_arrive(&bars.full[stage]);
+      }
+    }
+  } else {  // consumer warpgroup wg: keys n0 + 64 wg ..
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kHConsumerRegs));
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = n0 + wg * kHRows + warp * 16;  // the warp's 16 keys
+    bool key_masked[2];  // rows g and g + 8: masked keys take no dS
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = row0 + g + 8 * r;
+      key_masked[r] =
+          p.mask != nullptr && key < T && p.mask[static_cast<int64_t>(b) * T + key] == 0;
+    }
+    const uint64_t k_desc = sw128_desc<false>(sK + wg * kHRows * kHD);
+    const uint64_t v_desc = sw128_desc<false>(sV + wg * kHRows * kHD);
+    float dk[8][4], dv[8][4];
+    zero_acc(dk);
+    zero_acc(dv);
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    mbar_wait(bars.own, 0);
+
+    for (int i = 0; i < m_tiles; ++i) {
+      const int stage = i % kHStages;
+      mbar_wait(&bars.full[stage], (i / kHStages) & 1);
+      const bf16* q_s = ring + stage * 2 * kHStream * kHD;
+      const bf16* do_s = q_s + kHStream * kHD;
+      const float* st = rows + stage * 3 * kHStream;
+
+      // S^T = K Q^T and dP^T = V dO^T over the warpgroup's 64 keys and the tile's 128 queries.
+      float s[16][4], dp[16][4];
+      turn_wait(wg);
+      wgmma_fence();
+      product_kmajor(s, k_desc, sw128_desc<false>(q_s));
+      product_kmajor(dp, v_desc, sw128_desc<false>(do_s));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait();
+      fence_acc(s);
+      fence_acc(dp);
+      // P^T = exp2(S^T s log2 e - m) / l; dS^T = P^T o (dP^T - di), 0 at
+      // masked keys. (Waiting for S^T alone first, as dQ does for S, keeps
+      // more registers live across the exponentials and spills at 232.)
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int q2 = n * 8 + 2 * t;  // queries q2, q2 + 1: float2 loads
+        const float2 m2 = *reinterpret_cast<const float2*>(st + q2);
+        const float2 rl2 = *reinterpret_cast<const float2*>(st + kHStream + q2);
+        const float2 di2 = *reinterpret_cast<const float2*>(st + 2 * kHStream + q2);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float m = c ? m2.y : m2.x, rl = c ? rl2.y : rl2.x, di = c ? di2.y : di2.x;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const float x = key_masked[r] ? kMasked - m : fmaf(s[n][e], p.scale_log2, -m);
+            const float prob = exp2_approx(x) * rl;
+            s[n][e] = prob;
+            dp[n][e] = key_masked[r] ? 0.f : prob * (dp[n][e] - di);
+          }
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q (sm_scale applied at the end); dO and
+      // Q are read MN-major, as they lie.
+      uint32_t pa[kHStream / 16][4], da[kHStream / 16][4];
+      to_a(pa, s);
+      to_a(da, dp);
+      fence_acc(dv);
+      fence_acc(dk);
+      turn_wait(wg);
+      wgmma_fence();  // A registers and D written by ordinary instructions
+      product_rs(dv, pa, sw128_desc<true>(do_s));
+      product_rs(dk, da, sw128_desc<true>(q_s));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait();
+      fence_acc(dv);
+      fence_acc(dk);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars.empty[stage]);
+    }
+    if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
+    store_rows<kHD>(p.dk, dk, p.scale, p.scale, T, p.H, b, h, row0, g, t);
+    store_rows<kHD>(p.dv, dv, 1.f, 1.f, T, p.H, b, h, row0, g, t);
+  }
+}
+
+__global__ void __launch_bounds__(kHThreads, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ HopperParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + HopperSmem::kOwn);  // 128 query rows
+  bf16* sO = sQ + kHBlock * kHD;                                 // dO
+  bf16* ring = reinterpret_cast<bf16*>(smem + HopperSmem::kRing);  // [stage][K, V][128][64]
+  // Per stage and key: 0 attended, 1 masked, 2 past T.
+  uint8_t* codes = smem + HopperSmem::kRowData;
+  const Ring bars(smem);
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kHBlock, T = p.T;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int n_tiles = (T + kHStream - 1) / kHStream;
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (wg == kHConsumers) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kHProducerRegs));
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.own, 2 * kHBlock * kHD * 2);
+      tma_rows(sQ, &p.q, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerQ);
+      tma_rows(sO, &p.dout, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerDo);
+    }
+    const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kHStages, k0 = j * kHStream;
+      mbar_wait(&bars.empty[stage], ((j / kHStages) & 1) ^ 1);
+      for (int r = lane; r < kHStream; r += 32) {
+        const int key = k0 + r;
+        codes[stage * kHStream + r] = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
+      }
+      if (lane == 0) {
+        bf16* k_s = ring + stage * 2 * kHStream * kHD;
+        mbar_arrive_expect_tx(&bars.full[stage], 2 * kHTile);
+        tma_rows(k_s, &p.k, &bars.full[stage], kHStream, k0, h, b, p.heads_inner & kInnerK);
+        tma_rows(k_s + kHStream * kHD, &p.v, &bars.full[stage], kHStream, k0, h, b,
+                 p.heads_inner & kInnerV);
+      } else {
+        mbar_arrive(&bars.full[stage]);
+      }
+    }
+  } else {  // consumer warpgroup wg: queries q0 + 64 wg ..
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kHConsumerRegs));
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
+    float m_r[2], rl_r[2], di_r[2];  // rows g and g + 8; rows past T get P = 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      const int64_t i = (static_cast<int64_t>(b) * p.H + h) * T + row;
+      const bool valid = row < T;
+      m_r[r] = valid ? p.m[i] : INFINITY;
+      rl_r[r] = valid ? 1.f / p.l[i] : 0.f;
+      di_r[r] = valid ? p.di[i] : 0.f;
+    }
+    const uint64_t q_desc = sw128_desc<false>(sQ + wg * kHRows * kHD);
+    const uint64_t do_desc = sw128_desc<false>(sO + wg * kHRows * kHD);
+    float dq[8][4];
+    zero_acc(dq);
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    mbar_wait(bars.own, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kHStages;
+      mbar_wait(&bars.full[stage], (j / kHStages) & 1);
+      const bf16* k_s = ring + stage * 2 * kHStream * kHD;
+      const bf16* v_s = k_s + kHStream * kHD;
+      const uint8_t* code = codes + stage * kHStream;
+
+      // S = Q K^T and dP = dO V^T over the warpgroup's 64 queries and the tile's 128 keys.
+      float s[16][4], dp[16][4];
+      turn_wait(wg);
+      wgmma_fence();
+      product_kmajor(s, q_desc, sw128_desc<false>(k_s));
+      wgmma_commit();
+      product_kmajor(dp, do_desc, sw128_desc<false>(v_s));
+      wgmma_commit();
+      turn_pass(wg);
+      // P while dP is still running (0 at masked keys and past T), then
+      // dS = P o (dP - di).
+      wgmma_wait<1>();
+      fence_acc(s);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kc = code[n * 8 + 2 * t + (e & 1)];
+          const float x = fmaf(s[n][e], p.scale_log2, -m_r[e >> 1]);
+          s[n][e] = kc != 0 ? 0.f : exp2_approx(x) * rl_r[e >> 1];
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(dp);
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - di_r[e >> 1];  // dS
+      // dQ += dS K (sm_scale applied at the end); K is read MN-major.
+      uint32_t da[kHStream / 16][4];
+      to_a(da, s);
+      fence_acc(dq);
+      turn_wait(wg);
+      wgmma_fence();
+      product_rs(dq, da, sw128_desc<true>(k_s));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait();
+      fence_acc(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars.empty[stage]);
+    }
+    if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
+    store_rows<kHD>(p.dq, dq, p.scale, p.scale, T, p.H, b, h, row0, g, t);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// CUDA's cuTensorMapEncodeTiled, reached through the runtime (no link against
+// libcuda); null if the installed CUDA has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    const bool ok = err == cudaSuccess && found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over a (B, T, H, 64) bf16 operand through its element
+// strides: dims (d, T, H, B), or (d, H, T, B) when `heads_inner`; boxes of
+// 64 rows x 64, 128-byte swizzle, rows past T zero-filled. -> 0 or the
+// CUresult of the encoding.
+int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T, bool heads_inner) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t t = static_cast<cuuint64_t>(T), hh = static_cast<cuuint64_t>(H);
+  const cuuint64_t st = static_cast<cuuint64_t>(s.t) * 2, sh = static_cast<cuuint64_t>(s.h) * 2;
+  const cuuint64_t dims[4] = {kHD, heads_inner ? hh : t, heads_inner ? t : hh,
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {heads_inner ? sh : st, heads_inner ? st : sh,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {kHD, heads_inner ? 1u : kHRows, heads_inner ? kHRows : 1u, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The Hopper kernels' parameters from the mma.sync path's -> 0, or a
+// negative CUresult when a tensor map cannot be encoded.
+int make_hopper_params(HopperParams* hp, const Params& p) {
+  const int B = p.B, H = p.H, T = p.T;
+  CUtensorMap* maps[4] = {&hp->q, &hp->k, &hp->v, &hp->dout};  // bits kInnerQ, K, V, Do
+  const void* bases[4] = {p.q, p.k, p.v, p.dout};
+  const Strides strides[4] = {p.sq, p.sk, p.sv, p.sdo};
+  int err = 0, inner = 0;
+  for (int i = 0; i < 4 && !err; ++i) {
+    const bool heads_inner = strides[i].h < strides[i].t;  // e.g. a contiguous projection
+    err = make_map(maps[i], bases[i], strides[i], B, H, T, heads_inner);
+    inner |= heads_inner << i;
+  }
+  if (err) return -err;
+  hp->heads_inner = inner;
+  hp->mask = p.mask;
+  hp->dq = p.dq;
+  hp->dk = p.dk;
+  hp->dv = p.dv;
+  hp->m = p.m;
+  hp->l = p.l;
+  hp->di = p.di;
+  hp->H = H;
+  hp->T = T;
+  hp->scale = p.scale;
+  hp->scale_log2 = p.scale_log2;
+  return 0;
+}
+
+template <bool Dkv>
+int launch_sm90(const Params& p, cudaStream_t stream) {
+  void (*kernel)(HopperParams) = Dkv ? &flash_dkv_sm90_kernel : &flash_dq_sm90_kernel;
+  HopperParams hp;
+  const int err = make_hopper_params(&hp, p);
+  if (err) return err;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HopperSmem::kAlloc);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const dim3 grid((p.T + kHBlock - 1) / kHBlock, p.H, p.B);
+  kernel<<<grid, kHThreads, HopperSmem::kAlloc, stream>>>(hp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ----------------------------------------------------------------- launch
@@ -689,4 +1325,42 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k, const v
   p.di = di;
   p.dq = static_cast<bf16*>(dq);
   return dispatch<kDq>(p, D, stream);
+}
+
+// The Hopper dK/dV and dQ kernels (wgmma, TMA, warp-specialised): the
+// arguments of the two above, D = 64 only. Each returns cudaGetLastError()
+// after its launch, cudaErrorInvalidValue (1) for another head width, or
+// minus the CUresult of a tensor map that cannot be encoded (q, k, v and dO
+// strides: multiples of 16 bytes below 2^40, as the wrapper checks).
+extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, const void* v,
+                                                 const uint8_t* mask, const void* dout,
+                                                 const float* m, const float* l, const float* di,
+                                                 void* dk, void* dv, int B, int H, int T, int D,
+                                                 const int64_t* strides, float sm_scale,
+                                                 void* stream) {
+  if (D != kHD) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
+  p.dout = static_cast<const bf16*>(dout);
+  p.m = const_cast<float*>(m);
+  p.l = const_cast<float*>(l);
+  p.di = di;
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  return launch_sm90<true>(p, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, const void* v,
+                                                const uint8_t* mask, const void* dout,
+                                                const float* m, const float* l, const float* di,
+                                                void* dq, int B, int H, int T, int D,
+                                                const int64_t* strides, float sm_scale,
+                                                void* stream) {
+  if (D != kHD) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
+  p.dout = static_cast<const bf16*>(dout);
+  p.m = const_cast<float*>(m);
+  p.l = const_cast<float*>(l);
+  p.di = di;
+  p.dq = static_cast<bf16*>(dq);
+  return launch_sm90<false>(p, static_cast<cudaStream_t>(stream));
 }

@@ -16,6 +16,17 @@ flash branch averages over T padded to 512).
 Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
 read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
+
+Two routes for the backward, by head width (`backward_route`): d in
+`WGMMA_HEAD_DIMS` (64, every main path's width: ViT-B/16 and
+`SelfAttentionFusion` at 768 / 12 heads) takes the Hopper dK/dV and dQ
+kernels (wgmma, TMA and a warp-specialised mbarrier ring; they need whole
+128-byte rows, a 128-byte swizzle atom, which d = 48 and 96 do not fill);
+the other widths of `HEAD_DIMS` take the mma.sync kernels, which the forward
+uses at every width. A width outside `HEAD_DIMS` raises on either route.
+`flash_forward_plain` and `flash_backward_plain` compute what the kernels
+compute, from the same saved statistics, in plain torch: the yardsticks of
+the kernels alone.
 """
 
 from __future__ import annotations
@@ -35,6 +46,10 @@ dq_launches = 0
 
 FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
 HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
+WGMMA_HEAD_DIMS = (64,)  # the head widths whose backward takes the Hopper kernels
+LOG2E = 1.4426950408889634
+# The plain branch's masked logit, bf16's lowest finite value (exact in f32).
+MASKED_LOGIT = torch.finfo(torch.bfloat16).min
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:
@@ -73,9 +88,22 @@ def _kernels():
     dkv.argtypes = [ptr] * 10 + [i32] * 4 + [ptr, f32, ptr]
     dq = lib.flash_attention_backward_dq
     dq.argtypes = [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr]
-    for fn in (fwd, dkv, dq):
+    dkv90 = lib.flash_attention_backward_dkv_sm90
+    dkv90.argtypes = dkv.argtypes
+    dq90 = lib.flash_attention_backward_dq_sm90
+    dq90.argtypes = dq.argtypes
+    for fn in (fwd, dkv, dq, dkv90, dq90):
         fn.restype = ctypes.c_int
-    return fwd, dkv, dq
+    return fwd, {"mma_sync": dkv, "wgmma": dkv90}, {"mma_sync": dq, "wgmma": dq90}
+
+
+def backward_route(d: int) -> str:
+    """The backward kernels a head width takes: "wgmma" (Hopper: wgmma, TMA,
+    warp-specialised) for d in WGMMA_HEAD_DIMS, "mma_sync" for the other
+    HEAD_DIMS; raises for a width without a kernel."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:
@@ -90,8 +118,7 @@ def _check(q, k, v, key_mask) -> None:
         raise ValueError(f"q, k, v must share one (B, T, H, d) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, T, H, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
+    backward_route(d)  # raises for a head width without kernels
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"the flash-attention kernels take bf16 operands, got {name} "
@@ -126,6 +153,9 @@ def mask_bytes(key_mask):
 
 
 def _raise_on(err: int, kernel: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"flash-attention {kernel}: a TMA tensor map could not be encoded "
+                           f"(CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"flash-attention {kernel} launch failed with CUDA error {err}")
 
@@ -152,6 +182,48 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
     return o, m, l
 
 
+def _logits_base2(q, k, mask_u8) -> torch.Tensor:
+    """(B, H, T, T) f32 logits as the kernels form them: q k^T times
+    sm_scale log2(e) in f32, masked keys at MASKED_LOGIT."""
+    d = q.shape[-1]
+    scale_log2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * LOG2E
+    x = (q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1)) * scale_log2.to(q.device)
+    if mask_u8 is not None:
+        x = x.masked_fill(mask_u8[:, None, None, :] == 0, MASKED_LOGIT)
+    return x
+
+
+def flash_forward_plain(q, k, v, mask_u8=None):
+    """What the forward kernel computes, in plain torch (f32 inside):
+    (B, T, H, d) q, k, v and an optional (B, T) byte mask -> (O in q's dtype,
+    m, l), m the row max in base-2 units and l the row sum, (B, H, T) f32,
+    as `flash_forward_cuda` saves them."""
+    x = _logits_base2(q, k, mask_u8)
+    m = x.amax(-1)
+    p = torch.exp2(x - m[..., None])
+    l = p.sum(-1)
+    o = (p * l.reciprocal()[..., None]) @ v.float().transpose(1, 2)
+    return o.transpose(1, 2).to(q.dtype), m, l
+
+
+def flash_backward_plain(q, k, v, mask_u8, do, m, l, di):
+    """What the dK/dV and dQ kernels compute, in plain torch (f32 inside),
+    with their interface -> (dQ, dK, dV) (B, T, H, d) in q's dtype: P =
+    exp2(logits - m) / l from the *saved* m (base 2) and l, so an all-masked
+    row recomputes P = 1/T; dV = P^T dO, dS = P o (dO V^T - di), 0 at masked
+    keys, dQ = sm_scale dS K, dK = sm_scale dS^T Q."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp2(_logits_base2(q, k, mask_u8) - m[..., None]) * l.reciprocal()[..., None]
+    qh, kh, vh, doh = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    dv = p.transpose(-2, -1) @ doh
+    ds = p * (doh @ vh.transpose(-2, -1) - di[..., None])
+    if mask_u8 is not None:
+        ds = ds.masked_fill(mask_u8[:, None, None, :] == 0, 0.0)
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-2, -1) @ qh) * scale
+    return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
+
+
 def row_dot(do, o) -> torch.Tensor:
     """di = rowsum(dO o O) in f32, (B, H, T), as the reference computes it
     in jnp beside its backward kernels."""
@@ -166,30 +238,34 @@ def _backward_args(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dK/dV kernel: the forward's operands and statistics, dO in
-    their layout and di = `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) bf16."""
+    """Launch the dK/dV kernel of d's `backward_route`: the forward's
+    operands and statistics, dO in their layout and di = `row_dot(dO, O)`
+    -> (dK, dV) (B, T, H, d) bf16."""
     global dkv_launches
+    route = backward_route(q.shape[-1])
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = _kernels()[1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
-        _raise_on(err, "dK/dV")
+            err = _kernels()[1][route](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
+        _raise_on(err, f"dK/dV ({route})")
         dkv_launches += 1
     return dk, dv
 
 
 def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dQ kernel (arguments as `flash_backward_dkv_cuda`) -> dQ."""
+    """Launch the dQ kernel of d's `backward_route` (arguments as
+    `flash_backward_dkv_cuda`) -> dQ."""
     global dq_launches
+    route = backward_route(q.shape[-1])
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = _kernels()[2](*ptrs, dq.data_ptr(), *dims, stream)
-        _raise_on(err, "dQ")
+            err = _kernels()[2][route](*ptrs, dq.data_ptr(), *dims, stream)
+        _raise_on(err, f"dQ ({route})")
         dq_launches += 1
     return dq
 

@@ -144,6 +144,70 @@ def test_flash_kernels_refuse_cpu_and_unsupported_inputs():
     assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
 
 
+@pytest.mark.parametrize("B, T, H, d, masked, all_masked", [
+    (2, 37, 2, 64, True, True),  # batch element 1 has no valid key
+    (1, 130, 3, 48, True, False),  # T past a 128-row tile, d without a Hopper kernel
+    (2, 129, 2, 64, False, False),  # one row past a 128-row tile
+])
+def test_flash_backward_plain_matches_autograd_and_jax_flash(B, T, H, d, masked, all_masked):
+    """`flash_backward_plain` (the kernels' interface: saved m in base 2 and
+    l, di = rowsum(dO o O)) against autograd of the plain branch and against
+    the reference's flash backward in interpret mode, f32, at the gradient
+    tolerance above; the reference's flash branch only on batch elements
+    with a valid key (its all-masked rows average over T padded to 512, see
+    below), its plain branch on all. An all-masked row saves m = bf16's
+    lowest finite value and l = T, so its backward recomputes P = 1/T."""
+    rng = np.random.default_rng(100 + T)
+    q, k, v = _qkv(rng, B, T, H, d)
+    ct = rng.normal(size=q.shape).astype(np.float32)
+    mask = None
+    if masked:
+        mask = rng.uniform(size=(B, T)) > 0.3
+        mask[:, 0] = True
+        if all_masked:
+            mask[1] = False
+    mask_u8 = None if mask is None else attention.mask_bytes(torch.from_numpy(mask))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, ct))
+    o, m, l = attention.flash_forward_plain(qt, kt, vt, mask_u8)
+    got = [np32(o), *map(np32, attention.flash_backward_plain(
+        qt, kt, vt, mask_u8, dot, m, l, attention.row_dot(dot, o)))]
+    autograd = _port_attention(q, k, v, ct, mask)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, autograd):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-5, err_msg=f"{name} vs autograd")
+    valid = slice(None) if not all_masked else slice(0, 1)
+    for use_flash in (True, False):
+        want = _jax_attention(q, k, v, ct, mask, use_flash)
+        rows = valid if use_flash else slice(None)
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(g[rows], w[rows], rtol=0, atol=2e-5,
+                                       err_msg=f"{name} vs reference use_flash={use_flash}")
+    if all_masked:
+        np.testing.assert_array_equal(np32(m[1]), np.float32(attention.MASKED_LOGIT))
+        np.testing.assert_allclose(np32(l[1]), T, rtol=1e-6)
+    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+
+
+@pytest.mark.parametrize("d", [*attention.HEAD_DIMS, 16, 40, 256])
+def test_backward_route_by_head_width(d):
+    """d = 64 takes the Hopper backward kernels, the other widths of
+    HEAD_DIMS the mma.sync ones; a width without kernels raises, on the rule
+    and on the wrappers, which count nothing."""
+    if d not in attention.HEAD_DIMS:
+        with pytest.raises(ValueError, match=f"d = {d}"):
+            attention.backward_route(d)
+        q = torch.zeros(1, 8, 2, d, dtype=torch.bfloat16)
+        stat = torch.ones(1, 2, 8)
+        for fn in (attention.flash_backward_dkv_cuda, attention.flash_backward_dq_cuda):
+            with pytest.raises(ValueError, match=f"d = {d}"):
+                fn(q, q, q, None, q, stat, stat, stat)
+        with pytest.raises(ValueError, match=f"d = {d}"):
+            attention.flash_attention_cuda(q, q, q)
+        assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+        return
+    assert attention.backward_route(d) == ("wgmma" if d == 64 else "mma_sync")
+    assert (d in attention.WGMMA_HEAD_DIMS) == (d == 64)
+
+
 def test_cpu_tensors_take_the_plain_branch_at_any_t():
     """use_flash=None: the kernels for a CUDA q at T >= 2048 (the reference:
     a TPU at T >= 2048); a CPU q takes the plain branch at any T."""
@@ -363,6 +427,9 @@ def _errors(fn, q, k, v, do, mask):
 @pytest.mark.parametrize("B, T, H, d, masked", [
     (2, 2305, 4, 64, False), (2, 1000, 3, 64, True), (1, 37, 2, 48, True), (3, 1, 2, 32, False),
     (1, 300, 2, 96, True), (1, 200, 2, 128, False),
+    (2, 129, 3, 64, True),  # one row past the Hopper kernels' 128-row tiles
+    (2, 2305, 3, 64, True),  # the 768-px token count with a mask
+    (3, 1, 2, 64, False),  # T = 1 on the Hopper route
 ])
 def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked):
     """O, dQ, dK and dV of the kernels are no further from the f32 plain
@@ -378,3 +445,27 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked):
         n + 1 for n in before)
     for name, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), kernel, plain):
         assert e_kernel <= max(e_plain, 1e-6), (name, e_kernel, e_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, H, d, masked", [
+    (2, 2305, 3, 64, True), (2, 129, 2, 64, False), (1, 300, 2, 48, True),
+])
+def test_backward_kernels_alone_match_plain_on_card(cuda_device, B, T, H, d, masked):
+    """Each backward kernel alone against `flash_backward_plain` in f32 on
+    the forward kernel's saved statistics: within 2^-6 of the plain
+    gradient's largest magnitude (the kernels round P, dS and their outputs
+    to bf16), plus 1e-6; two calls are bit-identical (no atomics)."""
+    q, k, v, do, mask = _card_case(cuda_device, B, T, H, d, masked, seed=T + 1)
+    mask_u8 = attention.mask_bytes(mask)
+    o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
+    args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
+    want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
+                                          *args[5:])
+    runs = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(("dQ", "dK", "dV"), *runs, want):
+        assert torch.equal(a, b), name
+        err = float((a.float() - w).abs().max())
+        assert err <= 2.0 ** -6 * float(w.abs().max()) + 1e-6, (name, err)

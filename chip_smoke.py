@@ -45,12 +45,24 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
          fusion's default heads, T = 37 at d = 48, an all-masked batch
-         element, T = 1, T = 129); the backward kernels alone against
-         `flash_backward_plain` on the same saved statistics, on both
-         backward routes at d = 64 (wgmma, mma.sync), two calls
-         bit-identical; then timed beside SDPA, at T = 1025 too, and the
-         backward pair alone on both routes beside SDPA's backward alone
-         (phase 3);
+         element, T = 1, T = 129), at d = 64 the forward on both routes
+         (wgmma, mma.sync); the forward alone against `flash_forward_plain`
+         on O (no further from it than the bf16 plain branch, a bound that a
+         forward skipping one key tile must miss), m and l, and the backward
+         kernels alone against
+         `flash_backward_plain` on the wgmma forward's statistics, each on
+         both routes at d = 64, two calls bit-identical; the Hopper kernels
+         build without spills; then timed beside SDPA, at T = 1025 too: the
+         forward on both routes in turns, and the backward pair alone on
+         both routes beside SDPA's backward alone (phase 3);
+       * the port's two repaired faults: f32 and f16 CUDA operands at
+         T = 2305 launch the f32-arithmetic forward, dK/dV and dQ kernels
+         once each and agree with the plain branch in f32, each kernel
+         alone too, two calls bit-identical; they are timed in f32 beside
+         the plain branch and SDPA (bf16 at that shape launches one
+         forward); `serve --replay-dir` on a directory of PNG frames exits
+         naming the missing decoder where cv2 cannot be imported, and
+         serves where it can;
        * `serve --model-size 768`: 12 forward launches per tick; the bare
          768-px step timed, never synchronizing, against the plain path;
        * the unfrozen 768-px train step (fr3, 2 groups x 4 views): backbone
@@ -59,7 +71,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * `SelfAttentionFusion` at B 4, V 8, N 513, D 768 against the plain
          path, and its mask invariance. Every other path launches no flash
          kernel;
-  8. a JSON line per kernel, the card and its power limit, then the last line
+  8. a JSON line per kernel (the flash kernels also with their mma.sync time
+     and, for f32 operands, `f32_ms` and `f32_bound_ms`), the card and its
+     power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -69,6 +83,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -137,7 +152,7 @@ FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # The serve default: ViT-B/16 at 512 px (T = 1024 + 1), 4 views, J=8, A=7.
 FULL = EstimatorConfig(
     vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
@@ -231,7 +246,17 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
+def spilled_bytes(log: str) -> dict:
+    """Spilled bytes (stores + loads) per kernel in nvcc's `-Xptxas -v` output."""
+    spills = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        spills[part.split("'")[0]] = int(found[1]) + int(found[2]) if found else 0
+    return spills
+
+
 def phase_build() -> None:
+    """Build the kernels; the Hopper kernels (`*_sm90_kernel`) must not spill."""
     t0 = time.perf_counter()
     _build.load_library()
     seconds = time.perf_counter() - t0
@@ -239,7 +264,11 @@ def phase_build() -> None:
     print(f"build: {lib.relative_to(ROOT)} in {seconds:.2f} s")
     log = lib.with_name(lib.name + ".log")
     if log.exists():
-        print(log.read_text().strip())
+        text = log.read_text().strip()
+        print(text)
+        hopper = {k: v for k, v in spilled_bytes(text).items() if "sm90_kernel" in k}
+        check(len(hopper) == 3 and not any(hopper.values()),
+              f"the Hopper flash kernels' spilled bytes: {hopper}")
 
 
 def _tie_maps(rng) -> np.ndarray:
@@ -527,6 +556,26 @@ FLASH_ERR_FLOOR = 1e-6
 # 2^-6 is four such roundings of the largest value; FLASH_ERR_FLOOR beside
 # it for gradients that are 0 in exact arithmetic (T = 1).
 BACKWARD_TOL = 2.0 ** -6
+# The forward kernel alone against `flash_forward_plain` in f32 on the same
+# bf16 values. O no further from it than the bf16 plain branch's O is (or
+# FLASH_ERR_FLOOR): both round to bf16 the probabilities they multiply by V
+# and the O they return, and the plain branch its logits as well, so the
+# kernel's error is the smaller (measured 2.3x to 4x smaller on an H100).
+# The bound scales with O itself, not with V: at T = 2305 a typical |O| is
+# ~0.03 beside max|v| ~5. `forward_alone` shows that it is tight enough to
+# fail a kernel that skips one key tile. m (base 2) within STAT_TOL where a
+# row has an attended key (its logits are f32 sums of the same products in
+# another order, ~1e-5 here; a shift of m by 2^-10 moves P by 0.07 % and
+# leaves O as it is) and exactly bf16's lowest finite value where it has
+# none; l within 2 STAT_TOL relative (it moves with m).
+STAT_TOL = 2.0 ** -10
+# The f32-arithmetic kernels (f32 and f16 operands, `phase_simt`) against
+# the plain branch in f32 on the same values, as a share of its largest
+# magnitude: f32, 1e-5 (the same f32 products summed in another order over
+# T = 2305 keys, ~1e-6, and exp2f's 2 ulps); f16, 2^-10, twice the half ulp
+# of the one rounding of each output to f16.
+SIMT_TOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -10}
+SIMT_SHAPE = (2, 2305, 12, 64)  # the 768-px serve backbone's T at 2 images
 
 
 def _flash_mask(kind, B: int, T: int, gen):
@@ -554,9 +603,10 @@ def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int,
 
 
 @contextlib.contextmanager
-def mma_sync_backward():
-    """Within this block every backward takes the mma.sync kernels (at d =
-    64 the Hopper kernels' predecessors), for the comparisons of this script."""
+def mma_sync_route():
+    """Within this block the forward and the backward take the mma.sync
+    kernels (at d = 64 the Hopper kernels' predecessors), for the
+    comparisons of this script."""
     saved, attention.WGMMA_HEAD_DIMS = attention.WGMMA_HEAD_DIMS, ()
     try:
         yield
@@ -565,26 +615,78 @@ def mma_sync_backward():
 
 
 def on_route(route: str):
-    """The backward on `route`: "wgmma" (d's own where d = 64) or "mma_sync"."""
-    return mma_sync_backward() if route == "mma_sync" else contextlib.nullcontext()
+    """The kernels on `route`: "wgmma" (d's own where d = 64) or "mma_sync"."""
+    return mma_sync_route() if route == "mma_sync" else contextlib.nullcontext()
+
+
+def routes(d: int) -> list:
+    """d's own route and, where that is wgmma, the mma.sync route too."""
+    own = attention.kernel_route(d)
+    return [own, "mma_sync"] if own == "wgmma" else [own]
+
+
+def dropped_tile_gap(q, k, v, mask_u8, o_ref, tile: int):
+    """max |O - o_ref| of a forward that skips keys [tile, 2 tile), the
+    second key tile, as a kernel with a wrong tile loop would (None where T <
+    2 tile): what the O bound of `forward_alone` must reject."""
+    T = q.shape[1]
+    if T < 2 * tile:
+        return None
+    keep = torch.cat([torch.arange(tile), torch.arange(2 * tile, T)]).to(q.device)
+    o, _, _ = attention.flash_forward_plain(
+        q.float(), k[:, keep].float(), v[:, keep].float(),
+        None if mask_u8 is None else mask_u8[:, keep])
+    return float((o.float() - o_ref).abs().max())
+
+
+def forward_alone(q, k, v, mask, tol_o: float) -> dict:
+    """The forward kernel alone against `flash_forward_plain` in f32 on the
+    same bf16 values, on each of d's `routes`: O within tol_o (the bf16
+    plain branch's O error), m and l within STAT_TOL, 2 STAT_TOL (an
+    all-masked row's m exact), and two calls bit-identical; a forward that
+    skips one key tile must miss tol_o. -> {route: [err O, m, l]}, with the
+    skipped tile's O gap under "dropped_tile"."""
+    mask_u8 = attention.mask_bytes(mask)
+    o_ref, m_ref, l_ref = attention.flash_forward_plain(q.float(), k.float(), v.float(), mask_u8)
+    attended = m_ref > attention.MASKED_LOGIT  # rows with an attended key
+    dropped = dropped_tile_gap(q, k, v, mask_u8, o_ref,
+                               128 if attention.kernel_route(q.shape[-1]) == "wgmma" else 64)
+    check(dropped is None or dropped > tol_o,
+          f"forward alone: O's bound {tol_o} passes a forward that skips a key tile ({dropped})")
+    errs = {f"a forward skipping a key tile (O bound {tol_o:.3g})": [
+        float("nan") if dropped is None else dropped]}
+    for route in routes(q.shape[-1]):
+        with on_route(route):
+            runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{route}: two forward calls on the same inputs differ")
+        o, m, l = runs[0]
+        check(torch.equal(m[~attended], m_ref[~attended]),
+              f"{route}: an all-masked row's m is not bf16's lowest finite value")
+        errs[route] = [float((o.float() - o_ref).abs().max()),
+                       float((m - m_ref)[attended].abs().max()) if bool(attended.any()) else 0.0,
+                       float(((l - l_ref) / l_ref).abs().max())]
+        for part, e, tol in zip(("O", "m", "l"), errs[route], (tol_o, STAT_TOL, 2 * STAT_TOL)):
+            check(e <= tol, f"{route} forward alone: {part} is {e} from flash_forward_plain, "
+                            f"above {tol}")
+    return errs
 
 
 def backward_alone(q, k, v, mask, do) -> dict:
     """The dQ and dK/dV kernels alone against `flash_backward_plain` in f32
-    on the same saved statistics (the forward kernel's m and l, di of its O),
-    on d's own route and, where that is wgmma, on the mma.sync route too:
-    each gradient within BACKWARD_TOL of the plain one's largest magnitude
-    (plus FLASH_ERR_FLOOR), and two calls bit-identical. -> {route: [err dQ, dK, dV]}."""
+    on the same saved statistics (the forward kernel's m and l on d's own
+    route, di of its O), on each of d's `routes`: each gradient within
+    BACKWARD_TOL of the plain one's largest magnitude (plus
+    FLASH_ERR_FLOOR), and two calls bit-identical. -> {route: [err dQ, dK, dV]}."""
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
     want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
                                           *args[5:])
     tols = [BACKWARD_TOL * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
-    routes = [attention.backward_route(q.shape[-1])]
-    routes += ["mma_sync"] if routes[0] == "wgmma" else []
     errs = {}
-    for route in routes:
+    for route in routes(q.shape[-1]):
         with on_route(route):
             runs = [(attention.flash_backward_dq_cuda(*args),
                      *attention.flash_backward_dkv_cuda(*args)) for _ in range(2)]
@@ -603,25 +705,30 @@ def _grads(fn, qkv, mask, do):
     return [out.detach(), *torch.autograd.grad(out, qkv, do.to(out.dtype))]
 
 
-def _flash_bounds(B: int, T: int, H: int, d: int, mask) -> dict:
+def _flash_bounds(B: int, T: int, H: int, d: int, mask, dtype=torch.bfloat16) -> dict:
     """Per kernel: its products over the keys this data attends (2 B H T^2 d
-    FLOPs each without a mask), the bf16 operands read once and outputs
-    written once. Forward: 2 products, reads q, k, v, writes O (the timed
-    call saves no statistics); dK/dV: 4 products, reads q, k, v, dO and the
-    f32 m, l, di, writes dK, dV; dQ: 3 products, reads the same, writes dQ."""
+    FLOPs each without a mask), the operands read once and outputs written
+    once. Forward: 2 products, reads q, k, v, writes O (the timed call saves
+    no statistics); dK/dV: 4 products, reads q, k, v, dO and the f32 m, l,
+    di, writes dK, dV; dQ: 3 products, reads the same, writes dQ. bf16 at
+    the tensor cores' bf16 rate; f32 and f16 operands, whose kernels compute
+    in f32 on the CUDA cores, at the f32 rate."""
     pairs = H * T * (B * T if mask is None else int(mask.sum()))
-    x, stat, mbytes = B * T * H * d * 2, B * H * T * 4, 0 if mask is None else B * T
-    return {"flash_fwd": bound(4 * x + mbytes, 2 * 2 * pairs * d),
-            "flash_bwd_dkv": bound(6 * x + 3 * stat + mbytes, 4 * 2 * pairs * d),
-            "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d)}
+    x = B * T * H * d * torch.finfo(dtype).bits // 8
+    stat, mbytes = B * H * T * 4, 0 if mask is None else B * T
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    return {"flash_fwd": bound(4 * x + mbytes, 2 * 2 * pairs * d, kind),
+            "flash_bwd_dkv": bound(6 * x + 3 * stat + mbytes, 4 * 2 * pairs * d, kind),
+            "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d, kind)}
 
 
 def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> tuple:
     """One FLASH_CASES shape: O, dQ, dK and dV of the kernels no further from
     the plain branch in f32 on the same bf16 values than the bf16 plain
-    branch is (FLASH_ERR_FLOOR aside), with a random dO; then the backward
-    kernels alone (`backward_alone`). -> (the kernels' O/dQ/dK/dV errors,
-    the errors alone by route)."""
+    branch is (FLASH_ERR_FLOOR aside), with a random dO, and where d's route
+    is wgmma the mma.sync forward's O too; then the forward and the backward
+    kernels alone (`forward_alone`, `backward_alone`). -> (the kernels'
+    O/dQ/dK/dV errors, the forward's and the backward's errors alone by route)."""
     qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=70 + i,
                                     heads_outer=name in HEADS_OUTER)
     ref = _grads(attention.flash_attention_reference,
@@ -634,21 +741,30 @@ def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> 
         check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: {path} not finite")
         gaps[path] = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
         del got
+    paths = [("kernel", gaps["kernel"])]
+    if len(routes(d)) > 1:
+        with torch.no_grad(), mma_sync_route():
+            o = attention.flash_attention_cuda(*qkv, mask)
+        paths.append(("mma.sync forward", [float((o.float() - ref[0]).abs().max())]))
     del ref
-    for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), gaps["kernel"], gaps["plain"]):
-        check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
-              f"{name}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
-              f"branch's {e_plain}")
+    for path, errs in paths:
+        for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), errs, gaps["plain"]):
+            check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
+                  f"{name}: the {path}'s {part} is {e_kernel} from f32, the bf16 plain "
+                  f"branch's {e_plain}")
+    fwd = forward_alone(*(t.detach() for t in qkv), mask, max(gaps["plain"][0], FLASH_ERR_FLOOR))
     alone = backward_alone(*(t.detach() for t in qkv), mask, do)
     fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
     layout = ", heads outer" if name in HEADS_OUTER else ""
     print(f"flash kernels vs f32 plain [{name} (B, T, H, d) = {(B, T, H, d)} mask {mask_kind}"
-          f"{layout}; backward {attention.backward_route(d)}]: "
-          f"O/dQ/dK/dV max abs err kernel {fmt(gaps['kernel'])}, bf16 plain {fmt(gaps['plain'])}; "
-          f"backward alone vs flash_backward_plain, dQ/dK/dV: "
+          f"{layout}; route {attention.kernel_route(d)}]: O/dQ/dK/dV max abs err "
+          + ", ".join(f"{path} {fmt(errs)}" for path, errs in paths)
+          + f", bf16 plain {fmt(gaps['plain'])}; forward alone vs flash_forward_plain, "
+          f"O/m/l(rel): " + ", ".join(f"{route} {fmt(e)}" for route, e in fwd.items())
+          + "; backward alone vs flash_backward_plain, dQ/dK/dV: "
           + ", ".join(f"{route} {fmt(e)}" for route, e in alone.items())
           + "; two calls bit-identical")
-    return gaps["kernel"], alone
+    return gaps["kernel"], fwd, alone
 
 
 def _in_turns(timer, first, second) -> tuple:
@@ -673,7 +789,7 @@ def backward_times(B: int, T: int, mask_kind, timer) -> dict:
     for kname, call in (("flash_bwd_dkv", attention.flash_backward_dkv_cuda),
                         ("flash_bwd_dq", attention.flash_backward_dq_cuda)):
         def mma(call=call):
-            with mma_sync_backward():
+            with mma_sync_route():
                 call(*args)
         out[kname], out[kname + "_mma_sync"] = _in_turns(timer, mma, lambda call=call: call(*args))
     plain = attention.flash_attention_reference
@@ -693,13 +809,14 @@ def phase_flash() -> dict:
     card (`flash_case` at every FLASH_CASES shape). Then times by CUDA-graph
     replay, in turns plain/kernel/kernel/plain, of the forward and the
     forward + backward, beside torch's SDPA (the library yardstick, timed
-    only here), at the full-width shapes and at T = 1025; and of the dK/dV
-    and dQ kernels alone (`backward_times`) at the 768-px train shape and
-    the fusion bench shape."""
+    only here), at the full-width shapes and at T = 1025, with the forward
+    alone on both routes in turns mma.sync/wgmma/wgmma/mma.sync; and of the
+    dK/dV and dQ kernels alone (`backward_times`) at the 768-px train shape
+    and the fusion bench shape."""
     bench = _script("torch_bench_attention_fusion")
     err = dict.fromkeys(FLASH_KERNELS, 0.0)
     for i, case in enumerate(FLASH_CASES):
-        ek, _ = flash_case(i, *case)
+        ek, _, _ = flash_case(i, *case)
         err["flash_fwd"] = max(err["flash_fwd"], ek[0])
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], ek[1])
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], ek[2], ek[3])
@@ -707,20 +824,32 @@ def phase_flash() -> dict:
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
 
-    out = {}
+    out, fwd = {}, {}
     for name, B, T, mask_kind in FLASH_TIMED:
         qkv, do, mask = _flash_operands(B, T, 12, 64, mask_kind, seed=80)
         times = bench.attention_times(*qkv, mask, do, timer)
+        q, k, v = (t.detach() for t in qkv)
+        mask_u8 = attention.mask_bytes(mask)
+
+        def forward(route):
+            def run():
+                with on_route(route):
+                    attention.flash_forward_cuda(q, k, v, mask_u8, save_stats=False)
+            return run
+
+        fwd[name] = dict(zip(("wgmma", "mma_sync"),
+                             _in_turns(timer, forward("mma_sync"), forward("wgmma"))))
         bounds = _flash_bounds(B, T, 12, 64, mask)
         print(f"flash attention [{name} (B, T, H, d) = {(B, T, 12, 64)} mask {mask_kind}], ms "
               f"per call, CUDA-graph replay, plain/kernel/kernel/plain: "
               + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
                           f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
                           for part in ("fwd", "fwd_bwd"))
-              + f"; forward bound {bounds['flash_fwd']['bound_ms']:.4f} "
-              f"({bounds['flash_fwd']['bound_by']})")
+              + f"; forward alone, mma.sync/wgmma/wgmma/mma.sync: wgmma "
+              f"{fwd[name]['wgmma']:.4f}, mma.sync {fwd[name]['mma_sync']:.4f}; forward bound "
+              f"{bounds['flash_fwd']['bound_ms']:.4f} ({bounds['flash_fwd']['bound_by']})")
         out[name] = times
-        del qkv, do
+        del qkv, do, q, k, v
     alone = {}
     for name, B, T, mask_kind in (("train_768", 8, 2305, None), ("fusion_bench", 4, 4104, "view")):
         alone[name] = t = backward_times(B, T, mask_kind, timer)
@@ -737,7 +866,8 @@ def phase_flash() -> dict:
               f"{t['sdpa_bwd']:.4f}")
     train, t = out["train_768"], alone["train_768"]
     bounds = _flash_bounds(8, 2305, 12, 64, None)
-    result = {"flash_fwd": {"max_abs_err": err["flash_fwd"], "ms": train["kernel"]["fwd"],
+    result = {"flash_fwd": {"max_abs_err": err["flash_fwd"], "ms": fwd["train_768"]["wgmma"],
+                            "mma_sync_ms": fwd["train_768"]["mma_sync"],
                             "plain_ms": train["plain"]["fwd"], **bounds["flash_fwd"],
                             "library_ms": train["library"]["fwd"]}}
     for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
@@ -757,9 +887,9 @@ def _read_launches() -> dict:
     return {name: getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
 
 
-def _flash_zeros(n: int, d: int = 32):
+def _flash_zeros(n: int, d: int = 32, dtype=torch.bfloat16):
     """Operands of the flash kernels for n tokens: q, k, v, mask, dO, m, l, di."""
-    q = torch.zeros(1, n, 2, d, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(1, n, 2, d, dtype=dtype, device="cuda")
     stat = torch.ones(1, 2, n, device="cuda")
     return q, q, q, None, q, stat, stat, stat
 
@@ -779,13 +909,15 @@ def phase_counters() -> None:
             torch.ones(2, n, device="cuda"), torch.ones(2, 64, device="cuda"), torch.float32),
         "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
             torch.zeros(n, 3, device="cuda"), 4, 4),
-        "flash_fwd": lambda n: attention.flash_attention_cuda(*_flash_zeros(n)[:3]),
     }
     calls = list(calls.items())
-    for d in (32, 64):  # both backward routes
+    for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32),
+                     (64, torch.float16)):  # every route
+        z = lambda n, d=d, dtype=dtype: _flash_zeros(n, d, dtype)  # noqa: E731
         calls += [
-            ("flash_bwd_dkv", lambda n, d=d: attention.flash_backward_dkv_cuda(*_flash_zeros(n, d))),
-            ("flash_bwd_dq", lambda n, d=d: attention.flash_backward_dq_cuda(*_flash_zeros(n, d))),
+            ("flash_fwd", lambda n, z=z: attention.flash_attention_cuda(*z(n)[:3])),
+            ("flash_bwd_dkv", lambda n, z=z: attention.flash_backward_dkv_cuda(*z(n))),
+            ("flash_bwd_dq", lambda n, z=z: attention.flash_backward_dq_cuda(*z(n))),
         ]
     for name, call in calls:
         for n, want in ((0, 0), (3, 1)):
@@ -796,7 +928,171 @@ def phase_counters() -> None:
                   f"{name} on {n} rows counted {got}")
     torch.cuda.synchronize()
     print("launch counters: an empty input counts nothing, one launch counts one, "
-          "for every kernel")
+          "for every kernel, the flash kernels on every route")
+
+
+def _simt_alone(q, k, v, mask, do, tol: float) -> list:
+    """The f32-arithmetic forward, dK/dV and dQ kernels alone against
+    `flash_forward_plain` and `flash_backward_plain` in f32 on the same
+    values and the kernel's own statistics: O, dQ, dK, dV within tol of the
+    plain one's largest magnitude (plus FLASH_ERR_FLOOR), m and l as in
+    `forward_alone`, two calls bit-identical. -> [err O, m, l, dQ, dK, dV]."""
+    mask_u8 = attention.mask_bytes(mask)
+    runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
+    o, m, l = runs[0]
+    args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
+    grads = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)) and
+          all(torch.equal(a, b) for a, b in zip(*grads)),
+          f"{q.dtype}: two calls of a kernel on the same inputs differ")
+    f32 = [t.float() for t in (q, k, v)]
+    o_ref, m_ref, l_ref = attention.flash_forward_plain(*f32, mask_u8)
+    want = attention.flash_backward_plain(*f32, mask_u8, do.float(), *args[5:])
+    attended = m_ref > attention.MASKED_LOGIT
+    check(torch.equal(m[~attended], m_ref[~attended]),
+          f"{q.dtype}: an all-masked row's m is not bf16's lowest finite value")
+    errs = [float((o.float() - o_ref).abs().max()), float((m - m_ref)[attended].abs().max()),
+            float(((l - l_ref) / l_ref).abs().max())]
+    tols = [tol * float(o_ref.abs().max()) + FLASH_ERR_FLOOR, STAT_TOL, 2 * STAT_TOL]
+    for g, w in zip(grads[0], want):
+        errs.append(float((g.float() - w).abs().max()))
+        tols.append(tol * float(w.abs().max()) + FLASH_ERR_FLOOR)
+    for part, e, t in zip(("O", "m", "l", "dQ", "dK", "dV"), errs, tols):
+        check(e <= t, f"{q.dtype} {part} alone is {e} from the plain version, above {t}")
+    return errs
+
+
+def phase_simt() -> dict:
+    """f32 and f16 operands at T >= 2048 on the card (f32 raised until the
+    f32-arithmetic kernels of `csrc/flash_attention_simt.cu`):
+    `fused_self_attention` at SIMT_SHAPE with a mask (batch element 1 all
+    masked) launches one forward of the route, and its backward one dK/dV
+    and one dQ; O and the gradients within SIMT_TOL of the plain branch in
+    f32 on the same values; each kernel alone (`_simt_alone`); the same
+    values in bf16 launch one forward. Then, in f32 without a mask, the
+    forward and forward + backward timed in turns plain/kernel/kernel/plain
+    beside SDPA, and the dK/dV and dQ kernels alone. -> {kernel: {"f32_ms",
+    "f32_plain_ms", "f32_library_ms", "f32_bound_ms"}}."""
+    B, T, H, d = SIMT_SHAPE
+    gen = torch.Generator().manual_seed(90)
+    base = [torch.randn(B, T, H, d, generator=gen).cuda() for _ in range(4)]
+    mask = _flash_mask("all", B, T, gen)
+    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+    for dtype in (torch.float32, torch.float16):
+        q, k, v, do = (t.to(dtype) for t in base)
+        ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        _reset_launches()
+        got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, key_mask=m),
+                     ts, mask, do)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        check(launches == {k: int(k in FLASH_KERNELS) for k in KERNELS},
+              f"{dtype} at T = {T} launched {launches}")
+        ref = _grads(attention.flash_attention_reference,
+                     [t.detach().float().requires_grad_() for t in (q, k, v)], mask, do.float())
+        errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+        tols = [SIMT_TOL[dtype] * float(b.abs().max()) + FLASH_ERR_FLOOR for b in ref]
+        check(got[0].dtype == dtype and all(e <= t for e, t in zip(errs, tols)),
+              f"{dtype} at T = {T}: O/dQ/dK/dV {errs} from f32 plain, bounds {tols}")
+        del got, ref, ts
+        alone = _simt_alone(q, k, v, mask, do, SIMT_TOL[dtype])
+        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (route "
+              f"{attention.kernel_route(d, dtype)}): fused_self_attention launched "
+              f"{launches['flash_fwd']}/{launches['flash_bwd_dkv']}/{launches['flash_bwd_dq']} "
+              f"forward/dK,dV/dQ; O/dQ/dK/dV max abs err vs f32 plain {fmt(errs)} (bounds "
+              f"{fmt(tols)}); alone vs flash_forward_plain / flash_backward_plain, "
+              f"O/m/l(rel)/dQ/dK/dV {fmt(alone)}; two calls bit-identical")
+    with torch.no_grad():
+        _reset_launches()
+        out = attention.fused_self_attention(*(t.bfloat16() for t in base[:3]), key_mask=mask)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+    check(launches == {k: int(k == "flash_fwd") for k in KERNELS} and
+          bool(torch.isfinite(out).all()), f"bf16 at T = {T} launched {launches}")
+    del out
+
+    def timer(fn):
+        return graph_ms(fn, iters=2, samples=10)
+
+    bench = _script("torch_bench_attention_fusion")
+    qkv = [t.detach().clone().requires_grad_() for t in base[:3]]
+    times = bench.attention_times(*qkv, None, base[3], timer)
+    q, k, v, do = base
+    o, m, l = attention.flash_forward_cuda(q, k, v)
+    args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
+    alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
+             "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
+    bounds = _flash_bounds(B, T, H, d, None, torch.float32)
+    print(f"flash kernels f32 {SIMT_SHAPE} no mask, ms per call, CUDA-graph replay, "
+          f"plain/kernel/kernel/plain: "
+          + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
+                      f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
+                      for part in ("fwd", "fwd_bwd"))
+          + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
+          + "; bounds (f32 rate) " + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})"
+                                               for k, b in bounds.items()))
+    result = {"flash_fwd": {"f32_ms": times["kernel"]["fwd"], "f32_plain_ms": times["plain"]["fwd"],
+                            "f32_library_ms": times["library"]["fwd"]}}
+    for kname, t in alone.items():
+        result[kname] = {"f32_ms": t}
+    for kname, b in bounds.items():
+        result[kname]["f32_bound_ms"] = b["bound_ms"]
+    return result
+
+
+@contextlib.contextmanager
+def blocked(module: str):
+    """Within this block `module` cannot be imported (None in sys.modules)."""
+    saved = sys.modules.get(module, ...)
+    sys.modules[module] = None
+    try:
+        yield
+    finally:
+        if saved is ...:
+            del sys.modules[module]
+        else:
+            sys.modules[module] = saved
+
+
+def phase_replay() -> None:
+    """`serve --replay-dir` through the CLI's parser on a directory of 4
+    PNG frames, at toy size (2 views, 32 px, one layer). With cv2, the
+    replay source's frame decoder, not importable (blocked in this process
+    where the machine has it), serve exits naming it and ROADMAP queue 1
+    item 7 before any source starts (until that check, every source failed
+    and serve said only that none initialized); where cv2 imports, it serves."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as frames:
+        has_cv2 = importlib.util.find_spec("cv2") is not None
+        for i in range(4):  # without cv2 serve refuses before it reads a frame
+            path = Path(frames) / f"frame{i}.png"
+            if has_cv2:
+                import cv2
+
+                cv2.imwrite(str(path), rng.integers(0, 256, size=(32, 48, 3), dtype=np.uint8))
+            else:
+                path.touch()
+        args = build_parser().parse_args([
+            "serve", "--replay-dir", frames, "--views", "2", "--fps", "60", "--frame-hw", "32",
+            "48", "--model-size", "32", "--hidden-size", "64", "--num-layers", "1",
+            "--duration", "1"])
+        with blocked("cv2"):
+            try:
+                serve(args)
+                said = "(served)"
+            except SystemExit as e:
+                said = str(e)
+        check("cv2" in said and "item 7" in said, f"serve --replay-dir without cv2: {said}")
+        print(f"serve --replay-dir, cv2 not importable ({'blocked' if has_cv2 else 'absent'}): "
+              f"exits before any source starts: {said}")
+        if has_cv2:
+            stats, last = serve(args)
+            check(last is not None and all(np.isfinite(a).all() for a in last),
+                  f"serve --replay-dir: result {last}")
+            print(f"serve --replay-dir with cv2: {stats.ticks} ticks from 4 PNG frames")
 
 
 def _serve(argv: list, label: str, kernels: list) -> dict:
@@ -1393,7 +1689,10 @@ def main() -> int:
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv(),
                 **phase_heatmap_render(), **phase_flash()}
+    for name, extra in phase_simt().items():
+        measured[name].update(extra)
     phase_counters()
+    phase_replay()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
     flat = seed0_flat()
     (ROOT / "build").mkdir(exist_ok=True)

@@ -10,12 +10,14 @@ as the reference's flags do; a checkpoint whose model_config.json says
 backbone has T >= 2048 tokens and its attention runs the flash kernel on the
 card (`ops/attention.py`), as the reference's does on a TPU. The serve flags that belong to modules not ported yet exit
 with an error naming the ROADMAP.md item that ports them; they never fall
-back to something else.
+back to something else. `--replay-dir` decodes its frames with cv2 and
+exits naming it where cv2 cannot be imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 import time
@@ -202,6 +204,13 @@ def serve(args):
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
     hw = tuple(args.frame_hw)
     if args.replay_dir:
+        if importlib.util.find_spec("cv2") is None:
+            # Otherwise every replay source fails in its thread, and serve
+            # exits saying only that no camera source initialized.
+            raise SystemExit(
+                "serve --replay-dir decodes frames with cv2, which cannot be imported here; "
+                "a frame reader that runs without it is ROADMAP.md queue 1, item 7"
+            )
         paths = sorted(Path(args.replay_dir).glob("*.jpg")) + sorted(
             Path(args.replay_dir).glob("*.png")
         )

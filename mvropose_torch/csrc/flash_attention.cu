@@ -4,7 +4,8 @@
 // Replaces the stock Pallas TPU flash attention that
 // mvropose_tpu/ops/attention.py::fused_self_attention calls at T >= 2048
 // (jax/experimental/pallas/ops/tpu/flash_attention.py in jax 0.9.0):
-//   * flash_fwd_kernel  <- _flash_attention_kernel (:331, pallas_call :758);
+//   * flash_fwd_kernel, and at d = 64 flash_fwd_sm90_kernel
+//                       <- _flash_attention_kernel (:331, pallas_call :758);
 //   * flash_dkv_kernel, and at d = 64 flash_dkv_sm90_kernel
 //                       <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
 //   * flash_dq_kernel, and at d = 64 flash_dq_sm90_kernel
@@ -29,10 +30,14 @@
 // products of 2 B H T^2 d FLOPs each, against q, k, v, o of 4 B T H d bytes:
 // at T = 2305, d = 64 the forward does ~720 FLOPs a byte, above the card's
 // ~295 bf16 FLOPs a byte, so it is compute-bound, and the exponentials
-// (B H T^2 of them) cost about as much again on the SFU.
+// (B H T^2 of them) cost about as much again on the SFU: at d = 64 a 64 x
+// 128 tile's two products take 512 tensor-core cycles of an SM, its 8192
+// exponentials 512 cycles of the SM's 16 SFU lanes.
 //
-// Two designs. The forward at every head width, and the backward at d in
-// {32, 48, 96, 128}, run on mma.sync:
+// Two designs. The three kernels at d = 64, every main path's width, run
+// on Hopper's own units (flash_fwd_sm90_kernel, flash_dkv_sm90_kernel,
+// flash_dq_sm90_kernel, below); at d in {32, 48, 96, 128} they run on
+// mma.sync:
 //   * mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments in registers; one
 //     block of 4 warps, each warp owning 16 rows of the block's tile, so the
 //     softmax statistics of a row stay in the 4 threads of a quad;
@@ -42,33 +47,41 @@
 //   * shared rows are padded by 16 bytes, so the fragment loads (32-bit
 //     loads, ldmatrix.trans for the transposed operands) are free of bank
 //     conflicts at every head width.
-// The backward at d = 64, every main path's width, runs on Hopper's own
-// units (flash_dkv_sm90_kernel, flash_dq_sm90_kernel):
-//   * all seven products on wgmma.mma_async (bf16 x bf16 -> f32): S^T = K Q^T
-//     and dP^T = V dO^T (S = Q K^T and dP = dO V^T in dQ) as m64n128k16 with
-//     both operands in shared memory; dV += P^T dO and dK += dS^T Q (dQ +=
-//     dS K) as m64n64k16 with P^T, dS^T (dS) as the A operand in registers
-//     and B the streamed tile read MN-major (the transpose bit), so no
-//     transposed copy is made;
+// The Hopper kernels at d = 64:
+//   * all products on wgmma.mma_async (bf16 x bf16 -> f32), which alone
+//     reaches the card's tensor-core rate: S = Q K^T (forward, dQ), S^T =
+//     K Q^T and dP^T = V dO^T (dK/dV), dP = dO V^T (dQ) as m64n128k16 with
+//     both operands in shared memory; O += P V, dV += P^T dO, dK += dS^T Q
+//     and dQ += dS K as m64n64k16 with P, P^T, dS^T, dS as the A operand in
+//     registers and B the streamed tile read MN-major (the transpose bit),
+//     so no transposed copy is made;
 //   * TMA loads (cp.async.bulk.tensor, 64 x 64 boxes, 128-byte swizzle, rows
 //     past T zero-filled) through tensor maps over the (B, T, H, 64)
 //     operands' own strides, built on the host per call with CUDA's
 //     cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, no
 //     link against libcuda) and passed as __grid_constant__ parameters, so a
 //     CUDA graph captures them;
-//   * a block owns 128 rows (keys in dK/dV, queries in dQ), loaded once, in
-//     two consumer warpgroups of 64; the streamed operand comes in tiles of
-//     128 rows through a 3-stage ring with full/empty mbarriers, filled by
-//     one producer warp; setmaxnreg moves registers from the producer
-//     warpgroup to the consumers; no __syncthreads in the main loop;
+//   * a block owns 128 rows (keys in dK/dV, queries in the forward and
+//     dQ), loaded once, in two consumer warpgroups of 64; the streamed
+//     operand comes in tiles of 128 rows through a 4-stage ring with
+//     full/empty mbarriers, filled by one producer warp, so the loads never
+//     wait on the products (4 stages: the forward holds two tiles at once,
+//     and with 3 its next tile's loads started too late); setmaxnreg moves
+//     registers from the producer warpgroup to the consumers; no
+//     __syncthreads in the main loop;
 //   * the row statistics m, l and di have a row stride of T floats, not a
 //     multiple of 16 bytes at T = 2305, so TMA cannot copy them: the producer
 //     warp copies them by plain loads (all of a stage's issued before any is
 //     used) into the stage, with 1/l taken there, and arrives on the stage's
-//     full barrier beside the bytes of its TMA copies; in dQ it writes a code
-//     per key (attended, masked, past T) the same way;
+//     full barrier beside the bytes of its TMA copies; in the forward and dQ
+//     it writes a code per key (attended, masked, past T) the same way, and
+//     in the forward a flag per tile, so a tile of attended keys only (all
+//     but the last at T = 2305 without a mask) takes a softmax that reads
+//     no code;
 //   * the two consumer warpgroups take turns to issue their products (two
-//     named barriers), so one's softmax runs beside the other's products.
+//     named barriers), so one's softmax (the exponentials on the SFU, the
+//     other arithmetic on the FP32 units) runs beside the other's products
+//     on the tensor cores.
 // Both designs:
 //   * P and dS go from the accumulators straight into the A operand of the
 //     next product, never through shared or device memory;
@@ -627,7 +640,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 // keys in dK/dV, queries in dQ, loaded once) and a producer warpgroup, of
 // which one warp issues the loads and the other three only hand their
 // registers over (setmaxnreg). The streamed operand (Q and dO, or K and V)
-// comes in tiles of 128 rows through a 3-stage ring: S (S^T) and dP (dP^T)
+// comes in tiles of 128 rows through a 4-stage ring: S (S^T) and dP (dP^T)
 // are m64n128 products of two shared tiles; P and dS, converted to bf16 in
 // registers, are the A operand of the m64n64 products into dV, dK (dQ),
 // whose B is the streamed tile read MN-major.
@@ -637,7 +650,7 @@ constexpr int kHRows = 64;                     // rows of a TMA box and of a con
 constexpr int kHConsumers = 2;                 // consumer warpgroups
 constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operand
 constexpr int kHStream = 128;                  // rows of a streamed tile
-constexpr int kHStages = 3;                    // ring depth
+constexpr int kHStages = 4;                    // ring depth
 constexpr int kHThreads = 128 * (kHConsumers + 1);
 constexpr int kHBox = kHRows * kHD * 2;            // bytes of one 64 x 64 bf16 box: 8 KB
 constexpr int kHTile = kHStream / kHRows * kHBox;  // bytes of one streamed tile of one operand
@@ -648,11 +661,12 @@ struct HopperParams {
   // (B, T, H, 64) bf16 through their strides, 64 x 64 boxes, 128-byte swizzle;
   // dims (d, T, H, B), or (d, H, T, B) where heads lie inside rows (bit
   // kInnerQ.. of `heads_inner`): a tensor map's strides grow with its dims.
-  CUtensorMap q, k, v, dout;
+  CUtensorMap q, k, v, dout;  // dout: the backward's only
   int heads_inner;
-  const uint8_t* mask;      // (B, T), 0 = key not attended; null: every key attended
-  bf16 *dq, *dk, *dv;       // (B, T, H, 64) contiguous
-  const float *m, *l, *di;  // (B, H, T)
+  const uint8_t* mask;     // (B, T), 0 = key not attended; null: every key attended
+  bf16 *o, *dq, *dk, *dv;  // (B, T, H, 64) contiguous
+  float *m, *l;            // (B, H, T): written by the forward (unless null), read by the backward
+  const float* di;         // (B, H, T)
   int H, T;
   float scale, scale_log2;
 };
@@ -752,6 +766,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// Keeps the A registers of a product in registers, unmoved, until here.
+template <int N>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
 // The accumulator of m64nN: per warp 16 rows; d[i][e] is row g + 8 (e >> 1)
@@ -1134,6 +1157,220 @@ __global__ void __launch_bounds__(kHThreads, 1)
   }
 }
 
+// -------------------------------------------- Hopper forward (d = 64, sm_90a)
+//
+// The forward of the d = 64 path on the backward's pieces: two consumer
+// warpgroups own 64 queries each (128 per block, Q loaded once by TMA); K
+// and V stream past them in 128-key tiles through the ring, with a code per
+// key (attended, masked, past T) and a flag per stage that says whether the
+// tile holds any key that is not attended. Per tile and warpgroup: S = Q
+// K^T (m64n128, both operands in shared memory); the online softmax in
+// registers; P to bf16 A registers; O += P V (m64n64, V read MN-major).
+// The softmax's exponentials cost about as much SFU time as the products
+// cost tensor-core time, so the two overlap twice: each turn of a
+// warpgroup issues S of tile j and P V of tile j - 1 together, and the
+// softmax of tile j runs while that P V and the other warpgroup's products
+// run. (With S and P V in turns of their own, both warpgroups' softmax
+// phases fell together, and the tensor cores waited.)
+
+// One online-softmax step on a 64 x kHStream tile of raw S = Q K^T, in
+// place: the row max m (base 2) moves to the tile's, `corr` = exp2(m_old -
+// m_new) is the factor for l and O, and s becomes P = exp2(S scale_log2 -
+// m_new), 0 past T and exp2(kMasked - m_new) at masked keys (1 while a row
+// has no attended key, else 0); l (the thread's part) becomes l corr +
+// rowsum(P). Coded: the tile holds a masked or past-T key, whose code is
+// read; else every key is attended and the max is taken on raw S (scaling
+// by scale_log2 > 0 keeps the order, so the max is the same value).
+template <bool Coded>
+__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], const uint8_t* code, int t,
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    // Codes of keys 8 n + 2 t (low byte) and 8 n + 2 t + 1.
+    const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (Coded) {  // S scaled, masked and skipped in place
+        const uint32_t c = (kc >> (8 * (e & 1))) & 0xff;
+        s[n][e] = c == 0 ? s[n][e] * scale_log2 : (c == 1 ? kMasked : -INFINITY);
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = Coded ? mx[r] : mx[r] * scale_log2;
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    x = fmaxf(m[r], x);  // finite: tile 0 holds key 0
+    corr[r] = exp2_approx(m[r] - x);  // 0 on tile 0 (m = -inf)
+    m[r] = x;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float mr = m[e >> 1];
+      s[n][e] = exp2_approx(Coded ? s[n][e] - mr : fmaf(s[n][e], scale_log2, -mr));
+      sum[e >> 1] += s[n][e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], sum[r]);
+}
+
+__global__ void __launch_bounds__(kHThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ HopperParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + HopperSmem::kOwn);  // 128 query rows
+  bf16* ring = reinterpret_cast<bf16*>(smem + HopperSmem::kRing);  // [stage][K, V][128][64]
+  // Per stage and key: 0 attended, 1 masked, 2 past T; then per stage a flag:
+  // whether any key of the tile is not attended.
+  uint8_t* codes = smem + HopperSmem::kRowData;
+  uint8_t* coded = codes + kHStages * kHStream;
+  const Ring bars(smem);
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kHBlock, T = p.T;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int n_tiles = (T + kHStream - 1) / kHStream;
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (wg == kHConsumers) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kHProducerRegs));
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.own, kHBlock * kHD * 2);
+      tma_rows(sQ, &p.q, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerQ);
+    }
+    const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kHStages, k0 = j * kHStream;
+      mbar_wait(&bars.empty[stage], ((j / kHStages) & 1) ^ 1);  // round 0 passes
+      bool any = false;
+      for (int r = lane; r < kHStream; r += 32) {
+        const int key = k0 + r;
+        const uint8_t c = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
+        codes[stage * kHStream + r] = c;
+        any |= c != 0;
+      }
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) {
+        coded[stage] = any;
+        bf16* k_s = ring + stage * 2 * kHStream * kHD;
+        mbar_arrive_expect_tx(&bars.full[stage], 2 * kHTile);
+        tma_rows(k_s, &p.k, &bars.full[stage], kHStream, k0, h, b, p.heads_inner & kInnerK);
+        tma_rows(k_s + kHStream * kHD, &p.v, &bars.full[stage], kHStream, k0, h, b,
+                 p.heads_inner & kInnerV);
+      } else {
+        mbar_arrive(&bars.full[stage]);
+      }
+    }
+  } else {  // consumer warpgroup wg: queries q0 + 64 wg ..
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kHConsumerRegs));
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
+    const uint64_t q_desc = sw128_desc<false>(sQ + wg * kHRows * kHD);
+    float o[8][4];
+    zero_acc(o);
+    float m_i[2] = {-INFINITY, -INFINITY};  // running row max (base 2), rows g and g + 8
+    float l_i[2] = {0.f, 0.f};              // this thread's part of the row sum
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    mbar_wait(bars.own, 0);
+
+    float s[16][4];
+    uint32_t pa[kHStream / 16][4];
+    float corr[2];
+    auto softmax = [&](int stage) {
+      if (coded[stage]) {
+        softmax_tile<true>(s, m_i, l_i, corr, codes + stage * kHStream, t, p.scale_log2);
+      } else {
+        softmax_tile<false>(s, m_i, l_i, corr, nullptr, t, p.scale_log2);
+      }
+    };
+    auto k_tile = [&](int stage) { return sw128_desc<false>(ring + stage * 2 * kHStream * kHD); };
+    auto v_tile = [&](int stage) {
+      return sw128_desc<true>(ring + stage * 2 * kHStream * kHD + kHStream * kHD);
+    };
+    // Tile 0: S alone.
+    mbar_wait(&bars.full[0], 0);
+    turn_wait(wg);
+    wgmma_fence();
+    product_kmajor(s, q_desc, k_tile(0));
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    fence_acc(s);
+    softmax(0);  // O is 0: no correction
+    to_a(pa, s);
+    // Tile j: S of tile j and P V of tile j - 1 in one turn; the softmax of
+    // tile j while P V runs.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int stage = j % kHStages, prev = (j - 1) % kHStages;
+      mbar_wait(&bars.full[stage], (j / kHStages) & 1);
+      fence_acc(o);
+      turn_wait(wg);
+      wgmma_fence();
+      product_kmajor(s, q_desc, k_tile(stage));
+      wgmma_commit();
+      product_rs(o, pa, v_tile(prev));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();
+      fence_acc(s);
+      softmax(stage);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_a(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars.empty[prev]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      to_a(pa, s);
+    }
+    // P V of the last tile.
+    const int last = (n_tiles - 1) % kHStages;
+    fence_acc(o);
+    turn_wait(wg);
+    wgmma_fence();
+    product_rs(o, pa, v_tile(last));
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    fence_acc(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars.empty[last]);
+    if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    }
+    // Rows past T (zero-filled by TMA) are computed and never stored.
+    store_rows<kHD>(p.o, o, 1.f / l_i[0], 1.f / l_i[1], T, p.H, b, h, row0, g, t);
+    if (p.m != nullptr && t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        if (row < T) {
+          const int64_t i = (static_cast<int64_t>(b) * p.H + h) * T + row;
+          p.m[i] = m_i[r];
+          p.l[i] = l_i[r];
+        }
+      }
+    }
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1180,7 +1417,9 @@ int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T,
 }
 
 // The Hopper kernels' parameters from the mma.sync path's -> 0, or a
-// negative CUresult when a tensor map cannot be encoded.
+// negative CUresult when a tensor map cannot be encoded. Maps are made for
+// the operands the kernel reads: q, k, v, and dO unless it is null (the
+// forward).
 int make_hopper_params(HopperParams* hp, const Params& p) {
   const int B = p.B, H = p.H, T = p.T;
   CUtensorMap* maps[4] = {&hp->q, &hp->k, &hp->v, &hp->dout};  // bits kInnerQ, K, V, Do
@@ -1188,6 +1427,7 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
   const Strides strides[4] = {p.sq, p.sk, p.sv, p.sdo};
   int err = 0, inner = 0;
   for (int i = 0; i < 4 && !err; ++i) {
+    if (bases[i] == nullptr) continue;
     const bool heads_inner = strides[i].h < strides[i].t;  // e.g. a contiguous projection
     err = make_map(maps[i], bases[i], strides[i], B, H, T, heads_inner);
     inner |= heads_inner << i;
@@ -1195,6 +1435,7 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
   if (err) return -err;
   hp->heads_inner = inner;
   hp->mask = p.mask;
+  hp->o = p.o;
   hp->dq = p.dq;
   hp->dk = p.dk;
   hp->dv = p.dv;
@@ -1208,10 +1449,14 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
   return 0;
 }
 
-template <bool Dkv>
+enum Kind { kForward, kDkv, kDq };
+
+template <Kind K>
 int launch_sm90(const Params& p, cudaStream_t stream) {
-  void (*kernel)(HopperParams) = Dkv ? &flash_dkv_sm90_kernel : &flash_dq_sm90_kernel;
-  HopperParams hp;
+  void (*kernel)(HopperParams) = K == kForward ? &flash_fwd_sm90_kernel
+                                 : K == kDkv   ? &flash_dkv_sm90_kernel
+                                               : &flash_dq_sm90_kernel;
+  HopperParams hp{};
   const int err = make_hopper_params(&hp, p);
   if (err) return err;
   static const cudaError_t configured = cudaFuncSetAttribute(
@@ -1223,8 +1468,6 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
 }
 
 // ----------------------------------------------------------------- launch
-
-enum Kind { kForward, kDkv, kDq };
 
 template <int D, Kind K>
 int launch(const Params& p, cudaStream_t stream) {
@@ -1327,11 +1570,24 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k, const v
   return dispatch<kDq>(p, D, stream);
 }
 
-// The Hopper dK/dV and dQ kernels (wgmma, TMA, warp-specialised): the
-// arguments of the two above, D = 64 only. Each returns cudaGetLastError()
-// after its launch, cudaErrorInvalidValue (1) for another head width, or
-// minus the CUresult of a tensor map that cannot be encoded (q, k, v and dO
-// strides: multiples of 16 bytes below 2^40, as the wrapper checks).
+// The Hopper forward, dK/dV and dQ kernels (wgmma, TMA, warp-specialised):
+// the arguments of the three above, D = 64 only. Each returns
+// cudaGetLastError() after its launch, cudaErrorInvalidValue (1) for another
+// head width, or minus the CUresult of a tensor map that cannot be encoded
+// (q, k, v and dO strides: multiples of 16 bytes below 2^40, as the wrapper
+// checks).
+extern "C" int flash_attention_forward_sm90(const void* q, const void* k, const void* v,
+                                            const uint8_t* mask, void* o, float* m, float* l,
+                                            int B, int H, int T, int D, const int64_t* strides,
+                                            float sm_scale, void* stream) {
+  if (D != kHD) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
+  p.o = static_cast<bf16*>(o);
+  p.m = m;
+  p.l = l;
+  return launch_sm90<kForward>(p, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, const void* v,
                                                  const uint8_t* mask, const void* dout,
                                                  const float* m, const float* l, const float* di,
@@ -1346,7 +1602,7 @@ extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, c
   p.di = di;
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
-  return launch_sm90<true>(p, static_cast<cudaStream_t>(stream));
+  return launch_sm90<kDkv>(p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, const void* v,
@@ -1362,5 +1618,5 @@ extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, co
   p.l = const_cast<float*>(l);
   p.di = di;
   p.dq = static_cast<bf16*>(dq);
-  return launch_sm90<false>(p, static_cast<cudaStream_t>(stream));
+  return launch_sm90<kDq>(p, static_cast<cudaStream_t>(stream));
 }

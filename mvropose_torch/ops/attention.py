@@ -5,28 +5,31 @@ Port of `mvropose_tpu/ops/attention.py::fused_self_attention`. The reference
 runs its plain branch (einsums and a softmax in the operand dtype) below
 T = 2048 tokens or off the TPU, and JAX's stock Pallas flash attention
 (forward, dK/dV and dQ kernels under a `custom_vjp`) at T >= 2048 on a TPU.
-The port keeps that rule with "on the card" for "on a TPU": at T >=
-`FLASH_MIN_TOKENS` a CUDA tensor goes to the kernels of
-`csrc/flash_attention.cu` (their source note says what bounds them), else
-to `flash_attention_reference`, the plain branch. With a key mask the port
-follows the plain branch where the two branches of the reference disagree:
-a query with no valid key averages v over the T real keys (the reference's
-flash branch averages over T padded to 512).
+The port keeps that rule with "on the card" for "on a TPU" (`flash_rule`):
+a CUDA q at T >= `FLASH_MIN_TOKENS` goes to the kernels, whatever its dtype
+(a dtype without kernels raises); every CPU q, and every q below that T,
+goes to `flash_attention_reference`, the plain branch, in q's own dtype.
+With a key mask the port follows the plain branch where the two branches of
+the reference disagree: a query with no valid key averages v over the T
+real keys (the reference's flash branch averages over T padded to 512).
 
 Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
 read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
 
-Two routes for the backward, by head width (`backward_route`): d in
-`WGMMA_HEAD_DIMS` (64, every main path's width: ViT-B/16 and
-`SelfAttentionFusion` at 768 / 12 heads) takes the Hopper dK/dV and dQ
-kernels (wgmma, TMA and a warp-specialised mbarrier ring; they need whole
-128-byte rows, a 128-byte swizzle atom, which d = 48 and 96 do not fill);
-the other widths of `HEAD_DIMS` take the mma.sync kernels, which the forward
-uses at every width. A width outside `HEAD_DIMS` raises on either route.
-`flash_forward_plain` and `flash_backward_plain` compute what the kernels
-compute, from the same saved statistics, in plain torch: the yardsticks of
-the kernels alone.
+Four routes (`kernel_route`), each a forward, a dK/dV and a dQ kernel. bf16
+goes by head width: d in `WGMMA_HEAD_DIMS` (64, every main path's width:
+ViT-B/16 and `SelfAttentionFusion` at 768 / 12 heads) takes the Hopper
+kernels of `csrc/flash_attention.cu` (wgmma, TMA and a warp-specialised
+mbarrier ring; they need whole 128-byte rows, a 128-byte swizzle atom, which
+d = 48 and 96 do not fill); the other widths of `HEAD_DIMS` take its
+mma.sync kernels. f32 and f16 take the kernels of
+`csrc/flash_attention_simt.cu` ("simt_f32", "simt_f16"), which compute in
+f32 on the CUDA cores (the reference's flash branch runs f32 on a TPU; bf16
+tensor-core products would round it). A width outside `HEAD_DIMS` raises on
+every route. The sources' notes say what bounds each. `flash_forward_plain`
+and `flash_backward_plain` compute what the kernels compute, from the same
+saved statistics, in plain torch: the yardsticks of the kernels alone.
 """
 
 from __future__ import annotations
@@ -46,7 +49,19 @@ dq_launches = 0
 
 FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
 HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
-WGMMA_HEAD_DIMS = (64,)  # the head widths whose backward takes the Hopper kernels
+WGMMA_HEAD_DIMS = (64,)  # the head widths that take the Hopper kernels
+# route: the C entry points of its forward, dK/dV and dQ kernels.
+ENTRY_POINTS = {
+    "mma_sync": ("flash_attention_forward", "flash_attention_backward_dkv",
+                 "flash_attention_backward_dq"),
+    "wgmma": ("flash_attention_forward_sm90", "flash_attention_backward_dkv_sm90",
+              "flash_attention_backward_dq_sm90"),
+    "simt_f32": ("flash_attention_forward_f32", "flash_attention_backward_dkv_f32",
+                 "flash_attention_backward_dq_f32"),
+    "simt_f16": ("flash_attention_forward_f16", "flash_attention_backward_dkv_f16",
+                 "flash_attention_backward_dq_f16"),
+}
+SIMT_ROUTES = {torch.float32: "simt_f32", torch.float16: "simt_f16"}  # dtype: its route
 LOG2E = 1.4426950408889634
 # The plain branch's masked logit, bf16's lowest finite value (exact in f32).
 MASKED_LOGIT = torch.finfo(torch.bfloat16).min
@@ -79,37 +94,48 @@ def flash_attention_reference_f32(q, k, v, key_mask=None) -> torch.Tensor:
 
 
 @functools.cache
-def _kernels():
+def _kernels() -> dict:
+    """{route: (forward, dK/dV, dQ)} bound from the kernels' library."""
     lib = load_library()
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fwd = lib.flash_attention_forward
-    fwd.argtypes = [ptr] * 7 + [i32] * 4 + [ptr, f32, ptr]
-    dkv = lib.flash_attention_backward_dkv
-    dkv.argtypes = [ptr] * 10 + [i32] * 4 + [ptr, f32, ptr]
-    dq = lib.flash_attention_backward_dq
-    dq.argtypes = [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr]
-    dkv90 = lib.flash_attention_backward_dkv_sm90
-    dkv90.argtypes = dkv.argtypes
-    dq90 = lib.flash_attention_backward_dq_sm90
-    dq90.argtypes = dq.argtypes
-    for fn in (fwd, dkv, dq, dkv90, dq90):
-        fn.restype = ctypes.c_int
-    return fwd, {"mma_sync": dkv, "wgmma": dkv90}, {"mma_sync": dq, "wgmma": dq90}
+    argtypes = ([ptr] * 7 + [i32] * 4 + [ptr, f32, ptr],  # forward
+                [ptr] * 10 + [i32] * 4 + [ptr, f32, ptr],  # dK/dV
+                [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr])  # dQ
+    bound = {}
+    for route, names in ENTRY_POINTS.items():
+        bound[route] = tuple(getattr(lib, name) for name in names)
+        for fn, types in zip(bound[route], argtypes):
+            fn.argtypes, fn.restype = types, ctypes.c_int
+    return bound
 
 
-def backward_route(d: int) -> str:
-    """The backward kernels a head width takes: "wgmma" (Hopper: wgmma, TMA,
-    warp-specialised) for d in WGMMA_HEAD_DIMS, "mma_sync" for the other
-    HEAD_DIMS; raises for a width without a kernel."""
+def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernels a head width and an operand dtype take, forward and
+    backward alike: for bf16 "wgmma" (Hopper: wgmma, TMA, warp-specialised)
+    at d in WGMMA_HEAD_DIMS and "mma_sync" at the other HEAD_DIMS; "simt_f32"
+    or "simt_f16" (f32 arithmetic on the CUDA cores) for f32 or f16; raises
+    for a width or a dtype without kernels."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
-    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+    if dtype not in SIMT_ROUTES:
+        raise ValueError(f"the flash-attention kernels take bf16, f16 or f32 operands, got {dtype}")
+    return SIMT_ROUTES[dtype]
+
+
+def flash_rule(device_type: str, tokens: int) -> bool:
+    """Whether `fused_self_attention(use_flash=None)` takes the kernels for
+    a q on this device type with this token count: a CUDA q at T >=
+    FLASH_MIN_TOKENS does, whatever its dtype; every other q takes the plain
+    branch."""
+    return device_type == "cuda" and tokens >= FLASH_MIN_TOKENS
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:
     """Whether the kernels read `t` as it is: unit stride along d, the other
     strides whole 16-byte rows, a 16-byte aligned base."""
-    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+    return (t.stride(-1) == 1 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
 
 
@@ -118,11 +144,10 @@ def _check(q, k, v, key_mask) -> None:
         raise ValueError(f"q, k, v must share one (B, T, H, d) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, T, H, d = q.shape
-    backward_route(d)  # raises for a head width without kernels
+    kernel_route(d, q.dtype)  # raises for a head width or a dtype without kernels
+    if not k.dtype == v.dtype == q.dtype:
+        raise ValueError(f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"the flash-attention kernels take bf16 operands, got {name} "
-                             f"in {t.dtype}")
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {name} on {t.device}")
     if B >= 65536 or H >= 65536:
@@ -161,11 +186,13 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
-    """Launch the forward kernel on operands that `flash_attention_cuda`
-    takes (mask as `mask_bytes`) -> (O (B, T, H, d) bf16, m, l), with the
-    row statistics m (base 2) and l as (B, H, T) f32 when `save_stats`."""
+    """Launch the forward kernel of `kernel_route(d, q.dtype)` on operands
+    that `flash_attention_cuda` takes (mask as `mask_bytes`) -> (O (B, T, H,
+    d) in q's dtype, m, l), with the row statistics m (base 2) and l as (B,
+    H, T) f32 when `save_stats`."""
     global launches
     B, T, H, d = q.shape
+    route = kernel_route(d, q.dtype)
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     m = l = None
     if save_stats:
@@ -174,10 +201,10 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
     if B * T * H:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
-                                o.data_ptr(), _ptr(m), _ptr(l), B, H, T, d, _strides(q, k, v),
-                                1.0 / math.sqrt(d), stream)
-        _raise_on(err, "forward")
+            err = _kernels()[route][0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
+                                       o.data_ptr(), _ptr(m), _ptr(l), B, H, T, d,
+                                       _strides(q, k, v), 1.0 / math.sqrt(d), stream)
+        _raise_on(err, f"forward ({route})")
         launches += 1
     return o, m, l
 
@@ -238,33 +265,33 @@ def _backward_args(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dK/dV kernel of d's `backward_route`: the forward's
-    operands and statistics, dO in their layout and di = `row_dot(dO, O)`
-    -> (dK, dV) (B, T, H, d) bf16."""
+    """Launch the dK/dV kernel of `kernel_route(d, q.dtype)`: the
+    forward's operands and statistics, dO in their layout and dtype and di =
+    `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) in q's dtype."""
     global dkv_launches
-    route = backward_route(q.shape[-1])
+    route = kernel_route(q.shape[-1], q.dtype)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = _kernels()[1][route](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
+            err = _kernels()[route][1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
         _raise_on(err, f"dK/dV ({route})")
         dkv_launches += 1
     return dk, dv
 
 
 def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dQ kernel of d's `backward_route` (arguments as
+    """Launch the dQ kernel of `kernel_route(d, q.dtype)` (arguments as
     `flash_backward_dkv_cuda`) -> dQ."""
     global dq_launches
-    route = backward_route(q.shape[-1])
+    route = kernel_route(q.shape[-1], q.dtype)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = _kernels()[2][route](*ptrs, dq.data_ptr(), *dims, stream)
+            err = _kernels()[route][2](*ptrs, dq.data_ptr(), *dims, stream)
         _raise_on(err, f"dQ ({route})")
         dq_launches += 1
     return dq
@@ -291,8 +318,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_cuda(q, k, v, key_mask=None) -> torch.Tensor:
-    """The kernels on CUDA bf16 (B, T, H, d) q, k, v with d in HEAD_DIMS and
-    an optional (B, T) bool key mask -> (B, T, H, d) bf16; differentiable
+    """The kernels on CUDA bf16, f16 or f32 (B, T, H, d) q, k, v with d in
+    HEAD_DIMS and an optional (B, T) bool key mask -> (B, T, H, d) in q's
+    dtype; differentiable
     through the dK/dV and dQ kernels. Raises on any other input: it never
     runs the plain version."""
     _check(q, k, v, key_mask)
@@ -306,11 +334,11 @@ def fused_self_attention(q, k, v, use_flash: bool | None = None, key_mask=None) 
     """Self-attention on (B, T, H, d) q, k, v with an optional (B, T) bool
     key mask (False = not attended) -> (B, T, H, d) in q's dtype.
 
-    use_flash=None takes the kernels for a CUDA q at T >= FLASH_MIN_TOKENS,
-    the reference's rule, else the plain branch; True takes the kernels
-    (raising for a CPU tensor), False the plain branch."""
+    use_flash=None decides by `flash_rule`: the kernels for a CUDA q at T >=
+    FLASH_MIN_TOKENS, the plain branch in q's dtype for every other q; True
+    takes the kernels (raising for a CPU tensor), False the plain branch."""
     if use_flash is None:
-        use_flash = q.device.type == "cuda" and q.shape[1] >= FLASH_MIN_TOKENS
+        use_flash = flash_rule(q.device.type, q.shape[1])
     if use_flash:
         return flash_attention_cuda(q, k, v, key_mask)
     return flash_attention_reference(q, k, v, key_mask)

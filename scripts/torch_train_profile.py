@@ -6,8 +6,9 @@
 The step of `chip_smoke.py`'s unfrozen 768-px phase (ViT-B/16 at 768 px,
 backbone trained, fr3, 2 groups x 4 views, 128x128 heatmaps, bf16,
 `flax_init_state` seed 1) on one resident batch, with the flash-attention
-backward at d = 64 on each of its two routes (`ops/attention.py`:
-`backward_route`), in turns mma.sync/wgmma/wgmma/mma.sync. Per turn:
+kernels at d = 64, forward and backward, on each of their two routes
+(`ops/attention.py`: `kernel_route`), in turns mma.sync/wgmma/wgmma/mma.sync.
+Per turn:
   * step time: CUDA events around each of --steps steps, the median;
   * under torch.profiler, over --steps more steps: the device busy time per
     step (summed kernel and copy durations), the host wall time per step
@@ -115,7 +116,7 @@ def main() -> int:
         turns.append((route, got))
         flash = ", ".join(f"{k} {v:.3f}" for k, v in got["flash_ms"].items())
         print(f"train step 768 px unfrozen [{chip_smoke.TRAIN_768_GROUPS} groups x 4 views, bf16; "
-              f"backward {route}]: step {got['step_ms']:.3f} ms (CUDA events, median of "
+              f"flash kernels {route}]: step {got['step_ms']:.3f} ms (CUDA events, median of "
               f"{args.steps}); profiled: host wall {got['wall_ms']:.3f} ms/step, device busy "
               f"{got['busy_ms']:.3f} ms/step, busy share "
               f"{min(1.0, got['busy_ms'] / got['wall_ms']):.3f}; "

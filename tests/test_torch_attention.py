@@ -19,6 +19,7 @@ tests (`test_torch_serve.py`) and the train-step test (`test_torch_train.py`).
 """
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +74,7 @@ def _port_attention(q, k, v, ct, mask):
     (2, 37, 2, 64, True),
     (1, 130, 3, 48, False),
     (1, 520, 2, 32, True),  # T padded to 1024: two key blocks of the reference's kernel
+    (1, 2117, 1, 32, True),  # T >= 2048: the reference's flash crossover, f32
 ])
 def test_fused_self_attention_matches_jax_flash(B, T, H, d, masked):
     rng = np.random.default_rng(T)
@@ -130,15 +132,19 @@ def test_reference_flash_branch_averages_all_masked_rows_over_the_padded_length(
 
 
 def test_flash_kernels_refuse_cpu_and_unsupported_inputs():
-    """The wrapper never runs the plain version: a CPU tensor, a head width
-    without a kernel and f32 operands raise, and nothing is counted."""
+    """The wrapper never runs the plain version: a CPU tensor (bf16, f16 or
+    f32), a head width without a kernel, f64 operands and mixed dtypes
+    raise, and nothing is counted."""
     bf = lambda d, dtype=torch.bfloat16: [torch.zeros(1, 8, 2, d, dtype=dtype)] * 3  # noqa: E731
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        attention.flash_attention_cuda(*bf(64))
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            attention.flash_attention_cuda(*bf(64, dtype))
     with pytest.raises(ValueError, match="d = 40"):
         attention.flash_attention_cuda(*bf(40))
-    with pytest.raises(ValueError, match="float32"):
-        attention.flash_attention_cuda(*bf(64, torch.float32))
+    with pytest.raises(ValueError, match="float64"):
+        attention.flash_attention_cuda(*bf(64, torch.float64))
+    with pytest.raises(ValueError, match="share one dtype"):
+        attention.flash_attention_cuda(*bf(64)[:2], bf(64, torch.float32)[0])
     with pytest.raises(ValueError, match="CUDA tensors"):
         attention.fused_self_attention(*bf(64), use_flash=True)
     assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
@@ -187,14 +193,21 @@ def test_flash_backward_plain_matches_autograd_and_jax_flash(B, T, H, d, masked,
     assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
 
 
+CSRC = Path(attention.__file__).resolve().parents[1] / "csrc"
+
+
 @pytest.mark.parametrize("d", [*attention.HEAD_DIMS, 16, 40, 256])
 def test_backward_route_by_head_width(d):
-    """d = 64 takes the Hopper backward kernels, the other widths of
-    HEAD_DIMS the mma.sync ones; a width without kernels raises, on the rule
-    and on the wrappers, which count nothing."""
+    """One rule for the forward and the backward: in bf16 d = 64 takes the
+    Hopper forward, dK/dV and dQ kernels, the other widths of HEAD_DIMS the
+    mma.sync ones; f32 and f16 take the f32-arithmetic kernels of
+    flash_attention_simt.cu at every width; each route's three C entry
+    points are declared in its source; a width without kernels raises, on
+    the rule and on the wrappers, which count nothing."""
     if d not in attention.HEAD_DIMS:
-        with pytest.raises(ValueError, match=f"d = {d}"):
-            attention.backward_route(d)
+        for dtype in (torch.bfloat16, torch.float32, torch.float16):
+            with pytest.raises(ValueError, match=f"d = {d}"):
+                attention.kernel_route(d, dtype)
         q = torch.zeros(1, 8, 2, d, dtype=torch.bfloat16)
         stat = torch.ones(1, 2, 8)
         for fn in (attention.flash_backward_dkv_cuda, attention.flash_backward_dq_cuda):
@@ -202,15 +215,50 @@ def test_backward_route_by_head_width(d):
                 fn(q, q, q, None, q, stat, stat, stat)
         with pytest.raises(ValueError, match=f"d = {d}"):
             attention.flash_attention_cuda(q, q, q)
+        with pytest.raises(ValueError, match=f"d = {d}"):
+            attention.flash_forward_cuda(q, q, q)
         assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
         return
-    assert attention.backward_route(d) == ("wgmma" if d == 64 else "mma_sync")
+    route = attention.kernel_route(d)
+    assert route == attention.kernel_route(d, torch.bfloat16) == (
+        "wgmma" if d == 64 else "mma_sync")
     assert (d in attention.WGMMA_HEAD_DIMS) == (d == 64)
+    assert attention.kernel_route(d, torch.float32) == "simt_f32"
+    assert attention.kernel_route(d, torch.float16) == "simt_f16"
+    for route, source, suffix in ((route, "flash_attention.cu", "_sm90" if d == 64 else ""),
+                                  ("simt_f32", "flash_attention_simt.cu", "_f32"),
+                                  ("simt_f16", "flash_attention_simt.cu", "_f16")):
+        forward, dkv, dq = attention.ENTRY_POINTS[route]
+        assert forward == "flash_attention_forward" + suffix
+        assert dkv == "flash_attention_backward_dkv" + suffix
+        assert dq == "flash_attention_backward_dq" + suffix
+        text = (CSRC / source).read_text()
+        for name in (forward, dkv, dq):
+            assert f'extern "C" int {name}(' in text, name
+
+
+@pytest.mark.parametrize("dtype, device_type, tokens, kernels", [
+    (torch.bfloat16, "cuda", 2048, True),
+    (torch.bfloat16, "cuda", 2305, True),
+    (torch.bfloat16, "cuda", 2047, False),
+    (torch.bfloat16, "cuda", 1025, False),
+    (torch.float32, "cuda", 2305, True),  # the reference's flash branch takes f32 on a TPU
+    (torch.float16, "cuda", 2305, True),
+    (torch.bfloat16, "cpu", 2305, False),
+    (torch.float32, "cpu", 2117, False),
+])
+def test_flash_rule(dtype, device_type, tokens, kernels):
+    """use_flash=None takes the kernels for a CUDA q at T >= 2048, whatever
+    its dtype, and the plain branch for every other q, decided from device
+    type and T alone (no card needed); the dtype picks the kernels' route."""
+    assert attention.flash_rule(device_type, tokens) is kernels
+    assert attention.kernel_route(64, dtype) == {
+        torch.bfloat16: "wgmma", torch.float32: "simt_f32", torch.float16: "simt_f16"}[dtype]
 
 
 def test_cpu_tensors_take_the_plain_branch_at_any_t():
-    """use_flash=None: the kernels for a CUDA q at T >= 2048 (the reference:
-    a TPU at T >= 2048); a CPU q takes the plain branch at any T."""
+    """use_flash=None: the kernels for a CUDA q at T >= 2048 (the
+    reference: a TPU at T >= 2048); a CPU q takes the plain branch at any T."""
     q = torch.zeros(1, attention.FLASH_MIN_TOKENS, 1, 32)
     out = attention.fused_self_attention(q, q, q)
     assert out.shape == q.shape and attention.launches == 0
@@ -445,6 +493,35 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked):
         n + 1 for n in before)
     for name, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), kernel, plain):
         assert e_kernel <= max(e_plain, 1e-6), (name, e_kernel, e_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, d", [(torch.float32, 64), (torch.float32, 48),
+                                      (torch.float16, 64), (torch.float32, 128)])
+def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
+    """f32 and f16 operands at T = 2305 with a mask (an all-masked batch
+    element included): `fused_self_attention` launches the f32-arithmetic
+    kernels, and O, dQ, dK, dV are within 1e-5 of the largest magnitude of
+    the plain branch in f32 for f32 operands, 2^-10 for f16 ones (the
+    kernels round their outputs to f16 once)."""
+    q, k, v, do, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
+                         for t in _card_case(cuda_device, 2, 2305, 2, d, True, seed=d))
+    before = (attention.launches, attention.dkv_launches, attention.dq_launches)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attention.fused_self_attention(*ts, key_mask=mask)
+    out.backward(do)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out_ref = attention.flash_attention_reference(*ref, mask)
+    out_ref.backward(do.float())
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert (attention.launches, attention.dkv_launches, attention.dq_launches) == tuple(
+        n + 1 for n in before)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -10
+    for name, a, b in zip(("O", "dQ", "dK", "dV"), (out, *(t.grad for t in ts)),
+                          (out_ref, *(t.grad for t in ref))):
+        err = float((a.float() - b).abs().max())
+        assert err <= rel * float(b.abs().max()) + 1e-6, (name, err)
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ restates it line for line. Tolerances, in f32 on the CPU:
 import ast
 import dataclasses
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -28,7 +29,14 @@ from mvropose_tpu.models import EstimatorConfig as JaxEstimatorConfig
 from mvropose_tpu.models import MultiViewPoseEstimator as JaxEstimator
 from mvropose_tpu.models.vit import ViTConfig as JaxViTConfig
 
-from mvropose_torch.cli.main import main, preprocess, read_model_config, serve_step
+from mvropose_torch.cli.main import (
+    build_parser,
+    main,
+    preprocess,
+    read_model_config,
+    serve,
+    serve_step,
+)
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
 from mvropose_torch.utils.weights import load_jax_params, plan_jax_params
 from torch_parity import export_npz, np32, random_variables
@@ -238,6 +246,36 @@ def test_cli_serve_with_params(checkpoint, capsys):
 def test_cli_serve_rejects_unported(extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(SERVE_TINY + extra)
+
+
+def test_cli_serve_replay_dir_without_cv2_names_the_decoder(tmp_path, monkeypatch):
+    """Where cv2 cannot be imported (the GPU machine may lack it), serve
+    --replay-dir exits naming the missing decoder and the ROADMAP item of a
+    frame reader, before any source is made or started."""
+    import mvropose_torch.cli.main as cli
+
+    made = []
+    monkeypatch.setattr(cli, "FileReplaySource", lambda *a, **k: made.append(a))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(SystemExit, match="cv2.*ROADMAP.md queue 1, item 7"):
+        main(SERVE_TINY + ["--replay-dir", str(tmp_path)])
+    assert made == []
+
+
+def test_cli_serve_replay_dir(tmp_path):
+    """serve --replay-dir replays 4 PNG frames (2 per view) and returns a
+    result of the expected shapes."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(15)
+    for i in range(4):
+        cv2.imwrite(str(tmp_path / f"frame{i}.png"),
+                    rng.integers(0, 256, size=(32, 48, 3), dtype=np.uint8))
+    args = build_parser().parse_args(SERVE_TINY + ["--replay-dir", str(tmp_path)])
+    stats, last = serve(args)
+    assert stats.ticks >= 1 and last is not None
+    xy, conf, ang = last
+    assert xy.shape[:1] == conf.shape[:1] == (2,) and xy.shape[-1] == 2 and ang.shape[0] == 1
+    assert all(np.isfinite(a).all() for a in last)
 
 
 def test_cli_serve_int8_attention_needs_int8_backbone():

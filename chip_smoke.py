@@ -15,6 +15,13 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * int8 P@V ((48, 1025, 1025) x (48, 1025, 64), a small odd T, masked
          keys and all-zero rows, pq padded as the serve path writes it, and
          contiguous at T = 128), its int32 sums read back exactly;
+       * the fused int8 attention and its values' quantization
+         (`phase_int8_attention`: the serve shape (4, 1025, 12, 64) bf16,
+         T = 37, 129, 1, 2305, masked keys, an all-masked batch element,
+         RoPE's and strided layouts): the quantized values equal, the output
+         within one value step plus a bf16 ulp of the plain version, planted
+         rows bit-equal, two calls bit-identical; timed in turns plain /
+         the "pv" route (plain chain + the P@V kernel) / fused, beside SDPA;
        * heatmap render ((576, 128, 128) and (576, 512, 512), the full-width
          train batch; (336, 64, 64) and (336, 128, 128), the synthetic
          trainer's; a non-multiple M and W, per-map and small sigma,
@@ -27,12 +34,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * `serve --params RUN/best_params.npz --int8-backbone
          --int8-attention` on a temporary run directory under build/, whose
          model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
-         weights, exported with `export_jax_params`): all four kernels;
-  5. the bare serve steps, bf16 and int8 + fused LN, timed in turns on a
-     resident batch and checked to never synchronize with the host, with
-     the int8 step's `int8_matmul` calls and their bound; the
-     int8 heatmaps against the bf16 model's, the bf16 ones against f32; and
-     small f32 and int8 + fused-LN models on the card against the CPU;
+         weights, exported with `export_jax_params`): the LayerNorm kernels,
+         the peak decode and the fused int8 attention with its quantization,
+         12 each a tick; no P@V kernel;
+  5. the bare serve steps, bf16 and int8 + fused LN (on both attention
+     routes, in turns), timed on a resident batch and checked to never
+     synchronize with the host, with the int8 step's `int8_matmul` calls
+     and their bound; the int8 heatmaps against the bf16 model's and
+     against the other route's, the bf16 ones against f32; and small f32
+     and int8 + fused-LN models on the card against the CPU (the f32 int8
+     model's attention launches the P@V kernel);
   6. training, with the render's launches counted over each run only:
        * the full-width multi-view train step (frozen ViT-B/16 at 512 px,
          fr3, 18 groups x 4 views, 128x128 heatmaps, bf16) on batches made
@@ -55,6 +66,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          build without spills; then timed beside SDPA, at T = 1025 too: the
          forward on both routes in turns, and the backward pair alone on
          both routes beside SDPA's backward alone (phase 3);
+       * the mma.sync kernels at d in {32, 48, 96, 128}, no main path's
+         width, timed at (8, 2305, 768 / d, d) beside the plain branch and
+         SDPA (`phase_flash_widths`);
        * the port's two repaired faults: f32 and f16 CUDA operands at
          T = 2305 launch the f32-arithmetic forward, dK/dV and dQ kernels
          once each and agree with the plain branch in f32, each kernel
@@ -135,7 +149,13 @@ KERNELS = {
     "residual_layernorm": (layernorm, "residual_launches", "mvropose_torch/csrc/layernorm.cu",
                            "mvropose_tpu/ops/layernorm.py:39"),  # _res_ln_kernel
     "int8_pv": (int8_attention, "launches", "mvropose_torch/csrc/int8_pv.cu",
-                "mvropose_tpu/ops/attention.py:29"),  # int8_prob_attention's P@V
+                "mvropose_tpu/ops/attention.py:73"),  # int8_prob_attention's P@V
+    # int8_prob_attention whole (logits to the dequantized P V), and its values' quantization.
+    "int8_attention": (int8_attention, "launches_fused", "mvropose_torch/csrc/int8_attention.cu",
+                       "mvropose_tpu/ops/attention.py:29"),
+    "int8_quantize_v": (int8_attention, "quantize_v_launches",
+                        "mvropose_torch/csrc/int8_attention.cu",
+                        "mvropose_tpu/ops/attention.py:70"),
     "heatmap_render": (heatmap_render, "launches", "mvropose_torch/csrc/heatmap_render.cu",
                        "mvropose_tpu/ops/heatmap_render.py:25"),  # _render_kernel
     # JAX's stock Pallas flash attention (jax 0.9.0), which
@@ -147,7 +167,8 @@ KERNELS = {
     "flash_bwd_dq": (attention, "dq_launches", "mvropose_torch/csrc/flash_attention.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
 }
-SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_pv"]
+SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_attention",
+                 "int8_quantize_v"]
 FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
@@ -209,10 +230,13 @@ def graph_ms(fn, iters: int = 20, samples: int = 50, stream=None) -> float:
     return cuda_ms(graph.replay, 1, samples) / iters
 
 
-def bound(nbytes: float, ops: float = 0.0, kind: str = "bf16") -> dict:
+def bound(nbytes: float, ops=0.0, kind: str = "bf16") -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    memory rate and the operations over the peak rate of their type (`ops`
+    a count of `kind`, or {kind: count} for work of several types)."""
+    ops = ops if isinstance(ops, dict) else {kind: ops}
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
@@ -267,8 +291,8 @@ def phase_build() -> None:
         text = log.read_text().strip()
         print(text)
         hopper = {k: v for k, v in spilled_bytes(text).items() if "sm90_kernel" in k}
-        check(len(hopper) == 3 and not any(hopper.values()),
-              f"the Hopper flash kernels' spilled bytes: {hopper}")
+        check(len(hopper) == 4 and not any(hopper.values()),
+              f"the Hopper kernels' spilled bytes: {hopper}")
 
 
 def _tie_maps(rng) -> np.ndarray:
@@ -456,6 +480,172 @@ def phase_int8_pv() -> dict:
     nbytes = pq.numel() + vq.numel() + 4 * (z.numel() + sv.numel()) + 2 * vq.numel()
     return {"int8_pv": {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                         **bound(nbytes, 2 * 48 * 1025 * 1025 * 64, "int8"), "library_ms": None}}
+
+
+# Fused int8 attention cases: (name, B, T, H, mask, layout). Masks as
+# `_flash_mask` ("random" drops 30 % of the keys, "all" also every key of
+# batch element 1); layouts: "proj" q, k, v views of their projections
+# (B, T, H, d), the serve path's; "rope" q and k (B, H, T, d) storage seen as
+# (B, T, H, d), as RoPE leaves them; "strided" q, k, v slices of one
+# (B, T, 3, H, d) tensor.
+INT8_CASES = [
+    ("serve", 4, 1025, 12, None, "proj"),
+    ("serve_masked_rope", 4, 1025, 12, "all", "rope"),
+    ("t37", 2, 37, 3, "random", "proj"),
+    ("t129_strided", 2, 129, 2, "random", "strided"),
+    ("t1", 3, 1, 2, None, "proj"),
+    ("all_masked_t300", 3, 300, 2, "all", "strided"),
+    ("t2305", 1, 2305, 2, "random", "proj"),  # T > 1536: the quantization in two rounds
+]
+INT8_SERVE = (4, 1025, 12, 64)  # the int8 serve step's attention: 4 views at 512 px
+
+
+def _int8_operands(B: int, T: int, H: int, layout: str, seed: int, mask_kind=None,
+                   planted: bool = False):
+    """bf16 (B, T, H, 64) q, k, v on the card in `layout` and a mask. Random:
+    q, k ~ 2 N(0, 1), v ~ N(0, 1) (the CPU tests' scales). Planted: only
+    channel 0 of q and k is nonzero, q in {0, +-512}, k in {+-1}, so every
+    logit is the row's max or 128 below it (e in {0, 1}, z an exact count),
+    and q = 0 rows are uniform."""
+    gen = torch.Generator().manual_seed(seed)
+    d = 64
+    if planted:
+        q, k = torch.zeros(B, T, H, d), torch.zeros(B, T, H, d)
+        q[..., 0] = 512.0 * torch.randint(-1, 2, (B, T, H), generator=gen)
+        k[..., 0] = 2.0 * torch.randint(0, 2, (B, T, H), generator=gen) - 1.0
+        v = torch.randn(B, T, H, d, generator=gen)
+    else:
+        q, k, v = (s * torch.randn(B, T, H, d, generator=gen) for s in (2.0, 2.0, 1.0))
+    q, k, v = (t.to("cuda", torch.bfloat16) for t in (q, k, v))
+    if layout == "rope":
+        q, k = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k))
+    elif layout == "strided":
+        q, k, v = torch.stack([q, k, v], dim=2).unbind(2)  # strides (T 3 H d, 3 H d, d, 1)
+    return q, k, v, _flash_mask(mask_kind, B, T, gen)
+
+
+def _int8_bound(out: torch.Tensor, want: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
+    """The CPU tests' bound: one value step sv of the channel, plus 2^-7 of
+    |want| (the bf16 output's ulp); sv (B H, 64) -> (B, T, H, 64)."""
+    B, T, H, d = want.shape
+    step = sv.reshape(B, 1, H, d)
+    w = want.float().abs()
+    return step + torch.exp2(torch.floor(torch.log2(w.clamp_min(1e-30))) - 7)
+
+
+def phase_int8_attention() -> dict:
+    """The fused int8 attention on the card against its plain versions, and
+    the values' quantization kernel against its own. Per INT8_CASES shape:
+    vt and sv of `int8_quantize_v_cuda` equal `quantize_v_plain`'s; the
+    fused kernel on those values within `_int8_bound` of
+    `int8_attention_reference` (the non-bit-equal outputs counted), and the
+    whole `int8_prob_attention` (quantization + kernel) of
+    `int8_prob_attention_reference`; planted rows (e in {0, 1}) bit-equal;
+    two calls bit-identical. Then, at INT8_SERVE, CUDA-graph replays of the
+    whole function in turns plain/pv/fused/fused/pv/plain (the "pv" route:
+    the plain chain, then the P@V kernel), each kernel alone against its
+    plain version, and SDPA bf16 at the same shape (a near relative: float
+    probabilities)."""
+    max_err = 0.0  # the fused kernel's; the quantized values must be equal
+    for i, (name, B, T, H, mask_kind, layout) in enumerate(INT8_CASES):
+        q, k, v, mask = _int8_operands(B, T, H, layout, seed=100 + i, mask_kind=mask_kind)
+        Tp = int8_attention._fused_tp(T)
+        runs = [int8_attention.int8_quantize_v_cuda(v) for _ in range(2)]
+        vt, sv = runs[0]
+        outs = [int8_attention.int8_attention_cuda(q, k, vt, sv, mask) for _ in range(2)]
+        whole = int8_attention.int8_prob_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*runs)) and torch.equal(*outs),
+              f"int8 {name}: two calls on the same inputs differ")
+        vt_ref, sv_ref = int8_attention.quantize_v_plain(v, Tp)
+        check(torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref),
+              f"int8 {name}: {int((vt != vt_ref).sum())} quantized values and "
+              f"{int((sv != sv_ref).sum())} scales differ from the plain version")
+        vq, _ = int8_attention.quantize_v_reference(v)
+        want = int8_attention.int8_attention_reference(q, k, vq, sv, mask)
+        want_whole = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+        out = outs[0]
+        check(out.dtype == torch.bfloat16 and out.shape == (B, T, H, 64) and
+              bool(torch.isfinite(out).all()), f"int8 {name}: output {out.dtype} {out.shape}")
+        gap = (out.float() - want.float()).abs()
+        gap_whole = (whole.float() - want_whole.float()).abs()
+        bound_ = _int8_bound(out, want, sv)
+        check(bool((gap <= bound_).all()) and bool((gap_whole <= bound_).all()),
+              f"int8 {name}: {float((gap / bound_).max())} and {float((gap_whole / bound_).max())} "
+              f"of the bound from the plain version")
+        differ = int((out != want).sum())
+        max_err = max(max_err, float(gap.max()))
+        print(f"fused int8 attention vs plain [{name} (B, T, H, d) = {(B, T, H, 64)} mask "
+              f"{mask_kind}, {layout}]: quantized values and scales equal; kernel on them max abs "
+              f"err {float(gap.max()):.4g} ({float((gap / bound_).max()):.3f} of the bound), "
+              f"{differ} of {out.numel()} outputs not bit-equal; whole function max abs err "
+              f"{float(gap_whole.max()):.4g}; two calls bit-identical")
+        q, k, v, mask = _int8_operands(B, T, H, layout, seed=200 + i, mask_kind=mask_kind,
+                                       planted=True)
+        vt, sv = int8_attention.int8_quantize_v_cuda(v)
+        out = int8_attention.int8_attention_cuda(q, k, vt, sv, mask)
+        torch.cuda.synchronize()
+        want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+        check(torch.equal(out, want), f"int8 {name} planted: {int((out != want).sum())} outputs "
+                                      f"differ from the plain version")
+        print(f"fused int8 attention planted rows [{name}]: bit-equal to the plain version")
+        del q, k, v, vt, sv, out, outs, want, want_whole, whole
+
+    B, T, H, d = INT8_SERVE
+    q, k, v, _ = _int8_operands(B, T, H, "proj", seed=300)
+    Tp = int8_attention._fused_tp(T)
+    vt, sv = int8_attention.int8_quantize_v_cuda(v)
+    vq, _ = int8_attention.quantize_v_reference(v)
+
+    def timer(fn):
+        return graph_ms(fn, iters=5, samples=20)
+
+    def pv_route():
+        with int8_attention.pv_route():
+            int8_attention.int8_prob_attention(q, k, v)
+
+    fns = {"plain": lambda: int8_attention.int8_prob_attention_reference(q, k, v),
+           "pv_route": pv_route, "fused": lambda: int8_attention.int8_prob_attention(q, k, v)}
+    order = ["plain", "pv_route", "fused"]
+    t = {name: [] for name in order}
+    for name in order + order[::-1]:
+        t[name].append(timer(fns[name]))
+    whole = {name: statistics.mean(ts) for name, ts in t.items()}
+    kernel, kernel_plain = _in_turns(
+        timer, lambda: int8_attention.int8_attention_reference(q, k, vq, sv),
+        lambda: int8_attention.int8_attention_cuda(q, k, vt, sv))
+    quant, quant_plain = _in_turns(timer, lambda: int8_attention.quantize_v_plain(v, Tp),
+                                   lambda: int8_attention.int8_quantize_v_cuda(v))
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+    # The function's work: one QK^T (bf16) and one P V (int8), 2 B H T^2 d
+    # operations each; the kernel reads q, k, the int8 values and their
+    # scales once and writes O once. The exponentials' floor: B H T^2 of
+    # them at 16 a clock on each SM at the card's top SM clock.
+    pairs = B * H * T * T
+    kbytes = 2 * 2 * B * T * H * d + vt.numel() + 4 * sv.numel() + 2 * B * T * H * d
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_floor = 1e3 * pairs / (16 * sms * float(smi) * 1e6)
+    kb = bound(kbytes, {"bf16": 2 * pairs * d, "int8": 2 * pairs * d})
+    qb = bound(2 * B * T * H * d + vt.numel() + 4 * sv.numel())
+    print(f"int8 attention {INT8_SERVE} bf16, ms per call, CUDA-graph replay, in turns "
+          f"plain/pv/fused/fused/pv/plain: whole function "
+          + ", ".join(f"{n} {'/'.join(f'{x:.4f}' for x in t[n])}" for n in order)
+          + f"; fused kernel alone {kernel:.4f} (plain {kernel_plain:.4f}), bound "
+          f"{kb['bound_ms']:.4f} ({kb['bound_by']}), exponential floor {exp_floor:.4f} ({sms} SMs "
+          f"at {smi} MHz); values' quantization kernel {quant:.4f} (plain {quant_plain:.4f}, bound "
+          f"{qb['bound_ms']:.4f}), {100 * quant / whole['fused']:.1f} % of the fused route; SDPA "
+          f"bf16 (float probabilities, a near relative) {sdpa:.4f}")
+    return {"int8_attention": {"max_abs_err": max_err, "ms": kernel,
+                               "plain_ms": kernel_plain, **kb, "library_ms": None,
+                               "exp_floor_ms": exp_floor, "fused_route_ms": whole["fused"],
+                               "pv_route_ms": whole["pv_route"], "plain_route_ms": whole["plain"],
+                               "sdpa_ms": sdpa},
+            "int8_quantize_v": {"max_abs_err": 0.0, "ms": quant,
+                                "plain_ms": quant_plain, **qb, "library_ms": None}}
 
 
 def _render_rows(M: int, H: int, W: int, seed: int, sigma=(2.0, 2.0), ties: bool = False,
@@ -878,6 +1068,49 @@ def phase_flash() -> dict:
     return result
 
 
+FLASH_WIDTHS = (32, 48, 96, 128)  # the bf16 widths of the mma.sync route, none on a main path
+
+
+def phase_flash_widths() -> None:
+    """The mma.sync kernels at FLASH_WIDTHS, at the 768-px train shape with
+    the model's width kept: (8, 2305, 768 / d, d) bf16, no mask. By
+    CUDA-graph replay: the forward and the forward + backward beside the
+    plain branch and SDPA (in turns plain/kernel/kernel/plain), the dK/dV
+    and dQ kernels alone on one forward's statistics beside SDPA's backward
+    alone, and each kernel's bound."""
+    bench = _script("torch_bench_attention_fusion")
+
+    def timer(fn):
+        return graph_ms(fn, iters=2, samples=10)
+
+    for d in FLASH_WIDTHS:
+        B, T, H = 8, 2305, 768 // d
+        qkv, do, _ = _flash_operands(B, T, H, d, None, seed=95)
+        route = attention.kernel_route(d)
+        check(route == "mma_sync", f"d = {d}: route {route}")
+        times = bench.attention_times(*qkv, None, do, timer)
+        q, k, v = (t.detach() for t in qkv)
+        o, m, l = attention.flash_forward_cuda(q, k, v)
+        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
+        alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
+                 "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            saved = bench.sdpa(*qkv, None)
+        sdpa_bwd = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
+                            iters=2, samples=10, stream=side)
+        bounds = _flash_bounds(B, T, H, d, None)
+        print(f"flash kernels (mma.sync) [(B, T, H, d) = {(B, T, H, d)}], ms per call, CUDA-graph "
+              f"replay: " + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
+                                      f"{times['plain'][part]:.4f}, SDPA "
+                                      f"{times['library'][part]:.4f}" for part in ("fwd", "fwd_bwd"))
+              + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
+              + f"; SDPA backward alone {sdpa_bwd:.4f}; bounds "
+              + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})" for k, b in bounds.items()))
+        del qkv, do, q, k, v, o, m, l, args, saved
+
+
 def _reset_launches() -> None:
     for module, counter, _, _ in KERNELS.values():
         setattr(module, counter, 0)
@@ -909,6 +1142,12 @@ def phase_counters() -> None:
             torch.ones(2, n, device="cuda"), torch.ones(2, 64, device="cuda"), torch.float32),
         "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
             torch.zeros(n, 3, device="cuda"), 4, 4),
+        "int8_quantize_v": lambda n: int8_attention.int8_quantize_v_cuda(
+            torch.zeros(1, n, 2, 64, dtype=torch.bfloat16, device="cuda")),
+        "int8_attention": lambda n: int8_attention.int8_attention_cuda(
+            *(torch.zeros(1, n, 2, 64, dtype=torch.bfloat16, device="cuda"),) * 2,
+            torch.zeros(2, 64, int8_attention._fused_tp(n), dtype=torch.int8, device="cuda"),
+            torch.ones(2, 64, device="cuda")),
     }
     calls = list(calls.items())
     for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32),
@@ -1192,9 +1431,12 @@ def _never_syncs(step) -> None:
 
 def phase_step(flat: dict) -> float:
     """The bare serve steps on a resident batch, bf16 and int8 + fused LN,
-    timed in turns; the int8 backbone tokens and heatmaps against the bf16
-    model's on the same weights, and the bf16 heatmaps against the same
-    weights in f32 (TF32 off). With random N(0, 0.02) weights the blocks
+    timed in turns, and the int8 step on its two attention routes (the fused
+    kernel; the plain chain and the P@V kernel, `pv_route`) in turns
+    pv/fused/fused/pv, none synchronizing with the host; the int8 backbone
+    tokens and heatmaps against the bf16 model's on the same weights, the
+    two int8 routes' against each other, and the bf16 heatmaps against the
+    same weights in f32 (TF32 off). With random N(0, 0.02) weights the blocks
     add little to the residual stream, so these gaps are small by
     construction: accuracy against the reference is held by the CPU tests.
     -> the bf16 vs f32 heatmap gap."""
@@ -1209,6 +1451,12 @@ def phase_step(flat: dict) -> float:
     with torch.inference_mode():
         steps = {name: (lambda m=m: serve_step(m, frames, mask, 512, (720, 1280)))
                  for name, m in (("bf16", bf16), ("int8_ln", int8))}
+
+        def int8_pv_step():
+            with int8_attention.pv_route():
+                return steps["int8_ln"]()
+
+        steps["int8_ln_pv"] = int8_pv_step
         turns = [(n, cuda_ms(steps[n], 1, samples=30))
                  for n in ("bf16", "int8_ln", "int8_ln", "bf16")]
         for step in steps.values():
@@ -1219,6 +1467,8 @@ def phase_step(flat: dict) -> float:
               f"{calls} calls, {ops / 1e9:.2f} G int8 operations, {nbytes / 1e6:.2f} MB read and "
               f"written; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         graph = {name: graph_ms(step, iters=1, samples=30) for name, step in steps.items()}
+        routes = [(n, graph_ms(steps[n], iters=1, samples=30))
+                  for n in ("int8_ln_pv", "int8_ln", "int8_ln", "int8_ln_pv")]
         torch.cuda.synchronize()
         imgs = preprocess(frames, 512)[None]
         outs, tokens = {}, {}
@@ -1228,6 +1478,9 @@ def phase_step(flat: dict) -> float:
             print(f"forward peak memory [{name}]: "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             tokens[name] = model.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
+        with int8_attention.pv_route():
+            outs["int8_ln_pv"] = int8(imgs, view_ids, mask[None])
+            tokens["int8_ln_pv"] = int8.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
         del bf16, int8
         f32_cfg = dataclasses.replace(FULL, dtype="float32",
                                       vit=dataclasses.replace(FULL.vit, dtype="float32"))
@@ -1238,7 +1491,19 @@ def phase_step(flat: dict) -> float:
           "median of 30, in turns: " + ", ".join(f"{n} {t:.3f}" for n, t in turns)
           + "; CUDA-graph replay (device time): "
           + ", ".join(f"{n} {t:.3f}" for n, t in graph.items())
-          + "; no host-device sync inside either step")
+          + "; the int8 step's attention routes in turns pv/fused/fused/pv (CUDA-graph replay): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in routes)
+          + "; no host-device sync inside any step")
+    a, b = tokens["int8_ln"], tokens["int8_ln_pv"]
+    hm, hm_pv = outs["int8_ln"][0].float(), outs["int8_ln_pv"][0].float()
+    check(bool(torch.isfinite(hm).all()), "int8 heatmaps on the fused route not finite")
+    agree = float((hm.flatten(3).argmax(-1) == hm_pv.flatten(3).argmax(-1)).float().mean())
+    print(f"int8 + fused LN, fused kernel vs the pv route (plain chain + P@V kernel): "
+          f"patch-token cosine min "
+          f"{float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min()):.6f}, max abs diff "
+          f"{float((a - b).abs().max()):.6g}; heatmap max abs diff "
+          f"{float((hm - hm_pv).abs().max()):.6g} (heatmap max abs {float(hm_pv.abs().max()):.6g}),"
+          f" argmax agreement {agree:.4f} of 32 maps")
     a, b = tokens["int8_ln"], tokens["bf16"]
     check(bool(torch.isfinite(a).all()), "int8 backbone tokens not finite")
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
@@ -1520,7 +1785,7 @@ def phase_fusion() -> None:
 
 
 def _small_reference(label: str, cfg: EstimatorConfig, scale: float, int8: bool,
-                     hm_tol: float, ang_tol: float) -> None:
+                     hm_tol: float, ang_tol: float) -> dict:
     state = random_state(MultiViewPoseEstimator(cfg, device="meta"), seed=2, scale=scale)
     for k in state:
         if k.endswith(("norm1.weight", "norm2.weight", "norm3.weight", "norm.weight")):
@@ -1533,10 +1798,12 @@ def _small_reference(label: str, cfg: EstimatorConfig, scale: float, int8: bool,
         if int8:
             int8ify(model, attn=True)
         f, m = torch.from_numpy(frames).to(dev), torch.from_numpy(mask).to(dev)
+        _reset_launches()
         with torch.inference_mode():
             hm, ang = model(preprocess(f, 64)[None], torch.arange(3, device=dev)[None], m[None])
             xy, _, _ = serve_step(model, f, m, 64, (96, 120))
         outs[dev] = [t.float().cpu().numpy() for t in (hm, ang, xy)]
+        launches = _read_launches()  # the card's run, the last
     (hm_c, ang_c, xy_c), (hm_g, ang_g, xy_g) = outs["cpu"], outs["cuda"]
     gap, ang_gap = float(np.abs(hm_g - hm_c).max()), float(np.abs(ang_g - ang_c).max())
     check(gap <= hm_tol and ang_gap <= ang_tol, f"{label}: card vs CPU gap {gap}, {ang_gap}")
@@ -1546,10 +1813,12 @@ def _small_reference(label: str, cfg: EstimatorConfig, scale: float, int8: bool,
     check(bool((xy_g[clear] == xy_c[clear]).all()), f"{label}: keypoints differ, card vs CPU")
     print(f"small {label} model card vs CPU (f32, TF32 off): heatmap max abs diff {gap:.3g} "
           f"(bound {hm_tol:g}), angle max abs diff {ang_gap:.3g} (bound {ang_tol:g}), "
-          f"keypoints equal on {int(clear.sum())}/24 clear maps")
+          f"keypoints equal on {int(clear.sum())}/24 clear maps; kernel launches on the card "
+          f"{launches}")
+    return launches
 
 
-def phase_small_reference() -> None:
+def phase_small_reference() -> int:
     """Small models on the card against the same models on the CPU, in f32.
     Float: heatmaps and angles 1e-3 (f32 convolution and matmul algorithms
     differ). int8 + fused LN (hidden 128 and M = 51 rows, as torch._int_mm
@@ -1557,14 +1826,19 @@ def phase_small_reference() -> None:
     a value on an int8 rounding boundary rounding the other way can move them
     (on the CPU alone, a 1e-4 relative input perturbation moved this model's
     heatmaps by 9e-6 and its angles by 3.5e-3). Keypoints equal wherever the
-    top-2 heatmap margin is 10x the gap."""
+    top-2 heatmap margin is 10x the gap. The f32 int8 model's attention takes
+    the "pv" route: the P@V kernel in each block, never the fused kernel.
+    -> the int8 model's P@V launches."""
     vit = ViTConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2, num_heads=2,
                     dtype="float32")
     cfg = EstimatorConfig(vit=vit, num_joints=8, num_angles=7, heatmap_size=(32, 32),
                           max_views=4, dtype="float32")
     _small_reference("float", cfg, 0.2, False, 1e-3, 1e-3)
     cfg = dataclasses.replace(cfg, vit=dataclasses.replace(vit, fused_ln=True))
-    _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
+    launches = _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
+    check(launches["int8_pv"] > 0 and launches["int8_attention"] == 0,
+          f"the f32 int8 model launched {launches}")
+    return launches["int8_pv"]
 
 
 # The reference's FR3 training shape (bench_train.py:178-191): frozen ViT-B/16
@@ -1688,9 +1962,10 @@ def main() -> int:
     device = phase_device()
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv(),
-                **phase_heatmap_render(), **phase_flash()}
+                **phase_int8_attention(), **phase_heatmap_render(), **phase_flash()}
     for name, extra in phase_simt().items():
         measured[name].update(extra)
+    phase_flash_widths()
     phase_counters()
     phase_replay()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
@@ -1702,11 +1977,15 @@ def main() -> int:
             ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
              "--int8-attention"], "int8 + fused LN", SERVE_KERNELS,
         )
+    for name in ("int8_attention", "int8_quantize_v"):  # one per block and tick
+        check(int8_launches[name] == 12 * int8_launches["peak_decode"],
+              f"int8 serve: {int8_launches[name]} {name} launches for "
+              f"{int8_launches['peak_decode']} ticks, not 12 each")
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
     gap_512 = phase_step(flat)
     serve_768 = phase_serve_768()
     phase_step_768(gap_512)
-    phase_small_reference()
+    launches["int8_pv"] = phase_small_reference()
     launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
     train_768 = phase_train_768()
     phase_fusion()

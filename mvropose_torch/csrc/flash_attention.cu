@@ -100,19 +100,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "sm90_common.cuh"  // mbarriers, TMA maps and boxes, the wgmma wrappers, turns
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
-// The plain branch's masked logit: bf16's lowest finite value, exact in f32.
-constexpr float kMasked = -3.3895313892515355e38f;
-
-struct Strides {  // element strides of a (B, T, H, d) operand whose d is unit-stride
-  int64_t b, t, h;
-};
 
 struct Params {
   const bf16 *q, *k, *v, *dout;
@@ -645,8 +639,6 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 // registers, are the A operand of the m64n64 products into dV, dK (dQ),
 // whose B is the streamed tile read MN-major.
 
-constexpr int kHD = 64;                        // head width of this path: one 128-byte row
-constexpr int kHRows = 64;                     // rows of a TMA box and of a consumer warpgroup
 constexpr int kHConsumers = 2;                 // consumer warpgroups
 constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operand
 constexpr int kHStream = 128;                  // rows of a streamed tile
@@ -684,157 +676,6 @@ struct HopperSmem {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 64 x 64 box of a (B, T, H, 64) operand, rows [row, row + 64) of head
-// h of batch element b, into shared memory (128-byte swizzled); rows past T
-// are zero-filled and still counted in the barrier's bytes.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
-                                        int h, int b, int heads_inner) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(heads_inner ? h : row),
-      "r"(heads_inner ? row : h), "r"(b), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// `rows` rows (whole boxes) of an operand from row `row` on.
-__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar, int rows,
-                                         int row, int h, int b, int heads_inner) {
-  for (int r = 0; r < rows; r += kHRows) {
-    tma_box(dst + r * kHD, map, bar, row + r, h, b, heads_inner);
-  }
-}
-
-// wgmma matrix descriptor of a 128-byte swizzled tile (1024-byte aligned,
-// 8-row groups 1024 bytes apart). K-major: the leading offset is unused
-// (1); MN-major: both offsets are 1024 bytes (the second atom along MN is
-// never reached at N = 64), whichever of the two the hardware reads.
-template <bool MnMajor>
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t lbo = MnMajor ? 1024 >> 4 : 1, sbo = 1024 >> 4;
-  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | lbo << 16 | sbo << 32 |
-         1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of products are still running.
-template <int N = 0>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accesses to the accumulators across the
-// asynchronous products' issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-}
-
-// Keeps the A registers of a product in registers, unmoved, until here.
-template <int N>
-__device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
-// The accumulator of m64nN: per warp 16 rows; d[i][e] is row g + 8 (e >> 1)
-// of the warp's 16, column 8 i + 2 t + (e & 1), as N / 8 m16n8 tiles.
-#define WGMMA_D64 \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
-  "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
-  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
-  "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
-  "+f"(d[7][2]), "+f"(d[7][3])
-#define WGMMA_D64_REGS \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WGMMA_D128 \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
-  "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
-  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
-  "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
-  "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
-  "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), \
-  "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), \
-  "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
-  "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), \
-  "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), \
-  "+f"(d[15][2]), "+f"(d[15][3])
-#define WGMMA_D128_REGS \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-// D (+)= A B, m64n128k16, bf16 x bf16 -> f32, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss128(float (&d)[16][4], uint64_t a, uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_D128
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D += A B, m64n64k16, A (16 x 16 per warp, the m16n8k16 A fragment) in
-// registers, B MN-major in shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
-      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : WGMMA_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// D = A B^T over the head width, A 64 rows, B kHStream rows: 4 k-steps of
-// 16 columns (32 bytes) along the K-major rows of both tiles.
-__device__ __forceinline__ void product_kmajor(float (&d)[16][4], uint64_t a, uint64_t b) {
-#pragma unroll
-  for (int kk = 0; kk < kHD / 16; ++kk) wgmma_ss128(d, a + 2 * kk, b + 2 * kk, kk > 0);
-}
-
 // The 64 x kHStream accumulator as bf16 A fragments, 16 columns per k-step.
 __device__ __forceinline__ void to_a(uint32_t (&a)[kHStream / 16][4], const float (&acc)[16][4]) {
 #pragma unroll
@@ -849,33 +690,11 @@ __device__ __forceinline__ void product_rs(float (&d)[8][4], const uint32_t (&a)
   for (int kk = 0; kk < kHStream / 16; ++kk) wgmma_rs64(d, a[kk], b + (2048 >> 4) * kk);
 }
 
-// The consumer warpgroups take turns to issue their products (ping-pong):
-// named barrier 1 + w is warpgroup w's turn, passed by the other one after
-// it has issued its own, so one warpgroup's softmax runs beside the other's
-// products instead of both waiting on the tensor cores at once.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
-
 // 2^x on the SFU (flushes results below 2^-126 to 0; P is scaled by 1/l later).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
 }
 
 // The mbarriers: full[s] completes when stage s holds its tiles and row
@@ -1369,51 +1188,6 @@ __global__ void __launch_bounds__(kHThreads, 1)
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// CUDA's cuTensorMapEncodeTiled, reached through the runtime (no link against
-// libcuda); null if the installed CUDA has none.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    const bool ok = err == cudaSuccess && found == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
-// A tensor map over a (B, T, H, 64) bf16 operand through its element
-// strides: dims (d, T, H, B), or (d, H, T, B) when `heads_inner`; boxes of
-// 64 rows x 64, 128-byte swizzle, rows past T zero-filled. -> 0 or the
-// CUresult of the encoding.
-int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T, bool heads_inner) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t t = static_cast<cuuint64_t>(T), hh = static_cast<cuuint64_t>(H);
-  const cuuint64_t st = static_cast<cuuint64_t>(s.t) * 2, sh = static_cast<cuuint64_t>(s.h) * 2;
-  const cuuint64_t dims[4] = {kHD, heads_inner ? hh : t, heads_inner ? t : hh,
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {heads_inner ? sh : st, heads_inner ? st : sh,
-                                 static_cast<cuuint64_t>(s.b) * 2};
-  const cuuint32_t box[4] = {kHD, heads_inner ? 1u : kHRows, heads_inner ? kHRows : 1u, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 // The Hopper kernels' parameters from the mma.sync path's -> 0, or a

@@ -1,0 +1,603 @@
+// int8-probability attention on Hopper (sm_90a): one fused kernel for the
+// logits, the row max, the exponent, the int8 probabilities and their int8
+// product with the values (int8_attention_sm90_kernel), and a small kernel
+// that quantizes the values first (int8_quantize_v_kernel).
+//
+// Replaces mvropose_tpu/ops/attention.py:29 int8_prob_attention. That
+// function is not Pallas: it is XLA einsums and elementwise ops written for
+// the TPU's int8 matrix unit. Per batch element b, head h and query row q,
+// at head width d = 64 (scale 1/8, a power of two), in the reference's
+// rounding points (mvropose_torch/ops/int8_attention.py has them in plain
+// torch):
+//   s_k  = bf16(q . k_k / 8), bf16's lowest finite value at a masked key;
+//          keys past T do not exist (no part in m, z or the product)
+//   m    = max_k s_k, the true row max: a first pass over all the keys
+//   e_k  = bf16(expf(bf16(s_k - m)))  in [0, 1], expf the accurate one that
+//          torch's bf16 exp uses on CUDA, so equal logits give equal e
+//   z    = sum_k e_k (f32);  pq_k = rint(127 e_k) (int8, half to even)
+//   acc  = sum_k pq_k vq_k (int32, exact)
+//   out  = bf16((f32(acc) * (1 / (127 z))) * sv), written in (B, T, H, 64)
+// with the values quantized per (b, h, channel c) by int8_quantize_v_kernel:
+//   sv_c = max(max_k |v_kc|, 1e-6) / 127,  vq_kc = rint(v_kc / sv_c).
+// A row whose keys are all masked has m = s_k for every real key: e = 1,
+// z = T, and it averages the values over the T real keys.
+//
+// What bounds it on an H100 at the serve shape (B H = 48, T = 1025): one
+// QK^T (6.46 GFLOP, 6.5 us at the bf16 tensor-core rate) and the int8 P@V
+// (6.46 G operations, 3.3 us at the int8 rate); ~22 MB of q, k, vq and out
+// (6.6 us at 3.35 TB/s); but 50.4 M exponentials, ~13.6 us at 16 a clock
+// per SM, and ~16 ALU instructions per logit around them (two bf16
+// roundings, the accurate expf, the row sum, the int8 rounding and the byte
+// packing). The elementwise work per logit, not the products or the bytes,
+// sets the pace. The plain chain it replaces writes and rereads the (B H, T,
+// T) logits, exponents and probabilities in device memory: ~2.2 GB a layer.
+//
+// The design (the flash forward's, csrc/flash_attention.cu, on the helpers
+// of csrc/sm90_common.cuh):
+//   * a block owns 128 queries, in two consumer warpgroups of 64, Q loaded
+//     once by TMA; one producer warp streams tiles of 128 keys through a
+//     4-stage ring of full/empty mbarriers: K alone in pass 1, K and a tile
+//     of values (64 channels x 128 keys of int8, one 8 KB box) in pass 2.
+//     Both passes run through the ring as one sequence of 2 n tiles, so a
+//     stage's phase parity carries over from the first pass to the second;
+//   * pass 1: S = Q K^T (wgmma m64n128k16 bf16, both operands in shared
+//     memory, f32 sums) and the row max. bf16 rounding is monotonic and the
+//     scale a power of two, so m = bf16(max S / 8) equals the max of the
+//     rounded logits, taken on raw S. A one-pass online softmax would
+//     quantize against a running max: other int8 probabilities, another
+//     function. Pass 2 recomputes S and does the rest;
+//   * bf16(s - m) is one bf16x2 fma of the bf16-rounded S pair, 1/8 and -m
+//     (S / 8 is exact in bf16, and one rounding of s - m equals torch's f32
+//     difference rounded to bf16); rint(127 e) is one fma with 1.5 * 2^23,
+//     whose low byte is the rounded value (half to even);
+//   * P@V is wgmma m64n64k32 s8 x s8 -> s32 with the probabilities as the A
+//     operand in registers. 8-bit A fragments hold 4 consecutive k of a row
+//     per register, which are not the columns a thread holds of the f32 S
+//     accumulator. The contraction does not care in which order it meets
+//     the keys, so the values carry the accumulator's order instead:
+//     int8_quantize_v_kernel writes them transposed and K-major, (B H, 64,
+//     Tp) zero past T, with each group of 16 keys permuted (`key_position`)
+//     so that a thread's own probabilities, packed in place, are its A
+//     fragment. No byte moves between threads or through shared memory:
+//     `tile_probs` leaves each probability in the low byte of an f32 in
+//     place, and `pack_probs` gathers four into a register (three byte
+//     permutes) once the previous tile's P V has finished with the registers;
+//   * the two consumer warpgroups take turns to issue their products, and
+//     each issues S of tile j with P V of tile j - 1, so the elementwise
+//     work of one tile runs under the products of the other warpgroup and
+//     of its own previous tile;
+//   * masks without per-element branches: the producer writes a code per key
+//     (attended, masked, past T) and a flag per tile; a tile of attended keys
+//     only (all but the last at T = 1025 without a mask, whose last tile
+//     holds 1 key of 128) takes the path that reads no code;
+//   * the tail of T = 1025 = 8 x 128 + 1: the last key tile's probabilities
+//     skip its column tiles past T; a warp with no query below T skips its
+//     elementwise work; and blocks run in order
+//     of their query tile, so the nearly empty blocks of the last one (a
+//     single query) fill the last wave. Without these, T = 1025 costs far
+//     more than its 1/1024 more keys: 9 key tiles, not 8, and 432 blocks in
+//     4 waves of 132, not 384 in 3.
+// q and k are read through their (B, T, H, 64) strides by TMA tensor maps
+// built on the host per call (a CUDA graph captures them as parameters).
+
+#include <cmath>
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "sm90_common.cuh"  // mbarriers, TMA maps and boxes, the wgmma wrappers, turns
+
+namespace {
+
+constexpr int kConsumers = 2;                     // consumer warpgroups of kHRows queries
+constexpr int kBlockQ = kConsumers * kHRows;      // queries of a block: 128
+constexpr int kKeys = 128;                        // keys of a streamed tile
+constexpr int kStages = 4;                        // ring depth
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kKTile = kKeys * kHD * 2;           // bytes of a bf16 K tile: 16 KB
+constexpr int kVTile = kHD * kKeys;               // bytes of an int8 value tile: 8 KB
+constexpr int kStage = kKTile + kVTile;
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kInnerQ = 1, kInnerK = 2;  // bits of heads_inner
+constexpr float kRound = 12582912.0f;    // 1.5 * 2^23: x + kRound rounds x to an integer
+
+struct Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + kBlockQ * kHD * 2;
+  static constexpr int kCodes = kRing + kStages * kStage;  // a code per key and stage
+  static constexpr int kFlags = kCodes + kStages * kKeys;  // a flag per stage
+  static constexpr int kBars = (kFlags + kStages + 7) / 8 * 8;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
+};
+
+struct Int8Params {
+  CUtensorMap q, k;  // (B, T, H, 64) bf16 through their strides (make_map)
+  CUtensorMap vt;    // (B H, 64, Tp) int8 values, boxes of 128 keys x 64 channels
+  int heads_inner;   // bits kInnerQ, kInnerK: the map's dims are (d, H, T, B)
+  const uint8_t* mask;  // (B, T), 0 = key not attended; null: every key attended
+  const float* sv;      // (B H, 64) the values' scales
+  bf16* out;            // (B, T, H, 64) contiguous
+  int B, H, T;
+};
+
+// Where key j (of a tile) sits among the K-major bytes of its 32-key group:
+// keys 8 i + 2 t + c (i = 0, 1; c = 0, 1) of a 16-key half go to bytes
+// 4 t + 2 i + c, the A-fragment bytes of the thread that holds the S
+// accumulator columns 8 i + 2 t + c (see the source note).
+__host__ __device__ __forceinline__ int key_position(int j) {
+  return (j & ~15) | (4 * ((j & 7) >> 1) + 2 * ((j >> 3) & 1) + (j & 1));
+}
+
+// One 128-key x 64-channel box of the values, keys [key, key + 128) of row bh.
+__device__ __forceinline__ void tma_values(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int key, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(key), "r"(0), "r"(bh), "r"(smem_u32(bar))
+      : "memory");
+}
+
+#define WGMMA_D64_S32 \
+  "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]), "+r"(d[1][1]), \
+  "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]), \
+  "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]), "+r"(d[4][0]), "+r"(d[4][1]), \
+  "+r"(d[4][2]), "+r"(d[4][3]), "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]), \
+  "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]), "+r"(d[7][0]), "+r"(d[7][1]), \
+  "+r"(d[7][2]), "+r"(d[7][3])
+
+// D += A B, m64n64k32, s8 x s8 -> s32: A (16 rows x 32 per warp; register r
+// holds 4 consecutive k of row g + 8 (r & 1), from k = 4 t + 16 (r >> 1)) in
+// registers, B K-major in shared memory (8-bit operands are K-major only).
+__device__ __forceinline__ void wgmma_rs64_s8(int (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WGMMA_D64_REGS
+      ", {%32, %33, %34, %35}, %36, 1;\n"
+      : WGMMA_D64_S32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// O += P V over a 128-key tile: 4 k-steps of 32 keys (32 bytes) along the
+// K-major value rows.
+__device__ __forceinline__ void product_pv(int (&o)[8][4], const uint32_t (&pa)[kKeys / 32][4],
+                                           uint64_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 32; ++kk) wgmma_rs64_s8(o, pa[kk], v + 2 * kk);
+}
+
+// A logit of a coded tile in f32, S / 8 at an attended key, the masked
+// logit at a masked one, -inf past T (code 0, 1, 2).
+__device__ __forceinline__ float coded_logit(float s, uint32_t code) {
+  return code == 0 ? s * 0.125f : (code == 1 ? kMasked : -INFINITY);
+}
+
+// Pass 1 on a tile: mx (rows g, g + 8) takes the max of the tile's logits.
+template <bool Coded>
+__device__ __forceinline__ void tile_max(const float (&s)[16][4], float (&mx)[2],
+                                         const uint8_t* code, int t) {
+  float x[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = Coded ? coded_logit(s[n][e], (kc >> (8 * (e & 1))) & 0xff) : s[n][e];
+      x[e >> 1] = fmaxf(x[e >> 1], v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], Coded ? x[r] : x[r] * 0.125f);
+}
+
+// Pass 2 on a tile, in place: each logit becomes fma(e, 127, kRound) with
+// e = bf16(expf(bf16(s - m))), whose low byte is rint(127 e); z += e.
+// negm: -m of rows g and g + 8 as bf16 pairs. A coded tile skips its column
+// tiles of keys past T (the last tile: `keys` of them exist), which the
+// values' zeros cancel in P V and which add nothing to z.
+template <bool Coded>
+__device__ __forceinline__ void tile_probs(float (&s)[16][4], const __nv_bfloat162 (&negm)[2],
+                                           float (&z)[2], const uint8_t* code, int t, int keys) {
+  const __nv_bfloat162 scale = __floats2bfloat162_rn(Coded ? 1.f : 0.125f, Coded ? 1.f : 0.125f);
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    if (Coded && 8 * n >= keys) break;
+    const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float a = s[n][2 * r], b = s[n][2 * r + 1];
+      if constexpr (Coded) {
+        a = coded_logit(a, kc & 0xff);
+        b = coded_logit(b, kc >> 8);
+      }
+      // bf16(s - m): S rounded to bf16 (exact / 8), then one rounding.
+      const __nv_bfloat162 x = __hfma2(__floats2bfloat162_rn(a, b), scale, negm[r]);
+      const __nv_bfloat162 e = __floats2bfloat162_rn(expf(__low2float(x)), expf(__high2float(x)));
+      const float e0 = __low2float(e), e1 = __high2float(e);
+      z[r] += e0;
+      z[r] += e1;
+      s[n][2 * r] = fmaf(e0, 127.f, kRound);
+      s[n][2 * r + 1] = fmaf(e1, 127.f, kRound);
+    }
+  }
+}
+
+// The int8 probabilities (low bytes of `tile_probs`' values) as the A
+// fragments of P V: register r of 32-key group kk holds row g + 8 (r & 1),
+// column tiles 4 kk + 2 (r >> 1) and the next, two bytes each.
+__device__ __forceinline__ void pack_probs(const float (&s)[16][4],
+                                           uint32_t (&pa)[kKeys / 32][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 32; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = 4 * kk + 2 * (r >> 1), e = 2 * (r & 1);
+      const uint32_t lo =
+          __byte_perm(__float_as_uint(s[n][e]), __float_as_uint(s[n][e + 1]), 0x0040);
+      const uint32_t hi =
+          __byte_perm(__float_as_uint(s[n + 1][e]), __float_as_uint(s[n + 1][e + 1]), 0x0040);
+      pa[kk][r] = __byte_perm(lo, hi, 0x5410);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_attention_sm90_kernel(const __grid_constant__ Int8Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + Smem::kQ);  // 128 query rows
+  unsigned char* ring = smem + Smem::kRing;             // [stage][K 128 x 64 bf16, V 64 x 128 s8]
+  uint8_t* codes = smem + Smem::kCodes;  // per stage and key: 0 attended, 1 masked, 2 past T
+  uint8_t* coded = smem + Smem::kFlags;  // per stage: whether any key is not attended
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* own = empty + kStages;
+
+  // Blocks in order of their query tile, so the last tiles (at T = 1025 a
+  // single query each, and so little work) run after all the full ones.
+  const int heads = p.B * p.H, qt = blockIdx.x / heads, h = blockIdx.x % p.H;
+  const int b = blockIdx.x % heads / p.H, q0 = qt * kBlockQ, T = p.T;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int n_tiles = (T + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);                // the producer warp's lanes, lane 0 with the bytes
+      mbar_init(&empty[s], 4 * kConsumers);  // the consumer warps
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(own, kBlockQ * kHD * 2);
+      tma_rows(sQ, &p.q, own, kBlockQ, q0, h, b, p.heads_inner & kInnerQ);
+    }
+    const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
+    // Tiles 0 .. n - 1 are pass 1's (K), n .. 2 n - 1 pass 2's (K and V).
+    for (int i = 0; i < 2 * n_tiles; ++i) {
+      const int stage = i % kStages, second = i >= n_tiles;
+      const int k0 = (second ? i - n_tiles : i) * kKeys;
+      mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);  // round 0 passes
+      bool any = false;
+      for (int r = lane; r < kKeys; r += 32) {
+        const int key = k0 + r;
+        const uint8_t c = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
+        codes[stage * kKeys + r] = c;
+        any |= c != 0;
+      }
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) {
+        coded[stage] = any;
+        unsigned char* st = ring + stage * kStage;
+        mbar_arrive_expect_tx(&full[stage], kKTile + (second ? kVTile : 0));
+        tma_rows(reinterpret_cast<bf16*>(st), &p.k, &full[stage], kKeys, k0, h, b,
+                 p.heads_inner & kInnerK);
+        if (second) tma_values(st + kKTile, &p.vt, &full[stage], k0, b * p.H + h);
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+  } else {  // consumer warpgroup wg: queries q0 + 64 wg ..
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
+    // A warp with no query below T does no elementwise work. (Its warpgroup
+    // issues every product all the same: skipping them made ptxas serialize
+    // the products of every block.)
+    const bool idle = row0 >= T;
+    const uint64_t q_desc = sw128_desc<false>(sQ + wg * kHRows * kHD);
+    auto k_tile = [&](int stage) { return sw128_desc<false>(ring + stage * kStage); };
+    auto v_tile = [&](int stage) { return sw128_desc<false>(ring + stage * kStage + kKTile); };
+    mbar_wait(own, 0);
+    float s[16][4];
+
+    // Pass 1: the row max (the codes are read before the stage is released).
+    float mx[2] = {-INFINITY, -INFINITY};
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kStages;
+      mbar_wait(&full[stage], (j / kStages) & 1);
+      wgmma_fence();
+      product_kmajor(s, q_desc, k_tile(stage));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      if (idle) {
+      } else if (coded[stage]) {
+        tile_max<true>(s, mx, codes + stage * kKeys, t);
+      } else {
+        tile_max<false>(s, mx, nullptr, t);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+    __nv_bfloat162 negm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m = __bfloat162float(__float2bfloat16_rn(x));  // finite: key 0 exists
+      negm[r] = __floats2bfloat162_rn(-m, -m);
+    }
+
+    // Pass 2: S again, the probabilities, and P V (ring tiles n .. 2 n - 1).
+    int o[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0;
+    float z[2] = {0.f, 0.f};  // this thread's part of the row sums
+    uint32_t pa[kKeys / 32][4];
+    auto probs = [&](int stage, int j) {  // tile j's probabilities, packed
+      if (idle) return;
+      if (coded[stage]) {
+        tile_probs<true>(s, negm, z, codes + stage * kKeys, t, T - j * kKeys);
+      } else {
+        tile_probs<false>(s, negm, z, nullptr, t, kKeys);
+      }
+    };
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    {  // tile 0: S alone
+      const int i = n_tiles, stage = i % kStages;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      product_kmajor(s, q_desc, k_tile(stage));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_acc(s);
+      probs(stage, 0);
+      if (!idle) pack_probs(s, pa);
+    }
+    // Tile j: S of tile j and P V of tile j - 1 in one turn; the
+    // probabilities of tile j while P V runs.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int i = n_tiles + j, stage = i % kStages, prev = (i - 1) % kStages;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      fence_acc(o);
+      turn_wait(wg);
+      wgmma_fence();
+      product_kmajor(s, q_desc, k_tile(stage));
+      wgmma_commit();
+      product_pv(o, pa, v_tile(prev));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();
+      fence_acc(s);
+      probs(stage, j);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_a(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if (!idle) pack_probs(s, pa);
+    }
+    // P V of the last tile.
+    const int last = (2 * n_tiles - 1) % kStages;
+    fence_acc(o);
+    turn_wait(wg);
+    wgmma_fence();
+    product_pv(o, pa, v_tile(last));
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    fence_acc(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[last]);
+    if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
+
+    // out = (f32(acc) * (1 / (127 z))) * sv, rows past T (zero-filled Q) not stored.
+    const float* sv = p.sv + static_cast<int64_t>(b * p.H + h) * kHD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      z[r] += __shfl_xor_sync(0xffffffffu, z[r], 1);
+      z[r] += __shfl_xor_sync(0xffffffffu, z[r], 2);
+      const int row = row0 + g + 8 * r;
+      if (row >= T) continue;
+      const float rz = 1.f / (127.f * z[r]);
+      bf16* dst = p.out + (static_cast<int64_t>(b) * T + row) * p.H * kHD +
+                  static_cast<int64_t>(h) * kHD;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = n * 8 + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(sv + c);
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
+            static_cast<float>(o[n][2 * r]) * rz * sc.x,
+            static_cast<float>(o[n][2 * r + 1]) * rz * sc.y);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ values, quantized
+//
+// The scale of a channel needs only that channel, so a block owns 16
+// channels (32 bytes a key, one whole memory sector) of one (b, h): 192
+// blocks at the serve shape. Its 256 threads take the max |v| over all T
+// keys in rounds of 1536 keys (16-byte loads, two threads a key, 12 loads in
+// flight a thread), quantize them into a shared [channel][key_position]
+// tile and write its 16 rows out in 16-byte stores; up to T = 1536 (the
+// serve T = 1025) the one round's values stay in registers between the two
+// steps, and a longer T reads its rounds again (from L2). Its bound is its
+// bytes (6.3 MB read, 3.5 MB written at the serve shape: 3 us); each round
+// waits for its loads, so it is held by how few rounds it takes.
+
+constexpr int kQThreads = 256;
+constexpr int kQChannels = 16;                       // channels of a block
+constexpr int kQRows = kQThreads / 2;                // keys one load of every thread covers
+constexpr int kQBatch = 12;                          // loads in flight a thread
+constexpr int kQTile = kQRows * kQBatch;             // keys of a round and its tile: 1536
+constexpr int kQPad = 16;                            // bytes after each shared row
+
+__global__ void __launch_bounds__(kQThreads)
+    int8_quantize_v_kernel(const bf16* __restrict__ v, Strides s, int H, int T, int Tp,
+                           int8_t* __restrict__ vt, float* __restrict__ sv) {
+  __shared__ float s_max[kQThreads / 32][kQChannels];
+  __shared__ float s_scale[kQChannels];
+  __shared__ __align__(16) int8_t s_tile[kQChannels][kQTile + kQPad];
+
+  const int c16 = blockIdx.x * kQChannels, h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // Lanes 0-15 of a warp read channels c16 .. c16 + 7 of its 16 keys, lanes
+  // 16-31 the next 8 of the same keys: each key's 32 bytes in one request.
+  const int half = lane >> 4, kl = warp * 16 + (lane & 15);
+  const bf16* base = v + b * s.b + h * s.h + c16 + 8 * half;
+  // Keys k0 + u kQRows + kl (u < kQBatch), zero past T.
+  auto load_round = [&](int k0, uint4 (&raw)[kQBatch]) {
+#pragma unroll
+    for (int u = 0; u < kQBatch; ++u) {
+      const int key = k0 + u * kQRows + kl;
+      raw[u] = key < T ? *reinterpret_cast<const uint4*>(base + key * s.t) : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  float mx[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx[i] = 0.f;
+  uint4 raw[kQBatch];
+  for (int k0 = 0; k0 < T; k0 += kQTile) {
+    load_round(k0, raw);
+#pragma unroll
+    for (int u = 0; u < kQBatch; ++u) {
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mx[2 * i] = fmaxf(mx[2 * i], fabsf(__low2float(x[i])));
+        mx[2 * i + 1] = fmaxf(mx[2 * i + 1], fabsf(__high2float(x[i])));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // the 16 lanes of each half hold the same channels
+#pragma unroll
+    for (int o = 1; o < 16; o *= 2) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    if ((lane & 15) == 0) s_max[warp][8 * half + i] = mx[i];
+  }
+  __syncthreads();
+  if (tid < kQChannels) {
+    float m = s_max[0][tid];
+    for (int w = 1; w < kQThreads / 32; ++w) m = fmaxf(m, s_max[w][tid]);
+    const float scale = fmaxf(m, 1e-6f) / 127.f;
+    s_scale[tid] = scale;
+    sv[static_cast<int64_t>(bh) * kHD + c16 + tid] = scale;
+  }
+  __syncthreads();
+  float scale[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) scale[i] = s_scale[8 * half + i];
+  int8_t* out = vt + (static_cast<int64_t>(bh) * kHD + c16) * Tp;
+  for (int k0 = 0; k0 < Tp; k0 += kQTile) {
+    if (T > kQTile) load_round(k0, raw);  // else round 0 is still in registers
+#pragma unroll
+    for (int u = 0; u < kQBatch; ++u) {
+      const int pos = key_position(u * kQRows + kl);  // zeros past T, as loaded
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xi = i & 1 ? __high2float(x[i / 2]) : __low2float(x[i / 2]);
+        // rint(v / sv) in [-127, 127]: the low byte of v / sv + 1.5 * 2^23 (half to even).
+        s_tile[8 * half + i][pos] =
+            static_cast<int8_t>(__float_as_uint(xi / scale[i] + kRound) & 0xff);
+      }
+    }
+    __syncthreads();
+    const int chunks = min(kQTile, Tp - k0) / 16;  // 16-byte chunks of a row this round
+    for (int c = tid; c < kQChannels * chunks; c += kQThreads) {
+      const int row = c / chunks, col = (c % chunks) * 16;
+      *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * Tp + k0 + col) =
+          *reinterpret_cast<const uint4*>(&s_tile[row][col]);
+    }
+    __syncthreads();
+  }
+}
+
+// A tensor map over the (B H, 64, Tp) int8 values: dims (Tp, 64, B H),
+// boxes of 128 keys x 64 channels, 128-byte swizzle. -> 0 or the CUresult.
+int make_values_map(CUtensorMap* map, const void* base, int BH, int Tp) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t tp = static_cast<cuuint64_t>(Tp);
+  const cuuint64_t dims[3] = {tp, kHD, static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {tp, kHD * tp};
+  const cuuint32_t box[3] = {kKeys, kHD, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+}  // namespace
+
+// v: (B, T, H, 64) bf16 through `strides` (b, t, h elements, each a multiple
+// of 8, unit stride along d, 16-byte aligned base). -> vt (B H, 64, Tp) int8,
+// Tp = T rounded up to a multiple of 128, each 16-key group in key_position
+// order, zero past T; sv (B H, 64) f32. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue (1) for a Tp it does not take.
+extern "C" int int8_quantize_v(const void* v, int B, int H, int T, const int64_t* strides,
+                               void* vt, float* sv, int Tp, void* stream) {
+  if (Tp % kKeys != 0 || Tp < T) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides s{strides[0], strides[1], strides[2]};
+  const dim3 grid(kHD / kQChannels, H, B);  // 16 channels of one (b, h) a block
+  int8_quantize_v_kernel<<<grid, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(v), s, H, T, Tp, static_cast<int8_t*>(vt), sv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k: (B, T, H, 64) bf16 through `strides` (6 element strides: b, t, h of
+// q, then of k; multiples of 8 below 2^36, unit stride along d, 16-byte
+// aligned bases); mask: (B, T) bytes, 0 = key not attended, or null; vt, sv
+// from int8_quantize_v; out: (B, T, H, 64) bf16 contiguous. Every pointer
+// on the device of `stream`. Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue (1) for a Tp it does not take, or minus the
+// CUresult of a tensor map that cannot be encoded.
+extern "C" int int8_attention_sm90(const void* q, const void* k, const uint8_t* mask,
+                                   const void* vt, const float* sv, void* out, int B, int H, int T,
+                                   int Tp, const int64_t* strides, void* stream) {
+  if (Tp % kKeys != 0 || Tp < T) return static_cast<int>(cudaErrorInvalidValue);
+  Int8Params p{};
+  const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]};
+  const bool q_inner = sq.h < sq.t, k_inner = sk.h < sk.t;  // e.g. a contiguous projection
+  int err = make_map(&p.q, q, sq, B, H, T, q_inner);
+  if (!err) err = make_map(&p.k, k, sk, B, H, T, k_inner);
+  if (!err) err = make_values_map(&p.vt, vt, B * H, Tp);
+  if (err) return -err;
+  p.heads_inner = (q_inner ? kInnerQ : 0) | (k_inner ? kInnerK : 0);
+  p.mask = mask;
+  p.sv = sv;
+  p.out = static_cast<bf16*>(out);
+  p.B = B;
+  p.H = H;
+  p.T = T;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      int8_attention_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::kAlloc);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const dim3 grid((T + kBlockQ - 1) / kBlockQ * H * B);  // query tile outermost
+  int8_attention_sm90_kernel<<<grid, kThreads, Smem::kAlloc, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -91,7 +91,7 @@ class ViTConfig:
     round-trip. `fused_ln` runs the LayerNorms through `ops/layernorm.py`
     (the CUDA kernel on the card), `quant="int8"` the blocks' Dense layers
     through `Int8Linear`, `quant_attn="int8"` the attention through
-    `int8_prob_attention` (its P@V is a CUDA kernel on the card)."""
+    `int8_prob_attention` (one fused CUDA kernel on the card in bf16)."""
 
     image_size: int = 224
     patch_size: int = 16

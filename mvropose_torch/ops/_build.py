@@ -3,9 +3,10 @@
 The kernels expose plain C entry points (no PyTorch headers), so a build
 takes seconds: one nvcc per source, all started together, then one link.
 The library goes to `build/mvropose_torch/` at the repository root, named by
-a hash of the sources and flags: an edited `.cu` rebuilds, an unchanged one
-loads the existing file. nvcc's output (with `-Xptxas -v`: registers, shared
-memory and spills per kernel) is kept beside the library as `<name>.log`.
+a hash of the sources (`.cu` and the headers `.cuh` they include) and
+flags: an edited source rebuilds, an unchanged one loads the existing file.
+nvcc's output (with `-Xptxas -v`: registers, shared memory and spills per
+kernel) is kept beside the library as `<name>.log`.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmvropose_torch_{digest.hexdigest()[:16]}.so"

@@ -2,9 +2,14 @@
 """Where the port's serve step spends its time on the GPU.
 
     python3 scripts/torch_serve_profile.py [--steps 20] [--trace trace.json]
+                                           [--int8 fused|pv]
 
 Runs `mvropose_torch.cli.main.serve_step` (bf16, ViT-B/16 at 512 px, 4
-resident 720x1280 uint8 frames, random weights from seed 0) and prints:
+resident 720x1280 uint8 frames, random weights from seed 0; with --int8 the
+same weights as `serve --int8-backbone --int8-attention` serves them on a
+fused-LN run directory, the attention on the given route of
+`ops/int8_attention.py`: "fused", the kernel, or "pv", the plain chain and
+the P@V kernel) and prints the card and its power limit, then:
   * wall time per step: host clock around `--steps` steps ending in a
     synchronize, without the profiler;
   * device busy time per step: the summed durations of the GPU kernels and
@@ -17,6 +22,9 @@ With --trace, the profiler's chrome trace is written there. Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -29,13 +37,35 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mvropose_torch.cli.main import serve_step  # noqa: E402
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig  # noqa: E402
-from mvropose_torch.utils.weights import random_state  # noqa: E402
+from mvropose_torch.ops import int8_attention  # noqa: E402
+from mvropose_torch.utils.weights import (  # noqa: E402
+    export_jax_params,
+    int8ify,
+    load_jax_params,
+    random_state,
+)
+
+
+def int8_model(cfg: EstimatorConfig, dev) -> MultiViewPoseEstimator:
+    """The seed-0 weights in f32 as a checkpoint's flat dict, loaded into a
+    fused-LN model and quantized from it, as `serve --params RUN/best_params.npz
+    --int8-backbone --int8-attention` does."""
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, fused_ln=True))
+    meta = MultiViewPoseEstimator(cfg, device="meta")
+    meta.load_state_dict(random_state(meta, seed=0), assign=True)
+    flat = export_jax_params(meta)
+    model = MultiViewPoseEstimator(cfg, device=dev).eval()
+    load_jax_params(model, flat)
+    int8ify(model, flat, attn=True)
+    return model
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--trace", default=None, help="write the chrome trace to this path")
+    p.add_argument("--int8", choices=["fused", "pv"], default=None,
+                   help="profile the int8 + fused-LN step, its attention on this route")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: needs a CUDA GPU")
@@ -44,15 +74,19 @@ def main() -> int:
         vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
         num_joints=8, num_angles=7, max_views=4,
     )
-    model = MultiViewPoseEstimator(cfg, device=dev).eval()
-    model.load_state_dict(random_state(model, seed=0))
+    if args.int8:
+        model = int8_model(cfg, dev)
+    else:
+        model = MultiViewPoseEstimator(cfg, device=dev).eval()
+        model.load_state_dict(random_state(model, seed=0))
     frames = torch.from_numpy(
         np.random.default_rng(1).integers(0, 256, size=(4, 720, 1280, 3), dtype=np.uint8)
     ).to(dev)
     mask = torch.ones(4, dtype=torch.bool, device=dev)
     step = lambda: serve_step(model, frames, mask, 512, (720, 1280))  # noqa: E731
 
-    with torch.inference_mode():
+    route = int8_attention.pv_route() if args.int8 == "pv" else contextlib.nullcontext()
+    with torch.inference_mode(), route:
         for _ in range(5):
             step()
         torch.cuda.synchronize()
@@ -73,9 +107,12 @@ def main() -> int:
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"serve step: wall {wall_ms:.3f} ms/step (host clock, {args.steps} steps, no profiler); "
-          f"device busy {busy_ms:.3f} ms/step over {len(device_events) / args.steps:.0f} "
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {torch.cuda.get_device_name(0)}; {smi}")
+    label = f"int8 + fused LN, attention route {args.int8}" if args.int8 else "bf16"
+    print(f"serve step [{label}]: wall {wall_ms:.3f} ms/step (host clock, {args.steps} steps, "
+          f"no profiler); device busy {busy_ms:.3f} ms/step over {len(device_events) / args.steps:.0f} "
           f"device events/step (profiler); idle share "
           f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
     print(table)

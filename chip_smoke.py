@@ -22,6 +22,15 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          within one value step plus a bf16 ulp of the plain version, planted
          rows bit-equal, two calls bit-identical; timed in turns plain /
          the "pv" route (plain chain + the P@V kernel) / fused, beside SDPA;
+       * the int8 matmul's quantization and GEMM (`phase_int8_matmul`: the
+         serve step's products at M = 4100, 768 -> 768, 768 -> 3072 and
+         3072 -> 768, and M = 1, 37, 51 at the serve and small widths, each
+         x with an all-zero row; bf16 and f32 x, bf16 and f32 out): x_q,
+         s_x and the output bit-equal to the plain version (`torch._int_mm`
+         and the plain dequant), two calls bit-identical, s_x equal to
+         numpy's true division on rows planted where m / 127 and
+         m * fl(1/127) round apart; timed in turns plain/kernel/kernel/plain
+         beside `torch._int_mm` alone and their bounds;
        * heatmap render ((576, 128, 128) and (576, 512, 512), the full-width
          train batch; (336, 64, 64) and (336, 128, 128), the synthetic
          trainer's; a non-multiple M and W, per-map and small sigma,
@@ -36,14 +45,18 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
          weights, exported with `export_jax_params`): the LayerNorm kernels,
          the peak decode and the fused int8 attention with its quantization,
-         12 each a tick; no P@V kernel;
+         12 each a tick, 72 int8 GEMMs and 48 row quantizations a tick (q, k
+         and v share one); no P@V kernel;
   5. the bare serve steps, bf16 and int8 + fused LN (on both attention
-     routes, in turns), timed on a resident batch and checked to never
-     synchronize with the host, with the int8 step's `int8_matmul` calls
-     and their bound; the int8 heatmaps against the bf16 model's and
-     against the other route's, the bf16 ones against f32; and small f32
-     and int8 + fused-LN models on the card against the CPU (the f32 int8
-     model's attention launches the P@V kernel);
+     routes, and on both int8 matmul routes: the kernels and the plain
+     chain of `int_mm_route()`, in turns), timed on a resident batch and
+     checked to never synchronize with the host, with the int8 step's
+     `int8_matmul` calls and their one- and two-pass bounds; the int8
+     heatmaps against the bf16 model's and against the other attention
+     route's, identical tokens and heatmaps on the two int8 matmul routes,
+     the bf16 ones against f32; and small f32 and int8 + fused-LN models on
+     the card against the CPU (the f32 int8 model's attention launches the
+     P@V kernel, its matmuls the int8 GEMM and quantization kernels);
   6. training, with the render's launches counted over each run only:
        * the full-width multi-view train step (frozen ViT-B/16 at 512 px,
          fr3, 18 groups x 4 views, 128x128 heatmaps, bf16) on batches made
@@ -119,12 +132,20 @@ from mvropose_torch.models import (
     SelfAttentionFusion,
     ViTConfig,
 )
-from mvropose_torch.models.quantize import Int8Linear
+from mvropose_torch.models.quantize import (
+    Int8Linear,
+    int8_gemm_reference,
+    int8_matmul_reference,
+    quantize_kernel,
+    quantize_rows,
+)
+from mvropose_torch.models.quantize import int8_matmul as int8_matmul_dispatch
 from mvropose_torch.ops import (
     _build,
     attention,
     heatmap_render,
     int8_attention,
+    int8_matmul,
     layernorm,
     peak_decode,
 )
@@ -156,6 +177,11 @@ KERNELS = {
     "int8_quantize_v": (int8_attention, "quantize_v_launches",
                         "mvropose_torch/csrc/int8_attention.cu",
                         "mvropose_tpu/ops/attention.py:70"),
+    # int8_matmul: the int8 product with the dequant and bias, and the per-token quantization.
+    "int8_matmul": (int8_matmul, "launches", "mvropose_torch/csrc/int8_gemm.cu",
+                    "mvropose_tpu/models/quantize.py:37"),
+    "int8_quantize_rows": (int8_matmul, "quantize_launches", "mvropose_torch/csrc/int8_gemm.cu",
+                           "mvropose_tpu/models/quantize.py:37"),
     "heatmap_render": (heatmap_render, "launches", "mvropose_torch/csrc/heatmap_render.cu",
                        "mvropose_tpu/ops/heatmap_render.py:25"),  # _render_kernel
     # JAX's stock Pallas flash attention (jax 0.9.0), which
@@ -168,7 +194,7 @@ KERNELS = {
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
 }
 SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_attention",
-                 "int8_quantize_v"]
+                 "int8_quantize_v", "int8_matmul", "int8_quantize_rows"]
 FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
@@ -291,7 +317,7 @@ def phase_build() -> None:
         text = log.read_text().strip()
         print(text)
         hopper = {k: v for k, v in spilled_bytes(text).items() if "sm90_kernel" in k}
-        check(len(hopper) == 4 and not any(hopper.values()),
+        check(len(hopper) == 5 and not any(hopper.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
 
 
@@ -646,6 +672,232 @@ def phase_int8_attention() -> dict:
                                "sdpa_ms": sdpa},
             "int8_quantize_v": {"max_abs_err": 0.0, "ms": quant,
                                 "plain_ms": quant_plain, **qb, "library_ms": None}}
+
+
+# The int8 serve step's products (ViT-B/16 at 512 px, M = 4 views x 1025
+# tokens): (name, Din, Dout, calls a block). q, k, v and out are 768 -> 768.
+INT8_MM_ROWS = 4 * 1025
+INT8_MM_SERVE = [("qkv_out", 768, 768, 4), ("fc1", 768, 3072, 1), ("fc2", 3072, 768, 1)]
+# The kernels against the plain version: the serve products, then few rows
+# (M = 1, 37, 51) at the serve widths and the small int8 model's (hidden 128,
+# MLP 512, `phase_small_reference`). Every x has an all-zero row (M > 1).
+INT8_MM_CASES = [
+    *[(name, INT8_MM_ROWS, din, dout) for name, din, dout, _ in INT8_MM_SERVE],
+    ("m1", 1, 768, 768), ("m37_fc1", 37, 768, 3072), ("m37_fc2", 37, 3072, 768),
+    ("m51_small", 51, 128, 128), ("m51_small_fc1", 51, 128, 512), ("m51_small_fc2", 51, 512, 128),
+]
+
+
+def _int8_mm_operands(M: int, din: int, dout: int, dtype, seed: int):
+    """x (M, din) on the card, N(0, 1) rows scaled by 2^U(-4, 4) (row maxima
+    spread over many binades), row M // 2 all zero; a quantized N(0, 0.02)
+    weight (kernel_q column-major, as `Int8Linear` holds it), its scale and
+    an N(0, 0.02) bias."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, din, generator=gen) * torch.exp2(8 * torch.rand(M, 1, generator=gen) - 4)
+    if M > 1:
+        x[M // 2] = 0.0
+    kq, scale = quantize_kernel((0.02 * torch.randn(din, dout, generator=gen)).numpy(), in_dims=1)
+    bias = 0.02 * torch.randn(dout, generator=gen)
+    kq = torch.from_numpy(np.ascontiguousarray(kq.T)).cuda().t()
+    return x.to("cuda", dtype), kq, torch.from_numpy(scale).cuda(), bias.cuda()
+
+
+def check_division() -> None:
+    """The repaired division of `quantize_rows`: on 4100 rows of 768 whose
+    max m has m / 127 and m * fl(1/127) apart in f32, s_x of the plain
+    version and of the kernel on the card equal numpy's f32 true division,
+    for bf16 and f32 x. Prints how many rows the old form (a Python divisor,
+    which torch on CUDA makes a product with the reciprocal) gets wrong."""
+    reciprocal = np.float32(1.0) / np.float32(127.0)
+    maxima = np.arange(4.0, 8.0, 2.0**-5).astype(np.float32)  # bf16-representable
+    maxima = maxima[maxima / np.float32(127.0) != maxima * reciprocal]
+    rng = np.random.default_rng(11)
+    M, K = INT8_MM_ROWS, 768
+    x = np.clip(rng.normal(size=(M, K)), -3.9, 3.9).astype(np.float32)
+    x = (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    x[np.arange(M), rng.integers(0, K, size=M)] = (
+        rng.choice(maxima, size=M) * rng.choice([-1.0, 1.0], size=M)).astype(np.float32)
+    m = np.abs(x).max(axis=1)
+    want = m / np.float32(127.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        xt = torch.from_numpy(x).to("cuda", dtype)
+        for label, (_, sx) in (("plain", quantize_rows(xt)),
+                               ("kernel", int8_matmul.int8_quantize_rows_cuda(xt))):
+            got = sx.cpu().numpy()[:, 0]
+            check(np.array_equal(got, want),
+                  f"s_x of the {label} quantization ({dtype}) differs from the true division in "
+                  f"{int((got != want).sum())} rows")
+    old = (torch.from_numpy(m).cuda() / 127.0).cpu().numpy()
+    print(f"int8 quantization's division, {M} planted rows of {K} (m / 127 and m * fl(1/127) "
+          f"apart): s_x of the plain version and of the kernel equal numpy's true division, bf16 "
+          f"and f32 x; the old form (m / 127.0 on the card) differs in {int((old != want).sum())} "
+          f"of {M} rows")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of `fn`, launched back to back without a
+    synchronize (the queue stays far below its depth), after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / calls
+
+
+def host_costs() -> dict:
+    """The int8 matmul's host cost a call at 768 -> 768 (the serve loop is
+    bound by its host): the plain chain and the kernels' route in turns, each
+    wrapper alone, the medians of 6 turns each."""
+    x, kq, scale, bias = _int8_mm_operands(INT8_MM_ROWS, 768, 768, torch.bfloat16, seed=600)
+    xq, sx = int8_matmul.int8_quantize_rows_cuda(x)
+    bf = torch.bfloat16
+    fns = {"plain_chain": lambda: int8_matmul_reference(x, kq, scale, bias, bf),
+           "kernels": lambda: int8_matmul_dispatch(x, kq, scale, bias, bf),
+           "quantize_wrapper": lambda: int8_matmul.int8_quantize_rows_cuda(x),
+           "gemm_wrapper": lambda: int8_matmul.int8_gemm_cuda(xq, sx, kq, scale, bias, bf)}
+    t = {name: [] for name in fns}
+    for _ in range(3):
+        for name in [*fns, *reversed(fns)]:
+            t[name].append(host_us(fns[name]))
+    out = {name: statistics.median(v) for name, v in t.items()}
+    print("int8 matmul host cost a call at (4100, 768) -> 768 bf16, us, medians of 6 turns: "
+          + ", ".join(f"{name} {v:.2f}" for name, v in out.items()))
+    return out
+
+
+def phase_int8_matmul() -> dict:
+    """The int8 matmul's two kernels on the card against the plain version
+    (`quantize_rows`, `int8_gemm_reference`: `torch._int_mm` and the plain
+    dequant), bit-equal at every INT8_MM_CASES shape for bf16 and f32 x and
+    bf16 and f32 out: x_q and s_x, the output, and the whole `int8_matmul`
+    (the dispatcher) against `int8_matmul_reference`; two calls
+    bit-identical; the repaired division (`check_division`). Then, at each
+    serve product (bf16 x and out), CUDA-graph replays in turns plain/kernel/
+    kernel/plain of the quantization, the GEMM and the whole function, and
+    `torch._int_mm` alone (int32 out), each beside its bound; the host cost
+    a call (`host_costs`)."""
+    check_division()
+    err = {"gemm": 0.0, "quantize": 0.0}  # max abs gaps from the plain version (checked 0)
+    for i, (name, M, din, dout) in enumerate(INT8_MM_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, kq, scale, bias = _int8_mm_operands(M, din, dout, dtype, seed=400 + i)
+            runs = [int8_matmul.int8_quantize_rows_cuda(x) for _ in range(2)]
+            xq, sx = runs[0]
+            xq_ref, sx_ref = quantize_rows(x)
+            torch.cuda.synchronize()
+            check(torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1]),
+                  f"int8 quantization {name} {dtype}: two calls differ")
+            err["quantize"] = max(err["quantize"], float((xq.int() - xq_ref.int()).abs().max()),
+                                  float((sx - sx_ref).abs().max()))
+            check(torch.equal(xq, xq_ref) and torch.equal(sx, sx_ref),
+                  f"int8 quantization {name} {dtype}: {int((xq != xq_ref).sum())} values and "
+                  f"{int((sx != sx_ref).sum())} scales differ from the plain version")
+            for out_dtype in (torch.bfloat16, torch.float32):
+                outs = [int8_matmul.int8_gemm_cuda(xq, sx, kq, scale, bias, out_dtype)
+                        for _ in range(2)]
+                whole = int8_matmul_dispatch(x, kq, scale, bias, out_dtype)
+                want = int8_gemm_reference(xq_ref, sx_ref, kq, scale, bias, out_dtype)
+                want_whole = int8_matmul_reference(x, kq, scale, bias, out_dtype)
+                torch.cuda.synchronize()
+                check(torch.equal(outs[0], outs[1]), f"int8 GEMM {name}: two calls differ")
+                err["gemm"] = max(err["gemm"], float((outs[0].float() - want.float()).abs().max()))
+                check(outs[0].shape == (M, dout) and outs[0].dtype == out_dtype
+                      and bool(torch.isfinite(outs[0]).all()),
+                      f"int8 GEMM {name}: output {outs[0].dtype} {tuple(outs[0].shape)}")
+                check(torch.equal(outs[0], want) and torch.equal(whole, want_whole),
+                      f"int8 GEMM {name} {dtype} -> {out_dtype}: {int((outs[0] != want).sum())} "
+                      f"outputs (whole function {int((whole != want_whole).sum())}) differ from "
+                      f"the plain version, max abs "
+                      f"{float((outs[0].float() - want.float()).abs().max()):.4g}")
+        print(f"int8 matmul vs plain [{name} (M, Din, Dout) = {(M, din, dout)}, zero row]: x_q, "
+              f"s_x and the output bit-equal for bf16 and f32 x, bf16 and f32 out, the whole "
+              f"function too; two calls bit-identical")
+        del x, kq, scale, bias, xq, sx, xq_ref, sx_ref, runs, outs, whole, want, want_whole
+
+    def timer(fn):
+        return graph_ms(fn, iters=10, samples=20)
+
+    host = host_costs()
+    per, block = {}, {k: 0.0 for k in ("quantize", "quantize_plain", "gemm", "gemm_plain",
+                                       "whole", "whole_plain", "int_mm")}
+    work = {k: 0.0 for k in ("q_bytes", "g_bytes", "one_bytes", "ops", "int_mm_bytes")}
+    M = INT8_MM_ROWS
+    for name, din, dout, calls in INT8_MM_SERVE:
+        x, kq, scale, bias = _int8_mm_operands(M, din, dout, torch.bfloat16, seed=500)
+        xq, sx = int8_matmul.int8_quantize_rows_cuda(x)
+        bf = torch.bfloat16
+        t = {}
+        t["quantize"], t["quantize_plain"] = _in_turns(
+            timer, lambda: quantize_rows(x), lambda: int8_matmul.int8_quantize_rows_cuda(x))
+        t["gemm"], t["gemm_plain"] = _in_turns(
+            timer, lambda: int8_gemm_reference(xq, sx, kq, scale, bias, bf),
+            lambda: int8_matmul.int8_gemm_cuda(xq, sx, kq, scale, bias, bf))
+        t["whole"], t["whole_plain"] = _in_turns(
+            timer, lambda: int8_matmul_reference(x, kq, scale, bias, bf),
+            lambda: int8_matmul_dispatch(x, kq, scale, bias, bf))
+        t["int_mm"] = timer(lambda: torch._int_mm(xq, kq))
+        # Bytes: each input read once, each output written once.
+        w = {"q_bytes": 2 * M * din + M * din + 4 * M,
+             "g_bytes": M * din + din * dout + 4 * M + 8 * dout + 2 * M * dout,
+             "one_bytes": 2 * M * din + din * dout + 8 * dout + 2 * M * dout,
+             "ops": 2 * M * din * dout,
+             "int_mm_bytes": M * din + din * dout + 4 * M * dout}
+        per[name] = {**t, "quantize_bound": bound(w["q_bytes"])["bound_ms"],
+                     "gemm_bound": bound(w["g_bytes"], w["ops"], "int8")["bound_ms"],
+                     "whole_bound": bound(w["q_bytes"] + w["g_bytes"], w["ops"],
+                                          "int8")["bound_ms"],
+                     "one_pass_bound": bound(w["one_bytes"], w["ops"], "int8")["bound_ms"]}
+        print(f"int8 matmul {name} ({M}, {din}) -> {dout} bf16, us per call, CUDA-graph replay "
+              f"in turns plain/kernel/kernel/plain: quantization {1e3 * t['quantize']:.2f} (plain "
+              f"{1e3 * t['quantize_plain']:.2f}, bound {1e3 * per[name]['quantize_bound']:.2f}); "
+              f"GEMM {1e3 * t['gemm']:.2f} (plain: torch._int_mm + dequant "
+              f"{1e3 * t['gemm_plain']:.2f}, bound {1e3 * per[name]['gemm_bound']:.2f}); whole "
+              f"function {1e3 * t['whole']:.2f} (plain {1e3 * t['whole_plain']:.2f}, two-pass "
+              f"bound {1e3 * per[name]['whole_bound']:.2f}, one-pass bound "
+              f"{1e3 * per[name]['one_pass_bound']:.2f}); torch._int_mm alone (int32 out) "
+              f"{1e3 * t['int_mm']:.2f}")
+        for k in block:
+            block[k] += calls * t[k]
+        for k in work:
+            work[k] += calls * w[k]
+        del x, kq, scale, bias, xq, sx
+    # A block's four quantizations: q/k/v share one of h (768), out (768),
+    # fc1 (768), fc2 (3072).
+    quant_block = 3 * per["qkv_out"]["quantize"] + per["fc2"]["quantize"]
+    quant_plain_block = 3 * per["qkv_out"]["quantize_plain"] + per["fc2"]["quantize_plain"]
+    q_bytes_block = 3 * (3 * M * 768 + 4 * M) + 3 * M * 3072 + 4 * M  # bf16 in, int8 + s_x out
+    qb = bound(q_bytes_block)
+    gb = bound(work["g_bytes"], work["ops"], "int8")
+    one = bound(work["one_bytes"], work["ops"], "int8")
+    two = 1e3 * 12 * bound(q_bytes_block + work["g_bytes"], work["ops"], "int8")["bound_ms"]
+    print(f"int8 matmul, one block's products at M = {M} (the serve step runs 12): quantizations "
+          f"{1e3 * quant_block:.2f} us (4 calls; plain {1e3 * quant_plain_block:.2f}, bound "
+          f"{1e3 * qb['bound_ms']:.2f}); GEMMs {1e3 * block['gemm']:.2f} us (6 calls; plain "
+          f"{1e3 * block['gemm_plain']:.2f}, torch._int_mm alone {1e3 * block['int_mm']:.2f}, "
+          f"bound {1e3 * gb['bound_ms']:.2f} {gb['bound_by']}); a serve step's 48 + 72 calls "
+          f"{12 * (quant_block + block['gemm']):.4f} ms against the two-pass bound {two / 1e3:.4f} "
+          f"ms and the one-pass bound {12 * one['bound_ms']:.4f} ms; the plain chain's "
+          f"{12 * block['whole_plain']:.4f} ms")
+    return {
+        "int8_matmul": {"max_abs_err": err["gemm"], "ms": block["gemm"],
+                        "plain_ms": block["gemm_plain"],
+                        **gb, "library_ms": block["int_mm"],
+                        "work": "one block's six products at M = 4100: 4 x 768->768, "
+                                "768->3072, 3072->768; library: torch._int_mm, int32 out",
+                        "per_product": per, "one_pass_bound_ms": one["bound_ms"],
+                        "step_ms": 12 * (quant_block + block["gemm"]),
+                        "step_two_pass_bound_ms": two / 1e3,
+                        "step_plain_chain_ms": 12 * block["whole_plain"], "host_us": host},
+        "int8_quantize_rows": {"max_abs_err": err["quantize"], "ms": quant_block,
+                               "plain_ms": quant_plain_block, **qb, "library_ms": None,
+                               "work": "one block's four quantizations at M = 4100: "
+                                       "3 x 768, 1 x 3072, bf16"},
+    }
 
 
 def _render_rows(M: int, H: int, W: int, seed: int, sigma=(2.0, 2.0), ties: bool = False,
@@ -1144,6 +1396,11 @@ def phase_counters() -> None:
             torch.zeros(n, 3, device="cuda"), 4, 4),
         "int8_quantize_v": lambda n: int8_attention.int8_quantize_v_cuda(
             torch.zeros(1, n, 2, 64, dtype=torch.bfloat16, device="cuda")),
+        "int8_quantize_rows": lambda n: int8_matmul.int8_quantize_rows_cuda(
+            torch.zeros(n, 16, device="cuda")),
+        "int8_matmul": lambda n: int8_matmul.int8_gemm_cuda(
+            torch.zeros(n, 16, dtype=torch.int8, device="cuda"), torch.ones(n, 1, device="cuda"),
+            torch.zeros(8, 16, dtype=torch.int8, device="cuda").t(), g, None, torch.float32),
         "int8_attention": lambda n: int8_attention.int8_attention_cuda(
             *(torch.zeros(1, n, 2, 64, dtype=torch.bfloat16, device="cuda"),) * 2,
             torch.zeros(2, 64, int8_attention._fused_tp(n), dtype=torch.int8, device="cuda"),
@@ -1212,8 +1469,9 @@ def phase_simt() -> dict:
     f32 on the same values; each kernel alone (`_simt_alone`); the same
     values in bf16 launch one forward. Then, in f32 without a mask, the
     forward and forward + backward timed in turns plain/kernel/kernel/plain
-    beside SDPA, and the dK/dV and dQ kernels alone. -> {kernel: {"f32_ms",
-    "f32_plain_ms", "f32_library_ms", "f32_bound_ms"}}."""
+    beside SDPA, and the dK/dV and dQ kernels alone beside SDPA's backward
+    alone. -> {kernel: {"f32_ms", "f32_plain_ms", "f32_library_ms",
+    "f32_bound_ms"}}."""
     B, T, H, d = SIMT_SHAPE
     gen = torch.Generator().manual_seed(90)
     base = [torch.randn(B, T, H, d, generator=gen).cuda() for _ in range(4)]
@@ -1263,6 +1521,12 @@ def phase_simt() -> dict:
     args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
     alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
              "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
+    side = torch.cuda.Stream()  # SDPA's f32 backward alone, as `backward_times` takes bf16's
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        saved = bench.sdpa(*qkv, None)
+    sdpa_bwd = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
+                        iters=2, samples=10, stream=side)
     bounds = _flash_bounds(B, T, H, d, None, torch.float32)
     print(f"flash kernels f32 {SIMT_SHAPE} no mask, ms per call, CUDA-graph replay, "
           f"plain/kernel/kernel/plain: "
@@ -1270,12 +1534,13 @@ def phase_simt() -> dict:
                       f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
                       for part in ("fwd", "fwd_bwd"))
           + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
+          + f"; SDPA's backward alone (the pair's three gradients) {sdpa_bwd:.4f}"
           + "; bounds (f32 rate) " + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})"
                                                for k, b in bounds.items()))
     result = {"flash_fwd": {"f32_ms": times["kernel"]["fwd"], "f32_plain_ms": times["plain"]["fwd"],
                             "f32_library_ms": times["library"]["fwd"]}}
     for kname, t in alone.items():
-        result[kname] = {"f32_ms": t}
+        result[kname] = {"f32_ms": t, "f32_library_ms": sdpa_bwd}
     for kname, b in bounds.items():
         result[kname]["f32_bound_ms"] = b["bound_ms"]
     return result
@@ -1398,17 +1663,28 @@ def _model(cfg: EstimatorConfig, device, state) -> MultiViewPoseEstimator:
 
 
 def int8_matmul_work(model, step) -> tuple:
-    """The `int8_matmul` calls of one `step()` of `model` and their work ->
-    (calls, operations, bytes): 2 M Din Dout int8 operations a call; x read
-    once in its dtype, kernel_q, scale and bias read once, the output
-    written once in its dtype."""
-    work = []
+    """The `Int8Linear` calls of one `step()` of `model` and their work ->
+    (calls, operations, one-pass bytes, two-pass bytes): 2 M Din Dout int8
+    operations a call. One pass (a kernel that would quantize in its own
+    prologue): x read once in the layer's dtype, kernel_q, scale and bias
+    read once, the output written once. Two passes (the port's kernels): each
+    quantization reads x and writes x_q and s_x (q, k and v share one), each
+    GEMM reads x_q, s_x, kernel_q, scale and bias and writes the output."""
+    work, pairs = [], []  # the pairs' x_q held, so that no id is reused within the step
 
     def count(module, inputs, out):
         x, (din, dout) = inputs[0], module.kernel_q.shape
-        rows = x.numel() // din
-        work.append((2 * rows * din * dout, x.numel() * x.element_size() + din * dout + 8 * dout
-                     + out.numel() * out.element_size()))
+        shared = isinstance(x, tuple)
+        xq = x[0] if shared else x
+        rows, esize = xq.numel() // din, out.element_size()
+        quantize = 0
+        if not shared or not any(xq is seen for seen in pairs):  # its own, or a pair's first use
+            pairs.append(xq)
+            quantize = rows * din * esize + rows * din + 4 * rows
+        work.append((2 * rows * din * dout,
+                     rows * din * esize + din * dout + 8 * dout + rows * dout * esize,
+                     quantize + rows * din + 4 * rows + din * dout + 8 * dout
+                     + rows * dout * esize))
 
     hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, Int8Linear)]
     try:
@@ -1416,7 +1692,8 @@ def int8_matmul_work(model, step) -> tuple:
     finally:
         for hook in hooks:
             hook.remove()
-    return len(work), sum(w[0] for w in work), sum(w[1] for w in work)
+    return (len(work), sum(w[0] for w in work), sum(w[1] for w in work),
+            sum(w[2] for w in work))
 
 
 def _never_syncs(step) -> None:
@@ -1457,18 +1734,28 @@ def phase_step(flat: dict) -> float:
                 return steps["int8_ln"]()
 
         steps["int8_ln_pv"] = int8_pv_step
+
+        def int8_int_mm_step():
+            with int8_matmul.int_mm_route():
+                return steps["int8_ln"]()
+
+        steps["int8_ln_int_mm"] = int8_int_mm_step
         turns = [(n, cuda_ms(steps[n], 1, samples=30))
                  for n in ("bf16", "int8_ln", "int8_ln", "bf16")]
         for step in steps.values():
             _never_syncs(step)
-        calls, ops, nbytes = int8_matmul_work(int8, steps["int8_ln"])
-        b = bound(nbytes, ops, "int8")
-        print(f"int8_matmul (plain torch: torch._int_mm) in one int8 + fused-LN serve step: "
-              f"{calls} calls, {ops / 1e9:.2f} G int8 operations, {nbytes / 1e6:.2f} MB read and "
-              f"written; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        calls, ops, one_bytes, two_bytes = int8_matmul_work(int8, steps["int8_ln"])
+        b, b2 = bound(one_bytes, ops, "int8"), bound(two_bytes, ops, "int8")
+        print(f"int8_matmul in one int8 + fused-LN serve step: {calls} products, "
+              f"{ops / 1e9:.2f} G int8 operations; one-pass bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {one_bytes / 1e6:.2f} MB read and written); two-pass bound (the "
+              f"kernels' quantization, then the GEMM) {b2['bound_ms']:.4f} ms "
+              f"({b2['bound_by']}: {two_bytes / 1e6:.2f} MB)")
         graph = {name: graph_ms(step, iters=1, samples=30) for name, step in steps.items()}
         routes = [(n, graph_ms(steps[n], iters=1, samples=30))
                   for n in ("int8_ln_pv", "int8_ln", "int8_ln", "int8_ln_pv")]
+        mm_routes = [(n, graph_ms(steps[n], iters=1, samples=30))
+                     for n in ("int8_ln_int_mm", "int8_ln", "int8_ln", "int8_ln_int_mm")]
         torch.cuda.synchronize()
         imgs = preprocess(frames, 512)[None]
         outs, tokens = {}, {}
@@ -1481,6 +1768,9 @@ def phase_step(flat: dict) -> float:
         with int8_attention.pv_route():
             outs["int8_ln_pv"] = int8(imgs, view_ids, mask[None])
             tokens["int8_ln_pv"] = int8.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
+        with int8_matmul.int_mm_route():
+            outs["int8_ln_int_mm"] = int8(imgs, view_ids, mask[None])
+            tokens["int8_ln_int_mm"] = int8.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
         del bf16, int8
         f32_cfg = dataclasses.replace(FULL, dtype="float32",
                                       vit=dataclasses.replace(FULL.vit, dtype="float32"))
@@ -1493,7 +1783,16 @@ def phase_step(flat: dict) -> float:
           + ", ".join(f"{n} {t:.3f}" for n, t in graph.items())
           + "; the int8 step's attention routes in turns pv/fused/fused/pv (CUDA-graph replay): "
           + ", ".join(f"{n} {t:.3f}" for n, t in routes)
+          + "; its int8 matmul routes in turns int_mm/kernel/kernel/int_mm (CUDA-graph replay): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in mm_routes)
           + "; no host-device sync inside any step")
+    same = all(torch.equal(a, b) for a, b in zip(outs["int8_ln"], outs["int8_ln_int_mm"]))
+    check(same and torch.equal(tokens["int8_ln"], tokens["int8_ln_int_mm"]),
+          "int8 + fused LN: the int8 matmul kernels and the plain chain (torch._int_mm) give "
+          f"other tokens (max abs diff "
+          f"{float((tokens['int8_ln'] - tokens['int8_ln_int_mm']).abs().max()):.4g}) or heatmaps")
+    print("int8 + fused LN, the int8 matmul kernels vs the plain chain (int_mm_route): patch "
+          "tokens, heatmaps and angles identical")
     a, b = tokens["int8_ln"], tokens["int8_ln_pv"]
     hm, hm_pv = outs["int8_ln"][0].float(), outs["int8_ln_pv"][0].float()
     check(bool(torch.isfinite(hm).all()), "int8 heatmaps on the fused route not finite")
@@ -1818,17 +2117,17 @@ def _small_reference(label: str, cfg: EstimatorConfig, scale: float, int8: bool,
     return launches
 
 
-def phase_small_reference() -> int:
+def phase_small_reference() -> dict:
     """Small models on the card against the same models on the CPU, in f32.
     Float: heatmaps and angles 1e-3 (f32 convolution and matmul algorithms
-    differ). int8 + fused LN (hidden 128 and M = 51 rows, as torch._int_mm
-    wants on the card): heatmaps 1e-4 and angles 1e-2, about 10x and 3x what
-    a value on an int8 rounding boundary rounding the other way can move them
-    (on the CPU alone, a 1e-4 relative input perturbation moved this model's
-    heatmaps by 9e-6 and its angles by 3.5e-3). Keypoints equal wherever the
-    top-2 heatmap margin is 10x the gap. The f32 int8 model's attention takes
-    the "pv" route: the P@V kernel in each block, never the fused kernel.
-    -> the int8 model's P@V launches."""
+    differ). int8 + fused LN (hidden 128, MLP 512, M = 51 rows): heatmaps
+    1e-4 and angles 1e-2, about 10x and 3x what a value on an int8 rounding
+    boundary rounding the other way can move them (on the CPU alone, a 1e-4
+    relative input perturbation moved this model's heatmaps by 9e-6 and its
+    angles by 3.5e-3). Keypoints equal wherever the top-2 heatmap margin is
+    10x the gap. The f32 int8 model's attention takes the "pv" route: the
+    P@V kernel in each block, never the fused kernel; its int8 matmuls take
+    the kernels of `csrc/int8_gemm.cu`. -> the int8 model's launches."""
     vit = ViTConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2, num_heads=2,
                     dtype="float32")
     cfg = EstimatorConfig(vit=vit, num_joints=8, num_angles=7, heatmap_size=(32, 32),
@@ -1836,9 +2135,10 @@ def phase_small_reference() -> int:
     _small_reference("float", cfg, 0.2, False, 1e-3, 1e-3)
     cfg = dataclasses.replace(cfg, vit=dataclasses.replace(vit, fused_ln=True))
     launches = _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
-    check(launches["int8_pv"] > 0 and launches["int8_attention"] == 0,
+    check(launches["int8_pv"] > 0 and launches["int8_attention"] == 0
+          and launches["int8_matmul"] > 0 and launches["int8_quantize_rows"] > 0,
           f"the f32 int8 model launched {launches}")
-    return launches["int8_pv"]
+    return launches
 
 
 # The reference's FR3 training shape (bench_train.py:178-191): frozen ViT-B/16
@@ -1962,7 +2262,8 @@ def main() -> int:
     device = phase_device()
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv(),
-                **phase_int8_attention(), **phase_heatmap_render(), **phase_flash()}
+                **phase_int8_attention(), **phase_int8_matmul(), **phase_heatmap_render(),
+                **phase_flash()}
     for name, extra in phase_simt().items():
         measured[name].update(extra)
     phase_flash_widths()
@@ -1977,15 +2278,20 @@ def main() -> int:
             ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
              "--int8-attention"], "int8 + fused LN", SERVE_KERNELS,
         )
-    for name in ("int8_attention", "int8_quantize_v"):  # one per block and tick
-        check(int8_launches[name] == 12 * int8_launches["peak_decode"],
+    # A tick: 12 blocks, each one fused attention with its values'
+    # quantization, six products (q, k, v, out, fc1, fc2) and four
+    # quantizations (q, k and v share one).
+    for name, per_tick in (("int8_attention", 12), ("int8_quantize_v", 12), ("int8_matmul", 72),
+                           ("int8_quantize_rows", 48)):
+        check(int8_launches[name] == per_tick * int8_launches["peak_decode"],
               f"int8 serve: {int8_launches[name]} {name} launches for "
-              f"{int8_launches['peak_decode']} ticks, not 12 each")
+              f"{int8_launches['peak_decode']} ticks, not {per_tick} each")
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
     gap_512 = phase_step(flat)
     serve_768 = phase_serve_768()
     phase_step_768(gap_512)
-    launches["int8_pv"] = phase_small_reference()
+    small = phase_small_reference()
+    launches["int8_pv"] = small["int8_pv"]
     launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
     train_768 = phase_train_768()
     phase_fusion()

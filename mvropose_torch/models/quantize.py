@@ -4,7 +4,9 @@ Port of `mvropose_tpu/models/quantize.py`. Weights are int8 with a
 per-output-channel scale s_w[j] = max_i |W[i, j]| / 127; activations are
 quantized per token on the fly, s_x[t] = max_d |x[t, d]| / 127; and
 y = (x_q @ W_q).int32 * s_x * s_w + b. Only the blocks' q/k/v/out and
-fc1/fc2 are quantized; everything else stays float.
+fc1/fc2 are quantized; everything else stays float. On CUDA `int8_matmul`
+runs the kernels of `csrc/int8_gemm.cu` (`ops/int8_matmul.py`), bit-equal
+to the plain version here.
 
 `quantize_kernel` and `quantize_backbone` are numpy copies of the
 reference's `_quantize_kernel` and `quantize_backbone_params` (that module
@@ -18,6 +20,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from mvropose_torch.ops.int8_matmul import int8_gemm_cuda, int8_mm_route, int8_quantize_rows_cuda
 
 # The quantized Dense layers of one block, and how many leading axes of each
 # float kernel are input axes (DenseGeneral: q/k/v (D, H, dh), out (H, dh, D)).
@@ -58,30 +62,61 @@ def quantize_rows(x: torch.Tensor):
     """x (..., Din) -> (int8 x_q, f32 per-token scale s_x (..., 1)), the
     scale taken over the contraction axis only, floor 1e-6."""
     xf = x.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    m = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    # A tensor divisor: torch divides a CUDA tensor by a Python number as a
+    # product with its f32 reciprocal, one rounding away from the division.
+    sx = m / torch.full_like(m, 127.0)
     return torch.round(xf / sx).to(torch.int8), sx
+
+
+def int8_gemm_reference(xq, sx, kernel_q, scale, bias, out_dtype) -> torch.Tensor:
+    """The product and the dequant of a quantized x: x_q (..., Din) int8,
+    s_x (..., 1) f32, kernel_q (Din, Dout) int8, scale (Dout,) f32 and bias
+    (Dout,) f32 or None -> (..., Dout) in out_dtype.
+
+    The int32 product is `torch._int_mm`, exact on both devices. On CUDA it
+    needs Din and Dout multiples of 8, mat2 column-major (as `Int8Linear`
+    holds kernel_q) and more than 16 rows: fewer are padded with zero rows."""
+    x2 = xq.reshape(-1, xq.shape[-1])
+    rows = x2.shape[0]
+    if x2.is_cuda and rows <= 16:
+        x2 = torch.cat([x2, x2.new_zeros(17 - rows, x2.shape[1])])
+    y = torch._int_mm(x2, kernel_q)[:rows]
+    y = y.reshape(*xq.shape[:-1], -1).float() * sx * scale
+    if bias is not None:
+        y = y + bias
+    return y.to(out_dtype)
+
+
+def int8_matmul_reference(x, kernel_q, scale, bias, out_dtype) -> torch.Tensor:
+    """The plain version of `int8_matmul`, step by step as the reference."""
+    return int8_gemm_reference(*quantize_rows(x), kernel_q, scale, bias, out_dtype)
 
 
 def int8_matmul(x, kernel_q, scale, bias, out_dtype) -> torch.Tensor:
     """Dynamically quantized matmul (`int8_matmul`): x (..., Din) f32/bf16,
-    kernel_q (Din, Dout) int8, scale (Dout,) f32 -> (..., Dout) in out_dtype.
-
-    The int32 product is `torch._int_mm`, exact on both devices. On CUDA it
-    needs more than 16 rows, Din and Dout multiples of 8, and mat2
-    column-major, as `Int8Linear` holds kernel_q."""
-    xq, sx = quantize_rows(x)
-    y = torch._int_mm(xq.reshape(-1, xq.shape[-1]), kernel_q)
-    y = y.reshape(*x.shape[:-1], -1).float() * sx * scale
-    if bias is not None:
-        y = y + bias
-    return y.to(out_dtype)
+    or its (x_q, s_x) pair from `Int8Linear.quantize`, kernel_q (Din, Dout)
+    int8, scale (Dout,) f32 -> (..., Dout) in out_dtype. The route
+    (`ops/int8_matmul.py::int8_mm_route`) is decided once: CPU operands take
+    the plain version (`int8_matmul_reference`), CUDA ones the two kernels of
+    `csrc/int8_gemm.cu`."""
+    quantized = isinstance(x, tuple)
+    lead = x[0] if quantized else x
+    if int8_mm_route(lead.device.type, out_dtype, *kernel_q.shape) == "plain":
+        xs = x if quantized else quantize_rows(x)
+        return int8_gemm_reference(*xs, kernel_q, scale, bias, out_dtype)
+    xs = x if quantized else int8_quantize_rows_cuda(x)
+    return int8_gemm_cuda(*xs, kernel_q, scale, bias, out_dtype)
 
 
 class Int8Linear(nn.Module):
     """Counterpart of the reference's `Int8Dense`: int8 `kernel_q` (Din, Dout),
     f32 per-channel `scale` and f32 `bias` under the flax names, output in
     the compute dtype. `kernel_q` is a buffer stored column-major (its
-    transpose is contiguous), the layout `torch._int_mm` takes on CUDA."""
+    transpose is contiguous): the K-major B operand of the GEMM kernel, and
+    the layout `torch._int_mm` takes on CUDA. `forward` takes x, or the
+    (x_q, s_x) pair that `quantize` gives, so that layers reading one x
+    share its quantization."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -92,6 +127,13 @@ class Int8Linear(nn.Module):
         )
         self.scale = nn.Parameter(torch.ones(out_features, device=device), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_features, device=device), requires_grad=False)
+
+    def quantize(self, x):
+        """x's per-token quantization (x_q, s_x) on this layer's route: the
+        plain `quantize_rows` or the kernel."""
+        if int8_mm_route(x.device.type, x.dtype, *self.kernel_q.shape) == "plain":
+            return quantize_rows(x)
+        return int8_quantize_rows_cuda(x)
 
     def forward(self, x):
         return int8_matmul(x, self.kernel_q, self.scale, self.bias, self.dtype)

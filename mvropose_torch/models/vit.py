@@ -238,7 +238,9 @@ class FusedMHA(MultiHeadAttention):
         self.int8_attention = int8_attention
 
     def forward(self, x, key_mask=None, rope=None):
-        q, k, v = (self._heads(t) for t in (self.query(x), self.key(x), self.value(x)))
+        # int8 layers share one quantization of x: the same (x_q, s_x) all three would compute.
+        xs = self.query.quantize(x) if isinstance(self.query, Int8Linear) else x
+        q, k, v = (self._heads(layer(xs)) for layer in (self.query, self.key, self.value))
         if rope is not None:
             cos, sin, n_prefix = rope
             q, k = (_apply_rope(t.transpose(1, 2), cos, sin, n_prefix).transpose(1, 2)

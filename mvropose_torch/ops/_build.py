@@ -7,10 +7,14 @@ a hash of the sources (`.cu` and the headers `.cuh` they include) and
 flags: an edited source rebuilds, an unchanged one loads the existing file.
 nvcc's output (with `-Xptxas -v`: registers, shared memory and spills per
 kernel) is kept beside the library as `<name>.log`.
+
+`device_context` and `current_stream` are how every wrapper reaches the
+device and stream of a launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -18,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvropose_torch"
@@ -79,3 +85,20 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed:\n{log}")
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return ctypes.CDLL(str(lib))
+
+
+# The wrappers run up to 120 times a serve tick, whose loop the host bounds:
+# they name the device by its index (`Tensor.get_device`, not a `torch.device`
+# built at each access), and take the stream without the Python object
+# `torch.cuda.current_stream` builds.
+def device_context(index: int):
+    """Device `index` made current for a launch, where it is not already
+    (entering `torch.cuda.device` costs microseconds a call)."""
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def current_stream(index: int) -> int:
+    """Device `index`'s current stream as a raw pointer."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -40,7 +40,7 @@ import math
 
 import torch
 
-from mvropose_torch.ops._build import load_library
+from mvropose_torch.ops._build import current_stream, device_context, load_library
 
 # Launches of the forward, dK/dV and dQ kernels.
 launches = 0
@@ -199,8 +199,9 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
         m = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     if B * T * H:
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
+        dev = q.get_device()
+        with device_context(dev):
+            stream = current_stream(dev)
             err = _kernels()[route][0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
                                        o.data_ptr(), _ptr(m), _ptr(l), B, H, T, d,
                                        _strides(q, k, v), 1.0 / math.sqrt(d), stream)
@@ -273,8 +274,9 @@ def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
+        dev = q.get_device()
+        with device_context(dev):
+            stream = current_stream(dev)
             err = _kernels()[route][1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
         _raise_on(err, f"dK/dV ({route})")
         dkv_launches += 1
@@ -289,8 +291,9 @@ def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
+        dev = q.get_device()
+        with device_context(dev):
+            stream = current_stream(dev)
             err = _kernels()[route][2](*ptrs, dq.data_ptr(), *dims, stream)
         _raise_on(err, f"dQ ({route})")
         dq_launches += 1

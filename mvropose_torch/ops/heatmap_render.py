@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from mvropose_torch.ops._build import load_library
+from mvropose_torch.ops._build import current_stream, device_context, load_library
 
 _F64_EPS = 2.220446049250313e-16  # np.finfo(float).eps, as the reference uses
 
@@ -59,8 +59,9 @@ def render_heatmaps_cuda(rows: torch.Tensor, height: int, width: int) -> torch.T
     out = torch.empty((M, height, width), dtype=torch.float32, device=rows.device)
     if M == 0:
         return out
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
+    dev = rows.get_device()
+    with device_context(dev):
+        stream = current_stream(dev)
         err = _kernel()(rows.data_ptr(), out.data_ptr(), M, height, width, stream)
     if err != 0:
         raise RuntimeError(f"render_heatmaps_f32 launch failed with CUDA error {err}")

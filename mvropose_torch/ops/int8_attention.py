@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from mvropose_torch.ops._build import load_library
+from mvropose_torch.ops._build import current_stream, device_context, load_library
 from mvropose_torch.ops.attention import _kernel_layout as _operand_layout
 from mvropose_torch.ops.attention import mask_bytes
 
@@ -202,10 +202,6 @@ def _kernels():
     return pv, quantize, fused
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _raise_on(err: int, kernel: str) -> None:
     if err < 0:
         raise RuntimeError(f"{kernel}: a TMA tensor map could not be encoded (CUresult {-err})")
@@ -244,10 +240,11 @@ def int8_pv_cuda(pq, vq, z, sv, out_dtype) -> torch.Tensor:
     zf, s = z.float().contiguous(), sv.float().contiguous()
     out = torch.empty((BH, T, d), dtype=out_dtype, device=vq.device)
     if BH and T:
-        with torch.cuda.device(out.device):
+        dev = out.get_device()
+        with device_context(dev):
             err = _kernels()[0](pq.data_ptr(), vt.data_ptr(), zf.data_ptr(), s.data_ptr(),
                                 out.data_ptr(), BH, T, Tp, pq.stride(1), pq.stride(0),
-                                _OUT_CODES[out_dtype], _stream(out.device))
+                                _OUT_CODES[out_dtype], current_stream(dev))
         _raise_on(err, "int8_pv")
         launches += 1
     return out
@@ -295,10 +292,11 @@ def int8_quantize_v_cuda(v):
     vt = torch.empty((B * H, d, Tp), dtype=torch.int8, device=v.device)
     sv = torch.empty((B * H, d), dtype=torch.float32, device=v.device)
     if B * T * H:
-        with torch.cuda.device(v.device):
+        dev = v.get_device()
+        with device_context(dev):
             strides = (ctypes.c_int64 * 3)(*v.stride()[:3])
             err = _kernels()[1](v.data_ptr(), B, H, T, strides, vt.data_ptr(), sv.data_ptr(), Tp,
-                                _stream(v.device))
+                                current_stream(dev))
         _raise_on(err, "int8_quantize_v")
         quantize_v_launches += 1
     return vt, sv
@@ -325,12 +323,13 @@ def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
     out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     if B * T * H:
         mask_u8 = mask_bytes(key_mask)
-        with torch.cuda.device(q.device):
+        dev = q.get_device()
+        with device_context(dev):
             strides = (ctypes.c_int64 * 6)(*q.stride()[:3], *k.stride()[:3])
             err = _kernels()[2](q.data_ptr(), k.data_ptr(),
                                 None if mask_u8 is None else mask_u8.data_ptr(), vt.data_ptr(),
                                 sv.data_ptr(), out.data_ptr(), B, H, T, Tp, strides,
-                                _stream(q.device))
+                                current_stream(dev))
         _raise_on(err, "int8_attention")
         launches_fused += 1
     return out

@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from mvropose_torch.ops._build import load_library
+from mvropose_torch.ops._build import current_stream, device_context, load_library
 
 # Kernel launches made through `layernorm_cuda` / `residual_layernorm_cuda`.
 launches = 0
@@ -82,8 +82,9 @@ def _launch(x, h, scale, bias, eps, out_dtype):
     y = torch.empty(rows.shape, dtype=out_dtype, device=rows.device)
     xnew = None if hr is None else torch.empty_like(rows)
     if M:
-        with torch.cuda.device(rows.device):
-            stream = torch.cuda.current_stream(rows.device).cuda_stream
+        dev = rows.get_device()
+        with device_context(dev):
+            stream = current_stream(dev)
             err = _kernel()(
                 rows.data_ptr(), 0 if hr is None else hr.data_ptr(), g.data_ptr(), b.data_ptr(),
                 0 if xnew is None else xnew.data_ptr(), y.data_ptr(), M, D, float(eps),

@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from mvropose_torch.ops._build import load_library
+from mvropose_torch.ops._build import current_stream, device_context, load_library
 
 # Kernel launches made through `peak_decode_cuda`.
 launches = 0
@@ -64,8 +64,9 @@ def peak_decode_cuda(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.
     out = torch.empty((M, 8), dtype=torch.float32, device=rows.device)
     if M == 0:
         return out
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
+    dev = rows.get_device()
+    with device_context(dev):
+        stream = current_stream(dev)
         err = _kernel()(rows.data_ptr(), out.data_ptr(), M, H, W, float(temperature), stream)
     if err != 0:
         raise RuntimeError(f"peak_decode_f32 launch failed with CUDA error {err}")

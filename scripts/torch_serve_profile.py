@@ -2,14 +2,17 @@
 """Where the port's serve step spends its time on the GPU.
 
     python3 scripts/torch_serve_profile.py [--steps 20] [--trace trace.json]
-                                           [--int8 fused|pv]
+                                           [--int8 fused|pv] [--int8-matmul kernel|int_mm]
 
 Runs `mvropose_torch.cli.main.serve_step` (bf16, ViT-B/16 at 512 px, 4
 resident 720x1280 uint8 frames, random weights from seed 0; with --int8 the
 same weights as `serve --int8-backbone --int8-attention` serves them on a
 fused-LN run directory, the attention on the given route of
 `ops/int8_attention.py`: "fused", the kernel, or "pv", the plain chain and
-the P@V kernel) and prints the card and its power limit, then:
+the P@V kernel; its int8 matmuls on the route --int8-matmul gives of
+`ops/int8_matmul.py`: "kernel", the kernels of `csrc/int8_gemm.cu`, or
+"int_mm", the plain chain around `torch._int_mm`) and prints the card and
+its power limit, then:
   * wall time per step: host clock around `--steps` steps ending in a
     synchronize, without the profiler;
   * device busy time per step: the summed durations of the GPU kernels and
@@ -37,7 +40,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mvropose_torch.cli.main import serve_step  # noqa: E402
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig  # noqa: E402
-from mvropose_torch.ops import int8_attention  # noqa: E402
+from mvropose_torch.ops import int8_attention, int8_matmul  # noqa: E402
 from mvropose_torch.utils.weights import (  # noqa: E402
     export_jax_params,
     int8ify,
@@ -66,6 +69,8 @@ def main() -> int:
     p.add_argument("--trace", default=None, help="write the chrome trace to this path")
     p.add_argument("--int8", choices=["fused", "pv"], default=None,
                    help="profile the int8 + fused-LN step, its attention on this route")
+    p.add_argument("--int8-matmul", choices=["kernel", "int_mm"], default="kernel",
+                   help="with --int8: the route of its int8 matmuls")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: needs a CUDA GPU")
@@ -86,7 +91,9 @@ def main() -> int:
     step = lambda: serve_step(model, frames, mask, 512, (720, 1280))  # noqa: E731
 
     route = int8_attention.pv_route() if args.int8 == "pv" else contextlib.nullcontext()
-    with torch.inference_mode(), route:
+    mm_route = (int8_matmul.int_mm_route() if args.int8 and args.int8_matmul == "int_mm"
+                else contextlib.nullcontext())
+    with torch.inference_mode(), route, mm_route:
         for _ in range(5):
             step()
         torch.cuda.synchronize()
@@ -110,7 +117,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; {smi}")
-    label = f"int8 + fused LN, attention route {args.int8}" if args.int8 else "bf16"
+    label = (f"int8 + fused LN, attention route {args.int8}, int8 matmul route {args.int8_matmul}"
+             if args.int8 else "bf16")
     print(f"serve step [{label}]: wall {wall_ms:.3f} ms/step (host clock, {args.steps} steps, "
           f"no profiler); device busy {busy_ms:.3f} ms/step over {len(device_events) / args.steps:.0f} "
           f"device events/step (profiler); idle share "

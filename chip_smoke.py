@@ -74,19 +74,24 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          on O (no further from it than the bf16 plain branch, a bound that a
          forward skipping one key tile must miss), m and l, and the backward
          kernels alone against
-         `flash_backward_plain` on the wgmma forward's statistics, each on
-         both routes at d = 64, two calls bit-identical; the Hopper kernels
+         `flash_backward_plain` on the forward kernel's statistics, each on
+         both routes (wgmma, mma.sync) at every width, two calls
+         bit-identical; the Hopper kernels, the backward's at every width,
          build without spills; then timed beside SDPA, at T = 1025 too: the
          forward on both routes in turns, and the backward pair alone on
          both routes beside SDPA's backward alone (phase 3);
-       * the mma.sync kernels at d in {32, 48, 96, 128}, no main path's
-         width, timed at (8, 2305, 768 / d, d) beside the plain branch and
-         SDPA (`phase_flash_widths`);
+       * d in {32, 48, 96, 128}, no main path's width (`phase_flash_widths`):
+         `fused_self_attention` launches the mma.sync forward and the Hopper
+         dK/dV and dQ (the route counters), with and without a mask; both
+         backward routes against `flash_backward_plain` on the mma.sync
+         forward's statistics; timed at (8, 2305, 768 / d, d): the forward
+         and forward + backward beside the plain branch and SDPA, both
+         backward pairs in turns beside SDPA's backward alone;
        * the port's two repaired faults: f32 and f16 CUDA operands at
          T = 2305 launch the f32-arithmetic forward, dK/dV and dQ kernels
          once each and agree with the plain branch in f32, each kernel
-         alone too, two calls bit-identical; they are timed in f32 beside
-         the plain branch and SDPA (bf16 at that shape launches one
+         alone too, two calls bit-identical; they are timed in f32 and f16
+         beside the plain branch and SDPA (bf16 at that shape launches one
          forward); `serve --replay-dir` on a directory of PNG frames exits
          naming the missing decoder where cv2 cannot be imported, and
          serves where it can;
@@ -98,8 +103,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * `SelfAttentionFusion` at B 4, V 8, N 513, D 768 against the plain
          path, and its mask invariance. Every other path launches no flash
          kernel;
-  8. a JSON line per kernel (the flash kernels also with their mma.sync time
-     and, for f32 operands, `f32_ms` and `f32_bound_ms`), the card and its
+  8. a JSON line per kernel (the flash kernels also with their mma.sync time,
+     for f32 and f16 operands `f32_ms`, `f16_ms` and their bounds, and the
+     backward's times at the other widths under `widths`), the card and its
      power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -161,7 +167,8 @@ from mvropose_torch.utils.weights import (
 
 ROOT = Path(__file__).resolve().parent
 SERVE_SECONDS = 8.0
-# name: (wrapper module, its launch counter, source, the TPU kernel it replaces)
+# name: (wrapper module, its launch counter, source, the TPU kernel it replaces);
+# a flash kernel's counter is its part in `attention.route_launches`.
 KERNELS = {
     "peak_decode": (peak_decode, "launches", "mvropose_torch/csrc/peak_decode.cu",
                     "mvropose_tpu/ops/peak_decode.py:28"),  # _decode_kernel
@@ -186,11 +193,11 @@ KERNELS = {
                        "mvropose_tpu/ops/heatmap_render.py:25"),  # _render_kernel
     # JAX's stock Pallas flash attention (jax 0.9.0), which
     # mvropose_tpu/ops/attention.py:161 calls at T >= 2048 on a TPU.
-    "flash_fwd": (attention, "launches", "mvropose_torch/csrc/flash_attention.cu",
+    "flash_fwd": (attention, "fwd", "mvropose_torch/csrc/flash_attention.cu",
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
-    "flash_bwd_dkv": (attention, "dkv_launches", "mvropose_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": (attention, "dkv", "mvropose_torch/csrc/flash_attention.cu",
                       "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
-    "flash_bwd_dq": (attention, "dq_launches", "mvropose_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": (attention, "dq", "mvropose_torch/csrc/flash_attention.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
 }
 SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_attention",
@@ -199,7 +206,7 @@ FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12}
 # The serve default: ViT-B/16 at 512 px (T = 1024 + 1), 4 views, J=8, A=7.
 FULL = EstimatorConfig(
     vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
@@ -305,8 +312,14 @@ def spilled_bytes(log: str) -> dict:
     return spills
 
 
+# The Hopper kernels of the build: the flash forward at d = 64, the flash
+# dK/dV and dQ at every head width, the int8 attention and the int8 GEMM.
+HOPPER_KERNELS = 1 + 2 * len(attention.HEAD_DIMS) + 2
+
+
 def phase_build() -> None:
-    """Build the kernels; the Hopper kernels (`*_sm90_kernel`) must not spill."""
+    """Build the kernels; the Hopper kernels (`*_sm90_kernel`, each flash
+    backward instantiation) must all be there and must not spill."""
     t0 = time.perf_counter()
     _build.load_library()
     seconds = time.perf_counter() - t0
@@ -317,8 +330,14 @@ def phase_build() -> None:
         text = log.read_text().strip()
         print(text)
         hopper = {k: v for k, v in spilled_bytes(text).items() if "sm90_kernel" in k}
-        check(len(hopper) == 5 and not any(hopper.values()),
+        widths = {kind: sorted(int(w) for k in hopper
+                               for w in re.findall(rf"flash_{kind}_sm90_kernelILi(\d+)EE", k))
+                  for kind in ("dkv", "dq")}
+        check(len(hopper) == HOPPER_KERNELS and not any(hopper.values()) and
+              all(w == list(attention.HEAD_DIMS) for w in widths.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
+        print(f"Hopper kernels: {len(hopper)}, none spills; flash backward instantiations at "
+              f"d = {widths['dkv']} (dK/dV), {widths['dq']} (dQ)")
 
 
 def _tie_maps(rng) -> np.ndarray:
@@ -1044,26 +1063,16 @@ def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int,
     return [t.requires_grad_() for t in (q, k, v)], do, _flash_mask(mask_kind, B, T, gen)
 
 
-@contextlib.contextmanager
-def mma_sync_route():
-    """Within this block the forward and the backward take the mma.sync
-    kernels (at d = 64 the Hopper kernels' predecessors), for the
-    comparisons of this script."""
-    saved, attention.WGMMA_HEAD_DIMS = attention.WGMMA_HEAD_DIMS, ()
-    try:
-        yield
-    finally:
-        attention.WGMMA_HEAD_DIMS = saved
-
-
 def on_route(route: str):
-    """The kernels on `route`: "wgmma" (d's own where d = 64) or "mma_sync"."""
-    return mma_sync_route() if route == "mma_sync" else contextlib.nullcontext()
+    """The kernels on `route`: d's own ("wgmma" where the part takes it) or
+    "mma_sync" (`attention.mma_sync_route()`)."""
+    return attention.mma_sync_route() if route == "mma_sync" else contextlib.nullcontext()
 
 
-def routes(d: int) -> list:
-    """d's own route and, where that is wgmma, the mma.sync route too."""
-    own = attention.kernel_route(d)
+def routes(d: int, part: str = "fwd") -> list:
+    """The route of d's `part` ("fwd" or "bwd") and, where that is wgmma,
+    the mma.sync route too."""
+    own = attention.kernel_route(d, part=part)
     return [own, "mma_sync"] if own == "wgmma" else [own]
 
 
@@ -1118,9 +1127,10 @@ def forward_alone(q, k, v, mask, tol_o: float) -> dict:
 def backward_alone(q, k, v, mask, do) -> dict:
     """The dQ and dK/dV kernels alone against `flash_backward_plain` in f32
     on the same saved statistics (the forward kernel's m and l on d's own
-    route, di of its O), on each of d's `routes`: each gradient within
-    BACKWARD_TOL of the plain one's largest magnitude (plus
-    FLASH_ERR_FLOOR), and two calls bit-identical. -> {route: [err dQ, dK, dV]}."""
+    forward route, mma.sync at d != 64; di of its O), on each of the
+    backward's `routes`: each gradient within BACKWARD_TOL of the plain
+    one's largest magnitude (plus FLASH_ERR_FLOOR), and two calls
+    bit-identical. -> {route: [err dQ, dK, dV]}."""
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
@@ -1128,7 +1138,7 @@ def backward_alone(q, k, v, mask, do) -> dict:
                                           *args[5:])
     tols = [BACKWARD_TOL * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
     errs = {}
-    for route in routes(q.shape[-1]):
+    for route in routes(q.shape[-1], "bwd"):
         with on_route(route):
             runs = [(attention.flash_backward_dq_cuda(*args),
                      *attention.flash_backward_dkv_cuda(*args)) for _ in range(2)]
@@ -1152,13 +1162,14 @@ def _flash_bounds(B: int, T: int, H: int, d: int, mask, dtype=torch.bfloat16) ->
     FLOPs each without a mask), the operands read once and outputs written
     once. Forward: 2 products, reads q, k, v, writes O (the timed call saves
     no statistics); dK/dV: 4 products, reads q, k, v, dO and the f32 m, l,
-    di, writes dK, dV; dQ: 3 products, reads the same, writes dQ. bf16 at
-    the tensor cores' bf16 rate; f32 and f16 operands, whose kernels compute
-    in f32 on the CUDA cores, at the f32 rate."""
+    di, writes dK, dV; dQ: 3 products, reads the same, writes dQ. bf16 and
+    f16 at the tensor cores' rate (their products accumulate exactly in
+    f32, so the f16 kernels' f32 arithmetic could run there), f32 at the f32
+    rate."""
     pairs = H * T * (B * T if mask is None else int(mask.sum()))
     x = B * T * H * d * torch.finfo(dtype).bits // 8
     stat, mbytes = B * H * T * 4, 0 if mask is None else B * T
-    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    kind = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[dtype]
     return {"flash_fwd": bound(4 * x + mbytes, 2 * 2 * pairs * d, kind),
             "flash_bwd_dkv": bound(6 * x + 3 * stat + mbytes, 4 * 2 * pairs * d, kind),
             "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d, kind)}
@@ -1185,7 +1196,7 @@ def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> 
         del got
     paths = [("kernel", gaps["kernel"])]
     if len(routes(d)) > 1:
-        with torch.no_grad(), mma_sync_route():
+        with torch.no_grad(), attention.mma_sync_route():
             o = attention.flash_attention_cuda(*qkv, mask)
         paths.append(("mma.sync forward", [float((o.float() - ref[0]).abs().max())]))
     del ref
@@ -1199,7 +1210,8 @@ def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> 
     fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
     layout = ", heads outer" if name in HEADS_OUTER else ""
     print(f"flash kernels vs f32 plain [{name} (B, T, H, d) = {(B, T, H, d)} mask {mask_kind}"
-          f"{layout}; route {attention.kernel_route(d)}]: O/dQ/dK/dV max abs err "
+          f"{layout}; routes: forward {attention.kernel_route(d)}, backward "
+          f"{attention.kernel_route(d, part='bwd')}]: O/dQ/dK/dV max abs err "
           + ", ".join(f"{path} {fmt(errs)}" for path, errs in paths)
           + f", bf16 plain {fmt(gaps['plain'])}; forward alone vs flash_forward_plain, "
           f"O/m/l(rel): " + ", ".join(f"{route} {fmt(e)}" for route, e in fwd.items())
@@ -1215,14 +1227,15 @@ def _in_turns(timer, first, second) -> tuple:
     return statistics.median(t[1:3]), statistics.median(t[0::3])
 
 
-def backward_times(B: int, T: int, mask_kind, timer) -> dict:
-    """At (B, T, 12, 64): the dK/dV and dQ kernels alone on one forward's
-    statistics, wgmma and mma.sync routes in turns; their plain versions
-    (the plain branch's forward and its gradients: dK, dV or dQ); SDPA's
-    backward alone (`torch.autograd.grad` on a saved SDPA forward, the
-    library yardstick of the pair, timed only here). -> ms by key."""
+def backward_times(B: int, T: int, mask_kind, timer, H: int = 12, d: int = 64) -> dict:
+    """At (B, T, H, d): the dK/dV and dQ kernels alone on one forward's
+    statistics (d's own forward route), wgmma and mma.sync routes in turns
+    mma.sync/wgmma/wgmma/mma.sync; their plain versions (the plain branch's
+    forward and its gradients: dK, dV or dQ); SDPA's backward alone
+    (`torch.autograd.grad` on a saved SDPA forward, the library yardstick of
+    the pair, timed only here). -> ms by key."""
     bench = _script("torch_bench_attention_fusion")
-    qkv, do, mask = _flash_operands(B, T, 12, 64, mask_kind, seed=81)
+    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=81)
     q, k, v = (t.detach() for t in qkv)
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
@@ -1231,7 +1244,7 @@ def backward_times(B: int, T: int, mask_kind, timer) -> dict:
     for kname, call in (("flash_bwd_dkv", attention.flash_backward_dkv_cuda),
                         ("flash_bwd_dq", attention.flash_backward_dq_cuda)):
         def mma(call=call):
-            with mma_sync_route():
+            with attention.mma_sync_route():
                 call(*args)
         out[kname], out[kname + "_mma_sync"] = _in_turns(timer, mma, lambda call=call: call(*args))
     plain = attention.flash_attention_reference
@@ -1320,56 +1333,110 @@ def phase_flash() -> dict:
     return result
 
 
-FLASH_WIDTHS = (32, 48, 96, 128)  # the bf16 widths of the mma.sync route, none on a main path
+FLASH_WIDTHS = (32, 48, 96, 128)  # the bf16 widths whose forward stays on mma.sync; no main path's
+# Each width's kernels against the plain versions: T = 2305 with a mask (batch
+# element 1 all masked), contiguous as a projection's output, and T = 129 (one
+# row past a 128-row block) without, heads outer as after RoPE; the model's
+# width kept (768 / d heads).
+WIDTH_CASES = [(2, T, 768 // d, d, mask_kind, heads_outer) for d in FLASH_WIDTHS
+               for T, mask_kind, heads_outer in ((2305, "all", False), (129, None, True))]
 
 
-def phase_flash_widths() -> None:
-    """The mma.sync kernels at FLASH_WIDTHS, at the 768-px train shape with
-    the model's width kept: (8, 2305, 768 / d, d) bf16, no mask. By
-    CUDA-graph replay: the forward and the forward + backward beside the
-    plain branch and SDPA (in turns plain/kernel/kernel/plain), the dK/dV
-    and dQ kernels alone on one forward's statistics beside SDPA's backward
-    alone, and each kernel's bound."""
+def width_route_check(B: int, T: int, H: int, d: int, mask_kind, heads_outer: bool) -> dict:
+    """`fused_self_attention` forward + backward at one WIDTH_CASES shape
+    (use_flash=True: T = 129 is below the rule's threshold): one forward on
+    the mma.sync route and one dK/dV and one dQ on the wgmma route
+    (`attention.route_launches`), O and the gradients no further from
+    the plain branch in f32 than the bf16 plain branch is (FLASH_ERR_FLOOR
+    aside); then the backward kernels alone on both routes against
+    `flash_backward_plain` on the mma.sync forward's statistics
+    (`backward_alone`). -> the backward's errors alone by route."""
+    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=97 + d, heads_outer=heads_outer)
+    _reset_launches()
+    got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, True, m),
+                 qkv, mask, do)
+    torch.cuda.synchronize()
+    by_route = dict(attention.route_launches)
+    want = {("fwd", "mma_sync"): 1, ("dkv", "wgmma"): 1, ("dq", "wgmma"): 1}
+    check(by_route == want, f"d = {d}: fused_self_attention launched {by_route}, not {want}")
+    ref = _grads(attention.flash_attention_reference,
+                 [t.detach().float().requires_grad_() for t in qkv], mask, do)
+    plain = _grads(attention.flash_attention_reference, qkv, mask, do)
+    for part, a, b, c in zip(("O", "dQ", "dK", "dV"), got, plain, ref):
+        e_kernel, e_plain = (float((x.float() - c).abs().max()) for x in (a, b))
+        check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
+              f"d = {d} T = {T}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
+              f"branch's {e_plain}")
+    del got, ref, plain
+    return backward_alone(*(t.detach() for t in qkv), mask, do)
+
+
+def phase_flash_widths() -> dict:
+    """The bf16 kernels at FLASH_WIDTHS: the backward on the Hopper pair
+    (`flash_dkv_sm90_kernel<d>`, `flash_dq_sm90_kernel<d>`), the forward on
+    mma.sync. At each WIDTH_CASES shape `width_route_check`. Then at the
+    768-px train shape with the model's width kept, (8, 2305, 768 / d, d)
+    bf16 without a mask, by CUDA-graph replay: the forward and the forward
+    + backward beside the plain branch and SDPA (in turns
+    plain/kernel/kernel/plain), the dK/dV and dQ kernels alone on both
+    routes in turns mma.sync/wgmma/wgmma/mma.sync (`backward_times`) beside
+    SDPA's backward alone, and each kernel's bound. -> {kernel: {d: times}}."""
+    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+    for case in WIDTH_CASES:
+        alone = width_route_check(*case)
+        layout = "heads outer" if case[5] else "contiguous"
+        print(f"flash kernels at {case[:4]} mask {case[4]}, {layout}: fused_self_attention "
+              f"launched the mma.sync forward and the wgmma dK/dV and dQ once each, O/dQ/dK/dV "
+              f"within the bf16 plain branch's error; backward alone vs flash_backward_plain on "
+              f"the mma.sync forward's m and l, dQ/dK/dV: "
+              + ", ".join(f"{route} {fmt(e)}" for route, e in alone.items())
+              + "; two calls bit-identical")
     bench = _script("torch_bench_attention_fusion")
 
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
 
+    result = {"flash_bwd_dkv": {}, "flash_bwd_dq": {}}
     for d in FLASH_WIDTHS:
         B, T, H = 8, 2305, 768 // d
+        fwd, bwd = attention.kernel_route(d), attention.kernel_route(d, part="bwd")
+        check(fwd == "mma_sync" and bwd == "wgmma", f"d = {d}: routes {fwd}, {bwd}")
         qkv, do, _ = _flash_operands(B, T, H, d, None, seed=95)
-        route = attention.kernel_route(d)
-        check(route == "mma_sync", f"d = {d}: route {route}")
         times = bench.attention_times(*qkv, None, do, timer)
-        q, k, v = (t.detach() for t in qkv)
-        o, m, l = attention.flash_forward_cuda(q, k, v)
-        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
-        alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
-                 "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            saved = bench.sdpa(*qkv, None)
-        sdpa_bwd = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
-                            iters=2, samples=10, stream=side)
+        del qkv, do
+        t = backward_times(B, T, None, timer, H, d)
         bounds = _flash_bounds(B, T, H, d, None)
-        print(f"flash kernels (mma.sync) [(B, T, H, d) = {(B, T, H, d)}], ms per call, CUDA-graph "
-              f"replay: " + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
-                                      f"{times['plain'][part]:.4f}, SDPA "
-                                      f"{times['library'][part]:.4f}" for part in ("fwd", "fwd_bwd"))
-              + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
-              + f"; SDPA backward alone {sdpa_bwd:.4f}; bounds "
-              + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})" for k, b in bounds.items()))
-        del qkv, do, q, k, v, o, m, l, args, saved
+        pair, pair_mma = (t["flash_bwd_dkv" + r] + t["flash_bwd_dq" + r] for r in ("", "_mma_sync"))
+        print(f"flash kernels [(B, T, H, d) = {(B, T, H, d)}], ms per call, CUDA-graph replay: "
+              + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
+                          f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
+                          for part in ("fwd", "fwd_bwd"))
+              + "; backward alone, mma.sync/wgmma/wgmma/mma.sync: "
+              + "; ".join(f"{k}: wgmma {t[k]:.4f}, mma.sync {t[k + '_mma_sync']:.4f}, plain "
+                          f"(forward + its gradients) {t[k + '_plain']:.4f}, bound "
+                          f"{bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
+                          for k in ("flash_bwd_dkv", "flash_bwd_dq"))
+              + f"; pair wgmma {pair:.4f}, mma.sync {pair_mma:.4f} ({pair_mma / pair:.2f}x); SDPA "
+              f"backward alone {t['sdpa_bwd']:.4f} (the wgmma pair "
+              f"{pair / t['sdpa_bwd']:.2f}x it); "
+              f"forward bound {bounds['flash_fwd']['bound_ms']:.4f}")
+        for k in result:
+            result[k][d] = {"ms": t[k], "mma_sync_ms": t[k + "_mma_sync"],
+                            "plain_ms": t[k + "_plain"], "bound_ms": bounds[k]["bound_ms"],
+                            "library_ms": t["sdpa_bwd"]}
+    return result
 
 
 def _reset_launches() -> None:
     for module, counter, _, _ in KERNELS.values():
-        setattr(module, counter, 0)
+        if module is not attention:
+            setattr(module, counter, 0)
+    attention.route_launches.clear()
 
 
 def _read_launches() -> dict:
-    return {name: getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
+    return {name: attention.part_launches(counter) if module is attention
+            else getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
 
 
 def _flash_zeros(n: int, d: int = 32, dtype=torch.bfloat16):
@@ -1407,13 +1474,18 @@ def phase_counters() -> None:
             torch.ones(2, 64, device="cuda")),
     }
     calls = list(calls.items())
-    for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32),
-                     (64, torch.float16)):  # every route
-        z = lambda n, d=d, dtype=dtype: _flash_zeros(n, d, dtype)  # noqa: E731
+    for d, dtype, route in ((32, torch.bfloat16, "own"), (32, torch.bfloat16, "mma_sync"),
+                            (64, torch.bfloat16, "own"), (64, torch.float32, "own"),
+                            (64, torch.float16, "own")):  # every route of every part
+        def on(fn, d=d, dtype=dtype, route=route):
+            def call(n):
+                with on_route(route):
+                    fn(*_flash_zeros(n, d, dtype))
+            return call
         calls += [
-            ("flash_fwd", lambda n, z=z: attention.flash_attention_cuda(*z(n)[:3])),
-            ("flash_bwd_dkv", lambda n, z=z: attention.flash_backward_dkv_cuda(*z(n))),
-            ("flash_bwd_dq", lambda n, z=z: attention.flash_backward_dq_cuda(*z(n))),
+            ("flash_fwd", on(lambda *z: attention.flash_attention_cuda(*z[:3]))),
+            ("flash_bwd_dkv", on(attention.flash_backward_dkv_cuda)),
+            ("flash_bwd_dq", on(attention.flash_backward_dq_cuda)),
         ]
     for name, call in calls:
         for n, want in ((0, 0), (3, 1)):
@@ -1467,11 +1539,11 @@ def phase_simt() -> dict:
     masked) launches one forward of the route, and its backward one dK/dV
     and one dQ; O and the gradients within SIMT_TOL of the plain branch in
     f32 on the same values; each kernel alone (`_simt_alone`); the same
-    values in bf16 launch one forward. Then, in f32 without a mask, the
-    forward and forward + backward timed in turns plain/kernel/kernel/plain
-    beside SDPA, and the dK/dV and dQ kernels alone beside SDPA's backward
-    alone. -> {kernel: {"f32_ms", "f32_plain_ms", "f32_library_ms",
-    "f32_bound_ms"}}."""
+    values in bf16 launch one forward. Then, in f32 and in f16 without a
+    mask, the forward and forward + backward timed in turns
+    plain/kernel/kernel/plain beside SDPA, and the dK/dV and dQ kernels
+    alone beside SDPA's backward alone. -> {kernel: {"f32_ms",
+    "f32_plain_ms", "f32_library_ms", "f32_bound_ms", the same with f16_}}."""
     B, T, H, d = SIMT_SHAPE
     gen = torch.Generator().manual_seed(90)
     base = [torch.randn(B, T, H, d, generator=gen).cuda() for _ in range(4)]
@@ -1514,35 +1586,39 @@ def phase_simt() -> dict:
         return graph_ms(fn, iters=2, samples=10)
 
     bench = _script("torch_bench_attention_fusion")
-    qkv = [t.detach().clone().requires_grad_() for t in base[:3]]
-    times = bench.attention_times(*qkv, None, base[3], timer)
-    q, k, v, do = base
-    o, m, l = attention.flash_forward_cuda(q, k, v)
-    args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
-    alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
-             "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
-    side = torch.cuda.Stream()  # SDPA's f32 backward alone, as `backward_times` takes bf16's
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        saved = bench.sdpa(*qkv, None)
-    sdpa_bwd = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
-                        iters=2, samples=10, stream=side)
-    bounds = _flash_bounds(B, T, H, d, None, torch.float32)
-    print(f"flash kernels f32 {SIMT_SHAPE} no mask, ms per call, CUDA-graph replay, "
-          f"plain/kernel/kernel/plain: "
-          + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
-                      f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
-                      for part in ("fwd", "fwd_bwd"))
-          + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
-          + f"; SDPA's backward alone (the pair's three gradients) {sdpa_bwd:.4f}"
-          + "; bounds (f32 rate) " + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})"
-                                               for k, b in bounds.items()))
-    result = {"flash_fwd": {"f32_ms": times["kernel"]["fwd"], "f32_plain_ms": times["plain"]["fwd"],
-                            "f32_library_ms": times["library"]["fwd"]}}
-    for kname, t in alone.items():
-        result[kname] = {"f32_ms": t, "f32_library_ms": sdpa_bwd}
-    for kname, b in bounds.items():
-        result[kname]["f32_bound_ms"] = b["bound_ms"]
+    result = {k: {} for k in FLASH_KERNELS}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float16, "f16")):
+        q, k, v, do = (t.to(dtype) for t in base)
+        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        times = bench.attention_times(*qkv, None, do, timer)
+        o, m, l = attention.flash_forward_cuda(q, k, v)
+        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
+        alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
+                 "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
+        side = torch.cuda.Stream()  # SDPA's backward alone, as `backward_times` takes bf16's
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            saved = bench.sdpa(*qkv, None)
+        sdpa_bwd = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
+                            iters=2, samples=10, stream=side)
+        bounds = _flash_bounds(B, T, H, d, None, dtype)
+        print(f"flash kernels {tag} {SIMT_SHAPE} no mask, ms per call, CUDA-graph replay, "
+              f"plain/kernel/kernel/plain: "
+              + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
+                          f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
+                          for part in ("fwd", "fwd_bwd"))
+              + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
+              + f"; SDPA's backward alone (the pair's three gradients) {sdpa_bwd:.4f}"
+              + f"; bounds ({tag} rate) " + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})"
+                                                   for k, b in bounds.items()))
+        result["flash_fwd"].update({f"{tag}_ms": times["kernel"]["fwd"],
+                                    f"{tag}_plain_ms": times["plain"]["fwd"],
+                                    f"{tag}_library_ms": times["library"]["fwd"]})
+        for kname, t in alone.items():
+            result[kname].update({f"{tag}_ms": t, f"{tag}_library_ms": sdpa_bwd})
+        for kname, b in bounds.items():
+            result[kname][f"{tag}_bound_ms"] = b["bound_ms"]
+        del q, k, v, do, qkv, times, o, m, l, args, saved
     return result
 
 
@@ -2266,7 +2342,8 @@ def main() -> int:
                 **phase_flash()}
     for name, extra in phase_simt().items():
         measured[name].update(extra)
-    phase_flash_widths()
+    for name, by_width in phase_flash_widths().items():
+        measured[name]["widths"] = by_width
     phase_counters()
     phase_replay()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}

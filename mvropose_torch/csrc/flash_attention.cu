@@ -6,9 +6,9 @@
 // (jax/experimental/pallas/ops/tpu/flash_attention.py in jax 0.9.0):
 //   * flash_fwd_kernel, and at d = 64 flash_fwd_sm90_kernel
 //                       <- _flash_attention_kernel (:331, pallas_call :758);
-//   * flash_dkv_kernel, and at d = 64 flash_dkv_sm90_kernel
+//   * flash_dkv_kernel and flash_dkv_sm90_kernel<d>
 //                       <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
-//   * flash_dq_kernel, and at d = 64 flash_dq_sm90_kernel
+//   * flash_dq_kernel and flash_dq_sm90_kernel<d>
 //                       <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
 // The segment ids of the TPU call become what they encode: a (B, T) byte
 // mask of the keys (0 = not attended), and keys past T, which are skipped.
@@ -34,10 +34,11 @@
 // 128 tile's two products take 512 tensor-core cycles of an SM, its 8192
 // exponentials 512 cycles of the SM's 16 SFU lanes.
 //
-// Two designs. The three kernels at d = 64, every main path's width, run
-// on Hopper's own units (flash_fwd_sm90_kernel, flash_dkv_sm90_kernel,
-// flash_dq_sm90_kernel, below); at d in {32, 48, 96, 128} they run on
-// mma.sync:
+// Two designs. On Hopper's own units (below): the forward at d = 64, every
+// main path's width (flash_fwd_sm90_kernel), and the backward at every
+// width d in {32, 48, 64, 96, 128} (flash_dkv_sm90_kernel<d>,
+// flash_dq_sm90_kernel<d>). On mma.sync: the forward at the other widths,
+// and the backward where a caller asks for it (ops/attention.py routes):
 //   * mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments in registers; one
 //     block of 4 warps, each warp owning 16 rows of the block's tile, so the
 //     softmax statistics of a row stay in the 4 threads of a quad;
@@ -47,28 +48,29 @@
 //   * shared rows are padded by 16 bytes, so the fragment loads (32-bit
 //     loads, ldmatrix.trans for the transposed operands) are free of bank
 //     conflicts at every head width.
-// The Hopper kernels at d = 64:
+// The Hopper kernels:
 //   * all products on wgmma.mma_async (bf16 x bf16 -> f32), which alone
 //     reaches the card's tensor-core rate: S = Q K^T (forward, dQ), S^T =
-//     K Q^T and dP^T = V dO^T (dK/dV), dP = dO V^T (dQ) as m64n128k16 with
-//     both operands in shared memory; O += P V, dV += P^T dO, dK += dS^T Q
-//     and dQ += dS K as m64n64k16 with P, P^T, dS^T, dS as the A operand in
-//     registers and B the streamed tile read MN-major (the transpose bit),
-//     so no transposed copy is made;
-//   * TMA loads (cp.async.bulk.tensor, 64 x 64 boxes, 128-byte swizzle, rows
-//     past T zero-filled) through tensor maps over the (B, T, H, 64)
-//     operands' own strides, built on the host per call with CUDA's
+//     K Q^T and dP^T = V dO^T (dK/dV), dP = dO V^T (dQ) as m64nSk16 (S the
+//     streamed tile's rows, 128 or 64) with both operands in shared memory;
+//     O += P V, dV += P^T dO, dK += dS^T Q and dQ += dS K as m64ndk16 with
+//     P, P^T, dS^T, dS as the A operand in registers and B the streamed
+//     tile read MN-major (the transpose bit), so no transposed copy is made;
+//   * TMA loads (cp.async.bulk.tensor, boxes of 64 rows x one swizzle atom:
+//     64 x 64 with the 128-byte swizzle at d = 64, see `Sm90Tiles` for the
+//     other widths; rows past T zero-filled) through tensor maps over the
+//     (B, T, H, d) operands' own strides, built on the host per call with CUDA's
 //     cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, no
 //     link against libcuda) and passed as __grid_constant__ parameters, so a
 //     CUDA graph captures them;
 //   * a block owns 128 rows (keys in dK/dV, queries in the forward and
 //     dQ), loaded once, in two consumer warpgroups of 64; the streamed
-//     operand comes in tiles of 128 rows through a 4-stage ring with
-//     full/empty mbarriers, filled by one producer warp, so the loads never
-//     wait on the products (4 stages: the forward holds two tiles at once,
-//     and with 3 its next tile's loads started too late); setmaxnreg moves
-//     registers from the producer warpgroup to the consumers; no
-//     __syncthreads in the main loop;
+//     operand comes in tiles of 128 rows (64 in dK/dV at d >= 96) through a
+//     ring of up to 4 stages with full/empty mbarriers, filled by one
+//     producer warp, so the loads never wait on the products (4 stages: the
+//     forward holds two tiles at once, and with 3 its next tile's loads
+//     started too late); setmaxnreg moves registers from the producer
+//     warpgroup to the consumers; no __syncthreads in the main loop;
 //   * the row statistics m, l and di have a row stride of T floats, not a
 //     multiple of 16 bytes at T = 2305, so TMA cannot copy them: the producer
 //     warp copies them by plain loads (all of a stage's issued before any is
@@ -626,68 +628,112 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
   store_rows<D>(p.dq, dq, p.scale, p.scale, T, p.H, b, h, q0 + warp * 16, g, t);
 }
 
-// ------------------------------------------- Hopper backward (d = 64, sm_90a)
+// ----------------------------------- Hopper backward (every head width, sm_90a)
 //
-// The dK/dV and dQ kernels of the d = 64 path (every main path's head
-// width): wgmma, TMA and a warp-specialised mbarrier ring. Block: two
+// The dK/dV and dQ kernels at every width of HEAD_DIMS (and the forward at
+// d = 64, below): wgmma, TMA and a warp-specialised mbarrier ring. Block: two
 // consumer warpgroups of 64 rows each (128 rows of the block's own operand:
 // keys in dK/dV, queries in dQ, loaded once) and a producer warpgroup, of
 // which one warp issues the loads and the other three only hand their
 // registers over (setmaxnreg). The streamed operand (Q and dO, or K and V)
-// comes in tiles of 128 rows through a 4-stage ring: S (S^T) and dP (dP^T)
-// are m64n128 products of two shared tiles; P and dS, converted to bf16 in
-// registers, are the A operand of the m64n64 products into dV, dK (dQ),
-// whose B is the streamed tile read MN-major.
+// comes in tiles of S rows through a ring of up to 4 stages: S (S^T) and
+// dP (dP^T) are m64nS products of two shared tiles; P and dS, converted to
+// bf16 in registers, are the A operand of the m64nd products into dV, dK
+// (dQ), whose B is the streamed tile read MN-major.
+//
+// Per head width (`Sm90Tiles<d, S>`), what the card forces:
+//   * a row of d bf16 is 2d bytes, one 128-byte swizzle atom only at d = 64.
+//     Every operand tile is stored as column chunks of one atom each, the
+//     widest of 64, 32 or 16 columns that divides d (d = 32: one chunk of 64
+//     bytes; 48: three of 32; 96: three of 64; 128: two of 128), each chunk
+//     a TMA box of 64 rows over a tensor map whose inner extent is the true
+//     d, with the swizzle of its width. A k-step of the S products (16
+//     columns) stays in one chunk; the MN-major B of the second products
+//     spans the chunks as its atoms along N (the descriptor's leading offset
+//     is the chunk stride), so each k-step is one m64nd instruction. No
+//     column is padded: the products do the true d's work at every width;
+//   * registers: a consumer thread holds d/2 f32 of each 64 x d accumulator
+//     and S/2 of each 64 x S logit tile. dK/dV holds dK, dV, S^T and dP^T,
+//     d + S: at S = 128 that is 160 (d = 32), 176 (48), 192 (64), but 224 at
+//     d = 96 and 256 at d = 128, beyond the 232 a consumer thread gets (with
+//     the bf16 A fragments beside them); so its streamed tile has 64 rows at
+//     d >= 96 (d + S = 160, 192). dQ holds dQ, S and dP, d/2 + S: 128 rows
+//     fit at every width (192 at d = 128). At 64 rows the S products are
+//     m64n64, whose two shared operands take as many shared-memory cycles as
+//     the product takes tensor-core cycles; dQ at d = 96 and 128 took 13-16 %
+//     longer with them on an H100;
+//   * shared memory: the block's own two operands, 512 d bytes, and up to 4
+//     stages of two streamed tiles of 2 S d bytes each, as many as fit in
+//     the 227 KB of a block: dK/dV 87 KB at d = 32, 127 at 48, 167 at 64, 148
+//     at 96, 196 at 128 (4 stages each); dQ 4 stages up to d = 64, 3 at 96
+//     (197 KB), 2 at 128 (196 KB).
 
 constexpr int kHConsumers = 2;                 // consumer warpgroups
 constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operand
-constexpr int kHStream = 128;                  // rows of a streamed tile
-constexpr int kHStages = 4;                    // ring depth
 constexpr int kHThreads = 128 * (kHConsumers + 1);
-constexpr int kHBox = kHRows * kHD * 2;            // bytes of one 64 x 64 bf16 box: 8 KB
-constexpr int kHTile = kHStream / kHRows * kHBox;  // bytes of one streamed tile of one operand
 constexpr int kHConsumerRegs = 232, kHProducerRegs = 40;
 constexpr int kInnerQ = 1, kInnerK = 2, kInnerV = 4, kInnerDo = 8;  // bits of heads_inner
 
+constexpr int kMaxSmem = 232448;  // shared memory a block can have
+
+// Rows of the streamed tiles at head width d: the dK/dV kernel's (registers
+// allow 128 up to d = 64) and the dQ kernel's (128 at every width).
+__host__ __device__ constexpr int dkv_stream(int d) { return d <= 64 ? 128 : 64; }
+constexpr int kDqStream = 128;
+
+// The tiles of a kernel at head width D whose streamed tiles have S rows.
+template <int D, int S = dkv_stream(D)>
+struct Sm90Tiles {
+  // Columns of a chunk (a TMA box, one swizzle atom): the widest of 64, 32, 16 dividing D.
+  static constexpr int kCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kStream = S;  // rows of a streamed tile
+  // Ring depth: 4 stages where they fit beside the block's own operands.
+  static constexpr int kFit = (kMaxSmem - 2048 - 2 * kHBlock * D * 2) / (4 * S * D + 12 * S);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kOwnChunk = kHBlock * kCols * 2;     // bytes of a chunk of an own operand
+  static constexpr int kStreamChunk = kStream * kCols * 2;  // ... and of a streamed one
+  static constexpr int kTile = kStream * D * 2;             // bytes of one streamed tile
+  // Shared memory: the block's two own operands (128 rows each), kStages
+  // stages of the two streamed ones, the stages' row data (dK/dV: m, 1/l, di
+  // per query; dQ and the forward: a code per key), then the barriers.
+  static constexpr int kOwn = 0;
+  static constexpr int kRing = kOwn + 2 * kHBlock * D * 2;
+  static constexpr int kRowData = kRing + kStages * 2 * kTile;
+  static constexpr int kBars = kRowData + kStages * 3 * kStream * 4;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
+  static_assert(kStages >= 2 && kAlloc <= kMaxSmem, "more shared memory than a block can have");
+};
+
 struct HopperParams {
-  // (B, T, H, 64) bf16 through their strides, 64 x 64 boxes, 128-byte swizzle;
+  // (B, T, H, d) bf16 through their strides, boxes of 64 rows x one chunk;
   // dims (d, T, H, B), or (d, H, T, B) where heads lie inside rows (bit
   // kInnerQ.. of `heads_inner`): a tensor map's strides grow with its dims.
   CUtensorMap q, k, v, dout;  // dout: the backward's only
   int heads_inner;
   const uint8_t* mask;     // (B, T), 0 = key not attended; null: every key attended
-  bf16 *o, *dq, *dk, *dv;  // (B, T, H, 64) contiguous
+  bf16 *o, *dq, *dk, *dv;  // (B, T, H, d) contiguous
   float *m, *l;            // (B, H, T): written by the forward (unless null), read by the backward
   const float* di;         // (B, H, T)
   int H, T;
   float scale, scale_log2;
 };
 
-// Shared memory of both kernels: the block's two own operands (128 rows
-// each), kHStages stages of the two streamed ones (kHStream rows each), the
-// stages' row data (dK/dV: m, 1/l, di per query; dQ: a code per key), then
-// the barriers.
-struct HopperSmem {
-  static constexpr int kOwn = 0;
-  static constexpr int kRing = kOwn + 2 * kHBlock / kHRows * kHBox;
-  static constexpr int kRowData = kRing + kHStages * 2 * kHTile;
-  static constexpr int kBars = kRowData + kHStages * 3 * kHStream * 4;
-  static constexpr int kBytes = kBars + (2 * kHStages + 1) * 8;
-  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
-};
-
-// The 64 x kHStream accumulator as bf16 A fragments, 16 columns per k-step.
-__device__ __forceinline__ void to_a(uint32_t (&a)[kHStream / 16][4], const float (&acc)[16][4]) {
+// The 64 x S accumulator as bf16 A fragments, 16 columns per k-step.
+template <int S>
+__device__ __forceinline__ void to_a(uint32_t (&a)[S / 16][4], const float (&acc)[S / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kHStream / 16; ++kk) acc_to_a(a[kk], acc[2 * kk], acc[2 * kk + 1]);
+  for (int kk = 0; kk < S / 16; ++kk) acc_to_a(a[kk], acc[2 * kk], acc[2 * kk + 1]);
 }
 
-// D += A B with A in registers (`to_a`) and B the kHStream rows of an
-// MN-major tile: k-step kk reads rows 16 kk.. of it (2048 bytes further).
-__device__ __forceinline__ void product_rs(float (&d)[8][4], const uint32_t (&a)[kHStream / 16][4],
+// D += A B with A in registers (`to_a`) and B the S rows of an MN-major
+// tile of N columns in chunks of C: k-step kk reads rows 16 kk.. of it, 16
+// rows of 2C bytes further.
+template <int S, int N, int C>
+__device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const uint32_t (&a)[S / 16][4],
                                            uint64_t b) {
 #pragma unroll
-  for (int kk = 0; kk < kHStream / 16; ++kk) wgmma_rs64(d, a[kk], b + (2048 >> 4) * kk);
+  for (int kk = 0; kk < S / 16; ++kk) wgmma_rs<N>(d, a[kk], b + (32 * C >> 4) * kk);
 }
 
 // 2^x on the SFU (flushes results below 2^-126 to 0; P is scaled by 1/l later).
@@ -701,15 +747,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // data (the producer warp's 32 lanes arrive, lane 0 with the bytes); empty[s]
 // when the 8 consumer warps are done with it; own when the block's own
 // operands have landed.
+template <typename L>  // Sm90Tiles<..>
 struct Ring {
   uint64_t *full, *empty, *own;
   __device__ explicit Ring(unsigned char* base) {
-    full = reinterpret_cast<uint64_t*>(base + HopperSmem::kBars);
-    empty = full + kHStages;
-    own = empty + kHStages;
+    full = reinterpret_cast<uint64_t*>(base + L::kBars);
+    empty = full + L::kStages;
+    own = empty + L::kStages;
   }
   __device__ void init() const {
-    for (int s = 0; s < kHStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(&full[s], 32);
       mbar_init(&empty[s], 4 * kHConsumers);
     }
@@ -718,19 +765,22 @@ struct Ring {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(kHThreads, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ HopperParams p) {
+  using L = Sm90Tiles<D, dkv_stream(D)>;
+  constexpr int S = L::kStream, C = L::kCols, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sK = reinterpret_cast<bf16*>(smem + HopperSmem::kOwn);  // 128 key rows
-  bf16* sV = sK + kHBlock * kHD;
-  bf16* ring = reinterpret_cast<bf16*>(smem + HopperSmem::kRing);  // [stage][Q, dO][128][64]
-  float* rows = reinterpret_cast<float*>(smem + HopperSmem::kRowData);  // [stage][m, 1/l, di][128]
-  const Ring bars(smem);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::kOwn);  // 128 key rows, in chunks of C columns
+  bf16* sV = sK + kHBlock * D;
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);  // [stage][Q, dO][chunk][S][C]
+  float* rows = reinterpret_cast<float*>(smem + L::kRowData);  // [stage][m, 1/l, di][S]
+  const Ring<L> bars(smem);
 
   const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kHBlock, T = p.T;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int m_tiles = (T + kHStream - 1) / kHStream;
+  const int m_tiles = (T + S - 1) / S;
   if (threadIdx.x == 0) bars.init();
   __syncthreads();
 
@@ -738,20 +788,20 @@ __global__ void __launch_bounds__(kHThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kHProducerRegs));
     if (warp != 0) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(bars.own, 2 * kHBlock * kHD * 2);
-      tma_rows(sK, &p.k, bars.own, kHBlock, n0, h, b, p.heads_inner & kInnerK);
-      tma_rows(sV, &p.v, bars.own, kHBlock, n0, h, b, p.heads_inner & kInnerV);
+      mbar_arrive_expect_tx(bars.own, 2 * kHBlock * D * 2);
+      tma_rows<D, C>(sK, &p.k, bars.own, kHBlock, n0, h, b, p.heads_inner & kInnerK);
+      tma_rows<D, C>(sV, &p.v, bars.own, kHBlock, n0, h, b, p.heads_inner & kInnerV);
     }
     const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * T;
     for (int i = 0; i < m_tiles; ++i) {
-      const int stage = i % kHStages, m0 = i * kHStream;
-      mbar_wait(&bars.empty[stage], ((i / kHStages) & 1) ^ 1);  // round 0 passes
+      const int stage = i % kStages, m0 = i * S;
+      mbar_wait(&bars.empty[stage], ((i / kStages) & 1) ^ 1);  // round 0 passes
       // Every load of the stage issued before any is used. Queries past T
       // get P = exp2(x - inf) * 0 = 0.
-      float* st = rows + stage * 3 * kHStream;
-      float mv[kHStream / 32], lv[kHStream / 32], dv[kHStream / 32];
+      float* st = rows + stage * 3 * S;
+      float mv[S / 32], lv[S / 32], dv[S / 32];
 #pragma unroll
-      for (int u = 0; u < kHStream / 32; ++u) {
+      for (int u = 0; u < S / 32; ++u) {
         const int r = m0 + lane + 32 * u;
         const bool valid = r < T;
         mv[u] = valid ? p.m[stat0 + r] : INFINITY;
@@ -759,17 +809,17 @@ __global__ void __launch_bounds__(kHThreads, 1)
         dv[u] = valid ? p.di[stat0 + r] : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kHStream / 32; ++u) {
+      for (int u = 0; u < S / 32; ++u) {
         st[lane + 32 * u] = mv[u];
-        st[kHStream + lane + 32 * u] = __frcp_rn(lv[u]);  // 1/inf = 0
-        st[2 * kHStream + lane + 32 * u] = dv[u];
+        st[S + lane + 32 * u] = __frcp_rn(lv[u]);  // 1/inf = 0
+        st[2 * S + lane + 32 * u] = dv[u];
       }
       if (lane == 0) {
-        bf16* q_s = ring + stage * 2 * kHStream * kHD;
-        mbar_arrive_expect_tx(&bars.full[stage], 2 * kHTile);
-        tma_rows(q_s, &p.q, &bars.full[stage], kHStream, m0, h, b, p.heads_inner & kInnerQ);
-        tma_rows(q_s + kHStream * kHD, &p.dout, &bars.full[stage], kHStream, m0, h, b,
-                 p.heads_inner & kInnerDo);
+        bf16* q_s = ring + stage * 2 * S * D;
+        mbar_arrive_expect_tx(&bars.full[stage], 2 * L::kTile);
+        tma_rows<D, C>(q_s, &p.q, &bars.full[stage], S, m0, h, b, p.heads_inner & kInnerQ);
+        tma_rows<D, C>(q_s + S * D, &p.dout, &bars.full[stage], S, m0, h, b,
+                       p.heads_inner & kInnerDo);
       } else {
         mbar_arrive(&bars.full[stage]);
       }
@@ -785,27 +835,27 @@ __global__ void __launch_bounds__(kHThreads, 1)
       key_masked[r] =
           p.mask != nullptr && key < T && p.mask[static_cast<int64_t>(b) * T + key] == 0;
     }
-    const uint64_t k_desc = sw128_desc<false>(sK + wg * kHRows * kHD);
-    const uint64_t v_desc = sw128_desc<false>(sV + wg * kHRows * kHD);
-    float dk[8][4], dv[8][4];
+    const uint64_t k_desc = sw_desc<false, C>(sK + wg * kHRows * C);
+    const uint64_t v_desc = sw_desc<false, C>(sV + wg * kHRows * C);
+    float dk[D / 8][4], dv[D / 8][4];
     zero_acc(dk);
     zero_acc(dv);
     if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
     mbar_wait(bars.own, 0);
 
     for (int i = 0; i < m_tiles; ++i) {
-      const int stage = i % kHStages;
-      mbar_wait(&bars.full[stage], (i / kHStages) & 1);
-      const bf16* q_s = ring + stage * 2 * kHStream * kHD;
-      const bf16* do_s = q_s + kHStream * kHD;
-      const float* st = rows + stage * 3 * kHStream;
+      const int stage = i % kStages;
+      mbar_wait(&bars.full[stage], (i / kStages) & 1);
+      const bf16* q_s = ring + stage * 2 * S * D;
+      const bf16* do_s = q_s + S * D;
+      const float* st = rows + stage * 3 * S;
 
-      // S^T = K Q^T and dP^T = V dO^T over the warpgroup's 64 keys and the tile's 128 queries.
-      float s[16][4], dp[16][4];
+      // S^T = K Q^T and dP^T = V dO^T over the warpgroup's 64 keys and the tile's S queries.
+      float s[S / 8][4], dp[S / 8][4];
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor(s, k_desc, sw128_desc<false>(q_s));
-      product_kmajor(dp, v_desc, sw128_desc<false>(do_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(s, k_desc, sw_desc<false, C>(q_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(dp, v_desc, sw_desc<false, C>(do_s));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait();
@@ -815,11 +865,11 @@ __global__ void __launch_bounds__(kHThreads, 1)
       // masked keys. (Waiting for S^T alone first, as dQ does for S, keeps
       // more registers live across the exponentials and spills at 232.)
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < S / 8; ++n) {
         const int q2 = n * 8 + 2 * t;  // queries q2, q2 + 1: float2 loads
         const float2 m2 = *reinterpret_cast<const float2*>(st + q2);
-        const float2 rl2 = *reinterpret_cast<const float2*>(st + kHStream + q2);
-        const float2 di2 = *reinterpret_cast<const float2*>(st + 2 * kHStream + q2);
+        const float2 rl2 = *reinterpret_cast<const float2*>(st + S + q2);
+        const float2 di2 = *reinterpret_cast<const float2*>(st + 2 * S + q2);
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float m = c ? m2.y : m2.x, rl = c ? rl2.y : rl2.x, di = c ? di2.y : di2.x;
@@ -835,15 +885,15 @@ __global__ void __launch_bounds__(kHThreads, 1)
       }
       // dV += P^T dO and dK += dS^T Q (sm_scale applied at the end); dO and
       // Q are read MN-major, as they lie.
-      uint32_t pa[kHStream / 16][4], da[kHStream / 16][4];
-      to_a(pa, s);
-      to_a(da, dp);
+      uint32_t pa[S / 16][4], da[S / 16][4];
+      to_a<S>(pa, s);
+      to_a<S>(da, dp);
       fence_acc(dv);
       fence_acc(dk);
       turn_wait(wg);
       wgmma_fence();  // A registers and D written by ordinary instructions
-      product_rs(dv, pa, sw128_desc<true>(do_s));
-      product_rs(dk, da, sw128_desc<true>(q_s));
+      product_rs<S, D, C>(dv, pa, sw_desc<true, C>(do_s, L::kStreamChunk));
+      product_rs<S, D, C>(dk, da, sw_desc<true, C>(q_s, L::kStreamChunk));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait();
@@ -853,25 +903,28 @@ __global__ void __launch_bounds__(kHThreads, 1)
       if (lane == 0) mbar_arrive(&bars.empty[stage]);
     }
     if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
-    store_rows<kHD>(p.dk, dk, p.scale, p.scale, T, p.H, b, h, row0, g, t);
-    store_rows<kHD>(p.dv, dv, 1.f, 1.f, T, p.H, b, h, row0, g, t);
+    store_rows<D>(p.dk, dk, p.scale, p.scale, T, p.H, b, h, row0, g, t);
+    store_rows<D>(p.dv, dv, 1.f, 1.f, T, p.H, b, h, row0, g, t);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kHThreads, 1)
     flash_dq_sm90_kernel(const __grid_constant__ HopperParams p) {
+  using L = Sm90Tiles<D, kDqStream>;
+  constexpr int S = L::kStream, C = L::kCols, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + HopperSmem::kOwn);  // 128 query rows
-  bf16* sO = sQ + kHBlock * kHD;                                 // dO
-  bf16* ring = reinterpret_cast<bf16*>(smem + HopperSmem::kRing);  // [stage][K, V][128][64]
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kOwn);  // 128 query rows, in chunks of C columns
+  bf16* sO = sQ + kHBlock * D;                          // dO
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);  // [stage][K, V][chunk][S][C]
   // Per stage and key: 0 attended, 1 masked, 2 past T.
-  uint8_t* codes = smem + HopperSmem::kRowData;
-  const Ring bars(smem);
+  uint8_t* codes = smem + L::kRowData;
+  const Ring<L> bars(smem);
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kHBlock, T = p.T;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int n_tiles = (T + kHStream - 1) / kHStream;
+  const int n_tiles = (T + S - 1) / S;
   if (threadIdx.x == 0) bars.init();
   __syncthreads();
 
@@ -879,24 +932,24 @@ __global__ void __launch_bounds__(kHThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kHProducerRegs));
     if (warp != 0) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(bars.own, 2 * kHBlock * kHD * 2);
-      tma_rows(sQ, &p.q, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerQ);
-      tma_rows(sO, &p.dout, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerDo);
+      mbar_arrive_expect_tx(bars.own, 2 * kHBlock * D * 2);
+      tma_rows<D, C>(sQ, &p.q, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerQ);
+      tma_rows<D, C>(sO, &p.dout, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerDo);
     }
     const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
     for (int j = 0; j < n_tiles; ++j) {
-      const int stage = j % kHStages, k0 = j * kHStream;
-      mbar_wait(&bars.empty[stage], ((j / kHStages) & 1) ^ 1);
-      for (int r = lane; r < kHStream; r += 32) {
+      const int stage = j % kStages, k0 = j * S;
+      mbar_wait(&bars.empty[stage], ((j / kStages) & 1) ^ 1);
+      for (int r = lane; r < S; r += 32) {
         const int key = k0 + r;
-        codes[stage * kHStream + r] = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
+        codes[stage * S + r] = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
       }
       if (lane == 0) {
-        bf16* k_s = ring + stage * 2 * kHStream * kHD;
-        mbar_arrive_expect_tx(&bars.full[stage], 2 * kHTile);
-        tma_rows(k_s, &p.k, &bars.full[stage], kHStream, k0, h, b, p.heads_inner & kInnerK);
-        tma_rows(k_s + kHStream * kHD, &p.v, &bars.full[stage], kHStream, k0, h, b,
-                 p.heads_inner & kInnerV);
+        bf16* k_s = ring + stage * 2 * S * D;
+        mbar_arrive_expect_tx(&bars.full[stage], 2 * L::kTile);
+        tma_rows<D, C>(k_s, &p.k, &bars.full[stage], S, k0, h, b, p.heads_inner & kInnerK);
+        tma_rows<D, C>(k_s + S * D, &p.v, &bars.full[stage], S, k0, h, b,
+                       p.heads_inner & kInnerV);
       } else {
         mbar_arrive(&bars.full[stage]);
       }
@@ -915,27 +968,27 @@ __global__ void __launch_bounds__(kHThreads, 1)
       rl_r[r] = valid ? 1.f / p.l[i] : 0.f;
       di_r[r] = valid ? p.di[i] : 0.f;
     }
-    const uint64_t q_desc = sw128_desc<false>(sQ + wg * kHRows * kHD);
-    const uint64_t do_desc = sw128_desc<false>(sO + wg * kHRows * kHD);
-    float dq[8][4];
+    const uint64_t q_desc = sw_desc<false, C>(sQ + wg * kHRows * C);
+    const uint64_t do_desc = sw_desc<false, C>(sO + wg * kHRows * C);
+    float dq[D / 8][4];
     zero_acc(dq);
     if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
     mbar_wait(bars.own, 0);
 
     for (int j = 0; j < n_tiles; ++j) {
-      const int stage = j % kHStages;
-      mbar_wait(&bars.full[stage], (j / kHStages) & 1);
-      const bf16* k_s = ring + stage * 2 * kHStream * kHD;
-      const bf16* v_s = k_s + kHStream * kHD;
-      const uint8_t* code = codes + stage * kHStream;
+      const int stage = j % kStages;
+      mbar_wait(&bars.full[stage], (j / kStages) & 1);
+      const bf16* k_s = ring + stage * 2 * S * D;
+      const bf16* v_s = k_s + S * D;
+      const uint8_t* code = codes + stage * S;
 
-      // S = Q K^T and dP = dO V^T over the warpgroup's 64 queries and the tile's 128 keys.
-      float s[16][4], dp[16][4];
+      // S = Q K^T and dP = dO V^T over the warpgroup's 64 queries and the tile's S keys.
+      float s[S / 8][4], dp[S / 8][4];
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor(s, q_desc, sw128_desc<false>(k_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(s, q_desc, sw_desc<false, C>(k_s));
       wgmma_commit();
-      product_kmajor(dp, do_desc, sw128_desc<false>(v_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(dp, do_desc, sw_desc<false, C>(v_s));
       wgmma_commit();
       turn_pass(wg);
       // P while dP is still running (0 at masked keys and past T), then
@@ -943,7 +996,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       wgmma_wait<1>();
       fence_acc(s);
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < S / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kc = code[n * 8 + 2 * t + (e & 1)];
@@ -954,16 +1007,16 @@ __global__ void __launch_bounds__(kHThreads, 1)
       wgmma_wait<0>();
       fence_acc(dp);
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+      for (int n = 0; n < S / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - di_r[e >> 1];  // dS
       // dQ += dS K (sm_scale applied at the end); K is read MN-major.
-      uint32_t da[kHStream / 16][4];
-      to_a(da, s);
+      uint32_t da[S / 16][4];
+      to_a<S>(da, s);
       fence_acc(dq);
       turn_wait(wg);
       wgmma_fence();
-      product_rs(dq, da, sw128_desc<true>(k_s));
+      product_rs<S, D, C>(dq, da, sw_desc<true, C>(k_s, L::kStreamChunk));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait();
@@ -972,7 +1025,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       if (lane == 0) mbar_arrive(&bars.empty[stage]);
     }
     if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
-    store_rows<kHD>(p.dq, dq, p.scale, p.scale, T, p.H, b, h, row0, g, t);
+    store_rows<D>(p.dq, dq, p.scale, p.scale, T, p.H, b, h, row0, g, t);
   }
 }
 
@@ -991,6 +1044,11 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // softmax of tile j runs while that P V and the other warpgroup's products
 // run. (With S and P V in turns of their own, both warpgroups' softmax
 // phases fell together, and the tensor cores waited.)
+
+// The forward's tiles: the backward's at d = 64 (128-key tiles, 4 stages).
+using FwdTilesSm90 = Sm90Tiles<kHD, 128>;
+constexpr int kHStream = FwdTilesSm90::kStream, kHStages = FwdTilesSm90::kStages;
+constexpr int kHTile = FwdTilesSm90::kTile;
 
 // One online-softmax step on a 64 x kHStream tile of raw S = Q K^T, in
 // place: the row max m (base 2) moves to the tile's, `corr` = exp2(m_old -
@@ -1045,13 +1103,13 @@ __global__ void __launch_bounds__(kHThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ HopperParams p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + HopperSmem::kOwn);  // 128 query rows
-  bf16* ring = reinterpret_cast<bf16*>(smem + HopperSmem::kRing);  // [stage][K, V][128][64]
+  bf16* sQ = reinterpret_cast<bf16*>(smem + FwdTilesSm90::kOwn);  // 128 query rows
+  bf16* ring = reinterpret_cast<bf16*>(smem + FwdTilesSm90::kRing);  // [stage][K, V][128][64]
   // Per stage and key: 0 attended, 1 masked, 2 past T; then per stage a flag:
   // whether any key of the tile is not attended.
-  uint8_t* codes = smem + HopperSmem::kRowData;
+  uint8_t* codes = smem + FwdTilesSm90::kRowData;
   uint8_t* coded = codes + kHStages * kHStream;
-  const Ring bars(smem);
+  const Ring<FwdTilesSm90> bars(smem);
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kHBlock, T = p.T;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -1093,7 +1151,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kHConsumerRegs));
     const int g = lane >> 2, t = lane & 3;
     const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
-    const uint64_t q_desc = sw128_desc<false>(sQ + wg * kHRows * kHD);
+    const uint64_t q_desc = sw_desc<false>(sQ + wg * kHRows * kHD);
     float o[8][4];
     zero_acc(o);
     float m_i[2] = {-INFINITY, -INFINITY};  // running row max (base 2), rows g and g + 8
@@ -1111,9 +1169,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
         softmax_tile<false>(s, m_i, l_i, corr, nullptr, t, p.scale_log2);
       }
     };
-    auto k_tile = [&](int stage) { return sw128_desc<false>(ring + stage * 2 * kHStream * kHD); };
+    auto k_tile = [&](int stage) { return sw_desc<false>(ring + stage * 2 * kHStream * kHD); };
     auto v_tile = [&](int stage) {
-      return sw128_desc<true>(ring + stage * 2 * kHStream * kHD + kHStream * kHD);
+      return sw_desc<true>(ring + stage * 2 * kHStream * kHD + kHStream * kHD);
     };
     // Tile 0: S alone.
     mbar_wait(&bars.full[0], 0);
@@ -1125,7 +1183,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
     wgmma_wait<0>();
     fence_acc(s);
     softmax(0);  // O is 0: no correction
-    to_a(pa, s);
+    to_a<kHStream>(pa, s);
     // Tile j: S of tile j and P V of tile j - 1 in one turn; the softmax of
     // tile j while P V runs.
     for (int j = 1; j < n_tiles; ++j) {
@@ -1136,7 +1194,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       wgmma_fence();
       product_kmajor(s, q_desc, k_tile(stage));
       wgmma_commit();
-      product_rs(o, pa, v_tile(prev));
+      product_rs<kHStream, kHD, kHD>(o, pa, v_tile(prev));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<1>();
@@ -1154,14 +1212,14 @@ __global__ void __launch_bounds__(kHThreads, 1)
         o[n][2] *= corr[1];
         o[n][3] *= corr[1];
       }
-      to_a(pa, s);
+      to_a<kHStream>(pa, s);
     }
     // P V of the last tile.
     const int last = (n_tiles - 1) % kHStages;
     fence_acc(o);
     turn_wait(wg);
     wgmma_fence();
-    product_rs(o, pa, v_tile(last));
+    product_rs<kHStream, kHD, kHD>(o, pa, v_tile(last));
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait<0>();
@@ -1190,10 +1248,12 @@ __global__ void __launch_bounds__(kHThreads, 1)
   }
 }
 
-// The Hopper kernels' parameters from the mma.sync path's -> 0, or a
+// The Hopper kernels' parameters from the mma.sync path's, at head width D
+// (tensor maps of D columns, boxes of Sm90Tiles<D>::kCols) -> 0, or a
 // negative CUresult when a tensor map cannot be encoded. Maps are made for
 // the operands the kernel reads: q, k, v, and dO unless it is null (the
 // forward).
+template <int D>
 int make_hopper_params(HopperParams* hp, const Params& p) {
   const int B = p.B, H = p.H, T = p.T;
   CUtensorMap* maps[4] = {&hp->q, &hp->k, &hp->v, &hp->dout};  // bits kInnerQ, K, V, Do
@@ -1203,7 +1263,8 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
   for (int i = 0; i < 4 && !err; ++i) {
     if (bases[i] == nullptr) continue;
     const bool heads_inner = strides[i].h < strides[i].t;  // e.g. a contiguous projection
-    err = make_map(maps[i], bases[i], strides[i], B, H, T, heads_inner);
+    err = make_map(maps[i], bases[i], strides[i], B, H, T, heads_inner, D,
+                   Sm90Tiles<D>::kCols);
     inner |= heads_inner << i;
   }
   if (err) return -err;
@@ -1225,20 +1286,38 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
 
 enum Kind { kForward, kDkv, kDq };
 
-template <Kind K>
+template <Kind K, int D>
 int launch_sm90(const Params& p, cudaStream_t stream) {
+  static_assert(K != kForward || D == kHD, "the Hopper forward is built at d = 64 only");
   void (*kernel)(HopperParams) = K == kForward ? &flash_fwd_sm90_kernel
-                                 : K == kDkv   ? &flash_dkv_sm90_kernel
-                                               : &flash_dq_sm90_kernel;
+                                 : K == kDkv   ? &flash_dkv_sm90_kernel<D>
+                                               : &flash_dq_sm90_kernel<D>;
+  constexpr int smem = K == kForward ? FwdTilesSm90::kAlloc
+                       : K == kDkv   ? Sm90Tiles<D, dkv_stream(D)>::kAlloc
+                                     : Sm90Tiles<D, kDqStream>::kAlloc;
   HopperParams hp{};
-  const int err = make_hopper_params(&hp, p);
+  const int err = make_hopper_params<D>(&hp, p);
   if (err) return err;
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HopperSmem::kAlloc);
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (configured != cudaSuccess) return static_cast<int>(configured);
   const dim3 grid((p.T + kHBlock - 1) / kHBlock, p.H, p.B);
-  kernel<<<grid, kHThreads, HopperSmem::kAlloc, stream>>>(hp);
+  kernel<<<grid, kHThreads, smem, stream>>>(hp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The Hopper dK/dV or dQ kernel at head width D.
+template <Kind K>
+int dispatch_sm90(const Params& p, int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_sm90<K, 32>(p, s);
+    case 48: return launch_sm90<K, 48>(p, s);
+    case 64: return launch_sm90<K, 64>(p, s);
+    case 96: return launch_sm90<K, 96>(p, s);
+    case 128: return launch_sm90<K, 128>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ----------------------------------------------------------------- launch
@@ -1345,11 +1424,11 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k, const v
 }
 
 // The Hopper forward, dK/dV and dQ kernels (wgmma, TMA, warp-specialised):
-// the arguments of the three above, D = 64 only. Each returns
-// cudaGetLastError() after its launch, cudaErrorInvalidValue (1) for another
-// head width, or minus the CUresult of a tensor map that cannot be encoded
-// (q, k, v and dO strides: multiples of 16 bytes below 2^40, as the wrapper
-// checks).
+// the arguments of the three above; the forward at D = 64 only, dK/dV and
+// dQ at every D of the three. Each returns cudaGetLastError() after its
+// launch, cudaErrorInvalidValue (1) for a head width it does not take, or
+// minus the CUresult of a tensor map that cannot be encoded (q, k, v and dO
+// strides: multiples of 16 bytes below 2^40, as the wrapper checks).
 extern "C" int flash_attention_forward_sm90(const void* q, const void* k, const void* v,
                                             const uint8_t* mask, void* o, float* m, float* l,
                                             int B, int H, int T, int D, const int64_t* strides,
@@ -1359,7 +1438,7 @@ extern "C" int flash_attention_forward_sm90(const void* q, const void* k, const 
   p.o = static_cast<bf16*>(o);
   p.m = m;
   p.l = l;
-  return launch_sm90<kForward>(p, static_cast<cudaStream_t>(stream));
+  return launch_sm90<kForward, kHD>(p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, const void* v,
@@ -1368,7 +1447,6 @@ extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, c
                                                  void* dk, void* dv, int B, int H, int T, int D,
                                                  const int64_t* strides, float sm_scale,
                                                  void* stream) {
-  if (D != kHD) return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
   p.dout = static_cast<const bf16*>(dout);
   p.m = const_cast<float*>(m);
@@ -1376,7 +1454,7 @@ extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, c
   p.di = di;
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
-  return launch_sm90<kDkv>(p, static_cast<cudaStream_t>(stream));
+  return dispatch_sm90<kDkv>(p, D, stream);
 }
 
 extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, const void* v,
@@ -1385,12 +1463,11 @@ extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, co
                                                 void* dq, int B, int H, int T, int D,
                                                 const int64_t* strides, float sm_scale,
                                                 void* stream) {
-  if (D != kHD) return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
   p.dout = static_cast<const bf16*>(dout);
   p.m = const_cast<float*>(m);
   p.l = const_cast<float*>(l);
   p.di = di;
   p.dq = static_cast<bf16*>(dq);
-  return launch_sm90<kDq>(p, static_cast<cudaStream_t>(stream));
+  return dispatch_sm90<kDq>(p, D, stream);
 }

@@ -311,9 +311,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // issues every product all the same: skipping them made ptxas serialize
     // the products of every block.)
     const bool idle = row0 >= T;
-    const uint64_t q_desc = sw128_desc<false>(sQ + wg * kHRows * kHD);
-    auto k_tile = [&](int stage) { return sw128_desc<false>(ring + stage * kStage); };
-    auto v_tile = [&](int stage) { return sw128_desc<false>(ring + stage * kStage + kKTile); };
+    const uint64_t q_desc = sw_desc<false>(sQ + wg * kHRows * kHD);
+    auto k_tile = [&](int stage) { return sw_desc<false>(ring + stage * kStage); };
+    auto v_tile = [&](int stage) { return sw_desc<false>(ring + stage * kStage + kKTile); };
     mbar_wait(own, 0);
     float s[16][4];
 

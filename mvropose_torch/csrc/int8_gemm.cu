@@ -359,7 +359,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
       const int stage = it % kGStages;
       mbar_wait(&full[stage], (it / kGStages) & 1);
       const unsigned char* st = ring + stage * kGStage;
-      const uint64_t a = sw128_desc<false>(st + wg * 64 * kGK), b = sw128_desc<false>(st + kATile);
+      const uint64_t a = sw_desc<false>(st + wg * 64 * kGK), b = sw_desc<false>(st + kATile);
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll

@@ -1,14 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
-// and TMA: csrc/flash_attention.cu (the flash forward, dK/dV and dQ at
-// d = 64) and csrc/int8_attention.cu (int8-probability attention).
+// and TMA: csrc/flash_attention.cu (the flash forward at d = 64, dK/dV and dQ
+// at every head width) and csrc/int8_attention.cu (int8-probability
+// attention, d = 64).
 //
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on a
 //     phase parity) for the rings that one producer warp fills with TMA;
-//   * TMA tiles of a (B, T, H, 64) bf16 operand read through its strides
-//     (`make_map`, `tma_box`, `tma_rows`), 64 x 64 boxes with the 128-byte
-//     swizzle that wgmma's descriptors (`sw128_desc`) name;
-//   * the wgmma wrappers: S = A B^T of two K-major shared tiles (m64n128k16
-//     bf16), O += P V with P in registers (m64n64k16 bf16), fences and waits;
+//   * TMA tiles of a (B, T, H, d) bf16 operand read through its strides
+//     (`make_map`, `tma_box`, `tma_rows`): 64-row boxes of one swizzle atom's
+//     columns (64, 32 or 16: 128-, 64- or 32-byte swizzle), a tile stored as
+//     its column chunks one after another, the layout wgmma's descriptors
+//     (`sw_desc`) name; at d = 64 one chunk, 64 x 64 boxes, 128-byte swizzle;
+//   * the wgmma wrappers: S = A B^T of two K-major shared tiles (m64nNk16
+//     bf16, N = 64 or 128), D += A B with A in registers and B MN-major in
+//     shared memory (N = 32 .. 128), fences and waits;
 //   * the two consumer warpgroups' turns (`turn_wait`, `turn_pass`).
 // Everything sits in an anonymous namespace: each source that includes this
 // header gets its own copy, and the C entry points stay the only exports.
@@ -32,8 +36,8 @@ struct Strides {  // element strides of a (B, T, H, d) operand whose d is unit-s
   int64_t b, t, h;
 };
 
-constexpr int kHD = 64;                        // head width of this path: one 128-byte row
-constexpr int kHRows = 64;                     // rows of a TMA box and of a consumer warpgroup
+constexpr int kHD = 64;     // the default head width: one 128-byte row, one swizzle atom
+constexpr int kHRows = 64;  // rows of a TMA box and of a consumer warpgroup
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -66,36 +70,48 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One 64 x 64 box of a (B, T, H, 64) operand, rows [row, row + 64) of head
-// h of batch element b, into shared memory (128-byte swizzled); rows past T
-// are zero-filled and still counted in the barrier's bytes.
+// One box of a (B, T, H, d) operand: columns [col, col + the map's box
+// width) of rows [row, row + 64) of head h of batch element b, into shared
+// memory (swizzled as the map says); rows past T are zero-filled and still
+// counted in the barrier's bytes.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
-                                        int h, int b, int heads_inner) {
+                                        int h, int b, int heads_inner, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(heads_inner ? h : row),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(heads_inner ? h : row),
       "r"(heads_inner ? row : h), "r"(b), "r"(smem_u32(bar))
       : "memory");
 }
 
-// `rows` rows (whole boxes) of an operand from row `row` on.
+// `rows` rows (whole boxes) of a D-wide operand from row `row` on, as a tile
+// of D / C column chunks of `rows` x C each (chunk c at dst + c rows C).
+template <int D = kHD, int C = kHD>
 __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar, int rows,
                                          int row, int h, int b, int heads_inner) {
-  for (int r = 0; r < rows; r += kHRows) {
-    tma_box(dst + r * kHD, map, bar, row + r, h, b, heads_inner);
+#pragma unroll
+  for (int c = 0; c < D / C; ++c) {
+    for (int r = 0; r < rows; r += kHRows) {
+      tma_box(dst + (c * rows + r) * C, map, bar, row + r, h, b, heads_inner, c * C);
+    }
   }
 }
 
-// wgmma matrix descriptor of a 128-byte swizzled tile (1024-byte aligned,
-// 8-row groups 1024 bytes apart). K-major: the leading offset is unused
-// (1); MN-major: both offsets are 1024 bytes (the second atom along MN is
-// never reached at N = 64), whichever of the two the hardware reads.
-template <bool MnMajor>
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t lbo = MnMajor ? 1024 >> 4 : 1, sbo = 1024 >> 4;
+// wgmma matrix descriptor of a tile stored as column chunks of C bf16, each
+// one swizzle atom wide (2C bytes: C = 64, 32, 16 for the 128-, 64-, 32-byte
+// swizzle; the default, a 128-byte row, also names an int8 tile of 128
+// columns), rows 2C bytes apart, 8-row groups 16C bytes apart (the stride
+// offset). At C = 64 an MN-major read at N = 64 never reaches a second atom. K-major: the leading offset is unused (1), and a k-step of 16
+// columns never leaves its chunk. MN-major: the leading offset is the
+// stride from one atom along MN to the next, `chunk` bytes, the distance
+// between two column chunks.
+template <bool MnMajor, int C = kHD>
+__device__ __forceinline__ uint64_t sw_desc(const void* tile, int chunk = 1024) {
+  static_assert(C == 64 || C == 32 || C == 16, "a chunk is one swizzle atom: 128, 64 or 32 bytes");
+  constexpr uint64_t mode = C == 64 ? 1 : C == 32 ? 2 : 3;
+  const uint64_t lbo = MnMajor ? static_cast<uint64_t>(chunk) >> 4 : 1, sbo = 16 * C >> 4;
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | lbo << 16 | sbo << 32 |
-         1ull << 62;
+         mode << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -137,60 +153,101 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
 
 // The accumulator of m64nN: per warp 16 rows; d[i][e] is row g + 8 (e >> 1)
 // of the warp's 16, column 8 i + 2 t + (e & 1), as N / 8 m16n8 tiles.
-#define WGMMA_D64 \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
-  "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
-  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
-  "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
-  "+f"(d[7][2]), "+f"(d[7][3])
+#define WGMMA_T(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+#define WGMMA_D32 WGMMA_T(0), WGMMA_T(1), WGMMA_T(2), WGMMA_T(3)
+#define WGMMA_D48 WGMMA_D32, WGMMA_T(4), WGMMA_T(5)
+#define WGMMA_D64 WGMMA_D48, WGMMA_T(6), WGMMA_T(7)
+#define WGMMA_D96 WGMMA_D64, WGMMA_T(8), WGMMA_T(9), WGMMA_T(10), WGMMA_T(11)
+#define WGMMA_D128 WGMMA_D96, WGMMA_T(12), WGMMA_T(13), WGMMA_T(14), WGMMA_T(15)
+#define WGMMA_D32_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WGMMA_D48_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23}"
 #define WGMMA_D64_REGS \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WGMMA_D128 \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
-  "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
-  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
-  "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
-  "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
-  "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), \
-  "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), \
-  "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
-  "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), \
-  "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), \
-  "+f"(d[15][2]), "+f"(d[15][3])
+#define WGMMA_D96_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
 #define WGMMA_D128_REGS \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
   "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-// D (+)= A B, m64n128k16, bf16 x bf16 -> f32, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss128(float (&d)[16][4], uint64_t a, uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_D128
-      : "l"(a), "l"(b), "r"(accumulate));
+
+// D (+)= A B, m64nNk16 (N = 64 or 128), bf16 x bf16 -> f32, A and B K-major
+// in shared memory; D = A B where `accumulate` is 0.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "S tiles of 64 or 128 columns");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WGMMA_D64
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WGMMA_D128
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
 }
 
-// D += A B, m64n64k16, A (16 x 16 per warp, the m16n8k16 A fragment) in
-// registers, B MN-major in shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
-      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : WGMMA_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+// D += A B, m64nNk16 (N = 32, 48, 64, 96, 128), A (16 x 16 per warp, the
+// m16n8k16 A fragment) in registers, B MN-major in shared memory (the
+// transpose bit).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 48 || N == 64 || N == 96 || N == 128, "a head width");
+  if constexpr (N == 32) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D32_REGS
+        ", {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+        : WGMMA_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " WGMMA_D48_REGS
+        ", {%24, %25, %26, %27}, %28, 1, 1, 1, 1;\n"
+        : WGMMA_D48
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
+        ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+        : WGMMA_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  } else if constexpr (N == 96) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " WGMMA_D96_REGS
+        ", {%48, %49, %50, %51}, %52, 1, 1, 1, 1;\n"
+        : WGMMA_D96
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
+        ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+        : WGMMA_D128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
 }
 
-// D = A B^T over the head width, A 64 rows, B kHStream rows: 4 k-steps of
-// 16 columns (32 bytes) along the K-major rows of both tiles.
-__device__ __forceinline__ void product_kmajor(float (&d)[16][4], uint64_t a, uint64_t b) {
+// S = A B^T over a head width D: A 64 rows, B N rows, both K-major tiles of
+// D / C column chunks (chunk c AChunk bytes after chunk 0 in A, BChunk in
+// B): D / 16 k-steps of 16 columns (32 bytes), step kk in chunk 16 kk / C.
+template <int N = 128, int D = kHD, int C = kHD, int AChunk = 0, int BChunk = 0>
+__device__ __forceinline__ void product_kmajor(float (&d)[N / 8][4], uint64_t a, uint64_t b) {
 #pragma unroll
-  for (int kk = 0; kk < kHD / 16; ++kk) wgmma_ss128(d, a + 2 * kk, b + 2 * kk, kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / C, in_chunk = kk * 16 % C * 2;
+    wgmma_ss<N>(d, a + ((c * AChunk + in_chunk) >> 4), b + ((c * BChunk + in_chunk) >> 4), kk > 0);
+  }
 }
 
 // The consumer warpgroups take turns to issue their products (ping-pong):
@@ -239,24 +296,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a (B, T, H, 64) bf16 operand through its element
+// A tensor map over a (B, T, H, d) bf16 operand through its element
 // strides: dims (d, T, H, B), or (d, H, T, B) when `heads_inner`; boxes of
-// 64 rows x 64, 128-byte swizzle, rows past T zero-filled. -> 0 or the
-// CUresult of the encoding.
-int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T, bool heads_inner) {
+// 64 rows x `cols` (64, 32 or 16: one 128-, 64- or 32-byte swizzle atom),
+// rows past T zero-filled. -> 0 or the CUresult of the encoding.
+int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T, bool heads_inner,
+             int d = kHD, int cols = kHD) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t t = static_cast<cuuint64_t>(T), hh = static_cast<cuuint64_t>(H);
   const cuuint64_t st = static_cast<cuuint64_t>(s.t) * 2, sh = static_cast<cuuint64_t>(s.h) * 2;
-  const cuuint64_t dims[4] = {kHD, heads_inner ? hh : t, heads_inner ? t : hh,
-                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), heads_inner ? hh : t,
+                              heads_inner ? t : hh, static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {heads_inner ? sh : st, heads_inner ? st : sh,
                                  static_cast<cuuint64_t>(s.b) * 2};
-  const cuuint32_t box[4] = {kHD, heads_inner ? 1u : kHRows, heads_inner ? kHRows : 1u, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), heads_inner ? 1u : kHRows,
+                             heads_inner ? kHRows : 1u, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 

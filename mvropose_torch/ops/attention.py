@@ -18,12 +18,15 @@ read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
 
 Four routes (`kernel_route`), each a forward, a dK/dV and a dQ kernel. bf16
-goes by head width: d in `WGMMA_HEAD_DIMS` (64, every main path's width:
-ViT-B/16 and `SelfAttentionFusion` at 768 / 12 heads) takes the Hopper
-kernels of `csrc/flash_attention.cu` (wgmma, TMA and a warp-specialised
-mbarrier ring; they need whole 128-byte rows, a 128-byte swizzle atom, which
-d = 48 and 96 do not fill); the other widths of `HEAD_DIMS` take its
-mma.sync kernels. f32 and f16 take the kernels of
+goes by head width and by part, the forward and the backward apart: d in
+`WGMMA_HEAD_DIMS[part]` takes the Hopper kernels of `csrc/flash_attention.cu`
+(wgmma, TMA and a warp-specialised mbarrier ring), the other widths of
+`HEAD_DIMS` its mma.sync kernels. The backward takes the Hopper pair at every
+width; the forward at 64 only (every main path's width: ViT-B/16 and
+`SelfAttentionFusion` at 768 / 12 heads), so at the other widths the Hopper
+backward reads the mma.sync forward's m and l, saved in the same units.
+`mma_sync_route()` puts every bf16 width on the mma.sync kernels, only for
+chip_smoke.py's comparisons on the card. f32 and f16 take the kernels of
 `csrc/flash_attention_simt.cu` ("simt_f32", "simt_f16"), which compute in
 f32 on the CUDA cores (the reference's flash branch runs f32 on a TPU; bf16
 tensor-core products would round it). A width outside `HEAD_DIMS` raises on
@@ -34,6 +37,8 @@ saved statistics, in plain torch: the yardsticks of the kernels alone.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import math
@@ -42,14 +47,15 @@ import torch
 
 from mvropose_torch.ops._build import current_stream, device_context, load_library
 
-# Launches of the forward, dK/dV and dQ kernels.
-launches = 0
-dkv_launches = 0
-dq_launches = 0
+# Launches of the forward, dK/dV and dQ kernels by route:
+# {("fwd" | "dkv" | "dq", route): count}.
+route_launches = collections.Counter()
 
 FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
 HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
-WGMMA_HEAD_DIMS = (64,)  # the head widths that take the Hopper kernels
+# part: the bf16 head widths whose part ("fwd", or "bwd": dK/dV and dQ) takes the Hopper kernels.
+WGMMA_HEAD_DIMS = {"fwd": (64,), "bwd": HEAD_DIMS}
+_MMA_SYNC_ROUTE = False  # set only inside `mma_sync_route()`
 # route: the C entry points of its forward, dK/dV and dQ kernels.
 ENTRY_POINTS = {
     "mma_sync": ("flash_attention_forward", "flash_attention_backward_dkv",
@@ -109,19 +115,41 @@ def _kernels() -> dict:
     return bound
 
 
-def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
-    """The kernels a head width and an operand dtype take, forward and
-    backward alike: for bf16 "wgmma" (Hopper: wgmma, TMA, warp-specialised)
-    at d in WGMMA_HEAD_DIMS and "mma_sync" at the other HEAD_DIMS; "simt_f32"
-    or "simt_f16" (f32 arithmetic on the CUDA cores) for f32 or f16; raises
-    for a width or a dtype without kernels."""
+def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16, part: str = "fwd") -> str:
+    """The kernels that `part` ("fwd", or "bwd": dK/dV and dQ) takes at a
+    head width and an operand dtype: for bf16 "wgmma" (Hopper: wgmma, TMA,
+    warp-specialised) at d in WGMMA_HEAD_DIMS[part] and "mma_sync" at the
+    other HEAD_DIMS (at every one inside `mma_sync_route()`); "simt_f32" or
+    "simt_f16" (f32 arithmetic on the CUDA cores) for f32 or f16; raises for
+    a width, a dtype or a part without kernels."""
+    if part not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"part is 'fwd' or 'bwd', got {part!r}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
     if dtype == torch.bfloat16:
-        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+        return "wgmma" if d in WGMMA_HEAD_DIMS[part] and not _MMA_SYNC_ROUTE else "mma_sync"
     if dtype not in SIMT_ROUTES:
         raise ValueError(f"the flash-attention kernels take bf16, f16 or f32 operands, got {dtype}")
     return SIMT_ROUTES[dtype]
+
+
+@contextlib.contextmanager
+def mma_sync_route():
+    """Within this block every bf16 width takes the mma.sync kernels, the
+    forward and the backward (the Hopper kernels' predecessors). It exists
+    only for chip_smoke.py's comparisons of the two routes on the card: no
+    main path enters it."""
+    global _MMA_SYNC_ROUTE
+    saved, _MMA_SYNC_ROUTE = _MMA_SYNC_ROUTE, True
+    try:
+        yield
+    finally:
+        _MMA_SYNC_ROUTE = saved
+
+
+def part_launches(part: str) -> int:
+    """Launches of `part`'s kernels ("fwd", "dkv" or "dq") over every route."""
+    return sum(n for (p, _), n in route_launches.items() if p == part)
 
 
 def flash_rule(device_type: str, tokens: int) -> bool:
@@ -190,7 +218,6 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
     that `flash_attention_cuda` takes (mask as `mask_bytes`) -> (O (B, T, H,
     d) in q's dtype, m, l), with the row statistics m (base 2) and l as (B,
     H, T) f32 when `save_stats`."""
-    global launches
     B, T, H, d = q.shape
     route = kernel_route(d, q.dtype)
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
@@ -206,7 +233,7 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
                                        o.data_ptr(), _ptr(m), _ptr(l), B, H, T, d,
                                        _strides(q, k, v), 1.0 / math.sqrt(d), stream)
         _raise_on(err, f"forward ({route})")
-        launches += 1
+        route_launches["fwd", route] += 1
     return o, m, l
 
 
@@ -266,11 +293,11 @@ def _backward_args(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dK/dV kernel of `kernel_route(d, q.dtype)`: the
-    forward's operands and statistics, dO in their layout and dtype and di =
+    """Launch the dK/dV kernel of `kernel_route(d, q.dtype, "bwd")`: the
+    forward's operands and statistics (m in base 2 and l, as every route's
+    forward saves them), dO in their layout and dtype and di =
     `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) in q's dtype."""
-    global dkv_launches
-    route = kernel_route(q.shape[-1], q.dtype)
+    route = kernel_route(q.shape[-1], q.dtype, "bwd")
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
@@ -279,15 +306,14 @@ def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
             stream = current_stream(dev)
             err = _kernels()[route][1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
         _raise_on(err, f"dK/dV ({route})")
-        dkv_launches += 1
+        route_launches["dkv", route] += 1
     return dk, dv
 
 
 def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dQ kernel of `kernel_route(d, q.dtype)` (arguments as
-    `flash_backward_dkv_cuda`) -> dQ."""
-    global dq_launches
-    route = kernel_route(q.shape[-1], q.dtype)
+    """Launch the dQ kernel of `kernel_route(d, q.dtype, "bwd")` (arguments
+    as `flash_backward_dkv_cuda`) -> dQ."""
+    route = kernel_route(q.shape[-1], q.dtype, "bwd")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
@@ -296,7 +322,7 @@ def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
             stream = current_stream(dev)
             err = _kernels()[route][2](*ptrs, dq.data_ptr(), *dims, stream)
         _raise_on(err, f"dQ ({route})")
-        dq_launches += 1
+        route_launches["dq", route] += 1
     return dq
 
 

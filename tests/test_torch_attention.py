@@ -90,7 +90,7 @@ def test_fused_self_attention_matches_jax_flash(B, T, H, d, masked):
         np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5, err_msg=f"out {use_flash}")
         for name, g, w in zip("qkv", got[1:], want[1:]):
             np.testing.assert_allclose(g, w, rtol=0, atol=2e-5, err_msg=f"d{name} {use_flash}")
-    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+    assert not attention.route_launches
 
 
 def _all_masked_case():
@@ -147,13 +147,16 @@ def test_flash_kernels_refuse_cpu_and_unsupported_inputs():
         attention.flash_attention_cuda(*bf(64)[:2], bf(64, torch.float32)[0])
     with pytest.raises(ValueError, match="CUDA tensors"):
         attention.fused_self_attention(*bf(64), use_flash=True)
-    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+    assert not attention.route_launches
 
 
 @pytest.mark.parametrize("B, T, H, d, masked, all_masked", [
     (2, 37, 2, 64, True, True),  # batch element 1 has no valid key
-    (1, 130, 3, 48, True, False),  # T past a 128-row tile, d without a Hopper kernel
+    (1, 130, 3, 48, True, False),  # T past a 128-row tile, d of three 16-column chunks
     (2, 129, 2, 64, False, False),  # one row past a 128-row tile
+    (2, 45, 2, 32, False, False),  # d of one 32-column chunk
+    (1, 70, 2, 96, True, False),  # T past a 64-row tile (d >= 96 streams 64 rows)
+    (1, 131, 1, 128, False, False),  # d of two 64-column chunks
 ])
 def test_flash_backward_plain_matches_autograd_and_jax_flash(B, T, H, d, masked, all_masked):
     """`flash_backward_plain` (the kernels' interface: saved m in base 2 and
@@ -190,7 +193,7 @@ def test_flash_backward_plain_matches_autograd_and_jax_flash(B, T, H, d, masked,
     if all_masked:
         np.testing.assert_array_equal(np32(m[1]), np.float32(attention.MASKED_LOGIT))
         np.testing.assert_allclose(np32(l[1]), T, rtol=1e-6)
-    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+    assert not attention.route_launches
 
 
 CSRC = Path(attention.__file__).resolve().parents[1] / "csrc"
@@ -198,16 +201,19 @@ CSRC = Path(attention.__file__).resolve().parents[1] / "csrc"
 
 @pytest.mark.parametrize("d", [*attention.HEAD_DIMS, 16, 40, 256])
 def test_backward_route_by_head_width(d):
-    """One rule for the forward and the backward: in bf16 d = 64 takes the
-    Hopper forward, dK/dV and dQ kernels, the other widths of HEAD_DIMS the
-    mma.sync ones; f32 and f16 take the f32-arithmetic kernels of
-    flash_attention_simt.cu at every width; each route's three C entry
-    points are declared in its source; a width without kernels raises, on
-    the rule and on the wrappers, which count nothing."""
+    """The forward and the backward route apart: in bf16 the backward
+    (dK/dV and dQ) takes the Hopper kernels at every width of HEAD_DIMS, the
+    forward at d = 64 only and the mma.sync kernel at the other widths;
+    inside `mma_sync_route()` both parts take mma.sync at every width; f32
+    and f16 take the f32-arithmetic kernels of flash_attention_simt.cu at
+    every width; each route's three C entry points are declared in its
+    source; a width without kernels raises, on the rule and on the
+    wrappers, which count nothing."""
     if d not in attention.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
-            with pytest.raises(ValueError, match=f"d = {d}"):
-                attention.kernel_route(d, dtype)
+            for part in ("fwd", "bwd"):
+                with pytest.raises(ValueError, match=f"d = {d}"):
+                    attention.kernel_route(d, dtype, part)
         q = torch.zeros(1, 8, 2, d, dtype=torch.bfloat16)
         stat = torch.ones(1, 2, 8)
         for fn in (attention.flash_backward_dkv_cuda, attention.flash_backward_dq_cuda):
@@ -217,15 +223,26 @@ def test_backward_route_by_head_width(d):
             attention.flash_attention_cuda(q, q, q)
         with pytest.raises(ValueError, match=f"d = {d}"):
             attention.flash_forward_cuda(q, q, q)
-        assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+        assert not attention.route_launches
         return
-    route = attention.kernel_route(d)
-    assert route == attention.kernel_route(d, torch.bfloat16) == (
+    forward = attention.kernel_route(d)
+    assert forward == attention.kernel_route(d, torch.bfloat16, "fwd") == (
         "wgmma" if d == 64 else "mma_sync")
-    assert (d in attention.WGMMA_HEAD_DIMS) == (d == 64)
-    assert attention.kernel_route(d, torch.float32) == "simt_f32"
-    assert attention.kernel_route(d, torch.float16) == "simt_f16"
-    for route, source, suffix in ((route, "flash_attention.cu", "_sm90" if d == 64 else ""),
+    assert attention.kernel_route(d, torch.bfloat16, "bwd") == "wgmma"
+    assert (d in attention.WGMMA_HEAD_DIMS["fwd"]) == (d == 64)
+    assert d in attention.WGMMA_HEAD_DIMS["bwd"]
+    with attention.mma_sync_route():
+        for part in ("fwd", "bwd"):
+            assert attention.kernel_route(d, torch.bfloat16, part) == "mma_sync"
+            assert attention.kernel_route(d, torch.float32, part) == "simt_f32"
+    assert attention.kernel_route(d, torch.bfloat16, "bwd") == "wgmma"
+    for part in ("fwd", "bwd"):
+        assert attention.kernel_route(d, torch.float32, part) == "simt_f32"
+        assert attention.kernel_route(d, torch.float16, part) == "simt_f16"
+    with pytest.raises(ValueError, match="part"):
+        attention.kernel_route(d, torch.bfloat16, "dq")
+    for route, source, suffix in (("mma_sync", "flash_attention.cu", ""),
+                                  ("wgmma", "flash_attention.cu", "_sm90"),
                                   ("simt_f32", "flash_attention_simt.cu", "_f32"),
                                   ("simt_f16", "flash_attention_simt.cu", "_f16")):
         forward, dkv, dq = attention.ENTRY_POINTS[route]
@@ -261,7 +278,7 @@ def test_cpu_tensors_take_the_plain_branch_at_any_t():
     reference: a TPU at T >= 2048); a CPU q takes the plain branch at any T."""
     q = torch.zeros(1, attention.FLASH_MIN_TOKENS, 1, 32)
     out = attention.fused_self_attention(q, q, q)
-    assert out.shape == q.shape and attention.launches == 0
+    assert out.shape == q.shape and attention.part_launches("fwd") == 0
     assert attention.FLASH_MIN_TOKENS == 2048
 
 
@@ -388,7 +405,7 @@ def test_estimator_at_t_2117_matches_jax(long_model):
         hm, ang = port(*(torch.from_numpy(a) for a in batch.values()))
     np.testing.assert_allclose(np32(hm), np32(hm_ref), rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(np32(ang), np32(ang_ref), rtol=1e-3, atol=1e-3)
-    assert attention.launches == 0
+    assert attention.part_launches("fwd") == 0
 
 
 def test_unfrozen_train_step_at_t_2117_matches_jax(long_model, jax_without_dropout, tmp_path):
@@ -434,7 +451,7 @@ def test_unfrozen_train_step_at_t_2117_matches_jax(long_model, jax_without_dropo
         scale = float(np.abs(want).max())
         np.testing.assert_allclose(np32(params[name].grad), want, rtol=1e-3,
                                    atol=1e-4 * scale + 1e-8 * top, err_msg=name)
-    assert attention.launches == attention.dkv_launches == attention.dq_launches == 0
+    assert not attention.route_launches
 
 
 # --- the kernels on the card ------------------------------------------------------------
@@ -445,6 +462,10 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the flash-attention kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _part_launches() -> tuple:
+    return tuple(map(attention.part_launches, ("fwd", "dkv", "dq")))
 
 
 def _card_case(device, B, T, H, d, masked, seed):
@@ -485,11 +506,11 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked):
     branch's dQ and dK are exactly 0 (a softmax over one key) and the
     kernels' a difference of two f32 sums of the same products."""
     case = _card_case(cuda_device, B, T, H, d, masked, seed=T)
-    before = (attention.launches, attention.dkv_launches, attention.dq_launches)
+    before = _part_launches()
     kernel = _errors(attention.flash_attention_cuda, *case)
     plain = _errors(attention.flash_attention_reference, *case)
     torch.cuda.synchronize()
-    assert (attention.launches, attention.dkv_launches, attention.dq_launches) == tuple(
+    assert _part_launches() == tuple(
         n + 1 for n in before)
     for name, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), kernel, plain):
         assert e_kernel <= max(e_plain, 1e-6), (name, e_kernel, e_plain)
@@ -506,7 +527,7 @@ def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     kernels round their outputs to f16 once)."""
     q, k, v, do, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
                          for t in _card_case(cuda_device, 2, 2305, 2, d, True, seed=d))
-    before = (attention.launches, attention.dkv_launches, attention.dq_launches)
+    before = _part_launches()
     ts = [t.detach().requires_grad_() for t in (q, k, v)]
     out = attention.fused_self_attention(*ts, key_mask=mask)
     out.backward(do)
@@ -515,7 +536,7 @@ def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     out_ref.backward(do.float())
     torch.cuda.synchronize()
     assert out.dtype == dtype
-    assert (attention.launches, attention.dkv_launches, attention.dq_launches) == tuple(
+    assert _part_launches() == tuple(
         n + 1 for n in before)
     rel = 1e-5 if dtype == torch.float32 else 2.0 ** -10
     for name, a, b in zip(("O", "dQ", "dK", "dV"), (out, *(t.grad for t in ts)),
@@ -527,10 +548,13 @@ def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B, T, H, d, masked", [
     (2, 2305, 3, 64, True), (2, 129, 2, 64, False), (1, 300, 2, 48, True),
+    (2, 2305, 4, 32, True), (2, 2305, 2, 96, True), (2, 2305, 2, 128, True),
+    (2, 129, 3, 48, False),
 ])
 def test_backward_kernels_alone_match_plain_on_card(cuda_device, B, T, H, d, masked):
-    """Each backward kernel alone against `flash_backward_plain` in f32 on
-    the forward kernel's saved statistics: within 2^-6 of the plain
+    """Each backward kernel alone (the Hopper dK/dV and dQ at every width)
+    against `flash_backward_plain` in f32 on the forward kernel's saved
+    statistics (the mma.sync forward's at d != 64): within 2^-6 of the plain
     gradient's largest magnitude (the kernels round P, dS and their outputs
     to bf16), plus 1e-6; two calls are bit-identical (no atomics)."""
     q, k, v, do, mask = _card_case(cuda_device, B, T, H, d, masked, seed=T + 1)
@@ -539,9 +563,12 @@ def test_backward_kernels_alone_match_plain_on_card(cuda_device, B, T, H, d, mas
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
     want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
                                           *args[5:])
+    before = attention.route_launches.copy()
     runs = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
             for _ in range(2)]
     torch.cuda.synchronize()
+    launched = attention.route_launches - before
+    assert launched == {("dq", "wgmma"): 2, ("dkv", "wgmma"): 2}, launched
     for name, a, b, w in zip(("dQ", "dK", "dV"), *runs, want):
         assert torch.equal(a, b), name
         err = float((a.float() - w).abs().max())

@@ -87,14 +87,22 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          forward's statistics; timed at (8, 2305, 768 / d, d): the forward
          and forward + backward beside the plain branch and SDPA, both
          backward pairs in turns beside SDPA's backward alone;
-       * the port's two repaired faults: f32 and f16 CUDA operands at
-         T = 2305 launch the f32-arithmetic forward, dK/dV and dQ kernels
-         once each and agree with the plain branch in f32, each kernel
-         alone too, two calls bit-identical; they are timed in f32 and f16
-         beside the plain branch and SDPA (bf16 at that shape launches one
-         forward); `serve --replay-dir` on a directory of PNG frames exits
-         naming the missing decoder where cv2 cannot be imported, and
-         serves where it can;
+       * f32 and f16 CUDA operands at T = 2305 (`phase_simt`): f32 launches
+         the f32-arithmetic forward, dK/dV and dQ kernels once each, f16
+         that forward and the f16 Hopper dK/dV and dQ once each; both agree
+         with the plain branch in f32, each kernel alone too (and the simt
+         f16 pair, which no route takes any more), two calls bit-identical;
+         they are timed in f32 and f16 beside the plain branch and SDPA,
+         the f16 pair in turns with the simt f16 pair (bf16 at that shape
+         launches one forward); `serve --replay-dir` on a directory of PNG
+         frames exits naming the missing decoder where cv2 cannot be
+         imported, and serves where it can;
+       * the f16 backward at (8, 2305, 768 / d, d), every width
+         (`phase_flash_f16`): the f16 Hopper pair and the simt f16 pair
+         alone against `flash_backward_plain` on the simt forward's
+         statistics, with a mask, two calls bit-identical; timed without
+         a mask, the two pairs in turns beside SDPA f16's backward alone,
+         and the f16 pair in turns with the bf16 pair;
        * `serve --model-size 768`: 12 forward launches per tick; the bare
          768-px step timed, never synchronizing, against the plain path;
        * the unfrozen 768-px train step (fr3, 2 groups x 4 views): backbone
@@ -104,8 +112,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          path, and its mask invariance. Every other path launches no flash
          kernel;
   8. a JSON line per kernel (the flash kernels also with their mma.sync time,
-     for f32 and f16 operands `f32_ms`, `f16_ms` and their bounds, and the
-     backward's times at the other widths under `widths`), the card and its
+     for f32 and f16 operands `f32_ms`, `f16_ms` (the backward's also
+     `f16_simt_ms`, the simt pair's) and their bounds, the bf16 backward's
+     times at the other widths under `widths`, the f16 backward's at every
+     width under `f16_widths`), the card and its
      power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -313,8 +323,11 @@ def spilled_bytes(log: str) -> dict:
 
 
 # The Hopper kernels of the build: the flash forward at d = 64, the flash
-# dK/dV and dQ at every head width, the int8 attention and the int8 GEMM.
-HOPPER_KERNELS = 1 + 2 * len(attention.HEAD_DIMS) + 2
+# dK/dV and dQ at every head width in bf16 and in f16, the int8 attention
+# and the int8 GEMM.
+HOPPER_KERNELS = 1 + 2 * 2 * len(attention.HEAD_DIMS) + 2
+# The element types of the flash backward's instantiations, as mangled names spell them.
+HOPPER_TYPES = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
 
 
 def phase_build() -> None:
@@ -330,14 +343,15 @@ def phase_build() -> None:
         text = log.read_text().strip()
         print(text)
         hopper = {k: v for k, v in spilled_bytes(text).items() if "sm90_kernel" in k}
-        widths = {kind: sorted(int(w) for k in hopper
-                               for w in re.findall(rf"flash_{kind}_sm90_kernelILi(\d+)EE", k))
-                  for kind in ("dkv", "dq")}
+        widths = {(kind, ty): sorted(
+            int(w) for k in hopper
+            for w in re.findall(rf"flash_{kind}_sm90_kernelILi(\d+)E{mangled}E", k))
+            for kind in ("dkv", "dq") for ty, mangled in HOPPER_TYPES.items()}
         check(len(hopper) == HOPPER_KERNELS and not any(hopper.values()) and
               all(w == list(attention.HEAD_DIMS) for w in widths.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
         print(f"Hopper kernels: {len(hopper)}, none spills; flash backward instantiations at "
-              f"d = {widths['dkv']} (dK/dV), {widths['dq']} (dQ)")
+              + ", ".join(f"d = {w} ({kind}, {ty})" for (kind, ty), w in widths.items()))
 
 
 def _tie_maps(rng) -> np.ndarray:
@@ -1017,6 +1031,8 @@ FLASH_ERR_FLOOR = 1e-6
 # 2^-6 is four such roundings of the largest value; FLASH_ERR_FLOOR beside
 # it for gradients that are 0 in exact arithmetic (T = 1).
 BACKWARD_TOL = 2.0 ** -6
+# The f16 Hopper pair, the same way with f16's half ulp (2^-11): 2^-9.
+F16_BACKWARD_TOL = 2.0 ** -9
 # The forward kernel alone against `flash_forward_plain` in f32 on the same
 # bf16 values. O no further from it than the bf16 plain branch's O is (or
 # FLASH_ERR_FLOOR): both round to bf16 the probabilities they multiply by V
@@ -1039,6 +1055,13 @@ SIMT_TOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -10}
 SIMT_SHAPE = (2, 2305, 12, 64)  # the 768-px serve backbone's T at 2 images
 
 
+def backward_tol(route: str) -> float:
+    """The bound of a backward route's gradients against the plain version
+    in f32, as a share of the plain gradient's largest magnitude."""
+    return {"wgmma_f16": F16_BACKWARD_TOL, "simt_f16": SIMT_TOL[torch.float16],
+            "simt_f32": SIMT_TOL[torch.float32]}.get(route, BACKWARD_TOL)
+
+
 def _flash_mask(kind, B: int, T: int, gen):
     if kind is None:
         return None
@@ -1052,28 +1075,33 @@ def _flash_mask(kind, B: int, T: int, gen):
 
 
 def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int,
-                    heads_outer: bool = False):
-    """bf16 (B, T, H, d) leaves q, k, v, a cotangent dO and a mask; with
+                    heads_outer: bool = False, dtype=torch.bfloat16):
+    """(B, T, H, d) leaves q, k, v of `dtype`, a cotangent dO and a mask; with
     `heads_outer` q, k, v are (B, H, T, d) storage seen as (B, T, H, d)."""
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(B, T, H, d, generator=gen).to("cuda", torch.bfloat16)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn(B, T, H, d, generator=gen).to("cuda", dtype) for _ in range(4))
     if heads_outer:
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     return [t.requires_grad_() for t in (q, k, v)], do, _flash_mask(mask_kind, B, T, gen)
 
 
 def on_route(route: str):
-    """The kernels on `route`: d's own ("wgmma" where the part takes it) or
-    "mma_sync" (`attention.mma_sync_route()`)."""
-    return attention.mma_sync_route() if route == "mma_sync" else contextlib.nullcontext()
+    """The kernels on `route`: d's own, "mma_sync" (`attention.mma_sync_route()`)
+    or, for f16's backward, "simt_f16" (`attention.simt_f16_route()`)."""
+    if route == "mma_sync":
+        return attention.mma_sync_route()
+    return attention.simt_f16_route() if route == "simt_f16" else contextlib.nullcontext()
 
 
-def routes(d: int, part: str = "fwd") -> list:
-    """The route of d's `part` ("fwd" or "bwd") and, where that is wgmma,
-    the mma.sync route too."""
-    own = attention.kernel_route(d, part=part)
-    return [own, "mma_sync"] if own == "wgmma" else [own]
+# A Hopper route: the route it replaced, which chip_smoke.py still compares it with.
+PREDECESSOR = {"wgmma": "mma_sync", "wgmma_f16": "simt_f16"}
+
+
+def routes(d: int, part: str = "fwd", dtype=torch.bfloat16) -> list:
+    """The route of d's `part` ("fwd" or "bwd") in `dtype` and, where that
+    is a Hopper route, its predecessor too."""
+    own = attention.kernel_route(d, dtype, part)
+    return [own, PREDECESSOR[own]] if own in PREDECESSOR else [own]
 
 
 def dropped_tile_gap(q, k, v, mask_u8, o_ref, tile: int):
@@ -1127,18 +1155,18 @@ def forward_alone(q, k, v, mask, tol_o: float) -> dict:
 def backward_alone(q, k, v, mask, do) -> dict:
     """The dQ and dK/dV kernels alone against `flash_backward_plain` in f32
     on the same saved statistics (the forward kernel's m and l on d's own
-    forward route, mma.sync at d != 64; di of its O), on each of the
-    backward's `routes`: each gradient within BACKWARD_TOL of the plain
-    one's largest magnitude (plus FLASH_ERR_FLOOR), and two calls
-    bit-identical. -> {route: [err dQ, dK, dV]}."""
+    forward route: mma.sync at d != 64 in bf16, simt in f16 and f32; di of
+    its O), on each of the backward's `routes`: each gradient within its
+    route's `backward_tol` of the plain one's largest magnitude (plus
+    FLASH_ERR_FLOOR), and two calls bit-identical. -> {route: [err dQ, dK, dV]}."""
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
     want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
                                           *args[5:])
-    tols = [BACKWARD_TOL * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
     errs = {}
-    for route in routes(q.shape[-1], "bwd"):
+    for route in routes(q.shape[-1], "bwd", q.dtype):
+        tols = [backward_tol(route) * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
         with on_route(route):
             runs = [(attention.flash_backward_dq_cuda(*args),
                      *attention.flash_backward_dkv_cuda(*args)) for _ in range(2)]
@@ -1227,26 +1255,35 @@ def _in_turns(timer, first, second) -> tuple:
     return statistics.median(t[1:3]), statistics.median(t[0::3])
 
 
-def backward_times(B: int, T: int, mask_kind, timer, H: int = 12, d: int = 64) -> dict:
-    """At (B, T, H, d): the dK/dV and dQ kernels alone on one forward's
-    statistics (d's own forward route), wgmma and mma.sync routes in turns
-    mma.sync/wgmma/wgmma/mma.sync; their plain versions (the plain branch's
-    forward and its gradients: dK, dV or dQ); SDPA's backward alone
+def backward_times(B: int, T: int, mask_kind, timer, H: int = 12, d: int = 64,
+                   dtype=torch.bfloat16) -> dict:
+    """At (B, T, H, d) in `dtype`: the dK/dV and dQ kernels alone on one
+    forward's statistics (d's own forward route), where the backward's route
+    has a predecessor (`routes`: bf16's mma.sync, f16's simt pair) both in
+    turns predecessor/own/own/predecessor, the predecessor's under its
+    name (`flash_bwd_dkv_mma_sync`); their plain versions (the plain
+    branch's forward and its gradients: dK, dV or dQ); SDPA's backward alone
     (`torch.autograd.grad` on a saved SDPA forward, the library yardstick of
     the pair, timed only here). -> ms by key."""
     bench = _script("torch_bench_attention_fusion")
-    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=81)
+    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=81, dtype=dtype)
     q, k, v = (t.detach() for t in qkv)
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
+    older = routes(d, "bwd", dtype)[1:]
     out = {}
     for kname, call in (("flash_bwd_dkv", attention.flash_backward_dkv_cuda),
                         ("flash_bwd_dq", attention.flash_backward_dq_cuda)):
-        def mma(call=call):
-            with attention.mma_sync_route():
-                call(*args)
-        out[kname], out[kname + "_mma_sync"] = _in_turns(timer, mma, lambda call=call: call(*args))
+        def own(call=call):
+            call(*args)
+        for route in older:
+            def old(call=call, route=route):
+                with on_route(route):
+                    call(*args)
+            out[kname], out[f"{kname}_{route}"] = _in_turns(timer, old, own)
+        if not older:
+            out[kname] = timer(own)
     plain = attention.flash_attention_reference
     out["flash_bwd_dkv_plain"] = timer(lambda: torch.autograd.grad(plain(*qkv, mask), qkv[1:], do))
     out["flash_bwd_dq_plain"] = timer(lambda: torch.autograd.grad(plain(*qkv, mask), qkv[:1], do))
@@ -1476,7 +1513,8 @@ def phase_counters() -> None:
     calls = list(calls.items())
     for d, dtype, route in ((32, torch.bfloat16, "own"), (32, torch.bfloat16, "mma_sync"),
                             (64, torch.bfloat16, "own"), (64, torch.float32, "own"),
-                            (64, torch.float16, "own")):  # every route of every part
+                            (64, torch.float16, "own"),
+                            (64, torch.float16, "simt_f16")):  # every route of every part
         def on(fn, d=d, dtype=dtype, route=route):
             def call(n):
                 with on_route(route):
@@ -1499,51 +1537,45 @@ def phase_counters() -> None:
           "for every kernel, the flash kernels on every route")
 
 
-def _simt_alone(q, k, v, mask, do, tol: float) -> list:
-    """The f32-arithmetic forward, dK/dV and dQ kernels alone against
-    `flash_forward_plain` and `flash_backward_plain` in f32 on the same
-    values and the kernel's own statistics: O, dQ, dK, dV within tol of the
-    plain one's largest magnitude (plus FLASH_ERR_FLOOR), m and l as in
-    `forward_alone`, two calls bit-identical. -> [err O, m, l, dQ, dK, dV]."""
+def _simt_alone(q, k, v, mask) -> list:
+    """The f32-arithmetic forward alone against `flash_forward_plain` in f32
+    on the same values: O within SIMT_TOL of the plain O's largest magnitude
+    (plus FLASH_ERR_FLOOR), m and l as in `forward_alone`, two calls
+    bit-identical. -> [err O, m, l]."""
     mask_u8 = attention.mask_bytes(mask)
     runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
-    o, m, l = runs[0]
-    args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
-    grads = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
-             for _ in range(2)]
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(*runs)) and
-          all(torch.equal(a, b) for a, b in zip(*grads)),
-          f"{q.dtype}: two calls of a kernel on the same inputs differ")
-    f32 = [t.float() for t in (q, k, v)]
-    o_ref, m_ref, l_ref = attention.flash_forward_plain(*f32, mask_u8)
-    want = attention.flash_backward_plain(*f32, mask_u8, do.float(), *args[5:])
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{q.dtype}: two forward calls on the same inputs differ")
+    o, m, l = runs[0]
+    o_ref, m_ref, l_ref = attention.flash_forward_plain(q.float(), k.float(), v.float(), mask_u8)
     attended = m_ref > attention.MASKED_LOGIT
     check(torch.equal(m[~attended], m_ref[~attended]),
           f"{q.dtype}: an all-masked row's m is not bf16's lowest finite value")
     errs = [float((o.float() - o_ref).abs().max()), float((m - m_ref)[attended].abs().max()),
             float(((l - l_ref) / l_ref).abs().max())]
-    tols = [tol * float(o_ref.abs().max()) + FLASH_ERR_FLOOR, STAT_TOL, 2 * STAT_TOL]
-    for g, w in zip(grads[0], want):
-        errs.append(float((g.float() - w).abs().max()))
-        tols.append(tol * float(w.abs().max()) + FLASH_ERR_FLOOR)
-    for part, e, t in zip(("O", "m", "l", "dQ", "dK", "dV"), errs, tols):
+    tols = [SIMT_TOL[q.dtype] * float(o_ref.abs().max()) + FLASH_ERR_FLOOR, STAT_TOL, 2 * STAT_TOL]
+    for part, e, t in zip(("O", "m", "l"), errs, tols):
         check(e <= t, f"{q.dtype} {part} alone is {e} from the plain version, above {t}")
     return errs
 
 
 def phase_simt() -> dict:
-    """f32 and f16 operands at T >= 2048 on the card (f32 raised until the
-    f32-arithmetic kernels of `csrc/flash_attention_simt.cu`):
-    `fused_self_attention` at SIMT_SHAPE with a mask (batch element 1 all
-    masked) launches one forward of the route, and its backward one dK/dV
-    and one dQ; O and the gradients within SIMT_TOL of the plain branch in
-    f32 on the same values; each kernel alone (`_simt_alone`); the same
-    values in bf16 launch one forward. Then, in f32 and in f16 without a
-    mask, the forward and forward + backward timed in turns
-    plain/kernel/kernel/plain beside SDPA, and the dK/dV and dQ kernels
-    alone beside SDPA's backward alone. -> {kernel: {"f32_ms",
-    "f32_plain_ms", "f32_library_ms", "f32_bound_ms", the same with f16_}}."""
+    """f32 and f16 operands at T >= 2048 on the card: `fused_self_attention`
+    at SIMT_SHAPE with a mask (batch element 1 all masked) launches one
+    forward of the dtype's forward route and one dK/dV and one dQ of its
+    backward route (f32: the f32-arithmetic kernels of
+    `csrc/flash_attention_simt.cu`; f16: that file's forward and the f16
+    Hopper pair); O within SIMT_TOL and the gradients within the backward
+    route's `backward_tol` of the plain branch in f32 on the same values;
+    the forward alone (`_simt_alone`) and each backward route alone
+    (`backward_alone`: for f16 the Hopper pair and the simt pair); the same
+    values in bf16 launch one forward. Then, without a mask, the forward and
+    forward + backward timed in turns plain/kernel/kernel/plain beside SDPA,
+    and the dK/dV and dQ kernels alone beside SDPA's backward alone
+    (`backward_times`: f16's pair in turns with the simt pair). ->
+    {kernel: {"f32_ms", "f32_plain_ms", "f32_library_ms", "f32_bound_ms",
+    the same with f16_, and the backward's "f16_simt_ms"}}."""
     B, T, H, d = SIMT_SHAPE
     gen = torch.Generator().manual_seed(90)
     base = [torch.randn(B, T, H, d, generator=gen).cuda() for _ in range(4)]
@@ -1552,27 +1584,32 @@ def phase_simt() -> dict:
     for dtype in (torch.float32, torch.float16):
         q, k, v, do = (t.to(dtype) for t in base)
         ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        fwd, bwd = attention.kernel_route(d, dtype), attention.kernel_route(d, dtype, "bwd")
         _reset_launches()
         got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, key_mask=m),
                      ts, mask, do)
         torch.cuda.synchronize()
-        launches = _read_launches()
-        check(launches == {k: int(k in FLASH_KERNELS) for k in KERNELS},
-              f"{dtype} at T = {T} launched {launches}")
+        launches, by_route = _read_launches(), dict(attention.route_launches)
+        want = {("fwd", fwd): 1, ("dkv", bwd): 1, ("dq", bwd): 1}
+        check(launches == {k: int(k in FLASH_KERNELS) for k in KERNELS} and by_route == want,
+              f"{dtype} at T = {T} launched {by_route}, not {want}")
         ref = _grads(attention.flash_attention_reference,
                      [t.detach().float().requires_grad_() for t in (q, k, v)], mask, do.float())
         errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-        tols = [SIMT_TOL[dtype] * float(b.abs().max()) + FLASH_ERR_FLOOR for b in ref]
+        tols = [tol * float(b.abs().max()) + FLASH_ERR_FLOOR
+                for tol, b in zip([SIMT_TOL[dtype]] + [backward_tol(bwd)] * 3, ref)]
         check(got[0].dtype == dtype and all(e <= t for e, t in zip(errs, tols)),
               f"{dtype} at T = {T}: O/dQ/dK/dV {errs} from f32 plain, bounds {tols}")
         del got, ref, ts
-        alone = _simt_alone(q, k, v, mask, do, SIMT_TOL[dtype])
-        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (route "
-              f"{attention.kernel_route(d, dtype)}): fused_self_attention launched "
-              f"{launches['flash_fwd']}/{launches['flash_bwd_dkv']}/{launches['flash_bwd_dq']} "
-              f"forward/dK,dV/dQ; O/dQ/dK/dV max abs err vs f32 plain {fmt(errs)} (bounds "
-              f"{fmt(tols)}); alone vs flash_forward_plain / flash_backward_plain, "
-              f"O/m/l(rel)/dQ/dK/dV {fmt(alone)}; two calls bit-identical")
+        fwd_alone = _simt_alone(q, k, v, mask)
+        bwd_alone = backward_alone(q, k, v, mask, do)
+        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (routes: forward {fwd}, backward "
+              f"{bwd}): fused_self_attention launched {by_route}; O/dQ/dK/dV max abs err vs f32 "
+              f"plain {fmt(errs)} (bounds {fmt(tols)}); alone vs flash_forward_plain, "
+              f"O/m/l(rel) {fmt(fwd_alone)}; vs flash_backward_plain, dQ/dK/dV: "
+              + ", ".join(f"{route} {fmt(e)} (bound {backward_tol(route):.3g} of the largest)"
+                          for route, e in bwd_alone.items())
+              + "; two calls bit-identical")
     with torch.no_grad():
         _reset_launches()
         out = attention.fused_self_attention(*(t.bfloat16() for t in base[:3]), key_mask=mask)
@@ -1580,7 +1617,7 @@ def phase_simt() -> dict:
         launches = _read_launches()
     check(launches == {k: int(k == "flash_fwd") for k in KERNELS} and
           bool(torch.isfinite(out).all()), f"bf16 at T = {T} launched {launches}")
-    del out
+    del out, base
 
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
@@ -1588,37 +1625,96 @@ def phase_simt() -> dict:
     bench = _script("torch_bench_attention_fusion")
     result = {k: {} for k in FLASH_KERNELS}
     for dtype, tag in ((torch.float32, "f32"), (torch.float16, "f16")):
-        q, k, v, do = (t.to(dtype) for t in base)
-        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        qkv, do, _ = _flash_operands(B, T, H, d, None, seed=90, dtype=dtype)
         times = bench.attention_times(*qkv, None, do, timer)
-        o, m, l = attention.flash_forward_cuda(q, k, v)
-        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
-        alone = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
-                 "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
-        side = torch.cuda.Stream()  # SDPA's backward alone, as `backward_times` takes bf16's
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            saved = bench.sdpa(*qkv, None)
-        sdpa_bwd = graph_ms(lambda: torch.autograd.grad(saved, qkv, do, retain_graph=True),
-                            iters=2, samples=10, stream=side)
+        del qkv, do
+        t = backward_times(B, T, None, timer, H, d, dtype)
         bounds = _flash_bounds(B, T, H, d, None, dtype)
+        older = {k: t[f"{k}_simt_f16"] for k in FLASH_KERNELS[1:] if f"{k}_simt_f16" in t}
         print(f"flash kernels {tag} {SIMT_SHAPE} no mask, ms per call, CUDA-graph replay, "
               f"plain/kernel/kernel/plain: "
               + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
                           f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
                           for part in ("fwd", "fwd_bwd"))
-              + "; alone: " + ", ".join(f"{k} {t:.4f}" for k, t in alone.items())
-              + f"; SDPA's backward alone (the pair's three gradients) {sdpa_bwd:.4f}"
+              + f"; alone (backward route {attention.kernel_route(d, dtype, 'bwd')}"
+              + (", in turns simt/wgmma/wgmma/simt" if older else "") + "): "
+              + ", ".join(f"{k} {t[k]:.4f}" + (f" [simt {older[k]:.4f}]" if k in older else "")
+                          for k in FLASH_KERNELS[1:])
+              + f", pair {t['flash_bwd_dkv'] + t['flash_bwd_dq']:.4f}"
+              + (f" [simt {sum(older.values()):.4f}]" if older else "")
+              + f"; SDPA's backward alone (the pair's three gradients) {t['sdpa_bwd']:.4f}"
               + f"; bounds ({tag} rate) " + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})"
                                                    for k, b in bounds.items()))
         result["flash_fwd"].update({f"{tag}_ms": times["kernel"]["fwd"],
                                     f"{tag}_plain_ms": times["plain"]["fwd"],
                                     f"{tag}_library_ms": times["library"]["fwd"]})
-        for kname, t in alone.items():
-            result[kname].update({f"{tag}_ms": t, f"{tag}_library_ms": sdpa_bwd})
+        for kname in FLASH_KERNELS[1:]:
+            result[kname].update({f"{tag}_ms": t[kname], f"{tag}_plain_ms": t[kname + "_plain"],
+                                  f"{tag}_library_ms": t["sdpa_bwd"]})
+            if kname in older:
+                result[kname][f"{tag}_simt_ms"] = older[kname]
         for kname, b in bounds.items():
             result[kname][f"{tag}_bound_ms"] = b["bound_ms"]
-        del q, k, v, do, qkv, times, o, m, l, args, saved
+        del times, t
+    return result
+
+
+def phase_flash_f16() -> dict:
+    """The f16 backward at the 768-px train shape with the model's width
+    kept, (8, 2305, 768 / d, d), at every width of HEAD_DIMS: with a mask
+    (batch element 1 all masked) the Hopper pair (`flash_dkv_sm90_kernel<d,
+    __half>`, `flash_dq_sm90_kernel<d, __half>`) and the simt pair alone
+    against `flash_backward_plain` on the simt forward's statistics, two
+    calls bit-identical (`backward_alone`); then without a mask, by
+    CUDA-graph replay, the two pairs in turns simt/wgmma/wgmma/simt beside
+    the plain versions and SDPA f16's backward alone (`backward_times`), and
+    the f16 pair against the bf16 pair in turns bf16/f16/f16/bf16. ->
+    {kernel: {d: times}}."""
+    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+
+    def timer(fn):
+        return graph_ms(fn, iters=2, samples=10)
+
+    def pair(dtype, B, T, H, d):
+        qkv, do, _ = _flash_operands(B, T, H, d, None, seed=96, dtype=dtype)
+        q, k, v = (t.detach() for t in qkv)
+        o, m, l = attention.flash_forward_cuda(q, k, v)
+        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
+        return lambda: (attention.flash_backward_dkv_cuda(*args),
+                        attention.flash_backward_dq_cuda(*args))
+
+    result = {"flash_bwd_dkv": {}, "flash_bwd_dq": {}}
+    for d in attention.HEAD_DIMS:
+        B, T, H = 8, 2305, 768 // d
+        fwd, bwd = (attention.kernel_route(d, torch.float16, part) for part in ("fwd", "bwd"))
+        check(fwd == "simt_f16" and bwd == "wgmma_f16", f"f16 d = {d}: routes {fwd}, {bwd}")
+        qkv, do, mask = _flash_operands(B, T, H, d, "all", seed=110 + d, dtype=torch.float16)
+        alone = backward_alone(*(t.detach() for t in qkv), mask, do)
+        del qkv, do, mask
+        t = backward_times(B, T, None, timer, H, d, torch.float16)
+        bf16_pair, f16_pair = _in_turns(timer, pair(torch.bfloat16, B, T, H, d),
+                                        pair(torch.float16, B, T, H, d))
+        bounds = _flash_bounds(B, T, H, d, None, torch.float16)
+        new, old = (t["flash_bwd_dkv" + r] + t["flash_bwd_dq" + r] for r in ("", "_simt_f16"))
+        print(f"flash f16 backward [(B, T, H, d) = {(B, T, H, d)}]: alone vs flash_backward_plain "
+              f"on the simt forward's m and l, mask all, dQ/dK/dV: "
+              + ", ".join(f"{route} {fmt(e)} (bound {backward_tol(route):.3g} of the largest)"
+                          for route, e in alone.items())
+              + "; two calls bit-identical. No mask, ms per call, CUDA-graph replay, "
+              "simt/wgmma/wgmma/simt: "
+              + "; ".join(f"{k}: wgmma_f16 {t[k]:.4f}, simt {t[k + '_simt_f16']:.4f}, plain "
+                          f"(forward + its gradients) {t[k + '_plain']:.4f}, bound "
+                          f"{bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
+                          for k in ("flash_bwd_dkv", "flash_bwd_dq"))
+              + f"; pair wgmma_f16 {new:.4f}, simt {old:.4f} ({old / new:.1f}x); SDPA f16's "
+              f"backward alone {t['sdpa_bwd']:.4f} (the pair {new / t['sdpa_bwd']:.2f}x it); "
+              f"pairs in turns bf16/f16/f16/bf16: f16 {f16_pair:.4f}, bf16 {bf16_pair:.4f} "
+              f"({f16_pair / bf16_pair:.3f}x)")
+        for k in result:
+            result[k][d] = {"ms": t[k], "simt_ms": t[k + "_simt_f16"], "plain_ms": t[k + "_plain"],
+                            "bound_ms": bounds[k]["bound_ms"], "library_ms": t["sdpa_bwd"],
+                            "pair_ms": f16_pair, "bf16_pair_ms": bf16_pair}
+        del t
     return result
 
 
@@ -2344,6 +2440,8 @@ def main() -> int:
         measured[name].update(extra)
     for name, by_width in phase_flash_widths().items():
         measured[name]["widths"] = by_width
+    for name, by_width in phase_flash_f16().items():
+        measured[name]["f16_widths"] = by_width
     phase_counters()
     phase_replay()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}

@@ -1,5 +1,6 @@
 // Flash attention with a per-key mask on Hopper (sm_90a): the forward, the
-// dK/dV and the dQ kernels, in bf16 with f32 accumulation.
+// dK/dV and the dQ kernels, in bf16 with f32 accumulation; the Hopper dK/dV
+// and dQ in f16 as well.
 //
 // Replaces the stock Pallas TPU flash attention that
 // mvropose_tpu/ops/attention.py::fused_self_attention calls at T >= 2048
@@ -36,9 +37,12 @@
 //
 // Two designs. On Hopper's own units (below): the forward at d = 64, every
 // main path's width (flash_fwd_sm90_kernel), and the backward at every
-// width d in {32, 48, 64, 96, 128} (flash_dkv_sm90_kernel<d>,
-// flash_dq_sm90_kernel<d>). On mma.sync: the forward at the other widths,
-// and the backward where a caller asks for it (ops/attention.py routes):
+// width d in {32, 48, 64, 96, 128} (flash_dkv_sm90_kernel<d, E>,
+// flash_dq_sm90_kernel<d, E>), for bf16 and for f16 operands E (f16 x f16
+// products accumulate exactly in f32 on the tensor cores, as bf16's do; the
+// f16 forward is flash_attention_simt.cu's). On mma.sync: the bf16 forward
+// at the other widths, and the bf16 backward where a caller asks for it
+// (ops/attention.py routes):
 //   * mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments in registers; one
 //     block of 4 warps, each warp owning 16 rows of the block's tile, so the
 //     softmax statistics of a row stay in the 4 threads of a quad;
@@ -49,7 +53,7 @@
 //     loads, ldmatrix.trans for the transposed operands) are free of bank
 //     conflicts at every head width.
 // The Hopper kernels:
-//   * all products on wgmma.mma_async (bf16 x bf16 -> f32), which alone
+//   * all products on wgmma.mma_async (bf16 x bf16, or f16 x f16, -> f32), which alone
 //     reaches the card's tensor-core rate: S = Q K^T (forward, dQ), S^T =
 //     K Q^T and dP^T = V dO^T (dK/dV), dP = dO V^T (dQ) as m64nSk16 (S the
 //     streamed tile's rows, 128 or 64) with both operands in shared memory;
@@ -169,11 +173,6 @@ __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // A fragment of m16n8k16: rows m0..m0+15, columns k0..k0+15 of a shared
 // tile stored [m][k] with row stride ld.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0,
@@ -214,13 +213,14 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Accumulators of column tiles 2kk, 2kk + 1 (16 x 16) as an A fragment.
+// Accumulators of column tiles 2kk, 2kk + 1 (16 x 16) as an A fragment of E.
+template <typename E = bf16>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
                                          const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = Elem<E>::pack(c0[0], c0[1]);
+  a[1] = Elem<E>::pack(c0[2], c0[3]);
+  a[2] = Elem<E>::pack(c1[0], c1[1]);
+  a[3] = Elem<E>::pack(c1[2], c1[3]);
 }
 
 template <int N>
@@ -229,9 +229,10 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
   for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 }
 
-// Rows g and g + 8 of the warp's 16 into (B, T, H, D) at row index q0 + ...
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], float mul0,
+// Rows g and g + 8 of the warp's 16 into (B, T, H, D) of E (bf16 or f16) at
+// row index row0 + ..., each value times its row's `mul`, rounded once.
+template <int D, typename E>
+__device__ __forceinline__ void store_rows(E* out, const float (&acc)[D / 8][4], float mul0,
                                            float mul1, int T, int H, int b, int h, int row0,
                                            int g, int t) {
 #pragma unroll
@@ -239,11 +240,11 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][
     const int row = row0 + g + 8 * r;
     if (row >= T) continue;
     const float mul = r ? mul1 : mul0;
-    bf16* dst = out + (static_cast<int64_t>(b) * T + row) * H * D + static_cast<int64_t>(h) * D;
+    E* dst = out + (static_cast<int64_t>(b) * T + row) * H * D + static_cast<int64_t>(h) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+      *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t) =
+          Elem<E>::pack(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
     }
   }
 }
@@ -637,12 +638,16 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 // which one warp issues the loads and the other three only hand their
 // registers over (setmaxnreg). The streamed operand (Q and dO, or K and V)
 // comes in tiles of S rows through a ring of up to 4 stages: S (S^T) and
-// dP (dP^T) are m64nS products of two shared tiles; P and dS, converted to
-// bf16 in registers, are the A operand of the m64nd products into dV, dK
-// (dQ), whose B is the streamed tile read MN-major.
+// dP (dP^T) are m64nS products of two shared tiles; P and dS, rounded to
+// the operands' type in registers, are the A operand of the m64nd products
+// into dV, dK (dQ), whose B is the streamed tile read MN-major. The element
+// type E (bf16, or f16: `Elem<E>` of sm90_common.cuh) changes only the
+// products' PTX type, the tensor maps' data type and the roundings of P, dS
+// and the outputs; the tiles, stages and registers are those of 2-byte
+// elements either way.
 //
 // Per head width (`Sm90Tiles<d, S>`), what the card forces:
-//   * a row of d bf16 is 2d bytes, one 128-byte swizzle atom only at d = 64.
+//   * a row of d 2-byte elements is 2d bytes, one 128-byte swizzle atom only at d = 64.
 //     Every operand tile is stored as column chunks of one atom each, the
 //     widest of 64, 32 or 16 columns that divides d (d = 32: one chunk of 64
 //     bytes; 48: three of 32; 96: three of 64; 128: two of 128), each chunk
@@ -705,35 +710,36 @@ struct Sm90Tiles {
   static_assert(kStages >= 2 && kAlloc <= kMaxSmem, "more shared memory than a block can have");
 };
 
+template <typename E>
 struct HopperParams {
-  // (B, T, H, d) bf16 through their strides, boxes of 64 rows x one chunk;
+  // (B, T, H, d) E through their strides, boxes of 64 rows x one chunk;
   // dims (d, T, H, B), or (d, H, T, B) where heads lie inside rows (bit
   // kInnerQ.. of `heads_inner`): a tensor map's strides grow with its dims.
   CUtensorMap q, k, v, dout;  // dout: the backward's only
   int heads_inner;
   const uint8_t* mask;     // (B, T), 0 = key not attended; null: every key attended
-  bf16 *o, *dq, *dk, *dv;  // (B, T, H, d) contiguous
-  float *m, *l;            // (B, H, T): written by the forward (unless null), read by the backward
+  E *o, *dq, *dk, *dv;  // (B, T, H, d) contiguous
+  float *m, *l;         // (B, H, T): written by the forward (unless null), read by the backward
   const float* di;         // (B, H, T)
   int H, T;
   float scale, scale_log2;
 };
 
-// The 64 x S accumulator as bf16 A fragments, 16 columns per k-step.
-template <int S>
+// The 64 x S accumulator as A fragments of E, 16 columns per k-step.
+template <int S, typename E = bf16>
 __device__ __forceinline__ void to_a(uint32_t (&a)[S / 16][4], const float (&acc)[S / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < S / 16; ++kk) acc_to_a(a[kk], acc[2 * kk], acc[2 * kk + 1]);
+  for (int kk = 0; kk < S / 16; ++kk) acc_to_a<E>(a[kk], acc[2 * kk], acc[2 * kk + 1]);
 }
 
 // D += A B with A in registers (`to_a`) and B the S rows of an MN-major
 // tile of N columns in chunks of C: k-step kk reads rows 16 kk.. of it, 16
 // rows of 2C bytes further.
-template <int S, int N, int C>
+template <int S, int N, int C, typename E = bf16>
 __device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const uint32_t (&a)[S / 16][4],
                                            uint64_t b) {
 #pragma unroll
-  for (int kk = 0; kk < S / 16; ++kk) wgmma_rs<N>(d, a[kk], b + (32 * C >> 4) * kk);
+  for (int kk = 0; kk < S / 16; ++kk) wgmma_rs<N, E>(d, a[kk], b + (32 * C >> 4) * kk);
 }
 
 // 2^x on the SFU (flushes results below 2^-126 to 0; P is scaled by 1/l later).
@@ -765,16 +771,16 @@ struct Ring {
   }
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kHThreads, 1)
-    flash_dkv_sm90_kernel(const __grid_constant__ HopperParams p) {
+    flash_dkv_sm90_kernel(const __grid_constant__ HopperParams<E> p) {
   using L = Sm90Tiles<D, dkv_stream(D)>;
   constexpr int S = L::kStream, C = L::kCols, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kOwn);  // 128 key rows, in chunks of C columns
-  bf16* sV = sK + kHBlock * D;
-  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);  // [stage][Q, dO][chunk][S][C]
+  E* sK = reinterpret_cast<E*>(smem + L::kOwn);  // 128 key rows, in chunks of C columns
+  E* sV = sK + kHBlock * D;
+  E* ring = reinterpret_cast<E*>(smem + L::kRing);  // [stage][Q, dO][chunk][S][C]
   float* rows = reinterpret_cast<float*>(smem + L::kRowData);  // [stage][m, 1/l, di][S]
   const Ring<L> bars(smem);
 
@@ -815,7 +821,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
         st[2 * S + lane + 32 * u] = dv[u];
       }
       if (lane == 0) {
-        bf16* q_s = ring + stage * 2 * S * D;
+        E* q_s = ring + stage * 2 * S * D;
         mbar_arrive_expect_tx(&bars.full[stage], 2 * L::kTile);
         tma_rows<D, C>(q_s, &p.q, &bars.full[stage], S, m0, h, b, p.heads_inner & kInnerQ);
         tma_rows<D, C>(q_s + S * D, &p.dout, &bars.full[stage], S, m0, h, b,
@@ -846,16 +852,17 @@ __global__ void __launch_bounds__(kHThreads, 1)
     for (int i = 0; i < m_tiles; ++i) {
       const int stage = i % kStages;
       mbar_wait(&bars.full[stage], (i / kStages) & 1);
-      const bf16* q_s = ring + stage * 2 * S * D;
-      const bf16* do_s = q_s + S * D;
+      const E* q_s = ring + stage * 2 * S * D;
+      const E* do_s = q_s + S * D;
       const float* st = rows + stage * 3 * S;
 
       // S^T = K Q^T and dP^T = V dO^T over the warpgroup's 64 keys and the tile's S queries.
       float s[S / 8][4], dp[S / 8][4];
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(s, k_desc, sw_desc<false, C>(q_s));
-      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(dp, v_desc, sw_desc<false, C>(do_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk, E>(s, k_desc, sw_desc<false, C>(q_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk, E>(dp, v_desc,
+                                                                sw_desc<false, C>(do_s));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait();
@@ -883,17 +890,17 @@ __global__ void __launch_bounds__(kHThreads, 1)
           }
         }
       }
-      // dV += P^T dO and dK += dS^T Q (sm_scale applied at the end); dO and
-      // Q are read MN-major, as they lie.
+      // dV += P^T dO and dK += dS^T Q (P^T and dS^T rounded to E, sm_scale
+      // applied at the end); dO and Q are read MN-major, as they lie.
       uint32_t pa[S / 16][4], da[S / 16][4];
-      to_a<S>(pa, s);
-      to_a<S>(da, dp);
+      to_a<S, E>(pa, s);
+      to_a<S, E>(da, dp);
       fence_acc(dv);
       fence_acc(dk);
       turn_wait(wg);
       wgmma_fence();  // A registers and D written by ordinary instructions
-      product_rs<S, D, C>(dv, pa, sw_desc<true, C>(do_s, L::kStreamChunk));
-      product_rs<S, D, C>(dk, da, sw_desc<true, C>(q_s, L::kStreamChunk));
+      product_rs<S, D, C, E>(dv, pa, sw_desc<true, C>(do_s, L::kStreamChunk));
+      product_rs<S, D, C, E>(dk, da, sw_desc<true, C>(q_s, L::kStreamChunk));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait();
@@ -908,16 +915,16 @@ __global__ void __launch_bounds__(kHThreads, 1)
   }
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kHThreads, 1)
-    flash_dq_sm90_kernel(const __grid_constant__ HopperParams p) {
+    flash_dq_sm90_kernel(const __grid_constant__ HopperParams<E> p) {
   using L = Sm90Tiles<D, kDqStream>;
   constexpr int S = L::kStream, C = L::kCols, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kOwn);  // 128 query rows, in chunks of C columns
-  bf16* sO = sQ + kHBlock * D;                          // dO
-  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);  // [stage][K, V][chunk][S][C]
+  E* sQ = reinterpret_cast<E*>(smem + L::kOwn);  // 128 query rows, in chunks of C columns
+  E* sO = sQ + kHBlock * D;                       // dO
+  E* ring = reinterpret_cast<E*>(smem + L::kRing);  // [stage][K, V][chunk][S][C]
   // Per stage and key: 0 attended, 1 masked, 2 past T.
   uint8_t* codes = smem + L::kRowData;
   const Ring<L> bars(smem);
@@ -945,7 +952,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
         codes[stage * S + r] = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
       }
       if (lane == 0) {
-        bf16* k_s = ring + stage * 2 * S * D;
+        E* k_s = ring + stage * 2 * S * D;
         mbar_arrive_expect_tx(&bars.full[stage], 2 * L::kTile);
         tma_rows<D, C>(k_s, &p.k, &bars.full[stage], S, k0, h, b, p.heads_inner & kInnerK);
         tma_rows<D, C>(k_s + S * D, &p.v, &bars.full[stage], S, k0, h, b,
@@ -978,17 +985,18 @@ __global__ void __launch_bounds__(kHThreads, 1)
     for (int j = 0; j < n_tiles; ++j) {
       const int stage = j % kStages;
       mbar_wait(&bars.full[stage], (j / kStages) & 1);
-      const bf16* k_s = ring + stage * 2 * S * D;
-      const bf16* v_s = k_s + S * D;
+      const E* k_s = ring + stage * 2 * S * D;
+      const E* v_s = k_s + S * D;
       const uint8_t* code = codes + stage * S;
 
       // S = Q K^T and dP = dO V^T over the warpgroup's 64 queries and the tile's S keys.
       float s[S / 8][4], dp[S / 8][4];
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(s, q_desc, sw_desc<false, C>(k_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk, E>(s, q_desc, sw_desc<false, C>(k_s));
       wgmma_commit();
-      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk>(dp, do_desc, sw_desc<false, C>(v_s));
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk, E>(dp, do_desc,
+                                                                sw_desc<false, C>(v_s));
       wgmma_commit();
       turn_pass(wg);
       // P while dP is still running (0 at masked keys and past T), then
@@ -1010,13 +1018,13 @@ __global__ void __launch_bounds__(kHThreads, 1)
       for (int n = 0; n < S / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - di_r[e >> 1];  // dS
-      // dQ += dS K (sm_scale applied at the end); K is read MN-major.
+      // dQ += dS K (dS rounded to E, sm_scale applied at the end); K is read MN-major.
       uint32_t da[S / 16][4];
-      to_a<S>(da, s);
+      to_a<S, E>(da, s);
       fence_acc(dq);
       turn_wait(wg);
       wgmma_fence();
-      product_rs<S, D, C>(dq, da, sw_desc<true, C>(k_s, L::kStreamChunk));
+      product_rs<S, D, C, E>(dq, da, sw_desc<true, C>(k_s, L::kStreamChunk));
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait();
@@ -1100,7 +1108,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], f
 }
 
 __global__ void __launch_bounds__(kHThreads, 1)
-    flash_fwd_sm90_kernel(const __grid_constant__ HopperParams p) {
+    flash_fwd_sm90_kernel(const __grid_constant__ HopperParams<bf16> p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem + FwdTilesSm90::kOwn);  // 128 query rows
@@ -1249,12 +1257,13 @@ __global__ void __launch_bounds__(kHThreads, 1)
 }
 
 // The Hopper kernels' parameters from the mma.sync path's, at head width D
-// (tensor maps of D columns, boxes of Sm90Tiles<D>::kCols) -> 0, or a
-// negative CUresult when a tensor map cannot be encoded. Maps are made for
-// the operands the kernel reads: q, k, v, and dO unless it is null (the
-// forward).
-template <int D>
-int make_hopper_params(HopperParams* hp, const Params& p) {
+// for operands of E (tensor maps of D columns of E, boxes of
+// Sm90Tiles<D>::kCols; `Params` carries the addresses, typed bf16, of
+// operands of either type) -> 0, or a negative CUresult when a tensor map
+// cannot be encoded. Maps are made for the operands the kernel reads: q, k,
+// v, and dO unless it is null (the forward).
+template <int D, typename E>
+int make_hopper_params(HopperParams<E>* hp, const Params& p) {
   const int B = p.B, H = p.H, T = p.T;
   CUtensorMap* maps[4] = {&hp->q, &hp->k, &hp->v, &hp->dout};  // bits kInnerQ, K, V, Do
   const void* bases[4] = {p.q, p.k, p.v, p.dout};
@@ -1263,17 +1272,17 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
   for (int i = 0; i < 4 && !err; ++i) {
     if (bases[i] == nullptr) continue;
     const bool heads_inner = strides[i].h < strides[i].t;  // e.g. a contiguous projection
-    err = make_map(maps[i], bases[i], strides[i], B, H, T, heads_inner, D,
-                   Sm90Tiles<D>::kCols);
+    err = make_map<E>(maps[i], bases[i], strides[i], B, H, T, heads_inner, D,
+                      Sm90Tiles<D>::kCols);
     inner |= heads_inner << i;
   }
   if (err) return -err;
   hp->heads_inner = inner;
   hp->mask = p.mask;
-  hp->o = p.o;
-  hp->dq = p.dq;
-  hp->dk = p.dk;
-  hp->dv = p.dv;
+  hp->o = reinterpret_cast<E*>(p.o);
+  hp->dq = reinterpret_cast<E*>(p.dq);
+  hp->dk = reinterpret_cast<E*>(p.dk);
+  hp->dv = reinterpret_cast<E*>(p.dv);
   hp->m = p.m;
   hp->l = p.l;
   hp->di = p.di;
@@ -1286,17 +1295,23 @@ int make_hopper_params(HopperParams* hp, const Params& p) {
 
 enum Kind { kForward, kDkv, kDq };
 
-template <Kind K, int D>
+template <Kind K, int D, typename E = bf16>
 int launch_sm90(const Params& p, cudaStream_t stream) {
-  static_assert(K != kForward || D == kHD, "the Hopper forward is built at d = 64 only");
-  void (*kernel)(HopperParams) = K == kForward ? &flash_fwd_sm90_kernel
-                                 : K == kDkv   ? &flash_dkv_sm90_kernel<D>
-                                               : &flash_dq_sm90_kernel<D>;
+  static_assert(K != kForward || (D == kHD && !kIsHalf<E>),
+                "the Hopper forward is built at d = 64 in bf16 only");
+  void (*kernel)(HopperParams<E>) = nullptr;
+  if constexpr (K == kForward) {
+    kernel = &flash_fwd_sm90_kernel;
+  } else if constexpr (K == kDkv) {
+    kernel = &flash_dkv_sm90_kernel<D, E>;
+  } else {
+    kernel = &flash_dq_sm90_kernel<D, E>;
+  }
   constexpr int smem = K == kForward ? FwdTilesSm90::kAlloc
                        : K == kDkv   ? Sm90Tiles<D, dkv_stream(D)>::kAlloc
                                      : Sm90Tiles<D, kDqStream>::kAlloc;
-  HopperParams hp{};
-  const int err = make_hopper_params<D>(&hp, p);
+  HopperParams<E> hp{};
+  const int err = make_hopper_params<D, E>(&hp, p);
   if (err) return err;
   static const cudaError_t configured =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1306,16 +1321,16 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Hopper dK/dV or dQ kernel at head width D.
-template <Kind K>
+// The Hopper dK/dV or dQ kernel at head width D for operands of E.
+template <Kind K, typename E>
 int dispatch_sm90(const Params& p, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_sm90<K, 32>(p, s);
-    case 48: return launch_sm90<K, 48>(p, s);
-    case 64: return launch_sm90<K, 64>(p, s);
-    case 96: return launch_sm90<K, 96>(p, s);
-    case 128: return launch_sm90<K, 128>(p, s);
+    case 32: return launch_sm90<K, 32, E>(p, s);
+    case 48: return launch_sm90<K, 48, E>(p, s);
+    case 64: return launch_sm90<K, 64, E>(p, s);
+    case 96: return launch_sm90<K, 96, E>(p, s);
+    case 128: return launch_sm90<K, 128, E>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1373,6 +1388,23 @@ Params make_params(const void* q, const void* k, const void* v, const uint8_t* m
   return p;
 }
 
+// The Hopper dK/dV (K = kDkv: dk, dv) or dQ (kDq: dq) kernel for operands of E.
+template <Kind K, typename E>
+int backward_sm90(const void* q, const void* k, const void* v, const uint8_t* mask,
+                  const void* dout, const float* m, const float* l, const float* di, void* dq,
+                  void* dk, void* dv, int B, int H, int T, int D, const int64_t* strides,
+                  float sm_scale, void* stream) {
+  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
+  p.dout = static_cast<const bf16*>(dout);
+  p.m = const_cast<float*>(m);
+  p.l = const_cast<float*>(l);
+  p.di = di;
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  return dispatch_sm90<K, E>(p, D, stream);
+}
+
 }  // namespace
 
 // Operands are bf16 (B, T, H, D) with D in {32, 48, 64, 96, 128}, read
@@ -1425,7 +1457,7 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k, const v
 
 // The Hopper forward, dK/dV and dQ kernels (wgmma, TMA, warp-specialised):
 // the arguments of the three above; the forward at D = 64 only, dK/dV and
-// dQ at every D of the three. Each returns cudaGetLastError() after its
+// dQ at every D of the five. Each returns cudaGetLastError() after its
 // launch, cudaErrorInvalidValue (1) for a head width it does not take, or
 // minus the CUresult of a tensor map that cannot be encoded (q, k, v and dO
 // strides: multiples of 16 bytes below 2^40, as the wrapper checks).
@@ -1447,14 +1479,8 @@ extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, c
                                                  void* dk, void* dv, int B, int H, int T, int D,
                                                  const int64_t* strides, float sm_scale,
                                                  void* stream) {
-  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
-  p.dout = static_cast<const bf16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.di = di;
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  return dispatch_sm90<kDkv>(p, D, stream);
+  return backward_sm90<kDkv, bf16>(q, k, v, mask, dout, m, l, di, nullptr, dk, dv, B, H, T, D,
+                                   strides, sm_scale, stream);
 }
 
 extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, const void* v,
@@ -1463,11 +1489,29 @@ extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, co
                                                 void* dq, int B, int H, int T, int D,
                                                 const int64_t* strides, float sm_scale,
                                                 void* stream) {
-  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
-  p.dout = static_cast<const bf16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.di = di;
-  p.dq = static_cast<bf16*>(dq);
-  return dispatch_sm90<kDq>(p, D, stream);
+  return backward_sm90<kDq, bf16>(q, k, v, mask, dout, m, l, di, dq, nullptr, nullptr, B, H, T,
+                                  D, strides, sm_scale, stream);
+}
+
+// The same two for f16 operands and outputs (the arguments above, with f16
+// for bf16): flash_dkv_sm90_kernel<D, __half> and flash_dq_sm90_kernel<D,
+// __half>, on the m (base 2) and l of flash_attention_simt.cu's f16 forward.
+extern "C" int flash_attention_backward_dkv_sm90_f16(const void* q, const void* k, const void* v,
+                                                     const uint8_t* mask, const void* dout,
+                                                     const float* m, const float* l,
+                                                     const float* di, void* dk, void* dv, int B,
+                                                     int H, int T, int D, const int64_t* strides,
+                                                     float sm_scale, void* stream) {
+  return backward_sm90<kDkv, __half>(q, k, v, mask, dout, m, l, di, nullptr, dk, dv, B, H, T, D,
+                                     strides, sm_scale, stream);
+}
+
+extern "C" int flash_attention_backward_dq_sm90_f16(const void* q, const void* k, const void* v,
+                                                    const uint8_t* mask, const void* dout,
+                                                    const float* m, const float* l,
+                                                    const float* di, void* dq, int B, int H,
+                                                    int T, int D, const int64_t* strides,
+                                                    float sm_scale, void* stream) {
+  return backward_sm90<kDq, __half>(q, k, v, mask, dout, m, l, di, dq, nullptr, nullptr, B, H, T,
+                                    D, strides, sm_scale, stream);
 }

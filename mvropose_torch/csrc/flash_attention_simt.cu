@@ -1,13 +1,20 @@
 // Flash attention with a per-key mask in f32 arithmetic on the CUDA cores:
 // the forward, dK/dV and dQ kernels for f32 and f16 operands.
 //
-// Replaces, for f32 and f16 operands, the same stock Pallas TPU kernels as
-// flash_attention.cu (jax/experimental/pallas/ops/tpu/flash_attention.py in
-// jax 0.9.0: _flash_attention_kernel :331, _flash_attention_dkv_kernel
-// :796, _flash_attention_dq_kernel :1146), which the reference's
-// fused_self_attention runs at T >= 2048 on a TPU in the operands' own
-// dtype, f32 included. flash_attention.cu takes bf16 only: its products are
-// bf16 tensor-core products, which would round f32 operands.
+// Replaces, for f32 operands and the f16 forward, the same stock Pallas TPU
+// kernels as flash_attention.cu (jax/experimental/pallas/ops/tpu/
+// flash_attention.py in jax 0.9.0: _flash_attention_kernel :331,
+// _flash_attention_dkv_kernel :796, _flash_attention_dq_kernel :1146), which
+// the reference's fused_self_attention runs at T >= 2048 on a TPU in the
+// operands' own dtype, f32 included. flash_attention.cu's products are bf16
+// or f16 tensor-core products, which would round f32 operands.
+//
+// Which f16 parts run where (ops/attention.py::kernel_route): the f16
+// forward runs here; the f16 backward runs flash_attention.cu's Hopper pair
+// (flash_dkv_sm90_kernel<d, __half>, flash_dq_sm90_kernel<d, __half>) on
+// this forward's m and l. The f16 dK/dV and dQ below stay bound only so
+// that chip_smoke.py can time the Hopper pair against them in turns
+// (ops/attention.py::simt_f16_route()); no route takes them otherwise.
 //
 // What it computes is flash_attention.cu's, term for term, with every
 // operand and product in f32: S = sm_scale Q K^T in base 2 (times log2(e)),

@@ -5,14 +5,18 @@
 //
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on a
 //     phase parity) for the rings that one producer warp fills with TMA;
-//   * TMA tiles of a (B, T, H, d) bf16 operand read through its strides
+//   * `Elem<E>`, what differs between the two 2-byte element types that
+//     wgmma multiplies into f32, bf16 (the default) and f16: the tensor
+//     map's data type and the packing of two f32 into an A-fragment register;
+//   * TMA tiles of a (B, T, H, d) bf16 or f16 operand read through its strides
 //     (`make_map`, `tma_box`, `tma_rows`): 64-row boxes of one swizzle atom's
 //     columns (64, 32 or 16: 128-, 64- or 32-byte swizzle), a tile stored as
 //     its column chunks one after another, the layout wgmma's descriptors
 //     (`sw_desc`) name; at d = 64 one chunk, 64 x 64 boxes, 128-byte swizzle;
-//   * the wgmma wrappers: S = A B^T of two K-major shared tiles (m64nNk16
-//     bf16, N = 64 or 128), D += A B with A in registers and B MN-major in
-//     shared memory (N = 32 .. 128), fences and waits;
+//   * the wgmma wrappers, bf16 or f16 operands into f32: S = A B^T of two
+//     K-major shared tiles (m64nNk16, N = 64 or 128), D += A B with A in
+//     registers and B MN-major in shared memory (N = 32 .. 128), fences and
+//     waits;
 //   * the two consumer warpgroups' turns (`turn_wait`, `turn_pass`).
 // Everything sits in an anonymous namespace: each source that includes this
 // header gets its own copy, and the C entry points stay the only exports.
@@ -20,14 +24,40 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>  // CUtensorMap and its encoder's types; the encoder via the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// The two 2-byte element types of the wgmma products: the tensor map's data
+// type, and two f32 rounded to the type and packed into one 32-bit register
+// (lo in the low half), the layout of an A fragment's pair and of a store.
+template <typename E>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <typename E>
+constexpr bool kIsHalf = std::is_same_v<E, __half>;
 
 // The plain branch's masked logit: bf16's lowest finite value, exact in f32.
 constexpr float kMasked = -3.3895313892515355e38f;
@@ -84,11 +114,13 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint6
       : "memory");
 }
 
-// `rows` rows (whole boxes) of a D-wide operand from row `row` on, as a tile
-// of D / C column chunks of `rows` x C each (chunk c at dst + c rows C).
-template <int D = kHD, int C = kHD>
-__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar, int rows,
+// `rows` rows (whole boxes) of a D-wide operand of 2-byte elements from row
+// `row` on, as a tile of D / C column chunks of `rows` x C each (chunk c at
+// dst + c rows C).
+template <int D = kHD, int C = kHD, typename E>
+__device__ __forceinline__ void tma_rows(E* dst, const CUtensorMap* map, uint64_t* bar, int rows,
                                          int row, int h, int b, int heads_inner) {
+  static_assert(sizeof(E) == 2, "2-byte elements");
 #pragma unroll
   for (int c = 0; c < D / C; ++c) {
     for (int r = 0; r < rows; r += kHRows) {
@@ -176,77 +208,81 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
   "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
-// D (+)= A B, m64nNk16 (N = 64 or 128), bf16 x bf16 -> f32, A and B K-major
-// in shared memory; D = A B where `accumulate` is 0.
-template <int N>
+// D (+)= A B, m64nNk16 (N = 64 or 128), E x E -> f32 (E bf16 or f16), A
+// and B K-major in shared memory; D = A B where `accumulate` is 0. TY is
+// the PTX type of E.
+#define WGMMA_SS(TY)                                                                  \
+  if constexpr (N == 64) {                                                            \
+    asm volatile(                                                                     \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                  \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WGMMA_D64_REGS    \
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                              \
+        : WGMMA_D64                                                                   \
+        : "l"(a), "l"(b), "r"(accumulate));                                           \
+  } else {                                                                            \
+    asm volatile(                                                                     \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                  \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " WGMMA_D128_REGS  \
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                              \
+        : WGMMA_D128                                                                  \
+        : "l"(a), "l"(b), "r"(accumulate));                                           \
+  }
+template <int N, typename E = bf16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
                                          int accumulate) {
   static_assert(N == 64 || N == 128, "S tiles of 64 or 128 columns");
-  if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : WGMMA_D64
-        : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kIsHalf<E>) {
+    WGMMA_SS("f16")
   } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
-        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : WGMMA_D128
-        : "l"(a), "l"(b), "r"(accumulate));
+    WGMMA_SS("bf16")
   }
 }
+#undef WGMMA_SS
 
-// D += A B, m64nNk16 (N = 32, 48, 64, 96, 128), A (16 x 16 per warp, the
-// m16n8k16 A fragment) in registers, B MN-major in shared memory (the
-// transpose bit).
-template <int N>
+// D += A B, m64nNk16 (N = 32, 48, 64, 96, 128), E x E -> f32, A (16 x 16
+// per warp, the m16n8k16 A fragment) in registers, B MN-major in shared
+// memory (the transpose bit). WGMMA_RS(TY, N, A0..A3, B): the product at
+// N, whose A registers are operands %A0..%A3 after the N / 2 accumulators
+// and whose B descriptor is %B.
+#define WGMMA_RS(TY, N_, A0, A1, A2, A3, B_)                                          \
+  asm volatile("wgmma.mma_async.sync.aligned.m64n" #N_ "k16.f32." TY "." TY " "       \
+               WGMMA_D##N_##_REGS ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B_  \
+               ", 1, 1, 1, 1;\n"                                                      \
+               : WGMMA_D##N_                                                          \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+#define WGMMA_RS_ALL(TY)                                     \
+  if constexpr (N == 32) {                                   \
+    WGMMA_RS(TY, 32, 16, 17, 18, 19, 20);                    \
+  } else if constexpr (N == 48) {                            \
+    WGMMA_RS(TY, 48, 24, 25, 26, 27, 28);                    \
+  } else if constexpr (N == 64) {                            \
+    WGMMA_RS(TY, 64, 32, 33, 34, 35, 36);                    \
+  } else if constexpr (N == 96) {                            \
+    WGMMA_RS(TY, 96, 48, 49, 50, 51, 52);                    \
+  } else if constexpr (N == 128) {                           \
+    WGMMA_RS(TY, 128, 64, 65, 66, 67, 68);                   \
+  }
+template <int N, typename E = bf16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b) {
   static_assert(N == 32 || N == 48 || N == 64 || N == 96 || N == 128, "a head width");
-  if constexpr (N == 32) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D32_REGS
-        ", {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
-        : WGMMA_D32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  } else if constexpr (N == 48) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " WGMMA_D48_REGS
-        ", {%24, %25, %26, %27}, %28, 1, 1, 1, 1;\n"
-        : WGMMA_D48
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  } else if constexpr (N == 64) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D64_REGS
-        ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-        : WGMMA_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  } else if constexpr (N == 96) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " WGMMA_D96_REGS
-        ", {%48, %49, %50, %51}, %52, 1, 1, 1, 1;\n"
-        : WGMMA_D96
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  } else if constexpr (N == 128) {
-    asm volatile(
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D128_REGS
-        ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
-        : WGMMA_D128
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kIsHalf<E>) {
+    WGMMA_RS_ALL("f16")
+  } else {
+    WGMMA_RS_ALL("bf16")
   }
 }
+#undef WGMMA_RS_ALL
+#undef WGMMA_RS
 
 // S = A B^T over a head width D: A 64 rows, B N rows, both K-major tiles of
 // D / C column chunks (chunk c AChunk bytes after chunk 0 in A, BChunk in
 // B): D / 16 k-steps of 16 columns (32 bytes), step kk in chunk 16 kk / C.
-template <int N = 128, int D = kHD, int C = kHD, int AChunk = 0, int BChunk = 0>
+template <int N = 128, int D = kHD, int C = kHD, int AChunk = 0, int BChunk = 0, typename E = bf16>
 __device__ __forceinline__ void product_kmajor(float (&d)[N / 8][4], uint64_t a, uint64_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 / C, in_chunk = kk * 16 % C * 2;
-    wgmma_ss<N>(d, a + ((c * AChunk + in_chunk) >> 4), b + ((c * BChunk + in_chunk) >> 4), kk > 0);
+    wgmma_ss<N, E>(d, a + ((c * AChunk + in_chunk) >> 4), b + ((c * BChunk + in_chunk) >> 4), kk > 0);
   }
 }
 
@@ -296,10 +332,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a (B, T, H, d) bf16 operand through its element
-// strides: dims (d, T, H, B), or (d, H, T, B) when `heads_inner`; boxes of
-// 64 rows x `cols` (64, 32 or 16: one 128-, 64- or 32-byte swizzle atom),
-// rows past T zero-filled. -> 0 or the CUresult of the encoding.
+// A tensor map over a (B, T, H, d) operand of E (bf16 or f16) through its
+// element strides: dims (d, T, H, B), or (d, H, T, B) when `heads_inner`;
+// boxes of 64 rows x `cols` (64, 32 or 16: one 128-, 64- or 32-byte swizzle
+// atom), rows past T zero-filled. -> 0 or the CUresult of the encoding.
+template <typename E = bf16>
 int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T, bool heads_inner,
              int d = kHD, int cols = kHD) {
   const EncodeTiled encode = encode_tiled();
@@ -316,7 +353,7 @@ int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T,
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), heads_inner ? 1u : kHRows,
                              heads_inner ? kHRows : 1u, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  return static_cast<int>(encode(map, Elem<E>::kMap, 4, const_cast<void*>(base),
                                  dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));

@@ -17,22 +17,27 @@ Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
 read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
 
-Four routes (`kernel_route`), each a forward, a dK/dV and a dQ kernel. bf16
-goes by head width and by part, the forward and the backward apart: d in
+Five routes (`kernel_route`, `ENTRY_POINTS`), by dtype, head width and
+part, the forward and the backward apart. bf16: d in
 `WGMMA_HEAD_DIMS[part]` takes the Hopper kernels of `csrc/flash_attention.cu`
-(wgmma, TMA and a warp-specialised mbarrier ring), the other widths of
-`HEAD_DIMS` its mma.sync kernels. The backward takes the Hopper pair at every
-width; the forward at 64 only (every main path's width: ViT-B/16 and
-`SelfAttentionFusion` at 768 / 12 heads), so at the other widths the Hopper
-backward reads the mma.sync forward's m and l, saved in the same units.
-`mma_sync_route()` puts every bf16 width on the mma.sync kernels, only for
-chip_smoke.py's comparisons on the card. f32 and f16 take the kernels of
-`csrc/flash_attention_simt.cu` ("simt_f32", "simt_f16"), which compute in
-f32 on the CUDA cores (the reference's flash branch runs f32 on a TPU; bf16
-tensor-core products would round it). A width outside `HEAD_DIMS` raises on
-every route. The sources' notes say what bounds each. `flash_forward_plain`
-and `flash_backward_plain` compute what the kernels compute, from the same
-saved statistics, in plain torch: the yardsticks of the kernels alone.
+(wgmma, TMA and a warp-specialised mbarrier ring; "wgmma"), the other widths
+of `HEAD_DIMS` its mma.sync kernels ("mma_sync"). The backward takes the
+Hopper pair at every width; the forward at 64 only (every main path's width:
+ViT-B/16 and `SelfAttentionFusion` at 768 / 12 heads), so at the other
+widths the Hopper backward reads the mma.sync forward's m and l, saved in the
+same units. f32 takes the kernels of `csrc/flash_attention_simt.cu`
+("simt_f32"), which compute in f32 on the CUDA cores (the reference's flash
+branch runs f32 on a TPU; tensor-core products would round it). f16 takes
+that file's forward ("simt_f16", f32 arithmetic) and the Hopper backward
+pair instantiated for f16 ("wgmma_f16", which has no forward of its own) at
+every width, on the simt forward's m and l: f16 x f16 products accumulate
+exactly in f32 on the tensor cores. `mma_sync_route()` puts every bf16 width
+on the mma.sync kernels and `simt_f16_route()` the f16 backward on the simt
+pair, only for chip_smoke.py's comparisons on the card. A width outside
+`HEAD_DIMS` raises on every route. The sources' notes say what bounds each.
+`flash_forward_plain` and `flash_backward_plain` compute what the kernels
+compute, from the same saved statistics, in plain torch: the yardsticks of
+the kernels alone.
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
 # part: the bf16 head widths whose part ("fwd", or "bwd": dK/dV and dQ) takes the Hopper kernels.
 WGMMA_HEAD_DIMS = {"fwd": (64,), "bwd": HEAD_DIMS}
 _MMA_SYNC_ROUTE = False  # set only inside `mma_sync_route()`
-# route: the C entry points of its forward, dK/dV and dQ kernels.
+_SIMT_F16_ROUTE = False  # set only inside `simt_f16_route()`
+# route: the C entry points of its forward, dK/dV and dQ kernels (None: no
+# forward of its own).
 ENTRY_POINTS = {
     "mma_sync": ("flash_attention_forward", "flash_attention_backward_dkv",
                  "flash_attention_backward_dq"),
@@ -66,8 +73,12 @@ ENTRY_POINTS = {
                  "flash_attention_backward_dq_f32"),
     "simt_f16": ("flash_attention_forward_f16", "flash_attention_backward_dkv_f16",
                  "flash_attention_backward_dq_f16"),
+    "wgmma_f16": (None, "flash_attention_backward_dkv_sm90_f16",
+                  "flash_attention_backward_dq_sm90_f16"),
 }
-SIMT_ROUTES = {torch.float32: "simt_f32", torch.float16: "simt_f16"}  # dtype: its route
+# f32 and f16: (the forward's route, the backward's route).
+DTYPE_ROUTES = {torch.float32: ("simt_f32", "simt_f32"),
+                torch.float16: ("simt_f16", "wgmma_f16")}
 LOG2E = 1.4426950408889634
 # The plain branch's masked logit, bf16's lowest finite value (exact in f32).
 MASKED_LOGIT = torch.finfo(torch.bfloat16).min
@@ -109,9 +120,10 @@ def _kernels() -> dict:
                 [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr])  # dQ
     bound = {}
     for route, names in ENTRY_POINTS.items():
-        bound[route] = tuple(getattr(lib, name) for name in names)
+        bound[route] = tuple(None if name is None else getattr(lib, name) for name in names)
         for fn, types in zip(bound[route], argtypes):
-            fn.argtypes, fn.restype = types, ctypes.c_int
+            if fn is not None:
+                fn.argtypes, fn.restype = types, ctypes.c_int
     return bound
 
 
@@ -119,18 +131,22 @@ def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16, part: str = "fwd")
     """The kernels that `part` ("fwd", or "bwd": dK/dV and dQ) takes at a
     head width and an operand dtype: for bf16 "wgmma" (Hopper: wgmma, TMA,
     warp-specialised) at d in WGMMA_HEAD_DIMS[part] and "mma_sync" at the
-    other HEAD_DIMS (at every one inside `mma_sync_route()`); "simt_f32" or
-    "simt_f16" (f32 arithmetic on the CUDA cores) for f32 or f16; raises for
-    a width, a dtype or a part without kernels."""
+    other HEAD_DIMS (at every one inside `mma_sync_route()`); for f32
+    "simt_f32" (f32 arithmetic on the CUDA cores); for f16 "simt_f16" for
+    the forward and "wgmma_f16" (the Hopper pair in f16) for the backward
+    ("simt_f16" inside `simt_f16_route()`); raises for a width, a dtype or a
+    part without kernels."""
     if part not in WGMMA_HEAD_DIMS:
         raise ValueError(f"part is 'fwd' or 'bwd', got {part!r}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
     if dtype == torch.bfloat16:
         return "wgmma" if d in WGMMA_HEAD_DIMS[part] and not _MMA_SYNC_ROUTE else "mma_sync"
-    if dtype not in SIMT_ROUTES:
+    if dtype not in DTYPE_ROUTES:
         raise ValueError(f"the flash-attention kernels take bf16, f16 or f32 operands, got {dtype}")
-    return SIMT_ROUTES[dtype]
+    forward, backward = DTYPE_ROUTES[dtype]
+    # Inside `simt_f16_route()` the backward takes the simt pair beside the simt forward.
+    return backward if part == "bwd" and not _SIMT_F16_ROUTE else forward
 
 
 @contextlib.contextmanager
@@ -145,6 +161,20 @@ def mma_sync_route():
         yield
     finally:
         _MMA_SYNC_ROUTE = saved
+
+
+@contextlib.contextmanager
+def simt_f16_route():
+    """Within this block the f16 backward takes the simt pair of
+    `csrc/flash_attention_simt.cu` (f32 arithmetic on the CUDA cores), the
+    Hopper f16 pair's predecessor. It exists only for chip_smoke.py's
+    comparisons of the two pairs on the card: no main path enters it."""
+    global _SIMT_F16_ROUTE
+    saved, _SIMT_F16_ROUTE = _SIMT_F16_ROUTE, True
+    try:
+        yield
+    finally:
+        _SIMT_F16_ROUTE = saved
 
 
 def part_launches(part: str) -> int:
@@ -266,14 +296,19 @@ def flash_backward_plain(q, k, v, mask_u8, do, m, l, di):
     with their interface -> (dQ, dK, dV) (B, T, H, d) in q's dtype: P =
     exp2(logits - m) / l from the *saved* m (base 2) and l, so an all-masked
     row recomputes P = 1/T; dV = P^T dO, dS = P o (dO V^T - di), 0 at masked
-    keys, dQ = sm_scale dS K, dK = sm_scale dS^T Q."""
+    keys, dQ = sm_scale dS K, dK = sm_scale dS^T Q. The Hopper pair's
+    rounding points: P and dS rounded to q's dtype before the products they
+    enter (a no-op for f32 operands), sm_scale applied to the f32 sums, each
+    output rounded once. (The reference rounds sm_scale dS, not dS: the
+    same where sm_scale is a power of two, as at d = 64.)"""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp2(_logits_base2(q, k, mask_u8) - m[..., None]) * l.reciprocal()[..., None]
     qh, kh, vh, doh = (t.float().transpose(1, 2) for t in (q, k, v, do))
-    dv = p.transpose(-2, -1) @ doh
+    dv = p.to(q.dtype).float().transpose(-2, -1) @ doh
     ds = p * (doh @ vh.transpose(-2, -1) - di[..., None])
     if mask_u8 is not None:
         ds = ds.masked_fill(mask_u8[:, None, None, :] == 0, 0.0)
+    ds = ds.to(q.dtype).float()
     dq = (ds @ kh) * scale
     dk = (ds.transpose(-2, -1) @ qh) * scale
     return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))

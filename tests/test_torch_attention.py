@@ -196,6 +196,41 @@ def test_flash_backward_plain_matches_autograd_and_jax_flash(B, T, H, d, masked,
     assert not attention.route_launches
 
 
+# f16's half ulp is 2^-11 of a value. Each side rounds, on its way to a
+# gradient, P or dS to f16 and the gradient itself (the reference also its
+# O, whose rowsum with dO is di): four such roundings of the largest value.
+F16_TOL = 2.0 ** -9
+
+
+@pytest.mark.parametrize("d, masked", [(64, False), (64, True), (48, False), (48, True)])
+def test_f16_flash_backward_plain_matches_jax_flash_in_f16(d, masked):
+    """`flash_backward_plain` on f16 operands (the f16 Hopper pair's rounding
+    points: P and dS rounded to f16 before their products, sm_scale on the
+    f32 sums, each output rounded once) on `flash_forward_plain`'s m and l,
+    against the reference's stock flash backward run in f16 (interpret mode)
+    at T = 2117: dQ, dK and dV each within F16_TOL of the reference's largest
+    magnitude, and O (the reference rounds P before P V, both round O) too.
+    Measured: at most 2^-10.5 of it."""
+    rng = np.random.default_rng(2117 + d)
+    q, k, v, ct = (a.astype(np.float16) for a in (*_qkv(rng, 1, 2117, 2, d),
+                                                  rng.normal(size=(1, 2117, 2, d))))
+    mask = None
+    if masked:
+        mask = rng.uniform(size=(1, 2117)) > 0.3
+        mask[:, 0] = True
+    mask_u8 = None if mask is None else attention.mask_bytes(torch.from_numpy(mask))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, ct))
+    o, m, l = attention.flash_forward_plain(qt, kt, vt, mask_u8)
+    got = [o, *attention.flash_backward_plain(qt, kt, vt, mask_u8, dot, m, l,
+                                              attention.row_dot(dot, o))]
+    assert all(t.dtype == torch.float16 for t in got)
+    want = _jax_attention(q, k, v, ct, mask, use_flash=True)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(np32(g), w, rtol=0, atol=F16_TOL * np.abs(w).max(),
+                                   err_msg=name)
+    assert not attention.route_launches
+
+
 CSRC = Path(attention.__file__).resolve().parents[1] / "csrc"
 
 
@@ -205,10 +240,12 @@ def test_backward_route_by_head_width(d):
     (dK/dV and dQ) takes the Hopper kernels at every width of HEAD_DIMS, the
     forward at d = 64 only and the mma.sync kernel at the other widths;
     inside `mma_sync_route()` both parts take mma.sync at every width; f32
-    and f16 take the f32-arithmetic kernels of flash_attention_simt.cu at
-    every width; each route's three C entry points are declared in its
-    source; a width without kernels raises, on the rule and on the
-    wrappers, which count nothing."""
+    takes the f32-arithmetic kernels of flash_attention_simt.cu at every
+    width; f16 takes that file's forward and the Hopper backward pair
+    instantiated for f16 ("wgmma_f16") at every width, the simt pair inside
+    `simt_f16_route()`; each route's C entry points are declared in its
+    source ("wgmma_f16" has no forward of its own); a width without kernels
+    raises, on the rule and on the wrappers, which count nothing."""
     if d not in attention.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
             for part in ("fwd", "bwd"):
@@ -235,22 +272,36 @@ def test_backward_route_by_head_width(d):
         for part in ("fwd", "bwd"):
             assert attention.kernel_route(d, torch.bfloat16, part) == "mma_sync"
             assert attention.kernel_route(d, torch.float32, part) == "simt_f32"
+        assert attention.kernel_route(d, torch.float16, "bwd") == "wgmma_f16"
     assert attention.kernel_route(d, torch.bfloat16, "bwd") == "wgmma"
     for part in ("fwd", "bwd"):
         assert attention.kernel_route(d, torch.float32, part) == "simt_f32"
-        assert attention.kernel_route(d, torch.float16, part) == "simt_f16"
+    assert attention.kernel_route(d, torch.float16, "fwd") == "simt_f16"
+    assert attention.kernel_route(d, torch.float16, "bwd") == "wgmma_f16"
+    with attention.simt_f16_route():
+        for part in ("fwd", "bwd"):
+            assert attention.kernel_route(d, torch.float16, part) == "simt_f16"
+            assert attention.kernel_route(d, torch.float32, part) == "simt_f32"
+        assert attention.kernel_route(d, torch.bfloat16, "bwd") == "wgmma"
+    assert attention.kernel_route(d, torch.float16, "bwd") == "wgmma_f16"
     with pytest.raises(ValueError, match="part"):
         attention.kernel_route(d, torch.bfloat16, "dq")
     for route, source, suffix in (("mma_sync", "flash_attention.cu", ""),
                                   ("wgmma", "flash_attention.cu", "_sm90"),
+                                  ("wgmma_f16", "flash_attention.cu", "_sm90_f16"),
                                   ("simt_f32", "flash_attention_simt.cu", "_f32"),
                                   ("simt_f16", "flash_attention_simt.cu", "_f16")):
         forward, dkv, dq = attention.ENTRY_POINTS[route]
-        assert forward == "flash_attention_forward" + suffix
+        names = [dkv, dq]
         assert dkv == "flash_attention_backward_dkv" + suffix
         assert dq == "flash_attention_backward_dq" + suffix
+        if route == "wgmma_f16":
+            assert forward is None  # f16's forward is simt_f16's
+        else:
+            assert forward == "flash_attention_forward" + suffix
+            names.append(forward)
         text = (CSRC / source).read_text()
-        for name in (forward, dkv, dq):
+        for name in names:
             assert f'extern "C" int {name}(' in text, name
 
 
@@ -267,10 +318,14 @@ def test_backward_route_by_head_width(d):
 def test_flash_rule(dtype, device_type, tokens, kernels):
     """use_flash=None takes the kernels for a CUDA q at T >= 2048, whatever
     its dtype, and the plain branch for every other q, decided from device
-    type and T alone (no card needed); the dtype picks the kernels' route."""
+    type and T alone (no card needed); the dtype picks the kernels' routes,
+    the forward's and the backward's: f16's forward on the simt kernel, its
+    backward on the Hopper pair."""
     assert attention.flash_rule(device_type, tokens) is kernels
     assert attention.kernel_route(64, dtype) == {
         torch.bfloat16: "wgmma", torch.float32: "simt_f32", torch.float16: "simt_f16"}[dtype]
+    assert attention.kernel_route(64, dtype, "bwd") == {
+        torch.bfloat16: "wgmma", torch.float32: "simt_f32", torch.float16: "wgmma_f16"}[dtype]
 
 
 def test_cpu_tensors_take_the_plain_branch_at_any_t():
@@ -522,9 +577,11 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked):
 def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     """f32 and f16 operands at T = 2305 with a mask (an all-masked batch
     element included): `fused_self_attention` launches the f32-arithmetic
-    kernels, and O, dQ, dK, dV are within 1e-5 of the largest magnitude of
-    the plain branch in f32 for f32 operands, 2^-10 for f16 ones (the
-    kernels round their outputs to f16 once)."""
+    forward, and the f32-arithmetic backward for f32, the f16 Hopper pair
+    for f16; O, dQ, dK, dV are within 1e-5 of the largest magnitude of the
+    plain branch in f32 for f32 operands; for f16 O within 2^-10 (the simt
+    forward rounds O to f16 once) and the gradients within F16_TOL (the
+    Hopper pair rounds P, dS and the gradients to f16)."""
     q, k, v, do, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
                          for t in _card_case(cuda_device, 2, 2305, 2, d, True, seed=d))
     before = _part_launches()
@@ -538,11 +595,13 @@ def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     assert out.dtype == dtype
     assert _part_launches() == tuple(
         n + 1 for n in before)
-    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -10
-    for name, a, b in zip(("O", "dQ", "dK", "dV"), (out, *(t.grad for t in ts)),
-                          (out_ref, *(t.grad for t in ref))):
+    assert attention.kernel_route(d, dtype, "bwd") == (
+        "simt_f32" if dtype == torch.float32 else "wgmma_f16")
+    rel = [1e-5] * 4 if dtype == torch.float32 else [2.0 ** -10] + [F16_TOL] * 3
+    for name, a, b, r in zip(("O", "dQ", "dK", "dV"), (out, *(t.grad for t in ts)),
+                             (out_ref, *(t.grad for t in ref)), rel):
         err = float((a.float() - b).abs().max())
-        assert err <= rel * float(b.abs().max()) + 1e-6, (name, err)
+        assert err <= r * float(b.abs().max()) + 1e-6, (name, err)
 
 
 @pytest.mark.cuda
@@ -573,3 +632,29 @@ def test_backward_kernels_alone_match_plain_on_card(cuda_device, B, T, H, d, mas
         assert torch.equal(a, b), name
         err = float((a.float() - w).abs().max())
         assert err <= 2.0 ** -6 * float(w.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", attention.HEAD_DIMS)
+def test_f16_backward_pair_alone_matches_plain_on_card(cuda_device, d):
+    """The f16 Hopper pair alone at (2, 2305, 768 / d, d) with a mask (an
+    all-masked batch element included) against `flash_backward_plain` in f32
+    on the simt f16 forward's saved m and l: within F16_TOL of the plain
+    gradient's largest magnitude, plus 1e-6; two calls bit-identical."""
+    q, k, v, do, mask = _card_case(cuda_device, 2, 2305, 768 // d, d, True, seed=d + 2)
+    q, k, v, do = (t.half() for t in (q, k, v, do))
+    mask_u8 = attention.mask_bytes(mask)
+    o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
+    args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
+    want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
+                                          *args[5:])
+    before = attention.route_launches.copy()
+    runs = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = attention.route_launches - before
+    assert launched == {("dq", "wgmma_f16"): 2, ("dkv", "wgmma_f16"): 2}, launched
+    for name, a, b, w in zip(("dQ", "dK", "dV"), *runs, want):
+        assert a.dtype == torch.float16 and torch.equal(a, b), name
+        err = float((a.float() - w).abs().max())
+        assert err <= F16_TOL * float(w.abs().max()) + 1e-6, (name, err)

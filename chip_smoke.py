@@ -69,40 +69,37 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
          fusion's default heads, T = 37 at d = 48, an all-masked batch
-         element, T = 1, T = 129), at d = 64 the forward on both routes
-         (wgmma, mma.sync); the forward alone against `flash_forward_plain`
-         on O (no further from it than the bf16 plain branch, a bound that a
-         forward skipping one key tile must miss), m and l, and the backward
-         kernels alone against
-         `flash_backward_plain` on the forward kernel's statistics, each on
-         both routes (wgmma, mma.sync) at every width, two calls
-         bit-identical; the Hopper kernels, the backward's at every width,
-         build without spills; then timed beside SDPA, at T = 1025 too: the
-         forward on both routes in turns, and the backward pair alone on
-         both routes beside SDPA's backward alone (phase 3);
+         element, T = 1, T = 129); the forward alone against
+         `flash_forward_plain` on O (no further from it than the bf16 plain
+         branch, a bound that a forward skipping one key tile must miss), m
+         and l, and the backward kernels alone against
+         `flash_backward_plain` on the forward kernel's statistics, two
+         calls bit-identical; the Hopper kernels, all three at every width
+         in bf16 and f16, build without spills; then timed beside SDPA, at
+         T = 1025 too, and the backward pair alone beside SDPA's backward
+         alone (phase 3);
        * d in {32, 48, 96, 128}, no main path's width (`phase_flash_widths`):
-         `fused_self_attention` launches the mma.sync forward and the Hopper
-         dK/dV and dQ (the route counters), with and without a mask; both
-         backward routes against `flash_backward_plain` on the mma.sync
-         forward's statistics; timed at (8, 2305, 768 / d, d): the forward
-         and forward + backward beside the plain branch and SDPA, both
-         backward pairs in turns beside SDPA's backward alone;
+         `fused_self_attention` launches the Hopper forward, dK/dV and dQ
+         (the route counters), with and without a mask; the forward and the
+         backward alone as above; timed at (8, 2305, 768 / d, d): the
+         forward and forward + backward beside the plain branch and SDPA,
+         the backward pair alone beside SDPA's backward alone;
        * f32 and f16 CUDA operands at T = 2305 (`phase_simt`): f32 launches
          the f32-arithmetic forward, dK/dV and dQ kernels once each, f16
-         that forward and the f16 Hopper dK/dV and dQ once each; both agree
-         with the plain branch in f32, each kernel alone too (and the simt
-         f16 pair, which no route takes any more), two calls bit-identical;
-         they are timed in f32 and f16 beside the plain branch and SDPA,
-         the f16 pair in turns with the simt f16 pair (bf16 at that shape
-         launches one forward); `serve --replay-dir` on a directory of PNG
-         frames exits naming the missing decoder where cv2 cannot be
-         imported, and serves where it can;
-       * the f16 backward at (8, 2305, 768 / d, d), every width
-         (`phase_flash_f16`): the f16 Hopper pair and the simt f16 pair
-         alone against `flash_backward_plain` on the simt forward's
-         statistics, with a mask, two calls bit-identical; timed without
-         a mask, the two pairs in turns beside SDPA f16's backward alone,
-         and the f16 pair in turns with the bf16 pair;
+         the Hopper forward, dK/dV and dQ instantiated for f16 once each;
+         both agree with the plain branch in f32, each kernel alone too,
+         two calls bit-identical; they are timed in f32 and f16 beside the
+         plain branch and SDPA (bf16 at that shape launches one forward);
+         `serve --replay-dir` on a directory of PNG frames exits naming the
+         missing decoder where cv2 cannot be imported, and serves where it
+         can;
+       * f16 at (8, 2305, 768 / d, d), every width (`phase_flash_f16`):
+         `fused_self_attention` launches the f16 forward, dK/dV and dQ with a
+         mask; the forward and the backward pair alone against the plain
+         versions, two calls bit-identical; timed without a mask, the
+         forward and forward + backward beside the plain branch and SDPA
+         f16, the backward pair alone beside SDPA f16's backward alone, and
+         the f16 pair in turns with the bf16 pair;
        * `serve --model-size 768`: 12 forward launches per tick; the bare
          768-px step timed, never synchronizing, against the plain path;
        * the unfrozen 768-px train step (fr3, 2 groups x 4 views): backbone
@@ -111,12 +108,11 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * `SelfAttentionFusion` at B 4, V 8, N 513, D 768 against the plain
          path, and its mask invariance. Every other path launches no flash
          kernel;
-  8. a JSON line per kernel (the flash kernels also with their mma.sync time,
-     for f32 and f16 operands `f32_ms`, `f16_ms` (the backward's also
-     `f16_simt_ms`, the simt pair's) and their bounds, the bf16 backward's
-     times at the other widths under `widths`, the f16 backward's at every
-     width under `f16_widths`), the card and its
-     power limit, then the last line
+  8. a JSON line per kernel (the flash kernels also, for f32 and f16
+     operands, `f32_ms`, `f16_ms` and their bounds, the bf16 kernels' times
+     at the other widths under `widths`, the f16 kernels' at every width
+     under `f16_widths`; the forward's bound the larger of its products' and
+     its exponentials'), the card and its power limit, then the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -124,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import re
@@ -284,6 +281,33 @@ def bound(nbytes: float, ops=0.0, kind: str = "bf16") -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+@functools.cache
+def exp_per_s() -> float:
+    """The card's ex2 rate: 16 a clock on each SM (its special-function
+    units) at its top SM clock, the SM count and the clock read from the card."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return 16 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+
+
+def with_exp_floor(b: dict, exps: int) -> dict:
+    """`bound`'s `b` for work that also takes `exps` exponentials: these run
+    on the special-function units beside the tensor cores, so the least time
+    is the larger of `b` and their time at `exp_per_s`, both kept under
+    "parts" for the printed lines."""
+    floor = 1e3 * exps / exp_per_s()
+    out = b if b["bound_ms"] >= floor else {"bound_ms": floor, "bound_by": "operations"}
+    return {**out, "parts": (b["bound_ms"], floor)}
+
+
+def fmt_bound(b: dict) -> str:
+    """A bound for the printed lines, with its two parts where it has them."""
+    parts = b.get("parts")
+    return f"{b['bound_ms']:.4f} ({b['bound_by']}" + (
+        f": products/bytes {parts[0]:.4f}, exponentials {parts[1]:.4f})" if parts else ")")
+
+
 def time_in_turns(name: str, shape: str, plain, kernel, iters: int = 20, samples: int = 50):
     """Eager and graph-replay times in turns plain/kernel/kernel/plain ->
     (kernel ms, plain ms), the medians of the graph-replay (device) times."""
@@ -322,17 +346,17 @@ def spilled_bytes(log: str) -> dict:
     return spills
 
 
-# The Hopper kernels of the build: the flash forward at d = 64, the flash
-# dK/dV and dQ at every head width in bf16 and in f16, the int8 attention
-# and the int8 GEMM.
-HOPPER_KERNELS = 1 + 2 * 2 * len(attention.HEAD_DIMS) + 2
-# The element types of the flash backward's instantiations, as mangled names spell them.
+# The Hopper kernels of the build: the flash forward, dK/dV and dQ at every
+# head width in bf16 and in f16, the int8 attention and the int8 GEMM.
+FLASH_PARTS = ("fwd", "dkv", "dq")
+HOPPER_KERNELS = len(FLASH_PARTS) * 2 * len(attention.HEAD_DIMS) + 2
+# The element types of the flash kernels' instantiations, as mangled names spell them.
 HOPPER_TYPES = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
 
 
 def phase_build() -> None:
     """Build the kernels; the Hopper kernels (`*_sm90_kernel`, each flash
-    backward instantiation) must all be there and must not spill."""
+    instantiation) must all be there and must not spill."""
     t0 = time.perf_counter()
     _build.load_library()
     seconds = time.perf_counter() - t0
@@ -346,11 +370,11 @@ def phase_build() -> None:
         widths = {(kind, ty): sorted(
             int(w) for k in hopper
             for w in re.findall(rf"flash_{kind}_sm90_kernelILi(\d+)E{mangled}E", k))
-            for kind in ("dkv", "dq") for ty, mangled in HOPPER_TYPES.items()}
+            for kind in FLASH_PARTS for ty, mangled in HOPPER_TYPES.items()}
         check(len(hopper) == HOPPER_KERNELS and not any(hopper.values()) and
               all(w == list(attention.HEAD_DIMS) for w in widths.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
-        print(f"Hopper kernels: {len(hopper)}, none spills; flash backward instantiations at "
+        print(f"Hopper kernels: {len(hopper)}, none spills; flash instantiations at "
               + ", ".join(f"d = {w} ({kind}, {ty})" for (kind, ty), w in widths.items()))
 
 
@@ -679,28 +703,21 @@ def phase_int8_attention() -> dict:
     sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
     # The function's work: one QK^T (bf16) and one P V (int8), 2 B H T^2 d
     # operations each; the kernel reads q, k, the int8 values and their
-    # scales once and writes O once. The exponentials' floor: B H T^2 of
-    # them at 16 a clock on each SM at the card's top SM clock.
+    # scales once and writes O once; and B H T^2 exponentials.
     pairs = B * H * T * T
     kbytes = 2 * 2 * B * T * H * d + vt.numel() + 4 * sv.numel() + 2 * B * T * H * d
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    exp_floor = 1e3 * pairs / (16 * sms * float(smi) * 1e6)
-    kb = bound(kbytes, {"bf16": 2 * pairs * d, "int8": 2 * pairs * d})
+    kb = with_exp_floor(bound(kbytes, {"bf16": 2 * pairs * d, "int8": 2 * pairs * d}), pairs)
     qb = bound(2 * B * T * H * d + vt.numel() + 4 * sv.numel())
     print(f"int8 attention {INT8_SERVE} bf16, ms per call, CUDA-graph replay, in turns "
           f"plain/pv/fused/fused/pv/plain: whole function "
           + ", ".join(f"{n} {'/'.join(f'{x:.4f}' for x in t[n])}" for n in order)
           + f"; fused kernel alone {kernel:.4f} (plain {kernel_plain:.4f}), bound "
-          f"{kb['bound_ms']:.4f} ({kb['bound_by']}), exponential floor {exp_floor:.4f} ({sms} SMs "
-          f"at {smi} MHz); values' quantization kernel {quant:.4f} (plain {quant_plain:.4f}, bound "
-          f"{qb['bound_ms']:.4f}), {100 * quant / whole['fused']:.1f} % of the fused route; SDPA "
+          f"{fmt_bound(kb)} (ex2 at {exp_per_s():.4g}/s); values' quantization kernel "
+          f"{quant:.4f} (plain {quant_plain:.4f}, bound {qb['bound_ms']:.4f}), {100 * quant / whole['fused']:.1f} % of the fused route; SDPA "
           f"bf16 (float probabilities, a near relative) {sdpa:.4f}")
-    return {"int8_attention": {"max_abs_err": max_err, "ms": kernel,
-                               "plain_ms": kernel_plain, **kb, "library_ms": None,
-                               "exp_floor_ms": exp_floor, "fused_route_ms": whole["fused"],
+    return {"int8_attention": {"max_abs_err": max_err, "ms": kernel, "plain_ms": kernel_plain,
+                               "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+                               "library_ms": None, "fused_route_ms": whole["fused"],
                                "pv_route_ms": whole["pv_route"], "plain_route_ms": whole["plain"],
                                "sdpa_ms": sdpa},
             "int8_quantize_v": {"max_abs_err": 0.0, "ms": quant,
@@ -1020,8 +1037,8 @@ HEADS_OUTER = {"train_768"}
 FLASH_TIMED = [("serve_768", 4, 2305, None), ("train_768", 8, 2305, None),
                ("fusion_bench", 4, 4104, "view"), ("train_512", 72, 1025, None),
                ("serve_512", 4, 1025, None)]
-# A kernel's error may exceed the bf16 plain branch's by this much: at T = 1
-# the plain branch's dQ and dK are exactly 0 (a softmax over one key), the
+# A kernel's error may exceed the plain branch's by this much: at T = 1 the
+# plain branch's dQ and dK are exactly 0 (a softmax over one key), the
 # kernels' a difference of two f32 sums of the same products (5e-8 on the card).
 FLASH_ERR_FLOOR = 1e-6
 # A backward kernel alone against `flash_backward_plain` in f32 on the same
@@ -1034,32 +1051,31 @@ BACKWARD_TOL = 2.0 ** -6
 # The f16 Hopper pair, the same way with f16's half ulp (2^-11): 2^-9.
 F16_BACKWARD_TOL = 2.0 ** -9
 # The forward kernel alone against `flash_forward_plain` in f32 on the same
-# bf16 values. O no further from it than the bf16 plain branch's O is (or
-# FLASH_ERR_FLOOR): both round to bf16 the probabilities they multiply by V
-# and the O they return, and the plain branch its logits as well, so the
-# kernel's error is the smaller (measured 2.3x to 4x smaller on an H100).
-# The bound scales with O itself, not with V: at T = 2305 a typical |O| is
-# ~0.03 beside max|v| ~5. `forward_alone` shows that it is tight enough to
-# fail a kernel that skips one key tile. m (base 2) within STAT_TOL where a
-# row has an attended key (its logits are f32 sums of the same products in
-# another order, ~1e-5 here; a shift of m by 2^-10 moves P by 0.07 % and
-# leaves O as it is) and exactly bf16's lowest finite value where it has
-# none; l within 2 STAT_TOL relative (it moves with m).
+# bf16 (f16) values. O no further from it than the plain branch's O in the
+# operands' dtype is (or FLASH_ERR_FLOOR): both round to that dtype the
+# probabilities they multiply by V and the O they return, and the plain
+# branch its logits as well, so the kernel's error is the smaller (in bf16
+# measured 2.3x to 4x smaller on an H100). The bound scales with O itself,
+# not with V: at T = 2305 a typical |O| is ~0.03 beside max|v| ~5.
+# `forward_alone` shows that it is tight enough to fail a kernel that skips
+# one key tile. m (base 2) within STAT_TOL where a row has an attended key
+# (its logits are f32 sums of the same products in another order, ~1e-5
+# here; a shift of m by 2^-10 moves P by 0.07 % and leaves O as it is) and
+# exactly bf16's lowest finite value where it has none; l within 2 STAT_TOL
+# relative (it moves with m).
 STAT_TOL = 2.0 ** -10
-# The f32-arithmetic kernels (f32 and f16 operands, `phase_simt`) against
-# the plain branch in f32 on the same values, as a share of its largest
-# magnitude: f32, 1e-5 (the same f32 products summed in another order over
-# T = 2305 keys, ~1e-6, and exp2f's 2 ulps); f16, 2^-10, twice the half ulp
-# of the one rounding of each output to f16.
-SIMT_TOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -10}
+# The f32-arithmetic kernels (f32 operands, `phase_simt`) against the plain
+# branch in f32 on the same values, as a share of its largest magnitude: the
+# same f32 products summed in another order over T = 2305 keys, ~1e-6, and
+# exp2f's 2 ulps.
+SIMT_TOL = 1e-5
 SIMT_SHAPE = (2, 2305, 12, 64)  # the 768-px serve backbone's T at 2 images
 
 
 def backward_tol(route: str) -> float:
     """The bound of a backward route's gradients against the plain version
     in f32, as a share of the plain gradient's largest magnitude."""
-    return {"wgmma_f16": F16_BACKWARD_TOL, "simt_f16": SIMT_TOL[torch.float16],
-            "simt_f32": SIMT_TOL[torch.float32]}.get(route, BACKWARD_TOL)
+    return {"wgmma_f16": F16_BACKWARD_TOL, "simt_f32": SIMT_TOL}.get(route, BACKWARD_TOL)
 
 
 def _flash_mask(kind, B: int, T: int, gen):
@@ -1085,30 +1101,12 @@ def _flash_operands(B: int, T: int, H: int, d: int, mask_kind, seed: int,
     return [t.requires_grad_() for t in (q, k, v)], do, _flash_mask(mask_kind, B, T, gen)
 
 
-def on_route(route: str):
-    """The kernels on `route`: d's own, "mma_sync" (`attention.mma_sync_route()`)
-    or, for f16's backward, "simt_f16" (`attention.simt_f16_route()`)."""
-    if route == "mma_sync":
-        return attention.mma_sync_route()
-    return attention.simt_f16_route() if route == "simt_f16" else contextlib.nullcontext()
-
-
-# A Hopper route: the route it replaced, which chip_smoke.py still compares it with.
-PREDECESSOR = {"wgmma": "mma_sync", "wgmma_f16": "simt_f16"}
-
-
-def routes(d: int, part: str = "fwd", dtype=torch.bfloat16) -> list:
-    """The route of d's `part` ("fwd" or "bwd") in `dtype` and, where that
-    is a Hopper route, its predecessor too."""
-    own = attention.kernel_route(d, dtype, part)
-    return [own, PREDECESSOR[own]] if own in PREDECESSOR else [own]
-
-
-def dropped_tile_gap(q, k, v, mask_u8, o_ref, tile: int):
+def dropped_tile_gap(q, k, v, mask_u8, o_ref):
     """max |O - o_ref| of a forward that skips keys [tile, 2 tile), the
-    second key tile, as a kernel with a wrong tile loop would (None where T <
-    2 tile): what the O bound of `forward_alone` must reject."""
-    T = q.shape[1]
+    second key tile of the Hopper forward (`attention.forward_key_tile`), as
+    a kernel with a wrong tile loop would (None where T < 2 tile): what the
+    O bound of `forward_alone` must reject."""
+    T, tile = q.shape[1], attention.forward_key_tile()
     if T < 2 * tile:
         return None
     keep = torch.cat([torch.arange(tile), torch.arange(2 * tile, T)]).to(q.device)
@@ -1119,64 +1117,59 @@ def dropped_tile_gap(q, k, v, mask_u8, o_ref, tile: int):
 
 
 def forward_alone(q, k, v, mask, tol_o: float) -> dict:
-    """The forward kernel alone against `flash_forward_plain` in f32 on the
-    same bf16 values, on each of d's `routes`: O within tol_o (the bf16
-    plain branch's O error), m and l within STAT_TOL, 2 STAT_TOL (an
-    all-masked row's m exact), and two calls bit-identical; a forward that
-    skips one key tile must miss tol_o. -> {route: [err O, m, l]}, with the
-    skipped tile's O gap under "dropped_tile"."""
+    """The Hopper forward alone against `flash_forward_plain` in f32 on the
+    same bf16 (f16) values: O within tol_o (the plain branch's O error in
+    that dtype), m and l within STAT_TOL, 2 STAT_TOL (an all-masked row's m
+    exact), and two calls bit-identical; a forward that skips one key tile
+    must miss tol_o. -> {route: [err O, m, l]}, with the skipped tile's O gap
+    under its own key."""
     mask_u8 = attention.mask_bytes(mask)
     o_ref, m_ref, l_ref = attention.flash_forward_plain(q.float(), k.float(), v.float(), mask_u8)
     attended = m_ref > attention.MASKED_LOGIT  # rows with an attended key
-    dropped = dropped_tile_gap(q, k, v, mask_u8, o_ref,
-                               128 if attention.kernel_route(q.shape[-1]) == "wgmma" else 64)
+    dropped = dropped_tile_gap(q, k, v, mask_u8, o_ref)
     check(dropped is None or dropped > tol_o,
           f"forward alone: O's bound {tol_o} passes a forward that skips a key tile ({dropped})")
     errs = {f"a forward skipping a key tile (O bound {tol_o:.3g})": [
         float("nan") if dropped is None else dropped]}
-    for route in routes(q.shape[-1]):
-        with on_route(route):
-            runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(*runs)),
-              f"{route}: two forward calls on the same inputs differ")
-        o, m, l = runs[0]
-        check(torch.equal(m[~attended], m_ref[~attended]),
-              f"{route}: an all-masked row's m is not bf16's lowest finite value")
-        errs[route] = [float((o.float() - o_ref).abs().max()),
-                       float((m - m_ref)[attended].abs().max()) if bool(attended.any()) else 0.0,
-                       float(((l - l_ref) / l_ref).abs().max())]
-        for part, e, tol in zip(("O", "m", "l"), errs[route], (tol_o, STAT_TOL, 2 * STAT_TOL)):
-            check(e <= tol, f"{route} forward alone: {part} is {e} from flash_forward_plain, "
-                            f"above {tol}")
+    route = attention.kernel_route(q.shape[-1], q.dtype)
+    runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{route}: two forward calls on the same inputs differ")
+    o, m, l = runs[0]
+    check(torch.equal(m[~attended], m_ref[~attended]),
+          f"{route}: an all-masked row's m is not bf16's lowest finite value")
+    errs[route] = [float((o.float() - o_ref).abs().max()),
+                   float((m - m_ref)[attended].abs().max()) if bool(attended.any()) else 0.0,
+                   float(((l - l_ref) / l_ref).abs().max())]
+    for part, e, tol in zip(("O", "m", "l"), errs[route], (tol_o, STAT_TOL, 2 * STAT_TOL)):
+        check(e <= tol, f"{route} forward alone: {part} is {e} from flash_forward_plain, "
+                        f"above {tol}")
     return errs
 
 
 def backward_alone(q, k, v, mask, do) -> dict:
     """The dQ and dK/dV kernels alone against `flash_backward_plain` in f32
-    on the same saved statistics (the forward kernel's m and l on d's own
-    forward route: mma.sync at d != 64 in bf16, simt in f16 and f32; di of
-    its O), on each of the backward's `routes`: each gradient within its
-    route's `backward_tol` of the plain one's largest magnitude (plus
-    FLASH_ERR_FLOOR), and two calls bit-identical. -> {route: [err dQ, dK, dV]}."""
+    on the same saved statistics (the forward kernel's m and l, di of its
+    O): each gradient within its route's `backward_tol` of the plain one's
+    largest magnitude (plus FLASH_ERR_FLOOR), and two calls bit-identical.
+    -> {route: [err dQ, dK, dV]}."""
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
     want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
                                           *args[5:])
-    errs = {}
-    for route in routes(q.shape[-1], "bwd", q.dtype):
-        tols = [backward_tol(route) * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
-        with on_route(route):
-            runs = [(attention.flash_backward_dq_cuda(*args),
-                     *attention.flash_backward_dkv_cuda(*args)) for _ in range(2)]
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(*runs)),
-              f"{route}: two backward calls on the same inputs differ")
-        errs[route] = [float((g.float() - w).abs().max()) for g, w in zip(runs[0], want)]
-        for part, e, tol in zip(("dQ", "dK", "dV"), errs[route], tols):
-            check(e <= tol, f"{route} {part} alone is {e} from flash_backward_plain, above {tol}")
-    return errs
+    route = attention.kernel_route(q.shape[-1], q.dtype)
+    tols = [backward_tol(route) * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
+    runs = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{route}: two backward calls on the same inputs differ")
+    errs = [float((g.float() - w).abs().max()) for g, w in zip(runs[0], want)]
+    for part, e, tol in zip(("dQ", "dK", "dV"), errs, tols):
+        check(e <= tol, f"{route} {part} alone is {e} from flash_backward_plain, above {tol}")
+    return {route: errs}
 
 
 def _grads(fn, qkv, mask, do):
@@ -1191,14 +1184,13 @@ def _flash_bounds(B: int, T: int, H: int, d: int, mask, dtype=torch.bfloat16) ->
     once. Forward: 2 products, reads q, k, v, writes O (the timed call saves
     no statistics); dK/dV: 4 products, reads q, k, v, dO and the f32 m, l,
     di, writes dK, dV; dQ: 3 products, reads the same, writes dQ. bf16 and
-    f16 at the tensor cores' rate (their products accumulate exactly in
-    f32, so the f16 kernels' f32 arithmetic could run there), f32 at the f32
-    rate."""
+    f16 at the tensor cores' rate, f32 at the f32 rate; the forward's
+    exponentials, one per query and attended key, at `with_exp_floor`'s."""
     pairs = H * T * (B * T if mask is None else int(mask.sum()))
     x = B * T * H * d * torch.finfo(dtype).bits // 8
     stat, mbytes = B * H * T * 4, 0 if mask is None else B * T
     kind = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[dtype]
-    return {"flash_fwd": bound(4 * x + mbytes, 2 * 2 * pairs * d, kind),
+    return {"flash_fwd": with_exp_floor(bound(4 * x + mbytes, 2 * 2 * pairs * d, kind), pairs),
             "flash_bwd_dkv": bound(6 * x + 3 * stat + mbytes, 4 * 2 * pairs * d, kind),
             "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d, kind)}
 
@@ -1206,10 +1198,10 @@ def _flash_bounds(B: int, T: int, H: int, d: int, mask, dtype=torch.bfloat16) ->
 def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> tuple:
     """One FLASH_CASES shape: O, dQ, dK and dV of the kernels no further from
     the plain branch in f32 on the same bf16 values than the bf16 plain
-    branch is (FLASH_ERR_FLOOR aside), with a random dO, and where d's route
-    is wgmma the mma.sync forward's O too; then the forward and the backward
-    kernels alone (`forward_alone`, `backward_alone`). -> (the kernels'
-    O/dQ/dK/dV errors, the forward's and the backward's errors alone by route)."""
+    branch is (FLASH_ERR_FLOOR aside), with a random dO; then the forward
+    and the backward kernels alone (`forward_alone`, `backward_alone`). ->
+    (the kernels' O/dQ/dK/dV errors, the forward's and the backward's
+    errors alone)."""
     qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=70 + i,
                                     heads_outer=name in HEADS_OUTER)
     ref = _grads(attention.flash_attention_reference,
@@ -1222,29 +1214,21 @@ def flash_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind) -> 
         check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: {path} not finite")
         gaps[path] = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
         del got
-    paths = [("kernel", gaps["kernel"])]
-    if len(routes(d)) > 1:
-        with torch.no_grad(), attention.mma_sync_route():
-            o = attention.flash_attention_cuda(*qkv, mask)
-        paths.append(("mma.sync forward", [float((o.float() - ref[0]).abs().max())]))
     del ref
-    for path, errs in paths:
-        for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), errs, gaps["plain"]):
-            check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
-                  f"{name}: the {path}'s {part} is {e_kernel} from f32, the bf16 plain "
-                  f"branch's {e_plain}")
+    for part, e_kernel, e_plain in zip(("O", "dQ", "dK", "dV"), gaps["kernel"], gaps["plain"]):
+        check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
+              f"{name}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
+              f"branch's {e_plain}")
     fwd = forward_alone(*(t.detach() for t in qkv), mask, max(gaps["plain"][0], FLASH_ERR_FLOOR))
     alone = backward_alone(*(t.detach() for t in qkv), mask, do)
     fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
     layout = ", heads outer" if name in HEADS_OUTER else ""
     print(f"flash kernels vs f32 plain [{name} (B, T, H, d) = {(B, T, H, d)} mask {mask_kind}"
-          f"{layout}; routes: forward {attention.kernel_route(d)}, backward "
-          f"{attention.kernel_route(d, part='bwd')}]: O/dQ/dK/dV max abs err "
-          + ", ".join(f"{path} {fmt(errs)}" for path, errs in paths)
-          + f", bf16 plain {fmt(gaps['plain'])}; forward alone vs flash_forward_plain, "
-          f"O/m/l(rel): " + ", ".join(f"{route} {fmt(e)}" for route, e in fwd.items())
+          f"{layout}; route {attention.kernel_route(d)}]: O/dQ/dK/dV max abs err kernels "
+          f"{fmt(gaps['kernel'])}, bf16 plain {fmt(gaps['plain'])}; forward alone vs "
+          f"flash_forward_plain, O/m/l(rel): " + ", ".join(f"{r} {fmt(e)}" for r, e in fwd.items())
           + "; backward alone vs flash_backward_plain, dQ/dK/dV: "
-          + ", ".join(f"{route} {fmt(e)}" for route, e in alone.items())
+          + ", ".join(f"{r} {fmt(e)}" for r, e in alone.items())
           + "; two calls bit-identical")
     return gaps["kernel"], fwd, alone
 
@@ -1258,11 +1242,8 @@ def _in_turns(timer, first, second) -> tuple:
 def backward_times(B: int, T: int, mask_kind, timer, H: int = 12, d: int = 64,
                    dtype=torch.bfloat16) -> dict:
     """At (B, T, H, d) in `dtype`: the dK/dV and dQ kernels alone on one
-    forward's statistics (d's own forward route), where the backward's route
-    has a predecessor (`routes`: bf16's mma.sync, f16's simt pair) both in
-    turns predecessor/own/own/predecessor, the predecessor's under its
-    name (`flash_bwd_dkv_mma_sync`); their plain versions (the plain
-    branch's forward and its gradients: dK, dV or dQ); SDPA's backward alone
+    forward's statistics; their plain versions (the plain branch's forward
+    and its gradients: dK, dV or dQ); SDPA's backward alone
     (`torch.autograd.grad` on a saved SDPA forward, the library yardstick of
     the pair, timed only here). -> ms by key."""
     bench = _script("torch_bench_attention_fusion")
@@ -1271,19 +1252,8 @@ def backward_times(B: int, T: int, mask_kind, timer, H: int = 12, d: int = 64,
     mask_u8 = attention.mask_bytes(mask)
     o, m, l = attention.flash_forward_cuda(q, k, v, mask_u8)
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
-    older = routes(d, "bwd", dtype)[1:]
-    out = {}
-    for kname, call in (("flash_bwd_dkv", attention.flash_backward_dkv_cuda),
-                        ("flash_bwd_dq", attention.flash_backward_dq_cuda)):
-        def own(call=call):
-            call(*args)
-        for route in older:
-            def old(call=call, route=route):
-                with on_route(route):
-                    call(*args)
-            out[kname], out[f"{kname}_{route}"] = _in_turns(timer, old, own)
-        if not older:
-            out[kname] = timer(own)
+    out = {"flash_bwd_dkv": timer(lambda: attention.flash_backward_dkv_cuda(*args)),
+           "flash_bwd_dq": timer(lambda: attention.flash_backward_dq_cuda(*args))}
     plain = attention.flash_attention_reference
     out["flash_bwd_dkv_plain"] = timer(lambda: torch.autograd.grad(plain(*qkv, mask), qkv[1:], do))
     out["flash_bwd_dq_plain"] = timer(lambda: torch.autograd.grad(plain(*qkv, mask), qkv[:1], do))
@@ -1296,15 +1266,44 @@ def backward_times(B: int, T: int, mask_kind, timer, H: int = 12, d: int = 64,
     return out
 
 
+def _fmt_times(times: dict) -> str:
+    """`attention_times`' kernel, plain and SDPA times of both parts."""
+    return "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
+                     f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
+                     for part in ("fwd", "fwd_bwd"))
+
+
+def _fmt_backward(t: dict, bounds: dict) -> str:
+    """`backward_times`' kernels, plain versions and bounds, and the pair beside SDPA's."""
+    pair = t["flash_bwd_dkv"] + t["flash_bwd_dq"]
+    return ("; ".join(f"{k}: {t[k]:.4f}, plain (forward + its gradients) {t[k + '_plain']:.4f}, "
+                      f"bound {bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
+                      for k in FLASH_KERNELS[1:])
+            + f"; pair {pair:.4f}, SDPA's backward alone (the pair's three gradients) "
+            f"{t['sdpa_bwd']:.4f} (the pair {pair / t['sdpa_bwd']:.2f}x it)")
+
+
+def _width_times(times: dict, t: dict, bounds: dict) -> dict:
+    """{kernel: times} of one width for the JSON line: the forward's from
+    `attention_times`, the backward's from `backward_times`."""
+    out = {"flash_fwd": {"ms": times["kernel"]["fwd"], "plain_ms": times["plain"]["fwd"],
+                         "bound_ms": bounds["flash_fwd"]["bound_ms"],
+                         "bound_by": bounds["flash_fwd"]["bound_by"],
+                         "library_ms": times["library"]["fwd"]}}
+    for k in FLASH_KERNELS[1:]:
+        out[k] = {"ms": t[k], "plain_ms": t[k + "_plain"], "bound_ms": bounds[k]["bound_ms"],
+                  "bound_by": bounds[k]["bound_by"], "library_ms": t["sdpa_bwd"]}
+    return out
+
+
 def phase_flash() -> dict:
     """The three flash-attention kernels against the plain branch on the
     card (`flash_case` at every FLASH_CASES shape). Then times by CUDA-graph
     replay, in turns plain/kernel/kernel/plain, of the forward and the
     forward + backward, beside torch's SDPA (the library yardstick, timed
-    only here), at the full-width shapes and at T = 1025, with the forward
-    alone on both routes in turns mma.sync/wgmma/wgmma/mma.sync; and of the
-    dK/dV and dQ kernels alone (`backward_times`) at the 768-px train shape
-    and the fusion bench shape."""
+    only here), at the full-width shapes and at T = 1025; and of the dK/dV
+    and dQ kernels alone (`backward_times`) at the 768-px train shape and
+    the fusion bench shape."""
     bench = _script("torch_bench_attention_fusion")
     err = dict.fromkeys(FLASH_KERNELS, 0.0)
     for i, case in enumerate(FLASH_CASES):
@@ -1316,151 +1315,168 @@ def phase_flash() -> dict:
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
 
-    out, fwd = {}, {}
+    out = {}
     for name, B, T, mask_kind in FLASH_TIMED:
         qkv, do, mask = _flash_operands(B, T, 12, 64, mask_kind, seed=80)
-        times = bench.attention_times(*qkv, mask, do, timer)
-        q, k, v = (t.detach() for t in qkv)
-        mask_u8 = attention.mask_bytes(mask)
-
-        def forward(route):
-            def run():
-                with on_route(route):
-                    attention.flash_forward_cuda(q, k, v, mask_u8, save_stats=False)
-            return run
-
-        fwd[name] = dict(zip(("wgmma", "mma_sync"),
-                             _in_turns(timer, forward("mma_sync"), forward("wgmma"))))
+        out[name] = times = bench.attention_times(*qkv, mask, do, timer)
         bounds = _flash_bounds(B, T, 12, 64, mask)
         print(f"flash attention [{name} (B, T, H, d) = {(B, T, 12, 64)} mask {mask_kind}], ms "
-              f"per call, CUDA-graph replay, plain/kernel/kernel/plain: "
-              + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
-                          f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
-                          for part in ("fwd", "fwd_bwd"))
-              + f"; forward alone, mma.sync/wgmma/wgmma/mma.sync: wgmma "
-              f"{fwd[name]['wgmma']:.4f}, mma.sync {fwd[name]['mma_sync']:.4f}; forward bound "
-              f"{bounds['flash_fwd']['bound_ms']:.4f} ({bounds['flash_fwd']['bound_by']})")
-        out[name] = times
-        del qkv, do, q, k, v
+              f"per call, CUDA-graph replay, plain/kernel/kernel/plain: {_fmt_times(times)}; "
+              f"forward bound {fmt_bound(bounds['flash_fwd'])}")
+        del qkv, do
     alone = {}
     for name, B, T, mask_kind in (("train_768", 8, 2305, None), ("fusion_bench", 4, 4104, "view")):
         alone[name] = t = backward_times(B, T, mask_kind, timer)
         gen = torch.Generator().manual_seed(0)
         bounds = _flash_bounds(B, T, 12, 64, _flash_mask(mask_kind, B, T, gen))
-        pair, pair_mma = (t["flash_bwd_dkv" + r] + t["flash_bwd_dq" + r] for r in ("", "_mma_sync"))
         print(f"flash backward alone [{name} (B, T, H, d) = {(B, T, 12, 64)} mask {mask_kind}], ms "
-              f"per call, CUDA-graph replay, mma.sync/wgmma/wgmma/mma.sync: "
-              + "; ".join(f"{k}: wgmma {t[k]:.4f}, mma.sync {t[k + '_mma_sync']:.4f}, plain "
-                          f"(forward + its gradients) {t[k + '_plain']:.4f}, bound "
-                          f"{bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
-                          for k in ("flash_bwd_dkv", "flash_bwd_dq"))
-              + f"; pair wgmma {pair:.4f}, mma.sync {pair_mma:.4f}; SDPA backward alone "
-              f"{t['sdpa_bwd']:.4f}")
-    train, t = out["train_768"], alone["train_768"]
+              f"per call, CUDA-graph replay: {_fmt_backward(t, bounds)}")
     bounds = _flash_bounds(8, 2305, 12, 64, None)
-    result = {"flash_fwd": {"max_abs_err": err["flash_fwd"], "ms": fwd["train_768"]["wgmma"],
-                            "mma_sync_ms": fwd["train_768"]["mma_sync"],
-                            "plain_ms": train["plain"]["fwd"], **bounds["flash_fwd"],
-                            "library_ms": train["library"]["fwd"]}}
-    for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
-        # No one PyTorch call computes dK, dV (or dQ) alone: the library time
-        # is SDPA's backward, which computes the pair's three gradients.
-        result[kname] = {"max_abs_err": err[kname], "ms": t[kname], "plain_ms": t[kname + "_plain"],
-                         **bounds[kname], "library_ms": t["sdpa_bwd"]}
+    result = _width_times(out["train_768"], alone["train_768"], bounds)
+    for kname in FLASH_KERNELS:
+        # No one PyTorch call computes dK, dV (or dQ) alone: the backward's
+        # library time is SDPA's backward, which computes the pair's three gradients.
+        result[kname]["max_abs_err"] = err[kname]
     return result
 
 
-FLASH_WIDTHS = (32, 48, 96, 128)  # the bf16 widths whose forward stays on mma.sync; no main path's
 # Each width's kernels against the plain versions: T = 2305 with a mask (batch
 # element 1 all masked), contiguous as a projection's output, and T = 129 (one
 # row past a 128-row block) without, heads outer as after RoPE; the model's
-# width kept (768 / d heads).
+# width kept (768 / d heads). No main path runs these widths.
+FLASH_WIDTHS = (32, 48, 96, 128)
 WIDTH_CASES = [(2, T, 768 // d, d, mask_kind, heads_outer) for d in FLASH_WIDTHS
                for T, mask_kind, heads_outer in ((2305, "all", False), (129, None, True))]
 
 
-def width_route_check(B: int, T: int, H: int, d: int, mask_kind, heads_outer: bool) -> dict:
-    """`fused_self_attention` forward + backward at one WIDTH_CASES shape
-    (use_flash=True: T = 129 is below the rule's threshold): one forward on
-    the mma.sync route and one dK/dV and one dQ on the wgmma route
-    (`attention.route_launches`), O and the gradients no further from
-    the plain branch in f32 than the bf16 plain branch is (FLASH_ERR_FLOOR
-    aside); then the backward kernels alone on both routes against
-    `flash_backward_plain` on the mma.sync forward's statistics
-    (`backward_alone`). -> the backward's errors alone by route."""
-    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=97 + d, heads_outer=heads_outer)
+def width_route_check(B: int, T: int, H: int, d: int, mask_kind, heads_outer: bool,
+                      dtype=torch.bfloat16) -> tuple:
+    """`fused_self_attention` forward + backward at one shape in `dtype`
+    (use_flash=True: T = 129 is below the rule's threshold): one launch of
+    each of the forward, dK/dV and dQ on the dtype's route
+    (`attention.route_launches`); O no further from the plain branch in f32
+    than the plain branch in `dtype` is (FLASH_ERR_FLOOR aside), and the
+    gradients in bf16 too, in f16 within F16_BACKWARD_TOL of the largest
+    (the f16 plain branch's softmax rounds its logits to f16); then the
+    forward and the backward kernels alone (`forward_alone`,
+    `backward_alone`). -> (the forward's errors alone, the backward's)."""
+    qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=97 + d, heads_outer=heads_outer,
+                                    dtype=dtype)
+    route = attention.kernel_route(d, dtype)
     _reset_launches()
     got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, True, m),
                  qkv, mask, do)
     torch.cuda.synchronize()
     by_route = dict(attention.route_launches)
-    want = {("fwd", "mma_sync"): 1, ("dkv", "wgmma"): 1, ("dq", "wgmma"): 1}
+    want = {("fwd", route): 1, ("dkv", route): 1, ("dq", route): 1}
     check(by_route == want, f"d = {d}: fused_self_attention launched {by_route}, not {want}")
     ref = _grads(attention.flash_attention_reference,
                  [t.detach().float().requires_grad_() for t in qkv], mask, do)
     plain = _grads(attention.flash_attention_reference, qkv, mask, do)
-    for part, a, b, c in zip(("O", "dQ", "dK", "dV"), got, plain, ref):
-        e_kernel, e_plain = (float((x.float() - c).abs().max()) for x in (a, b))
-        check(e_kernel <= max(e_plain, FLASH_ERR_FLOOR),
-              f"d = {d} T = {T}: the kernels' {part} is {e_kernel} from f32, the bf16 plain "
-              f"branch's {e_plain}")
+    e_plain = [float((x.float() - c).abs().max()) for x, c in zip(plain, ref)]
+    for i, (part, a, c) in enumerate(zip(("O", "dQ", "dK", "dV"), got, ref)):
+        e_kernel = float((a.float() - c).abs().max())
+        tol = (max(e_plain[i], FLASH_ERR_FLOOR) if i == 0 or dtype == torch.bfloat16
+               else F16_BACKWARD_TOL * float(c.abs().max()) + FLASH_ERR_FLOOR)
+        check(e_kernel <= tol, f"d = {d} T = {T} {dtype}: the kernels' {part} is {e_kernel} "
+                               f"from f32, above {tol} (the plain branch's {e_plain[i]})")
     del got, ref, plain
-    return backward_alone(*(t.detach() for t in qkv), mask, do)
+    q, k, v = (t.detach() for t in qkv)
+    return (forward_alone(q, k, v, mask, max(e_plain[0], FLASH_ERR_FLOOR)),
+            backward_alone(q, k, v, mask, do))
+
+
+def _print_width_check(case: tuple, dtype, fwd: dict, bwd: dict) -> None:
+    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+    layout = "heads outer" if case[5] else "contiguous"
+    print(f"flash kernels {dtype} at {case[:4]} mask {case[4]}, {layout}: fused_self_attention "
+          f"launched the forward, dK/dV and dQ of route {attention.kernel_route(case[3], dtype)} "
+          f"once each, within their bounds of the f32 plain branch; forward alone vs "
+          f"flash_forward_plain, O/m/l(rel): " + ", ".join(f"{r} {fmt(e)}" for r, e in fwd.items())
+          + "; backward alone vs flash_backward_plain, dQ/dK/dV: "
+          + ", ".join(f"{r} {fmt(e)}" for r, e in bwd.items()) + "; two calls bit-identical")
 
 
 def phase_flash_widths() -> dict:
-    """The bf16 kernels at FLASH_WIDTHS: the backward on the Hopper pair
-    (`flash_dkv_sm90_kernel<d>`, `flash_dq_sm90_kernel<d>`), the forward on
-    mma.sync. At each WIDTH_CASES shape `width_route_check`. Then at the
-    768-px train shape with the model's width kept, (8, 2305, 768 / d, d)
-    bf16 without a mask, by CUDA-graph replay: the forward and the forward
-    + backward beside the plain branch and SDPA (in turns
-    plain/kernel/kernel/plain), the dK/dV and dQ kernels alone on both
-    routes in turns mma.sync/wgmma/wgmma/mma.sync (`backward_times`) beside
-    SDPA's backward alone, and each kernel's bound. -> {kernel: {d: times}}."""
-    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
+    """The bf16 kernels at FLASH_WIDTHS (`flash_fwd_sm90_kernel<d>`,
+    `flash_dkv_sm90_kernel<d>`, `flash_dq_sm90_kernel<d>`): at each
+    WIDTH_CASES shape `width_route_check`. Then at the 768-px train shape
+    with the model's width kept, (8, 2305, 768 / d, d) bf16 without a mask,
+    by CUDA-graph replay: the forward and the forward + backward beside the
+    plain branch and SDPA (in turns plain/kernel/kernel/plain), the dK/dV
+    and dQ kernels alone (`backward_times`) beside SDPA's backward alone,
+    each kernel's bound and the forward's exponentials' floor. ->
+    {kernel: {d: times}}."""
     for case in WIDTH_CASES:
-        alone = width_route_check(*case)
-        layout = "heads outer" if case[5] else "contiguous"
-        print(f"flash kernels at {case[:4]} mask {case[4]}, {layout}: fused_self_attention "
-              f"launched the mma.sync forward and the wgmma dK/dV and dQ once each, O/dQ/dK/dV "
-              f"within the bf16 plain branch's error; backward alone vs flash_backward_plain on "
-              f"the mma.sync forward's m and l, dQ/dK/dV: "
-              + ", ".join(f"{route} {fmt(e)}" for route, e in alone.items())
-              + "; two calls bit-identical")
+        _print_width_check(case, torch.bfloat16, *width_route_check(*case))
     bench = _script("torch_bench_attention_fusion")
 
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
 
-    result = {"flash_bwd_dkv": {}, "flash_bwd_dq": {}}
+    result = {k: {} for k in FLASH_KERNELS}
     for d in FLASH_WIDTHS:
         B, T, H = 8, 2305, 768 // d
-        fwd, bwd = attention.kernel_route(d), attention.kernel_route(d, part="bwd")
-        check(fwd == "mma_sync" and bwd == "wgmma", f"d = {d}: routes {fwd}, {bwd}")
         qkv, do, _ = _flash_operands(B, T, H, d, None, seed=95)
         times = bench.attention_times(*qkv, None, do, timer)
         del qkv, do
         t = backward_times(B, T, None, timer, H, d)
         bounds = _flash_bounds(B, T, H, d, None)
-        pair, pair_mma = (t["flash_bwd_dkv" + r] + t["flash_bwd_dq" + r] for r in ("", "_mma_sync"))
         print(f"flash kernels [(B, T, H, d) = {(B, T, H, d)}], ms per call, CUDA-graph replay: "
-              + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
-                          f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
-                          for part in ("fwd", "fwd_bwd"))
-              + "; backward alone, mma.sync/wgmma/wgmma/mma.sync: "
-              + "; ".join(f"{k}: wgmma {t[k]:.4f}, mma.sync {t[k + '_mma_sync']:.4f}, plain "
-                          f"(forward + its gradients) {t[k + '_plain']:.4f}, bound "
-                          f"{bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
-                          for k in ("flash_bwd_dkv", "flash_bwd_dq"))
-              + f"; pair wgmma {pair:.4f}, mma.sync {pair_mma:.4f} ({pair_mma / pair:.2f}x); SDPA "
-              f"backward alone {t['sdpa_bwd']:.4f} (the wgmma pair "
-              f"{pair / t['sdpa_bwd']:.2f}x it); "
-              f"forward bound {bounds['flash_fwd']['bound_ms']:.4f}")
-        for k in result:
-            result[k][d] = {"ms": t[k], "mma_sync_ms": t[k + "_mma_sync"],
-                            "plain_ms": t[k + "_plain"], "bound_ms": bounds[k]["bound_ms"],
-                            "library_ms": t["sdpa_bwd"]}
+              f"{_fmt_times(times)} (forward / SDPA "
+              f"{times['kernel']['fwd'] / times['library']['fwd']:.3f}); forward bound "
+              f"{fmt_bound(bounds['flash_fwd'])}; "
+              f"backward alone: {_fmt_backward(t, bounds)}")
+        for k, v in _width_times(times, t, bounds).items():
+            result[k][d] = v
+    return result
+
+
+def phase_flash_f16() -> dict:
+    """f16 at the 768-px train shape with the model's width kept, (8, 2305,
+    768 / d, d), at every width of HEAD_DIMS (`flash_fwd_sm90_kernel<d,
+    __half>`, `flash_dkv_sm90_kernel<d, __half>`, `flash_dq_sm90_kernel<d,
+    __half>`): with a mask (batch element 1 all masked) `width_route_check`
+    in f16; then without a mask, by CUDA-graph replay, the forward and the
+    forward + backward beside the plain branch and SDPA f16 (in turns
+    plain/kernel/kernel/plain), the dK/dV and dQ kernels alone beside SDPA
+    f16's backward alone (`backward_times`), and the f16 pair against the
+    bf16 pair in turns bf16/f16/f16/bf16. -> {kernel: {d: times}}."""
+    bench = _script("torch_bench_attention_fusion")
+
+    def timer(fn):
+        return graph_ms(fn, iters=2, samples=10)
+
+    def pair(dtype, B, T, H, d):
+        qkv, do, _ = _flash_operands(B, T, H, d, None, seed=96, dtype=dtype)
+        q, k, v = (t.detach() for t in qkv)
+        o, m, l = attention.flash_forward_cuda(q, k, v)
+        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
+        return lambda: (attention.flash_backward_dkv_cuda(*args),
+                        attention.flash_backward_dq_cuda(*args))
+
+    result = {k: {} for k in FLASH_KERNELS}
+    for d in attention.HEAD_DIMS:
+        B, T, H = 8, 2305, 768 // d
+        case = (B, T, H, d, "all", False)
+        _print_width_check(case, torch.float16, *width_route_check(*case, dtype=torch.float16))
+        qkv, do, _ = _flash_operands(B, T, H, d, None, seed=95, dtype=torch.float16)
+        times = bench.attention_times(*qkv, None, do, timer)
+        del qkv, do
+        t = backward_times(B, T, None, timer, H, d, torch.float16)
+        bf16_pair, f16_pair = _in_turns(timer, pair(torch.bfloat16, B, T, H, d),
+                                        pair(torch.float16, B, T, H, d))
+        bounds = _flash_bounds(B, T, H, d, None, torch.float16)
+        print(f"flash f16 kernels [(B, T, H, d) = {(B, T, H, d)}], no mask, ms per call, "
+              f"CUDA-graph replay: {_fmt_times(times)} (forward / SDPA "
+              f"{times['kernel']['fwd'] / times['library']['fwd']:.3f}); forward bound "
+              f"{fmt_bound(bounds['flash_fwd'])}; "
+              f"backward alone: {_fmt_backward(t, bounds)}; pairs in turns bf16/f16/f16/bf16: "
+              f"f16 {f16_pair:.4f}, bf16 {bf16_pair:.4f} ({f16_pair / bf16_pair:.3f}x)")
+        for k, v in _width_times(times, t, bounds).items():
+            result[k][d] = v
+        for k in FLASH_KERNELS[1:]:
+            result[k][d].update(pair_ms=f16_pair, bf16_pair_ms=bf16_pair)
     return result
 
 
@@ -1511,14 +1527,11 @@ def phase_counters() -> None:
             torch.ones(2, 64, device="cuda")),
     }
     calls = list(calls.items())
-    for d, dtype, route in ((32, torch.bfloat16, "own"), (32, torch.bfloat16, "mma_sync"),
-                            (64, torch.bfloat16, "own"), (64, torch.float32, "own"),
-                            (64, torch.float16, "own"),
-                            (64, torch.float16, "simt_f16")):  # every route of every part
-        def on(fn, d=d, dtype=dtype, route=route):
+    for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32),
+                     (64, torch.float16), (96, torch.float16)):  # every route of every part
+        def on(fn, d=d, dtype=dtype):
             def call(n):
-                with on_route(route):
-                    fn(*_flash_zeros(n, d, dtype))
+                fn(*_flash_zeros(n, d, dtype))
             return call
         calls += [
             ("flash_fwd", on(lambda *z: attention.flash_attention_cuda(*z[:3]))),
@@ -1554,7 +1567,7 @@ def _simt_alone(q, k, v, mask) -> list:
           f"{q.dtype}: an all-masked row's m is not bf16's lowest finite value")
     errs = [float((o.float() - o_ref).abs().max()), float((m - m_ref)[attended].abs().max()),
             float(((l - l_ref) / l_ref).abs().max())]
-    tols = [SIMT_TOL[q.dtype] * float(o_ref.abs().max()) + FLASH_ERR_FLOOR, STAT_TOL, 2 * STAT_TOL]
+    tols = [SIMT_TOL * float(o_ref.abs().max()) + FLASH_ERR_FLOOR, STAT_TOL, 2 * STAT_TOL]
     for part, e, t in zip(("O", "m", "l"), errs, tols):
         check(e <= t, f"{q.dtype} {part} alone is {e} from the plain version, above {t}")
     return errs
@@ -1563,19 +1576,19 @@ def _simt_alone(q, k, v, mask) -> list:
 def phase_simt() -> dict:
     """f32 and f16 operands at T >= 2048 on the card: `fused_self_attention`
     at SIMT_SHAPE with a mask (batch element 1 all masked) launches one
-    forward of the dtype's forward route and one dK/dV and one dQ of its
-    backward route (f32: the f32-arithmetic kernels of
-    `csrc/flash_attention_simt.cu`; f16: that file's forward and the f16
-    Hopper pair); O within SIMT_TOL and the gradients within the backward
-    route's `backward_tol` of the plain branch in f32 on the same values;
-    the forward alone (`_simt_alone`) and each backward route alone
-    (`backward_alone`: for f16 the Hopper pair and the simt pair); the same
-    values in bf16 launch one forward. Then, without a mask, the forward and
-    forward + backward timed in turns plain/kernel/kernel/plain beside SDPA,
-    and the dK/dV and dQ kernels alone beside SDPA's backward alone
-    (`backward_times`: f16's pair in turns with the simt pair). ->
-    {kernel: {"f32_ms", "f32_plain_ms", "f32_library_ms", "f32_bound_ms",
-    the same with f16_, and the backward's "f16_simt_ms"}}."""
+    forward, one dK/dV and one dQ of the dtype's route (f32: the
+    f32-arithmetic kernels of `csrc/flash_attention_simt.cu`; f16: the
+    Hopper kernels instantiated for f16). Against the plain branch in f32 on
+    the same values: f32's O within SIMT_TOL of its largest magnitude, f16's
+    O no further than the f16 plain branch's O (FLASH_ERR_FLOOR aside), the
+    gradients within the route's `backward_tol`; the forward alone (f32
+    `_simt_alone`, f16 `forward_alone`) and the backward alone
+    (`backward_alone`); the same values in bf16 launch one forward. Then,
+    without a mask, the forward and forward + backward timed in turns
+    plain/kernel/kernel/plain beside SDPA, and the dK/dV and dQ kernels
+    alone beside SDPA's backward alone (`backward_times`). -> {kernel:
+    {"f32_ms", "f32_plain_ms", "f32_library_ms", "f32_bound_ms", the same
+    with f16_}}."""
     B, T, H, d = SIMT_SHAPE
     gen = torch.Generator().manual_seed(90)
     base = [torch.randn(B, T, H, d, generator=gen).cuda() for _ in range(4)]
@@ -1584,31 +1597,39 @@ def phase_simt() -> dict:
     for dtype in (torch.float32, torch.float16):
         q, k, v, do = (t.to(dtype) for t in base)
         ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        fwd, bwd = attention.kernel_route(d, dtype), attention.kernel_route(d, dtype, "bwd")
+        route = attention.kernel_route(d, dtype)
         _reset_launches()
         got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, key_mask=m),
                      ts, mask, do)
         torch.cuda.synchronize()
         launches, by_route = _read_launches(), dict(attention.route_launches)
-        want = {("fwd", fwd): 1, ("dkv", bwd): 1, ("dq", bwd): 1}
+        want = {("fwd", route): 1, ("dkv", route): 1, ("dq", route): 1}
         check(launches == {k: int(k in FLASH_KERNELS) for k in KERNELS} and by_route == want,
               f"{dtype} at T = {T} launched {by_route}, not {want}")
         ref = _grads(attention.flash_attention_reference,
                      [t.detach().float().requires_grad_() for t in (q, k, v)], mask, do.float())
         errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-        tols = [tol * float(b.abs().max()) + FLASH_ERR_FLOOR
-                for tol, b in zip([SIMT_TOL[dtype]] + [backward_tol(bwd)] * 3, ref)]
+        tols = [backward_tol(route) * float(b.abs().max()) + FLASH_ERR_FLOOR for b in ref]
+        if dtype == torch.float16:  # O: no further than the f16 plain branch's
+            with torch.no_grad():
+                o_plain = attention.flash_attention_reference(q, k, v, mask)
+            tols[0] = max(float((o_plain.float() - ref[0]).abs().max()), FLASH_ERR_FLOOR)
+            del o_plain
         check(got[0].dtype == dtype and all(e <= t for e, t in zip(errs, tols)),
               f"{dtype} at T = {T}: O/dQ/dK/dV {errs} from f32 plain, bounds {tols}")
         del got, ref, ts
-        fwd_alone = _simt_alone(q, k, v, mask)
+        if dtype == torch.float32:
+            fwd_alone = {route: _simt_alone(q, k, v, mask)}
+        else:
+            fwd_alone = forward_alone(q, k, v, mask, tols[0])
         bwd_alone = backward_alone(q, k, v, mask, do)
-        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (routes: forward {fwd}, backward "
-              f"{bwd}): fused_self_attention launched {by_route}; O/dQ/dK/dV max abs err vs f32 "
-              f"plain {fmt(errs)} (bounds {fmt(tols)}); alone vs flash_forward_plain, "
-              f"O/m/l(rel) {fmt(fwd_alone)}; vs flash_backward_plain, dQ/dK/dV: "
-              + ", ".join(f"{route} {fmt(e)} (bound {backward_tol(route):.3g} of the largest)"
-                          for route, e in bwd_alone.items())
+        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (route {route}): "
+              f"fused_self_attention launched {by_route}; O/dQ/dK/dV max abs err vs f32 plain "
+              f"{fmt(errs)} (bounds {fmt(tols)}); alone vs flash_forward_plain, O/m/l(rel): "
+              + ", ".join(f"{r} {fmt(e)}" for r, e in fwd_alone.items())
+              + "; vs flash_backward_plain, dQ/dK/dV: "
+              + ", ".join(f"{r} {fmt(e)} (bound {backward_tol(r):.3g} of the largest)"
+                          for r, e in bwd_alone.items())
               + "; two calls bit-identical")
     with torch.no_grad():
         _reset_launches()
@@ -1630,91 +1651,21 @@ def phase_simt() -> dict:
         del qkv, do
         t = backward_times(B, T, None, timer, H, d, dtype)
         bounds = _flash_bounds(B, T, H, d, None, dtype)
-        older = {k: t[f"{k}_simt_f16"] for k in FLASH_KERNELS[1:] if f"{k}_simt_f16" in t}
-        print(f"flash kernels {tag} {SIMT_SHAPE} no mask, ms per call, CUDA-graph replay, "
-              f"plain/kernel/kernel/plain: "
-              + "; ".join(f"{part}: kernel {times['kernel'][part]:.4f}, plain "
-                          f"{times['plain'][part]:.4f}, SDPA {times['library'][part]:.4f}"
-                          for part in ("fwd", "fwd_bwd"))
-              + f"; alone (backward route {attention.kernel_route(d, dtype, 'bwd')}"
-              + (", in turns simt/wgmma/wgmma/simt" if older else "") + "): "
-              + ", ".join(f"{k} {t[k]:.4f}" + (f" [simt {older[k]:.4f}]" if k in older else "")
-                          for k in FLASH_KERNELS[1:])
-              + f", pair {t['flash_bwd_dkv'] + t['flash_bwd_dq']:.4f}"
-              + (f" [simt {sum(older.values()):.4f}]" if older else "")
-              + f"; SDPA's backward alone (the pair's three gradients) {t['sdpa_bwd']:.4f}"
-              + f"; bounds ({tag} rate) " + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']})"
-                                                   for k, b in bounds.items()))
+        print(f"flash kernels {tag} {SIMT_SHAPE} no mask (route "
+              f"{attention.kernel_route(d, dtype)}), ms per call, CUDA-graph replay, "
+              f"plain/kernel/kernel/plain: {_fmt_times(times)} (forward / SDPA "
+              f"{times['kernel']['fwd'] / times['library']['fwd']:.3f}); backward alone: "
+              f"{_fmt_backward(t, bounds)}; bounds ({tag} rate) "
+              + ", ".join(f"{k} {fmt_bound(b)}" for k, b in bounds.items()))
         result["flash_fwd"].update({f"{tag}_ms": times["kernel"]["fwd"],
                                     f"{tag}_plain_ms": times["plain"]["fwd"],
                                     f"{tag}_library_ms": times["library"]["fwd"]})
         for kname in FLASH_KERNELS[1:]:
             result[kname].update({f"{tag}_ms": t[kname], f"{tag}_plain_ms": t[kname + "_plain"],
                                   f"{tag}_library_ms": t["sdpa_bwd"]})
-            if kname in older:
-                result[kname][f"{tag}_simt_ms"] = older[kname]
         for kname, b in bounds.items():
             result[kname][f"{tag}_bound_ms"] = b["bound_ms"]
         del times, t
-    return result
-
-
-def phase_flash_f16() -> dict:
-    """The f16 backward at the 768-px train shape with the model's width
-    kept, (8, 2305, 768 / d, d), at every width of HEAD_DIMS: with a mask
-    (batch element 1 all masked) the Hopper pair (`flash_dkv_sm90_kernel<d,
-    __half>`, `flash_dq_sm90_kernel<d, __half>`) and the simt pair alone
-    against `flash_backward_plain` on the simt forward's statistics, two
-    calls bit-identical (`backward_alone`); then without a mask, by
-    CUDA-graph replay, the two pairs in turns simt/wgmma/wgmma/simt beside
-    the plain versions and SDPA f16's backward alone (`backward_times`), and
-    the f16 pair against the bf16 pair in turns bf16/f16/f16/bf16. ->
-    {kernel: {d: times}}."""
-    fmt = lambda v: "/".join(f"{e:.3g}" for e in v)  # noqa: E731
-
-    def timer(fn):
-        return graph_ms(fn, iters=2, samples=10)
-
-    def pair(dtype, B, T, H, d):
-        qkv, do, _ = _flash_operands(B, T, H, d, None, seed=96, dtype=dtype)
-        q, k, v = (t.detach() for t in qkv)
-        o, m, l = attention.flash_forward_cuda(q, k, v)
-        args = (q, k, v, None, do, m, l, attention.row_dot(do, o))
-        return lambda: (attention.flash_backward_dkv_cuda(*args),
-                        attention.flash_backward_dq_cuda(*args))
-
-    result = {"flash_bwd_dkv": {}, "flash_bwd_dq": {}}
-    for d in attention.HEAD_DIMS:
-        B, T, H = 8, 2305, 768 // d
-        fwd, bwd = (attention.kernel_route(d, torch.float16, part) for part in ("fwd", "bwd"))
-        check(fwd == "simt_f16" and bwd == "wgmma_f16", f"f16 d = {d}: routes {fwd}, {bwd}")
-        qkv, do, mask = _flash_operands(B, T, H, d, "all", seed=110 + d, dtype=torch.float16)
-        alone = backward_alone(*(t.detach() for t in qkv), mask, do)
-        del qkv, do, mask
-        t = backward_times(B, T, None, timer, H, d, torch.float16)
-        bf16_pair, f16_pair = _in_turns(timer, pair(torch.bfloat16, B, T, H, d),
-                                        pair(torch.float16, B, T, H, d))
-        bounds = _flash_bounds(B, T, H, d, None, torch.float16)
-        new, old = (t["flash_bwd_dkv" + r] + t["flash_bwd_dq" + r] for r in ("", "_simt_f16"))
-        print(f"flash f16 backward [(B, T, H, d) = {(B, T, H, d)}]: alone vs flash_backward_plain "
-              f"on the simt forward's m and l, mask all, dQ/dK/dV: "
-              + ", ".join(f"{route} {fmt(e)} (bound {backward_tol(route):.3g} of the largest)"
-                          for route, e in alone.items())
-              + "; two calls bit-identical. No mask, ms per call, CUDA-graph replay, "
-              "simt/wgmma/wgmma/simt: "
-              + "; ".join(f"{k}: wgmma_f16 {t[k]:.4f}, simt {t[k + '_simt_f16']:.4f}, plain "
-                          f"(forward + its gradients) {t[k + '_plain']:.4f}, bound "
-                          f"{bounds[k]['bound_ms']:.4f} ({bounds[k]['bound_by']})"
-                          for k in ("flash_bwd_dkv", "flash_bwd_dq"))
-              + f"; pair wgmma_f16 {new:.4f}, simt {old:.4f} ({old / new:.1f}x); SDPA f16's "
-              f"backward alone {t['sdpa_bwd']:.4f} (the pair {new / t['sdpa_bwd']:.2f}x it); "
-              f"pairs in turns bf16/f16/f16/bf16: f16 {f16_pair:.4f}, bf16 {bf16_pair:.4f} "
-              f"({f16_pair / bf16_pair:.3f}x)")
-        for k in result:
-            result[k][d] = {"ms": t[k], "simt_ms": t[k + "_simt_f16"], "plain_ms": t[k + "_plain"],
-                            "bound_ms": bounds[k]["bound_ms"], "library_ms": t["sdpa_bwd"],
-                            "pair_ms": f16_pair, "bf16_pair_ms": bf16_pair}
-        del t
     return result
 
 

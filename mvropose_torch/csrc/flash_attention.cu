@@ -1,65 +1,52 @@
 // Flash attention with a per-key mask on Hopper (sm_90a): the forward, the
-// dK/dV and the dQ kernels, in bf16 with f32 accumulation; the Hopper dK/dV
-// and dQ in f16 as well.
+// dK/dV and the dQ kernels for bf16 and for f16 operands, with f32
+// accumulation, at every head width d in {32, 48, 64, 96, 128}.
 //
 // Replaces the stock Pallas TPU flash attention that
 // mvropose_tpu/ops/attention.py::fused_self_attention calls at T >= 2048
 // (jax/experimental/pallas/ops/tpu/flash_attention.py in jax 0.9.0):
-//   * flash_fwd_kernel, and at d = 64 flash_fwd_sm90_kernel
-//                       <- _flash_attention_kernel (:331, pallas_call :758);
-//   * flash_dkv_kernel and flash_dkv_sm90_kernel<d>
-//                       <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
-//   * flash_dq_kernel and flash_dq_sm90_kernel<d>
-//                       <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
+//   * flash_fwd_sm90_kernel<d, E> <- _flash_attention_kernel (:331, pallas_call :758);
+//   * flash_dkv_sm90_kernel<d, E> <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
+//   * flash_dq_sm90_kernel<d, E>  <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
+// (f32 operands take flash_attention_simt.cu, whose products stay in f32.)
 // The segment ids of the TPU call become what they encode: a (B, T) byte
 // mask of the keys (0 = not attended), and keys past T, which are skipped.
 //
 // What it computes, per batch element b and head h, with s = sm_scale:
 //   S = s Q K^T, masked keys set to bf16's lowest finite value (the plain
 //   branch's masked logit, ops/attention.py:102-114), P = softmax(S),
-//   O = P V; the backward recomputes P = exp(S - m) / l from the saved row
-//   max m and row sum l, then dV = P^T dO, dP = dO V^T, dS = P o (dP - di)
-//   with di = rowsum(dO o O), dS = 0 at masked keys (the plain branch's
-//   masked_fill stops the gradient there), dK = s dS^T Q, dQ = s dS K.
+//   O = P V, with P (exp2 of S against the running row max) rounded to the
+//   operands' type E before P V, as the stock kernel rounds it (:470); the
+//   backward recomputes P = exp2(S - m) / l from the saved row max m and
+//   row sum l, then dV = P^T dO, dP = dO V^T, dS = P o (dP - di) with di =
+//   rowsum(dO o O), dS = 0 at masked keys (the plain branch's masked_fill
+//   stops the gradient there), dK = s dS^T Q, dQ = s dS K.
 // A row whose keys are all masked takes the plain branch's value, the mean
 // of V over the T real keys: the masked logit is finite, keys past T are
 // skipped (not masked), and m and l are saved apart (m = -3.39e38 would
 // absorb log l in one saved m + log l, and the backward would recompute
 // P = 1 where it is 1/T).
 //
-// What bounds it on an H100: the products. Forward 2, dK/dV 4 and dQ 3
-// products of 2 B H T^2 d FLOPs each, against q, k, v, o of 4 B T H d bytes:
-// at T = 2305, d = 64 the forward does ~720 FLOPs a byte, above the card's
-// ~295 bf16 FLOPs a byte, so it is compute-bound, and the exponentials
-// (B H T^2 of them) cost about as much again on the SFU: at d = 64 a 64 x
-// 128 tile's two products take 512 tensor-core cycles of an SM, its 8192
-// exponentials 512 cycles of the SM's 16 SFU lanes.
+// What bounds it on an H100: the products and the exponentials. Forward 2,
+// dK/dV 4 and dQ 3 products of 2 B H T^2 d FLOPs each, against q, k, v, o
+// of 4 B T H d elements: the forward does T / 2 FLOPs a byte at every width
+// (1152 at T = 2305), far above the card's ~295 bf16 FLOPs a byte, so it is
+// compute-bound; and its B H T^2 exponentials, whatever d, take the SM's 16
+// SFU lanes as long as its products take the tensor cores at d = 64: a 64 x
+// 128 tile's two products take 8 d tensor-core cycles of an SM, its 8192
+// exponentials 512 cycles. So at d = 32 and 48 the exponentials bound the
+// forward, at 96 and 128 the products.
 //
-// Two designs. On Hopper's own units (below): the forward at d = 64, every
-// main path's width (flash_fwd_sm90_kernel), and the backward at every
-// width d in {32, 48, 64, 96, 128} (flash_dkv_sm90_kernel<d, E>,
-// flash_dq_sm90_kernel<d, E>), for bf16 and for f16 operands E (f16 x f16
-// products accumulate exactly in f32 on the tensor cores, as bf16's do; the
-// f16 forward is flash_attention_simt.cu's). On mma.sync: the bf16 forward
-// at the other widths, and the bf16 backward where a caller asks for it
-// (ops/attention.py routes):
-//   * mma.sync.m16n8k16 (bf16 x bf16 -> f32) on fragments in registers; one
-//     block of 4 warps, each warp owning 16 rows of the block's tile, so the
-//     softmax statistics of a row stay in the 4 threads of a quad;
-//   * the operand that the block walks (K and V in the forward and dQ, Q,
-//     dO and the row statistics in dK/dV) streams through a 2-stage ring in
-//     shared memory, filled by 16-byte cp.async copies one tile ahead;
-//   * shared rows are padded by 16 bytes, so the fragment loads (32-bit
-//     loads, ldmatrix.trans for the transposed operands) are free of bank
-//     conflicts at every head width.
-// The Hopper kernels:
-//   * all products on wgmma.mma_async (bf16 x bf16, or f16 x f16, -> f32), which alone
-//     reaches the card's tensor-core rate: S = Q K^T (forward, dQ), S^T =
-//     K Q^T and dP^T = V dO^T (dK/dV), dP = dO V^T (dQ) as m64nSk16 (S the
-//     streamed tile's rows, 128 or 64) with both operands in shared memory;
-//     O += P V, dV += P^T dO, dK += dS^T Q and dQ += dS K as m64ndk16 with
-//     P, P^T, dS^T, dS as the A operand in registers and B the streamed
-//     tile read MN-major (the transpose bit), so no transposed copy is made;
+// Design: on Hopper's own units, every part at every width, for bf16 and
+// for f16 operands E (f16 x f16 products accumulate exactly in f32 on the
+// tensor cores, as bf16's do):
+//   * all products on wgmma.mma_async (E x E -> f32), which alone reaches
+//     the card's tensor-core rate: S = Q K^T (forward, dQ), S^T = K Q^T and
+//     dP^T = V dO^T (dK/dV), dP = dO V^T (dQ) as m64nSk16 (S the streamed
+//     tile's rows, 128 or 64) with both operands in shared memory; O += P
+//     V, dV += P^T dO, dK += dS^T Q and dQ += dS K as m64ndk16 with P, P^T,
+//     dS^T, dS as the A operand in registers and B the streamed tile read
+//     MN-major (the transpose bit), so no transposed copy is made;
 //   * TMA loads (cp.async.bulk.tensor, boxes of 64 rows x one swizzle atom:
 //     64 x 64 with the 128-byte swizzle at d = 64, see `Sm90Tiles` for the
 //     other widths; rows past T zero-filled) through tensor maps over the
@@ -87,8 +74,7 @@
 //   * the two consumer warpgroups take turns to issue their products (two
 //     named barriers), so one's softmax (the exponentials on the SFU, the
 //     other arithmetic on the FP32 units) runs beside the other's products
-//     on the tensor cores.
-// Both designs:
+//     on the tensor cores;
 //   * P and dS go from the accumulators straight into the A operand of the
 //     next product, never through shared or device memory;
 //   * exp2 of S s log2(e), the base-2 form of the same exponent; m is saved
@@ -110,8 +96,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -126,93 +110,6 @@ struct Params {
   float scale_log2;  // sm_scale * log2(e)
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + R) of one (b, h) slice of an operand into a shared tile of
-// row stride D + 8; rows at or past T are zero-filled (no byte is read).
-template <int D, int R>
-__device__ __forceinline__ void load_rows(bf16* tile, const bf16* base, Strides s, int b, int h,
-                                          int r0, int T, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  static_assert(R * kChunks % kThreads == 0, "whole rounds of 16-byte copies");
-  const bf16* bh = base + b * s.b + h * s.h;
-#pragma unroll
-  for (int i = 0; i < R * kChunks / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool valid = r0 + r < T;
-    cp_async16(tile + r * (D + 8) + col, bh + (valid ? r0 + r : 0) * s.t + col, valid);
-  }
-}
-
-// R floats of a (B, H, T) row statistic from row r0 on; past T zero-filled.
-template <int R>
-__device__ __forceinline__ void load_stat(float* dst, const float* src, int r0, int T, int tid) {
-  for (int i = tid; i < R; i += kThreads) {
-    const bool valid = r0 + i < T;
-    cp_async4(dst + i, src + (valid ? r0 + i : 0), valid);
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of m16n8k16: rows m0..m0+15, columns k0..k0+15 of a shared
-// tile stored [m][k] with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0,
-                                       int g, int t) {
-  const bf16* p = s + (m0 + g) * ld + k0 + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
-}
-
-// B fragment (k0..k0+15) x (n0..n0+7) of a shared tile stored [n][k].
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* s, int ld, int n0, int k0,
-                                       int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = lds32(p);
-  b[1] = lds32(p + 8);
-}
-
-// B fragments (k0..k0+15) x (n0..n0+7) and x (n0+8..n0+15) of a shared
-// tile stored [k][n] (the transposed operand), by one ldmatrix.x4.trans:
-// matrix j covers rows k0 + 8 (j & 1), columns n0 + 8 (j >> 1).
-__device__ __forceinline__ void load_b_trans2(uint32_t (&b0)[2], uint32_t (&b1)[2], const bf16* s,
-                                              int ld, int k0, int n0, int lane) {
-  const int j = lane >> 3;
-  const bf16* p = s + (k0 + (j & 1) * 8 + (lane & 7)) * ld + n0 + (j >> 1) * 8;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Accumulators of column tiles 2kk, 2kk + 1 (16 x 16) as an A fragment of E.
 template <typename E = bf16>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
@@ -221,12 +118,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = Elem<E>::pack(c0[2], c0[3]);
   a[2] = Elem<E>::pack(c1[0], c1[1]);
   a[3] = Elem<E>::pack(c1[2], c1[3]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 }
 
 // Rows g and g + 8 of the warp's 16 into (B, T, H, D) of E (bf16 or f16) at
@@ -249,404 +140,24 @@ __device__ __forceinline__ void store_rows(E* out, const float (&acc)[D / 8][4],
   }
 }
 
-// ---------------------------------------------------------------- forward
-
-template <int D>
-struct FwdTiles {
-  static constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-  static constexpr int kBlockN = 64;  // keys per tile
-  static constexpr int kLd = D + 8;
-  static constexpr int kSmem = (kBlockM + 4 * kBlockN) * kLd * 2;  // Q + 2 stages of K, V
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  using C = FwdTiles<D>;
-  constexpr int kLd = C::kLd, kBlockM = C::kBlockM, kBlockN = C::kBlockN;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBlockM * kLd;      // [2][kBlockN][kLd]
-  bf16* sV = sK + 2 * kBlockN * kLd;  // [2][kBlockN][kLd]
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int T = p.T;
-  const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
-  const int n_tiles = (T + kBlockN - 1) / kBlockN;
-
-  load_rows<D, kBlockM>(sQ, p.q, p.sq, b, h, q0, T, tid);
-  load_rows<D, kBlockN>(sK, p.k, p.sk, b, h, 0, T, tid);
-  load_rows<D, kBlockN>(sV, p.v, p.sv, b, h, 0, T, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], sQ, kLd, warp * 16, kk * 16, g, t);
-
-  float o[D / 8][4];
-  zero(o);
-  float m_i[2] = {-INFINITY, -INFINITY};  // running row max (base 2), rows g and g + 8
-  float l_i[2] = {0.f, 0.f};              // this thread's part of the row sum
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      const int stage = (j + 1) & 1;
-      load_rows<D, kBlockN>(sK + stage * kBlockN * kLd, p.k, p.sk, b, h, (j + 1) * kBlockN, T, tid);
-      load_rows<D, kBlockN>(sV + stage * kBlockN * kLd, p.v, p.sv, b, h, (j + 1) * kBlockN, T, tid);
-    }
-    cp_async_commit();  // one group per tile, empty past the end
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_s = sK + (j & 1) * kBlockN * kLd;
-    const bf16* v_s = sV + (j & 1) * kBlockN * kLd;
-
-    float s[kBlockN / 8][4];
-    zero(s);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        uint32_t bfr[2];
-        load_b(bfr, k_s, kLd, n * 8, kk * 16, g, t);
-        mma(s[n], qf[kk], bfr);
-      }
-    }
-    // Scale, mask and skip; element e of column tile n is row g + 8 (e >> 1),
-    // key j * kBlockN + 8 n + 2 t + (e & 1).
-    float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = j * kBlockN + n * 8 + 2 * t + c;
-        const bool in_range = key < T;
-        const bool masked = in_range && mask != nullptr && mask[key] == 0;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float x = s[n][2 * r + c] * p.scale_log2;
-          x = !in_range ? -INFINITY : (masked ? kMasked : x);
-          s[n][2 * r + c] = x;
-          mx[r] = fmaxf(mx[r], x);
-        }
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_i[r] - mx[r]);  // finite mx: tile 0 holds key 0
-      m_i[r] = mx[r];
-      l_i[r] *= corr[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m_i[e >> 1]);
-        l_i[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);  // P rounded to bf16
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t b0[2], b1[2];
-        load_b_trans2(b0, b1, v_s, kLd, kk * 16, n * 8, lane);
-        mma(o[n], pa, b0);
-        mma(o[n + 1], pa, b1);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's load
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-  }
-  store_rows<D>(p.o, o, 1.f / l_i[0], 1.f / l_i[1], T, p.H, b, h, q0 + warp * 16, g, t);
-  if (p.m != nullptr && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + warp * 16 + g + 8 * r;
-      if (row < T) {
-        const int64_t i = (static_cast<int64_t>(b) * p.H + h) * T + row;
-        p.m[i] = m_i[r];
-        p.l[i] = l_i[r];
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------------ dK/dV
-
-template <int D>
-struct DkvTiles {
-  static constexpr int kBlockN = 64;               // keys per block, 16 per warp
-  static constexpr int kBlockM = D <= 64 ? 64 : 32;  // queries per tile
-  static constexpr int kLd = D + 8;
-  // K, V; 2 stages of Q, dO; 2 stages of m, 1/l, di.
-  static constexpr int kSmem = (2 * kBlockN + 4 * kBlockM) * kLd * 2 + 2 * 3 * kBlockM * 4;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
-  using C = DkvTiles<D>;
-  constexpr int kLd = C::kLd, kBlockM = C::kBlockM, kBlockN = C::kBlockN;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBlockN * kLd;
-  bf16* sQ = sV + kBlockN * kLd;       // [2][kBlockM][kLd]
-  bf16* sO = sQ + 2 * kBlockM * kLd;   // dO, [2][kBlockM][kLd]
-  float* sStat = reinterpret_cast<float*>(sO + 2 * kBlockM * kLd);  // [2][m, 1/l, di][kBlockM]
-
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kBlockN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int T = p.T;
-  const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * T;
-  const int m_tiles = (T + kBlockM - 1) / kBlockM;
-
-  auto load_tile = [&](int i) {
-    const int stage = i & 1, m0 = i * kBlockM;
-    load_rows<D, kBlockM>(sQ + stage * kBlockM * kLd, p.q, p.sq, b, h, m0, T, tid);
-    load_rows<D, kBlockM>(sO + stage * kBlockM * kLd, p.dout, p.sdo, b, h, m0, T, tid);
-    float* st = sStat + stage * 3 * kBlockM;
-    load_stat<kBlockM>(st, p.m + stat0, m0, T, tid);
-    load_stat<kBlockM>(st + kBlockM, p.l + stat0, m0, T, tid);
-    load_stat<kBlockM>(st + 2 * kBlockM, p.di + stat0, m0, T, tid);
-  };
-
-  load_rows<D, kBlockN>(sK, p.k, p.sk, b, h, n0, T, tid);
-  load_rows<D, kBlockN>(sV, p.v, p.sv, b, h, n0, T, tid);
-  load_tile(0);
-  cp_async_commit();
-
-  // The warp's key rows g and g + 8: masked keys take no dS.
-  bool key_masked[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = n0 + warp * 16 + g + 8 * r;
-    key_masked[r] = p.mask != nullptr && key < T && p.mask[static_cast<int64_t>(b) * T + key] == 0;
-  }
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-
-  for (int i = 0; i < m_tiles; ++i) {
-    if (i + 1 < m_tiles) load_tile(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    float* st = sStat + (i & 1) * 3 * kBlockM;
-    // Queries past T: P = exp2(x - inf) * 0 = 0.
-    for (int r = tid; r < kBlockM; r += kThreads) {
-      const bool valid = i * kBlockM + r < T;
-      st[r] = valid ? st[r] : INFINITY;
-      st[kBlockM + r] = valid ? 1.f / st[kBlockM + r] : 0.f;
-    }
-    __syncthreads();
-    const bf16* q_s = sQ + (i & 1) * kBlockM * kLd;
-    const bf16* do_s = sO + (i & 1) * kBlockM * kLd;
-    const float* s_m = st;
-    const float* s_rl = st + kBlockM;
-    const float* s_di = st + 2 * kBlockM;
-
-    // S^T = K Q^T and dP^T = V dO^T over the warp's 16 keys and the tile's queries.
-    float pt[kBlockM / 8][4], dpt[kBlockM / 8][4];
-    zero(pt);
-    zero(dpt);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, sK, kLd, warp * 16, kk * 16, g, t);
-      load_a(va, sV, kLd, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kBlockM / 8; ++n) {
-        uint32_t bq[2], bo[2];
-        load_b(bq, q_s, kLd, n * 8, kk * 16, g, t);
-        load_b(bo, do_s, kLd, n * 8, kk * 16, g, t);
-        mma(pt[n], ka, bq);
-        mma(dpt[n], va, bo);
-      }
-    }
-    // P^T = exp2(S^T s log2 e - m) / l; dS^T = P^T o (dP^T - di), 0 at masked keys.
-#pragma unroll
-    for (int n = 0; n < kBlockM / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, qi = n * 8 + 2 * t + (e & 1);
-        const float x = key_masked[r] ? kMasked : pt[n][e] * p.scale_log2;
-        const float prob = exp2f(x - s_m[qi]) * s_rl[qi];
-        pt[n][e] = prob;
-        dpt[n][e] = key_masked[r] ? 0.f : prob * (dpt[n][e] - s_di[qi]);
-      }
-    }
-    // dV += P^T dO and dK += dS^T Q (sm_scale applied at the end).
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, pt[2 * kk], pt[2 * kk + 1]);
-      acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t b0[2], b1[2];
-        load_b_trans2(b0, b1, do_s, kLd, kk * 16, n * 8, lane);
-        mma(dv[n], pa, b0);
-        mma(dv[n + 1], pa, b1);
-        load_b_trans2(b0, b1, q_s, kLd, kk * 16, n * 8, lane);
-        mma(dk[n], da, b0);
-        mma(dk[n + 1], da, b1);
-      }
-    }
-    __syncthreads();
-  }
-  store_rows<D>(p.dk, dk, p.scale, p.scale, T, p.H, b, h, n0 + warp * 16, g, t);
-  store_rows<D>(p.dv, dv, 1.f, 1.f, T, p.H, b, h, n0 + warp * 16, g, t);
-}
-
-// --------------------------------------------------------------------- dQ
-
-template <int D>
-struct DqTiles {
-  static constexpr int kBlockM = 64;               // query rows per block, 16 per warp
-  static constexpr int kBlockN = D <= 64 ? 64 : 32;  // keys per tile
-  static constexpr int kLd = D + 8;
-  static constexpr int kSmem = (2 * kBlockM + 4 * kBlockN) * kLd * 2;  // Q, dO; 2 stages of K, V
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
-  using C = DqTiles<D>;
-  constexpr int kLd = C::kLd, kBlockM = C::kBlockM, kBlockN = C::kBlockN;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kBlockM * kLd;  // dO
-  bf16* sK = sO + kBlockM * kLd;  // [2][kBlockN][kLd]
-  bf16* sV = sK + 2 * kBlockN * kLd;
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int T = p.T;
-  const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
-  const int n_tiles = (T + kBlockN - 1) / kBlockN;
-
-  load_rows<D, kBlockM>(sQ, p.q, p.sq, b, h, q0, T, tid);
-  load_rows<D, kBlockM>(sO, p.dout, p.sdo, b, h, q0, T, tid);
-  load_rows<D, kBlockN>(sK, p.k, p.sk, b, h, 0, T, tid);
-  load_rows<D, kBlockN>(sV, p.v, p.sv, b, h, 0, T, tid);
-  cp_async_commit();
-
-  // Rows g and g + 8: m, 1/l and di; rows past T get P = 0.
-  float m_r[2], rl_r[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    const int64_t i = (static_cast<int64_t>(b) * p.H + h) * T + row;
-    const bool valid = row < T;
-    m_r[r] = valid ? p.m[i] : INFINITY;
-    rl_r[r] = valid ? 1.f / p.l[i] : 0.f;
-    di_r[r] = valid ? p.di[i] : 0.f;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], sQ, kLd, warp * 16, kk * 16, g, t);
-    load_a(of[kk], sO, kLd, warp * 16, kk * 16, g, t);
-  }
-  float dq[D / 8][4];
-  zero(dq);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      const int stage = (j + 1) & 1;
-      load_rows<D, kBlockN>(sK + stage * kBlockN * kLd, p.k, p.sk, b, h, (j + 1) * kBlockN, T, tid);
-      load_rows<D, kBlockN>(sV + stage * kBlockN * kLd, p.v, p.sv, b, h, (j + 1) * kBlockN, T, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_s = sK + (j & 1) * kBlockN * kLd;
-    const bf16* v_s = sV + (j & 1) * kBlockN * kLd;
-
-    float s[kBlockN / 8][4], dp[kBlockN / 8][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        uint32_t bk[2], bv[2];
-        load_b(bk, k_s, kLd, n * 8, kk * 16, g, t);
-        load_b(bv, v_s, kLd, n * 8, kk * 16, g, t);
-        mma(s[n], qf[kk], bk);
-        mma(dp[n], of[kk], bv);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = j * kBlockN + n * 8 + 2 * t + c;
-        const bool in_range = key < T;
-        const bool masked = in_range && mask != nullptr && mask[key] == 0;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int e = 2 * r + c;
-          const float x = !in_range ? -INFINITY : (masked ? kMasked : s[n][e] * p.scale_log2);
-          const float prob = exp2f(x - m_r[r]) * rl_r[r];
-          s[n][e] = (masked || !in_range) ? 0.f : prob * (dp[n][e] - di_r[r]);  // dS
-        }
-      }
-    }
-    // dQ += dS K (sm_scale applied at the end).
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t b0[2], b1[2];
-        load_b_trans2(b0, b1, k_s, kLd, kk * 16, n * 8, lane);
-        mma(dq[n], da, b0);
-        mma(dq[n + 1], da, b1);
-      }
-    }
-    __syncthreads();
-  }
-  store_rows<D>(p.dq, dq, p.scale, p.scale, T, p.H, b, h, q0 + warp * 16, g, t);
-}
-
-// ----------------------------------- Hopper backward (every head width, sm_90a)
+// ------------------------------------------- the tile plan (every head width)
 //
-// The dK/dV and dQ kernels at every width of HEAD_DIMS (and the forward at
-// d = 64, below): wgmma, TMA and a warp-specialised mbarrier ring. Block: two
-// consumer warpgroups of 64 rows each (128 rows of the block's own operand:
-// keys in dK/dV, queries in dQ, loaded once) and a producer warpgroup, of
-// which one warp issues the loads and the other three only hand their
-// registers over (setmaxnreg). The streamed operand (Q and dO, or K and V)
-// comes in tiles of S rows through a ring of up to 4 stages: S (S^T) and
-// dP (dP^T) are m64nS products of two shared tiles; P and dS, rounded to
-// the operands' type in registers, are the A operand of the m64nd products
-// into dV, dK (dQ), whose B is the streamed tile read MN-major. The element
-// type E (bf16, or f16: `Elem<E>` of sm90_common.cuh) changes only the
-// products' PTX type, the tensor maps' data type and the roundings of P, dS
-// and the outputs; the tiles, stages and registers are those of 2-byte
-// elements either way.
+// The three kernels at every width of HEAD_DIMS: wgmma, TMA and a
+// warp-specialised mbarrier ring. Block: two consumer warpgroups of 64 rows
+// each (128 rows of the block's own operands: keys in dK/dV, queries in the
+// forward and dQ, loaded once) and a producer warpgroup, of which one warp
+// issues the loads and the other three only hand their registers over
+// (setmaxnreg). The streamed operands (K and V, or Q and dO) come in tiles
+// of S rows through a ring of up to 4 stages: S (S^T) and dP (dP^T) are
+// m64nS products of two shared tiles; P and dS, rounded to the operands'
+// type in registers, are the A operand of the m64nd products into O, dV, dK
+// (dQ), whose B is the streamed tile read MN-major. The element type E
+// (bf16, or f16: `Elem<E>` of sm90_common.cuh) changes only the products'
+// PTX type, the tensor maps' data type and the roundings of P, dS and the
+// outputs; the tiles, stages and registers are those of 2-byte elements
+// either way.
 //
-// Per head width (`Sm90Tiles<d, S>`), what the card forces:
+// Per head width (`Sm90Tiles<d, S, ...>`), what the card forces:
 //   * a row of d 2-byte elements is 2d bytes, one 128-byte swizzle atom only at d = 64.
 //     Every operand tile is stored as column chunks of one atom each, the
 //     widest of 64, 32 or 16 columns that divides d (d = 32: one chunk of 64
@@ -663,18 +174,23 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 //     d = 96 and 256 at d = 128, beyond the 232 a consumer thread gets (with
 //     the bf16 A fragments beside them); so its streamed tile has 64 rows at
 //     d >= 96 (d + S = 160, 192). dQ holds dQ, S and dP, d/2 + S: 128 rows
-//     fit at every width (192 at d = 128). At 64 rows the S products are
-//     m64n64, whose two shared operands take as many shared-memory cycles as
-//     the product takes tensor-core cycles; dQ at d = 96 and 128 took 13-16 %
+//     fit at every width (192 at d = 128). The forward holds O, S and the
+//     P fragments of the previous tile, d/2 + S/2 + S/4 = d/2 + 96 at S =
+//     128 (112 at d = 32 to 160 at d = 128): no second accumulator, so 128
+//     keys a tile at every width. At 64 rows the S products are m64n64,
+//     whose two shared operands take as many shared-memory cycles as the
+//     product takes tensor-core cycles; dQ at d = 96 and 128 took 13-16 %
 //     longer with them on an H100;
-//   * shared memory: the block's own two operands, 512 d bytes, and up to 4
-//     stages of two streamed tiles of 2 S d bytes each, as many as fit in
-//     the 227 KB of a block: dK/dV 87 KB at d = 32, 127 at 48, 167 at 64, 148
-//     at 96, 196 at 128 (4 stages each); dQ 4 stages up to d = 64, 3 at 96
-//     (197 KB), 2 at 128 (196 KB).
+//   * shared memory: the block's own operands (two in the backward, 512 d
+//     bytes; Q alone in the forward, 256 d), up to 4 stages of two streamed
+//     tiles of 2 S d bytes each, as many as fit in the 227 KB of a block,
+//     and the stages' row data: dK/dV 87 KB at d = 32, 127 at 48, 167 at 64,
+//     148 at 96, 196 at 128 (4 stages each); dQ 4 stages up to d = 64, 3 at
+//     96 (197 KB), 2 at 128 (196 KB); the forward 4 stages up to d = 96
+//     (217 KB there), 3 at 128 (224 KB).
 
 constexpr int kHConsumers = 2;                 // consumer warpgroups
-constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operand
+constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operands
 constexpr int kHThreads = 128 * (kHConsumers + 1);
 constexpr int kHConsumerRegs = 232, kHProducerRegs = 40;
 constexpr int kInnerQ = 1, kInnerK = 2, kInnerV = 4, kInnerDo = 8;  // bits of heads_inner
@@ -682,33 +198,42 @@ constexpr int kInnerQ = 1, kInnerK = 2, kInnerV = 4, kInnerDo = 8;  // bits of h
 constexpr int kMaxSmem = 232448;  // shared memory a block can have
 
 // Rows of the streamed tiles at head width d: the dK/dV kernel's (registers
-// allow 128 up to d = 64) and the dQ kernel's (128 at every width).
+// allow 128 up to d = 64), the dQ kernel's and the forward's (128 at every width).
 __host__ __device__ constexpr int dkv_stream(int d) { return d <= 64 ? 128 : 64; }
-constexpr int kDqStream = 128;
+constexpr int kDqStream = 128, kFwdStream = 128;
 
-// The tiles of a kernel at head width D whose streamed tiles have S rows.
-template <int D, int S = dkv_stream(D)>
+// The tiles of a kernel at head width D whose streamed tiles have S rows,
+// beside `Own` own operands of 128 rows and `RowBytes` bytes of row data per
+// streamed row and stage.
+template <int D, int S = dkv_stream(D), int Own = 2, int RowBytes = 12>
 struct Sm90Tiles {
   // Columns of a chunk (a TMA box, one swizzle atom): the widest of 64, 32, 16 dividing D.
   static constexpr int kCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int kStream = S;  // rows of a streamed tile
   // Ring depth: 4 stages where they fit beside the block's own operands.
-  static constexpr int kFit = (kMaxSmem - 2048 - 2 * kHBlock * D * 2) / (4 * S * D + 12 * S);
+  static constexpr int kFit =
+      (kMaxSmem - 2048 - Own * kHBlock * D * 2) / (4 * S * D + RowBytes * S);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kOwnChunk = kHBlock * kCols * 2;     // bytes of a chunk of an own operand
   static constexpr int kStreamChunk = kStream * kCols * 2;  // ... and of a streamed one
   static constexpr int kTile = kStream * D * 2;             // bytes of one streamed tile
-  // Shared memory: the block's two own operands (128 rows each), kStages
-  // stages of the two streamed ones, the stages' row data (dK/dV: m, 1/l, di
-  // per query; dQ and the forward: a code per key), then the barriers.
+  // Shared memory: the block's own operands (128 rows each), kStages stages
+  // of the two streamed ones, the stages' row data (dK/dV: m, 1/l, di per
+  // query; dQ and the forward: a code per key), a flag byte per stage (the
+  // forward's), then the barriers.
   static constexpr int kOwn = 0;
-  static constexpr int kRing = kOwn + 2 * kHBlock * D * 2;
+  static constexpr int kRing = kOwn + Own * kHBlock * D * 2;
   static constexpr int kRowData = kRing + kStages * 2 * kTile;
-  static constexpr int kBars = kRowData + kStages * 3 * kStream * 4;
+  static constexpr int kFlags = kRowData + kStages * RowBytes * kStream;
+  static constexpr int kBars = (kFlags + kStages + 7) / 8 * 8;
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
   static_assert(kStages >= 2 && kAlloc <= kMaxSmem, "more shared memory than a block can have");
 };
+
+// The forward's: Q its one own operand, a code byte per key.
+template <int D>
+using FwdTiles = Sm90Tiles<D, kFwdStream, 1, 1>;
 
 template <typename E>
 struct HopperParams {
@@ -1037,28 +562,24 @@ __global__ void __launch_bounds__(kHThreads, 1)
   }
 }
 
-// -------------------------------------------- Hopper forward (d = 64, sm_90a)
+// ------------------------------------------------------------------ forward
 //
-// The forward of the d = 64 path on the backward's pieces: two consumer
-// warpgroups own 64 queries each (128 per block, Q loaded once by TMA); K
-// and V stream past them in 128-key tiles through the ring, with a code per
-// key (attended, masked, past T) and a flag per stage that says whether the
-// tile holds any key that is not attended. Per tile and warpgroup: S = Q
-// K^T (m64n128, both operands in shared memory); the online softmax in
-// registers; P to bf16 A registers; O += P V (m64n64, V read MN-major).
-// The softmax's exponentials cost about as much SFU time as the products
-// cost tensor-core time, so the two overlap twice: each turn of a
+// The forward on the backward's pieces: two consumer warpgroups own 64
+// queries each (128 per block, Q loaded once by TMA); K and V stream past
+// them in 128-key tiles through the ring, with a code per key (attended,
+// masked, past T) and a flag per stage that says whether the tile holds any
+// key that is not attended. Per tile and warpgroup: S = Q K^T (m64n128, both
+// operands in shared memory, the dQ kernel's S product); the online softmax
+// in registers; P to A registers of E; O += P V (m64nd, V read MN-major, the
+// dQ kernel's second product with V for K). The softmax's exponentials cost
+// about as much SFU time as the products cost tensor-core time at d = 64
+// (more below, less above), so the two overlap twice: each turn of a
 // warpgroup issues S of tile j and P V of tile j - 1 together, and the
 // softmax of tile j runs while that P V and the other warpgroup's products
 // run. (With S and P V in turns of their own, both warpgroups' softmax
 // phases fell together, and the tensor cores waited.)
 
-// The forward's tiles: the backward's at d = 64 (128-key tiles, 4 stages).
-using FwdTilesSm90 = Sm90Tiles<kHD, 128>;
-constexpr int kHStream = FwdTilesSm90::kStream, kHStages = FwdTilesSm90::kStages;
-constexpr int kHTile = FwdTilesSm90::kTile;
-
-// One online-softmax step on a 64 x kHStream tile of raw S = Q K^T, in
+// One online-softmax step on a 64 x kFwdStream tile of raw S = Q K^T, in
 // place: the row max m (base 2) moves to the tile's, `corr` = exp2(m_old -
 // m_new) is the factor for l and O, and s becomes P = exp2(S scale_log2 -
 // m_new), 0 past T and exp2(kMasked - m_new) at masked keys (1 while a row
@@ -1067,12 +588,12 @@ constexpr int kHTile = FwdTilesSm90::kTile;
 // read; else every key is attended and the max is taken on raw S (scaling
 // by scale_log2 > 0 keeps the order, so the max is the same value).
 template <bool Coded>
-__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], const uint8_t* code, int t,
-                                             float scale_log2) {
+__device__ __forceinline__ void softmax_tile(float (&s)[kFwdStream / 8][4], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2], const uint8_t* code,
+                                             int t, float scale_log2) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < kFwdStream / 8; ++n) {
     // Codes of keys 8 n + 2 t (low byte) and 8 n + 2 t + 1.
     const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
 #pragma unroll
@@ -1095,7 +616,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], f
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < kFwdStream / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float mr = m[e >> 1];
@@ -1107,21 +628,24 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], f
   for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], sum[r]);
 }
 
+template <int D, typename E>
 __global__ void __launch_bounds__(kHThreads, 1)
-    flash_fwd_sm90_kernel(const __grid_constant__ HopperParams<bf16> p) {
+    flash_fwd_sm90_kernel(const __grid_constant__ HopperParams<E> p) {
+  using L = FwdTiles<D>;
+  constexpr int S = L::kStream, C = L::kCols, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + FwdTilesSm90::kOwn);  // 128 query rows
-  bf16* ring = reinterpret_cast<bf16*>(smem + FwdTilesSm90::kRing);  // [stage][K, V][128][64]
-  // Per stage and key: 0 attended, 1 masked, 2 past T; then per stage a flag:
+  E* sQ = reinterpret_cast<E*>(smem + L::kOwn);  // 128 query rows, in chunks of C columns
+  E* ring = reinterpret_cast<E*>(smem + L::kRing);  // [stage][K, V][chunk][S][C]
+  // Per stage and key: 0 attended, 1 masked, 2 past T; per stage a flag:
   // whether any key of the tile is not attended.
-  uint8_t* codes = smem + FwdTilesSm90::kRowData;
-  uint8_t* coded = codes + kHStages * kHStream;
-  const Ring<FwdTilesSm90> bars(smem);
+  uint8_t* codes = smem + L::kRowData;
+  uint8_t* coded = smem + L::kFlags;
+  const Ring<L> bars(smem);
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kHBlock, T = p.T;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int n_tiles = (T + kHStream - 1) / kHStream;
+  const int n_tiles = (T + S - 1) / S;
   if (threadIdx.x == 0) bars.init();
   __syncthreads();
 
@@ -1129,28 +653,28 @@ __global__ void __launch_bounds__(kHThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kHProducerRegs));
     if (warp != 0) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(bars.own, kHBlock * kHD * 2);
-      tma_rows(sQ, &p.q, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerQ);
+      mbar_arrive_expect_tx(bars.own, kHBlock * D * 2);
+      tma_rows<D, C>(sQ, &p.q, bars.own, kHBlock, q0, h, b, p.heads_inner & kInnerQ);
     }
     const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
     for (int j = 0; j < n_tiles; ++j) {
-      const int stage = j % kHStages, k0 = j * kHStream;
-      mbar_wait(&bars.empty[stage], ((j / kHStages) & 1) ^ 1);  // round 0 passes
+      const int stage = j % kStages, k0 = j * S;
+      mbar_wait(&bars.empty[stage], ((j / kStages) & 1) ^ 1);  // round 0 passes
       bool any = false;
-      for (int r = lane; r < kHStream; r += 32) {
+      for (int r = lane; r < S; r += 32) {
         const int key = k0 + r;
         const uint8_t c = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
-        codes[stage * kHStream + r] = c;
+        codes[stage * S + r] = c;
         any |= c != 0;
       }
       any = __any_sync(0xffffffffu, any);
       if (lane == 0) {
         coded[stage] = any;
-        bf16* k_s = ring + stage * 2 * kHStream * kHD;
-        mbar_arrive_expect_tx(&bars.full[stage], 2 * kHTile);
-        tma_rows(k_s, &p.k, &bars.full[stage], kHStream, k0, h, b, p.heads_inner & kInnerK);
-        tma_rows(k_s + kHStream * kHD, &p.v, &bars.full[stage], kHStream, k0, h, b,
-                 p.heads_inner & kInnerV);
+        E* k_s = ring + stage * 2 * S * D;
+        mbar_arrive_expect_tx(&bars.full[stage], 2 * L::kTile);
+        tma_rows<D, C>(k_s, &p.k, &bars.full[stage], S, k0, h, b, p.heads_inner & kInnerK);
+        tma_rows<D, C>(k_s + S * D, &p.v, &bars.full[stage], S, k0, h, b,
+                       p.heads_inner & kInnerV);
       } else {
         mbar_arrive(&bars.full[stage]);
       }
@@ -1159,50 +683,55 @@ __global__ void __launch_bounds__(kHThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kHConsumerRegs));
     const int g = lane >> 2, t = lane & 3;
     const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
-    const uint64_t q_desc = sw_desc<false>(sQ + wg * kHRows * kHD);
-    float o[8][4];
+    const uint64_t q_desc = sw_desc<false, C>(sQ + wg * kHRows * C);
+    float o[D / 8][4];
     zero_acc(o);
     float m_i[2] = {-INFINITY, -INFINITY};  // running row max (base 2), rows g and g + 8
     float l_i[2] = {0.f, 0.f};              // this thread's part of the row sum
     if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
     mbar_wait(bars.own, 0);
 
-    float s[16][4];
-    uint32_t pa[kHStream / 16][4];
+    float s[S / 8][4];
+    uint32_t pa[S / 16][4];
     float corr[2];
     auto softmax = [&](int stage) {
       if (coded[stage]) {
-        softmax_tile<true>(s, m_i, l_i, corr, codes + stage * kHStream, t, p.scale_log2);
+        softmax_tile<true>(s, m_i, l_i, corr, codes + stage * S, t, p.scale_log2);
       } else {
         softmax_tile<false>(s, m_i, l_i, corr, nullptr, t, p.scale_log2);
       }
     };
-    auto k_tile = [&](int stage) { return sw_desc<false>(ring + stage * 2 * kHStream * kHD); };
-    auto v_tile = [&](int stage) {
-      return sw_desc<true>(ring + stage * 2 * kHStream * kHD + kHStream * kHD);
+    // S = Q K^T of the stage's keys; O += P V with the stage's values.
+    auto s_product = [&](int stage) {
+      product_kmajor<S, D, C, L::kOwnChunk, L::kStreamChunk, E>(
+          s, q_desc, sw_desc<false, C>(ring + stage * 2 * S * D));
+    };
+    auto pv_product = [&](int stage) {
+      product_rs<S, D, C, E>(o, pa, sw_desc<true, C>(ring + stage * 2 * S * D + S * D,
+                                                     L::kStreamChunk));
     };
     // Tile 0: S alone.
     mbar_wait(&bars.full[0], 0);
     turn_wait(wg);
     wgmma_fence();
-    product_kmajor(s, q_desc, k_tile(0));
+    s_product(0);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait<0>();
     fence_acc(s);
     softmax(0);  // O is 0: no correction
-    to_a<kHStream>(pa, s);
+    to_a<S, E>(pa, s);  // P rounded to E
     // Tile j: S of tile j and P V of tile j - 1 in one turn; the softmax of
     // tile j while P V runs.
     for (int j = 1; j < n_tiles; ++j) {
-      const int stage = j % kHStages, prev = (j - 1) % kHStages;
-      mbar_wait(&bars.full[stage], (j / kHStages) & 1);
+      const int stage = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(&bars.full[stage], (j / kStages) & 1);
       fence_acc(o);
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor(s, q_desc, k_tile(stage));
+      s_product(stage);
       wgmma_commit();
-      product_rs<kHStream, kHD, kHD>(o, pa, v_tile(prev));
+      pv_product(prev);
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<1>();
@@ -1214,20 +743,20 @@ __global__ void __launch_bounds__(kHThreads, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(&bars.empty[prev]);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         o[n][0] *= corr[0];
         o[n][1] *= corr[0];
         o[n][2] *= corr[1];
         o[n][3] *= corr[1];
       }
-      to_a<kHStream>(pa, s);
+      to_a<S, E>(pa, s);
     }
     // P V of the last tile.
-    const int last = (n_tiles - 1) % kHStages;
+    const int last = (n_tiles - 1) % kStages;
     fence_acc(o);
     turn_wait(wg);
     wgmma_fence();
-    product_rs<kHStream, kHD, kHD>(o, pa, v_tile(last));
+    pv_product(last);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait<0>();
@@ -1241,7 +770,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
       l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
     }
     // Rows past T (zero-filled by TMA) are computed and never stored.
-    store_rows<kHD>(p.o, o, 1.f / l_i[0], 1.f / l_i[1], T, p.H, b, h, row0, g, t);
+    store_rows<D>(p.o, o, 1.f / l_i[0], 1.f / l_i[1], T, p.H, b, h, row0, g, t);
     if (p.m != nullptr && t == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -1256,8 +785,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
   }
 }
 
-// The Hopper kernels' parameters from the mma.sync path's, at head width D
-// for operands of E (tensor maps of D columns of E, boxes of
+// The kernels' parameters from the entry points' arguments (`Params`), at
+// head width D for operands of E (tensor maps of D columns of E, boxes of
 // Sm90Tiles<D>::kCols; `Params` carries the addresses, typed bf16, of
 // operands of either type) -> 0, or a negative CUresult when a tensor map
 // cannot be encoded. Maps are made for the operands the kernel reads: q, k,
@@ -1295,19 +824,17 @@ int make_hopper_params(HopperParams<E>* hp, const Params& p) {
 
 enum Kind { kForward, kDkv, kDq };
 
-template <Kind K, int D, typename E = bf16>
+template <Kind K, int D, typename E>
 int launch_sm90(const Params& p, cudaStream_t stream) {
-  static_assert(K != kForward || (D == kHD && !kIsHalf<E>),
-                "the Hopper forward is built at d = 64 in bf16 only");
   void (*kernel)(HopperParams<E>) = nullptr;
   if constexpr (K == kForward) {
-    kernel = &flash_fwd_sm90_kernel;
+    kernel = &flash_fwd_sm90_kernel<D, E>;
   } else if constexpr (K == kDkv) {
     kernel = &flash_dkv_sm90_kernel<D, E>;
   } else {
     kernel = &flash_dq_sm90_kernel<D, E>;
   }
-  constexpr int smem = K == kForward ? FwdTilesSm90::kAlloc
+  constexpr int smem = K == kForward ? FwdTiles<D>::kAlloc
                        : K == kDkv   ? Sm90Tiles<D, dkv_stream(D)>::kAlloc
                                      : Sm90Tiles<D, kDqStream>::kAlloc;
   HopperParams<E> hp{};
@@ -1321,7 +848,7 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Hopper dK/dV or dQ kernel at head width D for operands of E.
+// The forward, dK/dV or dQ kernel at head width D for operands of E.
 template <Kind K, typename E>
 int dispatch_sm90(const Params& p, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1331,40 +858,6 @@ int dispatch_sm90(const Params& p, int D, void* stream) {
     case 64: return launch_sm90<K, 64, E>(p, s);
     case 96: return launch_sm90<K, 96, E>(p, s);
     case 128: return launch_sm90<K, 128, E>(p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// ----------------------------------------------------------------- launch
-
-template <int D, Kind K>
-int launch(const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) = K == kForward ? &flash_fwd_kernel<D>
-                           : K == kDkv   ? &flash_dkv_kernel<D>
-                                         : &flash_dq_kernel<D>;
-  const int smem = K == kForward ? FwdTiles<D>::kSmem
-                   : K == kDkv   ? DkvTiles<D>::kSmem
-                                 : DqTiles<D>::kSmem;
-  const int rows = K == kDkv ? DkvTiles<D>::kBlockN : 64;  // rows of the output per block
-  // Above 48 KB of dynamic shared memory a kernel has to opt in; once per
-  // instantiation (thread-safe static initialization).
-  static const cudaError_t configured =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (configured != cudaSuccess) return static_cast<int>(configured);
-  const dim3 grid((p.T + rows - 1) / rows, p.H, p.B);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <Kind K>
-int dispatch(const Params& p, int D, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32, K>(p, s);
-    case 48: return launch<48, K>(p, s);
-    case 64: return launch<64, K>(p, s);
-    case 96: return launch<96, K>(p, s);
-    case 128: return launch<128, K>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1388,7 +881,19 @@ Params make_params(const void* q, const void* k, const void* v, const uint8_t* m
   return p;
 }
 
-// The Hopper dK/dV (K = kDkv: dk, dv) or dQ (kDq: dq) kernel for operands of E.
+// The forward kernel for operands of E.
+template <typename E>
+int forward_sm90(const void* q, const void* k, const void* v, const uint8_t* mask, void* o,
+                 float* m, float* l, int B, int H, int T, int D, const int64_t* strides,
+                 float sm_scale, void* stream) {
+  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
+  p.o = static_cast<bf16*>(o);
+  p.m = m;
+  p.l = l;
+  return dispatch_sm90<kForward, E>(p, D, stream);
+}
+
+// The dK/dV (K = kDkv: dk, dv) or dQ (kDq: dq) kernel for operands of E.
 template <Kind K, typename E>
 int backward_sm90(const void* q, const void* k, const void* v, const uint8_t* mask,
                   const void* dout, const float* m, const float* l, const float* di, void* dq,
@@ -1412,66 +917,20 @@ int backward_sm90(const void* q, const void* k, const void* v, const uint8_t* ma
 // order (dO's unused by the forward), each a multiple of 8 with 16-byte
 // aligned bases and unit stride along D. mask: (B, T) bytes, 0 = key not
 // attended, or null. Outputs O, dQ, dK, dV: (B, T, H, D) bf16 contiguous;
-// m, l, di: (B, H, T) f32 contiguous. Every pointer on the device of
-// `stream`. Each returns cudaGetLastError() after its launch, or
-// cudaErrorInvalidValue (1) for a head width it does not take.
-extern "C" int flash_attention_forward(const void* q, const void* k, const void* v,
-                                       const uint8_t* mask, void* o, float* m, float* l, int B,
-                                       int H, int T, int D, const int64_t* strides, float sm_scale,
-                                       void* stream) {
-  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
-  p.o = static_cast<bf16*>(o);
-  p.m = m;
-  p.l = l;
-  return dispatch<kForward>(p, D, stream);
-}
-
-extern "C" int flash_attention_backward_dkv(const void* q, const void* k, const void* v,
-                                            const uint8_t* mask, const void* dout, const float* m,
-                                            const float* l, const float* di, void* dk, void* dv,
-                                            int B, int H, int T, int D, const int64_t* strides,
-                                            float sm_scale, void* stream) {
-  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
-  p.dout = static_cast<const bf16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.di = di;
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  return dispatch<kDkv>(p, D, stream);
-}
-
-extern "C" int flash_attention_backward_dq(const void* q, const void* k, const void* v,
-                                           const uint8_t* mask, const void* dout, const float* m,
-                                           const float* l, const float* di, void* dq, int B, int H,
-                                           int T, int D, const int64_t* strides, float sm_scale,
-                                           void* stream) {
-  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
-  p.dout = static_cast<const bf16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.di = di;
-  p.dq = static_cast<bf16*>(dq);
-  return dispatch<kDq>(p, D, stream);
-}
-
-// The Hopper forward, dK/dV and dQ kernels (wgmma, TMA, warp-specialised):
-// the arguments of the three above; the forward at D = 64 only, dK/dV and
-// dQ at every D of the five. Each returns cudaGetLastError() after its
-// launch, cudaErrorInvalidValue (1) for a head width it does not take, or
-// minus the CUresult of a tensor map that cannot be encoded (q, k, v and dO
-// strides: multiples of 16 bytes below 2^40, as the wrapper checks).
+// m, l (written by the forward unless null), di: (B, H, T) f32 contiguous.
+// Every pointer on the device of `stream`. Each returns cudaGetLastError()
+// after its launch, cudaErrorInvalidValue (1) for a head width it does not
+// take, or minus the CUresult of a tensor map that cannot be encoded (q, k,
+// v and dO strides: multiples of 16 bytes below 2^40, as the wrapper checks).
 extern "C" int flash_attention_forward_sm90(const void* q, const void* k, const void* v,
                                             const uint8_t* mask, void* o, float* m, float* l,
                                             int B, int H, int T, int D, const int64_t* strides,
                                             float sm_scale, void* stream) {
-  if (D != kHD) return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make_params(q, k, v, mask, B, H, T, strides, sm_scale);
-  p.o = static_cast<bf16*>(o);
-  p.m = m;
-  p.l = l;
-  return launch_sm90<kForward, kHD>(p, static_cast<cudaStream_t>(stream));
+  return forward_sm90<bf16>(q, k, v, mask, o, m, l, B, H, T, D, strides, sm_scale, stream);
 }
+
+// Keys per tile of the forward (kFwdStream), for checks that need its tiling.
+extern "C" int flash_attention_forward_key_tile() { return kFwdStream; }
 
 extern "C" int flash_attention_backward_dkv_sm90(const void* q, const void* k, const void* v,
                                                  const uint8_t* mask, const void* dout,
@@ -1493,9 +952,18 @@ extern "C" int flash_attention_backward_dq_sm90(const void* q, const void* k, co
                                   D, strides, sm_scale, stream);
 }
 
-// The same two for f16 operands and outputs (the arguments above, with f16
-// for bf16): flash_dkv_sm90_kernel<D, __half> and flash_dq_sm90_kernel<D,
-// __half>, on the m (base 2) and l of flash_attention_simt.cu's f16 forward.
+// The same three for f16 operands and outputs (the arguments above, with
+// f16 for bf16): flash_fwd_sm90_kernel<D, __half>, and
+// flash_dkv_sm90_kernel<D, __half> and flash_dq_sm90_kernel<D, __half> on
+// its m (base 2) and l.
+extern "C" int flash_attention_forward_sm90_f16(const void* q, const void* k, const void* v,
+                                                const uint8_t* mask, void* o, float* m, float* l,
+                                                int B, int H, int T, int D,
+                                                const int64_t* strides, float sm_scale,
+                                                void* stream) {
+  return forward_sm90<__half>(q, k, v, mask, o, m, l, B, H, T, D, strides, sm_scale, stream);
+}
+
 extern "C" int flash_attention_backward_dkv_sm90_f16(const void* q, const void* k, const void* v,
                                                      const uint8_t* mask, const void* dout,
                                                      const float* m, const float* l,

@@ -1,20 +1,13 @@
 // Flash attention with a per-key mask in f32 arithmetic on the CUDA cores:
-// the forward, dK/dV and dQ kernels for f32 and f16 operands.
+// the forward, dK/dV and dQ kernels for f32 operands.
 //
-// Replaces, for f32 operands and the f16 forward, the same stock Pallas TPU
-// kernels as flash_attention.cu (jax/experimental/pallas/ops/tpu/
-// flash_attention.py in jax 0.9.0: _flash_attention_kernel :331,
-// _flash_attention_dkv_kernel :796, _flash_attention_dq_kernel :1146), which
-// the reference's fused_self_attention runs at T >= 2048 on a TPU in the
-// operands' own dtype, f32 included. flash_attention.cu's products are bf16
-// or f16 tensor-core products, which would round f32 operands.
-//
-// Which f16 parts run where (ops/attention.py::kernel_route): the f16
-// forward runs here; the f16 backward runs flash_attention.cu's Hopper pair
-// (flash_dkv_sm90_kernel<d, __half>, flash_dq_sm90_kernel<d, __half>) on
-// this forward's m and l. The f16 dK/dV and dQ below stay bound only so
-// that chip_smoke.py can time the Hopper pair against them in turns
-// (ops/attention.py::simt_f16_route()); no route takes them otherwise.
+// Replaces, for f32 operands, the same stock Pallas TPU kernels as
+// flash_attention.cu (jax/experimental/pallas/ops/tpu/flash_attention.py in
+// jax 0.9.0: _flash_attention_kernel :331, _flash_attention_dkv_kernel :796,
+// _flash_attention_dq_kernel :1146), which the reference's
+// fused_self_attention runs at T >= 2048 on a TPU in the operands' own
+// dtype, f32 included. flash_attention.cu's products are bf16 or f16
+// tensor-core products, which would round f32 operands.
 //
 // What it computes is flash_attention.cu's, term for term, with every
 // operand and product in f32: S = sm_scale Q K^T in base 2 (times log2(e)),
@@ -22,8 +15,7 @@
 // masked averages V over its T real keys), keys past T skipped, O = (sum_j
 // exp2(S_j - m) V_j) / l, m (base 2) and l saved apart; the backward
 // recomputes P = exp2(S - m) / l from them, dV = P^T dO, dS = P o (dO V^T -
-// di), 0 at masked keys, dK = sm_scale dS^T Q, dQ = sm_scale dS K. f16
-// operands are widened to f32 on load and the outputs rounded to f16 once.
+// di), 0 at masked keys, dK = sm_scale dS^T Q, dQ = sm_scale dS K.
 //
 // Design, the simplest that is right (none of the main paths runs it:
 // serve and train run bf16):
@@ -45,7 +37,6 @@
 #include <cmath>
 #include <cstdint>
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,11 +51,10 @@ struct Strides {  // element strides of a (B, T, H, d) operand whose d is unit-s
   int64_t b, t, h;
 };
 
-template <typename E>
 struct SimtParams {
-  const E *q, *k, *v, *dout;
+  const float *q, *k, *v, *dout;
   const uint8_t* mask;  // (B, T), 0 = key not attended; null: every key attended
-  E *o, *dq, *dk, *dv;  // (B, T, H, d) contiguous
+  float *o, *dq, *dk, *dv;  // (B, T, H, d) contiguous
   float *m, *l;         // (B, H, T): row max (base 2) and row sum; null: not saved
   const float* di;      // (B, H, T): rowsum(dO o O)
   Strides sq, sk, sv, sdo;
@@ -72,15 +62,6 @@ struct SimtParams {
   float scale;       // sm_scale
   float scale_log2;  // sm_scale * log2(e)
 };
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
-template <typename E>
-__device__ __forceinline__ E narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half narrow<__half>(float x) { return __float2half_rn(x); }
 
 template <int D>
 struct Shape {
@@ -126,40 +107,40 @@ __device__ __forceinline__ void axpy_shared(float (&acc)[DH], float a, const flo
   }
 }
 
-// Rows [r0, r0 + kTile) of one (b, h) slice of an operand, widened to f32,
-// into a shared tile laid out [row][thread of the group][DH + 4]; rows at or
-// past T are zero-filled.
-template <int D, typename E>
-__device__ __forceinline__ void load_tile(float* tile, const E* base, Strides s, int b, int h,
+// Rows [r0, r0 + kTile) of one (b, h) slice of an operand into a shared
+// tile laid out [row][thread of the group][DH + 4]; rows at or past T are
+// zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(float* tile, const float* base, Strides s, int b, int h,
                                           int r0, int T) {
   using S = Shape<D>;
-  const E* bh = base + b * s.b + h * s.h;
+  const float* bh = base + b * s.b + h * s.h;
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int row = i / D, col = i % D;
     const bool valid = r0 + row < T;
     tile[row * S::LD + (col / S::DH) * (S::DH + 4) + col % S::DH] =
-        valid ? widen(bh[(r0 + row) * s.t + col]) : 0.f;
+        valid ? bh[(r0 + row) * s.t + col] : 0.f;
   }
 }
 
-// Thread r's DH elements of row `row` of an operand, widened (0 past T).
-template <int D, typename E>
-__device__ __forceinline__ void load_own(float (&x)[Shape<D>::DH], const E* base, Strides s, int b,
-                                         int h, int row, int T, int r) {
-  const E* p = base + b * s.b + h * s.h + static_cast<int64_t>(row < T ? row : 0) * s.t +
+// Thread r's DH elements of row `row` of an operand (0 past T).
+template <int D>
+__device__ __forceinline__ void load_own(float (&x)[Shape<D>::DH], const float* base, Strides s,
+                                         int b, int h, int row, int T, int r) {
+  const float* p = base + b * s.b + h * s.h + static_cast<int64_t>(row < T ? row : 0) * s.t +
                r * Shape<D>::DH;
 #pragma unroll
-  for (int e = 0; e < Shape<D>::DH; ++e) x[e] = row < T ? widen(p[e]) : 0.f;
+  for (int e = 0; e < Shape<D>::DH; ++e) x[e] = row < T ? p[e] : 0.f;
 }
 
-template <int D, typename E>
-__device__ __forceinline__ void store_own(E* out, const float (&x)[Shape<D>::DH], float mul,
+template <int D>
+__device__ __forceinline__ void store_own(float* out, const float (&x)[Shape<D>::DH], float mul,
                                           int b, int h, int row, int T, int H, int r) {
   if (row >= T) return;
-  E* p = out + (static_cast<int64_t>(b) * T + row) * H * D + static_cast<int64_t>(h) * D +
+  float* p = out + (static_cast<int64_t>(b) * T + row) * H * D + static_cast<int64_t>(h) * D +
          r * Shape<D>::DH;
 #pragma unroll
-  for (int e = 0; e < Shape<D>::DH; ++e) p[e] = narrow<E>(x[e] * mul);
+  for (int e = 0; e < Shape<D>::DH; ++e) p[e] = x[e] * mul;
 }
 
 // Codes of keys [r0, r0 + kTile): 0 attended, 1 masked, 2 past T.
@@ -173,8 +154,8 @@ __device__ __forceinline__ void load_codes(uint8_t* code, const uint8_t* mask, i
 
 // ---------------------------------------------------------------- forward
 
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads) flash_fwd_simt_kernel(const SimtParams<E> p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_simt_kernel(const SimtParams p) {
   using S = Shape<D>;
   __shared__ __align__(16) float ks[kTile * S::LD];
   __shared__ __align__(16) float vs[kTile * S::LD];
@@ -226,8 +207,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt_kernel(const SimtPara
 
 // ---------------------------------------------------------------- dQ
 
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads) flash_dq_simt_kernel(const SimtParams<E> p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_simt_kernel(const SimtParams p) {
   using S = Shape<D>;
   __shared__ __align__(16) float ks[kTile * S::LD];
   __shared__ __align__(16) float vs[kTile * S::LD];
@@ -269,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_simt_kernel(const SimtParam
 
 // ---------------------------------------------------------------- dK/dV
 
-template <int D, typename E>
-__global__ void __launch_bounds__(kThreads) flash_dkv_simt_kernel(const SimtParams<E> p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_simt_kernel(const SimtParams p) {
   using S = Shape<D>;
   __shared__ __align__(16) float qs[kTile * S::LD];
   __shared__ __align__(16) float dos[kTile * S::LD];
@@ -317,18 +298,18 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_simt_kernel(const SimtPara
 
 enum Kind { kForward, kDkv, kDq };
 
-template <int D, Kind K, typename E>
-int launch(const SimtParams<E>& p, cudaStream_t stream) {
-  void (*kernel)(SimtParams<E>) = K == kForward ? &flash_fwd_simt_kernel<D, E>
-                                  : K == kDkv   ? &flash_dkv_simt_kernel<D, E>
-                                                : &flash_dq_simt_kernel<D, E>;
+template <int D, Kind K>
+int launch(const SimtParams& p, cudaStream_t stream) {
+  void (*kernel)(SimtParams) = K == kForward ? &flash_fwd_simt_kernel<D>
+                               : K == kDkv   ? &flash_dkv_simt_kernel<D>
+                                             : &flash_dq_simt_kernel<D>;
   const dim3 grid((p.T + Shape<D>::ROWS - 1) / Shape<D>::ROWS, p.H, p.B);
   kernel<<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <Kind K, typename E>
-int dispatch(const SimtParams<E>& p, int D, void* stream) {
+template <Kind K>
+int dispatch(const SimtParams& p, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch<32, K>(p, s);
@@ -340,15 +321,14 @@ int dispatch(const SimtParams<E>& p, int D, void* stream) {
   }
 }
 
-template <typename E>
-SimtParams<E> make_params(const void* q, const void* k, const void* v, const uint8_t* mask,
+SimtParams make_params(const void* q, const void* k, const void* v, const uint8_t* mask,
                           const void* dout, const float* m, const float* l, const float* di,
                           int B, int H, int T, const int64_t* strides, float sm_scale) {
-  SimtParams<E> p{};
-  p.q = static_cast<const E*>(q);
-  p.k = static_cast<const E*>(k);
-  p.v = static_cast<const E*>(v);
-  p.dout = static_cast<const E*>(dout);
+  SimtParams p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
   p.mask = mask;
   p.m = const_cast<float*>(m);
   p.l = const_cast<float*>(l);
@@ -365,47 +345,43 @@ SimtParams<E> make_params(const void* q, const void* k, const void* v, const uin
   return p;
 }
 
-template <typename E>
 int forward(const void* q, const void* k, const void* v, const uint8_t* mask, void* o, float* m,
             float* l, int B, int H, int T, int D, const int64_t* strides, float sm_scale,
             void* stream) {
-  SimtParams<E> p = make_params<E>(q, k, v, mask, nullptr, m, l, nullptr, B, H, T, strides,
-                                   sm_scale);
-  p.o = static_cast<E*>(o);
+  SimtParams p = make_params(q, k, v, mask, nullptr, m, l, nullptr, B, H, T, strides, sm_scale);
+  p.o = static_cast<float*>(o);
   return dispatch<kForward>(p, D, stream);
 }
 
-template <typename E>
 int backward_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
                  const void* dout, const float* m, const float* l, const float* di, void* dk,
                  void* dv, int B, int H, int T, int D, const int64_t* strides, float sm_scale,
                  void* stream) {
-  SimtParams<E> p = make_params<E>(q, k, v, mask, dout, m, l, di, B, H, T, strides, sm_scale);
-  p.dk = static_cast<E*>(dk);
-  p.dv = static_cast<E*>(dv);
+  SimtParams p = make_params(q, k, v, mask, dout, m, l, di, B, H, T, strides, sm_scale);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
   return dispatch<kDkv>(p, D, stream);
 }
 
-template <typename E>
 int backward_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
                 const void* dout, const float* m, const float* l, const float* di, void* dq,
                 int B, int H, int T, int D, const int64_t* strides, float sm_scale,
                 void* stream) {
-  SimtParams<E> p = make_params<E>(q, k, v, mask, dout, m, l, di, B, H, T, strides, sm_scale);
-  p.dq = static_cast<E*>(dq);
+  SimtParams p = make_params(q, k, v, mask, dout, m, l, di, B, H, T, strides, sm_scale);
+  p.dq = static_cast<float*>(dq);
   return dispatch<kDq>(p, D, stream);
 }
 
 }  // namespace
 
-// The entry points, with flash_attention.cu's arguments, one set per
-// operand dtype; each returns cudaGetLastError() after its launch, or
+// The entry points, with flash_attention.cu's arguments, for f32 operands
+// and outputs; each returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue (1) for a head width without a kernel.
 extern "C" int flash_attention_forward_f32(const void* q, const void* k, const void* v,
                                            const uint8_t* mask, void* o, float* m, float* l,
                                            int B, int H, int T, int D, const int64_t* strides,
                                            float sm_scale, void* stream) {
-  return forward<float>(q, k, v, mask, o, m, l, B, H, T, D, strides, sm_scale, stream);
+  return forward(q, k, v, mask, o, m, l, B, H, T, D, strides, sm_scale, stream);
 }
 
 extern "C" int flash_attention_backward_dkv_f32(const void* q, const void* k, const void* v,
@@ -414,8 +390,8 @@ extern "C" int flash_attention_backward_dkv_f32(const void* q, const void* k, co
                                                 void* dk, void* dv, int B, int H, int T, int D,
                                                 const int64_t* strides, float sm_scale,
                                                 void* stream) {
-  return backward_dkv<float>(q, k, v, mask, dout, m, l, di, dk, dv, B, H, T, D, strides,
-                             sm_scale, stream);
+  return backward_dkv(q, k, v, mask, dout, m, l, di, dk, dv, B, H, T, D, strides, sm_scale,
+                      stream);
 }
 
 extern "C" int flash_attention_backward_dq_f32(const void* q, const void* k, const void* v,
@@ -424,33 +400,5 @@ extern "C" int flash_attention_backward_dq_f32(const void* q, const void* k, con
                                                void* dq, int B, int H, int T, int D,
                                                const int64_t* strides, float sm_scale,
                                                void* stream) {
-  return backward_dq<float>(q, k, v, mask, dout, m, l, di, dq, B, H, T, D, strides, sm_scale,
-                            stream);
-}
-
-extern "C" int flash_attention_forward_f16(const void* q, const void* k, const void* v,
-                                           const uint8_t* mask, void* o, float* m, float* l,
-                                           int B, int H, int T, int D, const int64_t* strides,
-                                           float sm_scale, void* stream) {
-  return forward<__half>(q, k, v, mask, o, m, l, B, H, T, D, strides, sm_scale, stream);
-}
-
-extern "C" int flash_attention_backward_dkv_f16(const void* q, const void* k, const void* v,
-                                                const uint8_t* mask, const void* dout,
-                                                const float* m, const float* l, const float* di,
-                                                void* dk, void* dv, int B, int H, int T, int D,
-                                                const int64_t* strides, float sm_scale,
-                                                void* stream) {
-  return backward_dkv<__half>(q, k, v, mask, dout, m, l, di, dk, dv, B, H, T, D, strides,
-                              sm_scale, stream);
-}
-
-extern "C" int flash_attention_backward_dq_f16(const void* q, const void* k, const void* v,
-                                               const uint8_t* mask, const void* dout,
-                                               const float* m, const float* l, const float* di,
-                                               void* dq, int B, int H, int T, int D,
-                                               const int64_t* strides, float sm_scale,
-                                               void* stream) {
-  return backward_dq<__half>(q, k, v, mask, dout, m, l, di, dq, B, H, T, D, strides, sm_scale,
-                             stream);
+  return backward_dq(q, k, v, mask, dout, m, l, di, dq, B, H, T, D, strides, sm_scale, stream);
 }

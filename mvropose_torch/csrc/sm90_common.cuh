@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
-// and TMA: csrc/flash_attention.cu (the flash forward at d = 64, dK/dV and dQ
-// at every head width) and csrc/int8_attention.cu (int8-probability
-// attention, d = 64).
+// and TMA: csrc/flash_attention.cu (the flash forward, dK/dV and dQ at every
+// head width) and csrc/int8_attention.cu (int8-probability attention,
+// d = 64).
 //
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on a
 //     phase parity) for the rings that one producer warp fills with TMA;

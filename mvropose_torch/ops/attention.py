@@ -17,24 +17,17 @@ Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
 read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
 
-Five routes (`kernel_route`, `ENTRY_POINTS`), by dtype, head width and
-part, the forward and the backward apart. bf16: d in
-`WGMMA_HEAD_DIMS[part]` takes the Hopper kernels of `csrc/flash_attention.cu`
-(wgmma, TMA and a warp-specialised mbarrier ring; "wgmma"), the other widths
-of `HEAD_DIMS` its mma.sync kernels ("mma_sync"). The backward takes the
-Hopper pair at every width; the forward at 64 only (every main path's width:
-ViT-B/16 and `SelfAttentionFusion` at 768 / 12 heads), so at the other
-widths the Hopper backward reads the mma.sync forward's m and l, saved in the
-same units. f32 takes the kernels of `csrc/flash_attention_simt.cu`
-("simt_f32"), which compute in f32 on the CUDA cores (the reference's flash
-branch runs f32 on a TPU; tensor-core products would round it). f16 takes
-that file's forward ("simt_f16", f32 arithmetic) and the Hopper backward
-pair instantiated for f16 ("wgmma_f16", which has no forward of its own) at
-every width, on the simt forward's m and l: f16 x f16 products accumulate
-exactly in f32 on the tensor cores. `mma_sync_route()` puts every bf16 width
-on the mma.sync kernels and `simt_f16_route()` the f16 backward on the simt
-pair, only for chip_smoke.py's comparisons on the card. A width outside
-`HEAD_DIMS` raises on every route. The sources' notes say what bounds each.
+Three routes (`kernel_route`, `ENTRY_POINTS`), one per dtype, each with a
+forward, a dK/dV and a dQ kernel at every width of `HEAD_DIMS`. bf16 takes
+the Hopper kernels of `csrc/flash_attention.cu` (wgmma, TMA and a
+warp-specialised mbarrier ring; "wgmma"), f16 the same kernels instantiated
+for f16 ("wgmma_f16": f16 x f16 products accumulate exactly in f32 on the
+tensor cores, as bf16's do). f32 takes the kernels of
+`csrc/flash_attention_simt.cu` ("simt_f32"), which compute in f32 on the
+CUDA cores (the reference's flash branch runs f32 on a TPU; tensor-core
+products would round it). Each backward reads its own forward's m (base 2)
+and l. A width outside `HEAD_DIMS` raises on every route. The sources'
+notes say what bounds each.
 `flash_forward_plain` and `flash_backward_plain` compute what the kernels
 compute, from the same saved statistics, in plain torch: the yardsticks of
 the kernels alone.
@@ -43,7 +36,6 @@ the kernels alone.
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import functools
 import math
@@ -58,27 +50,17 @@ route_launches = collections.Counter()
 
 FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
 HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
-# part: the bf16 head widths whose part ("fwd", or "bwd": dK/dV and dQ) takes the Hopper kernels.
-WGMMA_HEAD_DIMS = {"fwd": (64,), "bwd": HEAD_DIMS}
-_MMA_SYNC_ROUTE = False  # set only inside `mma_sync_route()`
-_SIMT_F16_ROUTE = False  # set only inside `simt_f16_route()`
-# route: the C entry points of its forward, dK/dV and dQ kernels (None: no
-# forward of its own).
+# route: the C entry points of its forward, dK/dV and dQ kernels.
 ENTRY_POINTS = {
-    "mma_sync": ("flash_attention_forward", "flash_attention_backward_dkv",
-                 "flash_attention_backward_dq"),
     "wgmma": ("flash_attention_forward_sm90", "flash_attention_backward_dkv_sm90",
               "flash_attention_backward_dq_sm90"),
+    "wgmma_f16": ("flash_attention_forward_sm90_f16", "flash_attention_backward_dkv_sm90_f16",
+                  "flash_attention_backward_dq_sm90_f16"),
     "simt_f32": ("flash_attention_forward_f32", "flash_attention_backward_dkv_f32",
                  "flash_attention_backward_dq_f32"),
-    "simt_f16": ("flash_attention_forward_f16", "flash_attention_backward_dkv_f16",
-                 "flash_attention_backward_dq_f16"),
-    "wgmma_f16": (None, "flash_attention_backward_dkv_sm90_f16",
-                  "flash_attention_backward_dq_sm90_f16"),
 }
-# f32 and f16: (the forward's route, the backward's route).
-DTYPE_ROUTES = {torch.float32: ("simt_f32", "simt_f32"),
-                torch.float16: ("simt_f16", "wgmma_f16")}
+# dtype: its route (the forward and the backward alike).
+DTYPE_ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma_f16", torch.float32: "simt_f32"}
 LOG2E = 1.4426950408889634
 # The plain branch's masked logit, bf16's lowest finite value (exact in f32).
 MASKED_LOGIT = torch.finfo(torch.bfloat16).min
@@ -120,61 +102,28 @@ def _kernels() -> dict:
                 [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr])  # dQ
     bound = {}
     for route, names in ENTRY_POINTS.items():
-        bound[route] = tuple(None if name is None else getattr(lib, name) for name in names)
+        bound[route] = tuple(getattr(lib, name) for name in names)
         for fn, types in zip(bound[route], argtypes):
-            if fn is not None:
-                fn.argtypes, fn.restype = types, ctypes.c_int
+            fn.argtypes, fn.restype = types, ctypes.c_int
     return bound
 
 
-def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16, part: str = "fwd") -> str:
-    """The kernels that `part` ("fwd", or "bwd": dK/dV and dQ) takes at a
-    head width and an operand dtype: for bf16 "wgmma" (Hopper: wgmma, TMA,
-    warp-specialised) at d in WGMMA_HEAD_DIMS[part] and "mma_sync" at the
-    other HEAD_DIMS (at every one inside `mma_sync_route()`); for f32
-    "simt_f32" (f32 arithmetic on the CUDA cores); for f16 "simt_f16" for
-    the forward and "wgmma_f16" (the Hopper pair in f16) for the backward
-    ("simt_f16" inside `simt_f16_route()`); raises for a width, a dtype or a
-    part without kernels."""
-    if part not in WGMMA_HEAD_DIMS:
-        raise ValueError(f"part is 'fwd' or 'bwd', got {part!r}")
+@functools.cache
+def forward_key_tile() -> int:
+    """Keys per tile of the Hopper forward, read from the kernels' library."""
+    return load_library().flash_attention_forward_key_tile()
+
+
+def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernels (forward, dK/dV and dQ) that a head width and an operand
+    dtype take: "wgmma" for bf16 and "wgmma_f16" for f16 (Hopper: wgmma,
+    TMA, warp-specialised), "simt_f32" for f32 (f32 arithmetic on the CUDA
+    cores); raises for a width or a dtype without kernels."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
-    if dtype == torch.bfloat16:
-        return "wgmma" if d in WGMMA_HEAD_DIMS[part] and not _MMA_SYNC_ROUTE else "mma_sync"
     if dtype not in DTYPE_ROUTES:
         raise ValueError(f"the flash-attention kernels take bf16, f16 or f32 operands, got {dtype}")
-    forward, backward = DTYPE_ROUTES[dtype]
-    # Inside `simt_f16_route()` the backward takes the simt pair beside the simt forward.
-    return backward if part == "bwd" and not _SIMT_F16_ROUTE else forward
-
-
-@contextlib.contextmanager
-def mma_sync_route():
-    """Within this block every bf16 width takes the mma.sync kernels, the
-    forward and the backward (the Hopper kernels' predecessors). It exists
-    only for chip_smoke.py's comparisons of the two routes on the card: no
-    main path enters it."""
-    global _MMA_SYNC_ROUTE
-    saved, _MMA_SYNC_ROUTE = _MMA_SYNC_ROUTE, True
-    try:
-        yield
-    finally:
-        _MMA_SYNC_ROUTE = saved
-
-
-@contextlib.contextmanager
-def simt_f16_route():
-    """Within this block the f16 backward takes the simt pair of
-    `csrc/flash_attention_simt.cu` (f32 arithmetic on the CUDA cores), the
-    Hopper f16 pair's predecessor. It exists only for chip_smoke.py's
-    comparisons of the two pairs on the card: no main path enters it."""
-    global _SIMT_F16_ROUTE
-    saved, _SIMT_F16_ROUTE = _SIMT_F16_ROUTE, True
-    try:
-        yield
-    finally:
-        _SIMT_F16_ROUTE = saved
+    return DTYPE_ROUTES[dtype]
 
 
 def part_launches(part: str) -> int:
@@ -282,12 +231,16 @@ def flash_forward_plain(q, k, v, mask_u8=None):
     """What the forward kernel computes, in plain torch (f32 inside):
     (B, T, H, d) q, k, v and an optional (B, T) byte mask -> (O in q's dtype,
     m, l), m the row max in base-2 units and l the row sum, (B, H, T) f32,
-    as `flash_forward_cuda` saves them."""
+    as `flash_forward_cuda` saves them. P = exp2(logits - m) is rounded to
+    q's dtype before P V (a no-op for f32 operands), as the kernels and the
+    reference's flash kernel round it (the kernels against the running max
+    of the key tiles seen so far, this against the row's), and O = P V / l
+    rounded once."""
     x = _logits_base2(q, k, mask_u8)
     m = x.amax(-1)
     p = torch.exp2(x - m[..., None])
     l = p.sum(-1)
-    o = (p * l.reciprocal()[..., None]) @ v.float().transpose(1, 2)
+    o = (p.to(q.dtype).float() @ v.float().transpose(1, 2)) * l.reciprocal()[..., None]
     return o.transpose(1, 2).to(q.dtype), m, l
 
 
@@ -328,11 +281,11 @@ def _backward_args(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dK/dV kernel of `kernel_route(d, q.dtype, "bwd")`: the
+    """Launch the dK/dV kernel of `kernel_route(d, q.dtype)`: the
     forward's operands and statistics (m in base 2 and l, as every route's
     forward saves them), dO in their layout and dtype and di =
     `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) in q's dtype."""
-    route = kernel_route(q.shape[-1], q.dtype, "bwd")
+    route = kernel_route(q.shape[-1], q.dtype)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
@@ -346,9 +299,9 @@ def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dQ kernel of `kernel_route(d, q.dtype, "bwd")` (arguments
+    """Launch the dQ kernel of `kernel_route(d, q.dtype)` (arguments
     as `flash_backward_dkv_cuda`) -> dQ."""
-    route = kernel_route(q.shape[-1], q.dtype, "bwd")
+    route = kernel_route(q.shape[-1], q.dtype)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)

@@ -9,7 +9,7 @@ runs, from that checkout's root, as processes of their own:
     4 synthetic 720x1280 cameras, ViT-B/16 at 512 px, bf16);
   * the same with `--model-size 768` (the flash forward at T = 2305);
   * `python3 scripts/torch_train_profile.py --steps S` (the unfrozen 768-px
-    train step on both flash routes).
+    train step, its flash kernels profiled).
 It prints each run's summary lines under its checkout's label and turn. A
 change that both checkouts show in one call is the host's, not the code's.
 Needs a CUDA GPU.

@@ -6,17 +6,16 @@
 The step of `chip_smoke.py`'s unfrozen 768-px phase (ViT-B/16 at 768 px,
 backbone trained, fr3, 2 groups x 4 views, 128x128 heatmaps, bf16,
 `flax_init_state` seed 1) on one resident batch, with the flash-attention
-kernels at d = 64, forward and backward, on each of their two routes
-(`ops/attention.py`: `kernel_route`), in turns mma.sync/wgmma/wgmma/mma.sync.
-Per turn:
+kernels at d = 64, forward and backward (`ops/attention.py`: the "wgmma"
+route):
   * step time: CUDA events around each of --steps steps, the median;
   * under torch.profiler, over --steps more steps: the device busy time per
     step (summed kernel and copy durations), the host wall time per step
     (host clock around the steps, ending in a synchronize) and the busy
     share, busy / wall;
   * the flash kernels' device time per step, and the operators by device
-    time (the first turn of each route).
-With --trace-dir, a chrome trace per route is written there. Needs a CUDA GPU.
+    time.
+With --trace-dir, a chrome trace is written there. Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ from mvropose_torch.data.synthetic import (  # noqa: E402
 )
 from mvropose_torch.geometry.robots import get_robot  # noqa: E402
 from mvropose_torch.models import MultiViewPoseEstimator  # noqa: E402
+from mvropose_torch.ops import attention  # noqa: E402
 from mvropose_torch.train import (  # noqa: E402
     TrainConfig,
     create_train_state,
@@ -83,8 +83,8 @@ def profile_turn(run, steps: int, trace: Path | None) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--rows", type=int, default=25, help="operators listed per route")
-    p.add_argument("--trace-dir", default=None, help="write a chrome trace per route here")
+    p.add_argument("--rows", type=int, default=25, help="operators listed")
+    p.add_argument("--trace-dir", default=None, help="write a chrome trace here")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_profile: needs a CUDA GPU")
@@ -105,30 +105,16 @@ def main() -> int:
         trace_dir.mkdir(parents=True, exist_ok=True)
 
     print(f"card: {chip_smoke._script('torch_bench_attention_fusion').card()}")
-    turns = []
-    for route in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
-        def run(route=route):
-            with chip_smoke.on_route(route):
-                step(state, batch, dropout)
-        first = route not in [r for r, _ in turns]
-        trace = trace_dir / f"train_768_{route}.json" if first and trace_dir else None
-        got = profile_turn(run, args.steps, trace)
-        turns.append((route, got))
-        flash = ", ".join(f"{k} {v:.3f}" for k, v in got["flash_ms"].items())
-        print(f"train step 768 px unfrozen [{chip_smoke.TRAIN_768_GROUPS} groups x 4 views, bf16; "
-              f"flash kernels {route}]: step {got['step_ms']:.3f} ms (CUDA events, median of "
-              f"{args.steps}); profiled: host wall {got['wall_ms']:.3f} ms/step, device busy "
-              f"{got['busy_ms']:.3f} ms/step, busy share "
-              f"{min(1.0, got['busy_ms'] / got['wall_ms']):.3f}; "
-              f"flash kernels ms/step: {flash}", flush=True)
-        if first:
-            print(got["prof"].key_averages().table(sort_by="self_device_time_total",
-                                                   row_limit=args.rows))
-        del got["prof"]
-    for route in ("mma_sync", "wgmma"):
-        mine = [got for r, got in turns if r == route]
-        print(f"{route}: step ms {statistics.median(g['step_ms'] for g in mine):.3f}, busy ms/step "
-              f"{statistics.median(g['busy_ms'] for g in mine):.3f} (median of the two turns)")
+    got = profile_turn(lambda: step(state, batch, dropout), args.steps,
+                       trace_dir / "train_768.json" if trace_dir else None)
+    flash = ", ".join(f"{k} {v:.3f}" for k, v in got["flash_ms"].items())
+    print(f"train step 768 px unfrozen [{chip_smoke.TRAIN_768_GROUPS} groups x 4 views, bf16; "
+          f"flash kernels {attention.kernel_route(64)}]: step {got['step_ms']:.3f} ms (CUDA "
+          f"events, median of {args.steps}); profiled: host wall {got['wall_ms']:.3f} ms/step, "
+          f"device busy {got['busy_ms']:.3f} ms/step, busy share "
+          f"{min(1.0, got['busy_ms'] / got['wall_ms']):.3f}; flash kernels ms/step: {flash}",
+          flush=True)
+    print(got["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=args.rows))
     return 0
 
 

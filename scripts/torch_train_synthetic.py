@@ -85,7 +85,7 @@ def check_ported(args) -> None:
         (args.angle_head != "query", f"--angle-head {args.angle_head}",
          "queue 1, item 4: geometric angle heads"),
         (args.fk_loss_weight > 0, "--fk-loss-weight > 0",
-         "queue 1, item 9: the single-view step's FK-consistency term"),
+         "queue 1, item 4: the single-view step's FK-consistency term"),
         (args.backbone_ckpt is not None, "--backbone-ckpt",
          "queue 1, item 11: models/dino_convert.py"),
     ]

@@ -505,10 +505,24 @@ def test_trainer_runs_end_to_end_on_cpu(tmp_path):
     ([], "item 4"),  # --mode single is the default
     (["--mode", "multi", "--render", "link"], "item 11"),
     (["--mode", "multi", "--angle-head", "geometric3d"], "item 4"),
-    (["--mode", "multi", "--fk-loss-weight", "0.5"], "item 9"),
+    (["--mode", "multi", "--fk-loss-weight", "0.5"], "item 4"),
     (["--mode", "multi", "--backbone-ckpt", "x.npz"], "item 11"),
 ])
 def test_trainer_rejects_unported_flags(argv, item, tmp_path):
     with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP.md queue 1, {item}"):
         _trainer().main([*argv, "--cpu", "--workdir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+def test_trainer_fk_loss_weight_names_the_single_view_item():
+    """The FK-consistency term belongs to the single-view step, which queue 1
+    item 4 ports (the reference applies it there, scripts/train_synthetic.py:177;
+    `train/losses.py::fk_consistency_loss` is ported with that item), so the
+    refusal names item 4, not item 9 (captured-image training)."""
+    trainer = _trainer()
+    args = trainer.build_parser().parse_args(["--mode", "multi", "--fk-loss-weight", "1"])
+    with pytest.raises(SystemExit) as refused:
+        trainer.check_ported(args)
+    message = str(refused.value)
+    assert "--fk-loss-weight" in message and "queue 1, item 4:" in message, message
+    assert "item 9" not in message

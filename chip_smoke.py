@@ -75,7 +75,8 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          and l, and the backward kernels alone against
          `flash_backward_plain` on the forward kernel's statistics, two
          calls bit-identical; the Hopper kernels, all three at every width
-         in bf16 and f16, build without spills; then timed beside SDPA, at
+         in bf16 and f16 and the split-TF32 forward at every width, build
+         without spills; then timed beside SDPA, at
          T = 1025 too, and the backward pair alone beside SDPA's backward
          alone (phase 3);
        * d in {32, 48, 96, 128}, no main path's width (`phase_flash_widths`):
@@ -85,11 +86,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          forward and forward + backward beside the plain branch and SDPA,
          the backward pair alone beside SDPA's backward alone;
        * f32 and f16 CUDA operands at T = 2305 (`phase_simt`): f32 launches
-         the f32-arithmetic forward, dK/dV and dQ kernels once each, f16
-         the Hopper forward, dK/dV and dQ instantiated for f16 once each;
-         both agree with the plain branch in f32, each kernel alone too,
-         two calls bit-identical; they are timed in f32 and f16 beside the
-         plain branch and SDPA (bf16 at that shape launches one forward);
+         the split-TF32 forward (TF32 wgmma, `csrc/flash_attention_tf32.cu`)
+         and the f32-arithmetic dK/dV and dQ once each, f16 the Hopper
+         forward, dK/dV and dQ instantiated for f16 once each; both agree
+         with the plain branch in f32, each kernel alone too (the backward
+         pair on its forward's m and l), two calls bit-identical; the f32
+         forward alone at every width, and at the f32 768-px serve step's
+         (4, 2305, 12, 64) without a mask, within SIMT_TOL of the plain
+         forward and closer to it than a one-TF32-product model; timed in
+         f32 and f16 beside the plain branch and SDPA, the f32 forward at
+         every width too (bf16 at that shape launches one forward);
          `serve --replay-dir` on a directory of PNG frames exits naming the
          missing decoder where cv2 cannot be imported, and serves where it
          can;
@@ -102,6 +108,12 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          the f16 pair in turns with the bf16 pair;
        * `serve --model-size 768`: 12 forward launches per tick; the bare
          768-px step timed, never synchronizing, against the plain path;
+       * `serve --params RUN/best_params.npz` on a temporary f32 768-px run
+         directory under build/ (model_config.json: FULL_768 with "vit":
+         {"dtype": "float32"}, model_size 768; seed-0 weights exported with
+         `export_jax_params`): 12 split-TF32 forward launches per tick; the
+         bare f32 768-px step timed the same way, its backbone tokens within
+         SIMT_TOL of the plain path's largest token;
        * the unfrozen 768-px train step (fr3, 2 groups x 4 views): backbone
          gradients against the plain path, then steps with 12 launches of
          each kernel per step (phase 6);
@@ -112,7 +124,11 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      operands, `f32_ms`, `f16_ms` and their bounds, the bf16 kernels' times
      at the other widths under `widths`, the f16 kernels' at every width
      under `f16_widths`; the forward's bound the larger of its products' and
-     its exponentials'), the card and its power limit, then the last line
+     its exponentials'; the f32 forward's source, launches on the f32 serve
+     run and times at every width under `f32_widths`; its bound at the f32
+     rate is printed beside the split-TF32 one), the card and its power
+     limit, then
+     the last line
      `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -136,7 +152,7 @@ import torch
 
 from torch.profiler import ProfilerActivity, profile
 
-from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step
+from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step, write_run_dir
 from mvropose_torch.data.synthetic import make_rig, rig_tuple, synthesize_multiview_batch
 from mvropose_torch.geometry.robots import get_robot
 from mvropose_torch.models import (
@@ -165,10 +181,10 @@ from mvropose_torch.ops import (
 from mvropose_torch.train import TrainConfig, create_train_state, make_multi_view_train_step
 from mvropose_torch.train.state import ANG_MODULES, KPT_MODULES
 from mvropose_torch.utils.weights import (
-    export_jax_params,
     flax_init_state,
     int8ify,
     load_jax_params,
+    random_flat,
     random_state,
 )
 
@@ -213,7 +229,7 @@ FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 # The serve default: ViT-B/16 at 512 px (T = 1024 + 1), 4 views, J=8, A=7.
 FULL = EstimatorConfig(
     vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
@@ -222,6 +238,10 @@ FULL = EstimatorConfig(
 FULL_LN = dataclasses.replace(FULL, vit=dataclasses.replace(FULL.vit, fused_ln=True))
 # `serve --model-size 768`: the same ViT-B/16 at 768 px, T = 48^2 + 1 = 2305 >= 2048.
 FULL_768 = dataclasses.replace(FULL, vit=dataclasses.replace(FULL.vit, image_size=768))
+# The same with the backbone in f32: what `serve --params` builds from a run
+# directory whose model_config.json says "vit": {"dtype": "float32", ...}
+# (`read_model_config`; the heads stay in the default bf16).
+FULL_768_F32 = dataclasses.replace(FULL_768, vit=dataclasses.replace(FULL_768.vit, dtype="float32"))
 
 
 def _script(name: str):
@@ -347,11 +367,15 @@ def spilled_bytes(log: str) -> dict:
 
 
 # The Hopper kernels of the build: the flash forward, dK/dV and dQ at every
-# head width in bf16 and in f16, the int8 attention and the int8 GEMM.
-FLASH_PARTS = ("fwd", "dkv", "dq")
-HOPPER_KERNELS = len(FLASH_PARTS) * 2 * len(attention.HEAD_DIMS) + 2
-# The element types of the flash kernels' instantiations, as mangled names spell them.
-HOPPER_TYPES = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
+# head width in bf16 and in f16, the split-TF32 forward for f32 at every
+# width, the int8 attention and the int8 GEMM.
+FLASH_PARTS = attention.FLASH_PARTS
+# The flash kernels' instantiations by element type: the parts it has, and
+# the pattern of one's mangled name (`part` filled in; the width its group).
+HOPPER_TYPES = {"bf16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E13__nv_bfloat16E"),
+                "f16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E6__halfE"),
+                "tf32": (("fwd",), r"flash_{part}_tf32_sm90_kernelILi(\d+)EE")}
+HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 2
 
 
 def phase_build() -> None:
@@ -367,10 +391,9 @@ def phase_build() -> None:
         text = log.read_text().strip()
         print(text)
         hopper = {k: v for k, v in spilled_bytes(text).items() if "sm90_kernel" in k}
-        widths = {(kind, ty): sorted(
-            int(w) for k in hopper
-            for w in re.findall(rf"flash_{kind}_sm90_kernelILi(\d+)E{mangled}E", k))
-            for kind in FLASH_PARTS for ty, mangled in HOPPER_TYPES.items()}
+        widths = {(part, ty): sorted(int(w) for k in hopper
+                                     for w in re.findall(pattern.format(part=part), k))
+                  for ty, (parts, pattern) in HOPPER_TYPES.items() for part in parts}
         check(len(hopper) == HOPPER_KERNELS and not any(hopper.values()) and
               all(w == list(attention.HEAD_DIMS) for w in widths.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
@@ -1064,12 +1087,15 @@ F16_BACKWARD_TOL = 2.0 ** -9
 # exactly bf16's lowest finite value where it has none; l within 2 STAT_TOL
 # relative (it moves with m).
 STAT_TOL = 2.0 ** -10
-# The f32-arithmetic kernels (f32 operands, `phase_simt`) against the plain
-# branch in f32 on the same values, as a share of its largest magnitude: the
-# same f32 products summed in another order over T = 2305 keys, ~1e-6, and
-# exp2f's 2 ulps.
+# The f32 route's kernels (f32 operands, `phase_simt`: the split-TF32
+# forward and the f32-arithmetic dK/dV and dQ) against the plain branch in
+# f32 on the same values, as a share of its largest magnitude: f32 products
+# (the forward's split drops ~2^-20 of each) summed in another order over T
+# = 2305 keys, ~1e-6 (the f32 plain forward is itself ~1e-6 from f64), and
+# the exponentials' 2 ulps. One TF32 product each misses it 100-fold or more.
 SIMT_TOL = 1e-5
 SIMT_SHAPE = (2, 2305, 12, 64)  # the 768-px serve backbone's T at 2 images
+F32_SERVE_SHAPE = (4, 2305, 12, 64)  # the f32 768-px serve step's forward: 4 cameras
 
 
 def backward_tol(route: str) -> float:
@@ -1159,7 +1185,7 @@ def backward_alone(q, k, v, mask, do) -> dict:
     args = (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
     want = attention.flash_backward_plain(q.float(), k.float(), v.float(), mask_u8, do.float(),
                                           *args[5:])
-    route = attention.kernel_route(q.shape[-1], q.dtype)
+    route = attention.kernel_route(q.shape[-1], q.dtype, "dkv")
     tols = [backward_tol(route) * float(w.abs().max()) + FLASH_ERR_FLOOR for w in want]
     runs = [(attention.flash_backward_dq_cuda(*args), *attention.flash_backward_dkv_cuda(*args))
             for _ in range(2)]
@@ -1184,13 +1210,22 @@ def _flash_bounds(B: int, T: int, H: int, d: int, mask, dtype=torch.bfloat16) ->
     once. Forward: 2 products, reads q, k, v, writes O (the timed call saves
     no statistics); dK/dV: 4 products, reads q, k, v, dO and the f32 m, l,
     di, writes dK, dV; dQ: 3 products, reads the same, writes dQ. bf16 and
-    f16 at the tensor cores' rate, f32 at the f32 rate; the forward's
-    exponentials, one per query and attended key, at `with_exp_floor`'s."""
+    f16 at the tensor cores' rate; f32's forward as three TF32 products per
+    product at TF32's rate (its route's arithmetic; the same work at the f32
+    rate beside it as "f32_rate_bound_ms"), f32's dK/dV and dQ at the f32
+    rate; the forward's exponentials, one per query and attended key, at
+    `with_exp_floor`'s."""
     pairs = H * T * (B * T if mask is None else int(mask.sum()))
     x = B * T * H * d * torch.finfo(dtype).bits // 8
     stat, mbytes = B * H * T * 4, 0 if mask is None else B * T
     kind = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[dtype]
-    return {"flash_fwd": with_exp_floor(bound(4 * x + mbytes, 2 * 2 * pairs * d, kind), pairs),
+    fwd_ops = 2 * 2 * pairs * d
+    if dtype == torch.float32:
+        fwd = with_exp_floor(bound(4 * x + mbytes, 3 * fwd_ops, "tf32"), pairs)
+        fwd["f32_rate_bound_ms"] = bound(4 * x + mbytes, fwd_ops, "f32")["bound_ms"]
+    else:
+        fwd = with_exp_floor(bound(4 * x + mbytes, fwd_ops, kind), pairs)
+    return {"flash_fwd": fwd,
             "flash_bwd_dkv": bound(6 * x + 3 * stat + mbytes, 4 * 2 * pairs * d, kind),
             "flash_bwd_dq": bound(5 * x + 3 * stat + mbytes, 3 * 2 * pairs * d, kind)}
 
@@ -1362,13 +1397,12 @@ def width_route_check(B: int, T: int, H: int, d: int, mask_kind, heads_outer: bo
     `backward_alone`). -> (the forward's errors alone, the backward's)."""
     qkv, do, mask = _flash_operands(B, T, H, d, mask_kind, seed=97 + d, heads_outer=heads_outer,
                                     dtype=dtype)
-    route = attention.kernel_route(d, dtype)
     _reset_launches()
     got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, True, m),
                  qkv, mask, do)
     torch.cuda.synchronize()
     by_route = dict(attention.route_launches)
-    want = {("fwd", route): 1, ("dkv", route): 1, ("dq", route): 1}
+    want = {(part, attention.kernel_route(d, dtype, part)): 1 for part in FLASH_PARTS}
     check(by_route == want, f"d = {d}: fused_self_attention launched {by_route}, not {want}")
     ref = _grads(attention.flash_attention_reference,
                  [t.detach().float().requires_grad_() for t in qkv], mask, do)
@@ -1550,11 +1584,13 @@ def phase_counters() -> None:
           "for every kernel, the flash kernels on every route")
 
 
-def _simt_alone(q, k, v, mask) -> list:
-    """The f32-arithmetic forward alone against `flash_forward_plain` in f32
-    on the same values: O within SIMT_TOL of the plain O's largest magnitude
-    (plus FLASH_ERR_FLOOR), m and l as in `forward_alone`, two calls
-    bit-identical. -> [err O, m, l]."""
+def _tf32_alone(q, k, v, mask) -> list:
+    """The split-TF32 forward alone against `flash_forward_plain` in f32 on
+    the same values: O within SIMT_TOL of the plain O's largest magnitude
+    (plus FLASH_ERR_FLOOR) and closer to it than the one-TF32-product
+    model's O (`flash_forward_tf32_model(.., products=1)`, what a forward
+    that dropped the small terms computes), m and l as in `forward_alone`,
+    two calls bit-identical. -> [err O, m, l, the one-product model's O]."""
     mask_u8 = attention.mask_bytes(mask)
     runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
     torch.cuda.synchronize()
@@ -1562,6 +1598,9 @@ def _simt_alone(q, k, v, mask) -> list:
           f"{q.dtype}: two forward calls on the same inputs differ")
     o, m, l = runs[0]
     o_ref, m_ref, l_ref = attention.flash_forward_plain(q.float(), k.float(), v.float(), mask_u8)
+    one = attention.flash_forward_tf32_model(q, k, v, mask_u8, products=1)[0]
+    e_one = float((one - o_ref).abs().max())
+    del one
     attended = m_ref > attention.MASKED_LOGIT
     check(torch.equal(m[~attended], m_ref[~attended]),
           f"{q.dtype}: an all-masked row's m is not bf16's lowest finite value")
@@ -1570,25 +1609,35 @@ def _simt_alone(q, k, v, mask) -> list:
     tols = [SIMT_TOL * float(o_ref.abs().max()) + FLASH_ERR_FLOOR, STAT_TOL, 2 * STAT_TOL]
     for part, e, t in zip(("O", "m", "l"), errs, tols):
         check(e <= t, f"{q.dtype} {part} alone is {e} from the plain version, above {t}")
-    return errs
+    check(errs[0] < e_one, f"{q.dtype} d = {q.shape[-1]}: the forward's O error {errs[0]} is not "
+                           f"below the one-TF32-product model's {e_one}")
+    return [*errs, e_one]
 
 
 def phase_simt() -> dict:
     """f32 and f16 operands at T >= 2048 on the card: `fused_self_attention`
     at SIMT_SHAPE with a mask (batch element 1 all masked) launches one
-    forward, one dK/dV and one dQ of the dtype's route (f32: the
-    f32-arithmetic kernels of `csrc/flash_attention_simt.cu`; f16: the
-    Hopper kernels instantiated for f16). Against the plain branch in f32 on
-    the same values: f32's O within SIMT_TOL of its largest magnitude, f16's
-    O no further than the f16 plain branch's O (FLASH_ERR_FLOOR aside), the
-    gradients within the route's `backward_tol`; the forward alone (f32
-    `_simt_alone`, f16 `forward_alone`) and the backward alone
-    (`backward_alone`); the same values in bf16 launch one forward. Then,
-    without a mask, the forward and forward + backward timed in turns
-    plain/kernel/kernel/plain beside SDPA, and the dK/dV and dQ kernels
-    alone beside SDPA's backward alone (`backward_times`). -> {kernel:
-    {"f32_ms", "f32_plain_ms", "f32_library_ms", "f32_bound_ms", the same
-    with f16_}}."""
+    forward, one dK/dV and one dQ of the dtype's routes (f32: the split-TF32
+    forward of `csrc/flash_attention_tf32.cu` and the f32-arithmetic dK/dV
+    and dQ of `csrc/flash_attention_simt.cu`; f16: the Hopper kernels
+    instantiated for f16). Against the plain branch in f32 on the same
+    values: f32's O within SIMT_TOL of its largest magnitude, f16's O no
+    further than the f16 plain branch's O (FLASH_ERR_FLOOR aside), the
+    gradients within the backward route's `backward_tol`; the forward alone
+    (f32 `_tf32_alone`, f16 `forward_alone`) and the backward alone on the
+    forward's m and l (`backward_alone`); the same values in bf16 launch one
+    forward. The f32 forward alone at every width, (2, 2305, 768 / d, d)
+    with the same mask, at d = 48 and 128 read through RoPE's heads-outer
+    strides, and at F32_SERVE_SHAPE without a mask, the shape and the mask
+    of the f32 768-px serve step (`_tf32_alone`). Then, without a mask, the
+    forward
+    and forward + backward timed in turns plain/kernel/kernel/plain beside
+    SDPA, and the dK/dV and dQ kernels alone beside SDPA's backward alone
+    (`backward_times`); and the f32 forward alone at every width, in turns
+    with the plain branch's forward, beside SDPA f32. -> {kernel: {"f32_ms",
+    "f32_plain_ms", "f32_library_ms", "f32_bound_ms", the same with f16_};
+    the forward also "f32_widths"}; the f32 forward's bound at the f32 rate
+    is printed beside its split-TF32 bound, not returned."""
     B, T, H, d = SIMT_SHAPE
     gen = torch.Generator().manual_seed(90)
     base = [torch.randn(B, T, H, d, generator=gen).cuda() for _ in range(4)]
@@ -1597,19 +1646,19 @@ def phase_simt() -> dict:
     for dtype in (torch.float32, torch.float16):
         q, k, v, do = (t.to(dtype) for t in base)
         ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        route = attention.kernel_route(d, dtype)
+        routes = {part: attention.kernel_route(d, dtype, part) for part in FLASH_PARTS}
         _reset_launches()
         got = _grads(lambda q, k, v, m: attention.fused_self_attention(q, k, v, key_mask=m),
                      ts, mask, do)
         torch.cuda.synchronize()
         launches, by_route = _read_launches(), dict(attention.route_launches)
-        want = {("fwd", route): 1, ("dkv", route): 1, ("dq", route): 1}
+        want = {(part, route): 1 for part, route in routes.items()}
         check(launches == {k: int(k in FLASH_KERNELS) for k in KERNELS} and by_route == want,
               f"{dtype} at T = {T} launched {by_route}, not {want}")
         ref = _grads(attention.flash_attention_reference,
                      [t.detach().float().requires_grad_() for t in (q, k, v)], mask, do.float())
         errs = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-        tols = [backward_tol(route) * float(b.abs().max()) + FLASH_ERR_FLOOR for b in ref]
+        tols = [backward_tol(routes["dkv"]) * float(b.abs().max()) + FLASH_ERR_FLOOR for b in ref]
         if dtype == torch.float16:  # O: no further than the f16 plain branch's
             with torch.no_grad():
                 o_plain = attention.flash_attention_reference(q, k, v, mask)
@@ -1619,15 +1668,16 @@ def phase_simt() -> dict:
               f"{dtype} at T = {T}: O/dQ/dK/dV {errs} from f32 plain, bounds {tols}")
         del got, ref, ts
         if dtype == torch.float32:
-            fwd_alone = {route: _simt_alone(q, k, v, mask)}
+            fwd_alone = {routes["fwd"]: _tf32_alone(q, k, v, mask)}
         else:
             fwd_alone = forward_alone(q, k, v, mask, tols[0])
         bwd_alone = backward_alone(q, k, v, mask, do)
-        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (route {route}): "
+        print(f"flash kernels {dtype} {SIMT_SHAPE} mask all (routes {routes}): "
               f"fused_self_attention launched {by_route}; O/dQ/dK/dV max abs err vs f32 plain "
-              f"{fmt(errs)} (bounds {fmt(tols)}); alone vs flash_forward_plain, O/m/l(rel): "
+              f"{fmt(errs)} (bounds {fmt(tols)}); alone vs flash_forward_plain, O/m/l(rel)"
+              f"{'/one-TF32-product model O' if dtype == torch.float32 else ''}: "
               + ", ".join(f"{r} {fmt(e)}" for r, e in fwd_alone.items())
-              + "; vs flash_backward_plain, dQ/dK/dV: "
+              + "; vs flash_backward_plain on the forward's m and l, dQ/dK/dV: "
               + ", ".join(f"{r} {fmt(e)} (bound {backward_tol(r):.3g} of the largest)"
                           for r, e in bwd_alone.items())
               + "; two calls bit-identical")
@@ -1639,6 +1689,22 @@ def phase_simt() -> dict:
     check(launches == {k: int(k == "flash_fwd") for k in KERNELS} and
           bool(torch.isfinite(out).all()), f"bf16 at T = {T} launched {launches}")
     del out, base
+    alone = {}
+    for w in attention.HEAD_DIMS:
+        qkv, _, mask_w = _flash_operands(B, T, 768 // w, w, "all", seed=91 + w,
+                                         heads_outer=w in (48, 128), dtype=torch.float32)
+        alone[w] = _tf32_alone(*(t.detach() for t in qkv), mask_w)
+        del qkv
+    qkv = _flash_operands(*F32_SERVE_SHAPE, None, seed=93, dtype=torch.float32)[0]
+    serve_alone = _tf32_alone(*(t.detach() for t in qkv), None)
+    del qkv
+    print(f"flash f32 forward alone (route {attention.kernel_route(64, torch.float32)}) at "
+          f"(2, 2305, 768 / d, d) mask all (d = 48, 128 heads outer, as after RoPE) vs "
+          f"flash_forward_plain, O (bound {SIMT_TOL:g} of the "
+          f"largest |O|)/m/l(rel)/one-TF32-product model O: "
+          + ", ".join(f"d = {w} {fmt(e)}" for w, e in alone.items())
+          + f"; at the f32 768-px serve step's {F32_SERVE_SHAPE}, no mask: {fmt(serve_alone)}"
+          + "; all-masked rows' m exact; two calls bit-identical")
 
     def timer(fn):
         return graph_ms(fn, iters=2, samples=10)
@@ -1651,12 +1717,14 @@ def phase_simt() -> dict:
         del qkv, do
         t = backward_times(B, T, None, timer, H, d, dtype)
         bounds = _flash_bounds(B, T, H, d, None, dtype)
-        print(f"flash kernels {tag} {SIMT_SHAPE} no mask (route "
-              f"{attention.kernel_route(d, dtype)}), ms per call, CUDA-graph replay, "
-              f"plain/kernel/kernel/plain: {_fmt_times(times)} (forward / SDPA "
+        print(f"flash kernels {tag} {SIMT_SHAPE} no mask (routes "
+              f"{[attention.kernel_route(d, dtype, part) for part in FLASH_PARTS]}), ms per call, "
+              f"CUDA-graph replay, plain/kernel/kernel/plain: {_fmt_times(times)} (forward / SDPA "
               f"{times['kernel']['fwd'] / times['library']['fwd']:.3f}); backward alone: "
-              f"{_fmt_backward(t, bounds)}; bounds ({tag} rate) "
-              + ", ".join(f"{k} {fmt_bound(b)}" for k, b in bounds.items()))
+              f"{_fmt_backward(t, bounds)}; bounds "
+              + ", ".join(f"{k} {fmt_bound(b)}" for k, b in bounds.items())
+              + (f"; the forward at the f32 rate {bounds['flash_fwd']['f32_rate_bound_ms']:.4f}"
+                 if tag == "f32" else ""))
         result["flash_fwd"].update({f"{tag}_ms": times["kernel"]["fwd"],
                                     f"{tag}_plain_ms": times["plain"]["fwd"],
                                     f"{tag}_library_ms": times["library"]["fwd"]})
@@ -1666,6 +1734,23 @@ def phase_simt() -> dict:
         for kname, b in bounds.items():
             result[kname][f"{tag}_bound_ms"] = b["bound_ms"]
         del times, t
+    result["flash_fwd"]["f32_widths"] = widths = {}
+    for w in attention.HEAD_DIMS:
+        q, k, v = (t.detach() for t in _flash_operands(2, T, 768 // w, w, None, seed=92,
+                                                       dtype=torch.float32)[0])
+        with torch.no_grad():
+            ms, plain_ms = _in_turns(
+                timer, lambda: attention.flash_attention_reference(q, k, v),
+                lambda: attention.flash_forward_cuda(q, k, v, save_stats=False))
+            library_ms = timer(lambda: bench.sdpa(q, k, v))
+        b = _flash_bounds(2, T, 768 // w, w, None, torch.float32)["flash_fwd"]
+        widths[w] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        print(f"flash f32 forward [(B, T, H, d) = {(2, T, 768 // w, w)}], no mask, ms per call, "
+              f"CUDA-graph replay, in turns plain/kernel/kernel/plain: kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}, SDPA f32 {library_ms:.4f} (kernel / SDPA {ms / library_ms:.3f}); "
+              f"bound {fmt_bound(b)}, at the f32 rate {b['f32_rate_bound_ms']:.4f}")
+        del q, k, v
     return result
 
 
@@ -1748,27 +1833,10 @@ def _serve(argv: list, label: str, kernels: list) -> dict:
     return launches
 
 
-def seed0_flat() -> dict:
-    """The serve default's seed-0 random weights as a reference checkpoint's
-    flat dict (f32): `random_state`'s CPU tensors assigned into a model on
-    the meta device, so no other copy of the weights is made."""
-    model = MultiViewPoseEstimator(FULL, device="meta")
-    model.load_state_dict(random_state(model, seed=0), assign=True)
-    return export_jax_params(model)
-
-
-def write_run_dir(flat: dict, run: Path) -> None:
-    """A run directory as training leaves it: model_config.json (fused_ln on)
-    beside best_params.npz."""
-    c = FULL_LN
-    (run / "model_config.json").write_text(json.dumps({
-        "kind": "multi_view", "model_size": 512, "vit": dataclasses.asdict(c.vit),
-        "num_joints": c.num_joints, "num_angles": c.num_angles,
-        "heatmap_size": list(c.heatmap_size), "max_views": c.max_views,
-        "num_fusion_queries": c.num_fusion_queries, "num_angle_queries": c.num_angle_queries,
-        "angle_head": c.angle_head,
-    }, indent=2))
-    np.savez(run / "best_params.npz", **flat)
+def seed0_flat(cfg: EstimatorConfig = FULL) -> dict:
+    """The seed-0 random weights of `cfg` (the serve default's) as a
+    reference checkpoint's flat dict (f32)."""
+    return random_flat(MultiViewPoseEstimator(cfg, device="meta"))
 
 
 def _int8_model(flat: dict, device) -> MultiViewPoseEstimator:
@@ -1969,14 +2037,39 @@ def phase_serve_768() -> dict:
     return launches
 
 
-def phase_step_768(gap_512: float) -> None:
-    """The bare 768-px serve step on a resident batch: its launches, device
-    time by graph replay (beside the same step with the plain attention),
-    the no-host-sync check, and its heatmaps against the same weights on the
-    plain path (argmax agreement, bf16 gap), beside 512 px's bf16-vs-f32 gap."""
+def phase_serve_768_f32() -> dict:
+    """`serve --params RUN/best_params.npz` through the CLI's parser on a
+    temporary run directory under build/ whose model_config.json is
+    FULL_768_F32's (model_size 768, "vit": {"dtype": "float32", ...}), its
+    seed-0 weights exported with `export_jax_params` (~350 MB), at the
+    CLI's other defaults (4 synthetic 720x1280 cameras): the split-TF32
+    forward 12 times per tick (route "wgmma_tf32"), the peak decode once, no
+    other kernel. -> launches."""
+    flat = seed0_flat(FULL_768_F32)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as run:
+        write_run_dir(run, FULL_768_F32, 768, flat)
+        del flat
+        launches = _serve(["--params", str(Path(run) / "best_params.npz")], "f32 768 px",
+                          ["peak_decode", "flash_fwd"])
+        by_route = dict(attention.route_launches)
+    ticks = launches["peak_decode"]
+    check(launches["flash_fwd"] == 12 * ticks and by_route == {("fwd", "wgmma_tf32"): 12 * ticks},
+          f"serve f32 768: {by_route} for {ticks} ticks, not 12 split-TF32 forwards each")
+    return launches
+
+
+def phase_step_768(gap_512: float, cfg: EstimatorConfig = FULL_768) -> None:
+    """The bare 768-px serve step of `cfg` (the backbone bf16, or f32 in
+    FULL_768_F32) on a resident batch: its launches (12 forwards of the
+    dtype's route, one peak decode), device time by graph replay (beside the
+    same step with the plain attention), the no-host-sync check, and its
+    heatmaps against the same weights on the plain path (argmax agreement,
+    the gap), beside 512 px's bf16-vs-f32 gap; in f32 the backbone tokens
+    within SIMT_TOL of the plain path's largest token."""
     dev = torch.device("cuda")
-    model = _model(FULL_768, dev, random_state(MultiViewPoseEstimator(FULL_768, device="meta"),
-                                                seed=0))
+    dtype = cfg.vit.compute_dtype
+    route = attention.kernel_route(cfg.vit.hidden_size // cfg.vit.num_heads, dtype)
+    model = _model(cfg, dev, random_state(MultiViewPoseEstimator(cfg, device="meta"), seed=0))
     frames = torch.from_numpy(
         np.random.default_rng(1).integers(0, 256, size=(4, 720, 1280, 3), dtype=np.uint8)
     ).to(dev)
@@ -1988,9 +2081,10 @@ def phase_step_768(gap_512: float) -> None:
         _reset_launches()
         step()
         torch.cuda.synchronize()
-        got = _read_launches()
-        check(got == {k: {"flash_fwd": 12, "peak_decode": 1}.get(k, 0) for k in KERNELS},
-              f"768-px step launched {got}")
+        got, by_route = _read_launches(), dict(attention.route_launches)
+        check(got == {k: {"flash_fwd": 12, "peak_decode": 1}.get(k, 0) for k in KERNELS}
+              and by_route == {("fwd", route): 12},
+              f"768-px {dtype} step launched {got}, {by_route}")
         _never_syncs(step)
         device_ms = graph_ms(step, iters=1, samples=30)
         eager_ms = cuda_ms(step, 1, samples=30)
@@ -2010,16 +2104,23 @@ def phase_step_768(gap_512: float) -> None:
     gap = float((hm.float() - hm_plain.float()).abs().max())
     agree = float((hm.flatten(3).argmax(-1) == hm_plain.flatten(3).argmax(-1)).float().mean())
     check(agree >= 0.9, f"768-px heatmaps: argmax agreement {agree} with the plain path")
-    print(f"serve step 768 px (preprocess + model + decode, 4x720x1280 u8 resident): eager "
-          f"{eager_ms:.3f} ms/step (CUDA events, median of 30); CUDA-graph replay (device "
-          f"time) {device_ms:.3f} ms with the kernel, {plain_device_ms:.3f} ms with the plain "
-          f"attention; forward peak memory {peak_gib:.2f} GiB kernel, {plain_peak_gib:.2f} GiB "
-          f"plain; 12 forward launches + 1 peak decode per step; no host-device sync")
-    print(f"768 px kernel vs plain attention, same weights (bf16): heatmap max abs diff "
-          f"{gap:.6g} (heatmap max abs {float(hm_plain.abs().max()):.6g}), argmax agreement "
+    tok_gap = float((tokens - tokens_plain).abs().max())
+    # f32: the kernel's O is within SIMT_TOL of the plain O in each block; the
+    # tokens (after the final LayerNorm) are held to the same share.
+    tok_tol = SIMT_TOL * float(tokens_plain.abs().max()) if dtype == torch.float32 else None
+    check(tok_tol is None or tok_gap <= tok_tol,
+          f"768-px f32 backbone tokens {tok_gap} from the plain path's, above {tok_tol}")
+    print(f"serve step 768 px, backbone {dtype} (preprocess + model + decode, 4x720x1280 u8 "
+          f"resident): eager {eager_ms:.3f} ms/step (CUDA events, median of 30); CUDA-graph "
+          f"replay (device time) {device_ms:.3f} ms with the kernel ({route}), "
+          f"{plain_device_ms:.3f} ms with the plain attention; forward peak memory "
+          f"{peak_gib:.2f} GiB kernel, {plain_peak_gib:.2f} GiB plain; 12 forward launches + 1 "
+          f"peak decode per step; no host-device sync")
+    print(f"768 px kernel vs plain attention, same weights (backbone {dtype}): heatmap max abs "
+          f"diff {gap:.6g} (heatmap max abs {float(hm_plain.abs().max()):.6g}), argmax agreement "
           f"{agree:.4f} of 32 maps; for scale, 512 px bf16 vs f32 heatmap gap {gap_512:.6g}; "
           f"backbone patch tokens: cosine min {float(tok_cos.min()):.6f}, max abs diff "
-          f"{float((tokens - tokens_plain).abs().max()):.6g} (plain max abs "
+          f"{tok_gap:.6g}{'' if tok_tol is None else f' (bound {tok_tol:.6g})'} (plain max abs "
           f"{float(tokens_plain.abs().max()):.6g}); the seed-0 N(0, 0.02) weights keep the "
           f"blocks' share of the residual stream small, so these gaps are small by construction")
 
@@ -2399,7 +2500,7 @@ def main() -> int:
     flat = seed0_flat()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as run:  # ~350 MB of weights
-        write_run_dir(flat, Path(run))
+        write_run_dir(run, FULL_LN, 512, flat)
         int8_launches = _serve(
             ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
              "--int8-attention"], "int8 + fused LN", SERVE_KERNELS,
@@ -2416,13 +2517,20 @@ def main() -> int:
     gap_512 = phase_step(flat)
     serve_768 = phase_serve_768()
     phase_step_768(gap_512)
+    del flat
+    serve_768_f32 = phase_serve_768_f32()
+    phase_step_768(gap_512, FULL_768_F32)
     small = phase_small_reference()
     launches["int8_pv"] = small["int8_pv"]
     launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
     train_768 = phase_train_768()
     phase_fusion()
     for name in ("peak_decode", "heatmap_render", *FLASH_KERNELS):
-        launches[name] = launches.get(name, 0) + serve_768[name] + train_768[name]
+        launches[name] = (launches.get(name, 0) + serve_768[name] + serve_768_f32[name]
+                          + train_768[name])
+    # The f32 forward's own source, and its launches on its main path (the f32 768-px serve run).
+    measured["flash_fwd"].update(f32_source="mvropose_torch/csrc/flash_attention_tf32.cu",
+                                 f32_launches=serve_768_f32["flash_fwd"])
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], **measured[name],

@@ -17,6 +17,7 @@ exits naming it where cv2 cannot be imported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import sys
@@ -60,6 +61,23 @@ def read_model_config(params_path):
         angle_head=d["angle_head"],
     )
     return cfg, int(d["model_size"]), d["kind"]
+
+
+def write_run_dir(run, cfg, model_size: int, flat) -> None:
+    """A multi-view run directory as training leaves it, what `serve --params
+    RUN/best_params.npz` reads: model_config.json (`cfg`, `model_size`; the
+    inverse of `read_model_config`) beside best_params.npz (`flat`, the
+    reference's flat names)."""
+    run = Path(run)
+    run.mkdir(parents=True, exist_ok=True)
+    (run / "model_config.json").write_text(json.dumps({
+        "kind": "multi_view", "model_size": model_size, "vit": dataclasses.asdict(cfg.vit),
+        "num_joints": cfg.num_joints, "num_angles": cfg.num_angles,
+        "heatmap_size": list(cfg.heatmap_size), "max_views": cfg.max_views,
+        "num_fusion_queries": cfg.num_fusion_queries, "num_angle_queries": cfg.num_angle_queries,
+        "angle_head": cfg.angle_head,
+    }, indent=2))
+    np.savez(run / "best_params.npz", **flat)
 
 
 def preprocess(images_u8: torch.Tensor, model_size: int) -> torch.Tensor:

@@ -8,7 +8,8 @@
 //   * flash_fwd_sm90_kernel<d, E> <- _flash_attention_kernel (:331, pallas_call :758);
 //   * flash_dkv_sm90_kernel<d, E> <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
 //   * flash_dq_sm90_kernel<d, E>  <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
-// (f32 operands take flash_attention_simt.cu, whose products stay in f32.)
+// (f32 operands take flash_attention_tf32.cu's forward, on split-TF32
+// products, and flash_attention_simt.cu's dK/dV and dQ.)
 // The segment ids of the TPU call become what they encode: a (B, T) byte
 // mask of the keys (0 = not attended), and keys past T, which are skipped.
 //
@@ -189,13 +190,7 @@ __device__ __forceinline__ void store_rows(E* out, const float (&acc)[D / 8][4],
 //     96 (197 KB), 2 at 128 (196 KB); the forward 4 stages up to d = 96
 //     (217 KB there), 3 at 128 (224 KB).
 
-constexpr int kHConsumers = 2;                 // consumer warpgroups
-constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operands
-constexpr int kHThreads = 128 * (kHConsumers + 1);
-constexpr int kHConsumerRegs = 232, kHProducerRegs = 40;
 constexpr int kInnerQ = 1, kInnerK = 2, kInnerV = 4, kInnerDo = 8;  // bits of heads_inner
-
-constexpr int kMaxSmem = 232448;  // shared memory a block can have
 
 // Rows of the streamed tiles at head width d: the dK/dV kernel's (registers
 // allow 128 up to d = 64), the dQ kernel's and the forward's (128 at every width).
@@ -266,35 +261,6 @@ __device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const uint32_t 
 #pragma unroll
   for (int kk = 0; kk < S / 16; ++kk) wgmma_rs<N, E>(d, a[kk], b + (32 * C >> 4) * kk);
 }
-
-// 2^x on the SFU (flushes results below 2^-126 to 0; P is scaled by 1/l later).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The mbarriers: full[s] completes when stage s holds its tiles and row
-// data (the producer warp's 32 lanes arrive, lane 0 with the bytes); empty[s]
-// when the 8 consumer warps are done with it; own when the block's own
-// operands have landed.
-template <typename L>  // Sm90Tiles<..>
-struct Ring {
-  uint64_t *full, *empty, *own;
-  __device__ explicit Ring(unsigned char* base) {
-    full = reinterpret_cast<uint64_t*>(base + L::kBars);
-    empty = full + L::kStages;
-    own = empty + L::kStages;
-  }
-  __device__ void init() const {
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(&full[s], 32);
-      mbar_init(&empty[s], 4 * kHConsumers);
-    }
-    mbar_init(own, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-};
 
 template <int D, typename E>
 __global__ void __launch_bounds__(kHThreads, 1)
@@ -579,55 +545,6 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // run. (With S and P V in turns of their own, both warpgroups' softmax
 // phases fell together, and the tensor cores waited.)
 
-// One online-softmax step on a 64 x kFwdStream tile of raw S = Q K^T, in
-// place: the row max m (base 2) moves to the tile's, `corr` = exp2(m_old -
-// m_new) is the factor for l and O, and s becomes P = exp2(S scale_log2 -
-// m_new), 0 past T and exp2(kMasked - m_new) at masked keys (1 while a row
-// has no attended key, else 0); l (the thread's part) becomes l corr +
-// rowsum(P). Coded: the tile holds a masked or past-T key, whose code is
-// read; else every key is attended and the max is taken on raw S (scaling
-// by scale_log2 > 0 keeps the order, so the max is the same value).
-template <bool Coded>
-__device__ __forceinline__ void softmax_tile(float (&s)[kFwdStream / 8][4], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2], const uint8_t* code,
-                                             int t, float scale_log2) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < kFwdStream / 8; ++n) {
-    // Codes of keys 8 n + 2 t (low byte) and 8 n + 2 t + 1.
-    const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (Coded) {  // S scaled, masked and skipped in place
-        const uint32_t c = (kc >> (8 * (e & 1))) & 0xff;
-        s[n][e] = c == 0 ? s[n][e] * scale_log2 : (c == 1 ? kMasked : -INFINITY);
-      }
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float x = Coded ? mx[r] : mx[r] * scale_log2;
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-    x = fmaxf(m[r], x);  // finite: tile 0 holds key 0
-    corr[r] = exp2_approx(m[r] - x);  // 0 on tile 0 (m = -inf)
-    m[r] = x;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < kFwdStream / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float mr = m[e >> 1];
-      s[n][e] = exp2_approx(Coded ? s[n][e] - mr : fmaf(s[n][e], scale_log2, -mr));
-      sum[e >> 1] += s[n][e];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], sum[r]);
-}
-
 template <int D, typename E>
 __global__ void __launch_bounds__(kHThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ HopperParams<E> p) {
@@ -696,9 +613,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
     float corr[2];
     auto softmax = [&](int stage) {
       if (coded[stage]) {
-        softmax_tile<true>(s, m_i, l_i, corr, codes + stage * S, t, p.scale_log2);
+        softmax_tile<true, S>(s, m_i, l_i, corr, codes + stage * S, t, p.scale_log2);
       } else {
-        softmax_tile<false>(s, m_i, l_i, corr, nullptr, t, p.scale_log2);
+        softmax_tile<false, S>(s, m_i, l_i, corr, nullptr, t, p.scale_log2);
       }
     };
     // S = Q K^T of the stage's keys; O += P V with the stage's values.

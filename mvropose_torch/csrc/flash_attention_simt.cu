@@ -1,38 +1,37 @@
-// Flash attention with a per-key mask in f32 arithmetic on the CUDA cores:
-// the forward, dK/dV and dQ kernels for f32 operands.
+// Flash attention's backward with a per-key mask in f32 arithmetic on the
+// CUDA cores: the dK/dV and dQ kernels for f32 operands.
 //
-// Replaces, for f32 operands, the same stock Pallas TPU kernels as
-// flash_attention.cu (jax/experimental/pallas/ops/tpu/flash_attention.py in
-// jax 0.9.0: _flash_attention_kernel :331, _flash_attention_dkv_kernel :796,
-// _flash_attention_dq_kernel :1146), which the reference's
-// fused_self_attention runs at T >= 2048 on a TPU in the operands' own
-// dtype, f32 included. flash_attention.cu's products are bf16 or f16
-// tensor-core products, which would round f32 operands.
+// Replace, for f32 operands, the same stock Pallas TPU kernels as
+// flash_attention.cu's pair (jax/experimental/pallas/ops/tpu/flash_attention.py
+// in jax 0.9.0: _flash_attention_dkv_kernel :796, _flash_attention_dq_kernel
+// :1146), which the reference's fused_self_attention runs at T >= 2048 on a
+// TPU in the operands' own dtype, f32 included. Their forward is
+// flash_attention_tf32.cu's, on the tensor cores in split TF32; these two
+// are still f32 arithmetic on the CUDA cores, the slowest part of the f32
+// route (a wgmma pair in split TF32 is the next step).
 //
-// What it computes is flash_attention.cu's, term for term, with every
-// operand and product in f32: S = sm_scale Q K^T in base 2 (times log2(e)),
+// What they compute is flash_attention.cu's backward, term for term, with
+// every operand and product in f32, from the forward's saved m (base 2) and
+// l: P = exp2(S - m) / l with S = sm_scale Q K^T in base 2 (times log2(e)),
 // masked keys at bf16's lowest finite value (so a row whose keys are all
-// masked averages V over its T real keys), keys past T skipped, O = (sum_j
-// exp2(S_j - m) V_j) / l, m (base 2) and l saved apart; the backward
-// recomputes P = exp2(S - m) / l from them, dV = P^T dO, dS = P o (dO V^T -
-// di), 0 at masked keys, dK = sm_scale dS^T Q, dQ = sm_scale dS K.
+// masked recomputes P = 1/T), keys past T skipped; dV = P^T dO, dS = P o (dO
+// V^T - di), 0 at masked keys, dK = sm_scale dS^T Q, dQ = sm_scale dS K.
 //
 // Design, the simplest that is right (none of the main paths runs it:
-// serve and train run bf16):
-//   * a group of R threads owns one row: a query in the forward and dQ, a
-//     key in dK/dV (R = 1 at d <= 32, 2 at d <= 64, 4 above, so each thread
-//     holds d / R <= 32 elements of each of its row's vectors in registers);
-//     a dot product is R partial sums joined by xor shuffles, which leave
-//     the same sum in every thread of the group;
+// serve runs no backward, train runs bf16):
+//   * a group of R threads owns one row: a query in dQ, a key in dK/dV (R =
+//     1 at d <= 32, 2 at d <= 64, 4 above, so each thread holds d / R <= 32
+//     elements of each of its row's vectors in registers); a dot product is
+//     R partial sums joined by xor shuffles, which leave the same sum in
+//     every thread of the group;
 //   * the other operand streams through shared memory in tiles of 32 rows,
 //     read whole by every group (broadcast); each thread's d / R elements
 //     of a shared row sit 16 bytes apart from the next thread's, so the
 //     groups of a quarter warp read distinct banks with 16-byte loads;
-//   * the forward takes a tile's 32 logits, then one online-softmax
-//     correction per tile; dQ and dK/dV take one row of the tile at a time;
+//   * dQ and dK/dV take one row of the tile at a time;
 //   * no atomics: dQ has its own kernel, as in flash_attention.cu.
-// What bounds it: the FP32 units and the shared-memory loads (one 16-byte
-// load per 4 FMAs of a thread), far from the bf16 tensor cores' rate.
+// What bounds them: the FP32 units and the shared-memory loads (one 16-byte
+// load per 4 FMAs of a thread), far from the tensor cores' rate.
 
 #include <cmath>
 #include <cstdint>
@@ -54,8 +53,8 @@ struct Strides {  // element strides of a (B, T, H, d) operand whose d is unit-s
 struct SimtParams {
   const float *q, *k, *v, *dout;
   const uint8_t* mask;  // (B, T), 0 = key not attended; null: every key attended
-  float *o, *dq, *dk, *dv;  // (B, T, H, d) contiguous
-  float *m, *l;         // (B, H, T): row max (base 2) and row sum; null: not saved
+  float *dq, *dk, *dv;  // (B, T, H, d) contiguous
+  float *m, *l;         // (B, H, T): the forward's row max (base 2) and row sum
   const float* di;      // (B, H, T): rowsum(dO o O)
   Strides sq, sk, sv, sdo;
   int B, H, T;
@@ -152,59 +151,6 @@ __device__ __forceinline__ void load_codes(uint8_t* code, const uint8_t* mask, i
   }
 }
 
-// ---------------------------------------------------------------- forward
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_simt_kernel(const SimtParams p) {
-  using S = Shape<D>;
-  __shared__ __align__(16) float ks[kTile * S::LD];
-  __shared__ __align__(16) float vs[kTile * S::LD];
-  __shared__ uint8_t code[kTile];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x % S::R;
-  const int row = blockIdx.x * S::ROWS + threadIdx.x / S::R;
-  float q[S::DH], o[S::DH];
-  load_own<D>(q, p.q, p.sq, b, h, row, p.T, r);
-#pragma unroll
-  for (int e = 0; e < S::DH; ++e) o[e] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const int off = r * (S::DH + 4);
-  for (int j0 = 0; j0 < p.T; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(ks, p.k, p.sk, b, h, j0, p.T);
-    load_tile<D>(vs, p.v, p.sv, b, h, j0, p.T);
-    load_codes(code, p.mask, b, j0, p.T);
-    __syncthreads();
-    float s[kTile];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float x = group_sum<S::R>(dot_shared<S::DH>(q, ks + j * S::LD + off)) * p.scale_log2;
-      const int c = code[j];
-      s[j] = c == 0 ? x : (c == 1 ? kMasked : -INFINITY);
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m, mx);  // finite: tile 0 holds key 0
-    const float corr = exp2f(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int e = 0; e < S::DH; ++e) o[e] *= corr;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float pj = exp2f(s[j] - m_new);  // 0 past T
-      l += pj;
-      axpy_shared<S::DH>(o, pj, vs + j * S::LD + off);
-    }
-    m = m_new;
-  }
-  store_own<D>(p.o, o, 1.f / l, b, h, row, p.T, p.H, r);
-  if (p.m != nullptr && row < p.T && r == 0) {
-    const int64_t i = (static_cast<int64_t>(b) * p.H + h) * p.T + row;
-    p.m[i] = m;
-    p.l[i] = l;
-  }
-}
-
 // ---------------------------------------------------------------- dQ
 
 template <int D>
@@ -296,13 +242,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_simt_kernel(const SimtPara
 
 // ----------------------------------------------------------------- launch
 
-enum Kind { kForward, kDkv, kDq };
+enum Kind { kDkv, kDq };
 
 template <int D, Kind K>
 int launch(const SimtParams& p, cudaStream_t stream) {
-  void (*kernel)(SimtParams) = K == kForward ? &flash_fwd_simt_kernel<D>
-                               : K == kDkv   ? &flash_dkv_simt_kernel<D>
-                                             : &flash_dq_simt_kernel<D>;
+  void (*kernel)(SimtParams) = K == kDkv ? &flash_dkv_simt_kernel<D> : &flash_dq_simt_kernel<D>;
   const dim3 grid((p.T + Shape<D>::ROWS - 1) / Shape<D>::ROWS, p.H, p.B);
   kernel<<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -345,14 +289,6 @@ SimtParams make_params(const void* q, const void* k, const void* v, const uint8_
   return p;
 }
 
-int forward(const void* q, const void* k, const void* v, const uint8_t* mask, void* o, float* m,
-            float* l, int B, int H, int T, int D, const int64_t* strides, float sm_scale,
-            void* stream) {
-  SimtParams p = make_params(q, k, v, mask, nullptr, m, l, nullptr, B, H, T, strides, sm_scale);
-  p.o = static_cast<float*>(o);
-  return dispatch<kForward>(p, D, stream);
-}
-
 int backward_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
                  const void* dout, const float* m, const float* l, const float* di, void* dk,
                  void* dv, int B, int H, int T, int D, const int64_t* strides, float sm_scale,
@@ -375,15 +311,9 @@ int backward_dq(const void* q, const void* k, const void* v, const uint8_t* mask
 }  // namespace
 
 // The entry points, with flash_attention.cu's arguments, for f32 operands
-// and outputs; each returns cudaGetLastError() after its launch, or
+// and outputs, on the statistics (m in base 2, l) that flash_attention_tf32.cu's
+// forward saves; each returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue (1) for a head width without a kernel.
-extern "C" int flash_attention_forward_f32(const void* q, const void* k, const void* v,
-                                           const uint8_t* mask, void* o, float* m, float* l,
-                                           int B, int H, int T, int D, const int64_t* strides,
-                                           float sm_scale, void* stream) {
-  return forward(q, k, v, mask, o, m, l, B, H, T, D, strides, sm_scale, stream);
-}
-
 extern "C" int flash_attention_backward_dkv_f32(const void* q, const void* k, const void* v,
                                                 const uint8_t* mask, const void* dout,
                                                 const float* m, const float* l, const float* di,

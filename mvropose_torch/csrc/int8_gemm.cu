@@ -212,18 +212,6 @@ struct GemmParams {
   int M, N, K, out_f32;
 };
 
-// One box of a 2-D int8 map (dims (K, rows)): K bytes [k, k + 128) of rows
-// [row, row + box rows), 128-byte swizzled; rows past the end and K past the
-// end zero-filled and still counted in the barrier's bytes.
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int k,
-                                       int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(smem_u32(bar))
-      : "memory");
-}
-
 #define WGMMA_N192_S32                                                                          \
   "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]), "+r"(d[1][1]),     \
       "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]), \

@@ -1,10 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
 // and TMA: csrc/flash_attention.cu (the flash forward, dK/dV and dQ at every
-// head width) and csrc/int8_attention.cu (int8-probability attention,
-// d = 64).
+// head width, bf16 and f16), csrc/flash_attention_tf32.cu (the f32 flash
+// forward on split-TF32 products), csrc/int8_attention.cu
+// (int8-probability attention, d = 64) and csrc/int8_gemm.cu (the int8 GEMM).
 //
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on a
-//     phase parity) for the rings that one producer warp fills with TMA;
+//     phase parity) for the rings that one producer warp fills with TMA, and
+//     the flash kernels' ring of full/empty barriers (`Ring`), their block
+//     (two consumer warpgroups of 64 rows and a producer warpgroup) and its
+//     registers' split (setmaxnreg);
 //   * `Elem<E>`, what differs between the two 2-byte element types that
 //     wgmma multiplies into f32, bf16 (the default) and f16: the tensor
 //     map's data type and the packing of two f32 into an A-fragment register;
@@ -13,16 +17,21 @@
 //     columns (64, 32 or 16: 128-, 64- or 32-byte swizzle), a tile stored as
 //     its column chunks one after another, the layout wgmma's descriptors
 //     (`sw_desc`) name; at d = 64 one chunk, 64 x 64 boxes, 128-byte swizzle;
+//     and one box of any 2-D map (`tma_2d`);
 //   * the wgmma wrappers, bf16 or f16 operands into f32: S = A B^T of two
 //     K-major shared tiles (m64nNk16, N = 64 or 128), D += A B with A in
 //     registers and B MN-major in shared memory (N = 32 .. 128), fences and
-//     waits;
-//   * the two consumer warpgroups' turns (`turn_wait`, `turn_pass`).
+//     waits; and TF32 operands into f32 (m64nNk8), whose shared operands
+//     are K-major only (32-bit types have no transpose bit);
+//   * the two consumer warpgroups' turns (`turn_wait`, `turn_pass`);
+//   * the flash forwards' online softmax on a tile of logits (`softmax_tile`,
+//     ex2.approx on the SFU).
 // Everything sits in an anonymous namespace: each source that includes this
 // header gets its own copy, and the C entry points stay the only exports.
 
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
@@ -111,6 +120,19 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint6
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(heads_inner ? h : row),
       "r"(heads_inner ? row : h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 2-D map (dims (x, y), x contiguous): elements [x, x + the
+// map's box width) of rows [y, y + its box height), swizzled as the map says;
+// what lies past the map's ends is zero-filled and still counted in the
+// barrier's bytes. The int8 GEMM's operands and the split-TF32 forward's.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                       int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -286,6 +308,65 @@ __device__ __forceinline__ void product_kmajor(float (&d)[N / 8][4], uint64_t a,
   }
 }
 
+// TF32 x TF32 -> f32, m64nNk8: each operand a 32-bit register holding an
+// f32 whose low 13 mantissa bits are clear (the callers clear them). SS: D
+// (+)= A B^T, A (64 x 8) and B (N x 8, N = 16, 32, 48 or 64) K-major in shared
+// memory. RS: D (+)= A B^T (N = 16 .. 128) with A in registers, per warp 16
+// x 8: a[0] row g column t, a[1] row g + 8 column t, a[2] row g column t +
+// 4, a[3] row g + 8 column t + 4 (g = lane / 4, t = lane % 4; the PTX ISA's
+// .tf32 A fragment). Both: D = A B^T where `accumulate` is 0.
+#define WGMMA_D16 WGMMA_T(0), WGMMA_T(1)
+#define WGMMA_D16_REGS "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WGMMA_TF32_SS(N_, A_, B_, P_)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P_ ", 0;\n"                      \
+               "wgmma.mma_async.sync.aligned.m64n" #N_ "k8.f32.tf32.tf32 "             \
+               WGMMA_D##N_##_REGS ", %" #A_ ", %" #B_ ", p, 1, 1;\n}\n"               \
+               : WGMMA_D##N_                                                          \
+               : "l"(a), "l"(b), "r"(accumulate))
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "S tiles of 16 to 64 columns");
+  if constexpr (N == 16) {
+    WGMMA_TF32_SS(16, 8, 9, 10);
+  } else if constexpr (N == 32) {
+    WGMMA_TF32_SS(32, 16, 17, 18);
+  } else if constexpr (N == 48) {
+    WGMMA_TF32_SS(48, 24, 25, 26);
+  } else {
+    WGMMA_TF32_SS(64, 32, 33, 34);
+  }
+}
+#undef WGMMA_TF32_SS
+
+#define WGMMA_TF32_RS(N_, A0, A1, A2, A3, B_, P_)                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P_ ", 0;\n"                      \
+               "wgmma.mma_async.sync.aligned.m64n" #N_ "k8.f32.tf32.tf32 "             \
+               WGMMA_D##N_##_REGS ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B_  \
+               ", p, 1, 1;\n}\n"                                                      \
+               : WGMMA_D##N_                                                          \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate = 1) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96 || N == 128,
+                "a head width or S tile");
+  if constexpr (N == 16) {
+    WGMMA_TF32_RS(16, 8, 9, 10, 11, 12, 13);
+  } else if constexpr (N == 32) {
+    WGMMA_TF32_RS(32, 16, 17, 18, 19, 20, 21);
+  } else if constexpr (N == 48) {
+    WGMMA_TF32_RS(48, 24, 25, 26, 27, 28, 29);
+  } else if constexpr (N == 64) {
+    WGMMA_TF32_RS(64, 32, 33, 34, 35, 36, 37);
+  } else if constexpr (N == 96) {
+    WGMMA_TF32_RS(96, 48, 49, 50, 51, 52, 53);
+  } else {
+    WGMMA_TF32_RS(128, 64, 65, 66, 67, 68, 69);
+  }
+}
+#undef WGMMA_TF32_RS
+
 // The consumer warpgroups take turns to issue their products (ping-pong):
 // named barrier 1 + w is warpgroup w's turn, passed by the other one after
 // it has issued its own, so one warpgroup's softmax runs beside the other's
@@ -306,6 +387,95 @@ __device__ __forceinline__ void zero_acc(float (&c)[N][4]) {
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   const uint32_t a = smem_u32(raw);
   return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// The flash kernels' block: two consumer warpgroups of 64 rows each (128
+// rows of the block's own operand, queries in the forwards) and a producer
+// warpgroup, of which one warp issues the loads and the other three only
+// hand their registers over (setmaxnreg).
+constexpr int kHConsumers = 2;                 // consumer warpgroups
+constexpr int kHBlock = kHConsumers * kHRows;  // rows of the block's own operands
+constexpr int kHThreads = 128 * (kHConsumers + 1);
+constexpr int kHConsumerRegs = 232, kHProducerRegs = 40;
+constexpr int kMaxSmem = 232448;  // shared memory a block can have
+
+// 2^x on the SFU (flushes results below 2^-126 to 0; P is scaled by 1/l later).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The mbarriers: full[s] completes when stage s holds its tiles and row
+// data (the producer warp's 32 lanes arrive, lane 0 with the bytes); empty[s]
+// when the 8 consumer warps are done with it; own when the block's own
+// operands have landed.
+template <typename L>  // a tile plan with kBars (the barriers' offset) and kStages
+struct Ring {
+  uint64_t *full, *empty, *own;
+  __device__ explicit Ring(unsigned char* base) {
+    full = reinterpret_cast<uint64_t*>(base + L::kBars);
+    empty = full + L::kStages;
+    own = empty + L::kStages;
+  }
+  __device__ void init() const {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4 * kHConsumers);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// One online-softmax step on a 64 x S tile of raw S = Q K^T, in place: the
+// row max m (base 2) moves to the tile's, `corr` = exp2(m_old - m_new) is
+// the factor for l and O, and s becomes P = exp2(S scale_log2 - m_new), 0
+// past T and exp2(kMasked - m_new) at masked keys (1 while a row has no
+// attended key, else 0); l (the thread's part) becomes l corr + rowsum(P).
+// Coded: the tile holds a masked or past-T key, whose code (0 attended, 1
+// masked, 2 past T) is read; else every key is attended and the max is taken
+// on raw S (scaling by scale_log2 > 0 keeps the order, so the max is the
+// same value).
+template <bool Coded, int S>
+__device__ __forceinline__ void softmax_tile(float (&s)[S / 8][4], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], const uint8_t* code, int t,
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < S / 8; ++n) {
+    // Codes of keys 8 n + 2 t (low byte) and 8 n + 2 t + 1.
+    const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (Coded) {  // S scaled, masked and skipped in place
+        const uint32_t c = (kc >> (8 * (e & 1))) & 0xff;
+        s[n][e] = c == 0 ? s[n][e] * scale_log2 : (c == 1 ? kMasked : -INFINITY);
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = Coded ? mx[r] : mx[r] * scale_log2;
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    x = fmaxf(m[r], x);  // finite: tile 0 holds key 0
+    corr[r] = exp2_approx(m[r] - x);  // 0 on tile 0 (m = -inf)
+    m[r] = x;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < S / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float mr = m[e >> 1];
+      s[n][e] = exp2_approx(Coded ? s[n][e] - mr : fmaf(s[n][e], scale_log2, -mr));
+      sum[e >> 1] += s[n][e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], sum[r]);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -17,20 +17,24 @@ Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
 read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
 
-Three routes (`kernel_route`, `ENTRY_POINTS`), one per dtype, each with a
-forward, a dK/dV and a dQ kernel at every width of `HEAD_DIMS`. bf16 takes
-the Hopper kernels of `csrc/flash_attention.cu` (wgmma, TMA and a
-warp-specialised mbarrier ring; "wgmma"), f16 the same kernels instantiated
-for f16 ("wgmma_f16": f16 x f16 products accumulate exactly in f32 on the
-tensor cores, as bf16's do). f32 takes the kernels of
-`csrc/flash_attention_simt.cu` ("simt_f32"), which compute in f32 on the
-CUDA cores (the reference's flash branch runs f32 on a TPU; tensor-core
-products would round it). Each backward reads its own forward's m (base 2)
-and l. A width outside `HEAD_DIMS` raises on every route. The sources'
-notes say what bounds each.
+Four routes (`kernel_route`, `ENTRY_POINTS`), picked by dtype and part. bf16
+takes the Hopper forward, dK/dV and dQ of `csrc/flash_attention.cu` (wgmma,
+TMA and a warp-specialised mbarrier ring; "wgmma"), f16 the same kernels
+instantiated for f16 ("wgmma_f16": f16 x f16 products accumulate exactly in
+f32 on the tensor cores, as bf16's do), each at every width of
+`HEAD_DIMS`. f32 is split by part: its forward is
+`csrc/flash_attention_tf32.cu`'s ("wgmma_tf32": the same design on TF32
+wgmma, each f32 product as three TF32 products of the operands' big and
+small parts, so it keeps f32's accuracy), its dK/dV and dQ the kernels of
+`csrc/flash_attention_simt.cu` ("simt_f32": f32 arithmetic on the CUDA
+cores), which read the forward's m (base 2) and l as every backward reads
+its own forward's. A width outside `HEAD_DIMS`, or a dtype without
+kernels, raises on every route. The sources' notes say what bounds each.
 `flash_forward_plain` and `flash_backward_plain` compute what the kernels
 compute, from the same saved statistics, in plain torch: the yardsticks of
-the kernels alone.
+the kernels alone. `flash_forward_tf32_model` is the f32 forward's
+split-TF32 arithmetic in plain torch, and with one TF32 product in place of
+three the negative control of its accuracy bound.
 """
 
 from __future__ import annotations
@@ -50,17 +54,20 @@ route_launches = collections.Counter()
 
 FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
 HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
-# route: the C entry points of its forward, dK/dV and dQ kernels.
+FLASH_PARTS = ("fwd", "dkv", "dq")  # the forward, dK/dV and dQ kernels
+# route: the C entry points of its forward, dK/dV and dQ kernels (None: a
+# part it has no kernel for).
 ENTRY_POINTS = {
     "wgmma": ("flash_attention_forward_sm90", "flash_attention_backward_dkv_sm90",
               "flash_attention_backward_dq_sm90"),
     "wgmma_f16": ("flash_attention_forward_sm90_f16", "flash_attention_backward_dkv_sm90_f16",
                   "flash_attention_backward_dq_sm90_f16"),
-    "simt_f32": ("flash_attention_forward_f32", "flash_attention_backward_dkv_f32",
-                 "flash_attention_backward_dq_f32"),
+    "wgmma_tf32": ("flash_attention_forward_tf32", None, None),
+    "simt_f32": (None, "flash_attention_backward_dkv_f32", "flash_attention_backward_dq_f32"),
 }
-# dtype: its route (the forward and the backward alike).
-DTYPE_ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma_f16", torch.float32: "simt_f32"}
+# dtype: the routes of its forward, dK/dV and dQ.
+DTYPE_ROUTES = {torch.bfloat16: ("wgmma",) * 3, torch.float16: ("wgmma_f16",) * 3,
+                torch.float32: ("wgmma_tf32", "simt_f32", "simt_f32")}
 LOG2E = 1.4426950408889634
 # The plain branch's masked logit, bf16's lowest finite value (exact in f32).
 MASKED_LOGIT = torch.finfo(torch.bfloat16).min
@@ -94,36 +101,54 @@ def flash_attention_reference_f32(q, k, v, key_mask=None) -> torch.Tensor:
 
 @functools.cache
 def _kernels() -> dict:
-    """{route: (forward, dK/dV, dQ)} bound from the kernels' library."""
+    """{route: (forward, dK/dV, dQ)} bound from the kernels' library (None
+    where the route has no kernel for the part)."""
     lib = load_library()
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    argtypes = ([ptr] * 7 + [i32] * 4 + [ptr, f32, ptr],  # forward
-                [ptr] * 10 + [i32] * 4 + [ptr, f32, ptr],  # dK/dV
+    forward = [ptr] * 7 + [i32] * 4 + [ptr, f32, ptr]
+    argtypes = (forward, [ptr] * 10 + [i32] * 4 + [ptr, f32, ptr],  # forward, dK/dV
                 [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr])  # dQ
     bound = {}
     for route, names in ENTRY_POINTS.items():
-        bound[route] = tuple(getattr(lib, name) for name in names)
+        bound[route] = tuple(None if name is None else getattr(lib, name) for name in names)
         for fn, types in zip(bound[route], argtypes):
-            fn.argtypes, fn.restype = types, ctypes.c_int
+            if fn is not None:
+                fn.argtypes, fn.restype = types, ctypes.c_int
+    bound["wgmma_tf32"][0].argtypes = forward + [ptr]  # and the split operands' scratch
     return bound
 
 
 @functools.cache
 def forward_key_tile() -> int:
-    """Keys per tile of the Hopper forward, read from the kernels' library."""
+    """Keys per tile of the bf16 and f16 Hopper forward, read from the kernels' library."""
     return load_library().flash_attention_forward_key_tile()
 
 
-def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
-    """The kernels (forward, dK/dV and dQ) that a head width and an operand
-    dtype take: "wgmma" for bf16 and "wgmma_f16" for f16 (Hopper: wgmma,
-    TMA, warp-specialised), "simt_f32" for f32 (f32 arithmetic on the CUDA
-    cores); raises for a width or a dtype without kernels."""
+@functools.cache
+def _tf32_scratch_fn():
+    fn = load_library().flash_attention_forward_tf32_scratch
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int64
+    return fn
+
+
+def tf32_scratch(B: int, H: int, T: int, d: int) -> int:
+    """f32 elements of the split operands that the f32 forward's pre-pass
+    writes at (B, H, T, d), read from the kernels' library."""
+    return _tf32_scratch_fn()(B, H, T, d)
+
+
+def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16, part: str = "fwd") -> str:
+    """The kernel that a head width, an operand dtype and a part ("fwd",
+    "dkv" or "dq") take: "wgmma" for bf16 and "wgmma_f16" for f16, every
+    part (Hopper: wgmma, TMA, warp-specialised); for f32 "wgmma_tf32" for
+    the forward (the same on split-TF32 wgmma) and "simt_f32" for dK/dV and
+    dQ (f32 arithmetic on the CUDA cores); raises for a width or a dtype
+    without kernels."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
     if dtype not in DTYPE_ROUTES:
         raise ValueError(f"the flash-attention kernels take bf16, f16 or f32 operands, got {dtype}")
-    return DTYPE_ROUTES[dtype]
+    return DTYPE_ROUTES[dtype][FLASH_PARTS.index(part)]
 
 
 def part_launches(part: str) -> int:
@@ -196,7 +221,9 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
     """Launch the forward kernel of `kernel_route(d, q.dtype)` on operands
     that `flash_attention_cuda` takes (mask as `mask_bytes`) -> (O (B, T, H,
     d) in q's dtype, m, l), with the row statistics m (base 2) and l as (B,
-    H, T) f32 when `save_stats`."""
+    H, T) f32 when `save_stats`. The f32 forward also gets a scratch buffer
+    for its split operands (`tf32_scratch`); the stream orders its reuse
+    after this call returns it to the allocator."""
     B, T, H, d = q.shape
     route = kernel_route(d, q.dtype)
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
@@ -206,11 +233,15 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
         l = torch.empty_like(m)
     if B * T * H:
         dev = q.get_device()
+        extra = ()
+        if route == "wgmma_tf32":
+            scratch = torch.empty(tf32_scratch(B, H, T, d), dtype=torch.float32, device=q.device)
+            extra = (scratch.data_ptr(),)
         with device_context(dev):
             stream = current_stream(dev)
             err = _kernels()[route][0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
                                        o.data_ptr(), _ptr(m), _ptr(l), B, H, T, d,
-                                       _strides(q, k, v), 1.0 / math.sqrt(d), stream)
+                                       _strides(q, k, v), 1.0 / math.sqrt(d), stream, *extra)
         _raise_on(err, f"forward ({route})")
         route_launches["fwd", route] += 1
     return o, m, l
@@ -242,6 +273,46 @@ def flash_forward_plain(q, k, v, mask_u8=None):
     l = p.sum(-1)
     o = (p.to(q.dtype).float() @ v.float().transpose(1, 2)) * l.reciprocal()[..., None]
     return o.transpose(1, 2).to(q.dtype), m, l
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """f32 x -> (big, small) as the f32 forward splits its operands: big is
+    x with its low 13 mantissa bits cleared, small = x - big (exact in f32)
+    with its own cleared. Both are exact TF32 values."""
+    def cleared(t):
+        return (t.view(torch.int32) & -8192).view(torch.float32)  # & 0xffffe000
+
+    big = cleared(x)
+    return big, cleared(x - big)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """a @ b (f32) as the f32 forward's tensor cores form it, in f32 sums:
+    products = 3 is a_big b_big + a_big b_small + a_small b_big (split
+    TF32, ~2^-20 of each product dropped); products = 1 is a_big b_big alone
+    (one TF32 product, ~2^-10 dropped)."""
+    (a_big, a_small), (b_big, b_small) = tf32_split(a), tf32_split(b)
+    out = a_big @ b_big
+    if products == 3:
+        out = out + a_big @ b_small + a_small @ b_big
+    return out
+
+
+def flash_forward_tf32_model(q, k, v, mask_u8=None, products: int = 3):
+    """`flash_forward_plain` for f32 operands with its two products formed
+    as `tf32_matmul(.., products)`: the f32 forward kernel's arithmetic in
+    plain torch (products = 3), or the same with one TF32 product each (1),
+    which a kernel that drops the small terms would compute. -> (O, m, l)."""
+    d = q.shape[-1]
+    scale_log2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * LOG2E
+    x = tf32_matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1), products) * scale_log2.to(q.device)
+    if mask_u8 is not None:
+        x = x.masked_fill(mask_u8[:, None, None, :] == 0, MASKED_LOGIT)
+    m = x.amax(-1)
+    p = torch.exp2(x - m[..., None])
+    l = p.sum(-1)
+    o = tf32_matmul(p, v.transpose(1, 2), products) * l.reciprocal()[..., None]
+    return o.transpose(1, 2), m, l
 
 
 def flash_backward_plain(q, k, v, mask_u8, do, m, l, di):
@@ -281,11 +352,11 @@ def _backward_args(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dK/dV kernel of `kernel_route(d, q.dtype)`: the
+    """Launch the dK/dV kernel of `kernel_route(d, q.dtype, "dkv")`: the
     forward's operands and statistics (m in base 2 and l, as every route's
     forward saves them), dO in their layout and dtype and di =
     `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) in q's dtype."""
-    route = kernel_route(q.shape[-1], q.dtype)
+    route = kernel_route(q.shape[-1], q.dtype, "dkv")
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
@@ -299,9 +370,9 @@ def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
 
 
 def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
-    """Launch the dQ kernel of `kernel_route(d, q.dtype)` (arguments
+    """Launch the dQ kernel of `kernel_route(d, q.dtype, "dq")` (arguments
     as `flash_backward_dkv_cuda`) -> dQ."""
-    route = kernel_route(q.shape[-1], q.dtype)
+    route = kernel_route(q.shape[-1], q.dtype, "dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)

@@ -20,7 +20,8 @@ and `bn` here. Layouts:
 
 `export_jax_params` is the inverse map, `int8ify` the port of the
 reference's `_int8ify` (`mvropose_tpu/cli/main.py`), `random_state`
-mirrors `mvropose_tpu/utils/initializers.py::random_variables`, and
+mirrors `mvropose_tpu/utils/initializers.py::random_variables` (and
+`random_flat` exports it as a checkpoint's flat dict), and
 `flax_init_state` draws from flax's default initializers, as `model.init`
 does, for training from scratch.
 """
@@ -228,6 +229,14 @@ def random_state(model: nn.Module, seed: int = 0, scale: float = 0.02) -> dict[s
         noise = scale * torch.randn(t.shape, generator=gen)
         state[name] = 1.0 + noise if name.endswith("running_var") else noise
     return state
+
+
+def random_flat(model: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
+    """`random_state(model, seed)` as a reference checkpoint's flat dict
+    (`export_jax_params`). The state is assigned into `model`, so a model on
+    the meta device makes no other copy of the weights."""
+    model.load_state_dict(random_state(model, seed=seed), assign=True)
+    return export_jax_params(model)
 
 
 def _truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """The flash forward of this checkout against another checkout's, in turns on one card.
 
-    python3 scripts/torch_flash_forward_turns.py OTHER_DIR
+    python3 scripts/torch_flash_forward_turns.py OTHER_DIR [--dtypes bf16 f16 f32]
 
 Builds both checkouts' kernels (the other's in a process of its own, from
 its own root), asks the other checkout which forward entry point its
-`kernel_route` takes at each head width and half type, and loads its
-library beside this one's (every forward entry point of either has the same
-C arguments). Then, per case, the forward alone (no statistics saved) by
-CUDA-graph replay in turns other/this/this/other, beside SDPA in the same
-dtype (`scaled_dot_product_attention`, the library yardstick), the bound
-(`chip_smoke._flash_bounds`: the larger of the tensor cores' time and the
-B H T^2 exponentials' at the card's ex2 rate); and the two outputs' largest
-difference. Cases, no mask, operands contiguous (B, T, H, d) as a
-projection's: (8, 2305, 768 / d, d) in bf16 and f16 at every width, and
-(2, 2305, 12, 64) f16. Needs a CUDA GPU.
+`kernel_route` takes at each head width and dtype, and loads its library
+beside this one's (the other's forward entry points take flash_attention.cu's
+common C arguments, as every forward did before the split-TF32 one, which
+this checkout calls through `attention.flash_forward_cuda`). Then, per case,
+the forward alone (no statistics saved) by CUDA-graph replay in turns
+other/this/this/other, beside SDPA in the same dtype
+(`scaled_dot_product_attention`, the library yardstick), the bound
+(`chip_smoke._flash_bounds`: the larger of the products' time, three TF32
+products per product for f32, and the B H T^2 exponentials' at the card's
+ex2 rate; for f32 also the same work at the f32 rate); and the two
+outputs' largest difference. Cases, no mask, operands contiguous (B, T, H,
+d) as a projection's: (8, 2305, 768 / d, d) in bf16 and f16 at every width,
+(2, 2305, 12, 64) f16, and (2, 2305, 768 / d, d) f32 at every width. Needs
+a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -35,18 +39,18 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from mvropose_torch.ops import _build, attention  # noqa: E402
 
-DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
+DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 # What the other checkout reports: its library and each (d, dtype)'s forward entry point.
 ASK = ("import json, torch\n"
        "from mvropose_torch.ops import _build, attention\n"
        "_build.load_library()\n"
        "print(json.dumps({'lib': str(_build.library_path()), 'entry': {\n"
        "    f'{d} {n}': attention.ENTRY_POINTS[attention.kernel_route(d, getattr(torch, n))][0]\n"
-       "    for d in attention.HEAD_DIMS for n in ('bfloat16', 'float16')}}))\n")
+       "    for d in attention.HEAD_DIMS for n in ('bfloat16', 'float16', 'float32')}}))\n")
 
 
 def other_forwards(root: Path) -> dict:
-    """{(d, "bf16" | "f16"): the other checkout's forward, a ctypes function}."""
+    """{(d, "bf16" | "f16" | "f32"): the other checkout's forward, a ctypes function}."""
     out = subprocess.run([sys.executable, "-c", ASK], cwd=root, capture_output=True, text=True,
                          timeout=900, check=False)
     if out.returncode != 0:
@@ -60,7 +64,8 @@ def other_forwards(root: Path) -> dict:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float,
                                                                     ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns[int(d), {"bfloat16": "bf16", "float16": "f16"}[torch_name]] = (name, fn)
+        tag = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}[torch_name]
+        fns[int(d), tag] = (name, fn)
     return fns
 
 
@@ -77,14 +82,17 @@ def call(fn, q, k, v, o) -> None:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", type=Path)
+    p.add_argument("--dtypes", nargs="+", choices=DTYPES, default=list(DTYPES))
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_flash_forward_turns: needs a CUDA GPU")
     device = chip_smoke.phase_device()
     _build.load_library()
     others = other_forwards(args.other.resolve())
-    cases = [(8, 2305, 768 // d, d, ty) for ty in DTYPES for d in attention.HEAD_DIMS]
+    cases = [(8, 2305, 768 // d, d, ty) for ty in ("bf16", "f16") for d in attention.HEAD_DIMS]
     cases.append((2, 2305, 12, 64, "f16"))
+    cases += [(2, 2305, 768 // d, d, "f32") for d in attention.HEAD_DIMS]
+    cases = [case for case in cases if case[-1] in args.dtypes]
 
     def timer(fn):
         return chip_smoke.graph_ms(fn, iters=2, samples=10)
@@ -112,12 +120,14 @@ def main() -> int:
         bound = chip_smoke._flash_bounds(B, T, H, d, None, dtype)["flash_fwd"]
         row = {"shape": [B, T, H, d], "dtype": ty, "ms": new, "other_ms": old, "other": name,
                "sdpa_ms": library, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-               "max_abs_diff": gap}
+               "f32_rate_bound_ms": bound.get("f32_rate_bound_ms"), "max_abs_diff": gap}
         rows.append(row)
         print(f"flash forward {(B, T, H, d)} {ty}, ms per call, CUDA-graph replay, in turns "
               f"other/this/this/other: this {new:.4f}, other ({name}) {old:.4f} "
               f"({old / new:.2f}x), SDPA {library:.4f} (this / SDPA {new / library:.3f}); "
-              f"bound {chip_smoke.fmt_bound(bound)}; outputs differ by at most {gap:.3g}",
+              f"bound {chip_smoke.fmt_bound(bound)}"
+              + (f", at the f32 rate {bound['f32_rate_bound_ms']:.4f}" if ty == "f32" else "")
+              + f"; outputs differ by at most {gap:.3g}",
               flush=True)
         del q, k, v, o_other
     print(json.dumps({"card": device["nvidia_smi"], "forward_turns": rows}))

@@ -3,9 +3,12 @@
 
     python3 scripts/torch_serve_profile.py [--steps 20] [--trace trace.json]
                                            [--int8 fused|pv] [--int8-matmul kernel|int_mm]
+                                           [--model-size 512] [--vit-dtype bfloat16]
 
 Runs `mvropose_torch.cli.main.serve_step` (bf16, ViT-B/16 at 512 px, 4
-resident 720x1280 uint8 frames, random weights from seed 0; with --int8 the
+resident 720x1280 uint8 frames, random weights from seed 0; with
+--model-size and --vit-dtype the backbone at that size and in that dtype,
+e.g. 768 and float32, the f32 flash forward's serve path; with --int8 the
 same weights as `serve --int8-backbone --int8-attention` serves them on a
 fused-LN run directory, the attention on the given route of
 `ops/int8_attention.py`: "fused", the kernel, or "pv", the plain chain and
@@ -71,12 +74,16 @@ def main() -> int:
                    help="profile the int8 + fused-LN step, its attention on this route")
     p.add_argument("--int8-matmul", choices=["kernel", "int_mm"], default="kernel",
                    help="with --int8: the route of its int8 matmuls")
+    p.add_argument("--model-size", type=int, default=512)
+    p.add_argument("--vit-dtype", choices=["bfloat16", "float32"], default="bfloat16",
+                   help="the backbone's compute dtype (the heads stay bf16)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: needs a CUDA GPU")
     dev = torch.device("cuda")
     cfg = EstimatorConfig(
-        vit=ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=12, num_heads=12),
+        vit=ViTConfig(image_size=args.model_size, patch_size=16, hidden_size=768, num_layers=12,
+                      num_heads=12, dtype=args.vit_dtype),
         num_joints=8, num_angles=7, max_views=4,
     )
     if args.int8:
@@ -88,7 +95,7 @@ def main() -> int:
         np.random.default_rng(1).integers(0, 256, size=(4, 720, 1280, 3), dtype=np.uint8)
     ).to(dev)
     mask = torch.ones(4, dtype=torch.bool, device=dev)
-    step = lambda: serve_step(model, frames, mask, 512, (720, 1280))  # noqa: E731
+    step = lambda: serve_step(model, frames, mask, args.model_size, (720, 1280))  # noqa: E731
 
     route = int8_attention.pv_route() if args.int8 == "pv" else contextlib.nullcontext()
     mm_route = (int8_matmul.int_mm_route() if args.int8 and args.int8_matmul == "int_mm"
@@ -118,7 +125,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; {smi}")
     label = (f"int8 + fused LN, attention route {args.int8}, int8 matmul route {args.int8_matmul}"
-             if args.int8 else "bf16")
+             if args.int8 else "bf16") + f", {args.model_size} px, backbone {args.vit_dtype}"
     print(f"serve step [{label}]: wall {wall_ms:.3f} ms/step (host clock, {args.steps} steps, "
           f"no profiler); device busy {busy_ms:.3f} ms/step over {len(device_events) / args.steps:.0f} "
           f"device events/step (profiler); idle share "

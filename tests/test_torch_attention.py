@@ -301,17 +301,20 @@ CSRC = Path(attention.__file__).resolve().parents[1] / "csrc"
 
 @pytest.mark.parametrize("d", [*attention.HEAD_DIMS, 16, 40, 256])
 def test_backward_route_by_head_width(d):
-    """Both parts, the forward and the backward (dK/dV and dQ), route by
-    dtype alone at every width of HEAD_DIMS: bf16 takes the Hopper kernels
+    """Each part, the forward and the backward (dK/dV and dQ), routes by
+    dtype at every width of HEAD_DIMS: bf16 takes the Hopper kernels
     ("wgmma"), f16 the same instantiated for f16 ("wgmma_f16"), f32 the
-    f32-arithmetic kernels of flash_attention_simt.cu ("simt_f32"); these
-    are the only routes, and each route's three C entry points are declared
-    in its source; a width without kernels raises, on the rule and on the
-    wrappers, which count nothing."""
+    split-TF32 Hopper forward of flash_attention_tf32.cu ("wgmma_tf32") and
+    the f32-arithmetic dK/dV and dQ of flash_attention_simt.cu
+    ("simt_f32"); these are the only routes, each route's C entry points are
+    declared in its source and the parts it has no kernel for are None; a
+    width without kernels raises, on the rule and on the wrappers, which
+    count nothing."""
     if d not in attention.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
-            with pytest.raises(ValueError, match=f"d = {d}"):
-                attention.kernel_route(d, dtype)
+            for part in attention.FLASH_PARTS:
+                with pytest.raises(ValueError, match=f"d = {d}"):
+                    attention.kernel_route(d, dtype, part)
         q = torch.zeros(1, 8, 2, d, dtype=torch.bfloat16)
         stat = torch.ones(1, 2, 8)
         for fn in (attention.flash_backward_dkv_cuda, attention.flash_backward_dq_cuda):
@@ -323,24 +326,35 @@ def test_backward_route_by_head_width(d):
             attention.flash_forward_cuda(q, q, q)
         assert not attention.route_launches
         return
+    routes = {dtype: tuple(attention.kernel_route(d, dtype, part) for part in attention.FLASH_PARTS)
+              for dtype in (torch.bfloat16, torch.float16, torch.float32)}
     assert attention.kernel_route(d) == attention.kernel_route(d, torch.bfloat16) == "wgmma"
-    assert attention.kernel_route(d, torch.float16) == "wgmma_f16"
-    assert attention.kernel_route(d, torch.float32) == "simt_f32"
+    assert routes == {torch.bfloat16: ("wgmma",) * 3, torch.float16: ("wgmma_f16",) * 3,
+                      torch.float32: ("wgmma_tf32", "simt_f32", "simt_f32")}
+    assert attention.kernel_route(d, torch.float32) == "wgmma_tf32"
     with pytest.raises(ValueError, match="float64"):
         attention.kernel_route(d, torch.float64)
-    assert set(attention.ENTRY_POINTS) == {"wgmma", "wgmma_f16", "simt_f32"}
-    for route, source, suffix in (("wgmma", "flash_attention.cu", "_sm90"),
-                                  ("wgmma_f16", "flash_attention.cu", "_sm90_f16"),
-                                  ("simt_f32", "flash_attention_simt.cu", "_f32")):
+    assert set(attention.ENTRY_POINTS) == {"wgmma", "wgmma_f16", "wgmma_tf32", "simt_f32"}
+    for route, source, suffix, parts in (
+            ("wgmma", "flash_attention.cu", "_sm90", attention.FLASH_PARTS),
+            ("wgmma_f16", "flash_attention.cu", "_sm90_f16", attention.FLASH_PARTS),
+            ("wgmma_tf32", "flash_attention_tf32.cu", "_tf32", ("fwd",)),
+            ("simt_f32", "flash_attention_simt.cu", "_f32", ("dkv", "dq"))):
         names = attention.ENTRY_POINTS[route]
-        assert names == tuple(f"flash_attention_{part}{suffix}"
-                              for part in ("forward", "backward_dkv", "backward_dq"))
+        assert names == tuple(f"flash_attention_{name}{suffix}" if part in parts else None
+                              for part, name in zip(attention.FLASH_PARTS,
+                                                    ("forward", "backward_dkv", "backward_dq")))
         text = (CSRC / source).read_text()
         for name in names:
-            assert f'extern "C" int {name}(' in text, name
-    text = "".join((CSRC / name).read_text() for name in ("flash_attention.cu",
-                                                          "flash_attention_simt.cu"))
+            if name is not None:
+                assert f'extern "C" int {name}(' in text, name
+    # Each dtype's route of each part has an entry point for it.
+    for dtype, by_part in routes.items():
+        assert all(attention.ENTRY_POINTS[r][i] is not None for i, r in enumerate(by_part))
+    # The f32-arithmetic forward is gone: no source declares it.
+    text = "".join(path.read_text() for path in CSRC.glob("*.cu"))
     assert 'extern "C" int flash_attention_forward_sm90_f16(' in text
+    assert "flash_fwd_simt_kernel" not in text and "flash_attention_forward_f32(" not in text
 
 
 @pytest.mark.parametrize("dtype, device_type, tokens, kernels", [
@@ -356,12 +370,14 @@ def test_backward_route_by_head_width(d):
 def test_flash_rule(dtype, device_type, tokens, kernels):
     """use_flash=None takes the kernels for a CUDA q at T >= 2048, whatever
     its dtype, and the plain branch for every other q, decided from device
-    type and T alone (no card needed); the dtype picks the kernels' route,
-    the same for the forward and the backward: f16 both on the Hopper
-    kernels instantiated for f16."""
+    type and T alone (no card needed); the dtype picks the kernels' routes:
+    f16 the forward and the backward on the Hopper kernels instantiated for
+    f16, f32 the forward on split-TF32 wgmma and the backward in f32
+    arithmetic."""
     assert attention.flash_rule(device_type, tokens) is kernels
-    assert attention.kernel_route(64, dtype) == {
-        torch.bfloat16: "wgmma", torch.float32: "simt_f32", torch.float16: "wgmma_f16"}[dtype]
+    assert tuple(attention.kernel_route(64, dtype, part) for part in attention.FLASH_PARTS) == {
+        torch.bfloat16: ("wgmma",) * 3, torch.float32: ("wgmma_tf32", "simt_f32", "simt_f32"),
+        torch.float16: ("wgmma_f16",) * 3}[dtype]
 
 
 def test_cpu_tensors_take_the_plain_branch_at_any_t():
@@ -555,10 +571,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _part_launches() -> tuple:
-    return tuple(map(attention.part_launches, ("fwd", "dkv", "dq")))
-
-
 def _card_case(device, B, T, H, d, masked, seed, dtype=torch.bfloat16):
     gen = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(B, T, H, d, generator=gen).to(device, dtype) for _ in range(3))
@@ -626,18 +638,24 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, d", [(torch.float32, 64), (torch.float32, 48),
-                                      (torch.float16, 64), (torch.float32, 128)])
+                                      (torch.float16, 64), (torch.float32, 128),
+                                      (torch.float32, 32), (torch.float32, 96)])
 def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     """f32 and f16 operands at T = 2305 with a mask (an all-masked batch
-    element included): `fused_self_attention` launches the f32-arithmetic
-    kernels for f32, the Hopper kernels instantiated for f16 for f16; O, dQ,
-    dK, dV are within 1e-5 of the largest magnitude of the plain branch in
-    f32 for f32 operands; for f16 O within 2^-10 (the forward rounds P and O
-    to f16) and the gradients within F16_TOL (the pair rounds P, dS and the
-    gradients to f16)."""
+    element included): `fused_self_attention` launches, for f32, the
+    split-TF32 forward and the f32-arithmetic dK/dV and dQ, for f16 the
+    Hopper kernels instantiated for f16; O, dQ, dK, dV are within 1e-5 of
+    the largest magnitude of the plain branch in f32 for f32 operands; for
+    f16 O within 2^-10 (the forward rounds P and O to f16) and the gradients
+    within F16_TOL (the pair rounds P, dS and the gradients to f16). The f32
+    forward alone, at every width, against `flash_forward_plain`: O within
+    1e-5 of its largest |O|, closer than the one-TF32-product model's O, m
+    (base 2) within 2^-10 and exact on all-masked rows, l within 2^-9
+    relative, two calls bit-identical."""
     q, k, v, do, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
                          for t in _card_case(cuda_device, 2, 2305, 2, d, True, seed=d))
-    before = _part_launches()
+    routes = tuple(attention.kernel_route(d, dtype, part) for part in attention.FLASH_PARTS)
+    before = attention.route_launches.copy()
     ts = [t.detach().requires_grad_() for t in (q, k, v)]
     out = attention.fused_self_attention(*ts, key_mask=mask)
     out.backward(do)
@@ -646,15 +664,31 @@ def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     out_ref.backward(do.float())
     torch.cuda.synchronize()
     assert out.dtype == dtype
-    assert _part_launches() == tuple(
-        n + 1 for n in before)
-    assert attention.kernel_route(d, dtype) == (
-        "simt_f32" if dtype == torch.float32 else "wgmma_f16")
+    assert attention.route_launches - before == {(p, r): 1 for p, r in
+                                                 zip(attention.FLASH_PARTS, routes)}
+    assert routes == (("wgmma_tf32", "simt_f32", "simt_f32") if dtype == torch.float32
+                      else ("wgmma_f16",) * 3)
     rel = [1e-5] * 4 if dtype == torch.float32 else [2.0 ** -10] + [F16_TOL] * 3
     for name, a, b, r in zip(("O", "dQ", "dK", "dV"), (out, *(t.grad for t in ts)),
                              (out_ref, *(t.grad for t in ref)), rel):
         err = float((a.float() - b).abs().max())
         assert err <= r * float(b.abs().max()) + 1e-6, (name, err)
+    if dtype != torch.float32:
+        return
+    mask_u8 = attention.mask_bytes(mask)
+    runs = [attention.flash_forward_cuda(q, k, v, mask_u8) for _ in range(2)]
+    o_ref, m_ref, l_ref = attention.flash_forward_plain(q, k, v, mask_u8)
+    one = attention.flash_forward_tf32_model(q, k, v, mask_u8, products=1)[0]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    o, m, l = runs[0]
+    err = float((o - o_ref).abs().max())
+    assert err <= 1e-5 * float(o_ref.abs().max()) + 1e-6, err
+    assert err < float((one - o_ref).abs().max()), err
+    attended = m_ref > attention.MASKED_LOGIT
+    assert torch.equal(m[~attended], m_ref[~attended])
+    assert float((m - m_ref)[attended].abs().max()) <= 2.0 ** -10
+    assert float(((l - l_ref) / l_ref).abs().max()) <= 2.0 ** -9
 
 
 @pytest.mark.cuda

@@ -36,9 +36,10 @@ from mvropose_torch.cli.main import (
     read_model_config,
     serve,
     serve_step,
+    write_run_dir,
 )
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
-from mvropose_torch.utils.weights import load_jax_params, plan_jax_params
+from mvropose_torch.utils.weights import load_jax_params, plan_jax_params, random_flat
 from torch_parity import export_npz, np32, random_variables
 
 PORT_ROOT = Path(__file__).resolve().parents[1] / "mvropose_torch"
@@ -207,6 +208,24 @@ def test_model_config_round_trips(checkpoint):
     # default, bf16, in both packages.
     want = dataclasses.replace(port_config(JAX_CFG), dtype="bfloat16")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+
+
+def test_write_run_dir_matches_reference(tmp_path):
+    """The port's run directory: model_config.json as the reference's
+    `_write_model_config` writes it for the same config, and best_params.npz
+    that loads back into the weights it was written from."""
+    cfg = port_config(JAX_CFG)
+    model = MultiViewPoseEstimator(cfg)
+    write_run_dir(tmp_path / "port", cfg, MODEL_SIZE, random_flat(model, seed=3))
+    _write_model_config(tmp_path / "ref", JAX_CFG, multi_view=True, model_size=MODEL_SIZE)
+    assert (json.loads((tmp_path / "port" / "model_config.json").read_text())
+            == json.loads((tmp_path / "ref" / "model_config.json").read_text()))
+    with np.load(tmp_path / "port" / "best_params.npz") as data:
+        flat = {k: data[k] for k in data.files}
+    loaded = MultiViewPoseEstimator(cfg)
+    load_jax_params(loaded, flat)
+    want = model.state_dict()
+    assert all(torch.equal(t, want[k]) for k, t in loaded.state_dict().items())
 
 
 SERVE_TINY = ["serve", "--views", "2", "--fps", "60", "--frame-hw", "32", "48",

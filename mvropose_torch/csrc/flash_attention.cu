@@ -8,8 +8,8 @@
 //   * flash_fwd_sm90_kernel<d, E> <- _flash_attention_kernel (:331, pallas_call :758);
 //   * flash_dkv_sm90_kernel<d, E> <- _flash_attention_dkv_kernel (:796, pallas_call :1121);
 //   * flash_dq_sm90_kernel<d, E>  <- _flash_attention_dq_kernel (:1146, pallas_call :1456).
-// (f32 operands take flash_attention_tf32.cu's forward, on split-TF32
-// products, and flash_attention_simt.cu's dK/dV and dQ.)
+// (f32 operands take flash_attention_tf32.cu's three kernels, on split-TF32
+// products.)
 // The segment ids of the TPU call become what they encode: a (B, T) byte
 // mask of the keys (0 = not attended), and keys past T, which are skipped.
 //

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
 // and TMA: csrc/flash_attention.cu (the flash forward, dK/dV and dQ at every
 // head width, bf16 and f16), csrc/flash_attention_tf32.cu (the f32 flash
-// forward on split-TF32 products), csrc/int8_attention.cu
+// forward, dK/dV and dQ on split-TF32 products), csrc/int8_attention.cu
 // (int8-probability attention, d = 64) and csrc/int8_gemm.cu (the int8 GEMM).
 //
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on a
@@ -408,9 +408,9 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // The mbarriers: full[s] completes when stage s holds its tiles and row
 // data (the producer warp's 32 lanes arrive, lane 0 with the bytes); empty[s]
-// when the 8 consumer warps are done with it; own when the block's own
-// operands have landed.
-template <typename L>  // a tile plan with kBars (the barriers' offset) and kStages
+// when the `Warps` consumer warps (8: two warpgroups) are done with it; own
+// when the block's own operands have landed.
+template <typename L, int Warps = 4 * kHConsumers>  // L: a tile plan with kBars and kStages
 struct Ring {
   uint64_t *full, *empty, *own;
   __device__ explicit Ring(unsigned char* base) {
@@ -421,7 +421,7 @@ struct Ring {
   __device__ void init() const {
     for (int s = 0; s < L::kStages; ++s) {
       mbar_init(&full[s], 32);
-      mbar_init(&empty[s], 4 * kHConsumers);
+      mbar_init(&empty[s], Warps);
     }
     mbar_init(own, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");

@@ -17,24 +17,23 @@ Layout: (B, T, H, d) q, k, v, the reference's public layout; the kernels
 read them through their strides, so the projections' outputs go in as they
 are, and write O and the gradients in the same layout.
 
-Four routes (`kernel_route`, `ENTRY_POINTS`), picked by dtype and part. bf16
-takes the Hopper forward, dK/dV and dQ of `csrc/flash_attention.cu` (wgmma,
-TMA and a warp-specialised mbarrier ring; "wgmma"), f16 the same kernels
-instantiated for f16 ("wgmma_f16": f16 x f16 products accumulate exactly in
-f32 on the tensor cores, as bf16's do), each at every width of
-`HEAD_DIMS`. f32 is split by part: its forward is
-`csrc/flash_attention_tf32.cu`'s ("wgmma_tf32": the same design on TF32
-wgmma, each f32 product as three TF32 products of the operands' big and
-small parts, so it keeps f32's accuracy), its dK/dV and dQ the kernels of
-`csrc/flash_attention_simt.cu` ("simt_f32": f32 arithmetic on the CUDA
-cores), which read the forward's m (base 2) and l as every backward reads
-its own forward's. A width outside `HEAD_DIMS`, or a dtype without
-kernels, raises on every route. The sources' notes say what bounds each.
-`flash_forward_plain` and `flash_backward_plain` compute what the kernels
-compute, from the same saved statistics, in plain torch: the yardsticks of
-the kernels alone. `flash_forward_tf32_model` is the f32 forward's
-split-TF32 arithmetic in plain torch, and with one TF32 product in place of
-three the negative control of its accuracy bound.
+Three routes (`kernel_route`, `ENTRY_POINTS`), one per dtype, each with a
+forward, a dK/dV and a dQ kernel at every width of `HEAD_DIMS`. bf16 takes
+the Hopper kernels of `csrc/flash_attention.cu` (wgmma, TMA and a
+warp-specialised mbarrier ring; "wgmma"), f16 the same kernels instantiated
+for f16 ("wgmma_f16": f16 x f16 products accumulate exactly in f32 on the
+tensor cores, as bf16's do), f32 those of `csrc/flash_attention_tf32.cu`
+("wgmma_tf32": the same design on TF32 wgmma, each f32 product as three
+TF32 products of the operands' big and small parts, written by a pre-pass
+into a scratch buffer, so they keep f32's accuracy; `tf32_scratch`). Each
+backward reads its forward's m (base 2) and l. A width outside
+`HEAD_DIMS`, or a dtype without kernels, raises on every route. The
+sources' notes say what bounds each. `flash_forward_plain` and
+`flash_backward_plain` compute what the kernels compute, from the same
+saved statistics, in plain torch: the yardsticks of the kernels alone.
+`flash_forward_tf32_model` and `flash_backward_tf32_model` are the f32
+kernels' split-TF32 arithmetic in plain torch, and with one TF32 product in
+place of three the negative control of their accuracy bound.
 """
 
 from __future__ import annotations
@@ -55,19 +54,18 @@ route_launches = collections.Counter()
 FLASH_MIN_TOKENS = 2048  # the reference's crossover (ops/attention.py:99-100)
 HEAD_DIMS = (32, 48, 64, 96, 128)  # the head widths the kernels are built for
 FLASH_PARTS = ("fwd", "dkv", "dq")  # the forward, dK/dV and dQ kernels
-# route: the C entry points of its forward, dK/dV and dQ kernels (None: a
-# part it has no kernel for).
+# route: the C entry points of its forward, dK/dV and dQ kernels.
 ENTRY_POINTS = {
     "wgmma": ("flash_attention_forward_sm90", "flash_attention_backward_dkv_sm90",
               "flash_attention_backward_dq_sm90"),
     "wgmma_f16": ("flash_attention_forward_sm90_f16", "flash_attention_backward_dkv_sm90_f16",
                   "flash_attention_backward_dq_sm90_f16"),
-    "wgmma_tf32": ("flash_attention_forward_tf32", None, None),
-    "simt_f32": (None, "flash_attention_backward_dkv_f32", "flash_attention_backward_dq_f32"),
+    "wgmma_tf32": ("flash_attention_forward_tf32", "flash_attention_backward_dkv_tf32",
+                   "flash_attention_backward_dq_tf32"),
 }
 # dtype: the routes of its forward, dK/dV and dQ.
 DTYPE_ROUTES = {torch.bfloat16: ("wgmma",) * 3, torch.float16: ("wgmma_f16",) * 3,
-                torch.float32: ("wgmma_tf32", "simt_f32", "simt_f32")}
+                torch.float32: ("wgmma_tf32",) * 3}
 LOG2E = 1.4426950408889634
 # The plain branch's masked logit, bf16's lowest finite value (exact in f32).
 MASKED_LOGIT = torch.finfo(torch.bfloat16).min
@@ -101,8 +99,7 @@ def flash_attention_reference_f32(q, k, v, key_mask=None) -> torch.Tensor:
 
 @functools.cache
 def _kernels() -> dict:
-    """{route: (forward, dK/dV, dQ)} bound from the kernels' library (None
-    where the route has no kernel for the part)."""
+    """{route: (forward, dK/dV, dQ)} bound from the kernels' library."""
     lib = load_library()
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     forward = [ptr] * 7 + [i32] * 4 + [ptr, f32, ptr]
@@ -110,11 +107,10 @@ def _kernels() -> dict:
                 [ptr] * 9 + [i32] * 4 + [ptr, f32, ptr])  # dQ
     bound = {}
     for route, names in ENTRY_POINTS.items():
-        bound[route] = tuple(None if name is None else getattr(lib, name) for name in names)
+        bound[route] = tuple(getattr(lib, name) for name in names)
         for fn, types in zip(bound[route], argtypes):
-            if fn is not None:
-                fn.argtypes, fn.restype = types, ctypes.c_int
-    bound["wgmma_tf32"][0].argtypes = forward + [ptr]  # and the split operands' scratch
+            # ... and the f32 kernels the split operands' scratch.
+            fn.argtypes, fn.restype = types + [ptr] * (route == "wgmma_tf32"), ctypes.c_int
     return bound
 
 
@@ -125,25 +121,40 @@ def forward_key_tile() -> int:
 
 
 @functools.cache
-def _tf32_scratch_fn():
-    fn = load_library().flash_attention_forward_tf32_scratch
+def _tf32_scratch_fn(part: str):
+    lib = load_library()
+    fn = (lib.flash_attention_forward_tf32_scratch if part == "fwd"
+          else lib.flash_attention_backward_tf32_scratch)
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int64
     return fn
 
 
-def tf32_scratch(B: int, H: int, T: int, d: int) -> int:
-    """f32 elements of the split operands that the f32 forward's pre-pass
-    writes at (B, H, T, d), read from the kernels' library."""
-    return _tf32_scratch_fn()(B, H, T, d)
+def tf32_scratch(B: int, H: int, T: int, d: int, part: str = "fwd") -> int:
+    """f32 elements of the split operands that the pre-pass of an f32
+    kernel ("fwd", "dkv" or "dq") writes at (B, H, T, d), read from the
+    kernels' library."""
+    return _tf32_scratch_fn("fwd" if part == "fwd" else "bwd")(B, H, T, d)
+
+
+def _scratch(route: str, part: str, q) -> tuple:
+    """The f32 kernels' scratch for their split operands as (the tensor,
+    which the caller holds until the launch has been enqueued, and the
+    trailing argument of its entry point); ((), ()) for the other routes.
+    The stream orders the memory's reuse after the call returns it to the
+    allocator."""
+    if route != "wgmma_tf32":
+        return (), ()
+    B, T, H, d = q.shape
+    scratch = torch.empty(tf32_scratch(B, H, T, d, part), dtype=torch.float32, device=q.device)
+    return scratch, (scratch.data_ptr(),)
 
 
 def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16, part: str = "fwd") -> str:
     """The kernel that a head width, an operand dtype and a part ("fwd",
-    "dkv" or "dq") take: "wgmma" for bf16 and "wgmma_f16" for f16, every
-    part (Hopper: wgmma, TMA, warp-specialised); for f32 "wgmma_tf32" for
-    the forward (the same on split-TF32 wgmma) and "simt_f32" for dK/dV and
-    dQ (f32 arithmetic on the CUDA cores); raises for a width or a dtype
-    without kernels."""
+    "dkv" or "dq") take: "wgmma" for bf16, "wgmma_f16" for f16 (Hopper:
+    wgmma, TMA, warp-specialised) and "wgmma_tf32" for f32 (the same on
+    split-TF32 wgmma), every part; raises for a width or a dtype without
+    kernels."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash-attention kernels take head widths {HEAD_DIMS}, got d = {d}")
     if dtype not in DTYPE_ROUTES:
@@ -222,8 +233,7 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
     that `flash_attention_cuda` takes (mask as `mask_bytes`) -> (O (B, T, H,
     d) in q's dtype, m, l), with the row statistics m (base 2) and l as (B,
     H, T) f32 when `save_stats`. The f32 forward also gets a scratch buffer
-    for its split operands (`tf32_scratch`); the stream orders its reuse
-    after this call returns it to the allocator."""
+    for its split operands (`tf32_scratch`)."""
     B, T, H, d = q.shape
     route = kernel_route(d, q.dtype)
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
@@ -233,10 +243,7 @@ def flash_forward_cuda(q, k, v, mask_u8=None, save_stats: bool = True):
         l = torch.empty_like(m)
     if B * T * H:
         dev = q.get_device()
-        extra = ()
-        if route == "wgmma_tf32":
-            scratch = torch.empty(tf32_scratch(B, H, T, d), dtype=torch.float32, device=q.device)
-            extra = (scratch.data_ptr(),)
+        scratch, extra = _scratch(route, "fwd", q)
         with device_context(dev):
             stream = current_stream(dev)
             err = _kernels()[route][0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
@@ -276,7 +283,7 @@ def flash_forward_plain(q, k, v, mask_u8=None):
 
 
 def tf32_split(x: torch.Tensor) -> tuple:
-    """f32 x -> (big, small) as the f32 forward splits its operands: big is
+    """f32 x -> (big, small) as the f32 kernels split their operands: big is
     x with its low 13 mantissa bits cleared, small = x - big (exact in f32)
     with its own cleared. Both are exact TF32 values."""
     def cleared(t):
@@ -287,7 +294,7 @@ def tf32_split(x: torch.Tensor) -> tuple:
 
 
 def tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
-    """a @ b (f32) as the f32 forward's tensor cores form it, in f32 sums:
+    """a @ b (f32) as the f32 kernels' tensor cores form it, in f32 sums:
     products = 3 is a_big b_big + a_big b_small + a_small b_big (split
     TF32, ~2^-20 of each product dropped); products = 1 is a_big b_big alone
     (one TF32 product, ~2^-10 dropped)."""
@@ -338,6 +345,28 @@ def flash_backward_plain(q, k, v, mask_u8, do, m, l, di):
     return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
 
 
+def flash_backward_tf32_model(q, k, v, mask_u8, do, m, l, di, products: int = 3):
+    """`flash_backward_plain` for f32 operands with its five products (S,
+    dP, dV, dQ, dK) formed as `tf32_matmul(.., products)`: the f32 backward
+    kernels' arithmetic in plain torch (products = 3), or the same with one
+    TF32 product each (1), which a pair that dropped the small terms would
+    compute. -> (dQ, dK, dV)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    qh, kh, vh, doh = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    x = tf32_matmul(qh, kh.transpose(-2, -1), products) * scale_log2.to(q.device)
+    if mask_u8 is not None:
+        x = x.masked_fill(mask_u8[:, None, None, :] == 0, MASKED_LOGIT)
+    p = torch.exp2(x - m[..., None]) * l.reciprocal()[..., None]
+    dv = tf32_matmul(p.transpose(-2, -1), doh, products)
+    ds = p * (tf32_matmul(doh, vh.transpose(-2, -1), products) - di[..., None])
+    if mask_u8 is not None:
+        ds = ds.masked_fill(mask_u8[:, None, None, :] == 0, 0.0)
+    dq = tf32_matmul(ds, kh, products) * scale
+    dk = tf32_matmul(ds.transpose(-2, -1), qh, products) * scale
+    return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
+
+
 def row_dot(do, o) -> torch.Tensor:
     """di = rowsum(dO o O) in f32, (B, H, T), as the reference computes it
     in jnp beside its backward kernels."""
@@ -355,15 +384,17 @@ def flash_backward_dkv_cuda(q, k, v, mask_u8, do, m, l, di):
     """Launch the dK/dV kernel of `kernel_route(d, q.dtype, "dkv")`: the
     forward's operands and statistics (m in base 2 and l, as every route's
     forward saves them), dO in their layout and dtype and di =
-    `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) in q's dtype."""
+    `row_dot(dO, O)` -> (dK, dV) (B, T, H, d) in q's dtype. The f32 kernel
+    also gets a scratch buffer for its split operands (`tf32_scratch`)."""
     route = kernel_route(q.shape[-1], q.dtype, "dkv")
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
         dev = q.get_device()
+        scratch, extra = _scratch(route, "dkv", q)
         with device_context(dev):
             stream = current_stream(dev)
-            err = _kernels()[route][1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
+            err = _kernels()[route][1](*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream, *extra)
         _raise_on(err, f"dK/dV ({route})")
         route_launches["dkv", route] += 1
     return dk, dv
@@ -377,9 +408,10 @@ def flash_backward_dq_cuda(q, k, v, mask_u8, do, m, l, di):
     if q.numel():
         ptrs, dims = _backward_args(q, k, v, mask_u8, do, m, l, di)
         dev = q.get_device()
+        scratch, extra = _scratch(route, "dq", q)
         with device_context(dev):
             stream = current_stream(dev)
-            err = _kernels()[route][2](*ptrs, dq.data_ptr(), *dims, stream)
+            err = _kernels()[route][2](*ptrs, dq.data_ptr(), *dims, stream, *extra)
         _raise_on(err, f"dQ ({route})")
         route_launches["dq", route] += 1
     return dq

@@ -2,7 +2,8 @@
 """The host-bound numbers of two checkouts of the port, in turns on one card.
 
     python3 scripts/torch_host_turns.py DIR_A DIR_B [--duration 8] [--steps 5]
-                                        [--runs serve512 serve768 train768 serve768_f32]
+                                        [--runs serve512 serve768 train768 serve768_f32
+                                                train768_f32]
 
 Builds each checkout's kernels first, then runs turns A/B/B/A; each turn
 runs, from that checkout's root, as processes of their own (--runs picks
@@ -15,7 +16,11 @@ them; the first three by default):
   * serve768_f32: `serve --params RUN/best_params.npz` on an f32 768-px run
     directory that this checkout writes once under build/
     (`write_f32_run_dir`: ViT-B/16 at 768 px with the backbone in f32,
-    seed-0 weights), the f32 flash forward at T = 2305.
+    seed-0 weights), the f32 flash forward at T = 2305;
+  * train768_f32: this checkout's `scripts/torch_train_profile.py --steps S
+    --vit-dtype float32 --groups 1 --package-root ROOT` on each checkout's
+    package (the unfrozen 768-px step with an f32 backbone: the f32 flash
+    forward, dK/dV and dQ).
 It prints each run's summary lines under its checkout's label and turn. A
 change that both checkouts show in one call is the host's, not the code's.
 Needs a CUDA GPU.
@@ -64,7 +69,7 @@ def main() -> int:
     p.add_argument("--duration", type=float, default=8.0)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--runs", nargs="+", default=["serve512", "serve768", "train768"],
-                   choices=["serve512", "serve768", "train768", "serve768_f32"])
+                   choices=["serve512", "serve768", "train768", "serve768_f32", "train768_f32"])
     args = p.parse_args()
     trees = {"A": args.a.resolve(), "B": args.b.resolve()}
     for label, root in trees.items():
@@ -73,7 +78,10 @@ def main() -> int:
                                            "_build.load_library()"], 900)
     serve = ["-m", "mvropose_torch.cli.main", "serve", "--duration", str(args.duration)]
     runs = {"serve512": (serve, 300), "serve768": ([*serve, "--model-size", "768"], 300),
-            "train768": (["scripts/torch_train_profile.py", "--steps", str(args.steps)], 600)}
+            "train768": (["scripts/torch_train_profile.py", "--steps", str(args.steps)], 600),
+            "train768_f32": ([str(ROOT / "scripts" / "torch_train_profile.py"), "--steps",
+                              str(args.steps), "--vit-dtype", "float32", "--groups", "1",
+                              "--package-root", "."], 600)}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as run_dir:
         if "serve768_f32" in args.runs:
             write_f32_run_dir(run_dir)

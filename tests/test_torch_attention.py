@@ -304,12 +304,11 @@ def test_backward_route_by_head_width(d):
     """Each part, the forward and the backward (dK/dV and dQ), routes by
     dtype at every width of HEAD_DIMS: bf16 takes the Hopper kernels
     ("wgmma"), f16 the same instantiated for f16 ("wgmma_f16"), f32 the
-    split-TF32 Hopper forward of flash_attention_tf32.cu ("wgmma_tf32") and
-    the f32-arithmetic dK/dV and dQ of flash_attention_simt.cu
-    ("simt_f32"); these are the only routes, each route's C entry points are
-    declared in its source and the parts it has no kernel for are None; a
-    width without kernels raises, on the rule and on the wrappers, which
-    count nothing."""
+    split-TF32 Hopper forward, dK/dV and dQ of flash_attention_tf32.cu
+    ("wgmma_tf32"); these are the only routes, each route's C entry points
+    are declared in its source, and no source declares a simt kernel or an
+    f32-arithmetic entry point any more; a width without kernels raises, on
+    the rule and on the wrappers, which count nothing."""
     if d not in attention.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
             for part in attention.FLASH_PARTS:
@@ -330,31 +329,28 @@ def test_backward_route_by_head_width(d):
               for dtype in (torch.bfloat16, torch.float16, torch.float32)}
     assert attention.kernel_route(d) == attention.kernel_route(d, torch.bfloat16) == "wgmma"
     assert routes == {torch.bfloat16: ("wgmma",) * 3, torch.float16: ("wgmma_f16",) * 3,
-                      torch.float32: ("wgmma_tf32", "simt_f32", "simt_f32")}
+                      torch.float32: ("wgmma_tf32",) * 3}
     assert attention.kernel_route(d, torch.float32) == "wgmma_tf32"
     with pytest.raises(ValueError, match="float64"):
         attention.kernel_route(d, torch.float64)
-    assert set(attention.ENTRY_POINTS) == {"wgmma", "wgmma_f16", "wgmma_tf32", "simt_f32"}
-    for route, source, suffix, parts in (
-            ("wgmma", "flash_attention.cu", "_sm90", attention.FLASH_PARTS),
-            ("wgmma_f16", "flash_attention.cu", "_sm90_f16", attention.FLASH_PARTS),
-            ("wgmma_tf32", "flash_attention_tf32.cu", "_tf32", ("fwd",)),
-            ("simt_f32", "flash_attention_simt.cu", "_f32", ("dkv", "dq"))):
+    assert set(attention.ENTRY_POINTS) == {"wgmma", "wgmma_f16", "wgmma_tf32"}
+    for route, source, suffix in (("wgmma", "flash_attention.cu", "_sm90"),
+                                  ("wgmma_f16", "flash_attention.cu", "_sm90_f16"),
+                                  ("wgmma_tf32", "flash_attention_tf32.cu", "_tf32")):
         names = attention.ENTRY_POINTS[route]
-        assert names == tuple(f"flash_attention_{name}{suffix}" if part in parts else None
-                              for part, name in zip(attention.FLASH_PARTS,
-                                                    ("forward", "backward_dkv", "backward_dq")))
+        assert names == tuple(f"flash_attention_{name}{suffix}"
+                              for name in ("forward", "backward_dkv", "backward_dq"))
         text = (CSRC / source).read_text()
         for name in names:
-            if name is not None:
-                assert f'extern "C" int {name}(' in text, name
-    # Each dtype's route of each part has an entry point for it.
-    for dtype, by_part in routes.items():
-        assert all(attention.ENTRY_POINTS[r][i] is not None for i, r in enumerate(by_part))
-    # The f32-arithmetic forward is gone: no source declares it.
+            assert f'extern "C" int {name}(' in text, name
+    # The f32-arithmetic kernels are gone: no source declares a simt kernel
+    # or an f32-arithmetic entry point.
+    assert not (CSRC / "flash_attention_simt.cu").exists()
     text = "".join(path.read_text() for path in CSRC.glob("*.cu"))
     assert 'extern "C" int flash_attention_forward_sm90_f16(' in text
-    assert "flash_fwd_simt_kernel" not in text and "flash_attention_forward_f32(" not in text
+    assert "simt_kernel" not in text
+    for name in ("forward", "backward_dkv", "backward_dq"):
+        assert f"flash_attention_{name}_f32(" not in text, name
 
 
 @pytest.mark.parametrize("dtype, device_type, tokens, kernels", [
@@ -372,11 +368,10 @@ def test_flash_rule(dtype, device_type, tokens, kernels):
     its dtype, and the plain branch for every other q, decided from device
     type and T alone (no card needed); the dtype picks the kernels' routes:
     f16 the forward and the backward on the Hopper kernels instantiated for
-    f16, f32 the forward on split-TF32 wgmma and the backward in f32
-    arithmetic."""
+    f16, f32 the forward and the backward on split-TF32 wgmma."""
     assert attention.flash_rule(device_type, tokens) is kernels
     assert tuple(attention.kernel_route(64, dtype, part) for part in attention.FLASH_PARTS) == {
-        torch.bfloat16: ("wgmma",) * 3, torch.float32: ("wgmma_tf32", "simt_f32", "simt_f32"),
+        torch.bfloat16: ("wgmma",) * 3, torch.float32: ("wgmma_tf32",) * 3,
         torch.float16: ("wgmma_f16",) * 3}[dtype]
 
 
@@ -643,8 +638,8 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, T, H, d, masked, dtyp
 def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     """f32 and f16 operands at T = 2305 with a mask (an all-masked batch
     element included): `fused_self_attention` launches, for f32, the
-    split-TF32 forward and the f32-arithmetic dK/dV and dQ, for f16 the
-    Hopper kernels instantiated for f16; O, dQ, dK, dV are within 1e-5 of
+    split-TF32 forward, dK/dV and dQ, for f16 the Hopper kernels
+    instantiated for f16; O, dQ, dK, dV are within 1e-5 of
     the largest magnitude of the plain branch in f32 for f32 operands; for
     f16 O within 2^-10 (the forward rounds P and O to f16) and the gradients
     within F16_TOL (the pair rounds P, dS and the gradients to f16). The f32
@@ -666,8 +661,7 @@ def test_simt_kernels_match_plain_on_card(cuda_device, dtype, d):
     assert out.dtype == dtype
     assert attention.route_launches - before == {(p, r): 1 for p, r in
                                                  zip(attention.FLASH_PARTS, routes)}
-    assert routes == (("wgmma_tf32", "simt_f32", "simt_f32") if dtype == torch.float32
-                      else ("wgmma_f16",) * 3)
+    assert routes == (("wgmma_tf32",) * 3 if dtype == torch.float32 else ("wgmma_f16",) * 3)
     rel = [1e-5] * 4 if dtype == torch.float32 else [2.0 ** -10] + [F16_TOL] * 3
     for name, a, b, r in zip(("O", "dQ", "dK", "dV"), (out, *(t.grad for t in ts)),
                              (out_ref, *(t.grad for t in ref)), rel):

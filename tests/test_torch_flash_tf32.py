@@ -1,19 +1,23 @@
-"""The f32 flash forward's split-TF32 arithmetic, on the CPU.
+"""The f32 flash kernels' split-TF32 arithmetic, on the CPU.
 
-On the card the f32 forward (`csrc/flash_attention_tf32.cu`) forms each f32
-product as three TF32 products, a_big b_big + a_big b_small + a_small b_big,
-accumulated in f32. `attention.flash_forward_tf32_model` is that
-arithmetic in plain torch; here it is held, at T = 2117 in f32 with and
-without a key mask, against the reference's flash branch (its stock Pallas
-forward in interpret mode, as `test_fused_self_attention_matches_jax_flash`
-runs it) and against `flash_forward_plain`, within F32_TOL of the largest
-|O|: the bound that `chip_smoke.py` (SIMT_TOL) and the `cuda`-marked tests
-hold the kernel to. The same model with one TF32 product in place of three
-misses that bound by far, so the bound catches a kernel that drops the
-small terms. The kernel itself runs on the card only (`chip_smoke.py`,
+On the card the f32 forward, dK/dV and dQ (`csrc/flash_attention_tf32.cu`)
+form each f32 product as three TF32 products, a_big b_big + a_big b_small +
+a_small b_big, accumulated in f32. `attention.flash_forward_tf32_model` and
+`attention.flash_backward_tf32_model` are that arithmetic in plain torch;
+here they are held, at T = 2117 in f32 with and without a key mask, against
+the reference's flash branch (its stock Pallas forward, and its dK/dV and
+dQ through `jax.vjp`, in interpret mode, as
+`test_fused_self_attention_matches_jax_flash` runs them) and against
+`flash_forward_plain` / `flash_backward_plain`, within F32_TOL of the
+largest |O| or of each gradient's largest magnitude: the bound that
+`chip_smoke.py` (F32_TOL) and the `cuda`-marked tests hold the kernels to.
+The same models with one TF32 product in place of three miss that bound by
+far, so the bound catches a kernel that drops the small terms. The kernels
+themselves run on the card only (`chip_smoke.py`,
 `tests/test_torch_attention.py::test_simt_kernels_match_plain_on_card`).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +28,9 @@ import mvropose_tpu.ops.attention as jax_attention
 from mvropose_torch.ops import attention
 from torch_parity import np32
 
-# O against f32 on the same values, as a share of the largest |O|: the f32
-# forward's bound on the card. The split drops ~2^-20 of each product; on
+# O (and each gradient) against f32 on the same values, as a share of the
+# largest |O| (of the gradient's largest magnitude): the f32 kernels' bound
+# on the card. The split drops ~2^-20 of each product; on
 # these inputs the model lies 1.5e-6 to 2.2e-6 of max |O| from the plain
 # forward (which is itself ~1e-6 from f64), one TF32 product 2.2e-3 to 3e-3.
 F32_TOL = 1e-5
@@ -45,6 +50,29 @@ def _case(d: int, masked: bool):
         mask = rng.uniform(size=(1, 2117)) > 0.3
         mask[:, 0] = True
     return (q, k, v), [torch.from_numpy(a) for a in (q, k, v)], mask
+
+
+def _jax_flash_grads(q, k, v, mask, ct) -> list:
+    """dQ, dK, dV of sum(out * ct) through the reference's flash branch
+    (use_flash=True: its stock flash backward), interpret mode."""
+    km = None if mask is None else jnp.asarray(mask)
+    fn = lambda q, k, v: jax_attention.fused_self_attention(  # noqa: E731
+        q, k, v, use_flash=True, key_mask=km)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+        grads = vjp(jnp.asarray(ct))
+    return [np32(t) for t in grads]
+
+
+def _backward_case(d: int, masked: bool):
+    """`_case`'s operands, a cotangent dO (numpy and torch), and the
+    backward's inputs from `flash_forward_plain`: (mask_u8, m, l, di)."""
+    arrays, (q, k, v), mask = _case(d, masked)
+    ct = np.random.default_rng(4231 + d + masked).normal(size=arrays[0].shape).astype(np.float32)
+    do = torch.from_numpy(ct)
+    mask_u8 = None if mask is None else attention.mask_bytes(torch.from_numpy(mask))
+    o, m, l = attention.flash_forward_plain(q, k, v, mask_u8)
+    return arrays, ct, mask, (q, k, v, mask_u8, do, m, l, attention.row_dot(do, o))
 
 
 def _jax_flash(q, k, v, mask) -> np.ndarray:
@@ -108,3 +136,40 @@ def test_one_tf32_product_misses_the_bound(d, masked):
                     .abs().max()) for n in (1, 3)}
     assert err[1] > F32_TOL * top, err
     assert err[1] > 100 * err[3], err
+
+
+@pytest.mark.parametrize("d, masked", CASES)
+def test_tf32_backward_model_matches_jax_flash_and_plain(d, masked):
+    """The split-TF32 backward (three products each) on the plain forward's
+    m and l: dQ, dK, dV within F32_TOL of each gradient's largest magnitude
+    of the reference's flash backward (`jax.vjp` of its flash branch) and of
+    `flash_backward_plain`. Measured on these inputs: 1.2e-6 to 4.7e-6 of
+    the largest magnitude from the plain backward, 1.4e-6 to 4.8e-6 from
+    the reference's."""
+    arrays, ct, mask, args = _backward_case(d, masked)
+    got = [np32(g) for g in attention.flash_backward_tf32_model(*args)]
+    want_plain = [np32(g) for g in attention.flash_backward_plain(*args)]
+    want_jax = _jax_flash_grads(*arrays, mask, ct)
+    for source, want in (("reference flash backward", want_jax),
+                         ("flash_backward_plain", want_plain)):
+        for name, g, w in zip(("dQ", "dK", "dV"), got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=F32_TOL * np.abs(w).max(),
+                                       err_msg=f"{name} vs {source}")
+    assert not attention.route_launches
+
+
+@pytest.mark.parametrize("d, masked", CASES)
+def test_one_tf32_product_misses_the_backward_bound(d, masked):
+    """The negative control of the backward: with a_big b_big alone in each
+    of its five products (as a pair that dropped the small terms would
+    compute) every gradient lies more than F32_TOL of its largest magnitude
+    from `flash_backward_plain` (measured: 4.0e-3 to 7.8e-3), and over 100
+    times further than the three products' gradient."""
+    _, _, _, args = _backward_case(d, masked)
+    want = attention.flash_backward_plain(*args)
+    got = {n: attention.flash_backward_tf32_model(*args, products=n) for n in (1, 3)}
+    for i, name in enumerate(("dQ", "dK", "dV")):
+        top = float(want[i].abs().max())
+        err = {n: float((got[n][i] - want[i]).abs().max()) for n in (1, 3)}
+        assert err[1] > F32_TOL * top, (name, err)
+        assert err[1] > 100 * err[3], (name, err)

@@ -14,6 +14,7 @@ import ast
 import dataclasses
 import json
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -181,6 +182,14 @@ def test_rig_copy_matches_reference():
                                      frame_hw=(24, 40))
         pipe.start()
         try:
+            # A source reports ready just before it publishes its first
+            # frame, and a tick dispatches as soon as any source has one:
+            # wait for all three, so both packages tick on three cameras.
+            deadline = time.perf_counter() + 10.0
+            while not all(s.latest() is not None for s in sources):
+                assert time.perf_counter() < deadline, (
+                    f"{name}: a synthetic source published no frame within 10 s")
+                time.sleep(0.01)
             first = None
             while first is None:
                 first = pipe.tick()

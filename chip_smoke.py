@@ -12,6 +12,12 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * peak decode (32 maps of 128x128, a non-multiple M, planted ties);
        * LayerNorm and residual LayerNorm ((4100, 768) bf16 -> bf16 and
          bf16 -> f32, a non-multiple M, narrow and non-multiple-of-8 D);
+       * the same two with their int8 output (`phase_layernorm_int8`: the
+         serve shape in bf16 and f32, D = 3072, 128 and 1024, a constant
+         row, a zero bias): x_q, s_x and x + h bit-equal to the LayerNorm
+         kernel followed by `quantize_rows`, two calls bit-identical; timed in turns
+         against the kernel pair they replace (the LayerNorm kernel, then
+         the row quantization kernel) beside their bytes' bound;
        * int8 P@V ((48, 1025, 1025) x (48, 1025, 64), a small odd T, masked
          keys and all-zero rows, pq padded as the serve path writes it, and
          contiguous at T = 128), its int32 sums read back exactly;
@@ -45,8 +51,13 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
          weights, exported with `export_jax_params`): the LayerNorm kernels,
          the peak decode and the fused int8 attention with its quantization,
-         12 each a tick, 72 int8 GEMMs and 48 row quantizations a tick (q, k
-         and v share one); no P@V kernel;
+         12 each a tick, the two int8 LayerNorms 12 each (q, k and v share
+         norm1's pair, fc1 reads norm2's), 72 int8 GEMMs and 24 row
+         quantizations a tick (out's and fc2's inputs), the final LayerNorm
+         once; no P@V kernel;
+       * `serve --params RUN/best_params.npz` on the same run directory
+         without --int8-backbone (bf16, fused LN): the LayerNorm kernel 13
+         times a tick and the residual LayerNorm 12;
   5. the bare serve steps, bf16 and int8 + fused LN (on both attention
      routes, and on both int8 matmul routes: the kernels and the plain
      chain of `int_mm_route()`, in turns), timed on a resident batch and
@@ -206,6 +217,13 @@ KERNELS = {
                   "mvropose_tpu/ops/layernorm.py:30"),  # _ln_kernel
     "residual_layernorm": (layernorm, "residual_launches", "mvropose_torch/csrc/layernorm.cu",
                            "mvropose_tpu/ops/layernorm.py:39"),  # _res_ln_kernel
+    # The same two with their output quantized per token for the int8 matmuls
+    # of q/k/v and fc1: int8_matmul's s_x and x_q lines moved into the LayerNorms.
+    "layernorm_int8": (layernorm, "int8_launches", "mvropose_torch/csrc/layernorm.cu",
+                       "mvropose_tpu/models/quantize.py:37"),
+    "residual_layernorm_int8": (layernorm, "residual_int8_launches",
+                                "mvropose_torch/csrc/layernorm.cu",
+                                "mvropose_tpu/models/quantize.py:37"),
     "int8_pv": (int8_attention, "launches", "mvropose_torch/csrc/int8_pv.cu",
                 "mvropose_tpu/ops/attention.py:73"),  # int8_prob_attention's P@V
     # int8_prob_attention whole (logits to the dequantized P V), and its values' quantization.
@@ -230,8 +248,10 @@ KERNELS = {
     "flash_bwd_dq": (attention, "dq", "mvropose_torch/csrc/flash_attention.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
 }
-SERVE_KERNELS = ["peak_decode", "layernorm", "residual_layernorm", "int8_attention",
-                 "int8_quantize_v", "int8_matmul", "int8_quantize_rows"]
+SERVE_KERNELS = ["peak_decode", "layernorm", "layernorm_int8", "residual_layernorm_int8",
+                 "int8_attention", "int8_quantize_v", "int8_matmul", "int8_quantize_rows"]
+# The same run directory served in bf16 (no --int8-backbone): the float LayerNorms.
+FUSED_LN_KERNELS = ["peak_decode", "layernorm", "residual_layernorm"]
 FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
@@ -530,6 +550,75 @@ def phase_layernorm() -> dict:
         print(f"{kname} (32800, 768) bf16 -> bf16, operands beyond L2: "
               f"{1e3 * graph_ms(kernel, iters=10, samples=20):.2f} us per call (CUDA-graph "
               f"replay), bound {1e3 * bound(nbytes)['bound_ms']:.2f} us")
+    return out
+
+
+# The int8 LayerNorms' cases: the serve shape in bf16 and f32 (f32 at 768:
+# 6 chunks a lane), a wide row (3072: 12 chunks a lane), the small f32 int8 model's width and
+# a bf16 -> f32 pair, at non-multiple row counts.
+LN_INT8_CASES = [("serve", 4100, 768, torch.bfloat16, torch.bfloat16),
+                 ("serve_f32", 4100, 768, torch.float32, torch.float32),
+                 ("wide", 37, 3072, torch.bfloat16, torch.bfloat16),
+                 ("small_f32", 51, 128, torch.float32, torch.float32),
+                 ("bf16_f32", 37, 1024, torch.bfloat16, torch.float32)]
+
+
+def phase_layernorm_int8() -> dict:
+    """The LayerNorm kernels' int8 output against the LayerNorm kernel
+    followed by `quantize_rows` (`LN_INT8_CASES`): x_q, s_x and x + h
+    bit-equal, with a constant row (zero bias too: s_x at the 1e-6 floor);
+    two calls bit-identical. Then at (4100, 768) bf16, CUDA-graph replays in
+    turns: each int8 LayerNorm against its plain chain (the plain LayerNorm,
+    then `quantize_rows`) and against the pair it replaces (the LayerNorm
+    kernel, then `int8_quantize_rows_cuda`), each beside its bytes' bound."""
+    for i, (name, M, D, inp, out) in enumerate(LN_INT8_CASES):
+        x, h, g, b = _ln_operands(M, D, inp, seed=30 + i)
+        x[M // 2] = 1.0  # a constant row: its LayerNorm is the bias
+        for bias in (b, torch.zeros_like(b)):
+            want = quantize_rows(layernorm.layernorm_cuda(x, g, bias, 1e-6, out))
+            xn_ref, y = layernorm.residual_layernorm_cuda(x, h, g, bias, 1e-6, out)
+            want_r = quantize_rows(y)
+            runs = [layernorm.layernorm_int8_cuda(x, g, bias, 1e-6, out) for _ in range(2)]
+            xn, got_r = layernorm.residual_layernorm_int8_cuda(x, h, g, bias, 1e-6, out)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for got, ref in
+                       ((runs[0], want), (runs[1], want), (got_r, want_r))
+                       for a, c in zip(got, ref))
+            check(same and torch.equal(xn, xn_ref),
+                  f"int8 LayerNorm {name} ({M}, {D}) {inp} -> {out}: x_q, s_x or x + h differ "
+                  f"from the LayerNorm kernel followed by quantize_rows")
+        print(f"int8 LayerNorms vs the LayerNorm kernel + quantize_rows [{name} ({M}, {D}) "
+              f"{inp} -> {out}, a constant row, zero bias too]: x_q, s_x and x + h bit-equal; "
+              f"two calls bit-identical")
+    x, h, g, b = _ln_operands(4100, 768, torch.bfloat16, seed=40)
+
+    def timer(fn):
+        return graph_ms(fn, iters=10, samples=20)
+
+    row, tail = 2 * 4100 * 768, 2 * 768 * 4 + 4100 * 768 + 4 * 4100  # bf16 rows; params, x_q, s_x
+    out = {}
+    for kname, plain, pair, kernel, nbytes in (
+        ("layernorm_int8", lambda: quantize_rows(layernorm.layernorm_reference(x, g, b, 1e-6)),
+         lambda: int8_matmul.int8_quantize_rows_cuda(layernorm.layernorm_cuda(x, g, b, 1e-6)),
+         lambda: layernorm.layernorm_int8_cuda(x, g, b, 1e-6), row + tail),
+        ("residual_layernorm_int8",
+         lambda: quantize_rows(layernorm.residual_layernorm_reference(x, h, g, b, 1e-6)[1]),
+         lambda: int8_matmul.int8_quantize_rows_cuda(
+             layernorm.residual_layernorm_cuda(x, h, g, b, 1e-6)[1]),
+         lambda: layernorm.residual_layernorm_int8_cuda(x, h, g, b, 1e-6), 3 * row + tail),
+    ):
+        ms, plain_ms = time_in_turns(kname, "(4100, 768) bf16 -> x_q, s_x", plain, kernel)
+        new, pair_ms = _in_turns(timer, pair, kernel)
+        bd = bound(nbytes)
+        print(f"{kname} (4100, 768) bf16, us per call, CUDA-graph replay, in turns: the pair it "
+              f"replaces (the LayerNorm kernel, then int8_quantize_rows) {1e3 * pair_ms:.2f}, "
+              f"the int8 output {1e3 * new:.2f} ({pair_ms / new:.2f}x); bound "
+              f"{1e3 * bd['bound_ms']:.2f} ({bd['bound_by']}), the int8 output at "
+              f"{bd['bound_ms'] / ms:.2f} of it")
+        out[kname] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
+                      "library_ms": None, "pair_ms": pair_ms,
+                      "work": "(4100, 768) bf16 -> x_q, s_x; pair: the LayerNorm kernel, then "
+                              "int8_quantize_rows_cuda"}
     return out
 
 
@@ -946,20 +1035,24 @@ def phase_int8_matmul() -> dict:
         for k in work:
             work[k] += calls * w[k]
         del x, kq, scale, bias, xq, sx
-    # A block's four quantizations: q/k/v share one of h (768), out (768),
-    # fc1 (768), fc2 (3072).
-    quant_block = 3 * per["qkv_out"]["quantize"] + per["fc2"]["quantize"]
-    quant_plain_block = 3 * per["qkv_out"]["quantize_plain"] + per["fc2"]["quantize_plain"]
-    q_bytes_block = 3 * (3 * M * 768 + 4 * M) + 3 * M * 3072 + 4 * M  # bf16 in, int8 + s_x out
+    # A block's two quantizations by the rows kernel: out's input (768) and
+    # fc2's (3072); the LayerNorm kernels write q/k/v's and fc1's pairs.
+    quant_block = per["qkv_out"]["quantize"] + per["fc2"]["quantize"]
+    quant_plain_block = per["qkv_out"]["quantize_plain"] + per["fc2"]["quantize_plain"]
+    q_bytes_block = (3 * M * 768 + 4 * M) + 3 * M * 3072 + 4 * M  # bf16 in, int8 + s_x out
     qb = bound(q_bytes_block)
     gb = bound(work["g_bytes"], work["ops"], "int8")
     one = bound(work["one_bytes"], work["ops"], "int8")
     two = 1e3 * 12 * bound(q_bytes_block + work["g_bytes"], work["ops"], "int8")["bound_ms"]
+    for name, din in (("qkv_out", 768), ("fc2", 3072)):
+        t, qbd = per[name]["quantize"], per[name]["quantize_bound"]
+        print(f"int8_quantize_rows ({M}, {din}) bf16: {1e3 * t:.2f} us, bound {1e3 * qbd:.2f} us "
+              f"(bytes), at {qbd / t:.2f} of it")
     print(f"int8 matmul, one block's products at M = {M} (the serve step runs 12): quantizations "
-          f"{1e3 * quant_block:.2f} us (4 calls; plain {1e3 * quant_plain_block:.2f}, bound "
-          f"{1e3 * qb['bound_ms']:.2f}); GEMMs {1e3 * block['gemm']:.2f} us (6 calls; plain "
+          f"{1e3 * quant_block:.2f} us (2 calls: out, fc2; plain {1e3 * quant_plain_block:.2f}, "
+          f"bound {1e3 * qb['bound_ms']:.2f}); GEMMs {1e3 * block['gemm']:.2f} us (6 calls; plain "
           f"{1e3 * block['gemm_plain']:.2f}, torch._int_mm alone {1e3 * block['int_mm']:.2f}, "
-          f"bound {1e3 * gb['bound_ms']:.2f} {gb['bound_by']}); a serve step's 48 + 72 calls "
+          f"bound {1e3 * gb['bound_ms']:.2f} {gb['bound_by']}); a serve step's 24 + 72 calls "
           f"{12 * (quant_block + block['gemm']):.4f} ms against the two-pass bound {two / 1e3:.4f} "
           f"ms and the one-pass bound {12 * one['bound_ms']:.4f} ms; the plain chain's "
           f"{12 * block['whole_plain']:.4f} ms")
@@ -975,8 +1068,10 @@ def phase_int8_matmul() -> dict:
                         "step_plain_chain_ms": 12 * block["whole_plain"], "host_us": host},
         "int8_quantize_rows": {"max_abs_err": err["quantize"], "ms": quant_block,
                                "plain_ms": quant_plain_block, **qb, "library_ms": None,
-                               "work": "one block's four quantizations at M = 4100: "
-                                       "3 x 768, 1 x 3072, bf16"},
+                               "work": "one block's two quantizations at M = 4100: "
+                                       "768 (out), 3072 (fc2), bf16",
+                               "per_width_ms": {"768": per["qkv_out"]["quantize"],
+                                                "3072": per["fc2"]["quantize"]}},
     }
 
 
@@ -1550,11 +1645,16 @@ def phase_counters() -> None:
     """Each wrapper counts where it launches its kernel and nowhere else: an
     empty input launches nothing and counts nothing, one launch counts one."""
     g, b = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
+    g16, b16 = torch.ones(16, device="cuda"), torch.zeros(16, device="cuda")
     calls = {
         "peak_decode": lambda n: peak_decode.peak_decode_cuda(torch.ones(n, 4, 4, device="cuda")),
         "layernorm": lambda n: layernorm.layernorm_cuda(torch.ones(n, 8, device="cuda"), g, b),
         "residual_layernorm": lambda n: layernorm.residual_layernorm_cuda(
             torch.ones(n, 8, device="cuda"), torch.ones(n, 8, device="cuda"), g, b),
+        "layernorm_int8": lambda n: layernorm.layernorm_int8_cuda(
+            torch.ones(n, 16, device="cuda"), g16, b16),
+        "residual_layernorm_int8": lambda n: layernorm.residual_layernorm_int8_cuda(
+            torch.ones(n, 16, device="cuda"), torch.ones(n, 16, device="cuda"), g16, b16),
         "int8_pv": lambda n: int8_attention.int8_pv_cuda(
             int8_attention.padded_probs(2, n, "cuda").zero_(),
             torch.zeros(2, n, 64, dtype=torch.int8, device="cuda"),
@@ -1922,9 +2022,12 @@ def int8_matmul_work(model, step) -> tuple:
     (calls, operations, one-pass bytes, two-pass bytes): 2 M Din Dout int8
     operations a call. One pass (a kernel that would quantize in its own
     prologue): x read once in the layer's dtype, kernel_q, scale and bias
-    read once, the output written once. Two passes (the port's kernels): each
-    quantization reads x and writes x_q and s_x (q, k and v share one), each
-    GEMM reads x_q, s_x, kernel_q, scale and bias and writes the output."""
+    read once, the output written once. Two passes (the port's kernels): a
+    quantization of a layer's own x (out's and fc2's) reads x and writes x_q
+    and s_x; a pair given to the layer (q, k and v share norm1's, fc1 reads
+    norm2's: the LayerNorm kernels write them) costs its x_q and s_x written
+    once; each GEMM reads x_q, s_x, kernel_q, scale and bias and writes the
+    output."""
     work, pairs = [], []  # the pairs' x_q held, so that no id is reused within the step
 
     def count(module, inputs, out):
@@ -1933,9 +2036,11 @@ def int8_matmul_work(model, step) -> tuple:
         xq = x[0] if shared else x
         rows, esize = xq.numel() // din, out.element_size()
         quantize = 0
-        if not shared or not any(xq is seen for seen in pairs):  # its own, or a pair's first use
-            pairs.append(xq)
+        if not shared:
             quantize = rows * din * esize + rows * din + 4 * rows
+        elif not any(xq is seen for seen in pairs):  # a pair's first use
+            pairs.append(xq)
+            quantize = rows * din + 4 * rows
         work.append((2 * rows * din * dout,
                      rows * din * esize + din * dout + 8 * dout + rows * dout * esize,
                      quantize + rows * din + 4 * rows + din * dout + 8 * dout
@@ -2472,7 +2577,8 @@ def phase_small_reference() -> dict:
     angles by 3.5e-3). Keypoints equal wherever the top-2 heatmap margin is
     10x the gap. The f32 int8 model's attention takes the "pv" route: the
     P@V kernel in each block, never the fused kernel; its int8 matmuls take
-    the kernels of `csrc/int8_gemm.cu`. -> the int8 model's launches."""
+    the kernels of `csrc/int8_gemm.cu`, its LayerNorms the int8 output.
+    -> the int8 model's launches."""
     vit = ViTConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2, num_heads=2,
                     dtype="float32")
     cfg = EstimatorConfig(vit=vit, num_joints=8, num_angles=7, heatmap_size=(32, 32),
@@ -2481,7 +2587,8 @@ def phase_small_reference() -> dict:
     cfg = dataclasses.replace(cfg, vit=dataclasses.replace(vit, fused_ln=True))
     launches = _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
     check(launches["int8_pv"] > 0 and launches["int8_attention"] == 0
-          and launches["int8_matmul"] > 0 and launches["int8_quantize_rows"] > 0,
+          and launches["int8_matmul"] > 0 and launches["int8_quantize_rows"] > 0
+          and launches["layernorm_int8"] > 0 and launches["residual_layernorm_int8"] > 0,
           f"the f32 int8 model launched {launches}")
     return launches
 
@@ -2606,7 +2713,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
     device = phase_device()
     phase_build()
-    measured = {**phase_peak_decode(), **phase_layernorm(), **phase_int8_pv(),
+    measured = {**phase_peak_decode(), **phase_layernorm(), **phase_layernorm_int8(),
+                **phase_int8_pv(),
                 **phase_int8_attention(), **phase_int8_matmul(), **phase_heatmap_render(),
                 **phase_flash()}
     for name, extra in phase_f32().items():
@@ -2626,15 +2734,25 @@ def main() -> int:
             ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
              "--int8-attention"], "int8 + fused LN", SERVE_KERNELS,
         )
+        ln_launches = _serve(["--params", str(Path(run) / "best_params.npz")], "fused LN, bf16",
+                             FUSED_LN_KERNELS)
     # A tick: 12 blocks, each one fused attention with its values'
-    # quantization, six products (q, k, v, out, fc1, fc2) and four
-    # quantizations (q, k and v share one).
+    # quantization, six products (q, k, v, out, fc1, fc2), two int8
+    # LayerNorms (q, k and v share norm1's pair, fc1 reads norm2's) and two
+    # row quantizations (out's and fc2's inputs); and the final LayerNorm.
     for name, per_tick in (("int8_attention", 12), ("int8_quantize_v", 12), ("int8_matmul", 72),
-                           ("int8_quantize_rows", 48)):
+                           ("int8_quantize_rows", 24), ("layernorm_int8", 12),
+                           ("residual_layernorm_int8", 12), ("layernorm", 1)):
         check(int8_launches[name] == per_tick * int8_launches["peak_decode"],
               f"int8 serve: {int8_launches[name]} {name} launches for "
               f"{int8_launches['peak_decode']} ticks, not {per_tick} each")
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
+    # The bf16 fused-LN tick: norm1 and the final norm, the residual norm2.
+    for name, per_tick in (("layernorm", 13), ("residual_layernorm", 12)):
+        check(ln_launches[name] == per_tick * ln_launches["peak_decode"],
+              f"fused-LN bf16 serve: {ln_launches[name]} {name} launches for "
+              f"{ln_launches['peak_decode']} ticks, not {per_tick} each")
+        launches[name] += ln_launches[name]
     gap_512 = phase_step(flat)
     serve_768 = phase_serve_768()
     phase_step_768(gap_512)

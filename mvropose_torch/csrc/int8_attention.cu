@@ -80,6 +80,7 @@
 // q and k are read through their (B, T, H, 64) strides by TMA tensor maps
 // built on the host per call (a CUDA graph captures them as parameters).
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -87,6 +88,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "int8_quantize.cuh"  // Divisor, quantized_byte, pack4
 #include "sm90_common.cuh"  // mbarriers, TMA maps and boxes, the wgmma wrappers, turns
 
 namespace {
@@ -123,13 +125,12 @@ struct Int8Params {
   int B, H, T;
 };
 
-// Where key j (of a tile) sits among the K-major bytes of its 32-key group:
-// keys 8 i + 2 t + c (i = 0, 1; c = 0, 1) of a 16-key half go to bytes
+// `key_position`, where key j (of a tile) sits among the K-major bytes of
+// its 16-key group: keys 8 i + 2 t + c (i = 0, 1; c = 0, 1) go to bytes
 // 4 t + 2 i + c, the A-fragment bytes of the thread that holds the S
-// accumulator columns 8 i + 2 t + c (see the source note).
-__host__ __device__ __forceinline__ int key_position(int j) {
-  return (j & ~15) | (4 * ((j & 7) >> 1) + 2 * ((j >> 3) & 1) + (j & 1));
-}
+// accumulator columns 8 i + 2 t + c (see the source note), that is byte
+// (j & ~15) | (4 ((j & 7) >> 1) + 2 ((j >> 3) & 1) + (j & 1));
+// ops/int8_attention.py::key_positions gives its inverse, the key at each byte.
 
 // One 128-key x 64-channel box of the values, keys [key, key + 128) of row bh.
 __device__ __forceinline__ void tma_values(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -435,103 +436,114 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------ values, quantized
 //
-// The scale of a channel needs only that channel, so a block owns 16
-// channels (32 bytes a key, one whole memory sector) of one (b, h): 192
-// blocks at the serve shape. Its 256 threads take the max |v| over all T
-// keys in rounds of 1536 keys (16-byte loads, two threads a key, 12 loads in
-// flight a thread), quantize them into a shared [channel][key_position]
-// tile and write its 16 rows out in 16-byte stores; up to T = 1536 (the
-// serve T = 1025) the one round's values stay in registers between the two
-// steps, and a longer T reads its rounds again (from L2). Its bound is its
-// bytes (6.3 MB read, 3.5 MB written at the serve shape: 3 us); each round
-// waits for its loads, so it is held by how few rounds it takes.
+// Its bound is bytes: 6.3 MB read and 3.5 MB written at the serve shape
+// (4, 1025, 12, 64), 2.9 us. A block owns 16 channels (32 bytes a key, one
+// whole memory sector) of one (b, h) and every key: 192 blocks at the
+// serve shape. Its thread owns 8 channels of half of one 16-key group (the
+// unit of `key_position`): the 8 keys whose bytes are the group's first 8
+// (keys 0-3 and 8-11) or its last 8 (4-7 and 12-15), so 8 16-byte loads in
+// flight a thread and, for each channel, one 8-byte store of bytes put in
+// `key_position` order in registers (byte permutes): no shared tile, no
+// single-byte store. A pair of lanes reads a key's 32 bytes, a warp 16
+// half-groups (kVChannels / 8 lanes a key, any of 8, 16 or 32 channels a
+// block gives the same bits). The channel's max is a shuffle max, then one through shared
+// memory across the block's warps; the division by its scale is
+// Markstein's correction steps with the scale's reciprocal
+// (csrc/int8_quantize.cuh: the division's bits in five operations a
+// value, in place of 96 serial IEEE divisions a thread). A block has 2 Tp /
+// 8 threads (288 at T = 1025: one round of all keys, held in registers
+// from the max to the quantization), at most 512: a longer T (Tp > 2048)
+// takes several rounds and reads them again (from L2) to quantize them.
+// (Splitting T across the blocks of a thread-block cluster, whose maxima
+// meet in distributed shared memory, gives more blocks but was slower: the
+// cluster's barrier cost more than the whole kernel takes without it; 8
+// channels a block, 384 blocks at the serve shape, was no faster either:
+// PERF.md.)
 
-constexpr int kQThreads = 256;
-constexpr int kQChannels = 16;                       // channels of a block
-constexpr int kQRows = kQThreads / 2;                // keys one load of every thread covers
-constexpr int kQBatch = 12;                          // loads in flight a thread
-constexpr int kQTile = kQRows * kQBatch;             // keys of a round and its tile: 1536
-constexpr int kQPad = 16;                            // bytes after each shared row
+constexpr int kVChannels = 16;                 // channels of a block (8, 16 or 32)
+constexpr int kVLanes = kVChannels / 8;        // lanes on one key
+constexpr int kVMaxThreads = 512;
+constexpr int kVMaxUnits = kVMaxThreads / kVLanes;  // half-groups of a round
+constexpr int kVMaxWarps = kVMaxThreads / 32;
 
-__global__ void __launch_bounds__(kQThreads)
+__global__ void __launch_bounds__(kVMaxThreads)
     int8_quantize_v_kernel(const bf16* __restrict__ v, Strides s, int H, int T, int Tp,
-                           int8_t* __restrict__ vt, float* __restrict__ sv) {
-  __shared__ float s_max[kQThreads / 32][kQChannels];
-  __shared__ float s_scale[kQChannels];
-  __shared__ __align__(16) int8_t s_tile[kQChannels][kQTile + kQPad];
+                           int rounds, int8_t* __restrict__ vt, float* __restrict__ sv) {
+  __shared__ float s_warp[kVMaxWarps][kVChannels];
+  __shared__ Divisor s_div[kVChannels];
 
-  const int c16 = blockIdx.x * kQChannels, h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  // Lanes 0-15 of a warp read channels c16 .. c16 + 7 of its 16 keys, lanes
-  // 16-31 the next 8 of the same keys: each key's 32 bytes in one request.
-  const int half = lane >> 4, kl = warp * 16 + (lane & 15);
-  const bf16* base = v + b * s.b + h * s.h + c16 + 8 * half;
-  // Keys k0 + u kQRows + kl (u < kQBatch), zero past T.
-  auto load_round = [&](int k0, uint4 (&raw)[kQBatch]) {
+  const int c16 = blockIdx.y * kVChannels, bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  const int o = lane % kVLanes;  // channels c16 + 8 o .. + 7
+  const int unit = tid / kVLanes;  // half-group of the round
+  const int units = blockDim.x / kVLanes;
+  const bf16* base = v + b * s.b + h * s.h + c16 + 8 * o;
+  // The thread's first output byte in round i (bytes 0-7 or 8-15 of group
+  // (i units + unit) / 2), and its keys j and 8 + j of the group, j = 4 (unit % 2) .. + 3.
+  auto first_byte = [&](int i) { return 8 * (i * units + unit); };
+  auto load = [&](int i, uint4 (&raw)[8]) {  // keys of round i, zero past T
+    const int k0 = first_byte(i) - 4 * (unit % 2);  // the group's first key + 4 (unit % 2)
 #pragma unroll
-    for (int u = 0; u < kQBatch; ++u) {
-      const int key = k0 + u * kQRows + kl;
-      raw[u] = key < T ? *reinterpret_cast<const uint4*>(base + key * s.t) : make_uint4(0, 0, 0, 0);
+    for (int k = 0; k < 8; ++k) {
+      const int key = k0 + (k < 4 ? k : 4 + k);
+      raw[k] = key < T ? *reinterpret_cast<const uint4*>(base + key * s.t)
+                       : make_uint4(0, 0, 0, 0);
     }
   };
 
   float mx[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) mx[i] = 0.f;
-  uint4 raw[kQBatch];
-  for (int k0 = 0; k0 < T; k0 += kQTile) {
-    load_round(k0, raw);
+  for (int c = 0; c < 8; ++c) mx[c] = 0.f;
+  uint4 raw[8];
+  for (int i = 0; i < rounds; ++i) {
+    load(i, raw);
 #pragma unroll
-    for (int u = 0; u < kQBatch; ++u) {
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+    for (int k = 0; k < 8; ++k) {
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[k]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mx[2 * i] = fmaxf(mx[2 * i], fabsf(__low2float(x[i])));
-        mx[2 * i + 1] = fmaxf(mx[2 * i + 1], fabsf(__high2float(x[i])));
+      for (int c = 0; c < 4; ++c) {
+        mx[2 * c] = fmaxf(mx[2 * c], fabsf(__low2float(x[c])));
+        mx[2 * c + 1] = fmaxf(mx[2 * c + 1], fabsf(__high2float(x[c])));
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {  // the 16 lanes of each half hold the same channels
+  for (int c = 0; c < 8; ++c) {  // the 32 / kVLanes lanes of a warp on the same channels
 #pragma unroll
-    for (int o = 1; o < 16; o *= 2) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
-    if ((lane & 15) == 0) s_max[warp][8 * half + i] = mx[i];
+    for (int x = kVLanes; x < 32; x *= 2) {
+      mx[c] = fmaxf(mx[c], __shfl_xor_sync(0xffffffffu, mx[c], x));
+    }
+    if (lane < kVLanes) s_warp[warp][8 * o + c] = mx[c];
   }
   __syncthreads();
-  if (tid < kQChannels) {
-    float m = s_max[0][tid];
-    for (int w = 1; w < kQThreads / 32; ++w) m = fmaxf(m, s_max[w][tid]);
-    const float scale = fmaxf(m, 1e-6f) / 127.f;
-    s_scale[tid] = scale;
-    sv[static_cast<int64_t>(bh) * kHD + c16 + tid] = scale;
+  if (tid < kVChannels) {
+    float m = s_warp[0][tid];
+    for (int w = 1; w < warps; ++w) m = fmaxf(m, s_warp[w][tid]);
+    const Divisor d = divisor_of_max(m);
+    s_div[tid] = d;
+    sv[static_cast<int64_t>(bh) * kHD + c16 + tid] = d.s;
   }
   __syncthreads();
-  float scale[8];
+  Divisor d[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) scale[i] = s_scale[8 * half + i];
-  int8_t* out = vt + (static_cast<int64_t>(bh) * kHD + c16) * Tp;
-  for (int k0 = 0; k0 < Tp; k0 += kQTile) {
-    if (T > kQTile) load_round(k0, raw);  // else round 0 is still in registers
+  for (int c = 0; c < 8; ++c) d[c] = s_div[8 * o + c];
+  int8_t* out = vt + (static_cast<int64_t>(bh) * kHD + c16 + 8 * o) * Tp;
+  for (int i = 0; i < rounds; ++i) {
+    const int byte0 = first_byte(i);
+    if (byte0 >= Tp) break;
+    if (rounds > 1) load(i, raw);  // else round 0 is still in registers
 #pragma unroll
-    for (int u = 0; u < kQBatch; ++u) {
-      const int pos = key_position(u * kQRows + kl);  // zeros past T, as loaded
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+    for (int c = 0; c < 8; ++c) {
+      uint32_t q[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float xi = i & 1 ? __high2float(x[i / 2]) : __low2float(x[i / 2]);
-        // rint(v / sv) in [-127, 127]: the low byte of v / sv + 1.5 * 2^23 (half to even).
-        s_tile[8 * half + i][pos] =
-            static_cast<int8_t>(__float_as_uint(xi / scale[i] + kRound) & 0xff);
+      for (int k = 0; k < 8; ++k) {
+        q[k] = quantized_byte(__bfloat162float(reinterpret_cast<const bf16*>(&raw[k])[c]), d[c]);
       }
+      // Byte 4 t + 2 i + c' of a group holds its key 8 i + 2 t + c' (key_position):
+      // the thread's keys 2 w, 2 w + 1 (of j) and 8 + 2 w, 9 + 2 w make its word w.
+      *reinterpret_cast<uint2*>(out + static_cast<int64_t>(c) * Tp + byte0) =
+          make_uint2(pack4(q[0], q[1], q[4], q[5]), pack4(q[2], q[3], q[6], q[7]));
     }
-    __syncthreads();
-    const int chunks = min(kQTile, Tp - k0) / 16;  // 16-byte chunks of a row this round
-    for (int c = tid; c < kQChannels * chunks; c += kQThreads) {
-      const int row = c / chunks, col = (c % chunks) * 16;
-      *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * Tp + k0 + col) =
-          *reinterpret_cast<const uint4*>(&s_tile[row][col]);
-    }
-    __syncthreads();
   }
 }
 
@@ -562,9 +574,13 @@ extern "C" int int8_quantize_v(const void* v, int B, int H, int T, const int64_t
                                void* vt, float* sv, int Tp, void* stream) {
   if (Tp % kKeys != 0 || Tp < T) return static_cast<int>(cudaErrorInvalidValue);
   const Strides s{strides[0], strides[1], strides[2]};
-  const dim3 grid(kHD / kQChannels, H, B);  // 16 channels of one (b, h) a block
-  int8_quantize_v_kernel<<<grid, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(v), s, H, T, Tp, static_cast<int8_t*>(vt), sv);
+  constexpr int kWarpUnits = 32 / kVLanes;  // half-groups of a warp: a block holds whole warps
+  const int units = Tp / 8;  // half-groups
+  const int round = std::min((units + kWarpUnits - 1) / kWarpUnits * kWarpUnits, kVMaxUnits);
+  const dim3 grid(B * H, kHD / kVChannels);
+  int8_quantize_v_kernel<<<grid, kVLanes * round, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(v), s, H, T, Tp, (units + round - 1) / round,
+      static_cast<int8_t*>(vt), sv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,13 +27,18 @@
 // operations) for fc1 (768 -> 3072) and for fc2 (3072 -> 768).
 //
 // The design:
-//   * the quantization: the row held in registers between its max and its
-//     division, at most 4 16-byte chunks a thread (one warp a row at
-//     K = 768 bf16, four at K = 3072, so that many rows are in flight),
-//     neighbouring threads on neighbouring chunks, a shuffle max (and one
-//     through shared memory across a row's warps); each thread writes its
-//     chunks' int8 values, the row's first the scale. x_q comes out
-//     row-major, K-major as wgmma's A operand wants it;
+//   * the quantization (since the LayerNorm kernels quantize the rows of
+//     q/k/v and fc1 themselves, it serves the out projection's and fc2's
+//     inputs, 24 of its 48 launches a serve tick before): the row held in
+//     registers between its max and its quantization, each lane on whole
+//     16-value groups (a 16-byte int8 store each; at most 8 16-byte loads
+//     a lane), as few lanes a row as hold it (16 at K = 768 bf16, two rows
+//     a warp; 64 at K = 3072) so that many rows are in flight, a shuffle
+//     max (and one through shared memory across a row's warps), then the
+//     division by the row's scale as Markstein's correction steps with its
+//     reciprocal (csrc/int8_quantize.cuh: five operations a value, the
+//     division's bits). x_q comes out row-major, K-major as wgmma's A
+//     operand wants it;
 //   * the GEMM: a block computes 128 x 192 output tiles, two consumer
 //     warpgroups of 64 rows each issuing wgmma m64n192k32 s8 x s8 -> s32
 //     with both operands in shared memory. 8-bit operands are K-major only:
@@ -62,6 +67,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "int8_quantize.cuh"  // Divisor, quantized_byte, pack4
 #include "sm90_common.cuh"  // mbarriers, the swizzled descriptor, wgmma fences, the map encoder
 
 namespace {
@@ -69,7 +75,7 @@ namespace {
 // ------------------------------------------------------------ quantization
 
 constexpr int kQThreads = 256;
-constexpr int kQChunks = 4;  // 16-byte chunks of a row a thread holds, at most
+constexpr int kQLoads = 8;  // 16-byte loads a thread holds at most: 4 groups of bf16, 2 of f32
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -78,103 +84,105 @@ __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f32<bf16>(bf16 v) { return __bfloat162float(v); }
 
-// The values of a 16-byte chunk (8 bf16 or 4 f32) as f32.
+// Value i (< 16 / sizeof(T)) of a 16-byte chunk as f32.
 template <typename T>
-__device__ __forceinline__ void chunk_values(const uint4& raw, float (&v)[16 / sizeof(T)]) {
-  const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i) v[i] = to_f32<T>(x[i]);
+__device__ __forceinline__ float chunk_value(const uint4& raw, int i) {
+  return to_f32<T>(reinterpret_cast<const T*>(&raw)[i]);
 }
 
-// x (M, K) through its row stride `ld` (elements), K * sizeof(T) a multiple
-// of 16 and at most 2 KB kWarps -> xq (M, K) int8 row-major, sx (M,). A row
-// takes kWarps warps; its thread j holds the row's 16-byte chunks j,
-// j + 32 kWarps, ... (at most kQChunks), so that few registers a thread keep
-// many rows in flight on each SM.
-template <typename T, int kWarps>
+// x (M, K) through its row stride `ld` (elements), K a multiple of 16 ->
+// xq (M, K) int8 row-major, sx (M,). A row takes kLanes lanes (a power of
+// two; above 32, whole warps); its lane l holds the row's 16-value groups
+// l, l + kLanes, ... (at most kQLoads 16-byte loads), so that its int8
+// values go out in 16-byte stores and few registers a lane keep many rows
+// in flight.
+template <typename T, int kLanes>
 __global__ void __launch_bounds__(kQThreads)
     int8_quantize_rows_kernel(const T* __restrict__ x, int64_t ld, int M, int K,
                               int8_t* __restrict__ xq, float* __restrict__ sx) {
-  constexpr int kPer = 16 / sizeof(T);           // values of a chunk
-  constexpr int kRowThreads = 32 * kWarps;       // threads of a row
-  constexpr int kRows = kQThreads / kRowThreads;  // rows of a block
+  constexpr int kPer = 16 / sizeof(T);           // values of a 16-byte load
+  constexpr int kLoadsPer = 16 / kPer;           // loads of a 16-value group
+  constexpr int kGroups = kQLoads / kLoadsPer;   // groups a lane holds at most
+  constexpr int kRows = kQThreads / kLanes;      // rows of a block
+  constexpr int kRowWarps = kLanes > 32 ? kLanes / 32 : 1;
   __shared__ float s_max[kQThreads / 32];
-  const int r = threadIdx.x / kRowThreads, j = threadIdx.x % kRowThreads;
+  const int r = threadIdx.x / kLanes, l = threadIdx.x % kLanes;
   const int row = blockIdx.x * kRows + r;
-  const bool live = row < M;  // no early return: the block's barrier below
-  const int chunks = live ? K / kPer : 0;
+  const bool live = row < M;  // no early return: the shuffles and the block's barrier below
+  const int groups = live ? K / 16 : 0;
   const T* src = x + static_cast<int64_t>(row) * ld;
-  uint4 raw[kQChunks];
+  uint4 raw[kGroups][kLoadsPer];
 #pragma unroll
-  for (int c = 0; c < kQChunks; ++c) {
-    const int idx = c * kRowThreads + j;
-    raw[c] = idx < chunks ? __ldg(reinterpret_cast<const uint4*>(src + idx * kPer))
-                          : make_uint4(0, 0, 0, 0);
+  for (int g = 0; g < kGroups; ++g) {
+    const int idx = g * kLanes + l;
+#pragma unroll
+    for (int u = 0; u < kLoadsPer; ++u) {
+      raw[g][u] = idx < groups ? __ldg(reinterpret_cast<const uint4*>(src + 16 * idx + u * kPer))
+                               : make_uint4(0, 0, 0, 0);
+    }
   }
   float m = 0.f;
 #pragma unroll
-  for (int c = 0; c < kQChunks; ++c) {
-    float v[kPer];
-    chunk_values<T>(raw[c], v);
+  for (int g = 0; g < kGroups; ++g) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) m = fmaxf(m, fabsf(v[i]));
+    for (int u = 0; u < kLoadsPer; ++u) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) m = fmaxf(m, fabsf(chunk_value<T>(raw[g][u], i)));
+    }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if constexpr (kWarps > 1) {
+  for (int o = (kLanes < 32 ? kLanes : 32) / 2; o > 0; o /= 2) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  if constexpr (kRowWarps > 1) {
     if (threadIdx.x % 32 == 0) s_max[threadIdx.x / 32] = m;
     __syncthreads();
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, s_max[r * kWarps + w]);
+    for (int w = 0; w < kRowWarps; ++w) m = fmaxf(m, s_max[r * kRowWarps + w]);
   }
   if (!live) return;
-  const float s = __fdiv_rn(fmaxf(m, 1e-6f), 127.f);
-  if (j == 0) sx[row] = s;
+  const Divisor d = divisor_of_max(m);
+  if (l == 0) sx[row] = d.s;
   int8_t* dst = xq + static_cast<int64_t>(row) * K;
 #pragma unroll
-  for (int c = 0; c < kQChunks; ++c) {
-    const int idx = c * kRowThreads + j;
-    if (idx >= chunks) break;
-    float v[kPer];
-    chunk_values<T>(raw[c], v);
-    uint32_t packed[kPer / 4];
+  for (int g = 0; g < kGroups; ++g) {
+    const int idx = g * kLanes + l;
+    if (idx >= groups) break;
+    uint32_t b[16];
 #pragma unroll
-    for (int w = 0; w < kPer / 4; ++w) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // rint(x / s) in [-127, 127], half to even.
-        const int q = __float2int_rn(__fdiv_rn(v[4 * w + i], s));
-        word |= (static_cast<uint32_t>(q) & 0xffu) << (8 * i);
-      }
-      packed[w] = word;
+    for (int i = 0; i < 16; ++i) {
+      b[i] = quantized_byte(chunk_value<T>(raw[g][i / kPer], i % kPer), d);
     }
-    if constexpr (kPer == 8) {
-      *reinterpret_cast<uint2*>(dst + idx * kPer) = make_uint2(packed[0], packed[1]);
-    } else {
-      *reinterpret_cast<uint32_t*>(dst + idx * kPer) = packed[0];
-    }
+    *reinterpret_cast<uint4*>(dst + 16 * idx) =
+        make_uint4(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]),
+                   pack4(b[8], b[9], b[10], b[11]), pack4(b[12], b[13], b[14], b[15]));
   }
 }
 
-template <typename T, int kWarps>
+template <typename T, int kLanes>
 cudaError_t launch_quantize(const void* x, int64_t ld, int M, int K, void* xq, float* sx,
                             cudaStream_t stream) {
-  constexpr int kRows = kQThreads / (32 * kWarps);
-  int8_quantize_rows_kernel<T, kWarps><<<(M + kRows - 1) / kRows, kQThreads, 0, stream>>>(
+  constexpr int kRows = kQThreads / kLanes;
+  int8_quantize_rows_kernel<T, kLanes><<<(M + kRows - 1) / kRows, kQThreads, 0, stream>>>(
       static_cast<const T*>(x), ld, M, K, static_cast<int8_t*>(xq), sx);
   return cudaGetLastError();
 }
 
-// The fewest warps a row whose threads hold a row of K values.
+// The fewest lanes a row whose loads hold a row of K values: 16 at the
+// ViT-B/16 width 768 in bf16 (3 groups a lane, 16 rows a block), 64 at 3072.
 template <typename T>
 cudaError_t quantize_rows(const void* x, int64_t ld, int M, int K, void* xq, float* sx,
                           cudaStream_t stream) {
-  const int chunks = K * static_cast<int>(sizeof(T)) / 16;
-  if (chunks <= 32 * kQChunks) return launch_quantize<T, 1>(x, ld, M, K, xq, sx, stream);
-  if (chunks <= 64 * kQChunks) return launch_quantize<T, 2>(x, ld, M, K, xq, sx, stream);
-  if (chunks <= 128 * kQChunks) return launch_quantize<T, 4>(x, ld, M, K, xq, sx, stream);
-  if (chunks <= 256 * kQChunks) return launch_quantize<T, 8>(x, ld, M, K, xq, sx, stream);
+  constexpr int kGroups = kQLoads / static_cast<int>(sizeof(T));  // 16-value groups a lane
+  const int lanes = (K / 16 + kGroups - 1) / kGroups;
+  if (lanes <= 1) return launch_quantize<T, 1>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 2) return launch_quantize<T, 2>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 4) return launch_quantize<T, 4>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 8) return launch_quantize<T, 8>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 16) return launch_quantize<T, 16>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 32) return launch_quantize<T, 32>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 64) return launch_quantize<T, 64>(x, ld, M, K, xq, sx, stream);
+  if (lanes <= 128) return launch_quantize<T, 128>(x, ld, M, K, xq, sx, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -421,8 +429,8 @@ int make_int8_map(CUtensorMap* map, const void* base, int rows, int K, int box_r
 }  // namespace
 
 // x: (M, K) bf16 (x_f32 = 0) or f32 (1) rows `ld` elements apart (unit
-// stride along K; 16-byte aligned base and rows; K * element size a multiple
-// of 16, at most 16 KB) -> xq (M, K) int8 contiguous, sx (M,) f32. Returns
+// stride along K; 16-byte aligned base and rows; K a multiple of 16, at most
+// 8192 bf16 or 4096 f32 values) -> xq (M, K) int8 contiguous, sx (M,) f32. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue (1) for a
 // row it does not take.
 extern "C" int int8_quantize_rows(const void* x, int64_t ld, int M, int K, int x_f32, void* xq,

@@ -6,7 +6,8 @@ quantized per token on the fly, s_x[t] = max_d |x[t, d]| / 127; and
 y = (x_q @ W_q).int32 * s_x * s_w + b. Only the blocks' q/k/v/out and
 fc1/fc2 are quantized; everything else stays float. On CUDA `int8_matmul`
 runs the kernels of `csrc/int8_gemm.cu` (`ops/int8_matmul.py`), bit-equal
-to the plain version here.
+to the plain version here; `quantize_rows`, the activations' plain
+quantization, lives beside its kernel in `ops/int8_matmul.py`.
 
 `quantize_kernel` and `quantize_backbone` are numpy copies of the
 reference's `_quantize_kernel` and `quantize_backbone_params` (that module
@@ -21,7 +22,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from mvropose_torch.ops.int8_matmul import int8_gemm_cuda, int8_mm_route, int8_quantize_rows_cuda
+from mvropose_torch.ops.int8_matmul import (
+    int8_gemm_cuda,
+    int8_mm_route,
+    int8_quantize_rows_cuda,
+    quantize_rows,
+)
 
 # The quantized Dense layers of one block, and how many leading axes of each
 # float kernel are input axes (DenseGeneral: q/k/v (D, H, dh), out (H, dh, D)).
@@ -56,17 +62,6 @@ def quantize_backbone(flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
             if prefix + "bias" in out:
                 out[prefix + "bias"] = np.asarray(out[prefix + "bias"], np.float32).reshape(-1)
     return out
-
-
-def quantize_rows(x: torch.Tensor):
-    """x (..., Din) -> (int8 x_q, f32 per-token scale s_x (..., 1)), the
-    scale taken over the contraction axis only, floor 1e-6."""
-    xf = x.float()
-    m = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
-    # A tensor divisor: torch divides a CUDA tensor by a Python number as a
-    # product with its f32 reciprocal, one rounding away from the division.
-    sx = m / torch.full_like(m, 127.0)
-    return torch.round(xf / sx).to(torch.int8), sx
 
 
 def int8_gemm_reference(xq, sx, kernel_q, scale, bias, out_dtype) -> torch.Tensor:

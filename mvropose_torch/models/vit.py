@@ -22,6 +22,10 @@ through `ops/layernorm.py` (the reference's fused kernels' arithmetic: fast
 variance, the residual LayerNorm of the unrounded f32 sum), `quant="int8"`
 makes the blocks' q/k/v/out and fc1/fc2 `Int8Linear`s, and
 `quant_attn="int8"` runs `ops/int8_attention.py::int8_prob_attention`.
+With both `fused_ln` and int8 layers, the LayerNorms that feed q/k/v and
+fc1 write their output quantized per token (`fused_layernorm_int8`,
+`fused_residual_layernorm_int8`): the (x_q, s_x) pair the `Int8Linear`s
+would compute from it.
 """
 
 from __future__ import annotations
@@ -40,7 +44,12 @@ from mvropose_torch.models.layers import Conv2d, Linear
 from mvropose_torch.models.quantize import Int8Linear
 from mvropose_torch.ops.attention import fused_self_attention, rounded
 from mvropose_torch.ops.int8_attention import int8_prob_attention
-from mvropose_torch.ops.layernorm import fused_layernorm, fused_residual_layernorm
+from mvropose_torch.ops.layernorm import (
+    fused_layernorm,
+    fused_layernorm_int8,
+    fused_residual_layernorm,
+    fused_residual_layernorm_int8,
+)
 
 
 def _cubic_kernel(x: np.ndarray, a: float) -> np.ndarray:
@@ -230,7 +239,8 @@ class FusedMHA(MultiHeadAttention):
     same parameters as `MultiHeadAttention` (`Int8Linear`s with
     quant="int8"), RoPE on the patch tokens of q and k, then
     `fused_self_attention` (the flash kernels at T >= 2048 on the card), or
-    `int8_prob_attention` with `int8_attention`."""
+    `int8_prob_attention` with `int8_attention`. With `Int8Linear`s, x may
+    be given as its (x_q, s_x) pair already."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
                  quant: Optional[str] = None, int8_attention: bool = False):
@@ -239,7 +249,8 @@ class FusedMHA(MultiHeadAttention):
 
     def forward(self, x, key_mask=None, rope=None):
         # int8 layers share one quantization of x: the same (x_q, s_x) all three would compute.
-        xs = self.query.quantize(x) if isinstance(self.query, Int8Linear) else x
+        quantize = isinstance(self.query, Int8Linear) and not isinstance(x, tuple)
+        xs = self.query.quantize(x) if quantize else x
         q, k, v = (self._heads(layer(xs)) for layer in (self.query, self.key, self.value))
         if rope is not None:
             cos, sin, n_prefix = rope
@@ -274,7 +285,9 @@ class LayerScale(nn.Module):
 class Block(nn.Module):
     """Pre-norm block. With `fused_ln`, norm1 and norm2 run the reference's
     fused kernels' arithmetic (norm2 with the residual add folded in); the
-    `nn.LayerNorm`s then only hold their parameters."""
+    `nn.LayerNorm`s then only hold their parameters. With int8 layers too
+    (`quant="int8"`, or after `int8ify`), both write their output quantized
+    for q/k/v and fc1."""
 
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
@@ -294,6 +307,11 @@ class Block(nn.Module):
     def forward(self, x, rope=None):
         dt = x.dtype
         n1, n2 = self.norm1, self.norm2
+        if self.fused_ln and isinstance(self.mlp.fc1, Int8Linear):
+            xs = fused_layernorm_int8(x, n1.weight, n1.bias, n1.eps, out_dtype=dt)
+            h = self.ls1(self.attn(xs, rope=rope))
+            x, xs = fused_residual_layernorm_int8(x, h, n2.weight, n2.bias, n2.eps, out_dtype=dt)
+            return x + self.ls2(self.mlp(xs))
         if self.fused_ln:
             h = fused_layernorm(x, n1.weight, n1.bias, n1.eps, out_dtype=dt)
         else:

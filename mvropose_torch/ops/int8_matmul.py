@@ -6,15 +6,18 @@ Port of `mvropose_tpu/models/quantize.py::int8_matmul`, per token row r of x
 |x[r, k]|, 1e-6) / 127, x_q = round(x / s_x) (int8, half to even), an exact
 int32 product, then ((f32(acc) * s_x[r]) * s_w[c]) + b[c] in the output
 dtype. `csrc/int8_gemm.cu` computes it in two kernels, bit-equal to the
-plain version (`models/quantize.py::int8_matmul_reference`), whose rounding
-points they repeat:
+plain version (`quantize_rows` here, `models/quantize.py::int8_gemm_reference`),
+whose rounding points they repeat:
   * `int8_quantize_rows_cuda`: x (..., K) bf16 or f32 -> x_q (..., K) int8,
-    s_x (..., 1) f32, one to eight warps a row;
+    s_x (..., 1) f32, 1 to 128 lanes a row (the LayerNorm kernels write the
+    pair themselves for the layers that read a LayerNorm's output,
+    `ops/layernorm.py::fused_layernorm_int8`);
   * `int8_gemm_cuda`: x_q, s_x and the layer's W_q, s_w and bias -> y
     (..., N) in bf16 or f32, wgmma s8 products on TMA tiles, the dequant and
     the bias in the epilogue.
 
-Routes (`int8_mm_route`), one rule for the quantization and the product:
+Routes (`int8_mm_route`), one rule for the quantization and the product
+(and for the LayerNorm kernels' int8 output):
   * CPU operands: "plain" (`models/quantize.py`'s plain versions);
   * CUDA bf16 or f32 activations at the kernels' widths: "kernel". They take
     K (Din) a multiple of 16 from 16 to 4096 and N (Dout) a multiple of 8:
@@ -45,18 +48,19 @@ _DTYPES = (torch.bfloat16, torch.float32)
 _INT_MM_ROUTE = False  # `int_mm_route()`: CUDA operands take the plain chain
 
 
-def int8_mm_route(device_type: str, dtype: torch.dtype, din: int, dout: int) -> str:
+def int8_mm_route(device_type: str, dtype: torch.dtype, din: int, dout: int | None = None) -> str:
     """The route of an int8 matmul on this device type, of activations of this
-    dtype (x's in `Int8Linear.quantize`, the output's in `int8_matmul`) and a
-    (din, dout) weight: "plain" on the CPU; on CUDA "kernel" (or "plain"
-    inside `int_mm_route()`) for bf16 or f32 at the kernels' widths; raises
-    for any other."""
+    dtype (x's in `Int8Linear.quantize`, the output's in `int8_matmul`, the
+    LayerNorm's output in `fused_layernorm_int8`) and a (din, dout) weight
+    (dout None: the quantization alone): "plain" on the CPU; on CUDA
+    "kernel" (or "plain" inside `int_mm_route()`) for bf16 or f32 at the
+    kernels' widths; raises for any other."""
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":
         raise ValueError(f"int8_matmul runs on the CPU or on CUDA, got {device_type}")
-    if (dtype not in _DTYPES or din % DIN_MULTIPLE or not DIN_MULTIPLE <= din <= DIN_MAX
-            or dout % DOUT_MULTIPLE or dout < DOUT_MULTIPLE):
+    bad_dout = dout is not None and (dout % DOUT_MULTIPLE or dout < DOUT_MULTIPLE)
+    if dtype not in _DTYPES or din % DIN_MULTIPLE or not DIN_MULTIPLE <= din <= DIN_MAX or bad_dout:
         raise ValueError(f"the int8 matmul kernels take bf16 or f32 activations, Din a multiple of "
                          f"{DIN_MULTIPLE} up to {DIN_MAX} and Dout a multiple of {DOUT_MULTIPLE}, "
                          f"got {dtype} at ({din}, {dout})")
@@ -74,6 +78,18 @@ def int_mm_route():
         yield
     finally:
         _INT_MM_ROUTE = saved
+
+
+def quantize_rows(x: torch.Tensor):
+    """x (..., Din) -> (int8 x_q, f32 per-token scale s_x (..., 1)), the
+    scale taken over the contraction axis only, floor 1e-6: the plain
+    version of `int8_quantize_rows_cuda`."""
+    xf = x.float()
+    m = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    # A tensor divisor: torch divides a CUDA tensor by a Python number as a
+    # product with its f32 reciprocal, one rounding away from the division.
+    sx = m / torch.full_like(m, 127.0)
+    return torch.round(xf / sx).to(torch.int8), sx
 
 
 @functools.cache
@@ -95,7 +111,7 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
 
 
-def _check_din(din: int) -> None:
+def check_din(din: int) -> None:
     if din % DIN_MULTIPLE or not DIN_MULTIPLE <= din <= DIN_MAX:
         raise ValueError(f"the int8 matmul kernels take Din a multiple of {DIN_MULTIPLE} from "
                          f"{DIN_MULTIPLE} to {DIN_MAX}, got {din}")
@@ -116,7 +132,7 @@ def int8_quantize_rows_cuda(x: torch.Tensor):
     if x.dtype not in _DTYPES:
         raise ValueError(f"the int8 quantization kernel takes bf16 or f32 x, got {x.dtype}")
     K = x.shape[-1]
-    _check_din(K)
+    check_din(K)
     x2 = x.reshape(-1, K)
     M, ld = x2.shape[0], x2.stride(0)
     _check_rows(M)
@@ -152,7 +168,7 @@ def int8_gemm_cuda(xq, sx, kernel_q, scale, bias, out_dtype) -> torch.Tensor:
     if out_dtype not in _DTYPES:
         raise ValueError(f"the int8 GEMM writes bf16 or f32, not {out_dtype}")
     K, N = kernel_q.shape
-    _check_din(K)
+    check_din(K)
     if N % DOUT_MULTIPLE or N < DOUT_MULTIPLE:
         raise ValueError(f"the int8 GEMM takes Dout a multiple of {DOUT_MULTIPLE}, got {N}")
     M = xq.numel() // K if K else 0

@@ -6,6 +6,15 @@ fast variance var = E[x^2] - mean^2 (no clamp), y = (x - mean) * rsqrt(var +
 eps) * scale + bias written in `out_dtype`; the residual variant casts h to
 x's dtype, writes x + h in x's dtype and normalizes the unrounded f32 sum.
 Both kernels are `csrc/layernorm.cu`; its source note says what bounds them.
+
+For the int8 serve path the same kernels write the output quantized per
+token instead, the (x_q, s_x) pair that the int8 matmuls of q/k/v and fc1
+read (`fused_layernorm_int8`, `fused_residual_layernorm_int8`): y rounded to
+`out_dtype`, then `ops/int8_matmul.py::quantize_rows`'s arithmetic. They take
+the int8 matmul's route (`int8_mm_route`): on CUDA the kernels' int8 output,
+bit-equal to the LayerNorm kernel followed by the rows' quantization; on the
+CPU, and on CUDA inside `int_mm_route()`, that chain itself (`fused_layernorm`
+or `fused_residual_layernorm`, then `quantize_rows`).
 """
 
 from __future__ import annotations
@@ -16,10 +25,14 @@ import functools
 import torch
 
 from mvropose_torch.ops._build import current_stream, device_context, load_library
+from mvropose_torch.ops.int8_matmul import check_din, int8_mm_route, quantize_rows
 
-# Kernel launches made through `layernorm_cuda` / `residual_layernorm_cuda`.
+# Kernel launches made through `layernorm_cuda` / `residual_layernorm_cuda`,
+# and through `layernorm_int8_cuda` / `residual_layernorm_int8_cuda`.
 launches = 0
 residual_launches = 0
+int8_launches = 0
+residual_int8_launches = 0
 
 # The (input, output) dtype pairs the kernel is instantiated for.
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,20 +61,20 @@ def residual_layernorm_reference(x, h, scale, bias, eps: float = 1e-6, out_dtype
 
 
 @functools.cache
-def _kernel():
-    fn = load_library().layernorm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    lib = load_library()
+    fwd, fwd_int8 = lib.layernorm_fwd, lib.layernorm_int8_fwd
+    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fwd.argtypes = [ctypes.c_void_p] * 6 + tail + [ctypes.c_void_p]
+    fwd_int8.argtypes = [ctypes.c_void_p] * 7 + tail + [ctypes.c_void_p]
+    for fn in (fwd, fwd_int8):
+        fn.restype = ctypes.c_int
+    return fwd, fwd_int8
 
 
-def _launch(x, h, scale, bias, eps, out_dtype):
-    """Check the operands, launch the kernel on the current stream (counted in
-    `launches`, or `residual_launches` when h is given), return (xnew, y)."""
-    global launches, residual_launches
+def _operands(x, h, scale, bias, out_dtype):
+    """Check the operands -> (x, h in x's dtype or None, contiguous; scale,
+    bias f32; out_dtype; M rows; D)."""
     for name, t in (("x", x), ("h", h), ("scale", scale), ("bias", bias)):
         if t is not None and t.device.type != "cuda":
             raise ValueError(f"the LayerNorm kernel needs CUDA tensors, got {name} on {t.device}")
@@ -78,17 +91,24 @@ def _launch(x, h, scale, bias, eps, out_dtype):
     hr = None if h is None else h.to(x.dtype).contiguous()
     if hr is not None and hr.shape != rows.shape:
         raise ValueError(f"h {tuple(h.shape)} does not match x {tuple(x.shape)}")
-    g, b = scale.float().contiguous(), bias.float().contiguous()
+    return rows, hr, scale.float().contiguous(), bias.float().contiguous(), out_dtype, M, D
+
+
+def _launch(x, h, scale, bias, eps, out_dtype):
+    """Launch the kernel on the current stream (counted in `launches`, or
+    `residual_launches` when h is given) -> (xnew, y)."""
+    global launches, residual_launches
+    rows, hr, g, b, out_dtype, M, D = _operands(x, h, scale, bias, out_dtype)
     y = torch.empty(rows.shape, dtype=out_dtype, device=rows.device)
     xnew = None if hr is None else torch.empty_like(rows)
     if M:
         dev = rows.get_device()
         with device_context(dev):
-            stream = current_stream(dev)
-            err = _kernel()(
+            err = _kernels()[0](
                 rows.data_ptr(), 0 if hr is None else hr.data_ptr(), g.data_ptr(), b.data_ptr(),
                 0 if xnew is None else xnew.data_ptr(), y.data_ptr(), M, D, float(eps),
-                _TYPE_CODES[x.dtype], _TYPE_CODES[out_dtype], int(hr is not None), stream,
+                _TYPE_CODES[x.dtype], _TYPE_CODES[out_dtype], int(hr is not None),
+                current_stream(dev),
             )
         if err != 0:
             raise RuntimeError(f"layernorm_fwd launch failed with CUDA error {err}")
@@ -97,6 +117,33 @@ def _launch(x, h, scale, bias, eps, out_dtype):
         else:
             residual_launches += 1
     return xnew, y
+
+
+def _launch_int8(x, h, scale, bias, eps, out_dtype):
+    """Launch the kernel with its int8 output (counted in `int8_launches`,
+    or `residual_int8_launches` when h is given) -> (xnew, (x_q, s_x))."""
+    global int8_launches, residual_int8_launches
+    rows, hr, g, b, out_dtype, M, D = _operands(x, h, scale, bias, out_dtype)
+    check_din(D)
+    dev = rows.get_device()
+    xq = torch.empty(rows.shape, dtype=torch.int8, device=dev)
+    sx = torch.empty((*rows.shape[:-1], 1), dtype=torch.float32, device=dev)
+    xnew = None if hr is None else torch.empty_like(rows)
+    if M:
+        with device_context(dev):
+            err = _kernels()[1](
+                rows.data_ptr(), 0 if hr is None else hr.data_ptr(), g.data_ptr(), b.data_ptr(),
+                0 if xnew is None else xnew.data_ptr(), xq.data_ptr(), sx.data_ptr(), M, D,
+                float(eps), _TYPE_CODES[x.dtype], _TYPE_CODES[out_dtype], int(hr is not None),
+                current_stream(dev),
+            )
+        if err != 0:
+            raise RuntimeError(f"layernorm_int8_fwd launch failed with CUDA error {err}")
+        if hr is None:
+            int8_launches += 1
+        else:
+            residual_int8_launches += 1
+    return xnew, (xq, sx)
 
 
 def layernorm_cuda(x, scale, bias, eps: float = 1e-6, out_dtype=None) -> torch.Tensor:
@@ -123,3 +170,35 @@ def fused_residual_layernorm(x, h, scale, bias, eps: float = 1e-6, out_dtype=Non
     if x.device.type == "cpu":
         return residual_layernorm_reference(x, h, scale, bias, eps, out_dtype)
     return residual_layernorm_cuda(x, h, scale, bias, eps, out_dtype)
+
+
+def layernorm_int8_cuda(x, scale, bias, eps: float = 1e-6, out_dtype=None):
+    """Launch the LayerNorm kernel with its int8 output on CUDA `x` (..., D),
+    D a multiple of 16 up to 4096 -> (x_q (..., D) int8, s_x (..., 1) f32):
+    `quantize_rows` of the LayerNorm in `out_dtype`."""
+    return _launch_int8(x, None, scale, bias, eps, out_dtype)[1]
+
+
+def residual_layernorm_int8_cuda(x, h, scale, bias, eps: float = 1e-6, out_dtype=None):
+    """Launch the residual kernel with its int8 output on CUDA `x`, `h` ->
+    (x + h, (x_q, s_x) of LN(x + h) in `out_dtype`)."""
+    return _launch_int8(x, h, scale, bias, eps, out_dtype)
+
+
+def fused_layernorm_int8(x, scale, bias, eps: float = 1e-6, out_dtype=None):
+    """The LayerNorm over the last dim in `out_dtype`, quantized per token:
+    (x_q, s_x) as `quantize_rows` gives them, on `int8_mm_route`'s route."""
+    out_dtype = out_dtype or x.dtype
+    if int8_mm_route(x.device.type, out_dtype, x.shape[-1]) == "plain":
+        return quantize_rows(fused_layernorm(x, scale, bias, eps, out_dtype))
+    return layernorm_int8_cuda(x, scale, bias, eps, out_dtype)
+
+
+def fused_residual_layernorm_int8(x, h, scale, bias, eps: float = 1e-6, out_dtype=None):
+    """(x + h, (x_q, s_x) of LayerNorm(x + h) in `out_dtype`), on
+    `int8_mm_route`'s route."""
+    out_dtype = out_dtype or x.dtype
+    if int8_mm_route(x.device.type, out_dtype, x.shape[-1]) == "plain":
+        xnew, y = fused_residual_layernorm(x, h, scale, bias, eps, out_dtype)
+        return xnew, quantize_rows(y)
+    return residual_layernorm_int8_cuda(x, h, scale, bias, eps, out_dtype)

@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
   3. kernels vs plain on the card, each then timed with CUDA events at the
      serve shape, as eager calls and as CUDA-graph replays (device time, in
      the JSON line), in turns plain/kernel/kernel/plain:
-       * peak decode (32 maps of 128x128, a non-multiple M, planted ties);
+       * peak decode (32 maps of 128x128 at T 1 and 2, M = 1, 5, 33, maps
+         with a NaN (decoded as the reference's kernel: (0, H) and NaNs),
+         all -inf, planted ties, a non-multiple M), then timed beside the
+         launch floor (the same kernel on one 4x4 map);
        * LayerNorm and residual LayerNorm ((4100, 768) bf16 -> bf16 and
          bf16 -> f32, a non-multiple M, narrow and non-multiple-of-8 D);
        * the same two with their int8 output (`phase_layernorm_int8`: the
@@ -18,16 +21,13 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          kernel followed by `quantize_rows`, two calls bit-identical; timed in turns
          against the kernel pair they replace (the LayerNorm kernel, then
          the row quantization kernel) beside their bytes' bound;
-       * int8 P@V ((48, 1025, 1025) x (48, 1025, 64), a small odd T, masked
-         keys and all-zero rows, pq padded as the serve path writes it, and
-         contiguous at T = 128), its int32 sums read back exactly;
-       * the fused int8 attention and its values' quantization
-         (`phase_int8_attention`: the serve shape (4, 1025, 12, 64) bf16,
+       * the fused int8 attention and its values' quantization, bf16 and
+         f32 (`phase_int8_attention`: the serve shape (4, 1025, 12, 64),
          T = 37, 129, 1, 2305, masked keys, an all-masked batch element,
          RoPE's and strided layouts): the quantized values equal, the output
-         within one value step plus a bf16 ulp of the plain version, planted
-         rows bit-equal, two calls bit-identical; timed in turns plain /
-         the "pv" route (plain chain + the P@V kernel) / fused, beside SDPA;
+         within one value step (plus a bf16 ulp in bf16) of the plain
+         version, planted rows bit-equal, two calls bit-identical; timed in
+         turns plain/fused/fused/plain, beside SDPA in the same dtype;
        * the int8 matmul's quantization and GEMM (`phase_int8_matmul`: the
          serve step's products at M = 4100, 768 -> 768, 768 -> 3072 and
          3072 -> 768, and M = 1, 37, 51 at the serve and small widths, each
@@ -54,20 +54,24 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          12 each a tick, the two int8 LayerNorms 12 each (q, k and v share
          norm1's pair, fc1 reads norm2's), 72 int8 GEMMs and 24 row
          quantizations a tick (out's and fc2's inputs), the final LayerNorm
-         once; no P@V kernel;
+         once;
        * `serve --params RUN/best_params.npz` on the same run directory
          without --int8-backbone (bf16, fused LN): the LayerNorm kernel 13
          times a tick and the residual LayerNorm 12;
-  5. the bare serve steps, bf16 and int8 + fused LN (on both attention
-     routes, and on both int8 matmul routes: the kernels and the plain
-     chain of `int_mm_route()`, in turns), timed on a resident batch and
+  5. the bare serve steps, bf16 and int8 + fused LN (on both int8 matmul
+     routes: the kernels and the plain chain of `int_mm_route()`, in
+     turns), timed on a resident batch and
      checked to never synchronize with the host, with the int8 step's
      `int8_matmul` calls and their one- and two-pass bounds; the int8
-     heatmaps against the bf16 model's and against the other attention
-     route's, identical tokens and heatmaps on the two int8 matmul routes,
-     the bf16 ones against f32; and small f32 and int8 + fused-LN models on
-     the card against the CPU (the f32 int8 model's attention launches the
-     P@V kernel, its matmuls the int8 GEMM and quantization kernels);
+     heatmaps against the bf16 model's, identical tokens and heatmaps on
+     the two int8 matmul routes, the bf16 ones against f32; the int8 +
+     fused-LN serve with the backbone in f32 (`phase_serve_int8_f32`: `serve
+     --int8-backbone --int8-attention` on a temporary f32 run directory, 12
+     f32 fused int8 attentions and 12 values' quantizations a tick, then the
+     bare step's launches and device time); and small f32 and int8 +
+     fused-LN models on the card against the CPU (the f32 int8 model's
+     attention launches the f32 fused kernel, its matmuls the int8 GEMM and
+     quantization kernels);
   6. training, with the render's launches counted over each run only:
        * the full-width multi-view train step (frozen ViT-B/16 at 512 px,
          fr3, 18 groups x 4 views, 128x128 heatmaps, bf16) on batches made
@@ -224,11 +228,13 @@ KERNELS = {
     "residual_layernorm_int8": (layernorm, "residual_int8_launches",
                                 "mvropose_torch/csrc/layernorm.cu",
                                 "mvropose_tpu/models/quantize.py:37"),
-    "int8_pv": (int8_attention, "launches", "mvropose_torch/csrc/int8_pv.cu",
-                "mvropose_tpu/ops/attention.py:73"),  # int8_prob_attention's P@V
-    # int8_prob_attention whole (logits to the dequantized P V), and its values' quantization.
+    # int8_prob_attention whole (logits to the dequantized P V), bf16 and f32
+    # (its pre-pass and kernel), and its values' quantization (both types).
     "int8_attention": (int8_attention, "launches_fused", "mvropose_torch/csrc/int8_attention.cu",
                        "mvropose_tpu/ops/attention.py:29"),
+    "int8_attention_f32": (int8_attention, "launches_fused_f32",
+                           "mvropose_torch/csrc/int8_attention.cu",
+                           "mvropose_tpu/ops/attention.py:29"),
     "int8_quantize_v": (int8_attention, "quantize_v_launches",
                         "mvropose_torch/csrc/int8_attention.cu",
                         "mvropose_tpu/ops/attention.py:70"),
@@ -250,6 +256,8 @@ KERNELS = {
 }
 SERVE_KERNELS = ["peak_decode", "layernorm", "layernorm_int8", "residual_layernorm_int8",
                  "int8_attention", "int8_quantize_v", "int8_matmul", "int8_quantize_rows"]
+# The same served with the backbone in f32: the f32 int8 attention.
+SERVE_KERNELS_F32 = [k if k != "int8_attention" else "int8_attention_f32" for k in SERVE_KERNELS]
 # The same run directory served in bf16 (no --int8-backbone): the float LayerNorms.
 FUSED_LN_KERNELS = ["peak_decode", "layernorm", "residual_layernorm"]
 FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
@@ -269,6 +277,10 @@ FULL_768 = dataclasses.replace(FULL, vit=dataclasses.replace(FULL.vit, image_siz
 # directory whose model_config.json says "vit": {"dtype": "float32", ...}
 # (`read_model_config`; the heads stay in the default bf16).
 FULL_768_F32 = dataclasses.replace(FULL_768, vit=dataclasses.replace(FULL_768.vit, dtype="float32"))
+# The int8 + fused-LN serve model with its backbone in f32 (a run directory
+# whose model_config.json says "vit": {"dtype": "float32", "fused_ln": true}):
+# the f32 int8 attention, 12 a tick at (4, 1025, 12, 64).
+FULL_LN_F32 = dataclasses.replace(FULL_LN, vit=dataclasses.replace(FULL_LN.vit, dtype="float32"))
 
 
 def _script(name: str):
@@ -394,15 +406,15 @@ def spilled_bytes(log: str) -> dict:
 
 
 # The Hopper kernels of the build: the flash forward, dK/dV and dQ at every
-# head width in bf16, in f16 and (split TF32) in f32, the int8 attention and
-# the int8 GEMM.
+# head width in bf16, in f16 and (split TF32) in f32, the int8 attention in
+# bf16 and f32, and the int8 GEMM.
 FLASH_PARTS = attention.FLASH_PARTS
 # The flash kernels' instantiations by element type: the parts it has, and
 # the pattern of one's mangled name (`part` filled in; the width its group).
 HOPPER_TYPES = {"bf16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E13__nv_bfloat16E"),
                 "f16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E6__halfE"),
                 "tf32": (FLASH_PARTS, r"flash_{part}_tf32_sm90_kernelILi(\d+)EE")}
-HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 2
+HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 3
 
 
 def phase_build() -> None:
@@ -437,14 +449,45 @@ def _tie_maps(rng) -> np.ndarray:
     return maps
 
 
+def _poisoned_maps(rng) -> np.ndarray:
+    """128x128 maps with a NaN (in cluster rank 0's quarter, at the last index,
+    two in two ranks), all -inf, a tie across ranks, and a finite control."""
+    maps = 4.0 * rng.normal(size=(6, 128, 128)).astype(np.float32)
+    maps[0, 3, 5] = np.nan
+    maps[1, 127, 127] = np.nan
+    maps[2, 64, 0] = maps[2, 100, 9] = np.nan
+    maps[3] = -np.inf
+    maps[4, 10, 10] = maps[4, 70, 70] = maps[4, 120, 3] = 40.0
+    return maps
+
+
+def _decode_err(got: torch.Tensor, want: torch.Tensor) -> np.ndarray:
+    """Max abs difference per column of two (M, 8) decodes, equal values
+    (-inf too) 0 apart, a NaN equal to a NaN (the reference decodes a NaN map
+    to NaNs), and inf between a NaN and a number."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    gap = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    return torch.nan_to_num(gap, nan=float("inf")).amax(dim=0).cpu().numpy()
+
+
 def phase_peak_decode() -> dict:
     """Kernel vs plain on the card. Argmax exact, confidence 1e-6, soft-argmax
-    1e-3 px (f32 sums in another order), raw peak exact."""
+    1e-3 px (f32 sums in another order), raw peak exact, a NaN equal to a
+    NaN: maps with a NaN decode to (0, H), NaN peak, confidence and soft
+    sums, as the reference's kernel. Cases: the serve shape at T 1 and 2,
+    M = 1, 5, 33 (M C below the SM count: 8, 8 and 4 blocks a map), the NaN,
+    -inf and tie maps at the serve size, a non-multiple M and small maps.
+    Then timed in turns against the plain version, and against one 4x4 map
+    (the launch floor: the same kernel with next to no work)."""
     rng = np.random.default_rng(0)
     serve_maps = 4.0 * rng.normal(size=(32, 128, 128)).astype(np.float32)
     cases = [
         ("serve_t1", serve_maps, 1.0),
         ("serve_t2", serve_maps, 2.0),
+        *((f"m{M}", 4.0 * rng.normal(size=(M, 128, 128)).astype(np.float32), 1.0)
+          for M in (1, 5, 33)),
+        ("poisoned", _poisoned_maps(rng), 1.0),
+        ("poisoned_t2", _poisoned_maps(rng), 2.0),
         ("nonmultiple_m", rng.normal(size=(5, 32, 32)).astype(np.float32), 1.0),
         ("ties", _tie_maps(rng), 1.0),
     ]
@@ -454,21 +497,35 @@ def phase_peak_decode() -> dict:
         got = peak_decode.peak_decode_cuda(x, temperature)
         torch.cuda.synchronize()
         want = peak_decode.peak_decode_reference(x, temperature)
-        err = (got - want).abs().amax(dim=0).cpu().numpy()
+        err = _decode_err(got, want)
         check(err[0] == 0 and err[1] == 0, f"{name}: argmax differs ({err[:2]})")
         check(err[4] <= 1e-6, f"{name}: confidence differs by {err[4]}")
         check(err[2] <= 1e-3 and err[3] <= 1e-3, f"{name}: soft-argmax differs by {err[2:4]}")
         check(err[5] == 0 and err[6] == 0 and err[7] == 0, f"{name}: peak/padding differ")
+        nan = torch.isnan(x.flatten(1)).any(1)
+        check(bool((got[nan, 0] == 0).all() and (got[nan, 1] == x.shape[1]).all()
+                   and torch.isnan(got[nan][:, 2:6]).all()),
+              f"{name}: a NaN map's decode {got[nan]}")
         max_err = max(max_err, float(err.max()))
-        print(f"kernel vs plain [{name} {tuple(maps.shape)} T={temperature}]: "
-              f"max abs err per column {np.array2string(err, precision=9)}")
+        print(f"kernel vs plain [{name} {tuple(maps.shape)} T={temperature}, "
+              f"{peak_decode.cluster_blocks(maps.shape[0], peak_decode._sm_count(0))} blocks a "
+              f"map, "
+              f"{int(nan.sum())} NaN maps]: max abs err per column "
+              f"{np.array2string(err, precision=9)}")
     x = torch.from_numpy(serve_maps).cuda()
     ms, plain_ms = time_in_turns("peak decode", "(32, 128, 128)",
                                  lambda: peak_decode.peak_decode_reference(x),
                                  lambda: peak_decode.peak_decode_cuda(x))
+    tiny = torch.from_numpy(rng.normal(size=(1, 4, 4)).astype(np.float32)).cuda()
+    floor, serve_again = _in_turns(lambda f: graph_ms(f), lambda: peak_decode.peak_decode_cuda(x),
+                                   lambda: peak_decode.peak_decode_cuda(tiny))
+    b = bound(x.numel() * 4 + 32 * 8 * 4)
+    print(f"peak decode (32, 128, 128), CUDA-graph replay in turns serve/floor/floor/serve: "
+          f"{1e3 * serve_again:.2f} us against the launch floor (the same kernel on one 4x4 map) "
+          f"{1e3 * floor:.2f} us; bound {1e3 * b['bound_ms']:.2f} us ({b['bound_by']})")
     # Reads the maps once, writes (32, 8) f32 rows; no PyTorch call decodes peaks.
-    return {"peak_decode": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                            **bound(x.numel() * 4 + 32 * 8 * 4), "library_ms": None}}
+    return {"peak_decode": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
+                            "library_ms": None, "launch_floor_ms": floor}}
 
 
 def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, slack: float = 1e-5) -> float:
@@ -622,74 +679,12 @@ def phase_layernorm_int8() -> dict:
     return out
 
 
-def _pv_operands(BH: int, T: int, seed: int, masked: float = 0.0, zero_rows: int = 0,
-                 padded: bool = True):
-    """pq in the padded row layout the serve path writes (`padded_probs`), or
-    contiguous (which the kernel reads as it is when T is a multiple of 64)."""
-    gen = torch.Generator().manual_seed(seed)
-    pq = torch.randint(0, 128, (BH, T, T), generator=gen, dtype=torch.int8)
-    if masked:
-        pq[:, :, torch.rand(T, generator=gen) < masked] = 0  # masked keys: probability 0
-    if zero_rows:
-        pq[:, T - zero_rows:] = 0
-    vq = torch.randint(-127, 128, (BH, T, 64), generator=gen, dtype=torch.int8)
-    z = 1.0 + 100.0 * torch.rand(BH, T, generator=gen)
-    sv = 1e-4 + torch.rand(BH, 64, generator=gen) / 127.0
-    pq = int8_attention.padded_probs(BH, T, "cuda").copy_(pq) if padded else pq.cuda()
-    return [pq, *(t.cuda() for t in (vq, z, sv))]
-
-
-def phase_int8_pv() -> dict:
-    """int8 P@V kernel vs its plain version on the card. With z = 1/127 and
-    sv = 1 the dequant multiplies by exactly 1, so the f32 output is the int32
-    sums themselves (< 2**24 here): they must equal the f64 sums. With real z
-    and sv the output must be within 1e-6 relative (the same f32 multiplies
-    in the same order: expected equal)."""
-    cases = [("serve", 48, 1025, 0.0, 0, True), ("odd_t", 6, 37, 0.0, 0, True),
-             ("masked_zero_rows", 12, 1025, 0.3, 5, True),
-             ("t_128_contiguous", 4, 128, 0.0, 0, False)]
-    max_abs = max_rel = 0.0
-    for i, (name, BH, T, masked, zero_rows, padded) in enumerate(cases):
-        pq, vq, z, sv = _pv_operands(BH, T, seed=30 + i, masked=masked, zero_rows=zero_rows,
-                                     padded=padded)
-        sums = int8_attention.int8_pv_cuda(pq, vq, torch.full_like(z, 1.0 / 127.0),
-                                           torch.ones_like(sv), torch.float32)
-        torch.cuda.synchronize()
-        exact = torch.bmm(pq.double(), vq.double())
-        check(bool((sums.double() == exact).all()), f"{name}: int32 sums differ")
-        rels = []
-        for dtype in (torch.float32, torch.bfloat16):
-            got = int8_attention.int8_pv_cuda(pq, vq, z, sv, dtype)
-            want = int8_attention.int8_pv_reference(pq, vq, z, sv, dtype)
-            gap = (got.float() - want.float()).abs()
-            rel = float((gap / want.float().abs().clamp_min(1e-30)).max())
-            check(rel <= 1e-6, f"{name} {dtype}: dequantized output {rel} relative apart")
-            rels.append(rel)
-            max_abs = max(max_abs, float(gap.max()))
-        max_rel = max(max_rel, *rels)
-        print(f"kernel vs plain [{name} pq ({BH}, {T}, {T}) masked {masked} zero rows "
-              f"{zero_rows}]: int32 sums exact; max relative err f32 {rels[0]:.3g}, "
-              f"bf16 {rels[1]:.3g}")
-    pq, vq, z, sv = _pv_operands(48, 1025, seed=40)
-    ms, plain_ms = time_in_turns(
-        "int8 P@V", "(48, 1025, 1025) x (48, 1025, 64) -> bf16",
-        lambda: int8_attention.int8_pv_reference(pq, vq, z, sv, torch.bfloat16),
-        lambda: int8_attention.int8_pv_cuda(pq, vq, z, sv, torch.bfloat16), samples=20,
-    )
-    print(f"int8 P@V kernel vs plain: max abs err {max_abs:.3g}, max relative err {max_rel:.3g}")
-    # pq, vq, z, sv read once, the bf16 output written once; the int8
-    # product's operations; torch has no batched int8 product on CUDA.
-    nbytes = pq.numel() + vq.numel() + 4 * (z.numel() + sv.numel()) + 2 * vq.numel()
-    return {"int8_pv": {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                        **bound(nbytes, 2 * 48 * 1025 * 1025 * 64, "int8"), "library_ms": None}}
-
-
-# Fused int8 attention cases: (name, B, T, H, mask, layout). Masks as
-# `_flash_mask` ("random" drops 30 % of the keys, "all" also every key of
-# batch element 1); layouts: "proj" q, k, v views of their projections
-# (B, T, H, d), the serve path's; "rope" q and k (B, H, T, d) storage seen as
-# (B, T, H, d), as RoPE leaves them; "strided" q, k, v slices of one
-# (B, T, 3, H, d) tensor.
+# Fused int8 attention cases: (name, B, T, H, mask, layout), each in bf16
+# and f32. Masks as `_flash_mask` ("random" drops 30 % of the keys, "all"
+# also every key of batch element 1); layouts: "proj" q, k, v views of their
+# projections (B, T, H, d), the serve path's; "rope" q and k (B, H, T, d)
+# storage seen as (B, T, H, d), as RoPE leaves them; "strided" q, k, v
+# slices of one (B, T, 3, H, d) tensor.
 INT8_CASES = [
     ("serve", 4, 1025, 12, None, "proj"),
     ("serve_masked_rope", 4, 1025, 12, "all", "rope"),
@@ -700,15 +695,16 @@ INT8_CASES = [
     ("t2305", 1, 2305, 2, "random", "proj"),  # T > 1536: the quantization in two rounds
 ]
 INT8_SERVE = (4, 1025, 12, 64)  # the int8 serve step's attention: 4 views at 512 px
+INT8_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def _int8_operands(B: int, T: int, H: int, layout: str, seed: int, mask_kind=None,
-                   planted: bool = False):
-    """bf16 (B, T, H, 64) q, k, v on the card in `layout` and a mask. Random:
-    q, k ~ 2 N(0, 1), v ~ N(0, 1) (the CPU tests' scales). Planted: only
-    channel 0 of q and k is nonzero, q in {0, +-512}, k in {+-1}, so every
-    logit is the row's max or 128 below it (e in {0, 1}, z an exact count),
-    and q = 0 rows are uniform."""
+                   planted: bool = False, dtype=torch.bfloat16):
+    """(B, T, H, 64) q, k, v of `dtype` on the card in `layout` and a mask.
+    Random: q, k ~ 2 N(0, 1), v ~ N(0, 1) (the CPU tests' scales). Planted:
+    only channel 0 of q and k is nonzero, q in {0, +-512}, k in {+-1}, so
+    every logit is the row's max or 128 below it (e in {0, 1}, z an exact
+    count), and q = 0 rows are uniform."""
     gen = torch.Generator().manual_seed(seed)
     d = 64
     if planted:
@@ -718,7 +714,7 @@ def _int8_operands(B: int, T: int, H: int, layout: str, seed: int, mask_kind=Non
         v = torch.randn(B, T, H, d, generator=gen)
     else:
         q, k, v = (s * torch.randn(B, T, H, d, generator=gen) for s in (2.0, 2.0, 1.0))
-    q, k, v = (t.to("cuda", torch.bfloat16) for t in (q, k, v))
+    q, k, v = (t.to("cuda", dtype) for t in (q, k, v))
     if layout == "rope":
         q, k = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k))
     elif layout == "strided":
@@ -727,120 +723,135 @@ def _int8_operands(B: int, T: int, H: int, layout: str, seed: int, mask_kind=Non
 
 
 def _int8_bound(out: torch.Tensor, want: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
-    """The CPU tests' bound: one value step sv of the channel, plus 2^-7 of
-    |want| (the bf16 output's ulp); sv (B H, 64) -> (B, T, H, 64)."""
+    """The CPU tests' bound: one value step sv of the channel, plus, for a
+    bf16 output, 2^-7 of |want| (its ulp); sv (B H, 64) -> (B, T, H, 64)."""
     B, T, H, d = want.shape
     step = sv.reshape(B, 1, H, d)
+    if out.dtype == torch.float32:
+        return step.expand(B, T, H, d)
     w = want.float().abs()
     return step + torch.exp2(torch.floor(torch.log2(w.clamp_min(1e-30))) - 7)
 
 
+def int8_attention_bound(B: int, T: int, H: int, d: int, dtype) -> dict:
+    """The least time of the int8 attention at (B, T, H, d): bf16, one QK^T
+    (bf16) and one P V (int8), 2 B H T^2 d operations each, q, k, the int8
+    values and their scales read once and O written once; f32, the logits
+    as three TF32 products in each of the kernel's two passes and the int8
+    P V, q, k, v read once, O written once and the pre-pass's four split
+    parts of q and k written once; both with the B H T^2 exponentials."""
+    pairs, elems = B * H * T * T, B * T * H * d
+    if dtype == torch.float32:
+        ops = {"tf32": 2 * 3 * 2 * pairs * d, "int8": 2 * pairs * d}
+        nbytes = 4 * 4 * elems + 4 * 4 * elems
+    else:
+        Tp = int8_attention._fused_tp(T)
+        ops = {"bf16": 2 * pairs * d, "int8": 2 * pairs * d}
+        nbytes = 2 * 2 * elems + B * H * d * Tp + 4 * B * H * d + 2 * elems
+    return with_exp_floor(bound(nbytes, ops), pairs)
+
+
 def phase_int8_attention() -> dict:
     """The fused int8 attention on the card against its plain versions, and
-    the values' quantization kernel against its own. Per INT8_CASES shape:
-    vt and sv of `int8_quantize_v_cuda` equal `quantize_v_plain`'s; the
-    fused kernel on those values within `_int8_bound` of
-    `int8_attention_reference` (the non-bit-equal outputs counted), and the
-    whole `int8_prob_attention` (quantization + kernel) of
-    `int8_prob_attention_reference`; planted rows (e in {0, 1}) bit-equal;
-    two calls bit-identical. Then, at INT8_SERVE, CUDA-graph replays of the
-    whole function in turns plain/pv/fused/fused/pv/plain (the "pv" route:
-    the plain chain, then the P@V kernel), each kernel alone against its
-    plain version, and SDPA bf16 at the same shape (a near relative: float
-    probabilities)."""
-    max_err = 0.0  # the fused kernel's; the quantized values must be equal
-    for i, (name, B, T, H, mask_kind, layout) in enumerate(INT8_CASES):
-        q, k, v, mask = _int8_operands(B, T, H, layout, seed=100 + i, mask_kind=mask_kind)
-        Tp = int8_attention._fused_tp(T)
-        runs = [int8_attention.int8_quantize_v_cuda(v) for _ in range(2)]
-        vt, sv = runs[0]
-        outs = [int8_attention.int8_attention_cuda(q, k, vt, sv, mask) for _ in range(2)]
-        whole = int8_attention.int8_prob_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(*runs)) and torch.equal(*outs),
-              f"int8 {name}: two calls on the same inputs differ")
-        vt_ref, sv_ref = int8_attention.quantize_v_plain(v, Tp)
-        check(torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref),
-              f"int8 {name}: {int((vt != vt_ref).sum())} quantized values and "
-              f"{int((sv != sv_ref).sum())} scales differ from the plain version")
-        vq, _ = int8_attention.quantize_v_reference(v)
-        want = int8_attention.int8_attention_reference(q, k, vq, sv, mask)
-        want_whole = int8_attention.int8_prob_attention_reference(q, k, v, mask)
-        out = outs[0]
-        check(out.dtype == torch.bfloat16 and out.shape == (B, T, H, 64) and
-              bool(torch.isfinite(out).all()), f"int8 {name}: output {out.dtype} {out.shape}")
-        gap = (out.float() - want.float()).abs()
-        gap_whole = (whole.float() - want_whole.float()).abs()
-        bound_ = _int8_bound(out, want, sv)
-        check(bool((gap <= bound_).all()) and bool((gap_whole <= bound_).all()),
-              f"int8 {name}: {float((gap / bound_).max())} and {float((gap_whole / bound_).max())} "
-              f"of the bound from the plain version")
-        differ = int((out != want).sum())
-        max_err = max(max_err, float(gap.max()))
-        print(f"fused int8 attention vs plain [{name} (B, T, H, d) = {(B, T, H, 64)} mask "
-              f"{mask_kind}, {layout}]: quantized values and scales equal; kernel on them max abs "
-              f"err {float(gap.max()):.4g} ({float((gap / bound_).max()):.3f} of the bound), "
-              f"{differ} of {out.numel()} outputs not bit-equal; whole function max abs err "
-              f"{float(gap_whole.max()):.4g}; two calls bit-identical")
-        q, k, v, mask = _int8_operands(B, T, H, layout, seed=200 + i, mask_kind=mask_kind,
-                                       planted=True)
-        vt, sv = int8_attention.int8_quantize_v_cuda(v)
-        out = int8_attention.int8_attention_cuda(q, k, vt, sv, mask)
-        torch.cuda.synchronize()
-        want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
-        check(torch.equal(out, want), f"int8 {name} planted: {int((out != want).sum())} outputs "
-                                      f"differ from the plain version")
-        print(f"fused int8 attention planted rows [{name}]: bit-equal to the plain version")
-        del q, k, v, vt, sv, out, outs, want, want_whole, whole
-
-    B, T, H, d = INT8_SERVE
-    q, k, v, _ = _int8_operands(B, T, H, "proj", seed=300)
-    Tp = int8_attention._fused_tp(T)
-    vt, sv = int8_attention.int8_quantize_v_cuda(v)
-    vq, _ = int8_attention.quantize_v_reference(v)
+    the values' quantization kernel against its own, bf16 and f32. Per
+    INT8_CASES shape and dtype: vt and sv of `int8_quantize_v_cuda` equal
+    `quantize_v_plain`'s; the fused kernel (f32: its pre-pass and kernel) on
+    those values within `_int8_bound` of `int8_attention_reference` (the
+    non-bit-equal outputs counted), and the whole `int8_prob_attention`
+    (quantization + kernel) of `int8_prob_attention_reference`; planted rows
+    (e in {0, 1}) bit-equal; two calls bit-identical. Then, at INT8_SERVE in
+    each dtype, CUDA-graph replays of the whole function in turns
+    plain/fused/fused/plain, each kernel alone against its plain version,
+    and SDPA in the same dtype (a near relative: float probabilities)."""
+    max_err = {name: 0.0 for name in INT8_DTYPES}  # the kernels'; the quantized values equal
+    for dname, dtype in INT8_DTYPES.items():
+        for i, (name, B, T, H, mask_kind, layout) in enumerate(INT8_CASES):
+            q, k, v, mask = _int8_operands(B, T, H, layout, seed=100 + i, mask_kind=mask_kind,
+                                           dtype=dtype)
+            Tp = int8_attention._fused_tp(T)
+            runs = [int8_attention.int8_quantize_v_cuda(v) for _ in range(2)]
+            vt, sv = runs[0]
+            outs = [int8_attention.int8_attention_cuda(q, k, vt, sv, mask) for _ in range(2)]
+            whole = int8_attention.int8_prob_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*runs)) and torch.equal(*outs),
+                  f"int8 {dname} {name}: two calls on the same inputs differ")
+            vt_ref, sv_ref = int8_attention.quantize_v_plain(v, Tp)
+            check(torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref),
+                  f"int8 {dname} {name}: {int((vt != vt_ref).sum())} quantized values and "
+                  f"{int((sv != sv_ref).sum())} scales differ from the plain version")
+            vq, _ = int8_attention.quantize_v_reference(v)
+            want = int8_attention.int8_attention_reference(q, k, vq, sv, mask)
+            want_whole = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+            out = outs[0]
+            check(out.dtype == dtype and out.shape == (B, T, H, 64) and
+                  bool(torch.isfinite(out).all()), f"int8 {dname} {name}: output {out.dtype} "
+                                                   f"{out.shape}")
+            gap = (out.float() - want.float()).abs()
+            gap_whole = (whole.float() - want_whole.float()).abs()
+            bound_ = _int8_bound(out, want, sv)
+            check(bool((gap <= bound_).all()) and bool((gap_whole <= bound_).all()),
+                  f"int8 {dname} {name}: {float((gap / bound_).max())} and "
+                  f"{float((gap_whole / bound_).max())} of the bound from the plain version")
+            differ = int((out != want).sum())
+            max_err[dname] = max(max_err[dname], float(gap.max()))
+            print(f"fused int8 attention vs plain [{dname} {name} (B, T, H, d) = {(B, T, H, 64)} "
+                  f"mask {mask_kind}, {layout}]: quantized values and scales equal; kernel on them "
+                  f"max abs err {float(gap.max()):.4g} ({float((gap / bound_).max()):.3f} of the "
+                  f"bound), {differ} of {out.numel()} outputs not bit-equal; whole function max "
+                  f"abs err {float(gap_whole.max()):.4g}; two calls bit-identical")
+            q, k, v, mask = _int8_operands(B, T, H, layout, seed=200 + i, mask_kind=mask_kind,
+                                           planted=True, dtype=dtype)
+            vt, sv = int8_attention.int8_quantize_v_cuda(v)
+            out = int8_attention.int8_attention_cuda(q, k, vt, sv, mask)
+            torch.cuda.synchronize()
+            want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+            check(torch.equal(out, want), f"int8 {dname} {name} planted: "
+                                          f"{int((out != want).sum())} outputs differ from the "
+                                          f"plain version")
+            print(f"fused int8 attention planted rows [{dname} {name}]: bit-equal to the plain "
+                  f"version")
+            del q, k, v, vt, sv, out, outs, want, want_whole, whole
 
     def timer(fn):
         return graph_ms(fn, iters=5, samples=20)
 
-    def pv_route():
-        with int8_attention.pv_route():
-            int8_attention.int8_prob_attention(q, k, v)
-
-    fns = {"plain": lambda: int8_attention.int8_prob_attention_reference(q, k, v),
-           "pv_route": pv_route, "fused": lambda: int8_attention.int8_prob_attention(q, k, v)}
-    order = ["plain", "pv_route", "fused"]
-    t = {name: [] for name in order}
-    for name in order + order[::-1]:
-        t[name].append(timer(fns[name]))
-    whole = {name: statistics.mean(ts) for name, ts in t.items()}
-    kernel, kernel_plain = _in_turns(
-        timer, lambda: int8_attention.int8_attention_reference(q, k, vq, sv),
-        lambda: int8_attention.int8_attention_cuda(q, k, vt, sv))
-    quant, quant_plain = _in_turns(timer, lambda: int8_attention.quantize_v_plain(v, Tp),
-                                   lambda: int8_attention.int8_quantize_v_cuda(v))
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
-    # The function's work: one QK^T (bf16) and one P V (int8), 2 B H T^2 d
-    # operations each; the kernel reads q, k, the int8 values and their
-    # scales once and writes O once; and B H T^2 exponentials.
-    pairs = B * H * T * T
-    kbytes = 2 * 2 * B * T * H * d + vt.numel() + 4 * sv.numel() + 2 * B * T * H * d
-    kb = with_exp_floor(bound(kbytes, {"bf16": 2 * pairs * d, "int8": 2 * pairs * d}), pairs)
-    qb = bound(2 * B * T * H * d + vt.numel() + 4 * sv.numel())
-    print(f"int8 attention {INT8_SERVE} bf16, ms per call, CUDA-graph replay, in turns "
-          f"plain/pv/fused/fused/pv/plain: whole function "
-          + ", ".join(f"{n} {'/'.join(f'{x:.4f}' for x in t[n])}" for n in order)
-          + f"; fused kernel alone {kernel:.4f} (plain {kernel_plain:.4f}), bound "
-          f"{fmt_bound(kb)} (ex2 at {exp_per_s():.4g}/s); values' quantization kernel "
-          f"{quant:.4f} (plain {quant_plain:.4f}, bound {qb['bound_ms']:.4f}), {100 * quant / whole['fused']:.1f} % of the fused route; SDPA "
-          f"bf16 (float probabilities, a near relative) {sdpa:.4f}")
-    return {"int8_attention": {"max_abs_err": max_err, "ms": kernel, "plain_ms": kernel_plain,
-                               "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
-                               "library_ms": None, "fused_route_ms": whole["fused"],
-                               "pv_route_ms": whole["pv_route"], "plain_route_ms": whole["plain"],
-                               "sdpa_ms": sdpa},
-            "int8_quantize_v": {"max_abs_err": 0.0, "ms": quant,
-                                "plain_ms": quant_plain, **qb, "library_ms": None}}
+    result = {}
+    B, T, H, d = INT8_SERVE
+    for dname, dtype in INT8_DTYPES.items():
+        q, k, v, _ = _int8_operands(B, T, H, "proj", seed=300, dtype=dtype)
+        Tp = int8_attention._fused_tp(T)
+        vt, sv = int8_attention.int8_quantize_v_cuda(v)
+        vq, _ = int8_attention.quantize_v_reference(v)
+        fused, plain = _in_turns(
+            timer, lambda: int8_attention.int8_prob_attention_reference(q, k, v),
+            lambda: int8_attention.int8_prob_attention(q, k, v))
+        kernel, kernel_plain = _in_turns(
+            timer, lambda: int8_attention.int8_attention_reference(q, k, vq, sv),
+            lambda: int8_attention.int8_attention_cuda(q, k, vt, sv))
+        quant, quant_plain = _in_turns(timer, lambda: int8_attention.quantize_v_plain(v, Tp),
+                                       lambda: int8_attention.int8_quantize_v_cuda(v))
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+        kb = int8_attention_bound(B, T, H, d, dtype)
+        qb = bound(v.element_size() * v.numel() + vt.numel() + 4 * sv.numel())
+        kname = "int8_attention" if dtype == torch.bfloat16 else "int8_attention_f32"
+        alone = "fused kernel alone" if dtype == torch.bfloat16 else "pre-pass + fused kernel"
+        print(f"int8 attention {INT8_SERVE} {dname}, ms per call, CUDA-graph replay, in turns "
+              f"plain/fused/fused/plain: whole function fused {fused:.4f}, plain {plain:.4f}; "
+              f"{alone} {kernel:.4f} (plain {kernel_plain:.4f}), bound {fmt_bound(kb)} (ex2 at "
+              f"{exp_per_s():.4g}/s); values' quantization kernel {quant:.4f} (plain "
+              f"{quant_plain:.4f}, bound {qb['bound_ms']:.4f}), {100 * quant / fused:.1f} % of "
+              f"the fused route; SDPA {dname} (float probabilities, a near relative) {sdpa:.4f}")
+        result[kname] = {"max_abs_err": max_err[dname], "ms": kernel, "plain_ms": kernel_plain,
+                         "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+                         "library_ms": None, "fused_route_ms": fused, "plain_route_ms": plain,
+                         "sdpa_ms": sdpa}
+        result.setdefault("int8_quantize_v", {"max_abs_err": 0.0, "ms": quant,
+                                              "plain_ms": quant_plain, **qb, "library_ms": None})
+        result["int8_quantize_v"][f"{dname}_ms"] = quant
+        del q, k, v, vt, sv, vq
+    return result
 
 
 # The int8 serve step's products (ViT-B/16 at 512 px, M = 4 views x 1025
@@ -1655,10 +1666,6 @@ def phase_counters() -> None:
             torch.ones(n, 16, device="cuda"), g16, b16),
         "residual_layernorm_int8": lambda n: layernorm.residual_layernorm_int8_cuda(
             torch.ones(n, 16, device="cuda"), torch.ones(n, 16, device="cuda"), g16, b16),
-        "int8_pv": lambda n: int8_attention.int8_pv_cuda(
-            int8_attention.padded_probs(2, n, "cuda").zero_(),
-            torch.zeros(2, n, 64, dtype=torch.int8, device="cuda"),
-            torch.ones(2, n, device="cuda"), torch.ones(2, 64, device="cuda"), torch.float32),
         "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
             torch.zeros(n, 3, device="cuda"), 4, 4),
         "int8_quantize_v": lambda n: int8_attention.int8_quantize_v_cuda(
@@ -1670,6 +1677,10 @@ def phase_counters() -> None:
             torch.zeros(8, 16, dtype=torch.int8, device="cuda").t(), g, None, torch.float32),
         "int8_attention": lambda n: int8_attention.int8_attention_cuda(
             *(torch.zeros(1, n, 2, 64, dtype=torch.bfloat16, device="cuda"),) * 2,
+            torch.zeros(2, 64, int8_attention._fused_tp(n), dtype=torch.int8, device="cuda"),
+            torch.ones(2, 64, device="cuda")),
+        "int8_attention_f32": lambda n: int8_attention.int8_attention_cuda(
+            *(torch.zeros(1, n, 2, 64, device="cuda"),) * 2,
             torch.zeros(2, 64, int8_attention._fused_tp(n), dtype=torch.int8, device="cuda"),
             torch.ones(2, 64, device="cuda")),
     }
@@ -2003,9 +2014,9 @@ def seed0_flat(cfg: EstimatorConfig = FULL) -> dict:
     return random_flat(MultiViewPoseEstimator(cfg, device="meta"))
 
 
-def _int8_model(flat: dict, device) -> MultiViewPoseEstimator:
+def _int8_model(flat: dict, device, cfg: EstimatorConfig = FULL_LN) -> MultiViewPoseEstimator:
     """What `serve --int8-backbone --int8-attention` builds from the run dir."""
-    model = MultiViewPoseEstimator(FULL_LN, device=device).eval()
+    model = MultiViewPoseEstimator(cfg, device=device).eval()
     load_jax_params(model, flat)
     int8ify(model, flat, attn=True)
     return model
@@ -2068,14 +2079,14 @@ def _never_syncs(step) -> None:
 
 def phase_step(flat: dict) -> float:
     """The bare serve steps on a resident batch, bf16 and int8 + fused LN,
-    timed in turns, and the int8 step on its two attention routes (the fused
-    kernel; the plain chain and the P@V kernel, `pv_route`) in turns
-    pv/fused/fused/pv, none synchronizing with the host; the int8 backbone
-    tokens and heatmaps against the bf16 model's on the same weights, the
-    two int8 routes' against each other, and the bf16 heatmaps against the
-    same weights in f32 (TF32 off). With random N(0, 0.02) weights the blocks
-    add little to the residual stream, so these gaps are small by
-    construction: accuracy against the reference is held by the CPU tests.
+    timed in turns, and the int8 step on its two int8 matmul routes (the
+    kernels; the plain chain, `int_mm_route`) in turns, none synchronizing
+    with the host; the int8 backbone tokens and heatmaps against the bf16
+    model's on the same weights, the two int8 matmul routes' against each
+    other, and the bf16 heatmaps against the same weights in f32 (TF32
+    off). With random N(0, 0.02) weights the blocks add little to the
+    residual stream, so these gaps are small by construction: accuracy
+    against the reference is held by the CPU tests.
     -> the bf16 vs f32 heatmap gap."""
     dev = torch.device("cuda")
     state = random_state(MultiViewPoseEstimator(FULL, device="meta"), seed=0)
@@ -2088,12 +2099,6 @@ def phase_step(flat: dict) -> float:
     with torch.inference_mode():
         steps = {name: (lambda m=m: serve_step(m, frames, mask, 512, (720, 1280)))
                  for name, m in (("bf16", bf16), ("int8_ln", int8))}
-
-        def int8_pv_step():
-            with int8_attention.pv_route():
-                return steps["int8_ln"]()
-
-        steps["int8_ln_pv"] = int8_pv_step
 
         def int8_int_mm_step():
             with int8_matmul.int_mm_route():
@@ -2112,8 +2117,6 @@ def phase_step(flat: dict) -> float:
               f"kernels' quantization, then the GEMM) {b2['bound_ms']:.4f} ms "
               f"({b2['bound_by']}: {two_bytes / 1e6:.2f} MB)")
         graph = {name: graph_ms(step, iters=1, samples=30) for name, step in steps.items()}
-        routes = [(n, graph_ms(steps[n], iters=1, samples=30))
-                  for n in ("int8_ln_pv", "int8_ln", "int8_ln", "int8_ln_pv")]
         mm_routes = [(n, graph_ms(steps[n], iters=1, samples=30))
                      for n in ("int8_ln_int_mm", "int8_ln", "int8_ln", "int8_ln_int_mm")]
         torch.cuda.synchronize()
@@ -2125,9 +2128,6 @@ def phase_step(flat: dict) -> float:
             print(f"forward peak memory [{name}]: "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             tokens[name] = model.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
-        with int8_attention.pv_route():
-            outs["int8_ln_pv"] = int8(imgs, view_ids, mask[None])
-            tokens["int8_ln_pv"] = int8.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
         with int8_matmul.int_mm_route():
             outs["int8_ln_int_mm"] = int8(imgs, view_ids, mask[None])
             tokens["int8_ln_int_mm"] = int8.backbone(imgs[0].permute(0, 3, 1, 2))["patch_tokens"]
@@ -2141,8 +2141,6 @@ def phase_step(flat: dict) -> float:
           "median of 30, in turns: " + ", ".join(f"{n} {t:.3f}" for n, t in turns)
           + "; CUDA-graph replay (device time): "
           + ", ".join(f"{n} {t:.3f}" for n, t in graph.items())
-          + "; the int8 step's attention routes in turns pv/fused/fused/pv (CUDA-graph replay): "
-          + ", ".join(f"{n} {t:.3f}" for n, t in routes)
           + "; its int8 matmul routes in turns int_mm/kernel/kernel/int_mm (CUDA-graph replay): "
           + ", ".join(f"{n} {t:.3f}" for n, t in mm_routes)
           + "; no host-device sync inside any step")
@@ -2153,16 +2151,7 @@ def phase_step(flat: dict) -> float:
           f"{float((tokens['int8_ln'] - tokens['int8_ln_int_mm']).abs().max()):.4g}) or heatmaps")
     print("int8 + fused LN, the int8 matmul kernels vs the plain chain (int_mm_route): patch "
           "tokens, heatmaps and angles identical")
-    a, b = tokens["int8_ln"], tokens["int8_ln_pv"]
-    hm, hm_pv = outs["int8_ln"][0].float(), outs["int8_ln_pv"][0].float()
-    check(bool(torch.isfinite(hm).all()), "int8 heatmaps on the fused route not finite")
-    agree = float((hm.flatten(3).argmax(-1) == hm_pv.flatten(3).argmax(-1)).float().mean())
-    print(f"int8 + fused LN, fused kernel vs the pv route (plain chain + P@V kernel): "
-          f"patch-token cosine min "
-          f"{float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min()):.6f}, max abs diff "
-          f"{float((a - b).abs().max()):.6g}; heatmap max abs diff "
-          f"{float((hm - hm_pv).abs().max()):.6g} (heatmap max abs {float(hm_pv.abs().max()):.6g}),"
-          f" argmax agreement {agree:.4f} of 32 maps")
+    check(bool(torch.isfinite(outs["int8_ln"][0]).all()), "int8 heatmaps not finite")
     a, b = tokens["int8_ln"], tokens["bf16"]
     check(bool(torch.isfinite(a).all()), "int8 backbone tokens not finite")
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
@@ -2181,6 +2170,68 @@ def phase_step(flat: dict) -> float:
               f"{float(hm_ref.abs().max()):.6g}), argmax agreement {agree:.4f} of 32 maps, "
               f"angle max abs diff {float((ang - ang_ref).abs().max()):.6g}")
     return gaps["f32"]
+
+
+# A tick of the int8 + fused-LN serve: 12 blocks, each one fused attention
+# with its values' quantization, six products (q, k, v, out, fc1, fc2), two
+# int8 LayerNorms (q, k and v share norm1's pair, fc1 reads norm2's) and two
+# row quantizations (out's and fc2's inputs); and the final LayerNorm.
+INT8_TICK = {"int8_attention": 12, "int8_quantize_v": 12, "int8_matmul": 72,
+             "int8_quantize_rows": 24, "layernorm_int8": 12, "residual_layernorm_int8": 12,
+             "layernorm": 1}
+
+
+def check_int8_tick(label: str, launches: dict, attention_kernel: str) -> None:
+    ticks = launches["peak_decode"]
+    for name, per_tick in INT8_TICK.items():
+        name = attention_kernel if name == "int8_attention" else name
+        check(launches[name] == per_tick * ticks,
+              f"{label}: {launches[name]} {name} launches for {ticks} ticks, not {per_tick} each")
+
+
+def phase_serve_int8_f32() -> dict:
+    """`serve --params RUN/best_params.npz --int8-backbone --int8-attention`
+    through the CLI's parser on a temporary run directory under build/ whose
+    model_config.json is FULL_LN_F32's ("vit": {"dtype": "float32",
+    "fused_ln": true}; ViT-B/16 at 512 px, seed-0 weights exported with
+    `export_jax_params`), at the CLI's other defaults (4 synthetic 720x1280
+    cameras): a tick launches the f32 fused int8 attention and its values'
+    quantization 12 times each, one peak decode, the int8 matmul kernels
+    and LayerNorms as the bf16 int8 serve, and no bf16 int8 attention. Then
+    the bare step on a resident batch: its launches, no host-device sync,
+    its device time by CUDA-graph replay. -> launches."""
+    dev = torch.device("cuda")
+    flat = seed0_flat(FULL_LN_F32)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as run:
+        write_run_dir(run, FULL_LN_F32, 512, flat)
+        launches = _serve(["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
+                           "--int8-attention"], "f32 int8 + fused LN", SERVE_KERNELS_F32)
+    check_int8_tick("f32 int8 serve", launches, "int8_attention_f32")
+    model = _int8_model(flat, dev, FULL_LN_F32)
+    del flat
+    frames = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, size=(4, 720, 1280, 3), dtype=np.uint8)
+    ).to(dev)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        step = lambda: serve_step(model, frames, mask, 512, (720, 1280))  # noqa: E731
+        step()
+        _reset_launches()
+        xy, conf, ang = step()
+        torch.cuda.synchronize()
+        got = _read_launches()
+        want = {k: 0 for k in KERNELS}
+        want.update(INT8_TICK, int8_attention=0, int8_attention_f32=12, peak_decode=1)
+        check(got == want and bool(torch.isfinite(conf).all()), f"f32 int8 step launched {got}")
+        _never_syncs(step)
+        device_ms = graph_ms(step, iters=1, samples=30)
+        eager_ms = cuda_ms(step, 1, samples=30)
+    print(f"serve step f32 int8 + fused LN (ViT-B/16 at 512 px, backbone f32; preprocess + model "
+          f"+ decode, 4x720x1280 u8 resident): CUDA-graph replay (device time) {device_ms:.3f} "
+          f"ms; eager {eager_ms:.3f} ms/step (CUDA events, median of 30); a step launches "
+          f"{got['int8_attention_f32']} f32 int8 attentions, {got['int8_quantize_v']} values' "
+          f"quantizations, {got['peak_decode']} peak decode; no host-device sync")
+    return launches
 
 
 @contextlib.contextmanager
@@ -2575,10 +2626,10 @@ def phase_small_reference() -> dict:
     boundary rounding the other way can move them (on the CPU alone, a 1e-4
     relative input perturbation moved this model's heatmaps by 9e-6 and its
     angles by 3.5e-3). Keypoints equal wherever the top-2 heatmap margin is
-    10x the gap. The f32 int8 model's attention takes the "pv" route: the
-    P@V kernel in each block, never the fused kernel; its int8 matmuls take
-    the kernels of `csrc/int8_gemm.cu`, its LayerNorms the int8 output.
-    -> the int8 model's launches."""
+    10x the gap. The f32 int8 model's attention takes the "fused_f32"
+    route: the f32 fused kernel in each block, never the bf16 one; its int8
+    matmuls take the kernels of `csrc/int8_gemm.cu`, its LayerNorms the int8
+    output. -> the int8 model's launches."""
     vit = ViTConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2, num_heads=2,
                     dtype="float32")
     cfg = EstimatorConfig(vit=vit, num_joints=8, num_angles=7, heatmap_size=(32, 32),
@@ -2586,7 +2637,7 @@ def phase_small_reference() -> dict:
     _small_reference("float", cfg, 0.2, False, 1e-3, 1e-3)
     cfg = dataclasses.replace(cfg, vit=dataclasses.replace(vit, fused_ln=True))
     launches = _small_reference("int8 + fused-LN", cfg, 0.1, True, 1e-4, 1e-2)
-    check(launches["int8_pv"] > 0 and launches["int8_attention"] == 0
+    check(launches["int8_attention_f32"] > 0 and launches["int8_attention"] == 0
           and launches["int8_matmul"] > 0 and launches["int8_quantize_rows"] > 0
           and launches["layernorm_int8"] > 0 and launches["residual_layernorm_int8"] > 0,
           f"the f32 int8 model launched {launches}")
@@ -2714,7 +2765,6 @@ def main() -> int:
     device = phase_device()
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_layernorm_int8(),
-                **phase_int8_pv(),
                 **phase_int8_attention(), **phase_int8_matmul(), **phase_heatmap_render(),
                 **phase_flash()}
     for name, extra in phase_f32().items():
@@ -2736,16 +2786,7 @@ def main() -> int:
         )
         ln_launches = _serve(["--params", str(Path(run) / "best_params.npz")], "fused LN, bf16",
                              FUSED_LN_KERNELS)
-    # A tick: 12 blocks, each one fused attention with its values'
-    # quantization, six products (q, k, v, out, fc1, fc2), two int8
-    # LayerNorms (q, k and v share norm1's pair, fc1 reads norm2's) and two
-    # row quantizations (out's and fc2's inputs); and the final LayerNorm.
-    for name, per_tick in (("int8_attention", 12), ("int8_quantize_v", 12), ("int8_matmul", 72),
-                           ("int8_quantize_rows", 24), ("layernorm_int8", 12),
-                           ("residual_layernorm_int8", 12), ("layernorm", 1)):
-        check(int8_launches[name] == per_tick * int8_launches["peak_decode"],
-              f"int8 serve: {int8_launches[name]} {name} launches for "
-              f"{int8_launches['peak_decode']} ticks, not {per_tick} each")
+    check_int8_tick("int8 serve", int8_launches, "int8_attention")
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
     # The bf16 fused-LN tick: norm1 and the final norm, the residual norm2.
     for name, per_tick in (("layernorm", 13), ("residual_layernorm", 12)):
@@ -2759,8 +2800,8 @@ def main() -> int:
     del flat
     serve_768_f32 = phase_serve_768_f32()
     phase_step_768(gap_512, FULL_768_F32)
-    small = phase_small_reference()
-    launches["int8_pv"] = small["int8_pv"]
+    launches["int8_attention_f32"] = phase_serve_int8_f32()["int8_attention_f32"]
+    phase_small_reference()
     launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
     train_768 = phase_train_768()
     train_768_f32 = phase_train_768(UNFROZEN_768_F32, TRAIN_768_F32_GROUPS)

@@ -133,7 +133,7 @@
 #include <cuda.h>  // CUtensorMap and its encoder's types; the encoder via the runtime
 #include <cuda_runtime.h>
 
-#include "sm90_common.cuh"  // mbarriers, Ring, wgmma wrappers, turns, softmax_tile
+#include "sm90_common.cuh"  // mbarriers, Ring, wgmma wrappers, turns, softmax_tile, the split, 2-D maps
 
 namespace {
 
@@ -147,13 +147,6 @@ constexpr int kSplitRows = 32;  // rows (keys) per block of the pre-pass
 constexpr int kSplitThreads = 256;
 
 __host__ __device__ constexpr int64_t padded(int T) { return (T + kPad - 1) / kPad * kPad; }
-
-// x with its low 13 mantissa bits cleared: an exact TF32 value.
-__device__ __forceinline__ float tf32_big(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-// The rest of x, itself cleared to TF32: x - tf32_big(x) is exact in f32.
-__device__ __forceinline__ float tf32_small(float x) { return tf32_big(x - tf32_big(x)); }
 
 struct Tf32Params {
   // 2D maps over the scratch: Q_big, Q_small, K_big, K_small as (B H Tp)
@@ -916,25 +909,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     add_acc<D>(dq, acc);
   }
   store_rows_f32<D, D>(p.out0, dq, p.scale, T, p.H, b, h, row0, 0, g, t);
-}
-
-// A 2D tensor map over `rows` rows of `inner` f32 (row stride inner * 4
-// bytes), boxes of box_inner x box_rows with the swizzle of a box row's
-// bytes (128 or 64) -> 0 or the CUresult of the encoding.
-int make_map_2d(CUtensorMap* map, const float* base, int64_t inner, int64_t rows, int box_inner,
-                int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 4};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_inner * 4 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
-                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 // The forward's arguments.

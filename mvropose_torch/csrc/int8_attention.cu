@@ -79,10 +79,42 @@
 //     4 waves of 132, not 384 in 3.
 // q and k are read through their (B, T, H, 64) strides by TMA tensor maps
 // built on the host per call (a CUDA graph captures them as parameters).
+//
+// f32 q, k and v (int8_attention_sm90_kernel<float>, int8_quantize_v_kernel<
+// float>): the reference's f32 route, the logits, exponents and
+// probabilities in f32. What the f32 instantiation changes, on the same plan
+// (two passes, the ring, the turns, the codes, P V and the dequant):
+//   * S on split-TF32 wgmma (csrc/flash_attention_tf32.cu's three-product
+//     form): a pre-pass (int8_split_qk_kernel, launched by the same entry
+//     point) writes q / 8 (the reference's q * sm_scale in q's dtype, exact
+//     at d = 64) and k as their big and small TF32 parts in row order, (B H,
+//     Tp, 64) each, into a scratch buffer the wrapper allocates; S = Q_big
+//     K_small + Q_small K_big, then Q_big K_big (the small terms first: the
+//     tensor cores round each partial sum toward zero, so only the big
+//     term's k-steps round at the sum's full magnitude), m64n128k8, both
+//     operands K-major in shared memory (TF32 reads K-major only; Q and K
+//     are both K-major in Q K^T). Q big and small (64 KB) and a stage's K big
+//     and small (64 KB) and values (8 KB) leave room for 2 stages;
+//   * the masked logit is f32's lowest finite value, and pass 2 follows the
+//     reference's f32 rounding points: e = expf(s - m) (the accurate expf
+//     that torch's f32 exp uses on CUDA), z += e, pq = rint(fl(127 e)):
+//     __fmul_rn(e, 127) and then the rounding to an integer by adding 1.5 *
+//     2^23 (__fadd_rn). The bf16 kernel's single fma(e, 127, 1.5 * 2^23) is
+//     exact there only because a bf16 e times 127 is exact in f32; an f32 e
+//     rounds twice in the reference (e = 0.7440945: fl(127 e) = 94.5 -> 94,
+//     where one rounding gives 95);
+//   * the output in f32. The values' kernel reads 8 f32 channels a key as
+//     two 16-byte words.
+// Bound at the serve shape (4, 1025, 12, 64): three TF32 S products in each
+// of two passes, 78.2 us at 495 TFLOP/s, and P V in int8, 3.3 us; the pre-
+// pass's 75.6 MB of reads and writes, 22.6 us at 3.35 TB/s; the 50.4 M
+// exponentials 12.1 us beside the products.
 
 #include <algorithm>
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -96,33 +128,65 @@ namespace {
 constexpr int kConsumers = 2;                     // consumer warpgroups of kHRows queries
 constexpr int kBlockQ = kConsumers * kHRows;      // queries of a block: 128
 constexpr int kKeys = 128;                        // keys of a streamed tile
-constexpr int kStages = 4;                        // ring depth
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
-constexpr int kKTile = kKeys * kHD * 2;           // bytes of a bf16 K tile: 16 KB
 constexpr int kVTile = kHD * kKeys;               // bytes of an int8 value tile: 8 KB
-constexpr int kStage = kKTile + kVTile;
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;
 constexpr int kInnerQ = 1, kInnerK = 2;  // bits of heads_inner
 constexpr float kRound = 12582912.0f;    // 1.5 * 2^23: x + kRound rounds x to an integer
+constexpr int kF32Cols = 32;             // f32 of a column chunk: one 128-byte swizzle atom
+constexpr int kF32Chunk = kKeys * kF32Cols * 4;  // bytes of a chunk of 128 rows: 16 KB
+static_assert(kBlockQ == kKeys, "Q and a K tile share the f32 chunk size");
+constexpr int kSplitRows = 16;  // rows of a pre-pass block: 16 float4 a row
 
+// What differs between the two element types: the masked logit (the plain
+// branch's finfo(dtype).min), a logit from raw S (the bf16 kernel scales S
+// by 1/8; the f32 one reads q / 8 from its pre-pass), and the shared memory
+// of Q and of a K tile (f32: big and small parts, in column chunks of 32).
+template <typename E>
+struct Int8Plan;
+template <>
+struct Int8Plan<bf16> {
+  static constexpr float kMaskedLogit = kMasked;
+  static __device__ __forceinline__ float logit(float s) { return s * 0.125f; }
+  static constexpr int kQBytes = kBlockQ * kHD * 2;  // 16 KB
+  static constexpr int kKTile = kKeys * kHD * 2;     // 16 KB
+  static constexpr int kStages = 4;
+};
+template <>
+struct Int8Plan<float> {
+  static constexpr float kMaskedLogit = -FLT_MAX;
+  static __device__ __forceinline__ float logit(float s) { return s; }
+  static constexpr int kQBytes = 2 * kBlockQ * kHD * 4;  // Q_big, Q_small: 64 KB
+  static constexpr int kKTile = 2 * kKeys * kHD * 4;     // K_big, K_small: 64 KB
+  static constexpr int kStages = 2;
+};
+
+template <typename E>
 struct Smem {
+  using P = Int8Plan<E>;
+  static constexpr int kStages = P::kStages;
   static constexpr int kQ = 0;
-  static constexpr int kRing = kQ + kBlockQ * kHD * 2;
+  static constexpr int kRing = kQ + P::kQBytes;
+  static constexpr int kStage = P::kKTile + kVTile;        // a stage: K (both parts), values
   static constexpr int kCodes = kRing + kStages * kStage;  // a code per key and stage
   static constexpr int kFlags = kCodes + kStages * kKeys;  // a flag per stage
   static constexpr int kBars = (kFlags + kStages + 7) / 8 * 8;
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
+  static_assert(kAlloc <= kMaxSmem, "more shared memory than a block can have");
 };
 
 struct Int8Params {
-  CUtensorMap q, k;  // (B, T, H, 64) bf16 through their strides (make_map)
+  // bf16: q, k (B, T, H, 64) through their strides (make_map). f32: q, k
+  // the big parts and qs, ks the small parts of the pre-pass, (B H Tp) rows
+  // of 64 f32 (make_map_2d), boxes of 32 f32 x 128 rows.
+  CUtensorMap q, k, qs, ks;
   CUtensorMap vt;    // (B H, 64, Tp) int8 values, boxes of 128 keys x 64 channels
   int heads_inner;   // bits kInnerQ, kInnerK: the map's dims are (d, H, T, B)
   const uint8_t* mask;  // (B, T), 0 = key not attended; null: every key attended
   const float* sv;      // (B H, 64) the values' scales
-  bf16* out;            // (B, T, H, 64) contiguous
-  int B, H, T;
+  void* out;            // (B, T, H, 64) contiguous, in the operands' type
+  int B, H, T, Tp;
 };
 
 // `key_position`, where key j (of a tile) sits among the K-major bytes of
@@ -169,14 +233,15 @@ __device__ __forceinline__ void product_pv(int (&o)[8][4], const uint32_t (&pa)[
   for (int kk = 0; kk < kKeys / 32; ++kk) wgmma_rs64_s8(o, pa[kk], v + 2 * kk);
 }
 
-// A logit of a coded tile in f32, S / 8 at an attended key, the masked
-// logit at a masked one, -inf past T (code 0, 1, 2).
+// A logit of a coded tile in f32: the logit of raw S at an attended key,
+// the masked logit at a masked one, -inf past T (code 0, 1, 2).
+template <typename E>
 __device__ __forceinline__ float coded_logit(float s, uint32_t code) {
-  return code == 0 ? s * 0.125f : (code == 1 ? kMasked : -INFINITY);
+  return code == 0 ? Int8Plan<E>::logit(s) : (code == 1 ? Int8Plan<E>::kMaskedLogit : -INFINITY);
 }
 
 // Pass 1 on a tile: mx (rows g, g + 8) takes the max of the tile's logits.
-template <bool Coded>
+template <bool Coded, typename E>
 __device__ __forceinline__ void tile_max(const float (&s)[16][4], float (&mx)[2],
                                          const uint8_t* code, int t) {
   float x[2] = {-INFINITY, -INFINITY};
@@ -185,12 +250,12 @@ __device__ __forceinline__ void tile_max(const float (&s)[16][4], float (&mx)[2]
     const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float v = Coded ? coded_logit(s[n][e], (kc >> (8 * (e & 1))) & 0xff) : s[n][e];
+      const float v = Coded ? coded_logit<E>(s[n][e], (kc >> (8 * (e & 1))) & 0xff) : s[n][e];
       x[e >> 1] = fmaxf(x[e >> 1], v);
     }
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], Coded ? x[r] : x[r] * 0.125f);
+  for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], Coded ? x[r] : Int8Plan<E>::logit(x[r]));
 }
 
 // Pass 2 on a tile, in place: each logit becomes fma(e, 127, kRound) with
@@ -210,8 +275,8 @@ __device__ __forceinline__ void tile_probs(float (&s)[16][4], const __nv_bfloat1
     for (int r = 0; r < 2; ++r) {
       float a = s[n][2 * r], b = s[n][2 * r + 1];
       if constexpr (Coded) {
-        a = coded_logit(a, kc & 0xff);
-        b = coded_logit(b, kc >> 8);
+        a = coded_logit<bf16>(a, kc & 0xff);
+        b = coded_logit<bf16>(b, kc >> 8);
       }
       // bf16(s - m): S rounded to bf16 (exact / 8), then one rounding.
       const __nv_bfloat162 x = __hfma2(__floats2bfloat162_rn(a, b), scale, negm[r]);
@@ -221,6 +286,27 @@ __device__ __forceinline__ void tile_probs(float (&s)[16][4], const __nv_bfloat1
       z[r] += e1;
       s[n][2 * r] = fmaf(e0, 127.f, kRound);
       s[n][2 * r + 1] = fmaf(e1, 127.f, kRound);
+    }
+  }
+}
+
+// The same in f32, at the reference's f32 rounding points: e = expf(s - m),
+// z += e, and fl(127 e) rounded to an integer by adding kRound, each an
+// explicit `_rn` operation so that nvcc contracts none of them into an fma.
+template <bool Coded>
+__device__ __forceinline__ void tile_probs_f32(float (&s)[16][4], const float (&m)[2],
+                                               float (&z)[2], const uint8_t* code, int t,
+                                               int keys) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    if (Coded && 8 * n >= keys) break;
+    const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = Coded ? coded_logit<float>(s[n][e], (kc >> (8 * (e & 1))) & 0xff) : s[n][e];
+      const float p = expf(__fsub_rn(x, m[e >> 1]));
+      z[e >> 1] += p;
+      s[n][e] = __fadd_rn(__fmul_rn(p, 127.f), kRound);
     }
   }
 }
@@ -244,15 +330,42 @@ __device__ __forceinline__ void pack_probs(const float (&s)[16][4],
   }
 }
 
+// S = Q_big K_small + Q_small K_big, then Q_big K_big, over d = 64 (8 k-steps
+// of 8 f32, 32 bytes, in chunk kk / 4 of each tile), m64n128k8 TF32: q_big,
+// q_small the warpgroup's 64 rows of Q's parts, k_big, k_small a stage's.
+__device__ __forceinline__ void product_split(float (&s)[16][4], uint64_t q_big, uint64_t q_small,
+                                              uint64_t k_big, uint64_t k_small) {
+  auto at = [](int kk) { return static_cast<uint64_t>((kk / 4 * kF32Chunk + kk % 4 * 32) >> 4); };
+#pragma unroll
+  for (int kk = 0; kk < kHD / 8; ++kk) {
+    wgmma_tf32_ss<kKeys>(s, q_big + at(kk), k_small + at(kk), kk > 0);
+    wgmma_tf32_ss<kKeys>(s, q_small + at(kk), k_big + at(kk), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kHD / 8; ++kk) wgmma_tf32_ss<kKeys>(s, q_big + at(kk), k_big + at(kk), 1);
+}
+
+// 128 rows from `row` on of one part (big or small) of a pre-pass operand,
+// as its two column chunks of 32 f32.
+__device__ __forceinline__ void tma_f32_rows(unsigned char* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int row) {
+#pragma unroll
+  for (int c = 0; c < kHD / kF32Cols; ++c) tma_2d(dst + c * kF32Chunk, map, bar, c * kF32Cols, row);
+}
+
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_attention_sm90_kernel(const __grid_constant__ Int8Params p) {
+  using L = Smem<E>;
+  constexpr bool kF32 = std::is_same_v<E, float>;
+  constexpr int kStages = L::kStages, kKTile = Int8Plan<E>::kKTile, kHalf = kKTile / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + Smem::kQ);  // 128 query rows
-  unsigned char* ring = smem + Smem::kRing;             // [stage][K 128 x 64 bf16, V 64 x 128 s8]
-  uint8_t* codes = smem + Smem::kCodes;  // per stage and key: 0 attended, 1 masked, 2 past T
-  uint8_t* coded = smem + Smem::kFlags;  // per stage: whether any key is not attended
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::kBars);
+  unsigned char* sQ = smem + L::kQ;      // 128 query rows (f32: big, then small)
+  unsigned char* ring = smem + L::kRing;  // [stage][K tile (f32: big, small), V 64 x 128 s8]
+  uint8_t* codes = smem + L::kCodes;  // per stage and key: 0 attended, 1 masked, 2 past T
+  uint8_t* coded = smem + L::kFlags;  // per stage: whether any key is not attended
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* empty = full + kStages;
   uint64_t* own = empty + kStages;
 
@@ -260,6 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // single query each, and so little work) run after all the full ones.
   const int heads = p.B * p.H, qt = blockIdx.x / heads, h = blockIdx.x % p.H;
   const int b = blockIdx.x % heads / p.H, q0 = qt * kBlockQ, T = p.T;
+  const int bh = b * p.H + h;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int n_tiles = (T + kKeys - 1) / kKeys;
   if (threadIdx.x == 0) {
@@ -276,8 +390,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp != 0) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(own, kBlockQ * kHD * 2);
-      tma_rows(sQ, &p.q, own, kBlockQ, q0, h, b, p.heads_inner & kInnerQ);
+      mbar_arrive_expect_tx(own, Int8Plan<E>::kQBytes);
+      if constexpr (kF32) {
+        tma_f32_rows(sQ, &p.q, own, bh * p.Tp + q0);
+        tma_f32_rows(sQ + Int8Plan<E>::kQBytes / 2, &p.qs, own, bh * p.Tp + q0);
+      } else {
+        tma_rows(reinterpret_cast<bf16*>(sQ), &p.q, own, kBlockQ, q0, h, b,
+                 p.heads_inner & kInnerQ);
+      }
     }
     const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
     // Tiles 0 .. n - 1 are pass 1's (K), n .. 2 n - 1 pass 2's (K and V).
@@ -295,11 +415,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       any = __any_sync(0xffffffffu, any);
       if (lane == 0) {
         coded[stage] = any;
-        unsigned char* st = ring + stage * kStage;
+        unsigned char* st = ring + stage * L::kStage;
         mbar_arrive_expect_tx(&full[stage], kKTile + (second ? kVTile : 0));
-        tma_rows(reinterpret_cast<bf16*>(st), &p.k, &full[stage], kKeys, k0, h, b,
-                 p.heads_inner & kInnerK);
-        if (second) tma_values(st + kKTile, &p.vt, &full[stage], k0, b * p.H + h);
+        if constexpr (kF32) {
+          tma_f32_rows(st, &p.k, &full[stage], bh * p.Tp + k0);
+          tma_f32_rows(st + kHalf, &p.ks, &full[stage], bh * p.Tp + k0);
+        } else {
+          tma_rows(reinterpret_cast<bf16*>(st), &p.k, &full[stage], kKeys, k0, h, b,
+                   p.heads_inner & kInnerK);
+        }
+        if (second) tma_values(st + kKTile, &p.vt, &full[stage], k0, bh);
       } else {
         mbar_arrive(&full[stage]);
       }
@@ -312,11 +437,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     // issues every product all the same: skipping them made ptxas serialize
     // the products of every block.)
     const bool idle = row0 >= T;
-    const uint64_t q_desc = sw_desc<false>(sQ + wg * kHRows * kHD);
-    auto k_tile = [&](int stage) { return sw_desc<false>(ring + stage * kStage); };
-    auto v_tile = [&](int stage) { return sw_desc<false>(ring + stage * kStage + kKTile); };
+    // The warpgroup's 64 rows of Q: 128-byte rows in every type (64 bf16, or
+    // a chunk of 32 f32), so 8 KB into the tile (into each chunk).
+    const uint64_t q_desc = sw_desc<false>(sQ + wg * kHRows * 128);
+    const uint64_t qs_desc = sw_desc<false>(sQ + Int8Plan<E>::kQBytes / 2 + wg * kHRows * 128);
+    auto v_tile = [&](int stage) { return sw_desc<false>(ring + stage * L::kStage + kKTile); };
     mbar_wait(own, 0);
     float s[16][4];
+    auto product_s = [&](int stage) {  // S of a stage's K tile into s
+      const unsigned char* st = ring + stage * L::kStage;
+      if constexpr (kF32) {
+        product_split(s, q_desc, qs_desc, sw_desc<false>(st), sw_desc<false>(st + kHalf));
+      } else {
+        product_kmajor(s, q_desc, sw_desc<false>(st));
+      }
+    };
 
     // Pass 1: the row max (the codes are read before the stage is released).
     float mx[2] = {-INFINITY, -INFINITY};
@@ -324,26 +459,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int stage = j % kStages;
       mbar_wait(&full[stage], (j / kStages) & 1);
       wgmma_fence();
-      product_kmajor(s, q_desc, k_tile(stage));
+      product_s(stage);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(s);
       if (idle) {
       } else if (coded[stage]) {
-        tile_max<true>(s, mx, codes + stage * kKeys, t);
+        tile_max<true, E>(s, mx, codes + stage * kKeys, t);
       } else {
-        tile_max<false>(s, mx, nullptr, t);
+        tile_max<false, E>(s, mx, nullptr, t);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);
     }
+    float m[2];  // the row max, finite: key 0 exists
     __nv_bfloat162 negm[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float x = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      const float m = __bfloat162float(__float2bfloat16_rn(x));  // finite: key 0 exists
-      negm[r] = __floats2bfloat162_rn(-m, -m);
+      m[r] = kF32 ? x : __bfloat162float(__float2bfloat16_rn(x));
+      negm[r] = __floats2bfloat162_rn(-m[r], -m[r]);
     }
 
     // Pass 2: S again, the probabilities, and P V (ring tiles n .. 2 n - 1).
@@ -354,10 +490,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[kKeys / 32][4];
     auto probs = [&](int stage, int j) {  // tile j's probabilities, packed
       if (idle) return;
-      if (coded[stage]) {
-        tile_probs<true>(s, negm, z, codes + stage * kKeys, t, T - j * kKeys);
+      const bool c = coded[stage];
+      const uint8_t* code = codes + stage * kKeys;
+      if constexpr (kF32) {
+        if (c) {
+          tile_probs_f32<true>(s, m, z, code, t, T - j * kKeys);
+        } else {
+          tile_probs_f32<false>(s, m, z, nullptr, t, kKeys);
+        }
       } else {
-        tile_probs<false>(s, negm, z, nullptr, t, kKeys);
+        if (c) {
+          tile_probs<true>(s, negm, z, code, t, T - j * kKeys);
+        } else {
+          tile_probs<false>(s, negm, z, nullptr, t, kKeys);
+        }
       }
     };
     if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
@@ -366,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&full[stage], (i / kStages) & 1);
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor(s, q_desc, k_tile(stage));
+      product_s(stage);
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<0>();
@@ -382,7 +528,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_acc(o);
       turn_wait(wg);
       wgmma_fence();
-      product_kmajor(s, q_desc, k_tile(stage));
+      product_s(stage);
       wgmma_commit();
       product_pv(o, pa, v_tile(prev));
       wgmma_commit();
@@ -412,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
 
     // out = (f32(acc) * (1 / (127 z))) * sv, rows past T (zero-filled Q) not stored.
-    const float* sv = p.sv + static_cast<int64_t>(b * p.H + h) * kHD;
+    const float* sv = p.sv + static_cast<int64_t>(bh) * kHD;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       z[r] += __shfl_xor_sync(0xffffffffu, z[r], 1);
@@ -420,18 +566,52 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = row0 + g + 8 * r;
       if (row >= T) continue;
       const float rz = 1.f / (127.f * z[r]);
-      bf16* dst = p.out + (static_cast<int64_t>(b) * T + row) * p.H * kHD +
-                  static_cast<int64_t>(h) * kHD;
+      E* dst = static_cast<E*>(p.out) + (static_cast<int64_t>(b) * T + row) * p.H * kHD +
+               static_cast<int64_t>(h) * kHD;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int c = n * 8 + 2 * t;
         const float2 sc = *reinterpret_cast<const float2*>(sv + c);
-        *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
-            static_cast<float>(o[n][2 * r]) * rz * sc.x,
-            static_cast<float>(o[n][2 * r + 1]) * rz * sc.y);
+        const float lo = static_cast<float>(o[n][2 * r]) * rz * sc.x;
+        const float hi = static_cast<float>(o[n][2 * r + 1]) * rz * sc.y;
+        if constexpr (kF32) {
+          *reinterpret_cast<float2*>(dst + c) = make_float2(lo, hi);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(lo, hi);
+        }
       }
     }
   }
+}
+
+// The f32 kernel's pre-pass: for rows [16 x, 16 x + 16) of head h of batch
+// element b, q / 8 (the reference's q * sm_scale in f32, exact at d = 64)
+// and k as their TF32 big and small parts, (B H, Tp, 64) each, zero past T.
+// A thread one float4 of a row.
+__global__ void __launch_bounds__(kSplitRows * kHD / 4)
+    int8_split_qk_kernel(const float* __restrict__ q, const float* __restrict__ k, Strides sq,
+                         Strides sk, int H, int T, int Tp, float* __restrict__ qb,
+                         float* __restrict__ qs, float* __restrict__ kb, float* __restrict__ ks) {
+  const int b = blockIdx.z, h = blockIdx.y, row = blockIdx.x * kSplitRows + threadIdx.x / 16;
+  const int c = 4 * (threadIdx.x % 16);
+  const int64_t at = ((static_cast<int64_t>(b) * H + h) * Tp + row) * kHD + c;
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+  if (row < T) {
+    x = *reinterpret_cast<const float4*>(q + b * sq.b + row * sq.t + h * sq.h + c);
+    y = *reinterpret_cast<const float4*>(k + b * sk.b + row * sk.t + h * sk.h + c);
+  }
+  x = make_float4(__fmul_rn(x.x, 0.125f), __fmul_rn(x.y, 0.125f), __fmul_rn(x.z, 0.125f),
+                  __fmul_rn(x.w, 0.125f));
+  auto big = [](float4 v) {
+    return make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
+  };
+  auto small = [](float4 v) {
+    return make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
+  };
+  *reinterpret_cast<float4*>(qb + at) = big(x);
+  *reinterpret_cast<float4*>(qs + at) = small(x);
+  *reinterpret_cast<float4*>(kb + at) = big(y);
+  *reinterpret_cast<float4*>(ks + at) = small(y);
 }
 
 // ------------------------------------------------------ values, quantized
@@ -458,7 +638,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // meet in distributed shared memory, gives more blocks but was slower: the
 // cluster's barrier cost more than the whole kernel takes without it; 8
 // channels a block, 384 blocks at the serve shape, was no faster either:
-// PERF.md.)
+// PERF.md.) f32 values: the same plan, 8 channels of a key two 16-byte loads
+// (12.6 MB read at the serve shape, 4.8 us).
 
 constexpr int kVChannels = 16;                 // channels of a block (8, 16 or 32)
 constexpr int kVLanes = kVChannels / 8;        // lanes on one key
@@ -466,9 +647,24 @@ constexpr int kVMaxThreads = 512;
 constexpr int kVMaxUnits = kVMaxThreads / kVLanes;  // half-groups of a round
 constexpr int kVMaxWarps = kVMaxThreads / 32;
 
+template <typename E>
+constexpr int kVWords = sizeof(E) / 2;  // 16-byte words of 8 channels of a key: 1 bf16, 2 f32
+
+template <typename E>
+__device__ __forceinline__ float channel(const uint4 (&raw)[kVWords<E>], int c) {
+  const E x = reinterpret_cast<const E*>(raw)[c];
+  if constexpr (std::is_same_v<E, float>) {
+    return x;
+  } else {
+    return __bfloat162float(x);
+  }
+}
+
+template <typename E>
 __global__ void __launch_bounds__(kVMaxThreads)
-    int8_quantize_v_kernel(const bf16* __restrict__ v, Strides s, int H, int T, int Tp,
-                           int rounds, int8_t* __restrict__ vt, float* __restrict__ sv) {
+    int8_quantize_v_kernel(const E* __restrict__ v, Strides s, int H, int T, int Tp, int rounds,
+                           int8_t* __restrict__ vt, float* __restrict__ sv) {
+  constexpr int W = kVWords<E>;
   __shared__ float s_warp[kVMaxWarps][kVChannels];
   __shared__ Divisor s_div[kVChannels];
 
@@ -477,34 +673,33 @@ __global__ void __launch_bounds__(kVMaxThreads)
   const int o = lane % kVLanes;  // channels c16 + 8 o .. + 7
   const int unit = tid / kVLanes;  // half-group of the round
   const int units = blockDim.x / kVLanes;
-  const bf16* base = v + b * s.b + h * s.h + c16 + 8 * o;
+  const E* base = v + b * s.b + h * s.h + c16 + 8 * o;
   // The thread's first output byte in round i (bytes 0-7 or 8-15 of group
   // (i units + unit) / 2), and its keys j and 8 + j of the group, j = 4 (unit % 2) .. + 3.
   auto first_byte = [&](int i) { return 8 * (i * units + unit); };
-  auto load = [&](int i, uint4 (&raw)[8]) {  // keys of round i, zero past T
+  auto load = [&](int i, uint4 (&raw)[8][W]) {  // keys of round i, zero past T
     const int k0 = first_byte(i) - 4 * (unit % 2);  // the group's first key + 4 (unit % 2)
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int key = k0 + (k < 4 ? k : 4 + k);
-      raw[k] = key < T ? *reinterpret_cast<const uint4*>(base + key * s.t)
-                       : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        raw[k][w] = key < T ? reinterpret_cast<const uint4*>(base + key * s.t)[w]
+                            : make_uint4(0, 0, 0, 0);
+      }
     }
   };
 
   float mx[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) mx[c] = 0.f;
-  uint4 raw[8];
+  uint4 raw[8][W];
   for (int i = 0; i < rounds; ++i) {
     load(i, raw);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[k]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        mx[2 * c] = fmaxf(mx[2 * c], fabsf(__low2float(x[c])));
-        mx[2 * c + 1] = fmaxf(mx[2 * c + 1], fabsf(__high2float(x[c])));
-      }
+      for (int c = 0; c < 8; ++c) mx[c] = fmaxf(mx[c], fabsf(channel<E>(raw[k], c)));
     }
   }
 #pragma unroll
@@ -536,9 +731,7 @@ __global__ void __launch_bounds__(kVMaxThreads)
     for (int c = 0; c < 8; ++c) {
       uint32_t q[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        q[k] = quantized_byte(__bfloat162float(reinterpret_cast<const bf16*>(&raw[k])[c]), d[c]);
-      }
+      for (int k = 0; k < 8; ++k) q[k] = quantized_byte(channel<E>(raw[k], c), d[c]);
       // Byte 4 t + 2 i + c' of a group holds its key 8 i + 2 t + c' (key_position):
       // the thread's keys 2 w, 2 w + 1 (of j) and 8 + 2 w, 9 + 2 w make its word w.
       *reinterpret_cast<uint2*>(out + static_cast<int64_t>(c) * Tp + byte0) =
@@ -563,25 +756,53 @@ int make_values_map(CUtensorMap* map, const void* base, int BH, int Tp) {
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-}  // namespace
-
-// v: (B, T, H, 64) bf16 through `strides` (b, t, h elements, each a multiple
-// of 8, unit stride along d, 16-byte aligned base). -> vt (B H, 64, Tp) int8,
-// Tp = T rounded up to a multiple of 128, each 16-key group in key_position
-// order, zero past T; sv (B H, 64) f32. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue (1) for a Tp it does not take.
-extern "C" int int8_quantize_v(const void* v, int B, int H, int T, const int64_t* strides,
-                               void* vt, float* sv, int Tp, void* stream) {
-  if (Tp % kKeys != 0 || Tp < T) return static_cast<int>(cudaErrorInvalidValue);
+template <typename E>
+int quantize_v(const void* v, int B, int H, int T, const int64_t* strides, void* vt, float* sv,
+               int Tp, cudaStream_t stream) {
   const Strides s{strides[0], strides[1], strides[2]};
   constexpr int kWarpUnits = 32 / kVLanes;  // half-groups of a warp: a block holds whole warps
   const int units = Tp / 8;  // half-groups
   const int round = std::min((units + kWarpUnits - 1) / kWarpUnits * kWarpUnits, kVMaxUnits);
   const dim3 grid(B * H, kHD / kVChannels);
-  int8_quantize_v_kernel<<<grid, kVLanes * round, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(v), s, H, T, Tp, (units + round - 1) / round,
+  int8_quantize_v_kernel<E><<<grid, kVLanes * round, 0, stream>>>(
+      static_cast<const E*>(v), s, H, T, Tp, (units + round - 1) / round,
       static_cast<int8_t*>(vt), sv);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's tensor maps, its shared memory, its launch: grid a block a
+// (query tile, b, h), query tile outermost.
+template <typename E>
+int launch_attention(Int8Params& p, const void* vt, int B, int H, int T, int Tp,
+                     cudaStream_t stream) {
+  const int err = make_values_map(&p.vt, vt, B * H, Tp);
+  if (err) return -err;
+  p.B = B;
+  p.H = H;
+  p.T = T;
+  p.Tp = Tp;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      int8_attention_sm90_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<E>::kAlloc);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const dim3 grid((T + kBlockQ - 1) / kBlockQ * H * B);
+  int8_attention_sm90_kernel<E><<<grid, kThreads, Smem<E>::kAlloc, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// v: (B, T, H, 64) bf16 (f32 = 0) or f32 (f32 = 1) through `strides` (b, t,
+// h elements, each a 16-byte multiple, unit stride along d, 16-byte aligned
+// base). -> vt (B H, 64, Tp) int8, Tp = T rounded up to a multiple of 128,
+// each 16-key group in key_position order, zero past T; sv (B H, 64) f32.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue (1)
+// for a Tp it does not take.
+extern "C" int int8_quantize_v(const void* v, int B, int H, int T, const int64_t* strides,
+                               void* vt, float* sv, int Tp, int f32, void* stream) {
+  if (Tp % kKeys != 0 || Tp < T) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? quantize_v<float>(v, B, H, T, strides, vt, sv, Tp, s)
+             : quantize_v<bf16>(v, B, H, T, strides, vt, sv, Tp, s);
 }
 
 // q, k: (B, T, H, 64) bf16 through `strides` (6 element strides: b, t, h of
@@ -600,20 +821,47 @@ extern "C" int int8_attention_sm90(const void* q, const void* k, const uint8_t* 
   const bool q_inner = sq.h < sq.t, k_inner = sk.h < sk.t;  // e.g. a contiguous projection
   int err = make_map(&p.q, q, sq, B, H, T, q_inner);
   if (!err) err = make_map(&p.k, k, sk, B, H, T, k_inner);
-  if (!err) err = make_values_map(&p.vt, vt, B * H, Tp);
   if (err) return -err;
   p.heads_inner = (q_inner ? kInnerQ : 0) | (k_inner ? kInnerK : 0);
   p.mask = mask;
   p.sv = sv;
-  p.out = static_cast<bf16*>(out);
-  p.B = B;
-  p.H = H;
-  p.T = T;
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      int8_attention_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::kAlloc);
-  if (configured != cudaSuccess) return static_cast<int>(configured);
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ * H * B);  // query tile outermost
-  int8_attention_sm90_kernel<<<grid, kThreads, Smem::kAlloc, static_cast<cudaStream_t>(stream)>>>(
-      p);
-  return static_cast<int>(cudaGetLastError());
+  p.out = out;
+  return launch_attention<bf16>(p, vt, B, H, T, Tp, static_cast<cudaStream_t>(stream));
+}
+
+// f32 elements of the f32 kernel's scratch at (B, H, Tp): q / 8 and k, each
+// as big and small TF32 parts, (B H, Tp, 64) each.
+extern "C" int64_t int8_attention_f32_scratch(int B, int H, int Tp) {
+  return 4 * static_cast<int64_t>(B) * H * Tp * kHD;
+}
+
+// The same for f32 q, k (strides as int8_attention_sm90's, each a multiple
+// of 4 elements), values from int8_quantize_v(.., f32 = 1), out (B, T, H,
+// 64) f32 contiguous, and scratch: int8_attention_f32_scratch(B, H, Tp) f32,
+// 16-byte aligned. Launches the pre-pass (int8_split_qk_kernel) and the
+// kernel; returns as int8_attention_sm90 does.
+extern "C" int int8_attention_f32_sm90(const void* q, const void* k, const uint8_t* mask,
+                                       const void* vt, const float* sv, void* out, int B, int H,
+                                       int T, int Tp, const int64_t* strides, float* scratch,
+                                       void* stream) {
+  if (Tp % kKeys != 0 || Tp < T) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(B) * H * Tp * kHD, rows = static_cast<int64_t>(B) * H * Tp;
+  float *qb = scratch, *qs = scratch + n, *kb = scratch + 2 * n, *ks = scratch + 3 * n;
+  Int8Params p{};
+  int err = make_map_2d(&p.q, qb, kHD, rows, kF32Cols, kBlockQ);
+  if (!err) err = make_map_2d(&p.qs, qs, kHD, rows, kF32Cols, kBlockQ);
+  if (!err) err = make_map_2d(&p.k, kb, kHD, rows, kF32Cols, kKeys);
+  if (!err) err = make_map_2d(&p.ks, ks, kHD, rows, kF32Cols, kKeys);
+  if (err) return -err;
+  p.mask = mask;
+  p.sv = sv;
+  p.out = out;
+  const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]};
+  int8_split_qk_kernel<<<dim3(Tp / kSplitRows, H, B), kSplitRows * kHD / 4, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), sq, sk, H, T, Tp, qb, qs, kb,
+      ks);
+  const cudaError_t split = cudaGetLastError();
+  if (split != cudaSuccess) return static_cast<int>(split);
+  return launch_attention<float>(p, vt, B, H, T, Tp, s);
 }

@@ -22,7 +22,10 @@
 //     K-major shared tiles (m64nNk16, N = 64 or 128), D += A B with A in
 //     registers and B MN-major in shared memory (N = 32 .. 128), fences and
 //     waits; and TF32 operands into f32 (m64nNk8), whose shared operands
-//     are K-major only (32-bit types have no transpose bit);
+//     are K-major only (32-bit types have no transpose bit), with the split
+//     of an f32 into two exact TF32 parts (`tf32_big`, `tf32_small`) and the
+//     2-D f32 tensor maps (`make_map_2d`) of the split-TF32 kernels
+//     (flash_attention_tf32.cu, the f32 int8 attention);
 //   * the two consumer warpgroups' turns (`turn_wait`, `turn_pass`);
 //   * the flash forwards' online softmax on a tile of logits (`softmax_tile`,
 //     ex2.approx on the SFU).
@@ -326,15 +329,18 @@ __device__ __forceinline__ void product_kmajor(float (&d)[N / 8][4], uint64_t a,
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
                                               int accumulate) {
-  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "S tiles of 16 to 64 columns");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128,
+                "S tiles of 16 to 64 or of 128 columns");
   if constexpr (N == 16) {
     WGMMA_TF32_SS(16, 8, 9, 10);
   } else if constexpr (N == 32) {
     WGMMA_TF32_SS(32, 16, 17, 18);
   } else if constexpr (N == 48) {
     WGMMA_TF32_SS(48, 24, 25, 26);
-  } else {
+  } else if constexpr (N == 64) {
     WGMMA_TF32_SS(64, 32, 33, 34);
+  } else {
+    WGMMA_TF32_SS(128, 64, 65, 66);
   }
 }
 #undef WGMMA_TF32_SS
@@ -366,6 +372,13 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 8][4], const uint32
   }
 }
 #undef WGMMA_TF32_RS
+
+// x with its low 13 mantissa bits cleared: an exact TF32 value.
+__device__ __forceinline__ float tf32_big(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+// The rest of x, itself cleared to TF32: x - tf32_big(x) is exact in f32.
+__device__ __forceinline__ float tf32_small(float x) { return tf32_big(x - tf32_big(x)); }
 
 // The consumer warpgroups take turns to issue their products (ping-pong):
 // named barrier 1 + w is warpgroup w's turn, passed by the other one after
@@ -524,6 +537,25 @@ int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T,
                              heads_inner ? kHRows : 1u, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(map, Elem<E>::kMap, 4, const_cast<void*>(base),
+                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A 2-D tensor map over f32 rows of `inner` elements (dims (inner, rows)),
+// boxes of box_inner x box_rows with the 128-byte swizzle (box_inner = 32,
+// one atom) or the 64-byte one (16). -> 0 or the CUresult of the encoding.
+int make_map_2d(CUtensorMap* map, const float* base, int64_t inner, int64_t rows, int box_inner,
+                int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_inner * 4 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
                                  dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));

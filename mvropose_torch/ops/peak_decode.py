@@ -3,8 +3,11 @@
 Port of `mvropose_tpu/ops/peak_decode.py::fused_peak_decode`. Per heatmap it
 computes the first-index hard argmax (x, y), the temperature-softmax
 soft-argmax (x, y), sigmoid(peak) and the raw peak, as one (M, 8) f32 row
-`[ax, ay, sx, sy, sigmoid(peak), peak, 0, 0]`. The kernel is
-`csrc/peak_decode.cu`; its source note says what bounds it on the card.
+`[ax, ay, sx, sy, sigmoid(peak), peak, 0, 0]`. A map that holds a NaN
+decodes as the JAX kernel decodes it: peak NaN, argmax index H*W (x = 0, y =
+H), soft sums and confidence NaN. The kernel is `csrc/peak_decode.cu` (a
+thread-block cluster of `cluster_blocks` blocks a map); its source note says
+what bounds it on the card.
 """
 
 from __future__ import annotations
@@ -24,8 +27,11 @@ def peak_decode_reference(heatmaps: torch.Tensor, temperature: float = 1.0) -> t
     """Plain torch version: (M, H, W) -> (M, 8) f32 on the input's device."""
     M, H, W = heatmaps.shape
     flat = heatmaps.reshape(M, H * W).float()
-    idx = flat.argmax(dim=-1)  # first index of the maximum
-    peak = flat.gather(-1, idx[:, None])[:, 0]
+    idx = flat.argmax(dim=-1)  # first index of the maximum; torch takes a NaN as the maximum
+    peak = flat.gather(-1, idx[:, None])[:, 0]  # NaN where the map holds one
+    # The JAX kernel's first index holding a value >= the peak: none where the
+    # peak is NaN, so its min falls back to H*W.
+    idx = torch.where(torch.isnan(flat).any(-1), H * W, idx)
     p = torch.exp((flat - peak[:, None]) * temperature)
     z = p.sum(-1)
     pos = torch.arange(H * W, device=flat.device)
@@ -39,11 +45,25 @@ def peak_decode_reference(heatmaps: torch.Tensor, temperature: float = 1.0) -> t
     )
 
 
+CLUSTER_SIZES = (8, 4, 2, 1)  # blocks a map the kernel takes, largest first
+
+
+def cluster_blocks(M: int, sms: int) -> int:
+    """Blocks a map: the largest of CLUSTER_SIZES with M of them fitting on
+    `sms` SMs (1 where even one a map does not)."""
+    return next((c for c in CLUSTER_SIZES if M * c <= sms), 1)
+
+
+@functools.cache
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @functools.cache
 def _kernel():
     fn = load_library().peak_decode_f32
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -51,7 +71,9 @@ def _kernel():
 
 
 def peak_decode_cuda(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
-    """Launch the kernel on (M, H, W) CUDA maps -> (M, 8) f32, on the current stream."""
+    """Launch the kernel on (M, H, W) CUDA maps -> (M, 8) f32, on the current
+    stream: `cluster_blocks(M, SMs)` blocks a map as one cluster. Raises if
+    the launch (a cluster launch the card refuses included) fails."""
     global launches
     if heatmaps.device.type != "cuda":
         raise ValueError(f"peak_decode_cuda needs a CUDA tensor, got {heatmaps.device}")
@@ -67,7 +89,8 @@ def peak_decode_cuda(heatmaps: torch.Tensor, temperature: float = 1.0) -> torch.
     dev = rows.get_device()
     with device_context(dev):
         stream = current_stream(dev)
-        err = _kernel()(rows.data_ptr(), out.data_ptr(), M, H, W, float(temperature), stream)
+        err = _kernel()(rows.data_ptr(), out.data_ptr(), M, H, W, cluster_blocks(M, _sm_count(dev)),
+                        float(temperature), stream)
     if err != 0:
         raise RuntimeError(f"peak_decode_f32 launch failed with CUDA error {err}")
     launches += 1

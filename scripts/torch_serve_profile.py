@@ -2,7 +2,7 @@
 """Where the port's serve step spends its time on the GPU.
 
     python3 scripts/torch_serve_profile.py [--steps 20] [--trace trace.json]
-                                           [--int8 fused|pv] [--int8-matmul kernel|int_mm]
+                                           [--int8] [--int8-matmul kernel|int_mm]
                                            [--model-size 512] [--vit-dtype bfloat16]
 
 Runs `mvropose_torch.cli.main.serve_step` (bf16, ViT-B/16 at 512 px, 4
@@ -10,9 +10,9 @@ resident 720x1280 uint8 frames, random weights from seed 0; with
 --model-size and --vit-dtype the backbone at that size and in that dtype,
 e.g. 768 and float32, the f32 flash forward's serve path; with --int8 the
 same weights as `serve --int8-backbone --int8-attention` serves them on a
-fused-LN run directory, the attention on the given route of
-`ops/int8_attention.py`: "fused", the kernel, or "pv", the plain chain and
-the P@V kernel; its int8 matmuls on the route --int8-matmul gives of
+fused-LN run directory, the attention on the fused kernels of
+`ops/int8_attention.py` (bf16, or f32 with --vit-dtype float32); its int8
+matmuls on the route --int8-matmul gives of
 `ops/int8_matmul.py`: "kernel", the kernels of `csrc/int8_gemm.cu`, or
 "int_mm", the plain chain around `torch._int_mm`) and prints the card and
 its power limit, then:
@@ -70,8 +70,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--trace", default=None, help="write the chrome trace to this path")
-    p.add_argument("--int8", choices=["fused", "pv"], default=None,
-                   help="profile the int8 + fused-LN step, its attention on this route")
+    p.add_argument("--int8", action="store_true",
+                   help="profile the int8 + fused-LN step (the fused int8 attention)")
     p.add_argument("--int8-matmul", choices=["kernel", "int_mm"], default="kernel",
                    help="with --int8: the route of its int8 matmuls")
     p.add_argument("--model-size", type=int, default=512)
@@ -97,10 +97,9 @@ def main() -> int:
     mask = torch.ones(4, dtype=torch.bool, device=dev)
     step = lambda: serve_step(model, frames, mask, args.model_size, (720, 1280))  # noqa: E731
 
-    route = int8_attention.pv_route() if args.int8 == "pv" else contextlib.nullcontext()
     mm_route = (int8_matmul.int_mm_route() if args.int8 and args.int8_matmul == "int_mm"
                 else contextlib.nullcontext())
-    with torch.inference_mode(), route, mm_route:
+    with torch.inference_mode(), mm_route:
         for _ in range(5):
             step()
         torch.cuda.synchronize()
@@ -124,7 +123,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; {smi}")
-    label = (f"int8 + fused LN, attention route {args.int8}, int8 matmul route {args.int8_matmul}"
+    label = (f"int8 + fused LN, attention route "
+             f"{int8_attention.int8_route('cuda', cfg.vit.compute_dtype, 64)}, int8 matmul route "
+             f"{args.int8_matmul}"
              if args.int8 else "bf16") + f", {args.model_size} px, backbone {args.vit_dtype}"
     print(f"serve step [{label}]: wall {wall_ms:.3f} ms/step (host clock, {args.steps} steps, "
           f"no profiler); device busy {busy_ms:.3f} ms/step over {len(device_events) / args.steps:.0f} "

@@ -11,8 +11,8 @@ how closely:
     bf16 ulp for a bf16 output;
   * an int8 + fused-LN backbone and the multi-view estimator built on it,
     on JAX-quantized weights: bounds stated at each test.
-The CUDA kernels' checks against their plain versions carry the `cuda`
-marker and skip without a card (`chip_smoke.py` runs them on the card).
+The int8 attention kernels' checks against their plain versions are in
+`test_torch_int8_attention.py` and `chip_smoke.py`.
 """
 
 import dataclasses
@@ -44,7 +44,7 @@ from mvropose_torch.models.quantize import (
 )
 from mvropose_torch.models.vit import ViTBackbone, ViTConfig
 from mvropose_torch.ops import int8_attention
-from mvropose_torch.ops.int8_attention import int8_prob_attention, int8_pv, int8_pv_reference
+from mvropose_torch.ops.int8_attention import int8_prob_attention, int8_pv_reference
 from mvropose_torch.utils.weights import export_jax_params, int8ify, load_jax_params
 from torch_parity import export_npz, np32, random_variables
 
@@ -226,67 +226,13 @@ def test_int8_estimator_matches_jax(tmp_path):
     np.testing.assert_array_equal(np32(xy)[clear], np32(xy_ref)[clear])
 
 
-def test_padded_probs_layout():
-    """The producer's pq layout: rows padded to the kernel's key tile."""
-    pq = int8_attention.padded_probs(3, 37, "cpu")
-    assert pq.shape == (3, 37, 37) and pq.stride() == (37 * 64, 64, 1)
-    assert int8_attention._kernel_layout(pq, 64)
-    assert not int8_attention._kernel_layout(torch.zeros(3, 37, 37, dtype=torch.int8), 64)
-    for BH, T in ((0, 37), (3, 0)):  # empty: the wrapper launches nothing
-        assert int8_attention._kernel_layout(int8_attention.padded_probs(BH, T, "cpu"), 64)
-
-
 def test_cpu_tensors_take_the_plain_version():
-    before = int8_attention.launches
-    pq = torch.zeros(2, 5, 5, dtype=torch.int8)
-    vq = torch.zeros(2, 5, 64, dtype=torch.int8)
-    out = int8_pv(pq, vq, torch.ones(2, 5), torch.ones(2, 64), torch.bfloat16)
-    assert out.dtype == torch.bfloat16 and int8_attention.launches == before
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        int8_attention.int8_pv_cuda(pq, vq, torch.ones(2, 5), torch.ones(2, 64), torch.float32)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the int8_pv kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_launches_count_kernel_launches_only(cuda_device):
-    """An empty input (no heads, or no tokens) launches nothing and counts
-    nothing; one launch counts one."""
-    before = int8_attention.launches
-    for BH, T in ((0, 37), (2, 0), (2, 37)):
-        pq = int8_attention.padded_probs(BH, T, cuda_device).zero_()
-        vq = torch.zeros(BH, T, 64, dtype=torch.int8, device=cuda_device)
-        z, sv = torch.ones(BH, T, device=cuda_device), torch.ones(BH, 64, device=cuda_device)
-        out = int8_attention.int8_pv_cuda(pq, vq, z, sv, torch.float32)
-        assert out.shape == (BH, T, 64)
-        assert int8_attention.launches == before + (BH * T > 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("T, padded", [(1025, True), (37, True), (128, False)])
-def test_int8_pv_kernel_matches_plain_on_card(cuda_device, T, padded):
-    """int32 sums exact, so the dequantized output equals the plain version's
-    (the same f32 multiplies in the same order), bf16 and f32; pq in the
-    serve path's padded rows, or contiguous where T is a multiple of 64."""
-    gen = torch.Generator().manual_seed(6)
-    pq = torch.randint(0, 128, (6, T, T), generator=gen, dtype=torch.int8)
-    pq[:, -3:] = 0  # all-zero rows
-    vq = torch.randint(-127, 128, (6, T, 64), generator=gen, dtype=torch.int8)
-    z = 1.0 + 100.0 * torch.rand(6, T, generator=gen)
-    sv = torch.rand(6, 64, generator=gen) / 127.0
-    args = [t.to(cuda_device) for t in (pq, vq, z, sv)]
-    if padded:
-        args[0] = int8_attention.padded_probs(6, T, cuda_device).copy_(args[0])
-    else:
-        with pytest.raises(ValueError, match="padded_probs"):
-            int8_attention.int8_pv_cuda(args[0].transpose(1, 2), *args[1:], torch.float32)
+    """The int8 attention on CPU tensors, f32 and bf16: the plain version,
+    no kernel launched or counted."""
+    counters = ("launches_fused", "launches_fused_f32", "quantize_v_launches")
+    before = [getattr(int8_attention, c) for c in counters]
     for dtype in (torch.float32, torch.bfloat16):
-        got = int8_attention.int8_pv_cuda(*args, dtype)
-        torch.cuda.synchronize()
-        want = int8_pv_reference(*args, dtype)
-        assert torch.equal(got, want)
+        q = torch.randn(2, 5, 2, 64).to(dtype)
+        out = int8_prob_attention(q, q, q)
+        assert out.dtype == dtype and out.shape == (2, 5, 2, 64)
+    assert [getattr(int8_attention, c) for c in counters] == before

@@ -16,7 +16,10 @@ Same numpy-seeded inputs in both packages. What is compared, and how closely:
   * the fused kernel's value layout: the plain `quantize_v_plain` holds the
     reference's quantized values in the key order that makes each thread's
     probabilities its 8-bit A fragment (the packing of `tile_probs` in
-    `csrc/int8_attention.cu`, emulated here), exactly.
+    `csrc/int8_attention.cu`, emulated here), exactly, bf16 and f32;
+  * the f32 probabilities' two roundings, rint(fl(127 e)): the plain
+    version's, the reference's and the f32 kernel's arithmetic (emulated in
+    numpy) equal, at values where one rounding of 127 e gives another byte.
 The kernels against their plain versions on the card carry the `cuda` marker
 and skip without a card (`chip_smoke.py::phase_int8_attention` runs them on
 the card).
@@ -33,7 +36,7 @@ from mvropose_torch.ops import int8_attention
 from mvropose_torch.ops.int8_attention import (
     int8_prob_attention,
     int8_route,
-    pv_route,
+    probability_bytes,
     quantize_v_plain,
     quantize_v_reference,
 )
@@ -114,21 +117,13 @@ ROUTES = [
     ("cpu", torch.float32, 64, "plain"),
     ("cpu", torch.float16, 48, "plain"),  # the plain version takes any dtype and width
     ("cuda", torch.bfloat16, 64, "fused"),  # every int8 serve step
-    ("cuda", torch.float32, 64, "pv"),  # the plain chain, then the P@V kernel
+    ("cuda", torch.float32, 64, "fused_f32"),  # the same kernels for f32: split-TF32 logits
 ]
 
 
 @pytest.mark.parametrize("device, dtype, d, route", ROUTES)
 def test_int8_route(device, dtype, d, route):
     assert int8_route(device, dtype, d) == route
-
-
-def test_pv_route_sends_bf16_to_the_pv_kernel():
-    with pv_route():
-        assert int8_route("cuda", torch.bfloat16, 64) == "pv"
-        assert int8_route("cuda", torch.float32, 64) == "pv"
-        assert int8_route("cpu", torch.bfloat16, 64) == "plain"
-    assert int8_route("cuda", torch.bfloat16, 64) == "fused"
 
 
 @pytest.mark.parametrize("device, dtype, d", [
@@ -140,24 +135,28 @@ def test_int8_route_raises_for_what_no_kernel_takes(device, dtype, d):
         int8_route(device, dtype, d)
 
 
+def _counters():
+    return (int8_attention.launches_fused, int8_attention.launches_fused_f32,
+            int8_attention.quantize_v_launches)
+
+
 def test_cpu_operands_take_the_plain_version_and_launch_nothing():
-    before = (int8_attention.launches, int8_attention.launches_fused,
-              int8_attention.quantize_v_launches)
-    q = torch.randn(1, 5, 2, 64, dtype=torch.bfloat16)
-    out = int8_prob_attention(q, q, q)
-    assert out.shape == (1, 5, 2, 64) and out.dtype == torch.bfloat16
-    assert (int8_attention.launches, int8_attention.launches_fused,
-            int8_attention.quantize_v_launches) == before
+    before = _counters()
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 5, 2, 64, dtype=dtype)
+        out = int8_prob_attention(q, q, q)
+        assert out.shape == (1, 5, 2, 64) and out.dtype == dtype
+    assert _counters() == before
 
 
 @pytest.mark.parametrize("make, match", [
     (lambda: torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16), "CUDA tensors"),
-    (lambda: torch.zeros(1, 5, 2, 64), "bf16"),
+    (lambda: torch.zeros(1, 5, 2, 64, dtype=torch.float16), "bf16 or f32"),
     (lambda: torch.zeros(1, 5, 2, 48, dtype=torch.bfloat16), "64"),
 ])
 def test_fused_entry_points_refuse(make, match):
-    """The kernels' wrappers raise on CPU tensors, another dtype or another
-    head width: they never fall back to the plain version."""
+    """The kernels' wrappers raise on CPU tensors (bf16 or f32), another
+    dtype or another head width: they never fall back to the plain version."""
     x = make()
     with pytest.raises(ValueError, match=match):
         int8_attention.int8_quantize_v_cuda(x)
@@ -196,6 +195,66 @@ def test_fused_values_order_matches_the_fragment_packing():
     assert sorted(int8_attention.key_positions(128).tolist()) == list(range(128))
 
 
+def _jax_values(v):
+    """The reference's quantized values and their scales
+    (mvropose_tpu/ops/attention.py:70-71): (B, T, H, d) -> vq (B, T, H, d)
+    int8, sv (B, H, d) f32."""
+    sv = jnp.maximum(jnp.max(jnp.abs(v.astype(jnp.float32)), axis=1), 1e-6) / 127.0
+    return jnp.round(v.astype(jnp.float32) / sv[:, None]).astype(jnp.int8), sv
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_values_layout_matches_jax(dtype):
+    """`quantize_v_plain`, what `int8_quantize_v_cuda` writes for bf16 and
+    f32 v, is the reference's vq in the fused layout (transposed, keys in
+    `key_positions` order, zero past T) and its sv, exactly; with a channel
+    planted on halves (max 127, so scale 1: 0.5, 1.5, -2.5, 63.5, -3.5 round
+    half to even)."""
+    B, T, H = 2, 150, 3
+    v = np.random.default_rng(15).normal(size=(B, T, H, 64))
+    v[0, :, 1, 3] = 0.0
+    v[0, :6, 1, 3] = [127.0, 0.5, 1.5, -2.5, 63.5, -3.5]
+    (jv,), (tv,) = _both((v,), DTYPES[dtype])
+    vq_want, sv_want = (np.asarray(a) for a in _jax_values(jv))
+    Tp = int8_attention._fused_tp(T)
+    vt, sv = quantize_v_plain(tv, Tp)
+    want = np.zeros((B * H, 64, Tp), np.int8)
+    want[:, :, :T] = vq_want.transpose(0, 2, 3, 1).reshape(B * H, 64, T)
+    want = want[:, :, int8_attention.key_positions(Tp).numpy()]
+    np.testing.assert_array_equal(vt.numpy(), want)
+    np.testing.assert_array_equal(sv.numpy(), sv_want.reshape(B * H, 64))
+    assert sv.reshape(B, H, 64)[0, 1, 3] == 1.0
+    np.testing.assert_array_equal(vq_want[0, :6, 1, 3], [127, 0, 2, -2, 64, -4])
+
+
+# f32 exponents e where rint(fl(127 e)) and rint(127 e) (one rounding) differ:
+# fl(127 e) lands on a half and rounds to even, the exact product lies past it.
+TWICE_ROUNDED = [0.7440945, 0.7992126, 0.6023622, 0.4527559, 0.7677165, 0.8228347, 0.492126]
+
+
+def test_probability_bytes_round_twice():
+    """pq = rint(fl(127 e)) for f32 e: the plain version's `probability_bytes`
+    equals the reference's `jnp.round(e * 127.0)` and the f32 kernel's
+    arithmetic (`tile_probs_f32`: __fmul_rn(e, 127), then __fadd_rn with 1.5 *
+    2^23, whose low byte is the integer), emulated in numpy, at the planted
+    values and on 10^6 random e; at the planted values one rounding of the
+    exact product gives the next byte."""
+    planted = np.array(TWICE_ROUNDED, np.float32)
+    e = np.concatenate([planted, np.random.default_rng(16).uniform(size=10**6).astype(np.float32),
+                        np.array([0.0, 1.0], np.float32)])
+    got = probability_bytes(torch.from_numpy(e)).numpy()
+    want = np.asarray(jnp.round(jnp.asarray(e) * 127.0).astype(jnp.int8))
+    np.testing.assert_array_equal(got, want)
+    product = e * np.float32(127.0)  # f32, rounded once
+    assert product.dtype == np.float32
+    kround = np.float32(12582912.0)
+    kernel = ((product + kround).astype(np.float32) - kround).astype(np.int8)  # exact subtraction
+    np.testing.assert_array_equal(kernel, want)
+    once = np.rint(planted.astype(np.float64) * 127.0).astype(np.int8)
+    assert (once != got[:len(planted)]).all(), (once, got[:len(planted)])
+    assert got[:len(planted)].tolist() == [94, 102, 76, 58, 98, 104, 62]
+
+
 def test_fused_values_are_zero_past_t():
     v = torch.randn(2, 37, 3, 64).to(torch.bfloat16)
     vt, sv = quantize_v_plain(v, 128)
@@ -231,3 +290,43 @@ def test_fused_kernel_matches_plain_on_card(cuda_device, T, masked):
     want = int8_attention.int8_attention_reference(q, k, vq, sv, mask).float()
     bound = sv.reshape(2, 1, 4, 64) + torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
     assert bool(((got[0].float() - want).abs() <= bound).all())
+
+
+def _planted_on(device, B, T, H, seed, masked, dtype):
+    q, k, v, rng = _planted(B, T, H, seed)
+    mask = None
+    if masked:
+        mask = torch.from_numpy(rng.uniform(size=(B, T)) > 0.3).to(device)
+        mask[-1] = False  # every key of the last batch element masked
+    return [torch.from_numpy(a).to(device, dtype) for a in (q, k, v)] + [mask]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [37, 1025, 2305])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_f32_kernel_matches_plain_on_card(cuda_device, T, masked):
+    """f32: the values' quantization equal to its plain version; the whole
+    route (`int8_prob_attention`: the values' kernel, the pre-pass and the
+    kernel) within one value step (max |v| / 127 of the channel) of the plain
+    route everywhere, two calls bit-identical; on planted operands (logits
+    +-64 or 0, exact on both routes: e in {0, 1}, z an exact count) bit-equal."""
+    gen = torch.Generator().manual_seed(17)
+    q, k, v = (s * torch.randn(2, T, 4, 64, generator=gen) for s in (2.0, 2.0, 1.0))
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    mask = (torch.rand(2, T, generator=gen) > 0.3).to(cuda_device) if masked else None
+    before = int8_attention.launches_fused_f32
+    got = [int8_prob_attention(q, k, v, mask) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert int8_attention.launches_fused_f32 == before + 2
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], got[1])
+    vt, sv = int8_attention.int8_quantize_v_cuda(v)
+    vt_ref, sv_ref = quantize_v_plain(v, int8_attention._fused_tp(T))
+    assert torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref)
+    want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+    step = sv.reshape(2, 1, 4, 64)
+    assert bool(((got[0] - want).abs() <= step).all())
+    q, k, v, mask = _planted_on(cuda_device, 3, T, 2, seed=18, masked=masked, dtype=torch.float32)
+    got = int8_prob_attention(q, k, v, mask)
+    want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
   3. kernels vs plain on the card, each then timed with CUDA events at the
      serve shape, as eager calls and as CUDA-graph replays (device time, in
      the JSON line), in turns plain/kernel/kernel/plain:
-       * peak decode (32 maps of 128x128 at T 1 and 2, M = 1, 5, 33, maps
+       * peak decode (32 maps of 128x128 at T 1 and 2, M = 1, 5, 33, 64, maps
          with a NaN (decoded as the reference's kernel: (0, H) and NaNs),
          all -inf, planted ties, a non-multiple M), then timed beside the
          launch floor (the same kernel on one 4x4 map);
@@ -41,11 +41,26 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          train batch; (336, 64, 64) and (336, 128, 128), the synthetic
          trainer's; a non-multiple M and W, per-map and small sigma,
          half-pixel ties, keypoints just and far outside the map);
+       * the SVD kernel of the pose step (`phase_small_svd`: 64 matrices at
+         each of the tick's shape groups, fr3's and fr5's DLT, plane fit,
+         homography and the 3 x 3 rotation projection, and the largest it
+         takes, (32, 16); rank-deficient, zero-row and zero matrices among
+         them) against torch.linalg.svd through sign-free quantities, two
+         calls bit-identical, a shape it does not take refused; each group
+         timed beside torch.linalg.svd (eager) and its bound;
      then every launch counter: an empty input counts nothing, one launch one;
   4. the slices, each through `mvropose_torch.cli`'s own parser, with every
      kernel's launches counted over that run only:
        * `serve` at its defaults (4 synthetic 720x1280 cameras, ViT-B/16 at
          512 px, random weights from seed 0, bf16): the peak decode;
+       * the pose step alone (`phase_pose`: `recover_pose_batch` on a clean
+         fr3 rig at the serve shapes, V = 1 and 4, refine off and on) on the
+         card against the CPU route (success equal; poses from the exact
+         keypoints within 1e-3 rad and 1e-3 of |t|), 5 SVD launches a call
+         (10 with refine), never synchronizing; its CUDA-graph replay,
+         eager time, device kernels and host aten calls a call;
+       * `serve --recover-pose`: the peak decode and 5 SVD launches a tick,
+         finite poses and a boolean success a view;
        * `serve --params RUN/best_params.npz --int8-backbone
          --int8-attention` on a temporary run directory under build/, whose
          model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
@@ -58,6 +73,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
        * `serve --params RUN/best_params.npz` on the same run directory
          without --int8-backbone (bf16, fused LN): the LayerNorm kernel 13
          times a tick and the residual LayerNorm 12;
+       * `serve --params RUN/best_params.npz --int8-backbone
+         --int8-attention --recover-pose --refine-pose` on the same run
+         directory: every int8 serve kernel as above, and 10 SVD launches a
+         tick;
   5. the bare serve steps, bf16 and int8 + fused LN (on both int8 matmul
      routes: the kernels and the plain chain of `int_mm_route()`, in
      turns), timed on a resident batch and
@@ -176,7 +195,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step, write_run_dir
 from mvropose_torch.data.synthetic import make_rig, rig_tuple, synthesize_multiview_batch
-from mvropose_torch.geometry.robots import get_robot
+from mvropose_torch.geometry.camera import project_points
+from mvropose_torch.geometry.robots import forward_kinematics, get_robot
+from mvropose_torch.geometry.rotations import rodrigues_to_matrix
 from mvropose_torch.models import (
     EstimatorConfig,
     MultiViewPoseEstimator,
@@ -199,7 +220,10 @@ from mvropose_torch.ops import (
     int8_matmul,
     layernorm,
     peak_decode,
+    small_svd,
 )
+from mvropose_torch.pose import PoseDraws, recover_pose_batch, solve_rig_pnp
+from mvropose_torch.pose.refine import refine_rig_pose_angles
 from mvropose_torch.train import TrainConfig, create_train_state, make_multi_view_train_step
 from mvropose_torch.train.state import ANG_MODULES, KPT_MODULES
 from mvropose_torch.utils.weights import (
@@ -212,6 +236,9 @@ from mvropose_torch.utils.weights import (
 
 ROOT = Path(__file__).resolve().parent
 SERVE_SECONDS = 8.0
+# serve --refine-pose runs its eager pose step at seconds a tick (the host):
+# long enough for 10 ticks.
+REFINE_SERVE_SECONDS = 60.0
 # name: (wrapper module, its launch counter, source, the TPU kernel it replaces);
 # a flash kernel's counter is its part in `attention.route_launches`.
 KERNELS = {
@@ -245,6 +272,10 @@ KERNELS = {
                            "mvropose_tpu/models/quantize.py:37"),
     "heatmap_render": (heatmap_render, "launches", "mvropose_torch/csrc/heatmap_render.cu",
                        "mvropose_tpu/ops/heatmap_render.py:25"),  # _render_kernel
+    # Not Pallas: jnp.linalg.svd of the pose path (the DLT's, and the plane
+    # fit's, homography's and rotation projections' of pnp.py:109-183).
+    "small_svd": (small_svd, "launches", "mvropose_torch/csrc/small_svd.cu",
+                  "mvropose_tpu/geometry/pnp.py:94"),
     # JAX's stock Pallas flash attention (jax 0.9.0), which
     # mvropose_tpu/ops/attention.py:161 calls at T >= 2048 on a TPU.
     "flash_fwd": (attention, "fwd", "mvropose_torch/csrc/flash_attention.cu",
@@ -296,9 +327,10 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def cuda_ms(fn, iters: int, samples: int = 50) -> float:
-    """Median over `samples` CUDA-event windows of `iters` calls, in ms per call."""
-    for _ in range(5):
+def cuda_ms(fn, iters: int, samples: int = 50, warm: int = 5) -> float:
+    """Median over `samples` CUDA-event windows of `iters` calls, in ms per
+    call, after `warm` calls."""
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(samples):
@@ -475,7 +507,7 @@ def phase_peak_decode() -> dict:
     1e-3 px (f32 sums in another order), raw peak exact, a NaN equal to a
     NaN: maps with a NaN decode to (0, H), NaN peak, confidence and soft
     sums, as the reference's kernel. Cases: the serve shape at T 1 and 2,
-    M = 1, 5, 33 (M C below the SM count: 8, 8 and 4 blocks a map), the NaN,
+    M = 1, 5, 33, 64 (8, 8, 4 and 2 blocks a map on 132 SMs), the NaN,
     -inf and tie maps at the serve size, a non-multiple M and small maps.
     Then timed in turns against the plain version, and against one 4x4 map
     (the launch floor: the same kernel with next to no work)."""
@@ -485,7 +517,7 @@ def phase_peak_decode() -> dict:
         ("serve_t1", serve_maps, 1.0),
         ("serve_t2", serve_maps, 2.0),
         *((f"m{M}", 4.0 * rng.normal(size=(M, 128, 128)).astype(np.float32), 1.0)
-          for M in (1, 5, 33)),
+          for M in (1, 5, 33, 64)),
         ("poisoned", _poisoned_maps(rng), 1.0),
         ("poisoned_t2", _poisoned_maps(rng), 2.0),
         ("nonmultiple_m", rng.normal(size=(5, 32, 32)).astype(np.float32), 1.0),
@@ -1668,6 +1700,7 @@ def phase_counters() -> None:
             torch.ones(n, 16, device="cuda"), torch.ones(n, 16, device="cuda"), g16, b16),
         "heatmap_render": lambda n: heatmap_render.render_heatmaps_cuda(
             torch.zeros(n, 3, device="cuda"), 4, 4),
+        "small_svd": lambda n: small_svd.small_svd_cuda(torch.zeros(n, 4, 3, device="cuda")),
         "int8_quantize_v": lambda n: int8_attention.int8_quantize_v_cuda(
             torch.zeros(1, n, 2, 64, dtype=torch.bfloat16, device="cuda")),
         "int8_quantize_rows": lambda n: int8_matmul.int8_quantize_rows_cuda(
@@ -1982,17 +2015,25 @@ def phase_replay() -> None:
             print(f"serve --replay-dir with cv2: {stats.ticks} ticks from 4 PNG frames")
 
 
-def _serve(argv: list, label: str, kernels: list) -> dict:
-    """`cli serve` through the CLI's parser -> every kernel's launches in that run."""
-    args = build_parser().parse_args(["serve", "--views", "4", "--duration", str(SERVE_SECONDS),
+def _serve(argv: list, label: str, kernels: list, seconds: float = SERVE_SECONDS) -> dict:
+    """`cli serve` through the CLI's parser for `seconds` -> every kernel's
+    launches in that run."""
+    args = build_parser().parse_args(["serve", "--views", "4", "--duration", str(seconds),
                                       *argv])
     _reset_launches()
     stats, last = serve(args)
     launches = _read_launches()
     check(last is not None, f"{label}: serve returned no result")
-    xy, conf, ang = last
+    pose = "--recover-pose" in argv
+    check(len(last) == (6 if pose else 3), f"{label}: serve returned {len(last)} outputs")
+    xy, conf, ang = last[:3]
     check(xy.shape == (4, 8, 2) and conf.shape == (4, 8) and ang.shape == (1, 7),
           f"{label}: serve output shapes {xy.shape}, {conf.shape}, {ang.shape}")
+    if pose:  # per-camera rvec, tvec and a boolean success, as the reference's infer
+        rvec, tvec, success = last[3:]
+        check(rvec.shape == tvec.shape == (4, 3) and success.shape == (4,)
+              and success.dtype == np.bool_, f"{label}: pose outputs {rvec.shape}, "
+              f"{tvec.shape}, {success.shape} {success.dtype}")
     check(all(np.isfinite(a).all() for a in last), f"{label}: serve output is not finite")
     check(stats.ticks >= 10, f"{label}: served only {stats.ticks} ticks")
     for name in KERNELS:
@@ -2001,10 +2042,11 @@ def _serve(argv: list, label: str, kernels: list) -> dict:
         else:
             check(launches[name] == 0, f"{label}: the serve run launched {name}: {launches}")
     print(f"serve [{label}]: {stats.ticks} ticks ({stats.frames_processed} camera frames) in "
-          f"{SERVE_SECONDS:.0f} s: {stats.fps:.2f} tick/s = {stats.camera_fps:.2f} "
+          f"{seconds:.0f} s: {stats.fps:.2f} tick/s = {stats.camera_fps:.2f} "
           f"camera-frames/s; kernel launches {launches}; host "
           f"{1e3 * stats.total_step_time_s / stats.ticks:.2f} ms/tick, fetch "
-          f"{1e3 * stats.total_fetch_time_s / stats.ticks:.2f} ms/tick")
+          f"{1e3 * stats.total_fetch_time_s / stats.ticks:.2f} ms/tick"
+          + (f"; last tick's success {last[5].tolist()}" if pose else ""))
     return launches
 
 
@@ -2179,6 +2221,12 @@ def phase_step(flat: dict) -> float:
 INT8_TICK = {"int8_attention": 12, "int8_quantize_v": 12, "int8_matmul": 72,
              "int8_quantize_rows": 24, "layernorm_int8": 12, "residual_layernorm_int8": 12,
              "layernorm": 1}
+
+
+def check_pose_tick(label: str, launches: dict, per_tick: int) -> None:
+    ticks = launches["peak_decode"]
+    check(launches["small_svd"] == per_tick * ticks,
+          f"{label}: {launches['small_svd']} SVD launches for {ticks} ticks, not {per_tick} each")
 
 
 def check_int8_tick(label: str, launches: dict, attention_kernel: str) -> None:
@@ -2644,6 +2692,226 @@ def phase_small_reference() -> dict:
     return launches
 
 
+# The pose step's SVD shape groups on a serve tick at 4 views x 16
+# hypotheses (64 matrices each): fr3's (N = 8) DLT, plane fit and
+# homography, the rotation projection, and fr5's (N = 7); then the
+# kernel's largest shape.
+SVD_GROUPS = [("dlt", 16, 12), ("plane", 8, 3), ("homography", 16, 9), ("rotation", 3, 3),
+              ("dlt_fr5", 14, 12), ("plane_fr5", 7, 3), ("homography_fr5", 14, 9),
+              ("largest", 32, 16)]
+SVD_TOL = {"sigma": 2e-5, "null_vector": 1e-4, "gram": 4e-5, "rotation": 1e-5}
+
+
+def _svd_operands(m: int, n: int, seed: int, batch: int = 64) -> torch.Tensor:
+    """Random f32 matrices with rank-deficient ones (a column spanned by the
+    others, two for n > 2), zero rows (gated points) and an all-zero one."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(batch, m, n)).astype(np.float32)
+    if n > 1:
+        a[1, :, -1] = a[1, :, :-1] @ rng.normal(size=n - 1)
+    if n > 2:
+        a[2, :, -2:] = a[2, :, :-2] @ rng.normal(size=(n - 2, 2))
+    a[3, : m // 2] = 0.0
+    a[4] = 0.0
+    return torch.from_numpy(a).cuda()
+
+
+def svd_errors(a: torch.Tensor, got: tuple, want) -> dict:
+    """The kernel's (U, S, Vh) against torch.linalg.svd's through sign-free
+    quantities, in f64: singular values over the largest; 1 - |<v, v'>| of
+    the last right singular vector where its singular value is simple;
+    |(A Vh^T)^T (A Vh^T) - diag(S^2)| over S_0^2; for 3 x 3 input the
+    projected rotation U D Vh where it is unique (rank >= 2)."""
+    U, S, Vh = (None if x is None else x.double().cpu() for x in got)
+    A, wS, wVh = a.double().cpu(), want.S.double().cpu(), want.Vh.double().cpu()
+    scale = wS[:, :1].clamp(min=1e-30)
+    av = A @ Vh.transpose(1, 2)
+    gram = av.transpose(1, 2) @ av - torch.diag_embed(
+        torch.nn.functional.pad(S ** 2, (0, Vh.shape[-1] - S.shape[-1])))
+    errs = {"sigma": float(((S - wS) / scale).abs().max()),
+            "gram": float((gram / scale[..., None] ** 2).abs().max())}
+    if A.shape[-2] >= A.shape[-1]:
+        simple = wS[:, -1] < wS[:, -2] - 1e-3 * scale[:, 0]
+        dots = (Vh[:, -1] * wVh[:, -1]).sum(-1).abs()
+        errs["null_vector"] = float((1 - dots[simple]).max())
+    if U is not None:
+        def rot(u, vh):
+            det = torch.linalg.det(u @ vh)
+            return u @ (torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)[..., None]
+                        * vh)
+        unique = wS[:, 1] > 1e-6 * scale[:, 0]
+        errs["rotation"] = float((rot(U, Vh) - rot(want.U.double().cpu(), wVh))[unique].abs().max())
+    return errs
+
+
+def phase_small_svd() -> dict:
+    """The SVD kernel against torch.linalg.svd on the card at each of the
+    pose step's shape groups (and the largest it takes), two calls
+    bit-identical, a shape it does not take refused; then each group timed:
+    the kernel as graph replays, both as eager calls (torch.linalg.svd
+    waits for the device, so no graph holds it), beside its bound."""
+    results, max_err = {}, 0.0
+    for i, (name, m, n) in enumerate(SVD_GROUPS):
+        a = _svd_operands(m, n, seed=100 + i)
+        three = (m, n) == (3, 3)
+        got = small_svd.small_svd_cuda(a, compute_u=three)
+        again = small_svd.small_svd_cuda(a, compute_u=three)
+        torch.cuda.synchronize()
+        check(all(x is None or torch.equal(x, y) for x, y in zip(got, again)),
+              f"small_svd {name}: two calls differ")
+        errs = svd_errors(a, got, torch.linalg.svd(a, full_matrices=True))
+        check(all(v <= SVD_TOL[k] for k, v in errs.items()), f"small_svd {name}: {errs}")
+        max_err = max(max_err, errs["sigma"])
+        kernel = functools.partial(small_svd.small_svd_cuda, a, three)
+        plain = functools.partial(torch.linalg.svd, a, full_matrices=True)
+        eager = [cuda_ms(f, 20, 20) for f in (plain, kernel, kernel, plain)]
+        replay = graph_ms(kernel, 20, 20)
+        k = min(m, n)
+        # Bytes: A read, S, Vh (and U) written once. Operations: Golub and Van
+        # Loan's count for S and V of an m x n matrix, 4 m n^2 + 8 n^3, in f32.
+        b = bound(4 * 64 * (m * n + k + n * n + (9 if three else 0)), 64 * (4 * m * n * n + 8 * n ** 3),
+                  "f32")
+        results[name] = {"shape": [64, m, n], "ms": replay,
+                         "eager_ms": statistics.median(eager[1:3]),
+                         "plain_ms": statistics.median(eager[0::3]), **b, "errors": errs}
+        print(f"small_svd [{name} (64, {m}, {n})] vs torch.linalg.svd: {errs}; eager in turns "
+              f"plain/kernel/kernel/plain " + "/".join(f"{1e3 * t:.2f}" for t in eager)
+              + f" us; kernel graph replay {1e3 * replay:.2f} us; bound "
+              f"{1e3 * b['bound_ms']:.4f} us ({b['bound_by']})")
+    for shape in ((4, 33, 4), (4, 5, 17)):
+        try:
+            small_svd.small_svd_cuda(torch.zeros(shape, device="cuda"))
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"small_svd took the shape {shape}")
+    dlt = results["dlt"]
+    # torch.linalg.svd is both the plain version and the one PyTorch call.
+    return {"small_svd": {"max_abs_err": max_err, "ms": dlt["ms"], "plain_ms": dlt["plain_ms"],
+                          "bound_ms": dlt["bound_ms"], "bound_by": dlt["bound_by"],
+                          "library_ms": dlt["plain_ms"], "shape": dlt["shape"],
+                          "groups": results}}
+
+
+POSE_K = [[737.0, 0.0, 640.0], [0.0, 737.0, 360.0], [0.0, 0.0, 1.0]]  # serve's nominal K
+
+
+def pose_rig(views: int, seed: int, device) -> tuple:
+    """A clean fr3 rig on `device` at the serve shapes: (V, 8, 128, 128)
+    logit heatmaps peaked on the keypoints' pixels in a 720x1280 frame (the
+    cameras ~3.5 m away, every keypoint in the frame), the true angles off
+    by ~0.05 rad as the prediction, identity bases, the nominal K, and the
+    keypoints' exact pixels (V, 8, 2)."""
+    robot = get_robot("fr3")
+    rng = np.random.default_rng(seed)
+    angles = rng.uniform(-1, 1, 7).astype(np.float32)
+    pred = torch.from_numpy(angles + rng.normal(scale=0.05, size=7).astype(np.float32))
+    obj = robot.keypoints_from_fk(forward_kinematics(robot, torch.from_numpy(angles)))
+    K = torch.tensor(POSE_K)
+    xys = []
+    while len(xys) < views:
+        rvec = torch.from_numpy(rng.normal(size=3).astype(np.float32))
+        shift = torch.tensor([*rng.uniform(-0.15, 0.15, 2), 3.5], dtype=torch.float32)
+        xy = project_points(obj, rvec, shift - rodrigues_to_matrix(rvec) @ obj.mean(0), K)
+        if (xy > 20).all() and (xy[:, 0] < 1260).all() and (xy[:, 1] < 700).all():
+            xys.append(xy)
+    xy = torch.stack(xys)
+    cols, rows = torch.arange(128.0), torch.arange(128.0)
+    d2 = ((cols - xy[..., 0, None, None] * 0.1) ** 2
+          + (rows[:, None] - xy[..., 1, None, None] * 128 / 720) ** 2)
+    heat = 10.0 * torch.exp(-d2 / 4.5) - 5.0
+    eye = torch.eye(3).expand(views, 3, 3)
+    return tuple(t.contiguous().to(device) for t in (heat, pred, eye, K.expand(views, 3, 3), xy))
+
+
+def clean_pose(xy, pred, bases, Ks, draws: PoseDraws, refine: bool) -> dict:
+    """The pose step from the exact keypoints (no decode): solve_rig_pnp,
+    then with refine the joint refinement, as recover_pose_batch runs them."""
+    robot, conf = get_robot("fr3"), torch.full(xy.shape[:-1], 0.9, device=xy.device)
+    out = solve_rig_pnp(xy, conf, pred, bases, Ks, robot, gumbel=draws.gumbel)
+    if refine:
+        out.update(refine_rig_pose_angles(xy, conf, pred, out["rvec"], out["tvec"], bases, Ks,
+                                          robot, starts=draws.starts, regumbel=draws.regumbel))
+    return out
+
+
+def device_kernels(fn) -> tuple:
+    """One call of fn under torch.profiler, fn already warm -> (what the
+    device runs: kernels, copies, fills; the aten operator calls the host
+    makes for them)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return (sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+            sum(1 for e in events if e.name.startswith("aten::")))
+
+
+def phase_pose() -> dict:
+    """The pose step (`recover_pose_batch`: peak decode, FK, RANSAC PnP with
+    16 hypotheses a view, and with refine the joint refinement) on a clean
+    fr3 rig at the serve shapes, V = 1 and 4, refine off and on, with one
+    set of draws: on the card against the CPU route, equal success masks
+    from the heatmaps, and from the exact keypoints rotations within 1e-3
+    rad and translations within 1e-3 of |t| (from the heatmaps the argmax's
+    quantization, up to 5 px, leaves FR3's RANSAC to pick among near-equal
+    hypotheses, some of them DLT candidates from a null space of dimension
+    > 1: FR3's coincident keypoints); 5 SVD launches a call without refine
+    and 10 with it, never synchronizing with the host; timed as CUDA-graph
+    replays (device time) and as eager calls (CUDA events, host-bound), its
+    device work and the host's aten calls counted by the profiler."""
+    robot = get_robot("fr3")
+    out = {}
+    for views in (1, 4):
+        for refine in (False, True):
+            label = f"V={views}, refine {'on' if refine else 'off'}"
+            draws = PoseDraws.draw((), views, 8, 7, refine, torch.Generator().manual_seed(9))
+            results = {}
+            for dev in ("cpu", "cuda"):
+                *args, xy = pose_rig(views, 60 + views, dev)
+                d = PoseDraws(*(None if x is None else x.to(dev)
+                                for x in dataclasses.astuple(draws)))
+                step = functools.partial(recover_pose_batch, *args, robot, (720, 1280),
+                                         draws=d, refine=refine)
+                before = small_svd.launches
+                results[dev] = {k: v.cpu() for k, v in step().items()}
+                results[dev + "_clean"] = {k: v.cpu() for k, v in
+                                           clean_pose(xy, *args[1:], d, refine).items()}
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    svds = small_svd.launches - before
+                    check(svds == 2 * (10 if refine else 5), f"pose {label}: {svds} SVD launches")
+                    _never_syncs(step)
+                    cuda_step = step
+            check(torch.equal(results["cpu"]["success"], results["cuda"]["success"])
+                  and bool(results["cpu"]["success"].all()),
+                  f"pose {label}: success {results['cuda']['success']} on the card, "
+                  f"{results['cpu']['success']} on the CPU")
+            cpu, card = results["cpu_clean"], results["cuda_clean"]
+            check(torch.equal(cpu["success"], card["success"]),
+                  f"pose {label}: exact keypoints' success differs, card vs CPU")
+            R_gap = (rodrigues_to_matrix(card["rvec"].double())
+                     * rodrigues_to_matrix(cpu["rvec"].double())).sum((-2, -1))
+            rot = float(torch.arccos(((R_gap - 1) / 2).clamp(-1, 1)).max())
+            trans = float(((card["tvec"] - cpu["tvec"]).norm(dim=-1)
+                           / cpu["tvec"].norm(dim=-1)).max())
+            check(rot <= 1e-3 and trans <= 1e-3, f"pose {label}: card vs CPU {rot} rad, {trans}")
+            # With refine a call takes seconds of host time: fewer samples.
+            replay = graph_ms(cuda_step, iters=1, samples=5 if refine else 20)
+            eager = cuda_ms(cuda_step, 1, 3 if refine else 10, warm=0)  # already warm
+            kernels, aten = device_kernels(cuda_step)
+            out[label] = {"graph_ms": replay, "eager_ms": eager, "device_kernels": kernels,
+                          "aten_calls": aten}
+            print(f"pose step [{label}]: card vs CPU from the exact keypoints rotation {rot:.3g} "
+                  f"rad, translation {trans:.3g} of |t|, success equal (also from the heatmaps); "
+                  f"never synchronizes; CUDA-graph replay "
+                  f"(device time) {replay:.3f} ms, eager {eager:.3f} ms (CUDA events), "
+                  f"{kernels} device kernels a call ({10 if refine else 5} SVD launches) for "
+                  f"{aten} host aten calls")
+    return out
+
+
 # The reference's FR3 training shape (bench_train.py:178-191): frozen ViT-B/16
 # at 512 px (= FULL), 18 groups x 4 views, fr3 (J = 8, A = 7), 128x128 heatmaps.
 TRAIN_GROUPS = 18
@@ -2736,7 +3004,9 @@ def phase_trainer() -> int:
     """`scripts/torch_train_synthetic.py --mode multi` at its defaults for
     TRAINER_STEPS steps: finite losses, the last logged loss below
     TRAINER_LOSS_DROP of the first, two render launches per batch made
-    (the eval batches and one per step). -> render launches."""
+    (the eval batches and one per step), and the final pose evaluation's 5
+    SVD launches per eval batch, with the predicted and with the true
+    angles. -> render launches."""
     trainer = _script("torch_train_synthetic")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         _reset_launches()
@@ -2744,14 +3014,17 @@ def phase_trainer() -> int:
         launches = _read_launches()
         log = [json.loads(line) for line in
                (Path(work) / "logs" / "metrics.jsonl").read_text().splitlines()]
-    want = 2 * (TRAINER_STEPS + TRAINER_EVAL_BATCHES)
-    check(launches == {k: want if k == "heatmap_render" else 0 for k in KERNELS},
-          f"trainer: launched {launches}, want {want} renders")
+    want = {"heatmap_render": 2 * (TRAINER_STEPS + TRAINER_EVAL_BATCHES),
+            "small_svd": 2 * 5 * TRAINER_EVAL_BATCHES}
+    check(launches == {k: want.get(k, 0) for k in KERNELS},
+          f"trainer: launched {launches}, want {want}")
     curve = [(int(r["step"]), r["loss"], r["pck5"]) for r in log]
     print(f"trainer ({TRAINER_STEPS} steps at its defaults): (step, loss, pck5) {curve}; "
           f"final pck5 {final['pck5']}, angle_mae {final['angle_mae']}, "
           f"{final['train_samples_per_sec']} samples/s; render launches "
-          f"{launches['heatmap_render']}")
+          f"{launches['heatmap_render']}; pose success rate {final['pose_success_rate']}, "
+          f"rotation error {final['pose_rot_err_deg']} deg ({final['pose_rot_err_deg_gt_angles']} "
+          "with the true angles)")
     check(all(np.isfinite(r["loss"]) for r in log), "trainer: a logged loss is not finite")
     check(log[-1]["loss"] < TRAINER_LOSS_DROP * log[0]["loss"],
           f"trainer: loss {log[0]['loss']} -> {log[-1]['loss']}, not below "
@@ -2766,7 +3039,7 @@ def main() -> int:
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_layernorm_int8(),
                 **phase_int8_attention(), **phase_int8_matmul(), **phase_heatmap_render(),
-                **phase_flash()}
+                **phase_small_svd(), **phase_flash()}
     for name, extra in phase_f32().items():
         measured[name].update(extra)
     for name, by_width in phase_flash_widths().items():
@@ -2776,6 +3049,10 @@ def main() -> int:
     phase_counters()
     phase_replay()
     launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
+    phase_pose()
+    # Pose recovery on the tick: 5 SVD launches a tick, 10 with refine.
+    pose_launches = _serve(["--recover-pose"], "bf16 + pose", ["peak_decode", "small_svd"])
+    check_pose_tick("bf16 + pose", pose_launches, 5)
     flat = seed0_flat()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as run:  # ~350 MB of weights
@@ -2786,8 +3063,17 @@ def main() -> int:
         )
         ln_launches = _serve(["--params", str(Path(run) / "best_params.npz")], "fused LN, bf16",
                              FUSED_LN_KERNELS)
+        refine_launches = _serve(
+            ["--params", str(Path(run) / "best_params.npz"), "--int8-backbone",
+             "--int8-attention", "--recover-pose", "--refine-pose"],
+            "int8 + fused LN + pose + refine", [*SERVE_KERNELS, "small_svd"],
+            REFINE_SERVE_SECONDS)
     check_int8_tick("int8 serve", int8_launches, "int8_attention")
+    check_int8_tick("int8 serve with pose and refine", refine_launches, "int8_attention")
+    check_pose_tick("int8 serve with pose and refine", refine_launches, 10)
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
+    launches["small_svd"] = pose_launches["small_svd"] + refine_launches["small_svd"]
+    launches["peak_decode"] += pose_launches["peak_decode"]
     # The bf16 fused-LN tick: norm1 and the final norm, the residual norm2.
     for name, per_tick in (("layernorm", 13), ("residual_layernorm", 12)):
         check(ln_launches[name] == per_tick * ln_launches["peak_decode"],
@@ -2816,6 +3102,8 @@ def main() -> int:
                        ("flash_bwd_dq", train_768_f32)):
         measured[name].update(f32_source="mvropose_torch/csrc/flash_attention_tf32.cu",
                               f32_launches=runs[name])
+    check(all(launches[name] > 0 for name in KERNELS),
+          f"a kernel with no main-path launches in the JSON line: {launches}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], **measured[name],

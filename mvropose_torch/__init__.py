@@ -9,8 +9,9 @@ it shares with the reference is the numpy-only rig layer
 Layering (bottom-up), mirroring the reference:
   csrc/      CUDA C++ kernels for Hopper (sm_90a), built with nvcc at first use
   ops/       kernel wrappers (ctypes-bound) beside their plain-torch versions
-  geometry/  heatmap rendering and decoding in plain torch
+  geometry/  rotations, camera, FK, triangulation, PnP, heatmaps, in plain torch
   decode/    heatmap -> keypoint decoding (kernel on CUDA tensors)
+  pose/      keypoints + FK -> per-camera pose (RANSAC PnP, joint refinement)
   models/    ViT backbone, CNN stem, UNet/angle heads, multi-view fusion
   utils/     weight bridge from `save_params_npz` files, seeded random init
   cli/       the `serve` subcommand

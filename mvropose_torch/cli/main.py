@@ -3,7 +3,10 @@
 Port of the reference's `cli serve` (`mvropose_tpu/cli/main.py::_cmd_serve`)
 for the multi-view checkpoint with the query angle head: N camera sources ->
 one batched step (preprocess + model + peak decode) per rig tick through the
-port's `rig.StreamingPipeline` (a copy of the reference's).
+port's `rig.StreamingPipeline` (a copy of the reference's). `--recover-pose`
+adds per-camera RANSAC PnP on FK of the predicted angles to the step
+(`pose.recover_pose_batch`), and `--refine-pose` the joint (pose, angles)
+refinement; neither waits for the device.
 `--int8-backbone` (and `--int8-attention` with it) quantize the loaded model
 as the reference's flags do; a checkpoint whose model_config.json says
 `fused_ln` runs the fused LayerNorm. At `--model-size` 736 and above the
@@ -29,17 +32,19 @@ import torch
 
 from mvropose_torch.data import IMAGENET_MEAN, IMAGENET_STD
 from mvropose_torch.decode import decode_keypoints
+from mvropose_torch.geometry.robots import get_robot
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
 from mvropose_torch.models.heads import resize_bilinear
 from mvropose_torch.models.vit import device_constant
+from mvropose_torch.pose import PoseDraws, recover_pose_batch
 from mvropose_torch.rig import FileReplaySource, StreamingPipeline, SyntheticSource
 from mvropose_torch.utils.weights import int8ify, load_jax_params, random_state
 
 # Serve options of the reference whose modules are not ported yet.
 _UNPORTED = {
-    "recover_pose": ("--recover-pose", "queue 1, item 6 (pose recovery)"),
-    "refine_pose": ("--refine-pose", "queue 1, item 6 (pose recovery)"),
     "calib_dir": ("--calib-dir", "queue 1, item 7 (serve undistortion)"),
+    "summary": ("--summary", "queue 1, item 7 (the ArUco fallback poses; they need "
+                "--calib-dir)"),
 }
 
 
@@ -94,12 +99,58 @@ def _imagenet_stats():
     return IMAGENET_MEAN.reshape(1, 3, 1, 1), IMAGENET_STD.reshape(1, 3, 1, 1)
 
 
-def serve_step(model, images_u8, mask, model_size: int, image_hw):
+class PoseStep:
+    """Pose recovery on the serve tick, as the reference's serve `recover`
+    (`mvropose_tpu/cli/main.py:1630-1691`): the nominal K of a 720p-class
+    camera (fx = fy = 737 px, the principal point at the frame's centre),
+    identity base rotations, and the fallback substitution `~success &
+    fb_valid`, fb_valid all False until `--summary` is ported. Its draws are
+    made once, from a generator seeded 0 on the device, and used every tick:
+    the reference passes PRNGKey(0) every tick, and resident draws keep the
+    step free of host work. The arguments are the serve flags `--pose-robot`,
+    `--refine-pose`, `--refine-sigma-px` and `--refine-sigma-prior`."""
+
+    def __init__(self, views: int, image_hw, device, angles: int, robot: str = "fr3",
+                 refine: bool = False, sigma_px: float = 1.2, sigma_prior: float = 0.2):
+        self.image_hw = tuple(image_hw)
+        self.robot = get_robot(robot)
+        self.refine, self.sigma_px, self.sigma_prior = refine, sigma_px, sigma_prior
+        device = torch.device(device)
+        H, W = self.image_hw
+        K = torch.zeros(3, 3, device=device)
+        K[0, 0] = K[1, 1] = 737.0
+        K[0, 2], K[1, 2], K[2, 2] = W / 2, H / 2, 1.0
+        self.Ks = K.expand(views, 3, 3).contiguous()
+        self.bases = torch.eye(3, device=device).expand(views, 3, 3).contiguous()
+        self.fb_rvec = torch.zeros(views, 3, device=device)
+        self.fb_tvec = torch.zeros(views, 3, device=device)
+        self.fb_valid = torch.zeros(views, dtype=torch.bool, device=device)
+        gen = torch.Generator(device).manual_seed(0)
+        self.draws = PoseDraws.draw((), views, self.robot.n_keypoints, angles, refine, gen,
+                                    device)
+
+    def __call__(self, hm: torch.Tensor, ang: torch.Tensor):
+        """(V, J, h, w) heatmaps, (1, A) angles -> (keypoints, confidence,
+        angles, rvec (V, 3), tvec (V, 3), success (V,))."""
+        pose = recover_pose_batch(hm, ang[0], self.bases, self.Ks, self.robot, self.image_hw,
+                                  draws=self.draws, refine=self.refine,
+                                  refine_sigma_px=self.sigma_px,
+                                  refine_sigma_prior=self.sigma_prior)
+        use_fb = (~pose["success"] & self.fb_valid)[:, None]
+        rvec = torch.where(use_fb, self.fb_rvec, pose["rvec"])
+        tvec = torch.where(use_fb, self.fb_tvec, pose["tvec"])
+        return pose["keypoints_xy"], pose["confidence"], ang, rvec, tvec, pose["success"]
+
+
+def serve_step(model, images_u8, mask, model_size: int, image_hw, pose: PoseStep | None = None):
     """One rig tick on the model's device: (V, H, W, 3) uint8 frames + (V,)
-    mask -> (keypoints (V, J, 2) image px, confidence (V, J), angles (1, A))."""
+    mask -> (keypoints (V, J, 2) image px, confidence (V, J), angles (1, A)),
+    and with `pose` also (rvec (V, 3), tvec (V, 3), success (V,))."""
     imgs = preprocess(images_u8, model_size)
     view_ids = torch.arange(imgs.shape[0], device=imgs.device)[None]
     hm, ang = model(imgs[None], view_ids, mask[None])
+    if pose is not None:
+        return pose(hm[0], ang)
     xy, conf = decode_keypoints(hm[0], image_hw=image_hw)
     return xy, conf, ang
 
@@ -113,13 +164,16 @@ class ServeRunner:
     an event; it does not wait for the device. `fetch` waits on that event
     only. So in the double-buffered loop the host gathers and uploads set
     N+1 while the device computes set N. On a CPU device both are plain
-    synchronous calls.
+    synchronous calls. With a `PoseStep` the step also recovers the cameras'
+    poses.
     """
 
-    def __init__(self, model, views: int, model_size: int, image_hw, device):
+    def __init__(self, model, views: int, model_size: int, image_hw, device,
+                 pose: PoseStep | None = None):
         self.model, self.model_size, self.image_hw = model, model_size, tuple(image_hw)
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
+        self.pose = pose
         H, W = self.image_hw
         pin = dict(pin_memory=self.cuda)
         self._frames = [torch.empty((views, H, W, 3), dtype=torch.uint8, **pin) for _ in range(2)]
@@ -140,7 +194,7 @@ class ServeRunner:
             if self.cuda:
                 self._uploaded[i] = torch.cuda.Event()
                 self._uploaded[i].record()
-            outs = serve_step(self.model, frames, m, self.model_size, self.image_hw)
+            outs = serve_step(self.model, frames, m, self.model_size, self.image_hw, self.pose)
             if not self.cuda:
                 return None, outs
             host = tuple(
@@ -163,8 +217,14 @@ class ServeRunner:
 
 
 def _serve_model(args):
-    """(model, model_size) for the serve flags or the checkpoint's config."""
+    """(model, model_size) for the serve flags or the checkpoint's config.
+    With --recover-pose the heads' arity is the robot's (heatmaps =
+    keypoints, angles = joints), and a checkpoint of another arity exits."""
     saved = read_model_config(args.params) if args.params else None
+    n_joints, n_angles = 8, 7
+    if args.recover_pose:
+        robot = get_robot(args.pose_robot)
+        n_joints, n_angles = robot.n_keypoints, robot.n_joints
     if saved is not None:
         cfg, model_size, kind = saved
         if kind != "multi_view":
@@ -174,6 +234,11 @@ def _serve_model(args):
             )
         if args.views > cfg.max_views:
             raise SystemExit(f"--views {args.views} exceeds the trained max_views {cfg.max_views}")
+        if args.recover_pose and (cfg.num_joints, cfg.num_angles) != (n_joints, n_angles):
+            raise SystemExit(
+                f"--pose-robot {args.pose_robot} expects {n_joints} keypoints/{n_angles} angles "
+                f"but the checkpoint has {cfg.num_joints}/{cfg.num_angles}"
+            )
         print(f"model architecture restored from {Path(args.params).parent / 'model_config.json'}")
     else:
         model_size = args.model_size
@@ -184,7 +249,8 @@ def _serve_model(args):
             num_register_tokens=args.register_tokens, dtype="bfloat16",
             use_rope=args.rope, layer_norm_eps=1e-5 if args.rope else 1e-6,
         )
-        cfg = EstimatorConfig(vit=vit, max_views=args.views, angle_head=args.angle_head)
+        cfg = EstimatorConfig(vit=vit, num_joints=n_joints, num_angles=n_angles,
+                              max_views=args.views, angle_head=args.angle_head)
     if cfg.angle_head != "query":
         raise SystemExit(
             f"angle_head {cfg.angle_head!r} is not ported yet (ROADMAP.md queue 1, "
@@ -211,13 +277,15 @@ def _serve_model(args):
 def serve(args):
     """Run the serve loop for `args.duration` seconds.
 
-    Returns (StreamStats, last fetched result (keypoints, confidence, angles)
-    as numpy arrays)."""
+    Returns (StreamStats, last fetched result (keypoints, confidence, angles,
+    and with --recover-pose rvec, tvec, success) as numpy arrays)."""
     for attr, (flag, item) in _UNPORTED.items():
         if getattr(args, attr):
             raise SystemExit(f"{flag} is not ported yet (ROADMAP.md {item})")
     if args.int8_attention and not args.int8_backbone:
         raise SystemExit("--int8-attention runs only with --int8-backbone")
+    if args.refine_pose and not args.recover_pose:
+        raise SystemExit("--refine-pose runs only with --recover-pose")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
     hw = tuple(args.frame_hw)
@@ -242,7 +310,11 @@ def serve(args):
             SyntheticSource(f"synthetic{i}", hw=hw, fps=args.fps) for i in range(args.views)
         ]
     model, model_size = _serve_model(args)
-    runner = ServeRunner(model, args.views, model_size, hw, args.device)
+    pose = None
+    if args.recover_pose:
+        pose = PoseStep(args.views, hw, args.device, model.cfg.num_angles, args.pose_robot,
+                        args.refine_pose, args.refine_sigma_px, args.refine_sigma_prior)
+    runner = ServeRunner(model, args.views, model_size, hw, args.device, pose)
     if args.no_overlap:
         pipe = StreamingPipeline(sources, runner.infer, frame_hw=hw)
     else:
@@ -333,11 +405,16 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--int8-attention", action="store_true",
                     help="with --int8-backbone: also run int8-probability "
                          "attention (ops/int8_attention.py)")
-    for attr, (flag, item) in _UNPORTED.items():
-        if attr == "calib_dir":
-            pv.add_argument(flag, default=None, help=f"not ported yet (ROADMAP.md {item})")
-        else:
-            pv.add_argument(flag, action="store_true", help=f"not ported yet (ROADMAP.md {item})")
+    pv.add_argument("--recover-pose", action="store_true",
+                    help="per-camera 6D RANSAC-PnP pose recovery inside the tick")
+    pv.add_argument("--refine-pose", action="store_true",
+                    help="with --recover-pose: the joint (pose, angles) refinement inside "
+                         "the tick (pose/refine.py)")
+    pv.add_argument("--refine-sigma-px", type=float, default=1.2)
+    pv.add_argument("--refine-sigma-prior", type=float, default=0.2)
+    pv.add_argument("--pose-robot", default="fr3")
+    for flag, item in _UNPORTED.values():
+        pv.add_argument(flag, default=None, help=f"not ported yet (ROADMAP.md {item})")
     pv.set_defaults(fn=_cmd_serve)
     return p
 

@@ -1,8 +1,10 @@
 """Pinhole camera with OpenCV-style lens distortion.
 
-Port of the parts of `mvropose_tpu/geometry/camera.py` that the training
-slice runs: `distort_normalized` and `project_points` (cv2.projectPoints).
-Distortion coefficients are (k1, k2, p1, p2, k3).
+Port of the parts of `mvropose_tpu/geometry/camera.py` that the training and
+pose slices run: `distort_normalized`, `project_points` (cv2.projectPoints),
+`project_camera_frame` and `undistort_points` (cv2.undistortPoints). The
+undistortion maps of serve (`undistort_map`, `remap_bilinear`) are ROADMAP.md
+queue 1, item 7. Distortion coefficients are (k1, k2, p1, p2, k3).
 """
 
 from __future__ import annotations
@@ -31,9 +33,31 @@ def project_points(points_3d: torch.Tensor, rvec: torch.Tensor, tvec: torch.Tens
     give one camera per batch entry and broadcast against the points'."""
     R = rodrigues_to_matrix(rvec)  # (..., 3, 3)
     cam = points_3d @ R.transpose(-1, -2) + tvec[..., None, :]
-    xy = cam[..., :2] / (cam[..., 2:3] + 1e-12)
-    if dist is not None:
-        xy = distort_normalized(xy, dist)
+    return project_camera_frame(cam, K, dist)
+
+
+def _to_pixels(xy: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     fx, fy = K[..., 0, 0, None], K[..., 1, 1, None]
     cx, cy = K[..., 0, 2, None], K[..., 1, 2, None]
     return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], -1)
+
+
+def project_camera_frame(points_cam: torch.Tensor, K: torch.Tensor, dist=None) -> torch.Tensor:
+    """Camera-frame points (..., N, 3) -> pixels (..., N, 2), no extrinsic."""
+    xy = points_cam[..., :2] / (points_cam[..., 2:3] + 1e-12)
+    if dist is not None:
+        xy = distort_normalized(xy, dist)
+    return _to_pixels(xy, K)
+
+
+def undistort_points(pixels: torch.Tensor, K: torch.Tensor, dist, iters: int = 8) -> torch.Tensor:
+    """Distorted pixels (..., N, 2) -> ideal pixels (..., N, 2): the fixed-point
+    inversion of the distortion model that cv2.undistortPoints uses, for a
+    fixed number of iterations."""
+    fx, fy = K[..., 0, 0, None], K[..., 1, 1, None]
+    cx, cy = K[..., 0, 2, None], K[..., 1, 2, None]
+    target = torch.stack([(pixels[..., 0] - cx) / fx, (pixels[..., 1] - cy) / fy], -1)
+    xy = target
+    for _ in range(iters):
+        xy = target - (distort_normalized(xy, dist) - xy)
+    return _to_pixels(xy, K)

@@ -1,13 +1,15 @@
 """SO(3) utilities: rotation vectors, quaternions, euler angles.
 
-Port of the parts of `mvropose_tpu/geometry/rotations.py` that the training
-slice runs. Quaternions are (x, y, z, w), as scipy's. Every function takes
-leading batch dimensions (the JAX versions are vmapped instead).
+Port of `mvropose_tpu/geometry/rotations.py`. Quaternions are (x, y, z, w),
+as scipy's. Every function takes leading batch dimensions (the JAX versions
+are vmapped instead).
 """
 
 from __future__ import annotations
 
 import torch
+
+from mvropose_torch.ops.small_svd import small_svd
 
 _EPS = 1e-12
 
@@ -88,3 +90,61 @@ def euler_zyx_deg_to_matrix(angles_deg) -> torch.Tensor:
     Ry = mat([[cy, o, sy], [o, i, o], [-sy, o, cy]])
     Rx = mat([[i, o, o], [o, cx, -sx], [o, sx, cx]])
     return Rx @ Ry @ Rz
+
+
+def quat_to_matrix(q) -> torch.Tensor:
+    """Unit quaternions (..., 4) -> rotation matrices (..., 3, 3)."""
+    q = torch.as_tensor(q)
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    x, y, z, w = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def average_quaternion(quats, weights=None) -> torch.Tensor:
+    """Eigen-mean of quaternions (..., N, 4) -> (..., 4), w >= 0: the dominant
+    eigenvector of sum_i w_i q_i q_i^T. A calibration helper, off the serve
+    tick, so `torch.linalg.eigh` (which waits for the device) is fine here."""
+    quats = torch.as_tensor(quats)
+    if weights is None:
+        weights = torch.ones(quats.shape[:-1], dtype=quats.dtype, device=quats.device)
+    M = torch.einsum("...n,...ni,...nj->...ij", weights, quats, quats)
+    q = torch.linalg.eigh(M).eigenvectors[..., -1]
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    return torch.where(q[..., 3:] < 0, -q, q)
+
+
+def quat_angular_distance(q1, q2) -> torch.Tensor:
+    """Geodesic angle (radians) between unit quaternions (..., 4)."""
+    q1, q2 = torch.as_tensor(q1), torch.as_tensor(q2)
+    q1 = q1 / (torch.linalg.norm(q1, dim=-1, keepdim=True) + _EPS)
+    q2 = q2 / (torch.linalg.norm(q2, dim=-1, keepdim=True) + _EPS)
+    dot = (q1 * q2).sum(-1).abs()
+    return 2.0 * torch.arccos(torch.clamp(dot, 0.0, 1.0))
+
+
+def det3(M: torch.Tensor) -> torch.Tensor:
+    """Determinants of (..., 3, 3) matrices, written out (no LU, no sync)."""
+    return torch.linalg.cross(M[..., 0, :], M[..., 1, :], dim=-1).mul(M[..., 2, :]).sum(-1)
+
+
+def kabsch(src, dst, weights=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Least-squares rigid alignment of (..., N, 3) point sets: (R, t) with
+    dst ~= src @ R^T + t, by the SVD of the weighted cross-covariance with
+    the det-sign fix for reflections; weight-0 points drop out."""
+    src, dst = torch.as_tensor(src), torch.as_tensor(dst)
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    w = weights[..., None] / (weights.sum(-1)[..., None, None] + _EPS)
+    mu_s, mu_d = (src * w).sum(-2), (dst * w).sum(-2)
+    H = torch.einsum("...ni,...nj,...n->...ij", src - mu_s[..., None, :], dst - mu_d[..., None, :],
+                     weights)
+    U, _, Vh = small_svd(H, compute_u=True)
+    V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
+    d = torch.sign(det3(V @ Ut))
+    ones = torch.ones_like(d)
+    R = V @ torch.diag_embed(torch.stack([ones, ones, d], -1)) @ Ut
+    return R, mu_d - (R @ mu_s[..., None])[..., 0]

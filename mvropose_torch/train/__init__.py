@@ -6,7 +6,15 @@ from mvropose_torch.train.losses import (
     masked_multiview_heatmap_loss,
     smooth_l1_loss,
 )
-from mvropose_torch.train.metrics import add_auc, add_metric, angle_mae, pass_rate_auc, pck_at_k
+from mvropose_torch.train.metrics import (
+    add_auc,
+    add_metric,
+    angle_mae,
+    pass_rate_auc,
+    pck_at_k,
+    pose_rotation_err_deg,
+    pose_translation_err_m,
+)
 from mvropose_torch.train.state import TrainConfig, TrainState, create_train_state, make_optimizer
 from mvropose_torch.train.step import make_eval_step, make_multi_view_train_step
 
@@ -24,5 +32,7 @@ __all__ = [
     "masked_multiview_heatmap_loss",
     "pass_rate_auc",
     "pck_at_k",
+    "pose_rotation_err_deg",
+    "pose_translation_err_m",
     "smooth_l1_loss",
 ]

@@ -1,10 +1,12 @@
 """Evaluation metrics: port of `mvropose_tpu/train/metrics.py` (PCK@k px,
-ADD, the pass-rate AUC, angle MAE). The pose-recovery metrics wait for pose
-recovery (ROADMAP.md queue 1, item 6)."""
+ADD, the pass-rate AUC, angle MAE, the recovered camera pose's rotation and
+translation errors)."""
 
 from __future__ import annotations
 
 import torch
+
+from mvropose_torch.geometry.rotations import rodrigues_to_matrix
 
 
 def pck_at_k(pred_xy: torch.Tensor, gt_xy: torch.Tensor, k_px: float = 5.0,
@@ -57,3 +59,17 @@ def angle_mae(pred_angles: torch.Tensor, gt_angles: torch.Tensor,
         return err.mean()
     w = valid.float().broadcast_to(err.shape)
     return (err * w).sum() / (w.sum() + 1e-8)
+
+
+def pose_rotation_err_deg(rvec_pred: torch.Tensor, rvec_gt: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle (degrees) between recovered and true camera rotations,
+    Rodrigues vectors (..., 3) that broadcast: the angle of R_pred^T R_gt by
+    the trace identity, clamped."""
+    Rp, Rg = rodrigues_to_matrix(rvec_pred), rodrigues_to_matrix(rvec_gt)
+    cos = torch.clamp(((Rp * Rg).sum((-2, -1)) - 1.0) / 2.0, -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos))
+
+
+def pose_translation_err_m(tvec_pred: torch.Tensor, tvec_gt: torch.Tensor) -> torch.Tensor:
+    """Euclidean camera-translation error (meters), broadcasting (..., 3)."""
+    return torch.linalg.norm(tvec_pred - tvec_gt, dim=-1)

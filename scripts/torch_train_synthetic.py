@@ -5,8 +5,9 @@ defaults: it trains `mvropose_torch`'s multi-view estimator on batches that
 `mvropose_torch.data.synthetic` renders on the device (FK -> projection ->
 colored joint blobs; the render is the CUDA heatmap kernel on a GPU), with
 the port's two-group AdamW train step, and writes `logs/metrics.jsonl` and
-`final_metrics.json` with the reference's keys, minus the pose-recovery ones
-(ROADMAP.md queue 1, item 6). The backbone is a small ViT trained from
+`final_metrics.json` with the reference's keys, the recovered camera poses'
+errors included (RANSAC PnP per view on the refined decode, against the
+rig's true extrinsics, with the predicted and with the true angles). The backbone is a small ViT trained from
 flax-style random init unless --freeze-backbone.
 
 On a CUDA GPU compute runs in bf16, as the reference on an accelerator; with
@@ -38,6 +39,7 @@ from mvropose_torch.geometry.heatmap import argmax_decode
 from mvropose_torch.geometry.robots import forward_kinematics, get_robot
 from mvropose_torch.geometry.triangulation import projection_matrix, triangulate_keypoints
 from mvropose_torch.models import EstimatorConfig, MultiViewPoseEstimator, ViTConfig
+from mvropose_torch.pose import PoseDraws, recover_pose_batch
 from mvropose_torch.train import (
     TrainConfig,
     add_auc,
@@ -46,6 +48,8 @@ from mvropose_torch.train import (
     create_train_state,
     make_multi_view_train_step,
     pck_at_k,
+    pose_rotation_err_deg,
+    pose_translation_err_m,
 )
 from mvropose_torch.utils.metrics_writer import MetricWriter
 from mvropose_torch.utils.weights import flax_init_state
@@ -106,6 +110,40 @@ def build_model(robot, image_size: int, dtype: str, n_views: int, freeze_backbon
         dtype=dtype, angle_head="query",
     )
     return MultiViewPoseEstimator(cfg, device=device)
+
+
+@torch.no_grad()
+def pose_eval(model, robot, batches, rig_arrs, size: int, use_gt_angles: bool) -> dict:
+    """Recovered camera poses against the rig's true extrinsics, as the
+    reference script's `pose_eval`: the refined decode of the predicted
+    heatmaps, FK of the predicted (or the true) angles, RANSAC PnP per view
+    with identity base rotations. The errors are means over the successful
+    recoveries (None if none succeeded); the reference draws every batch's
+    hypotheses from the same keys, so one set of draws serves all batches."""
+    model.eval()
+    K_rig, rv_rig, tv_rig = rig_arrs
+    rots, trans, succ = [], [], []
+    draws = None
+    for b in batches:
+        hm, ang = model(b["images"], b["view_ids"], b["view_mask"])
+        hm = hm[:, :, : robot.n_keypoints].float()
+        B, V = hm.shape[:2]
+        if draws is None:
+            gen = torch.Generator(hm.device).manual_seed(3)
+            draws = PoseDraws.draw((B,), V, robot.n_keypoints, robot.n_joints, False, gen,
+                                   hm.device)
+        eye = torch.eye(3, device=hm.device).expand(V, 3, 3)
+        out = recover_pose_batch(hm, b["angles"] if use_gt_angles else ang.float(), eye,
+                                 K_rig.expand(V, 3, 3), robot, (size, size), draws=draws,
+                                 decode_mode="refine")
+        rots.append(pose_rotation_err_deg(out["rvec"], rv_rig[:V]).flatten())
+        trans.append(pose_translation_err_m(out["tvec"], tv_rig[:V]).flatten())
+        succ.append(out["success"].flatten())
+    ok = torch.cat(succ)
+    r, t = torch.cat(rots)[ok], torch.cat(trans)[ok]
+    return {"rot_err_deg": float(r.mean()) if len(r) else None,
+            "trans_err_m": float(t.mean()) if len(t) else None,
+            "success_rate": float(ok.float().mean())}
 
 
 def _take(batch: dict, idx: torch.Tensor) -> dict:
@@ -230,6 +268,13 @@ def main(argv=None) -> dict:
             xy, _ = decode_keypoints(pred_hm, image_hw=(size, size), mode="refine")
             res.append((xy - b["keypoints_2d"]).reshape(-1, xy.shape[-2], 2).cpu().numpy())
     np.save(workdir / "decode_residuals.npy", np.concatenate(res))
+
+    pe = pose_eval(model, robot, eval_batches, rig_arrs, size, use_gt_angles=False)
+    pe_gt = pose_eval(model, robot, eval_batches, rig_arrs, size, use_gt_angles=True)
+    final.update(pose_rot_err_deg=pe["rot_err_deg"], pose_trans_err_m=pe["trans_err_m"],
+                 pose_success_rate=pe["success_rate"],
+                 pose_rot_err_deg_gt_angles=pe_gt["rot_err_deg"],
+                 pose_trans_err_m_gt_angles=pe_gt["trans_err_m"])
 
     if pool is not None:
         n_pool = min(args.eval_batches, args.dataset_size // args.batch)

@@ -195,8 +195,9 @@ def _poisoned_serve_maps() -> np.ndarray:
 CARD_CASES = {
     **KERNEL_CASES,
     "serve_poisoned": (_poisoned_serve_maps(), 1.0),
-    # M where M * C does not fill the card (C = 8, 8, 4 on 132 SMs).
-    **{f"m{M}": (_serve_size_maps(M, M), 1.0) for M in (1, 5, 33)},
+    # M where M * C does not fill the card (C = 8, 8, 4 on 132 SMs), and
+    # C = 2 (64 maps: a serve at 8 views x 8 joints).
+    **{f"m{M}": (_serve_size_maps(M, M), 1.0) for M in (1, 5, 33, 64)},
     # C = 1 (70 maps): a 192x192 slice, past 16 float4 a thread, read in two parts.
     "large_192": (np.random.default_rng(9).normal(size=(70, 192, 192)).astype(np.float32), 1.0),
 }
@@ -205,7 +206,7 @@ CARD_CASES = {
 def test_cluster_blocks():
     """The largest of 8, 4, 2, 1 blocks a map with M of them on the SMs."""
     cases = {(32, 132): 4, (33, 132): 4, (34, 132): 2, (1, 132): 8, (5, 132): 8, (16, 132): 8,
-             (66, 132): 2, (67, 132): 1, (500, 132): 1}
+             (64, 132): 2, (66, 132): 2, (67, 132): 1, (500, 132): 1}
     for (M, sms), want in cases.items():
         assert peak_decode.cluster_blocks(M, sms) == want, (M, sms)
 

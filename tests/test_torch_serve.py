@@ -265,15 +265,47 @@ def test_cli_serve_with_params(checkpoint, capsys):
 @pytest.mark.parametrize(
     "extra, item",
     [
-        (["--recover-pose"], "item 6"),
-        (["--refine-pose"], "item 6"),
         (["--calib-dir", "calib"], "item 7"),
+        (["--summary", "aruco_pose_summary.json"], "item 7"),
         (["--angle-head", "geometric"], "item 4"),
     ],
 )
 def test_cli_serve_rejects_unported(extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(SERVE_TINY + extra)
+
+
+def test_cli_serve_recover_pose_refine_pose(capsys):
+    """serve --recover-pose --refine-pose at the tiny size on the CPU: the
+    heads take fr3's arity (8 keypoints, 7 angles), and a tick returns the
+    reference's `infer` 6-tuple: keypoints, confidences, angles, then
+    per-camera rvec, tvec and a boolean success."""
+    args = build_parser().parse_args(SERVE_TINY + ["--recover-pose", "--refine-pose"])
+    stats, last = serve(args)
+    assert stats.ticks >= 1 and len(last) == 6
+    xy, conf, ang, rvec, tvec, success = last
+    assert xy.shape == (2, 8, 2) and conf.shape == (2, 8) and ang.shape == (1, 7)
+    assert rvec.shape == tvec.shape == (2, 3) and success.shape == (2,)
+    assert success.dtype == np.bool_
+    assert all(np.isfinite(a).all() for a in last[:5])
+    assert main(SERVE_TINY + ["--recover-pose", "--pose-robot", "fr5"]) == 0
+    assert "tick/s" in capsys.readouterr().out
+
+
+def test_cli_serve_pose_robot_checks_the_head_arity(checkpoint):
+    """A checkpoint whose heads (4 keypoints, 3 angles) do not match
+    --pose-robot's exits, as the reference's serve does."""
+    _, _, npz = checkpoint
+    argv = ["serve", "--views", "3", "--frame-hw", *map(str, FRAME_HW), "--duration", "1.0",
+            "--device", "cpu", "--params", npz, "--recover-pose"]
+    with pytest.raises(SystemExit, match="--pose-robot fr3 expects 8 keypoints/7 angles but "
+                                         "the checkpoint has 4/3"):
+        main(argv)
+
+
+def test_cli_serve_refine_pose_needs_recover_pose():
+    with pytest.raises(SystemExit, match="--refine-pose runs only with --recover-pose"):
+        main(SERVE_TINY + ["--refine-pose"])
 
 
 def test_cli_serve_replay_dir_without_cv2_names_the_decoder(tmp_path, monkeypatch):

@@ -482,7 +482,7 @@ def _trainer():
 def test_trainer_runs_end_to_end_on_cpu(tmp_path):
     """A few f32 CPU steps through the script, with a finite train pool and a
     frozen backbone: the metrics log and final_metrics.json with the
-    reference's keys (minus pose recovery, plus the device's name)."""
+    reference's keys (plus the device's name)."""
     final = _trainer().main([
         "--mode", "multi", "--cpu", "--steps", "3", "--batch", "2", "--image-size", "64",
         "--views", "2", "--eval-every", "2", "--eval-batches", "1", "--dataset-size", "5",
@@ -496,9 +496,119 @@ def test_trainer_runs_end_to_end_on_cpu(tmp_path):
     assert set(on_disk) == metrics | {f"trainset_{k}" for k in metrics} | {
         "frozen_backbone", "frozen_backbone_max_drift", "backbone_ckpt", "dataset_size", "mode",
         "robot", "steps", "batch", "views", "image_size", "params_m", "backend", "device",
-        "wall_s", "train_samples_per_sec", "held_out"}
+        "wall_s", "train_samples_per_sec", "held_out"} | POSE_KEYS
     assert final["frozen_backbone_max_drift"] == 0.0 and np.isfinite(final["add_m"])
     assert final["backend"] == "cpu" and len(final["angle_mae_per_joint"]) == 6
+
+
+POSE_KEYS = {"pose_rot_err_deg", "pose_trans_err_m", "pose_success_rate",
+             "pose_rot_err_deg_gt_angles", "pose_trans_err_m_gt_angles"}
+
+
+def test_trainer_writes_the_reference_pose_keys(tmp_path):
+    """final_metrics.json holds the pose keys that the reference's script
+    writes (read from its source), each a float or None (no recovery
+    succeeded), the success rate in [0, 1]."""
+    import re
+
+    source = (Path(__file__).resolve().parents[1] / "scripts" / "train_synthetic.py").read_text()
+    assert set(re.findall(r'final\["(pose_[a-z_]+)"\]', source)) == POSE_KEYS
+    final = _trainer().main([
+        "--mode", "multi", "--cpu", "--steps", "1", "--batch", "2", "--image-size", "64",
+        "--views", "2", "--eval-every", "1", "--eval-batches", "1", "--workdir", str(tmp_path)])
+    for key in POSE_KEYS:
+        assert final[key] is None or np.isfinite(final[key]), (key, final[key])
+    assert 0.0 <= final["pose_success_rate"] <= 1.0
+
+
+class _PlantedModel(torch.nn.Module):
+    """Stands in for the trained model in `pose_eval`: it returns the planted
+    heatmaps that the batch carries as its images, and the predicted angles."""
+
+    def __init__(self, pred: np.ndarray):
+        super().__init__()
+        self.pred = torch.from_numpy(pred)
+
+    def forward(self, images, view_ids, view_mask):
+        return images, self.pred.expand(images.shape[0], -1)
+
+
+def _reference_pose_eval(batches, pred, rig, robot, size: int, use_gt_angles: bool) -> dict:
+    """The reference script's `pose_eval` (`scripts/train_synthetic.py`, the
+    closure in `main`) for the multi-view model, its lines on given heatmaps
+    and predicted angles."""
+    from mvropose_tpu.pose import recover_pose_batch
+    from mvropose_tpu.train import pose_rotation_err_deg, pose_translation_err_m
+
+    K_rig, rv_rig, tv_rig = (jnp.asarray(a) for a in rig)
+    V = rv_rig.shape[0]
+    eye_base = jnp.tile(jnp.eye(3, dtype=jnp.float32)[None], (V, 1, 1))
+    Ks = jnp.tile(K_rig[None], (V, 1, 1))
+    rots, trans, succ = [], [], []
+    for b in batches:
+        hm_b = jnp.asarray(b["images"].numpy())
+        ang_b = jnp.tile(jnp.asarray(pred)[None], (hm_b.shape[0], 1))
+        angles_b = jnp.asarray(b["angles"].numpy()) if use_gt_angles else ang_b
+        hm_b = hm_b[:, :, : robot.n_keypoints]
+        out = jax.vmap(
+            lambda hm_s, ang_s, k: recover_pose_batch(
+                hm_s, ang_s, eye_base[: hm_b.shape[1]], Ks[: hm_b.shape[1]],
+                robot, (size, size), key=k, decode_mode="refine"))(
+            hm_b, angles_b, jax.random.split(jax.random.PRNGKey(3), hm_b.shape[0]))
+        gt_rv, gt_tv = rv_rig[None, : hm_b.shape[1]], tv_rig[None, : hm_b.shape[1]]
+        rots.append(np.asarray(pose_rotation_err_deg(out["rvec"], gt_rv)).ravel())
+        trans.append(np.asarray(pose_translation_err_m(out["tvec"], gt_tv)).ravel())
+        succ.append(np.asarray(out["success"]).ravel())
+    ok = np.concatenate(succ) > 0
+    r, t = np.concatenate(rots), np.concatenate(trans)
+    return {"rot_err_deg": float(r[ok].mean()) if ok.any() else None,
+            "trans_err_m": float(t[ok].mean()) if ok.any() else None,
+            "success_rate": float(ok.mean())}
+
+
+def test_pose_eval_matches_the_reference_script(monkeypatch):
+    """The trainer's `pose_eval` against the reference script's on a planted
+    fr5 rig (2 views at 1280 x 1280, the nominal K, 128 x 128 heatmaps):
+    2 batches of 2 samples, each the rig's heatmaps with its own keypoint
+    noise, one view with no confident keypoint. The same draws (the
+    reference's: PRNGKey(3) split over a batch, the same keys every batch).
+    With the predicted and with the true angles: the success rate equal (7
+    of 8), the mean errors within 1e-3 rad (in degrees) and 1e-3 of |t|."""
+    from torch_parity import jax_rig_gumbel, pose_scene
+    from mvropose_tpu.geometry.robots import get_robot as jax_get_robot
+    from mvropose_torch.geometry.robots import get_robot
+    from mvropose_torch.pose import PoseDraws
+
+    size, V, B = 1280, 2, 2
+    scenes = [pose_scene("fr5", V, seed=21, noise_px=n, image_hw=(size, size))
+              for n in (0.5, 1.0, 1.5, 2.0)]  # one rig: the noise is drawn last
+    scenes[2]["heatmaps"][1] = -5.0  # no confident keypoint: that view fails
+    batches = [{"images": torch.from_numpy(np.stack([s["heatmaps"] for s in pair])),
+                "angles": torch.from_numpy(np.stack([s["angles"] for s in pair])),
+                "view_ids": None, "view_mask": None}
+               for pair in (scenes[:2], scenes[2:])]
+    rig = (scenes[0]["Ks"][0], scenes[0]["rvecs"], scenes[0]["tvecs"])
+    pred = scenes[0]["pred_angles"]
+    robot = get_robot("fr5")
+    gumbel = np.stack([jax_rig_gumbel(k, V, 16, robot.n_keypoints)
+                       for k in jax.random.split(jax.random.PRNGKey(3), B)])
+
+    class _ReferenceDraws:
+        @staticmethod
+        def draw(lead, views, joints, angles, refine, generator, device):
+            assert (lead, views, joints, refine) == ((B,), V, robot.n_keypoints, False)
+            return PoseDraws(torch.from_numpy(gumbel))
+
+    trainer = _trainer()
+    monkeypatch.setattr(trainer, "PoseDraws", _ReferenceDraws)
+    for use_gt_angles in (False, True):
+        port = trainer.pose_eval(_PlantedModel(pred), robot, batches,
+                                 tuple(torch.from_numpy(a) for a in rig), size, use_gt_angles)
+        ref = _reference_pose_eval(batches, pred, rig, jax_get_robot("fr5"), size, use_gt_angles)
+        assert port["success_rate"] == ref["success_rate"] == 7 / 8, (port, ref)
+        assert abs(port["rot_err_deg"] - ref["rot_err_deg"]) <= np.degrees(1e-3), (port, ref)
+        t_scale = 1e-3 * np.linalg.norm(rig[2], axis=-1).min()
+        assert abs(port["trans_err_m"] - ref["trans_err_m"]) <= t_scale, (port, ref)
 
 
 @pytest.mark.parametrize("argv, item", [

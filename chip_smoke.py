@@ -45,9 +45,11 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          each of the tick's shape groups, fr3's and fr5's DLT, plane fit,
          homography and the 3 x 3 rotation projection, and the largest it
          takes, (32, 16); rank-deficient, zero-row and zero matrices among
-         them) against torch.linalg.svd through sign-free quantities, two
-         calls bit-identical, a shape it does not take refused; each group
-         timed beside torch.linalg.svd (eager) and its bound;
+         them; the DLT systems of a real fr3 RANSAC, most with a null space
+         of dimension > 1) against torch.linalg.svd through sign-free
+         quantities, two calls bit-identical, a shape it does not take
+         refused; each group timed beside torch.linalg.svd (eager) and its
+         bound; the kernels' SASS size (`cuobjdump -sass`);
      then every launch counter: an empty input counts nothing, one launch one;
   4. the slices, each through `mvropose_torch.cli`'s own parser, with every
      kernel's launches counted over that run only:
@@ -195,6 +197,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step, write_run_dir
 from mvropose_torch.data.synthetic import make_rig, rig_tuple, synthesize_multiview_batch
+from mvropose_torch.geometry import pnp
 from mvropose_torch.geometry.camera import project_points
 from mvropose_torch.geometry.robots import forward_kinematics, get_robot
 from mvropose_torch.geometry.rotations import rodrigues_to_matrix
@@ -2699,7 +2702,8 @@ def phase_small_reference() -> dict:
 SVD_GROUPS = [("dlt", 16, 12), ("plane", 8, 3), ("homography", 16, 9), ("rotation", 3, 3),
               ("dlt_fr5", 14, 12), ("plane_fr5", 7, 3), ("homography_fr5", 14, 9),
               ("largest", 32, 16)]
-SVD_TOL = {"sigma": 2e-5, "null_vector": 1e-4, "gram": 4e-5, "rotation": 1e-5}
+SVD_TOL = {"sigma": 2e-5, "null_vector": 1e-4, "gram": 4e-5, "rotation": 1e-5,
+           "orthogonality": 1e-5}  # the last as tests/test_torch_pnp.py::assert_svd_close
 
 
 def _svd_operands(m: int, n: int, seed: int, batch: int = 64) -> torch.Tensor:
@@ -2719,9 +2723,10 @@ def _svd_operands(m: int, n: int, seed: int, batch: int = 64) -> torch.Tensor:
 def svd_errors(a: torch.Tensor, got: tuple, want) -> dict:
     """The kernel's (U, S, Vh) against torch.linalg.svd's through sign-free
     quantities, in f64: singular values over the largest; 1 - |<v, v'>| of
-    the last right singular vector where its singular value is simple;
-    |(A Vh^T)^T (A Vh^T) - diag(S^2)| over S_0^2; for 3 x 3 input the
-    projected rotation U D Vh where it is unique (rank >= 2)."""
+    the last right singular vector where its singular value is simple (no
+    entry where none is); |(A Vh^T)^T (A Vh^T) - diag(S^2)| over S_0^2;
+    |Vh Vh^T - I|; for 3 x 3 input the projected rotation U D Vh where it
+    is unique (rank >= 2)."""
     U, S, Vh = (None if x is None else x.double().cpu() for x in got)
     A, wS, wVh = a.double().cpu(), want.S.double().cpu(), want.Vh.double().cpu()
     scale = wS[:, :1].clamp(min=1e-30)
@@ -2729,9 +2734,11 @@ def svd_errors(a: torch.Tensor, got: tuple, want) -> dict:
     gram = av.transpose(1, 2) @ av - torch.diag_embed(
         torch.nn.functional.pad(S ** 2, (0, Vh.shape[-1] - S.shape[-1])))
     errs = {"sigma": float(((S - wS) / scale).abs().max()),
-            "gram": float((gram / scale[..., None] ** 2).abs().max())}
-    if A.shape[-2] >= A.shape[-1]:
-        simple = wS[:, -1] < wS[:, -2] - 1e-3 * scale[:, 0]
+            "gram": float((gram / scale[..., None] ** 2).abs().max()),
+            "orthogonality": float((Vh @ Vh.transpose(1, 2)
+                                    - torch.eye(Vh.shape[-1], dtype=Vh.dtype)).abs().max())}
+    simple = wS[:, -1] < wS[:, -2] - 1e-3 * scale[:, 0]
+    if A.shape[-2] >= A.shape[-1] and simple.any():
         dots = (Vh[:, -1] * wVh[:, -1]).sum(-1).abs()
         errs["null_vector"] = float((1 - dots[simple]).max())
     if U is not None:
@@ -2744,15 +2751,61 @@ def svd_errors(a: torch.Tensor, got: tuple, want) -> dict:
     return errs
 
 
+def fr3_ransac_dlt(device: str = "cuda") -> torch.Tensor:
+    """The (64, 16, 12) DLT systems that one RANSAC builds on the clean fr3
+    rig at 4 views x 16 hypotheses (`pose_rig(4, 64)`, `phase_pose`'s draws),
+    taken from the pose step's first `small_svd` call: the input the serve
+    tick's DLT SVD sees, most of it with a null space of dimension > 1
+    (FR3's coincident keypoints)."""
+    _, pred, bases, Ks, xy = pose_rig(4, 64, device)
+    draws = PoseDraws.draw((), 4, 8, 7, False, torch.Generator().manual_seed(9))
+    d = PoseDraws(*(None if x is None else x.to(device) for x in dataclasses.astuple(draws)))
+    systems, real = [], pnp.small_svd
+
+    def record(a, compute_u=False):
+        systems.append(a.clone())
+        return real(a, compute_u)
+
+    pnp.small_svd = record
+    try:
+        clean_pose(xy, pred, bases, Ks, d, refine=False)
+    finally:
+        pnp.small_svd = real
+    return systems[0].reshape(-1, 16, 12)
+
+
+def sass_sizes(lib: Path, name: str = "small_svd_kernel") -> dict:
+    """Instructions (16 bytes each) of each instantiation of the kernel
+    template `name` in `lib`, keyed by its template arguments ("12,16"), from
+    `cuobjdump -sass` (the toolkit's, beside nvcc)."""
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    sizes = {}
+    for part in out.split("Function : ")[1:]:
+        found = re.search(name + r"I((?:Li\d+E)+)E", part.split("\n", 1)[0])
+        if found:
+            sizes[",".join(re.findall(r"Li(\d+)E", found[1]))] = len(
+                re.findall(r"/\*[0-9a-f]{4,}\*/", part))
+    return sizes
+
+
+# The SVD kernel's instantiations on the serve tick: (n, lanes a matrix).
+SVD_TICK_KERNELS = ("12,16", "9,16", "3,8", "3,4")
+
+
 def phase_small_svd() -> dict:
     """The SVD kernel against torch.linalg.svd on the card at each of the
-    pose step's shape groups (and the largest it takes), two calls
-    bit-identical, a shape it does not take refused; then each group timed:
-    the kernel as graph replays, both as eager calls (torch.linalg.svd
-    waits for the device, so no graph holds it), beside its bound."""
+    pose step's shape groups (and the largest it takes) and on the DLT
+    systems of a real fr3 RANSAC, two calls bit-identical, a shape it does
+    not take refused; then each group timed: the kernel as graph replays,
+    both as eager calls (torch.linalg.svd waits for the device, so no graph
+    holds it), beside its bound; and the kernels' SASS size."""
     results, max_err = {}, 0.0
-    for i, (name, m, n) in enumerate(SVD_GROUPS):
-        a = _svd_operands(m, n, seed=100 + i)
+    groups = [(name, _svd_operands(m, n, seed=100 + i))
+              for i, (name, m, n) in enumerate(SVD_GROUPS)]
+    for name, a in [*groups, ("fr3_ransac", fr3_ransac_dlt())]:
+        _, m, n = a.shape
         three = (m, n) == (3, 3)
         got = small_svd.small_svd_cuda(a, compute_u=three)
         again = small_svd.small_svd_cuda(a, compute_u=three)
@@ -2785,12 +2838,18 @@ def phase_small_svd() -> dict:
         except ValueError:
             refused = True
         check(refused, f"small_svd took the shape {shape}")
+    sass = sass_sizes(_build.library_path())
+    check(all(k in sass for k in SVD_TICK_KERNELS), f"small_svd SASS: kernels {sorted(sass)}")
+    print("small_svd SASS instructions of the tick's kernels (n, lanes a matrix): "
+          + ", ".join(f"({k}) {sass[k]}" for k in SVD_TICK_KERNELS)
+          + f"; all {len(sass)} kernels {sum(sass.values())} ({16 * sum(sass.values())} bytes)")
     dlt = results["dlt"]
     # torch.linalg.svd is both the plain version and the one PyTorch call.
     return {"small_svd": {"max_abs_err": max_err, "ms": dlt["ms"], "plain_ms": dlt["plain_ms"],
                           "bound_ms": dlt["bound_ms"], "bound_by": dlt["bound_by"],
                           "library_ms": dlt["plain_ms"], "shape": dlt["shape"],
-                          "groups": results}}
+                          "groups": results, "sass_instructions": {
+                              **{k: sass[k] for k in SVD_TICK_KERNELS}, "all": sum(sass.values())}}}
 
 
 POSE_K = [[737.0, 0.0, 640.0], [0.0, 737.0, 360.0], [0.0, 0.0, 1.0]]  # serve's nominal K

@@ -4,9 +4,10 @@ The pose path's one SVD entry (`geometry/pnp.py`, `rotations.kabsch`), in
 place of `jnp.linalg.svd` in the reference (an XLA call there, not a Pallas
 kernel). `torch.linalg.svd` on a CUDA tensor waits for the device (it checks
 convergence on the host), and the serve tick must not, so a CUDA tensor goes
-to `csrc/small_svd.cu` (one-sided Jacobi, one warp a matrix; its source note
-says what bounds it) and a CPU tensor to `torch.linalg.svd`. A shape the
-kernel does not take raises on the card; it never falls back.
+to `csrc/small_svd.cu` (one-sided Jacobi in rounds of disjoint column pairs,
+a lane a row, 32 / W matrices a warp; its source note says what bounds it)
+and a CPU tensor to `torch.linalg.svd`. A shape the kernel does not take
+raises on the card; it never falls back.
 
 Singular vectors are defined up to sign, so the kernel and the plain version
 agree on the singular values, on |<v, v'>| of each right singular vector
@@ -23,7 +24,7 @@ import torch
 
 from mvropose_torch.ops._build import current_stream, device_context, load_library
 
-MAX_ROWS, MAX_COLS = 32, 16  # one warp a matrix: a lane a row
+MAX_ROWS, MAX_COLS = 32, 16  # at most a warp a matrix: a lane a row
 
 # Kernel launches made through `small_svd_cuda`.
 launches = 0

@@ -20,6 +20,7 @@ columns of A Vh^T orthogonal with norms S, and for 3 x 3 input U S Vh = A and
 the projected rotation U D Vh within 1e-5 (where it is unique: rank >= 2).
 """
 
+import itertools
 import re
 from pathlib import Path
 
@@ -36,6 +37,7 @@ from mvropose_tpu.geometry import rotations as jrot
 
 from mvropose_torch.geometry import camera as tcam
 from mvropose_torch.geometry import pnp as tpnp
+from mvropose_torch.geometry import robots as trob
 from mvropose_torch.geometry import rotations as trot
 from mvropose_torch.ops import small_svd
 from torch_parity import assert_pose_close, jax_ransac_gumbel, np32, rotation_gap
@@ -331,47 +333,103 @@ def _svd_inputs(m: int, n: int, seed: int) -> np.ndarray:
     return a
 
 
-# The kernel's most sweeps, `kSweeps` in its source.
-KERNEL_SWEEPS = int(re.search(
-    r"constexpr int kSweeps = (\d+);",
-    (Path(small_svd.__file__).parents[1] / "csrc" / "small_svd.cu").read_text()).group(1))
+def fr3_dlt_systems(monkeypatch) -> np.ndarray:
+    """The (16, 12) DLT systems RANSAC builds for fr3 (the port's FK and
+    projection, no jax): one for each choice of 6 of the 8 keypoints, the
+    others weighted 0. FR3's coincident keypoints (1 = 2 and 5 = 6) give most
+    of them a null space of dimension > 1."""
+    robot = trob.get_robot("fr3")
+    angles = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, 7).astype(np.float32))
+    obj = robot.keypoints_from_fk(trob.forward_kinematics(robot, angles))
+    xy = tcam.project_points(obj, _t([0.3, -1.2, 0.5]), _t([0.1, -0.05, 2.2]), _t(K))
+    picks = _t([[i in c for i in range(8)] for c in itertools.combinations(range(8), 6)])
+    systems = []
+
+    def record(a, compute_u=False):
+        systems.append(a.clone())
+        return small_svd.small_svd(a, compute_u)
+
+    monkeypatch.setattr(tpnp, "small_svd", record)
+    tpnp.solve_pnp_dlt(obj, xy, _t(K), picks)
+    return systems[0].numpy()  # the DLT's; the rotation projection's follows
+
+
+# The kernel's constants, read from its source: the most sweeps and the
+# noise stop's factor.
+_KERNEL_SOURCE = (Path(small_svd.__file__).parents[1] / "csrc" / "small_svd.cu").read_text()
+KERNEL_SWEEPS = int(re.search(r"constexpr int kSweeps = (\d+);", _KERNEL_SOURCE).group(1))
+KERNEL_NOISE = float(re.search(r"constexpr float kNoise = ([\d.]+)f;", _KERNEL_SOURCE).group(1))
+
+
+def jacobi_schedule(n: int) -> list:
+    """The kernel's round-robin order for n columns: n2 - 1 rounds (n2 = n
+    rounded up to even), each the list of its (first, second) column pairs.
+    The columns sit in n2 slots; slot i pairs with slot n2 - 1 - i, then the
+    columns in slots 1 .. n2 - 1 turn one slot. An odd n's phantom column
+    sits in slot 0, and its pair is dropped."""
+    n2 = n + n % 2
+    slots = [n, *range(n)] if n % 2 else list(range(n))
+    rounds = []
+    for _ in range(n2 - 1):
+        rounds.append([(slots[i], slots[n2 - 1 - i]) for i in range(n % 2, n2 // 2)])
+        slots = [slots[0], *slots[2:], slots[1]]
+    return rounds
 
 
 def jacobi_svd_model(a: np.ndarray, sweeps: int = KERNEL_SWEEPS):
-    """The kernel's arithmetic in numpy f32, batched over matrices: the same
-    rotations in the same order, the same stop and ranking, the same U for
-    3 x 3 input -> (U or None, S, Vh)."""
-    a = a.astype(np.float32).copy()
+    """The kernel's algorithm in numpy f32, batched over matrices: the same
+    power-of-two scaling, rounds in the same order, the columns' squared
+    norms exact at each sweep's start and carried through its rotations, the
+    same rotations (in exact f32 where the kernel takes the special-function
+    unit's rsqrt and a Newton step), the same noise stop, ranking and U for
+    3 x 3 input -> (U or None, S, Vh, the sweeps each matrix ran, the last
+    without a rotation included)."""
+    a = a.astype(np.float32)
     B, m, n = a.shape
+    one, two = np.float32(1), np.float32(2)
+    amax = np.fmax.reduce(np.abs(a).reshape(B, -1), axis=1)  # NaN ignored, as fmaxf
+    e = np.where((amax > 0) & (amax <= np.finfo(np.float32).max), np.frexp(amax)[1], 0)
+    a = np.ldexp(a, -e[:, None, None]).astype(np.float32)  # the largest entry in [0.5, 1)
     v = np.broadcast_to(np.eye(n, dtype=np.float32), (B, n, n)).copy()
     eps = np.float32(np.finfo(np.float32).eps)
-    tiny = eps * eps * (a * a).sum((1, 2))  # both columns below eps |A|_F: no rotation
-    live = np.ones(B, bool)
+    noise2 = np.float32(KERNEL_NOISE) ** 2 * eps * eps * (a * a).sum((1, 2))
+    live, ran = np.ones(B, bool), np.zeros(B, int)
+    schedule = jacobi_schedule(n)
     for _ in range(sweeps):
         rotated = np.zeros(B, bool)
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                al, be = (a[:, :, p] ** 2).sum(1), (a[:, :, q] ** 2).sum(1)
-                ga = (a[:, :, p] * a[:, :, q]).sum(1)
-                rot = live & (np.abs(ga) > eps * np.sqrt(al) * np.sqrt(be)) & (
-                    (al > tiny) | (be > tiny))
-                with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
-                    z = (be - al) / (np.float32(2) * ga)
-                    t = np.copysign(np.float32(1), z) / (np.abs(z) + np.sqrt(np.float32(1) + z * z))
-                c = np.float32(1) / np.sqrt(np.float32(1) + t * t)
-                s = c * t
-                c, s = np.where(rot, c, 1.0)[:, None], np.where(rot, s, 0.0)[:, None]
-                for x in (a, v):
-                    xp, xq = x[:, :, p].copy(), x[:, :, q].copy()
-                    x[:, :, p], x[:, :, q] = c * xp - s * xq, s * xp + c * xq
-                rotated |= rot
+        norm2 = (a * a).sum(1)
+        for pairs in schedule:
+            if not pairs:
+                continue
+            P, Q = [p for p, _ in pairs], [q for _, q in pairs]
+            al, be = norm2[:, P], norm2[:, Q]
+            ga = (a[:, :, P] * a[:, :, Q]).sum(1)
+            # Rotate only where the smaller column would move by more than
+            # KERNEL_NOISE eps |A|_F.
+            rot = live[:, None] & (ga * ga > noise2[:, None] * np.maximum(al, be))
+            d, g = be - al, two * ga
+            with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+                inv_h = one / np.sqrt(d * d + g * g)
+                cos2, sin2 = np.abs(d) * inv_h, np.copysign(one, d) * g * inv_h
+                k = one / np.sqrt((one + cos2) ** 2 + sin2 * sin2)
+            c = np.where(rot, (one + cos2) * k, one)
+            s = np.where(rot, sin2 * k, np.float32(0))
+            cs2 = two * c * s * ga
+            norm2[:, P] = np.maximum(c * c * al + s * s * be - cs2, 0)
+            norm2[:, Q] = np.maximum(s * s * al + c * c * be + cs2, 0)
+            c, s = c[:, None], s[:, None]
+            for x in (a, v):
+                xp, xq = x[:, :, P], x[:, :, Q]
+                x[:, :, P], x[:, :, Q] = c * xp - s * xq, s * xp + c * xq
+            rotated |= rot.any(1)
+        ran += live
         live &= rotated
-    sigma = np.sqrt((a * a).sum(1))
+    sigma = np.sqrt((a * a).sum(1))  # of the scaled A
     order = np.argsort(-np.where(np.isnan(sigma), np.inf, sigma), axis=1, kind="stable")
     S = np.take_along_axis(sigma, order, 1)[:, : min(m, n)]
     Vh = np.take_along_axis(v, order[:, None, :], 2).transpose(0, 2, 1)
     if (m, n) != (3, 3):
-        return None, S, Vh
+        return None, np.ldexp(S, e[:, None]), Vh, ran
     cols = np.take_along_axis(a, order[:, None, :], 2)  # (B, 3, 3), columns in rank order
     U = np.zeros((B, 3, 3), np.float32)
     for b in range(B):
@@ -387,7 +445,7 @@ def jacobi_svd_model(a: np.ndarray, sweeps: int = KERNEL_SWEEPS):
         if s[2] > 1e-6 * s[0] and u2 @ c[2] < 0:
             u2 = -u2
         U[b] = np.stack([u0, u1, u2], 1)
-    return U, S, Vh
+    return U, np.ldexp(S, e[:, None]), Vh, ran
 
 
 def assert_svd_close(a, U, S, Vh, want_U, want_S, want_Vh):
@@ -435,7 +493,38 @@ def test_jacobi_model_matches_lapack(shape):
     """The kernel's algorithm (its numpy model, KERNEL_SWEEPS sweeps) against
     LAPACK in f64 at every tick shape, rank-deficient input included."""
     a = _svd_inputs(*shape, seed=sum(shape))
-    U, S, Vh = jacobi_svd_model(a)
+    U, S, Vh, _ = jacobi_svd_model(a)
+    assert_svd_close(a, U, S, Vh, *np.linalg.svd(a.astype(np.float64), full_matrices=True))
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_jacobi_schedule_meets_every_pair_once(n):
+    """A sweep: n2 - 1 rounds of n // 2 disjoint pairs, every pair of
+    columns once."""
+    rounds = jacobi_schedule(n)
+    assert len(rounds) == n + n % 2 - 1
+    for pairs in rounds:
+        assert len(pairs) == n // 2
+        cols = [c for pair in pairs for c in pair]
+        assert len(set(cols)) == len(cols) and max(cols, default=0) < n
+    met = sorted(tuple(sorted(pair)) for pairs in rounds for pair in pairs)
+    assert met == list(itertools.combinations(range(n), 2))
+
+
+@pytest.mark.parametrize("case", [*SVD_SHAPES, "fr3_dlt"],
+                         ids=lambda s: s if isinstance(s, str) else f"{s[0]}x{s[1]}")
+def test_jacobi_model_stops_on_null_space_noise(case, monkeypatch):
+    """Null spaces of dimension 1 and > 1 (`_svd_inputs`' matrices 1 and 2;
+    fr3's DLT systems, coincident keypoints among the 6 picked) stop within
+    8 sweeps, as simple ones do, and still match LAPACK."""
+    if case == "fr3_dlt":
+        a = fr3_dlt_systems(monkeypatch)
+        sv = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+        assert (sv[:, -2] < 1e-6 * sv[:, 0]).sum() >= len(a) // 2  # dimension > 1
+    else:
+        a = _svd_inputs(*case, seed=sum(case))[1:3]
+    U, S, Vh, ran = jacobi_svd_model(a)
+    assert ran.max() <= 8, ran
     assert_svd_close(a, U, S, Vh, *np.linalg.svd(a.astype(np.float64), full_matrices=True))
 
 
@@ -447,11 +536,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SVD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_small_svd_kernel_matches_torch_on_card(cuda_device, shape):
+@pytest.mark.parametrize("shape", [*SVD_SHAPES, "fr3_dlt"],
+                         ids=lambda s: s if isinstance(s, str) else f"{s[0]}x{s[1]}")
+def test_small_svd_kernel_matches_torch_on_card(cuda_device, shape, monkeypatch):
     """The kernel against torch.linalg.svd on the card (f32), one launch a
-    call; two calls bit-identical."""
-    a = torch.from_numpy(_svd_inputs(*shape, seed=sum(shape))).to(cuda_device)
+    call; two calls bit-identical; fr3's DLT systems included."""
+    a = fr3_dlt_systems(monkeypatch) if shape == "fr3_dlt" else _svd_inputs(*shape, seed=sum(shape))
+    a = torch.from_numpy(a).to(cuda_device)
     before = small_svd.launches
     U, S, Vh = small_svd.small_svd_cuda(a, compute_u=shape == (3, 3))
     U2, S2, Vh2 = small_svd.small_svd_cuda(a, compute_u=shape == (3, 3))

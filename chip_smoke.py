@@ -49,7 +49,11 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          of dimension > 1) against torch.linalg.svd through sign-free
          quantities, two calls bit-identical, a shape it does not take
          refused; each group timed beside torch.linalg.svd (eager) and its
-         bound; the kernels' SASS size (`cuobjdump -sass`);
+         bound; the kernels' SASS size (`cuobjdump -sass`); and the
+         geometric3d head's DLT systems, (B J, 2V, 4) at a 4-view serve
+         tick and a 3-view trainer batch, with keypoints seen by 0, 1, 2 or
+         more views (zero rows), also through the triangulated points where
+         2 or more views see them, timed the same way;
      then every launch counter: an empty input counts nothing, one launch one;
   4. the slices, each through `mvropose_torch.cli`'s own parser, with every
      kernel's launches counted over that run only:
@@ -63,6 +67,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          eager time, device kernels and host aten calls a call;
        * `serve --recover-pose`: the peak decode and 5 SVD launches a tick,
          finite poses and a boolean success a view;
+       * `serve --params RUN --calib-dir --camera-keys --summary
+         --recover-pose` on a calibrated 4-camera rig that it writes under
+         build/ (ZED-like intrinsics and distortion, an ArUco summary in
+         radians and degrees) for a single-view geometric and a multi-view
+         geometric3d run directory (ViT-B/16 at 512 px, seed-0 weights,
+         bf16): 5 and 6 SVD launches a tick (the geometric3d head's DLT);
+         then each step alone (`calibrated_step`): its launches, no host
+         sync, its device time by graph replay with and without the device
+         undistortion, and against the CPU route on the same weights and
+         frames (undistorted frames, heatmaps, the angle head);
        * `serve --params RUN/best_params.npz --int8-backbone
          --int8-attention` on a temporary run directory under build/, whose
          model_config.json says fused_ln: true (the same ViT-B/16 and seed-0
@@ -101,6 +115,10 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          sync; step time, peak memory and the device's busy share;
        * `scripts/torch_train_synthetic.py --mode multi` at its defaults for
          a few hundred steps: the loss must fall;
+       * the trainer's other modes (`phase_geometric_trainer`): `--mode
+         single --angle-head geometric --fk-loss-weight 0.1` and `--mode
+         multi --angle-head geometric3d`, each train step free of host
+         syncs, then a few steps of the script with finite losses;
   7. the flash-attention path (T >= 2048), each run's launches counted:
        * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
@@ -195,12 +213,28 @@ import torch
 
 from torch.profiler import ProfilerActivity, profile
 
-from mvropose_torch.cli.main import build_parser, preprocess, serve, serve_step, write_run_dir
-from mvropose_torch.data.synthetic import make_rig, rig_tuple, synthesize_multiview_batch
+from mvropose_torch.cli.main import (
+    KINDS,
+    PoseStep,
+    build_parser,
+    preprocess,
+    read_calibration,
+    read_fallback_poses,
+    serve,
+    serve_step,
+    write_run_dir,
+)
+from mvropose_torch.data.synthetic import (
+    make_rig,
+    rig_tuple,
+    single_view_batch,
+    synthesize_multiview_batch,
+)
 from mvropose_torch.geometry import pnp
 from mvropose_torch.geometry.camera import project_points
 from mvropose_torch.geometry.robots import forward_kinematics, get_robot
 from mvropose_torch.geometry.rotations import rodrigues_to_matrix
+from mvropose_torch.geometry.triangulation import dlt_system, heatmap_projection_matrices
 from mvropose_torch.models import (
     EstimatorConfig,
     MultiViewPoseEstimator,
@@ -227,7 +261,12 @@ from mvropose_torch.ops import (
 )
 from mvropose_torch.pose import PoseDraws, recover_pose_batch, solve_rig_pnp
 from mvropose_torch.pose.refine import refine_rig_pose_angles
-from mvropose_torch.train import TrainConfig, create_train_state, make_multi_view_train_step
+from mvropose_torch.train import (
+    TrainConfig,
+    create_train_state,
+    make_multi_view_train_step,
+    make_single_view_train_step,
+)
 from mvropose_torch.train.state import ANG_MODULES, KPT_MODULES
 from mvropose_torch.utils.weights import (
     flax_init_state,
@@ -315,6 +354,11 @@ FULL_768_F32 = dataclasses.replace(FULL_768, vit=dataclasses.replace(FULL_768.vi
 # whose model_config.json says "vit": {"dtype": "float32", "fused_ln": true}):
 # the f32 int8 attention, 12 a tick at (4, 1025, 12, 64).
 FULL_LN_F32 = dataclasses.replace(FULL_LN, vit=dataclasses.replace(FULL_LN.vit, dtype="float32"))
+# The serve default's widths with the other checkpoint kinds: the
+# single-view estimator with the geometric head, the multi-view one with
+# geometric3d (its DLT on the SVD kernel, one launch a tick).
+FULL_SV_GEO = dataclasses.replace(FULL, angle_head="geometric")
+FULL_MV_GEO3D = dataclasses.replace(FULL, angle_head="geometric3d")
 
 
 def _script(name: str):
@@ -2774,6 +2818,42 @@ def fr3_ransac_dlt(device: str = "cuda") -> torch.Tensor:
     return systems[0].reshape(-1, 16, 12)
 
 
+# The geometric3d head's DLT, (B J, 2V, 4): a serve tick (fr3, J = 8, 4
+# views, B = 1) and a trainer batch (fr5, J = 7, 3 views, B = 16).
+TRI_GROUPS = [("tri_serve", "fr3", 1, 4), ("tri_trainer", "fr5", 16, 3)]
+TRI_TOL = 1e-3  # m, the triangulated points where 2 or more views weigh
+
+
+def triangulation_systems(robot_name: str, B: int, V: int, seed: int) -> tuple:
+    """The DLT systems `triangulate_keypoints` builds for B samples of the
+    robot seen by a ring of V cameras (720 x 1280, in 128 x 128 heatmap
+    pixels, 0.1 px of noise), weights in [0.3, 1] except: keypoint 0 seen by
+    no view, 1 by view 0 alone, 2 by views 0 and 1 -> (A (B J, 2V, 4) on the
+    card, observing views (B J,))."""
+    robot = get_robot(robot_name)
+    rng = np.random.default_rng(seed)
+    K, rv, tv = rig_tuple(make_rig(n_views=V, image_hw=(720, 1280)))
+    P = heatmap_projection_matrices(rv, tv, K, (720, 1280), (128, 128))  # (V, 3, 4)
+    scale = 60.0 if robot.angle_unit == "deg" else 1.0
+    angles = torch.from_numpy((rng.uniform(-0.5, 0.5, (B, robot.n_joints)) * scale)
+                              .astype(np.float32))
+    pts = robot.keypoints_from_fk(forward_kinematics(robot, angles))  # (B, J, 3)
+    uvw = torch.einsum("vij,bkj->bkvi", P, torch.cat([pts, torch.ones_like(pts[..., :1])], -1))
+    xy = uvw[..., :2] / uvw[..., 2:] + torch.from_numpy(
+        rng.normal(scale=0.1, size=(*uvw.shape[:-1], 2)).astype(np.float32))  # (B, J, V, 2)
+    w = torch.from_numpy(rng.uniform(0.3, 1.0, size=xy.shape[:-1]).astype(np.float32))
+    w[:, 0] = 0.0
+    w[:, 1, 1:] = 0.0
+    w[:, 2, 2:] = 0.0
+    A = dlt_system(xy, P, w)
+    return A.reshape(-1, 2 * V, 4).cuda(), (w > 0).sum(-1).flatten().numpy()
+
+
+def _points(Vh: torch.Tensor) -> torch.Tensor:
+    X = Vh[..., -1, :].double().cpu()
+    return X[..., :3] / (X[..., 3:] + 1e-12)
+
+
 def sass_sizes(lib: Path, name: str = "small_svd_kernel") -> dict:
     """Instructions (16 bytes each) of each instantiation of the kernel
     template `name` in `lib`, keyed by its template arguments ("12,16"), from
@@ -2829,6 +2909,38 @@ def phase_small_svd() -> dict:
                          "plain_ms": statistics.median(eager[0::3]), **b, "errors": errs}
         print(f"small_svd [{name} (64, {m}, {n})] vs torch.linalg.svd: {errs}; eager in turns "
               f"plain/kernel/kernel/plain " + "/".join(f"{1e3 * t:.2f}" for t in eager)
+              + f" us; kernel graph replay {1e3 * replay:.2f} us; bound "
+              f"{1e3 * b['bound_ms']:.4f} us ({b['bound_by']})")
+    for i, (name, robot_name, B, V) in enumerate(TRI_GROUPS):
+        a, obs = triangulation_systems(robot_name, B, V, seed=120 + i)
+        _, m, n = a.shape
+        got = small_svd.small_svd_cuda(a)
+        again = small_svd.small_svd_cuda(a)
+        torch.cuda.synchronize()
+        check(all(x is None or torch.equal(x, y) for x, y in zip(got, again)),
+              f"small_svd {name}: two calls differ")
+        want = torch.linalg.svd(a, full_matrices=True)
+        errs = svd_errors(a, got, want)
+        seen = torch.from_numpy(obs >= 2)
+        errs["points_m"] = float((_points(got[2]) - _points(want.Vh))[seen].abs().max())
+        check(all(v <= (TRI_TOL if k == "points_m" else SVD_TOL[k]) for k, v in errs.items()),
+              f"small_svd {name}: {errs}")
+        max_err = max(max_err, errs["sigma"])
+        kernel = functools.partial(small_svd.small_svd_cuda, a)
+        plain = functools.partial(torch.linalg.svd, a, full_matrices=True)
+        eager = [cuda_ms(f, 20, 20) for f in (plain, kernel, kernel, plain)]
+        replay = graph_ms(kernel, 20, 20)
+        batch = a.shape[0]
+        b = bound(4 * batch * (m * n + n + n * n), batch * (4 * m * n * n + 8 * n ** 3), "f32")
+        results[name] = {"shape": [batch, m, n], "ms": replay,
+                         "eager_ms": statistics.median(eager[1:3]),
+                         "plain_ms": statistics.median(eager[0::3]), **b, "errors": errs,
+                         "observing_views": {str(k): int((obs == k).sum())
+                                             for k in sorted(set(obs.tolist()))}}
+        print(f"small_svd [{name} ({batch}, {m}, {n}): the geometric3d DLT, "
+              f"{results[name]['observing_views']} systems by observing views] vs "
+              f"torch.linalg.svd: {errs}; eager in turns plain/kernel/kernel/plain "
+              + "/".join(f"{1e3 * t:.2f}" for t in eager)
               + f" us; kernel graph replay {1e3 * replay:.2f} us; bound "
               f"{1e3 * b['bound_ms']:.4f} us ({b['bound_by']})")
     for shape in ((4, 33, 4), (4, 5, 17)):
@@ -3059,13 +3171,20 @@ def phase_train_step(device: dict) -> int:
     return launches["heatmap_render"]
 
 
+def trainer_evals(steps: int, every: int = 100) -> int:
+    """The trainer's evaluations over the eval batches: at step 1, every
+    `every` steps (its default --eval-every) and once at the end."""
+    return len({1, *range(every, steps + 1, every)}) + 1
+
+
 def phase_trainer() -> int:
     """`scripts/torch_train_synthetic.py --mode multi` at its defaults for
     TRAINER_STEPS steps: finite losses, the last logged loss below
     TRAINER_LOSS_DROP of the first, two render launches per batch made
-    (the eval batches and one per step), and the final pose evaluation's 5
-    SVD launches per eval batch, with the predicted and with the true
-    angles. -> render launches."""
+    (the eval batches and one per step), and the SVD kernel's launches: the
+    final pose evaluation's 5 per eval batch, with the predicted and with
+    the true angles, and one per eval batch at each evaluation (the
+    triangulated ADD). -> render launches."""
     trainer = _script("torch_train_synthetic")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         _reset_launches()
@@ -3073,8 +3192,11 @@ def phase_trainer() -> int:
         launches = _read_launches()
         log = [json.loads(line) for line in
                (Path(work) / "logs" / "metrics.jsonl").read_text().splitlines()]
+    # The SVD kernel: the final pose evaluations' 5 a batch, with the
+    # predicted and with the true angles, and each evaluation's triangulated
+    # ADD, one a batch.
     want = {"heatmap_render": 2 * (TRAINER_STEPS + TRAINER_EVAL_BATCHES),
-            "small_svd": 2 * 5 * TRAINER_EVAL_BATCHES}
+            "small_svd": (2 * 5 + trainer_evals(TRAINER_STEPS)) * TRAINER_EVAL_BATCHES}
     check(launches == {k: want.get(k, 0) for k in KERNELS},
           f"trainer: launched {launches}, want {want}")
     curve = [(int(r["step"]), r["loss"], r["pck5"]) for r in log]
@@ -3091,9 +3213,242 @@ def phase_trainer() -> int:
     return launches["heatmap_render"]
 
 
+# The calibrated rig of the new serve runs: 4 720p cameras with ZED-like
+# intrinsics and distortion, named by fr3's views (each its base rotation).
+CAL_KEYS = ("view1_leftcam", "view2_leftcam", "view3_leftcam", "view4_leftcam")
+# label, kind, config, SVD launches a tick (the PnP's 5; geometric3d's DLT 1 more)
+CALIBRATED_RUNS = [("single-view geometric, calibrated", "single_view", FULL_SV_GEO, 5),
+                   ("multi-view geometric3d, calibrated", "multi_view", FULL_MV_GEO3D, 6)]
+
+
+def write_rig(root: Path) -> tuple:
+    """`cli calibrate intrinsics` files for CAL_KEYS (K around fx = fy = 528,
+    the centre near (640, 360), k1 -0.05..-0.035, k2 0.02, p1 1e-3, p2 -1e-3)
+    and an ArUco summary of a 4-camera ring 3 m from the robot, views 1 and 3
+    in radians (fr3's unit, untagged), 2 and 4 in degrees with their unit
+    tag -> (calib dir, summary path)."""
+    _, rvecs, tvecs = rig_tuple(make_rig(n_views=4, image_hw=(720, 1280), distance_m=3.0))
+    calib = root / "calib"
+    calib.mkdir(parents=True)
+    records = []
+    for i, key in enumerate(CAL_KEYS):
+        view, cam = key.split("_")
+        f = 528.0 + 2 * i
+        (calib / f"{view}_3000{i}_{cam}_calib.json").write_text(json.dumps({
+            "camera_matrix": [[f, 0.0, 640.0 + i], [0.0, f, 360.0 - i], [0.0, 0.0, 1.0]],
+            "distortion_coeffs": [-0.05 + 0.005 * i, 0.02, 1e-3, -1e-3, 0.0]}))
+        rv = rvecs[i].double().numpy()
+        rec = {"view": view, "cam": cam,
+               **dict(zip(("tvec_x", "tvec_y", "tvec_z"), map(float, tvecs[i])))}
+        if i % 2:
+            rec.update(zip(("rvec_x", "rvec_y", "rvec_z"), map(float, np.degrees(rv))),
+                       rvec_unit="deg")
+        else:
+            rec.update(zip(("rvec_x", "rvec_y", "rvec_z"), map(float, rv)))
+        records.append(rec)
+    summary = root / "aruco_pose_summary.json"
+    summary.write_text(json.dumps(records, indent=2))
+    return calib, summary
+
+
+def _calibrated_model(kind: str, cfg: EstimatorConfig, flat: dict, device, f32: bool):
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  vit=dataclasses.replace(cfg.vit, dtype="float32"))
+    model = KINDS[kind](cfg, device=device).eval()
+    load_jax_params(model, flat)
+    return model
+
+
+def calibrated_step(label: str, kind: str, cfg: EstimatorConfig, flat: dict, calib_dir: Path,
+                    summary: Path, device: dict) -> None:
+    """The calibrated serve step alone (the device remap, preprocess, the
+    model, the pose step with the cameras' K, base rotations and fallback
+    poses) on 4 resident 720 x 1280 frames: its launches, no host sync, its
+    device time by CUDA-graph replay with and without the remap (the
+    difference is the remap's cost) and the remap's alone; and against the
+    CPU route on the same weights and frames: the undistorted frames at most
+    one level apart, the heatmaps (the card in bf16, the CPU in f32) within
+    twice the card's own bf16-vs-f32 gap (the yardstick `phase_step`
+    prints), the angle head on the same heatmaps within 1e-3, and the whole
+    step's angles within 1e-2 where every decoded peak agrees."""
+    hw, keys, single = (720, 1280), ",".join(CAL_KEYS), kind == "single_view"
+    calib = read_calibration(calib_dir, keys, 4)
+    read_fallback_poses(calib, summary, keys, get_robot("fr3"))
+    frames = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, size=(4, *hw, 3), dtype=np.uint8))
+    out = {}
+    for name, where, f32 in (("card", "cuda", False), ("card_f32", "cuda", True),
+                             ("cpu_f32", "cpu", True)):
+        model = _calibrated_model(kind, cfg, flat, where, f32)
+        remap = calib.remap(hw, where)
+        proj = None if single else heatmap_projection_matrices(
+            *(torch.from_numpy(a).to(where) for a in (calib.fb_rvec, calib.fb_tvec, calib.Ks)),
+            hw, cfg.heatmap_size)[None]
+        f, m = frames.to(where), torch.ones(4, dtype=torch.bool, device=where)
+        with torch.inference_mode():
+            und = remap(f)
+            imgs = preprocess(und, 512)
+            hm, ang = (model(imgs) if single else
+                       model(imgs[None], torch.arange(4, device=where)[None], m[None],
+                             proj_mats=proj))
+            out[name] = {"und": und.cpu(), "hm": hm.reshape(4, cfg.num_joints, *hm.shape[-2:]),
+                         "ang": ang.float(), "model": model, "proj": proj, "mask": m}
+            if name != "card":
+                continue
+            pose = PoseStep(4, hw, where, cfg.num_angles, "fr3", calib=calib)
+            step = functools.partial(serve_step, model, f, m, 512, hw, pose=pose, remap=remap,
+                                     proj_mats=proj, single_view=single)
+            bare = functools.partial(serve_step, model, und, m, 512, hw, pose=pose,
+                                     proj_mats=proj, single_view=single)
+            step()
+            _reset_launches()
+            step()
+            torch.cuda.synchronize()
+            got = _read_launches()
+            per_tick = {"peak_decode": 1, "small_svd": 5 if single else 6}
+            check(got == {k: per_tick.get(k, 0) for k in KERNELS},
+                  f"{label} step launched {got}, not {per_tick}")
+            _never_syncs(step)
+            times = {"with remap": graph_ms(step, iters=1, samples=20),
+                     "without remap": graph_ms(bare, iters=1, samples=20),
+                     "remap alone": graph_ms(lambda: remap(f), iters=1, samples=20)}
+    card, ref, yard = out["card"], out["cpu_f32"], out["card_f32"]
+    off = (card["und"].int() - ref["und"].int()).abs()
+    check(int(off.max()) <= 1 and float((off > 0).float().mean()) <= 1e-4,
+          f"{label}: undistorted frames {int(off.max())} levels apart on "
+          f"{float((off > 0).float().mean()):.3g} of the values, card vs CPU")
+    hm_c, hm_r, hm_y = (o["hm"].float().cpu() for o in (card, ref, yard))
+    gap, bf16_gap = float((hm_c - hm_r).abs().max()), float((hm_c - hm_y).abs().max())
+    f32_gap = float((hm_y - hm_r).abs().max())
+    check(gap <= 2 * bf16_gap and f32_gap <= 1e-3,
+          f"{label}: heatmaps card bf16 vs CPU f32 {gap}, the card's bf16 vs f32 {bf16_gap}, "
+          f"card f32 vs CPU f32 {f32_gap}")
+    # The angle head alone on the CPU's heatmaps, on the card (its f32 MLP,
+    # the DLT on the SVD kernel) and on the CPU.
+    with torch.inference_mode():
+        head = card["model"].angle_head
+        hm_in = ref["hm"].to("cuda")
+        head_ang = (head(hm_in) if single else
+                    head(hm_in[None], card["mask"][None], card["proj"])).float().cpu()
+    head_gap = float((head_ang - ref["ang"]).abs().max())
+    check(head_gap <= 1e-3, f"{label}: the angle head on the same heatmaps {head_gap} apart")
+    peaks = hm_c.flatten(2).argmax(-1) == hm_r.flatten(2).argmax(-1)
+    ang_gap = float((card["ang"].cpu() - ref["ang"]).abs().max())
+    agree = bool(peaks.all())
+    check(not agree or ang_gap <= 1e-2, f"{label}: angles {ang_gap} apart with equal peaks")
+    print(f"calibrated step [{label}; {device['nvidia_smi']}] (remap + preprocess + model + "
+          f"decode + pose, 4x720x1280 u8 resident): CUDA-graph replay (device time) "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; the remap's cost {times['with remap'] - times['without remap']:.3f} ms; launches "
+          f"a step {per_tick}; no host-device sync. Card vs CPU: undistorted frames "
+          f"{int(off.max())} level(s) apart on {int((off > 0).sum())} of {off.numel()} values; "
+          f"heatmaps bf16 card vs f32 CPU {gap:.4g} (the card's bf16 vs f32 {bf16_gap:.4g}, "
+          f"f32 card vs CPU {f32_gap:.3g}); the angle head on the same heatmaps {head_gap:.3g}; "
+          f"decoded peaks equal on {int(peaks.sum())}/{peaks.numel()} maps, whole-step angles "
+          f"{ang_gap:.4g} apart" + ("" if agree else " (not compared: a peak differs)"))
+
+
+def phase_calibrated(device: dict) -> dict:
+    """`serve --params RUN --calib-dir --camera-keys --summary --recover-pose`
+    for a single-view geometric and a multi-view geometric3d run directory
+    (ViT-B/16 at 512 px, seed-0 weights exported with `export_jax_params`,
+    bf16) on the calibrated rig of `write_rig`, under build/: the peak
+    decode every tick and the SVD kernel 5 and 6 times a tick; then each
+    step alone (`calibrated_step`). -> their launches."""
+    launches, t0 = dict.fromkeys(KERNELS, 0), time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        calib_dir, summary = write_rig(Path(work))
+        rig = ["--calib-dir", str(calib_dir), "--camera-keys", ",".join(CAL_KEYS), "--summary",
+               str(summary), "--recover-pose"]
+        for label, kind, cfg, per_tick in CALIBRATED_RUNS:
+            run = Path(work) / kind
+            flat = random_flat(KINDS[kind](cfg, device="meta"))
+            write_run_dir(run, cfg, 512, flat, kind=kind)
+            got = _serve(["--params", str(run / "best_params.npz"), *rig], label,
+                         ["peak_decode", "small_svd"])
+            check_pose_tick(label, got, per_tick)
+            for name in ("peak_decode", "small_svd"):
+                launches[name] += got[name]
+            calibrated_step(label, kind, cfg, flat, calib_dir, summary, device)
+            del flat
+    print(f"calibrated serves and steps: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# The trainer's other modes on the card, a few steps each at its defaults
+# otherwise (fr5, 128 px, batch 64): label, argv, views.
+GEOMETRIC_TRAINER_RUNS = [
+    ("single-view geometric + FK", ["--mode", "single", "--angle-head", "geometric",
+                                    "--fk-loss-weight", "0.1"], 1),
+    ("multi-view geometric3d", ["--mode", "multi", "--angle-head", "geometric3d"], 3),
+]
+GEOMETRIC_TRAINER_STEPS, GEOMETRIC_TRAINER_EVERY, GEOMETRIC_TRAINER_EVAL_BATCHES = 20, 10, 2
+
+
+def phase_geometric_trainer() -> dict:
+    """Each mode's train step on the card under the no-sync check (the
+    trainer's own model and batch: the single-view step with the FK term,
+    the multi-view step with the geometric3d head and its projection
+    matrices), then `scripts/torch_train_synthetic.py` in that mode for a few
+    steps: finite losses, two render launches a batch; the single-view
+    run's SVD launches the pose evaluations' 5 a batch, the geometric3d
+    run's more (its DLT in every forward). -> their launches."""
+    trainer = _script("torch_train_synthetic")
+    dev, robot = torch.device("cuda"), get_robot("fr5")
+    launches, t0 = dict.fromkeys(KERNELS, 0), time.perf_counter()
+    for label, argv, V in GEOMETRIC_TRAINER_RUNS:
+        args = trainer.build_parser().parse_args(argv)
+        single = args.mode == "single"
+        model = trainer.build_model(args.mode, robot, 128, "bfloat16", V, False,
+                                    args.angle_head, dev)
+        model.load_state_dict(flax_init_state(model, seed=1))
+        tcfg = TrainConfig(loss_weight_fk=args.fk_loss_weight, freeze_backbone=False)
+        state = create_train_state(model, tcfg)
+        step = (make_single_view_train_step(tcfg, robot=robot) if single
+                else make_multi_view_train_step(tcfg))
+        K, rv, tv = rig_tuple(make_rig(n_views=V, image_hw=(128, 128)), dev)
+        batch = synthesize_multiview_batch(robot, (K, rv, tv), torch.Generator(dev).manual_seed(0),
+                                           16, image_hw=(128, 128), heatmap_hw=(64, 64))
+        if single:
+            batch = single_view_batch(batch)
+            batch.update(rvec=rv[0].expand(16, 3), tvec=tv[0].expand(16, 3),
+                         K=K.expand(16, 3, 3), base_rotation=torch.eye(3, device=dev).expand(16, 3, 3))
+        gen = torch.Generator(dev).manual_seed(1)
+        losses = [step(state, batch, gen)]
+        _never_syncs(lambda: losses.append(step(state, batch, gen)))
+        check(all(bool(torch.isfinite(v).all()) for m in losses for v in m.values()),
+              f"{label} train step: losses {losses}")
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            _reset_launches()
+            final = trainer.main([*argv, "--steps", str(GEOMETRIC_TRAINER_STEPS), "--eval-every",
+                                  str(GEOMETRIC_TRAINER_EVERY), "--eval-batches",
+                                  str(GEOMETRIC_TRAINER_EVAL_BATCHES), "--workdir", work])
+            got = _read_launches()
+            log = [json.loads(line) for line in
+                   (Path(work) / "logs" / "metrics.jsonl").read_text().splitlines()]
+        batches = GEOMETRIC_TRAINER_STEPS + GEOMETRIC_TRAINER_EVAL_BATCHES
+        check(got["heatmap_render"] == 2 * batches and got["small_svd"] > 0
+              and (not single or got["small_svd"] == 2 * 5 * GEOMETRIC_TRAINER_EVAL_BATCHES)
+              and all(v == 0 for k, v in got.items() if k not in ("heatmap_render", "small_svd")),
+              f"{label} trainer: launched {got}")
+        check(all(np.isfinite(r["loss"]) for r in log), f"{label} trainer: a loss is not finite")
+        print(f"trainer [{label}] ({GEOMETRIC_TRAINER_STEPS} steps): the train step finite and "
+              f"free of host syncs (losses {[round(float(m['loss']), 4) for m in losses]}); "
+              f"(step, loss) {[(r['step'], round(r['loss'], 4)) for r in log]}; final pck5 "
+              f"{final['pck5']}, angle_mae {final['angle_mae']}, "
+              f"{final['train_samples_per_sec']} samples/s; launches {got}")
+        for name in ("heatmap_render", "small_svd"):
+            launches[name] += got[name]
+    print(f"the trainer's single-view and geometric3d modes: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
+    t0 = time.perf_counter()
     device = phase_device()
     phase_build()
     measured = {**phase_peak_decode(), **phase_layernorm(), **phase_layernorm_int8(),
@@ -3112,6 +3467,7 @@ def main() -> int:
     # Pose recovery on the tick: 5 SVD launches a tick, 10 with refine.
     pose_launches = _serve(["--recover-pose"], "bf16 + pose", ["peak_decode", "small_svd"])
     check_pose_tick("bf16 + pose", pose_launches, 5)
+    calibrated = phase_calibrated(device)
     flat = seed0_flat()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as run:  # ~350 MB of weights
@@ -3131,8 +3487,9 @@ def main() -> int:
     check_int8_tick("int8 serve with pose and refine", refine_launches, "int8_attention")
     check_pose_tick("int8 serve with pose and refine", refine_launches, 10)
     launches.update({k: v for k, v in int8_launches.items() if k != "peak_decode"})
-    launches["small_svd"] = pose_launches["small_svd"] + refine_launches["small_svd"]
-    launches["peak_decode"] += pose_launches["peak_decode"]
+    launches["small_svd"] = (pose_launches["small_svd"] + refine_launches["small_svd"]
+                             + calibrated["small_svd"])
+    launches["peak_decode"] += pose_launches["peak_decode"] + calibrated["peak_decode"]
     # The bf16 fused-LN tick: norm1 and the final norm, the residual norm2.
     for name, per_tick in (("layernorm", 13), ("residual_layernorm", 12)):
         check(ln_launches[name] == per_tick * ln_launches["peak_decode"],
@@ -3148,6 +3505,9 @@ def main() -> int:
     launches["int8_attention_f32"] = phase_serve_int8_f32()["int8_attention_f32"]
     phase_small_reference()
     launches["heatmap_render"] = phase_train_step(device) + phase_trainer()
+    geometric = phase_geometric_trainer()
+    launches["heatmap_render"] += geometric["heatmap_render"]
+    launches["small_svd"] += geometric["small_svd"]
     train_768 = phase_train_768()
     train_768_f32 = phase_train_768(UNFROZEN_768_F32, TRAIN_768_F32_GROUPS)
     phase_fusion()
@@ -3163,6 +3523,7 @@ def main() -> int:
                               f32_launches=runs[name])
     check(all(launches[name] > 0 for name in KERNELS),
           f"a kernel with no main-path launches in the JSON line: {launches}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], **measured[name],

@@ -10,9 +10,11 @@ The random draws (`draw_multiview`: angles and image noise from a
 `torch.Generator`) are split from the deterministic render of given draws
 (`render_multiview_batch`), so a test can feed the render the reference's
 `jax.random` draws. Everything stays on the generator's device; a batch
-makes no host-device copy. Not ported yet: `render="link"` (segment images
-and the tool marker) and the geometric heads' `proj_mats` (ROADMAP.md queue
-1, items 11 and 4).
+makes no host-device copy. A batch carries the rig's projection matrices in
+heatmap pixels (`proj_mats`, the geometric3d head's input), and
+`single_view_batch` slices one view out of it. Not ported yet:
+`render="link"` (segment images and the tool marker; ROADMAP.md queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from mvropose_torch.geometry.camera import project_points
 from mvropose_torch.geometry.heatmap import scale_keypoints
 from mvropose_torch.geometry.robots import RobotSpec, forward_kinematics
 from mvropose_torch.geometry.rotations import matrix_to_rodrigues
+from mvropose_torch.geometry.triangulation import heatmap_projection_matrices
 from mvropose_torch.ops.heatmap_render import fused_render_heatmaps
 
 
@@ -145,7 +148,8 @@ def render_multiview_batch(robot: RobotSpec, rig_arrays, angles: torch.Tensor,
                            heatmap_sigma: float = 2.0) -> dict:
     """The batch of given draws: images (B, V, H, W, 3), heatmaps
     (B, V, J, Hm, Wm), angles (B, A), keypoints_2d (B, V, J, 2) in image px,
-    keypoints_3d (B, J, 3), view_ids (B, V), view_mask (B, V)."""
+    keypoints_3d (B, J, 3), view_ids (B, V), view_mask (B, V) and the rig's
+    heatmap-pixel projection matrices proj_mats (B, V, 3, 4)."""
     K, rvecs, tvecs = rig_arrays
     B, V = angles.shape[0], rvecs.shape[0]
     kp3d = robot.keypoints_from_fk(forward_kinematics(robot, angles))  # (B, J, 3)
@@ -162,6 +166,21 @@ def render_multiview_batch(robot: RobotSpec, rig_arrays, angles: torch.Tensor,
         "keypoints_3d": kp3d,
         "view_ids": torch.arange(V, device=angles.device).expand(B, V),
         "view_mask": torch.ones((B, V), dtype=torch.bool, device=angles.device),
+        "proj_mats": heatmap_projection_matrices(rvecs, tvecs, K, image_hw,
+                                                 heatmap_hw).expand(B, V, 3, 4),
+    }
+
+
+def single_view_batch(mv_batch: dict, view: int = 0) -> dict:
+    """One view of a multi-view batch as a single-view batch: images
+    (B, H, W, 3), heatmaps (B, J, Hm, Wm), angles, keypoints_2d (B, J, 2),
+    keypoints_3d."""
+    return {
+        "images": mv_batch["images"][:, view],
+        "heatmaps": mv_batch["heatmaps"][:, view],
+        "angles": mv_batch["angles"],
+        "keypoints_2d": mv_batch["keypoints_2d"][:, view],
+        "keypoints_3d": mv_batch["keypoints_3d"],
     }
 
 

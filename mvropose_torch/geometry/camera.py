@@ -1,13 +1,18 @@
 """Pinhole camera with OpenCV-style lens distortion.
 
-Port of the parts of `mvropose_tpu/geometry/camera.py` that the training and
-pose slices run: `distort_normalized`, `project_points` (cv2.projectPoints),
-`project_camera_frame` and `undistort_points` (cv2.undistortPoints). The
-undistortion maps of serve (`undistort_map`, `remap_bilinear`) are ROADMAP.md
-queue 1, item 7. Distortion coefficients are (k1, k2, p1, p2, k3).
+Port of the parts of `mvropose_tpu/geometry/camera.py` that the training,
+pose and serve slices run: `distort_normalized`, `project_points`
+(cv2.projectPoints), `project_camera_frame`, `undistort_points`
+(cv2.undistortPoints) and `undistort_map`; and the serve's remap of uint8
+frames on the device (`RemapTaps`), which computes what the reference's serve
+runs on the host, `cv2.remap(..., INTER_LINEAR)` with its default constant 0
+border, not the dataset path's `remap_bilinear` (not ported: queue 1, item 9).
+Distortion coefficients are (k1, k2, p1, p2, k3).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -61,3 +66,61 @@ def undistort_points(pixels: torch.Tensor, K: torch.Tensor, dist, iters: int = 8
     for _ in range(iters):
         xy = target - (distort_normalized(xy, dist) - xy)
     return _to_pixels(xy, K)
+
+
+def undistort_map(K: torch.Tensor, dist, height: int, width: int) -> torch.Tensor:
+    """The (2, H, W) remap grid of cv2.undistort for one camera, on K's
+    device: out[y, x] = in[map[0, y, x], map[1, y, x]] (row, column source
+    coordinates), the forward distortion of each undistorted destination
+    pixel, in f32."""
+    ys = torch.arange(height, dtype=torch.float32, device=K.device)
+    xs = torch.arange(width, dtype=torch.float32, device=K.device)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xyd = distort_normalized(torch.stack([(grid_x - cx) / fx, (grid_y - cy) / fy], -1), dist)
+    return torch.stack([fy * xyd[..., 1] + cy, fx * xyd[..., 0] + cx], 0)
+
+
+@dataclasses.dataclass
+class RemapTaps:
+    """Bilinear remap of (V, H, W, C) uint8 frames by per-view grids, made
+    once per rig: the four taps' flat indices into the V frames, (4, V*H*W),
+    and their f32 weights, (4, V*H*W, 1), a tap outside its frame weighing 0.
+
+    Each output value is w00 v00 + w01 v01 + w10 v10 + w11 v11 in f32, the
+    weights (1 - fy)(1 - fx), (1 - fy) fx, fy (1 - fx) and fy fx of the
+    source coordinate's fractions, rounded to the nearest level. That is
+    cv2.remap with INTER_LINEAR and BORDER_CONSTANT 0 on float maps (at most
+    one level apart, on a few values in a million), the reference serve's
+    undistortion."""
+
+    index: torch.Tensor
+    weight: torch.Tensor
+
+    @classmethod
+    def from_maps(cls, maps: torch.Tensor) -> "RemapTaps":
+        """maps (V, 2, H, W): per view the (row, column) source coordinate of
+        each destination pixel, in that view's own frame of the same size."""
+        V, _, H, W = maps.shape
+        sy, sx = maps[:, 0].float(), maps[:, 1].float()
+        y0, x0 = torch.floor(sy), torch.floor(sx)
+        fy, fx = sy - y0, sx - x0
+        y0, x0 = y0.long(), x0.long()
+        base = torch.arange(V, device=maps.device)[:, None, None] * (H * W)
+        index, weight = [], []
+        for dy, dx, w in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                          (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+            y, x = y0 + dy, x0 + dx
+            inside = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+            index.append((base + y.clamp(0, H - 1) * W + x.clamp(0, W - 1)).flatten())
+            weight.append(torch.where(inside, w, torch.zeros_like(w)).flatten())
+        return cls(torch.stack(index), torch.stack(weight)[..., None])
+
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        """(V, H, W, C) uint8 -> the remapped (V, H, W, C) uint8: one gather
+        of the four taps, no host synchronization."""
+        taps = frames.reshape(-1, frames.shape[-1]).index_select(0, self.index.flatten())
+        v = taps.reshape(4, -1, frames.shape[-1]).float()
+        w = self.weight
+        out = v[0] * w[0] + v[1] * w[1] + v[2] * w[2] + v[3] * w[3]
+        return out.round().clamp(0, 255).to(torch.uint8).reshape(frames.shape)

@@ -151,9 +151,11 @@ def get_robot(name: str) -> RobotSpec:
 @functools.lru_cache(maxsize=32)
 def _spec_tables(spec: RobotSpec, device: torch.device):
     """a, d, alpha (rad), theta offset (rad): f32 tensors on `device`, made
-    once, so FK inside a step copies nothing to the card."""
-    p = torch.tensor(spec.dh_params, dtype=torch.float32)
+    once, so FK inside a step copies nothing to the card. Made outside
+    inference mode (the table too: on the CPU `.to` returns it as is), so an
+    FK with autograd may follow one under `torch.inference_mode`."""
     with torch.inference_mode(False):
+        p = torch.tensor(spec.dh_params, dtype=torch.float32)
         return tuple(t.to(device) for t in (p[:, 0], p[:, 1], torch.deg2rad(p[:, 2]),
                                             torch.deg2rad(p[:, 3])))
 

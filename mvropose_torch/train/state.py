@@ -38,6 +38,7 @@ class TrainConfig:
     lr_ang: float = 1e-4
     eta_min: float = 1e-6
     loss_weight_kpt: float = 100.0
+    loss_weight_fk: float = 0.0  # the single-view step's FK-consistency term
     angle_beta: float = 1.0
     weight_decay: float = 0.0
     freeze_backbone: bool = True

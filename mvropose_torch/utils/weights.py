@@ -18,7 +18,10 @@ and `bn` here. Layouts:
                                    -> Int8Linear kernel_q, scale, bias
   raw parameters (cls_token, pos_embed, ls*/gamma, *_queries) -> as is
 
-`export_jax_params` is the inverse map, `int8ify` the port of the
+Both estimators and every angle head go through the same map (the
+geometric head's `angle_head/fc{i}` and `angle_head/out` are Dense layers;
+the single-view model has no `view_embeddings`, `fusion_module` or
+`keypoint_enricher`). `export_jax_params` is the inverse map, `int8ify` the port of the
 reference's `_int8ify` (`mvropose_tpu/cli/main.py`), `random_state`
 mirrors `mvropose_tpu/utils/initializers.py::random_variables` (and
 `random_flat` exports it as a checkpoint's flat dict), and
@@ -181,7 +184,7 @@ def export_jax_params(model: nn.Module) -> dict[str, np.ndarray]:
 
 def int8ify(model: nn.Module, flat: Mapping[str, np.ndarray] | None = None,
             attn: bool = False) -> None:
-    """Quantize a loaded float `MultiViewPoseEstimator`'s backbone to int8 in
+    """Quantize a loaded float estimator's backbone (single- or multi-view) to int8 in
     place (the reference's `_int8ify`): every block's q/k/v/out and fc1/fc2
     become `Int8Linear`s, and `attn` also turns on the int8-probability
     attention. The heads stay float.

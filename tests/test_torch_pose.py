@@ -234,8 +234,8 @@ class PlantedModel(torch.nn.Module):
         super().__init__()
         self.model, self.plant = model, _t(plant)
 
-    def forward(self, *args):
-        hm, ang = self.model(*args)
+    def forward(self, *args, **kwargs):
+        hm, ang = self.model(*args, **kwargs)
         return hm + self.plant, ang
 
 

@@ -265,12 +265,13 @@ def test_cli_serve_with_params(checkpoint, capsys):
 @pytest.mark.parametrize(
     "extra, item",
     [
-        (["--calib-dir", "calib"], "item 7"),
-        (["--summary", "aruco_pose_summary.json"], "item 7"),
-        (["--angle-head", "geometric"], "item 4"),
+        (["--display", "window"], "item 7"),
+        (["--display", "dir"], "item 7"),
     ],
 )
 def test_cli_serve_rejects_unported(extra, item):
+    """The serve viewer is the one serve flag left to port (the calibrated
+    rig and the geometric heads run: test_torch_calibrated_serve.py)."""
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(SERVE_TINY + extra)
 
@@ -368,10 +369,12 @@ def test_cli_serve_int8_fused_ln_run_directory(tmp_path, capsys):
 
 
 def test_cli_serve_rejects_single_view_checkpoint(tmp_path):
+    """A single-view checkpoint serves (test_torch_calibrated_serve.py), but
+    not one that says geometric3d: the reference's model raises on it."""
     (tmp_path / "model_config.json").write_text(json.dumps({
         "kind": "single_view", "model_size": 32, "vit": dataclasses.asdict(JAX_CFG.vit),
         "num_joints": 4, "num_angles": 3, "heatmap_size": [32, 32], "max_views": 4,
-        "num_fusion_queries": 4, "num_angle_queries": 4, "angle_head": "query",
+        "num_fusion_queries": 4, "num_angle_queries": 4, "angle_head": "geometric3d",
     }))
-    with pytest.raises(SystemExit, match="item 4"):
+    with pytest.raises(SystemExit, match="single_view checkpoint: .*multi-view only"):
         main(SERVE_TINY + ["--params", str(tmp_path / "best_params.npz")])

@@ -529,7 +529,7 @@ class _PlantedModel(torch.nn.Module):
         super().__init__()
         self.pred = torch.from_numpy(pred)
 
-    def forward(self, images, view_ids, view_mask):
+    def forward(self, images, view_ids, view_mask, proj_mats=None):
         return images, self.pred.expand(images.shape[0], -1)
 
 
@@ -612,27 +612,27 @@ def test_pose_eval_matches_the_reference_script(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    ([], "item 4"),  # --mode single is the default
     (["--mode", "multi", "--render", "link"], "item 11"),
-    (["--mode", "multi", "--angle-head", "geometric3d"], "item 4"),
-    (["--mode", "multi", "--fk-loss-weight", "0.5"], "item 4"),
     (["--mode", "multi", "--backbone-ckpt", "x.npz"], "item 11"),
 ])
 def test_trainer_rejects_unported_flags(argv, item, tmp_path):
+    """The trainer's flag values left to port (the single-view mode, the
+    geometric heads and the FK term run: test_torch_single_view_train.py)."""
     with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP.md queue 1, {item}"):
         _trainer().main([*argv, "--cpu", "--workdir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
 
 
 def test_trainer_fk_loss_weight_names_the_single_view_item():
-    """The FK-consistency term belongs to the single-view step, which queue 1
-    item 4 ports (the reference applies it there, scripts/train_synthetic.py:177;
-    `train/losses.py::fk_consistency_loss` is ported with that item), so the
-    refusal names item 4, not item 9 (captured-image training)."""
+    """The FK-consistency term belongs to the single-view step (the reference
+    applies it there, scripts/train_synthetic.py:177, and its multi-view step
+    drops it without a word), so multi mode refuses it, naming the
+    single-view step, and names no ROADMAP item: the term is ported."""
     trainer = _trainer()
     args = trainer.build_parser().parse_args(["--mode", "multi", "--fk-loss-weight", "1"])
+    trainer.check_ported(args)
     with pytest.raises(SystemExit) as refused:
-        trainer.check_ported(args)
+        trainer.check_flags(args, trainer.get_robot(args.robot))
     message = str(refused.value)
-    assert "--fk-loss-weight" in message and "queue 1, item 4:" in message, message
-    assert "item 9" not in message
+    assert "--fk-loss-weight" in message and "single-view step" in message, message
+    assert "item" not in message

@@ -137,3 +137,43 @@ def assert_pose_close(rvec, tvec, rvec_ref, tvec_ref):
     assert gap.max(initial=0.0) <= ROT_TOL, gap
     gap = np.linalg.norm(np32(tvec) - np32(tvec_ref), axis=-1)
     assert (gap <= TRANS_REL * np.linalg.norm(np32(tvec_ref), axis=-1)).all(), gap
+
+
+def heatmap_rig_scene(seed: int, batch: int = 2, views: int = 4, joints: int = 4,
+                      hw=(32, 32)) -> dict:
+    """Planted heatmaps of a stereo-like rig, for the geometric angle heads:
+    `views` cameras 3 m behind the origin along -x, spread 1 m in y and
+    turned toward it, f = 1.25 w heatmap px (P in heatmap pixels). Each
+    sample's joints 1.. are random points within 0.3 m of the origin; joint
+    `far` (2) lies 300 m out along +x, beyond the +-100 clip. Each (view,
+    joint) map is a logit blob peaked on its projection (10 exp(-d^2 / 2) -
+    5, confidence sigmoid(5)); joint 1 is faint (exp(-d^2 / 2) - 4, below
+    confidence 0.05) in all but view 0, so fewer than 2 views observe it;
+    the last view is masked in sample 0. numpy f32, no JAX."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    f = 1.25 * w
+    K = np.array([[f, 0.0, (w - 1) / 2], [0.0, f, (h - 1) / 2], [0.0, 0.0, 1.0]])
+    P = []
+    for y in np.linspace(-0.5, 0.5, views):
+        c = np.array([-3.0, y, 0.05 * y])
+        fwd = -c / np.linalg.norm(c)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        P.append(K @ np.concatenate([R, (-R @ c)[:, None]], 1))
+    P = np.stack(P)
+    pts = rng.uniform(-0.3, 0.3, size=(batch, joints, 3))
+    pts[:, 2] = [300.0, 0.2, 0.1]
+    hom = np.concatenate([pts, np.ones((batch, joints, 1))], -1)
+    uvw = np.einsum("vij,bkj->bvki", P, hom)
+    xy = uvw[..., :2] / uvw[..., 2:]  # (B, V, J, 2)
+    d2 = ((np.arange(w)[None, None, None, None, :] - xy[..., 0, None, None]) ** 2
+          + (np.arange(h)[None, None, None, :, None] - xy[..., 1, None, None]) ** 2)
+    heatmaps = 10.0 * np.exp(-d2 / 2.0) - 5.0
+    heatmaps[:, 1:, 1] = np.exp(-d2[:, 1:, 1] / 2.0) - 4.0
+    mask = np.ones((batch, views), bool)
+    mask[0, -1] = False
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return {"heatmaps": f32(heatmaps), "mask": mask, "xy": f32(xy), "points": f32(pts),
+            "proj_mats": f32(np.broadcast_to(P, (batch, *P.shape)))}

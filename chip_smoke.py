@@ -119,6 +119,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          single --angle-head geometric --fk-loss-weight 0.1` and `--mode
          multi --angle-head geometric3d`, each train step free of host
          syncs, then a few steps of the script with finite losses;
+       * `cli train` on captured images (`phase_cli_train`): a capture it
+         writes under build/ with the stdlib csv, cv2 and json (an FR3 rig
+         of 4 serials x left and right cameras, 1080x1920 JPEGs of 8 views
+         a group, the sync CSV, calibration files with distortion, a pose1
+         ArUco summary), trained at ViT-B/16 512 px, batch 2, one epoch and
+         then a resumed second epoch (it must start at epoch 2): one render
+         launch per preprocessed batch, no plain render, a batch's GT
+         heatmaps against `render_heatmaps_reference`, finite losses,
+         best_params.npz read by `serve --params`; groups/s, host load and
+         device step times per batch;
   7. the flash-attention path (T >= 2048), each run's launches counted:
        * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
@@ -196,6 +206,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import functools
 import importlib.util
@@ -213,6 +224,8 @@ import torch
 
 from torch.profiler import ProfilerActivity, profile
 
+import mvropose_torch.cli.main as cli_main
+from mvropose_torch.calib.registry import FR3_SERIAL_TO_VIEW as FR3_SERIALS
 from mvropose_torch.cli.main import (
     KINDS,
     PoseStep,
@@ -231,9 +244,9 @@ from mvropose_torch.data.synthetic import (
     synthesize_multiview_batch,
 )
 from mvropose_torch.geometry import pnp
-from mvropose_torch.geometry.camera import project_points
+from mvropose_torch.geometry.camera import project_points, undistort_map
 from mvropose_torch.geometry.robots import forward_kinematics, get_robot
-from mvropose_torch.geometry.rotations import rodrigues_to_matrix
+from mvropose_torch.geometry.rotations import matrix_to_rodrigues, rodrigues_to_matrix
 from mvropose_torch.geometry.triangulation import dlt_system, heatmap_projection_matrices
 from mvropose_torch.models import (
     EstimatorConfig,
@@ -3445,6 +3458,272 @@ def phase_geometric_trainer() -> dict:
     return launches
 
 
+# `cli train` on a captured FR3 rig at full width: 4 serials x left and right
+# cameras (max_views = 8), 1080x1920 frames, CLI_TRAIN_GROUPS groups of 8
+# views; ViT-B/16 at 512 px (the query head), batch 2.
+CLI_TRAIN_HW = (1080, 1920)
+CLI_TRAIN_GROUPS = 8
+CLI_TRAIN_VAL_SPLIT = 0.25  # 6 train groups (3 steps an epoch) and 2 val groups
+CLI_TRAIN_ARGV = ["--robot", "fr3", "--image-hw", "1080", "1920", "--model-size", "512",
+                  "--hidden-size", "768", "--num-layers", "12", "--batch-size", "2",
+                  "--val-split", str(CLI_TRAIN_VAL_SPLIT), "--viz-every", "1", "--device", "cuda"]
+
+
+def write_capture(root: Path, groups: int = CLI_TRAIN_GROUPS, seed: int = 0) -> dict:
+    """A capture as `cli sync fr3` and `cli calibrate` leave one, written
+    with the stdlib csv, cv2 and json: per group one joint record (radians)
+    and 8 JPEGs pose1/zed_<serial>_<left|right>_<epoch>.jpg within 5 ms of
+    it (so the group's rows tie on robot_timestamp), the sync CSV schema,
+    `{view}_{serial}_{cam}_calib.json` (ZED-like K, some distortion) and
+    `pose1_aruco_pose_summary.json`: a ring of 8 cameras 2.2 m from the
+    robot, in radians (fr3's unit), composed with each view's base rotation
+    so that the robot projects into every frame -> CLI argv pieces."""
+    import cv2
+
+    robot = get_robot("fr3")
+    H, W = CLI_TRAIN_HW
+    rig = make_rig(n_views=8, image_hw=CLI_TRAIN_HW, distance_m=2.2)
+    rng = np.random.default_rng(seed)
+    (root / "pose1").mkdir(parents=True)
+    (root / "calib").mkdir()
+    serials = list(FR3_SERIALS)
+    records = []
+    for i, serial in enumerate(serials):
+        view = FR3_SERIALS[serial]
+        base = torch.from_numpy(robot.base_rotation(view)).double()
+        for c, cam in enumerate(("leftcam", "rightcam")):
+            v = 2 * i + c
+            (root / "calib" / f"{view}_{serial}_{cam}_calib.json").write_text(json.dumps({
+                "camera_matrix": rig.K.tolist(),
+                "distortion_coeffs": [-0.04 + 0.005 * v, 0.015, 5e-4, -5e-4, 0.0]}))
+            R = rodrigues_to_matrix(torch.from_numpy(rig.rvecs[v]).double()) @ base.T
+            rvec = matrix_to_rodrigues(R).tolist()
+            records.append({"view": view, "cam": cam,
+                            **dict(zip(("rvec_x", "rvec_y", "rvec_z"), rvec)),
+                            **dict(zip(("tvec_x", "tvec_y", "tvec_z"),
+                                       map(float, rig.tvecs[v])))})
+    summary = root / "pose1_aruco_pose_summary.json"
+    summary.write_text(json.dumps(records, indent=2))
+    joints = [f"position_fr3_joint{j}" for j in range(1, 8)]
+    rows = []
+    for g in range(groups):
+        ts = 1700000000.0 + 0.5 * g + 0.123
+        angles = rng.uniform(-0.6, 0.6, 7).tolist()
+        for serial in serials:
+            for side in ("left", "right"):
+                t_img = ts - 0.0333 + rng.uniform(-0.005, 0.005)
+                path = root / "pose1" / f"zed_{serial}_{side}_{t_img:.9f}.jpg"
+                small = rng.integers(0, 256, (H // 16, W // 16, 3), dtype=np.uint8)
+                check(cv2.imwrite(str(path), cv2.resize(small, (W, H))), f"cannot write {path}")
+                rows.append([str(path), repr(t_img), repr(abs(t_img + 0.0333 - ts)), repr(ts),
+                             *map(repr, angles)])
+    csv_path = root / "fr3.csv"
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["image_path", "image_timestamp", "time_difference_s",
+                         "robot_timestamp", *joints])
+        writer.writerows(rows)
+    return ["--csv", str(csv_path), "--calib-dir", str(root / "calib"), "--aruco-summary",
+            str(summary)]
+
+
+@contextlib.contextmanager
+def _instrumented_train(log: dict):
+    """Count and time what `cli train` does, through its own module: each
+    preprocessed batch (its render launches must match; the first one's
+    keypoints and heatmaps are kept), any call of the plain render (there
+    must be none), each step's host and device (CUDA events) time, and the
+    host time of each batch's load (decode, undistortion, padding)."""
+    real_pre, real_step = cli_main.make_device_preprocessor, cli_main.make_multi_view_train_step
+    real_split, real_plain = cli_main.builders.train_val_split, heatmap_render.render_heatmaps_reference
+
+    def make_pre(*a, **kw):
+        pre = real_pre(*a, **kw)
+
+        def counted(images, cam_idx, keypoints, *rest, **kw2):
+            out = pre(images, cam_idx, keypoints, *rest, **kw2)
+            log["batches"] += 1
+            if "first" not in log:
+                log["first"] = (keypoints.clone(), out[1].clone())
+            return out
+        return counted
+
+    def make_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed(*args):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            out = []
+            t0 = time.perf_counter()
+            e[0].record()
+            with torch.profiler.record_function("cli_train_step"):
+                # The first step allocates the optimizer's state.
+                if log["check_syncs"] and log["step_events"]:
+                    _never_syncs(lambda: out.append(step(*args)))
+                else:
+                    out.append(step(*args))
+            e[1].record()
+            log["step_host_s"].append(time.perf_counter() - t0)
+            log["step_events"].append(e)
+            return out[0]
+        return timed
+
+    def split(ds, frac):
+        parts = real_split(ds, frac)
+        for part in parts:
+            batches = part.batches
+
+            def timed_batches(*a, _batches=batches, **kw):
+                it = _batches(*a, **kw)
+                while True:
+                    t0 = time.perf_counter()
+                    b = next(it, None)
+                    if b is None:
+                        return
+                    log["load_s"].append(time.perf_counter() - t0)
+                    yield b
+            part.batches = timed_batches
+        return parts
+
+    def plain(*a, **kw):
+        log["plain_renders"] += 1
+        return real_plain(*a, **kw)
+
+    cli_main.make_device_preprocessor = make_pre
+    cli_main.make_multi_view_train_step = make_step
+    cli_main.builders.train_val_split = split
+    heatmap_render.render_heatmaps_reference = plain
+    try:
+        yield
+    finally:
+        cli_main.make_device_preprocessor = real_pre
+        cli_main.make_multi_view_train_step = real_step
+        cli_main.builders.train_val_split = real_split
+        heatmap_render.render_heatmaps_reference = real_plain
+
+
+def _cli_train_run(argv: list, label: str, profiled: bool = False) -> tuple:
+    """One `cli train` call through the CLI's parser -> (its launches, its
+    log). `profiled` adds the device's busy time over the call, a train
+    step's device time (`torch.profiler`) and the check that no step but the
+    first synchronizes, all of which slow the host."""
+    log = {"batches": 0, "plain_renders": 0, "step_host_s": [], "step_events": [],
+           "load_s": [], "check_syncs": profiled}
+    args = build_parser().parse_args(["train", *argv])
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _instrumented_train(log), (profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA])
+                                    if profiled else contextlib.nullcontext()) as prof:
+        result = cli_main.train(args)
+        torch.cuda.synchronize()
+    log["wall_s"], log["result"] = time.perf_counter() - t0, result
+    if profiled:
+        device_events = [e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        log["busy_s"] = sum(e.time_range.elapsed_us() for e in device_events) / 1e6
+        steps = [e for e in prof.key_averages() if e.key == "cli_train_step"]
+        log["step_device_ms"] = (steps[0].device_time_total / steps[0].count / 1e3
+                                 if steps else float("nan"))
+    launches = _read_launches()
+    check(launches == {k: log["batches"] if k == "heatmap_render" else 0 for k in KERNELS},
+          f"cli train [{label}]: {log['batches']} preprocessed batches, launches {launches}")
+    check(log["plain_renders"] == 0, f"cli train [{label}]: the plain render ran")
+    return launches, log
+
+
+def host_load_parts(capture: Path, n: int = 8) -> tuple:
+    """(ms to decode one of the capture's frames, ms to undistort it by
+    cv2.remap), medians of n, as a dataset's batch does per view."""
+    import cv2
+
+    path = str(sorted((capture / "pose1").glob("*.jpg"))[0])
+    calib = json.loads(sorted((capture / "calib").glob("*_calib.json"))[0].read_text())
+    grid = undistort_map(torch.tensor(calib["camera_matrix"]),
+                         torch.tensor(calib["distortion_coeffs"]), *CLI_TRAIN_HW).numpy()
+    mx, my = np.ascontiguousarray(grid[1]), np.ascontiguousarray(grid[0])
+    decode, remap = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        t1 = time.perf_counter()
+        cv2.remap(img, mx, my, cv2.INTER_LINEAR)
+        decode.append(t1 - t0)
+        remap.append(time.perf_counter() - t1)
+    return 1e3 * statistics.median(decode), 1e3 * statistics.median(remap)
+
+
+def phase_cli_train(device: dict) -> dict:
+    """`cli train` on a capture written under build/ (`write_capture`), one
+    epoch, then the same run resumed to a second epoch: render launches equal
+    to the preprocessed batches and no plain render in each run; the first
+    batch's GT heatmaps equal to `render_heatmaps_reference` of its scaled
+    keypoints (bound 1e-6, as phase 3's render check); finite losses; the
+    resumed run's one record at epoch 2 and a step count that goes on; the
+    trained best_params.npz served by `serve --params`. -> launches."""
+    launches = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        capture = write_capture(Path(work) / "capture")
+        write_s = time.perf_counter() - t0
+        run = Path(work) / "run"
+        argv = [*CLI_TRAIN_ARGV, *capture, "--workdir", str(run)]
+        logs = []
+        for epochs in (1, 2):
+            got, log = _cli_train_run([*argv, "--epochs", str(epochs)], f"epochs {epochs}",
+                                      profiled=epochs == 2)
+            logs.append(log)
+            launches["heatmap_render"] += got["heatmap_render"]
+        recs = [json.loads(line) for line in (run / "logs" / "metrics.jsonl").read_text()
+                .splitlines()]
+        check([r["epoch"] for r in recs] == [1, 2] and logs[1]["result"].epochs_run == 1,
+              f"cli train: the resumed run did not start at epoch 2: {recs}")
+        check(recs[1]["step"] == 2 * recs[0]["step"] > 0, f"cli train: steps {recs}")
+        check(all(np.isfinite(r[k]) for r in recs for k in ("loss", "val_loss")),
+              f"cli train: a loss is not finite: {recs}")
+        kp, hms = logs[0]["first"]
+        scale = torch.tensor([128 / CLI_TRAIN_HW[1], 128 / CLI_TRAIN_HW[0]], device="cuda")
+        inv = torch.full((kp.numel() // 2, 1), 1.0 / (2.0 * 5.0 ** 2), device="cuda")
+        want = heatmap_render.render_heatmaps_reference(
+            torch.cat([(kp.float() * scale).reshape(-1, 2), inv], 1), 128, 128)
+        err = float((hms.reshape(want.shape) - want).abs().max())
+        check(err <= 1e-6 and float(hms.amax()) > 0.5,
+              f"cli train: GT heatmaps against the plain render: {err}, peak {float(hms.amax())}")
+        images = list((run / "logs" / "images").glob("val_predictions_step*.png"))
+        check(len(images) == 2, f"cli train: panels {images}")
+        load_parts = host_load_parts(Path(work) / "capture")
+        served = _serve(["--params", str(run / "best_params.npz")], "trained FR3 checkpoint",
+                        ["peak_decode"], 3.0)
+        launches["peak_decode"] += served["peak_decode"]
+        cfg, size, kind = cli_main.read_model_config(run / "best_params.npz")
+        check((kind, size, cfg.max_views, cfg.vit.hidden_size) == ("multi_view", 512, 8, 768),
+              f"cli train: model_config.json {kind}, {size}, {cfg}")
+    train_groups = int(CLI_TRAIN_GROUPS * (1 - CLI_TRAIN_VAL_SPLIT))
+    for log, rec in zip(logs, recs):
+        steps = [e[0].elapsed_time(e[1]) for e in log["step_events"]]
+        profiled = ("" if "busy_s" not in log else
+                    f"; under the profiler: a train step's kernels {log['step_device_ms']:.3f} "
+                    f"ms of device time, the device busy {log['busy_s']:.3f} s of the call's "
+                    f"{log['wall_s']:.2f} s; no host-device sync in a step after the first")
+        print(f"cli train [{device['nvidia_smi']}; FR3 capture, {CLI_TRAIN_GROUPS} groups x 8 "
+              f"views of {CLI_TRAIN_HW[0]}x{CLI_TRAIN_HW[1]}, frozen ViT-B/16 at 512 px, bf16, "
+              f"batch 2] epoch {int(rec['epoch'])}: {log['wall_s']:.2f} s for the call "
+              f"({rec['epoch_time_s']:.3f} s the epoch with its validation: "
+              f"{train_groups / rec['epoch_time_s']:.3f} train groups/s); host load "
+              f"{1e3 * statistics.median(log['load_s']):.1f} ms a batch (median of "
+              f"{len(log['load_s'])}: decode, undistortion, padding); train step "
+              f"{statistics.median(steps):.3f} ms between CUDA events (median of {len(steps)}), "
+              f"{1e3 * statistics.median(log['step_host_s']):.1f} ms on the host{profiled}; "
+              f"{log['batches']} preprocessed batches, "
+              f"{log['batches']} render launches, {log['plain_renders']} plain renders; loss "
+              f"{rec['loss']:.4f}, val_loss {rec['val_loss']:.4f}, val_pck5 {rec['val_pck5']:.4f}")
+    print(f"cli train: capture written in {write_s:.1f} s; a frame's host load: cv2 decode "
+          f"{load_parts[0]:.2f} ms, cv2.remap {load_parts[1]:.2f} ms (medians of 8); first "
+          f"batch's GT heatmaps within {err:.3g} of the plain render; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
@@ -3508,6 +3787,9 @@ def main() -> int:
     geometric = phase_geometric_trainer()
     launches["heatmap_render"] += geometric["heatmap_render"]
     launches["small_svd"] += geometric["small_svd"]
+    captured = phase_cli_train(device)
+    launches["heatmap_render"] += captured["heatmap_render"]
+    launches["peak_decode"] += captured["peak_decode"]
     train_768 = phase_train_768()
     train_768_f32 = phase_train_768(UNFROZEN_768_F32, TRAIN_768_F32_GROUPS)
     phase_fusion()

@@ -1,6 +1,18 @@
-"""Command line for the torch port: `python -m mvropose_torch.cli serve ...`.
+"""Command line for the torch port: `python -m mvropose_torch.cli serve|train ...`.
 
-Port of the reference's `cli serve` (`mvropose_tpu/cli/main.py::_cmd_serve`)
+`train` is the port of the reference's `cli train` for one robot
+(`mvropose_tpu/cli/main.py::_cmd_train`): the synced CSVs (read without
+pandas, `data/table.py`) -> the rig (`calib/registry.py`) -> the robot's
+dataset and its seeded split (`data/builders.py`) -> per batch the host's
+decode and undistortion and the device preprocessing (`data/dataset.py`:
+resize, augmentation, normalization, the GT render on the card's kernel) ->
+`train/loop.py::fit` (two-group AdamW steps, logs/metrics.jsonl,
+best_params.npz beside model_config.json, so `serve --params` reads the
+run; checkpoints to resume from). It runs on the card in bf16 unless
+`--device cpu` (f32). Mixed robots, `--num-workers` > 0, `--backbone-ckpt`,
+`--mesh` and `--wandb` exit naming their ROADMAP.md item.
+
+`serve` is the port of the reference's `cli serve` (`mvropose_tpu/cli/main.py::_cmd_serve`)
 for every checkpoint kind it serves: the multi-view estimator with the
 query, geometric or geometric3d angle head, and the single-view estimator
 (query or geometric), which serves the V cameras as one batch and averages
@@ -32,6 +44,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -39,7 +52,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mvropose_torch.data import IMAGENET_MEAN, IMAGENET_STD
+from mvropose_torch.calib.registry import (
+    FR3_SERIAL_TO_VIEW,
+    FR5_SERIAL_TO_VIEW,
+    MECA_INSERTION_SERIAL_TO_VIEW,
+    RigSpec,
+    load_dream_rig,
+    load_rig,
+)
+from mvropose_torch.data import IMAGENET_MEAN, IMAGENET_STD, builders
+from mvropose_torch.data.augment import AugmentConfig
+from mvropose_torch.data.dataset import make_device_preprocessor
+from mvropose_torch.data.table import concat, read_csv
 from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.geometry.camera import RemapTaps, undistort_map
 from mvropose_torch.geometry.robots import get_robot
@@ -54,7 +78,17 @@ from mvropose_torch.models.heads import resize_bilinear
 from mvropose_torch.models.vit import device_constant
 from mvropose_torch.pose import PoseDraws, recover_pose_batch
 from mvropose_torch.rig import FileReplaySource, StreamingPipeline, SyntheticSource
-from mvropose_torch.utils.weights import int8ify, load_jax_params, random_state
+from mvropose_torch.train import (
+    TrainConfig,
+    create_train_state,
+    make_eval_step,
+    make_multi_view_train_step,
+    make_single_view_train_step,
+)
+from mvropose_torch.train.loop import epoch_generator, fit
+from mvropose_torch.utils.metrics_writer import MetricWriter
+from mvropose_torch.utils.viz import multi_view_panel, prediction_panel
+from mvropose_torch.utils.weights import flax_init_state, int8ify, load_jax_params, random_state
 
 KINDS = {"multi_view": MultiViewPoseEstimator, "single_view": SingleViewPoseEstimator}
 
@@ -79,12 +113,10 @@ def read_model_config(params_path):
     return cfg, int(d["model_size"]), d["kind"]
 
 
-def write_run_dir(run, cfg, model_size: int, flat, kind: str = "multi_view") -> None:
-    """A run directory as training leaves it, what `serve --params
-    RUN/best_params.npz` reads: model_config.json (`cfg`, `model_size` and
-    `kind`, "multi_view" or "single_view"; the inverse of
-    `read_model_config`) beside best_params.npz (`flat`, the reference's flat
-    names)."""
+def write_model_config(run, cfg, model_size: int, kind: str = "multi_view") -> None:
+    """model_config.json in `run` (`cfg`, `model_size` and `kind`,
+    "multi_view" or "single_view"), the reference's layout: the inverse of
+    `read_model_config`."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} is not one of {sorted(KINDS)}")
     run = Path(run)
@@ -96,7 +128,14 @@ def write_run_dir(run, cfg, model_size: int, flat, kind: str = "multi_view") -> 
         "num_fusion_queries": cfg.num_fusion_queries, "num_angle_queries": cfg.num_angle_queries,
         "angle_head": cfg.angle_head,
     }, indent=2))
-    np.savez(run / "best_params.npz", **flat)
+
+
+def write_run_dir(run, cfg, model_size: int, flat, kind: str = "multi_view") -> None:
+    """A run directory as training leaves it, what `serve --params
+    RUN/best_params.npz` reads: model_config.json (`write_model_config`)
+    beside best_params.npz (`flat`, the reference's flat names)."""
+    write_model_config(run, cfg, model_size, kind)
+    np.savez(Path(run) / "best_params.npz", **flat)
 
 
 def preprocess(images_u8: torch.Tensor, model_size: int) -> torch.Tensor:
@@ -517,6 +556,232 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+# cli train: the flags that exit, each naming the ROADMAP.md item that ports it.
+UNPORTED_TRAIN_FLAGS = (
+    (lambda a: "," in a.robot, "--robot with several robots (mixed-robot training, "
+     "data/mixed.py)", "queue 1, item 12"),
+    (lambda a: a.num_workers > 0, "--num-workers > 0 (the grain loader's worker processes, "
+     "data/grain_loader.py; 0 loads in-process)", "queue 1, item 12"),
+    (lambda a: a.backbone_ckpt is not None, "--backbone-ckpt (models/dino_convert.py)",
+     "queue 1, item 11"),
+    (lambda a: a.mesh is not None, "--mesh (multi-device training)", "queue 1, item 10"),
+    (lambda a: a.wandb, "--wandb (the metrics go to logs/metrics.jsonl)", "queue 1, item 12"),
+)
+SERIAL_MAPS = {
+    "fr5": FR5_SERIAL_TO_VIEW,
+    "fr3": FR3_SERIAL_TO_VIEW,
+    "meca500": {"41182735": "front"},
+    "dream_panda": {"00000000": "cam"},
+    "meca_insertion": MECA_INSERTION_SERIAL_TO_VIEW,
+}
+
+
+def robot_arg(value: str) -> str:
+    """A robot name or a comma list of them (mixed-robot training)."""
+    valid = {"fr5", "fr3", "dream", "meca500", "meca_insertion"}
+    names = [v.strip() for v in value.split(",")]
+    bad = [n for n in names if n not in valid]
+    if bad or not names:
+        raise argparse.ArgumentTypeError(
+            f"unknown robot(s) {bad}; choose from {sorted(valid)} "
+            "(comma-separate for mixed training)")
+    return ",".join(names)
+
+
+def load_rig_from_args(args) -> RigSpec:
+    """The rig of `--robot`, `--calib-dir`, `--aruco-summary` (a summary
+    named pose<N>_... keys its extrinsics with that pose prefix, FR3's
+    pose1/pose2; several unprefixed summaries merge) and `--sigma`, or
+    `--dream-dirs` for DREAM, as the reference's `_load_rig_from_args`."""
+    if args.robot == "dream" and args.dream_dirs:
+        return load_dream_rig(args.dream_dirs, sigma=args.sigma)
+    robot = {"meca_insertion": "meca500", "dream": "dream_panda"}.get(args.robot, args.robot)
+    aruco = None
+    if args.aruco_summary:
+        aruco = {}
+        for path in map(Path, args.aruco_summary):
+            tok = path.stem.split("_")[0]
+            aruco.setdefault(tok if re.fullmatch(r"pose\d+", tok) else "", []).append(path)
+    return load_rig(args.robot, robot, SERIAL_MAPS.get(args.robot, {}),
+                    calib_dir=args.calib_dir, aruco_summary_paths=aruco, sigma=args.sigma)
+
+
+def _check_train_flags(args) -> None:
+    """Exit, before anything is read, on a flag the port does not run yet, on
+    a missing image decoder or a missing card."""
+    for hit, flag, item in UNPORTED_TRAIN_FLAGS:
+        if hit(args):
+            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if importlib.util.find_spec("cv2") is None:
+        raise SystemExit("cli train decodes the captured images with cv2, which cannot be "
+                         "imported here")
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available (pass "
+                         "--device cpu for an f32 run on the CPU)")
+
+
+def _build_dataset(args, rig: RigSpec, image_hw):
+    """(dataset, multi_view) of the synced CSVs for one robot."""
+    df = concat(read_csv(c) for c in args.csv)
+    if args.robot == "fr3" and not args.single_view:
+        return builders.build_fr3_multi_view(df, rig, image_hw, tolerance_s=args.tolerance), True
+    build = {
+        "dream": builders.build_dream_single_view,
+        "fr5": builders.build_fr5_single_view,
+        "meca500": builders.build_meca500_single_view,
+        "meca_insertion": builders.build_meca_insertion_single_view,
+    }.get(args.robot, builders.build_fr3_single_view)
+    return build(df, rig, image_hw), False
+
+
+def _train_refusals(args, rig: RigSpec, ds, multi_view: bool) -> None:
+    """The reference's refusals of the FK-consistency term, and one of its
+    silent drops: the multi-view step has no FK term."""
+    if args.fk_loss_weight <= 0:
+        return
+    if multi_view:
+        raise SystemExit("--fk-loss-weight is a term of the single-view step: add "
+                         "--single-view")
+    if not rig.extrinsics:
+        raise SystemExit("--fk-loss-weight needs calibrated extrinsics (an ArUco summary); "
+                         f"the {args.robot} rig has none")
+    if any(s.roi is not None for s in ds.samples):
+        raise SystemExit("--fk-loss-weight is not supported with ROI-cropped datasets "
+                         "(keypoints are in the crop frame, the FK projection in the full "
+                         "camera frame)")
+
+
+def _host_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def train(args):
+    """Train one robot's estimator on captured images -> `fit`'s result.
+
+    The synced CSVs (read without pandas) -> the rig -> the dataset and its
+    seeded train/val split -> per batch the host decode and undistortion,
+    then the device preprocessing (resize, augmentation, normalization, the
+    GT render) -> the two-group AdamW steps of `fit`, which writes
+    logs/metrics.jsonl, best_params.npz and a checkpoint an epoch under
+    `--workdir`, and resumes from the newest one. On the card the model
+    computes in bf16 with f32 parameters, on the CPU in f32."""
+    _check_train_flags(args)
+    device = torch.device(args.device)
+    dtype = "float32" if device.type == "cpu" else "bfloat16"
+    image_hw = tuple(args.image_hw)
+    rig = load_rig_from_args(args)
+    ds, multi_view = _build_dataset(args, rig, image_hw)
+    _train_refusals(args, rig, ds, multi_view)
+    if args.fk_loss_weight > 0 or (multi_view and args.angle_head == "geometric3d"):
+        ds.with_extrinsics = True  # per-sample cameras: the FK term's or the DLT's
+    train_ds, val_ds = builders.train_val_split(ds, args.val_split)
+    print(f"dataset: {len(train_ds)} train / {len(val_ds)} val")
+    if len(train_ds) == 0:
+        raise SystemExit("no training samples: check --csv, --calib-dir and --aruco-summary")
+
+    vit = ViTConfig(
+        image_size=args.backbone_native_size or args.model_size, patch_size=args.patch_size,
+        hidden_size=args.hidden_size, num_layers=args.num_layers,
+        num_heads=args.hidden_size // 64, num_register_tokens=args.register_tokens,
+        dtype=dtype, use_rope=args.rope, layer_norm_eps=1e-5 if args.rope else 1e-6,
+    )
+    freeze = not args.no_freeze_backbone
+    cfg = EstimatorConfig(
+        vit=vit, num_joints=rig.num_keypoints, num_angles=rig.robot.n_joints,
+        heatmap_size=rig.heatmap_size, max_views=2 * len(rig.serial_to_view),
+        freeze_backbone=freeze, dtype=dtype, angle_head=args.angle_head,
+    )
+    kind = "multi_view" if multi_view else "single_view"
+    try:
+        model = KINDS[kind](cfg, device=device)
+    except ValueError as e:  # a single-view geometric3d model, as the reference
+        raise SystemExit(f"{kind}: {e}") from e
+    model.load_state_dict(flax_init_state(model, seed=0))
+    write_model_config(args.workdir, cfg, args.model_size, kind)
+
+    tcfg = TrainConfig(
+        num_epochs=args.epochs,
+        # The datasets pad the last batch, so an epoch is ceil(len / batch)
+        # steps; a floor would end the cosine schedule early.
+        steps_per_epoch=max(1, -(-len(train_ds) // args.batch_size)),
+        lr_kpt=args.lr_kpt, lr_ang=args.lr_ang, loss_weight_kpt=args.loss_weight_kpt,
+        loss_weight_fk=args.fk_loss_weight, freeze_backbone=freeze,
+    )
+    aug_cfg = None if args.no_augment else AugmentConfig()
+    pre = make_device_preprocessor(ds.geometry, args.model_size, rig.heatmap_size, rig.sigma,
+                                   augment_cfg=aug_cfg, device=device)
+
+    def to_device(batch: dict, generator=None) -> dict:
+        put = functools.partial(_host_to_device, device=device)
+        imgs, hms = pre(put(batch["images_u8"]), put(batch["cam_idx"]),
+                        put(batch["keypoints_2d"]), generator)
+        out = {"images": imgs, "heatmaps": hms, "angles": put(batch["angles"])}
+        if multi_view:
+            out.update(view_ids=put(batch["view_ids"]), view_mask=put(batch["view_mask"]))
+            if args.angle_head == "geometric3d":
+                rv, tv, K = (put(batch[k]) for k in ("rvec", "tvec", "K"))
+                B, V = rv.shape[:2]
+                out["proj_mats"] = heatmap_projection_matrices(
+                    rv.reshape(B * V, 3), tv.reshape(B * V, 3), K.reshape(B * V, 3, 3),
+                    image_hw, rig.heatmap_size).reshape(B, V, 3, 4)
+        else:
+            out["sample_weight"] = put(batch["sample_weight"])
+            out.update((k, put(batch[k])) for k in ("rvec", "tvec", "K", "base_rotation")
+                       if k in batch)
+            if args.fk_loss_weight > 0:
+                out["keypoints_2d"] = put(batch["keypoints_2d"])
+        return out
+
+    def train_batches(epoch: int):
+        # Augmentation draws of an epoch come from (seed, epoch), as dropout's.
+        gen = epoch_generator(args.seed, epoch, device, stream=1) if aug_cfg else None
+        for b in train_ds.batches(args.batch_size, shuffle=True, seed=epoch):
+            yield to_device(b, gen)
+
+    def val_batches():
+        for b in val_ds.batches(args.batch_size):
+            yield to_device(b)
+
+    step = (make_multi_view_train_step(tcfg) if multi_view
+            else make_single_view_train_step(tcfg, robot=rig.robot))
+    state = create_train_state(model, tcfg)
+    eval_step = make_eval_step(tcfg, multi_view)
+    writer = MetricWriter(Path(args.workdir) / "logs")
+
+    def on_epoch_end(epoch, state_, record):
+        """Every `--viz-every` epochs a panel of the first val batch's
+        predictions against its GT (the original project's pred-vs-GT overlays)."""
+        if (epoch + 1) % args.viz_every != 0:
+            return
+        batch = next(iter(val_batches()), None)
+        if batch is None:
+            return
+        out = eval_step(state_, batch)
+        imgs, gt = batch["images"][0].cpu().numpy(), batch["heatmaps"][0].cpu().numpy()
+        pred = out["pred_heatmaps"][0].float().cpu().numpy()
+        if multi_view:
+            panel = multi_view_panel(imgs, gt, pred, batch["view_mask"][0].cpu().numpy())
+        else:
+            panel = prediction_panel(imgs, gt, pred)
+        writer.write_image(state_.step, "val_predictions", panel)
+
+    try:
+        result = fit(state, step, eval_step, train_batches, val_batches, tcfg, args.workdir,
+                     writer, seed=args.seed, on_epoch_end=on_epoch_end)
+    finally:
+        writer.close()
+    print(f"done: best val loss {result.best_val_loss:.6f} over {result.epochs_run} epochs")
+    return result
+
+
+def _cmd_train(args) -> int:
+    train(args)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mvropose_torch", description="MvRoPose on PyTorch/CUDA"
@@ -572,6 +837,52 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--display", choices=["off", "window", "dir"], default="off",
                     help="tiled live view: not ported yet (ROADMAP.md queue 1, item 7)")
     pv.set_defaults(fn=_cmd_serve)
+
+    pt = sub.add_parser("train", help="train an estimator on captured images")
+    pt.add_argument("--robot", type=robot_arg, required=True,
+                    help="fr5|fr3|dream|meca500|meca_insertion (a comma list, mixed-robot "
+                         "training, is not ported yet)")
+    pt.add_argument("--csv", nargs="+", required=True)
+    pt.add_argument("--calib-dir", default=None)
+    pt.add_argument("--aruco-summary", nargs="*", default=None)
+    pt.add_argument("--dream-dirs", nargs="*", default=None,
+                    help="DREAM subset dirs with _camera_settings.json (robot=dream)")
+    pt.add_argument("--workdir", default="runs/default")
+    pt.add_argument("--image-hw", type=int, nargs=2, default=[1080, 1920])
+    pt.add_argument("--model-size", type=int, default=224)
+    pt.add_argument("--hidden-size", type=int, default=768)
+    pt.add_argument("--num-layers", type=int, default=12)
+    pt.add_argument("--batch-size", type=int, default=16)
+    pt.add_argument("--epochs", type=int, default=100)
+    pt.add_argument("--val-split", type=float, default=0.1)
+    pt.add_argument("--lr-kpt", type=float, default=1e-4)
+    pt.add_argument("--lr-ang", type=float, default=1e-4)
+    pt.add_argument("--loss-weight-kpt", type=float, default=100.0)
+    pt.add_argument("--sigma", type=float, default=5.0)
+    pt.add_argument("--tolerance", type=float, default=0.07)
+    pt.add_argument("--single-view", action="store_true")
+    pt.add_argument("--no-augment", action="store_true")
+    pt.add_argument("--fk-loss-weight", type=float, default=0.0)
+    pt.add_argument("--backbone-ckpt", default=None, help="not ported yet (ROADMAP.md queue 1, "
+                                                          "item 11)")
+    pt.add_argument("--no-freeze-backbone", action="store_true",
+                    help="train the backbone too (default: frozen)")
+    pt.add_argument("--angle-head", choices=["query", "geometric", "geometric3d"],
+                    default="query")
+    pt.add_argument("--patch-size", type=int, default=16)
+    pt.add_argument("--register-tokens", type=int, default=0)
+    pt.add_argument("--rope", action="store_true")
+    pt.add_argument("--backbone-native-size", type=int, default=None)
+    pt.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("DATA", "MODEL"),
+                    help="not ported yet (ROADMAP.md queue 1, item 10)")
+    pt.add_argument("--viz-every", type=int, default=10,
+                    help="save prediction panels every N epochs")
+    pt.add_argument("--wandb", action="store_true", help="not ported yet")
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--num-workers", type=int, default=0,
+                    help="0: in-process loading (worker processes are not ported yet)")
+    pt.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    pt.set_defaults(fn=_cmd_train)
     return p
 
 

@@ -3,10 +3,11 @@
 Port of the parts of `mvropose_tpu/geometry/camera.py` that the training,
 pose and serve slices run: `distort_normalized`, `project_points`
 (cv2.projectPoints), `project_camera_frame`, `undistort_points`
-(cv2.undistortPoints) and `undistort_map`; and the serve's remap of uint8
-frames on the device (`RemapTaps`), which computes what the reference's serve
-runs on the host, `cv2.remap(..., INTER_LINEAR)` with its default constant 0
-border, not the dataset path's `remap_bilinear` (not ported: queue 1, item 9).
+(cv2.undistortPoints), `undistort_map` and the dataset path's
+`remap_bilinear`; and the serve's remap of uint8 frames on the device
+(`RemapTaps`), which computes what the reference's serve runs on the host,
+`cv2.remap(..., INTER_LINEAR)` with its default constant 0 border, not what
+`remap_bilinear` computes.
 Distortion coefficients are (k1, k2, p1, p2, k3).
 """
 
@@ -79,6 +80,34 @@ def undistort_map(K: torch.Tensor, dist, height: int, width: int) -> torch.Tenso
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     xyd = distort_normalized(torch.stack([(grid_x - cx) / fx, (grid_y - cy) / fy], -1), dist)
     return torch.stack([fy * xyd[..., 1] + cy, fx * xyd[..., 0] + cx], 0)
+
+
+def remap_bilinear(images: torch.Tensor, remaps: torch.Tensor) -> torch.Tensor:
+    """The dataset path's device undistortion, `mvropose_tpu/geometry/camera.py:120`
+    `remap_bilinear` over a batch: images (N, H, W, C) sampled at remaps
+    (N, 2, H', W') (row, column source coordinates), bilinear on the four
+    taps clamped into the frame, 0 wherever the coordinate leaves
+    [0, H - 1] x [0, W - 1], cast back to the images' dtype (a truncation
+    for integers). Not the serve's `RemapTaps`, which rounds and weighs
+    outside taps 0 as cv2 does."""
+    N, H, W, C = images.shape
+    sy, sx = remaps[:, 0], remaps[:, 1]
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    wy, wx = (sy - y0)[..., None], (sx - x0)[..., None]
+    y0i = y0.to(torch.int64).clamp(0, H - 1)
+    x0i = x0.to(torch.int64).clamp(0, W - 1)
+    y1i, x1i = (y0i + 1).clamp(0, H - 1), (x0i + 1).clamp(0, W - 1)
+    flat = images.reshape(N * H * W, C)
+    base = torch.arange(N, device=images.device)[:, None, None] * (H * W)
+
+    def tap(yi, xi):
+        return flat.index_select(0, (base + yi * W + xi).flatten()).reshape(*yi.shape, C)
+
+    out = (tap(y0i, x0i) * (1 - wy) * (1 - wx) + tap(y0i, x1i) * (1 - wy) * wx
+           + tap(y1i, x0i) * wy * (1 - wx) + tap(y1i, x1i) * wy * wx)
+    valid = ((sy >= 0) & (sy <= H - 1) & (sx >= 0) & (sx <= W - 1))[..., None]
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device)).to(
+        images.dtype)
 
 
 @dataclasses.dataclass

@@ -2,7 +2,9 @@
 
 One JSON object per `write`: {"step", "time", **metrics}, scalars as floats
 and small vectors (per-joint MAE) as lists, appended to
-`<log_dir>/metrics.jsonl` and flushed. No wandb and no image artifacts. The
+`<log_dir>/metrics.jsonl` and flushed; `write_image` saves an RGB uint8
+image as `<log_dir>/images/<name>_step<step>.png` (its `.npy` where cv2 is
+missing or the write fails). No wandb (`cli train --wandb` exits). The
 reference's writer cannot be shared: importing it runs
 `mvropose_tpu/utils/__init__.py`, which imports jax.
 """
@@ -36,6 +38,20 @@ class MetricWriter:
         rec.update({k: _jsonable(v) for k, v in metrics.items()})
         self._file.write(json.dumps(rec) + "\n")
         self._file.flush()
+
+    def write_image(self, step: int, name: str, image) -> None:
+        """Save an image artifact (numpy HWC uint8 RGB) under the log dir."""
+        out = self.log_dir / "images"
+        out.mkdir(exist_ok=True)
+        path = out / f"{name}_step{step}.png"
+        try:
+            import cv2
+
+            # cv2.imwrite reports a failure by returning False.
+            if not cv2.imwrite(str(path), np.asarray(image)[:, :, ::-1]):
+                raise IOError(f"cv2.imwrite failed for {path}")
+        except Exception:
+            np.save(str(path.with_suffix(".npy")), np.asarray(image))
 
     def close(self) -> None:
         self._file.close()

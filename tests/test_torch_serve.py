@@ -158,7 +158,8 @@ def _imports(path: Path):
 def test_port_imports_no_jax():
     """No file of the port, `chip_smoke.py` or `scripts/torch_*.py` imports
     jax, flax or anything of the JAX package, not even a numpy-only module:
-    the port keeps its own copies."""
+    the port keeps its own copies. Nor pandas, which the card's machine does
+    not have: the port reads CSVs with `data/table.py`."""
     root_dir = PORT_ROOT.parent
     files = sorted([*PORT_ROOT.rglob("*.py"), root_dir / "chip_smoke.py",
                     *(root_dir / "scripts").glob("torch_*.py")])
@@ -166,7 +167,8 @@ def test_port_imports_no_jax():
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "mvropose_tpu"), (f, mod)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "mvropose_tpu",
+                                "pandas"), (f, mod)
 
 
 def test_rig_copy_matches_reference():

@@ -7,6 +7,8 @@ and cross into the port through the reference's own `save_params_npz` file.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax
 import numpy as np
 import torch
@@ -177,3 +179,99 @@ def heatmap_rig_scene(seed: int, batch: int = 2, views: int = 4, joints: int = 4
     f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
     return {"heatmaps": f32(heatmaps), "mask": mask, "xy": f32(xy), "points": f32(pts),
             "proj_mats": f32(np.broadcast_to(P, (batch, *P.shape)))}
+
+
+# Captured-image fixtures for the `cli train` slice (60 x 80 frames), made
+# through the reference's own `cli sync` and `cli calibrate`.
+CAPTURE_HW = (60, 80)
+FR3_SERIALS = ("41182735", "49429257")  # fr3's view1 and view2
+FR3_CONF = """\
+[LEFT_CAM_FHD]
+cx = 40.5
+cy = 29.5
+fx = 70.0
+fy = 71.0
+k1 = -0.08
+k2 = 0.02
+k3 = 0.0
+p1 = 0.001
+p2 = -0.002
+
+[RIGHT_CAM_FHD]
+cx = 39.0
+cy = 30.5
+fx = 69.0
+fy = 70.0
+k1 = -0.05
+k2 = 0.01
+k3 = 0.0
+p1 = -0.001
+p2 = 0.001
+"""
+
+
+def _capture_image(rng, hw=CAPTURE_HW) -> np.ndarray:
+    """A smooth random BGR image (noise blurred), so that undistortion and
+    JPEG keep most pixels away from rounding ties."""
+    import cv2
+
+    img = rng.integers(0, 256, size=(*hw, 3)).astype(np.uint8)
+    return cv2.GaussianBlur(img, (5, 5), 1.5)
+
+
+def fr3_capture(root, ticks: int = 6, seed: int = 0) -> dict:
+    """An FR3 capture of 2 serials x left/right cameras (4 views) over
+    `ticks` joint records: ROS2 joint YAML (3-decimal epochs) and JPEGs
+    named zed_<serial>_<side>_<epoch with 9 decimals>.jpg under pose1/, each
+    within 5 ms of its record, so the views of a tick tie on
+    robot_timestamp; the reference's `cli sync fr3` CSV, its `cli calibrate
+    intrinsics` files (with distortion) and a `pose1_aruco_pose_summary.json`.
+    Tick 1 also holds an unreadable image (right camera of view 2), tick 2 a
+    file named off the convention and tick 3 an image of the wrong size
+    (left camera of view 2). -> {"csv", "calib_dir", "summary", "root"}."""
+    import cv2
+
+    from mvropose_tpu.cli.main import main as jax_main
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    jdir, img_dir = root / "joints", root / "pose1"
+    jdir.mkdir(parents=True)
+    img_dir.mkdir(parents=True)
+    docs = []
+    names = ", ".join(f"fr3_joint{j}" for j in range(1, 8))
+    for i in range(ticks):
+        sec, nsec = 1700000000 + i, 123456789 + 7654321 * i
+        pos = ", ".join(f"{v:.6f}" for v in rng.uniform(-0.6, 0.6, 7))
+        docs.append(f"header:\n  stamp:\n    sec: {sec}\n    nanosec: {nsec}\n"
+                    f"name: [{names}]\nposition: [{pos}]\n")
+        t = float(f"{sec}.{nsec:09d}"[:14]) - 0.0333  # sync adds the camera delay
+        for serial in FR3_SERIALS:
+            for side in ("left", "right"):
+                ts = t + rng.uniform(-0.005, 0.005)
+                path = img_dir / f"zed_{serial}_{side}_{ts:.9f}.jpg"
+                if (i, serial, side) == (1, FR3_SERIALS[1], "right"):
+                    path.write_bytes(b"not a jpeg")
+                elif (i, serial, side) == (3, FR3_SERIALS[1], "left"):
+                    cv2.imwrite(str(path), _capture_image(rng, (50, 80)))
+                else:
+                    cv2.imwrite(str(path), _capture_image(rng))
+        if i == 2:
+            cv2.imwrite(str(img_dir / f"cam_{t:.9f}.jpg"), _capture_image(rng))
+    (jdir / "joint_states_0.yaml").write_text("---\n".join(docs))
+    csv = root / "fr3.csv"
+    assert jax_main(["sync", "fr3", "--base-dirs", str(img_dir), "--joint-dir", str(jdir),
+                     "--out", str(csv), "--tolerance", "0.05"]) == 0
+    conf = root / "SN.conf"
+    conf.write_text(FR3_CONF)
+    calib_dir = root / "calib"
+    summary = root / "pose1_aruco_pose_summary.json"
+    for k, (serial, view) in enumerate(zip(FR3_SERIALS, ("view1", "view2"))):
+        jax_main(["calibrate", "intrinsics", "--conf", str(conf), "--serial", serial,
+                  "--view", view, "--resolution", "FHD", "--out-dir", str(calib_dir)])
+        for c, cam in enumerate(("leftcam", "rightcam")):
+            jax_main(["calibrate", "manual", "--view", view, "--cam", cam,
+                      "--tvec", str(0.1 * k - 0.05 * c), "-0.3", "2.2",
+                      "--rvec-deg", str(5.0 * k), str(3.0 * c - 2.0), "1.5",
+                      "--out", str(summary)])
+    return {"csv": csv, "calib_dir": calib_dir, "summary": summary, "root": root}

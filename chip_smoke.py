@@ -129,6 +129,17 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          heatmaps against `render_heatmaps_reference`, finite losses,
          best_params.npz read by `serve --params`; groups/s, host load and
          device step times per batch;
+       * `cli eval` (`phase_cli_eval`): on the same capture and run, float
+         with --refine-pose --occlusion-masks 2, and --int8-backbone
+         --int8-attention; then a DREAM set and an fr5 + fr3 +
+         meca_insertion set from the port's generators under build/,
+         `cli sync dream`, `cli train` (2 epochs at the int8 receipt's
+         192-wide, 4-layer ViT at 128 px; 1 epoch mixed) and `cli eval`
+         (float and int8 with --refine-pose; the three robots): the
+         reference's report keys in its order, finite values, one render
+         launch per preprocessed batch and no plain render, SVD launches
+         where pose runs, per forward the int8 run's attention, GEMM and row
+         quantization launches (12, 72 and 48 at ViT-B);
   7. the flash-attention path (T >= 2048), each run's launches counted:
        * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
@@ -224,7 +235,10 @@ import torch
 
 from torch.profiler import ProfilerActivity, profile
 
+import mvropose_torch.cli.eval as cli_eval
 import mvropose_torch.cli.main as cli_main
+import mvropose_torch.models.quantize as quantize_module
+import mvropose_torch.models.vit as vit_module
 from mvropose_torch.calib.registry import FR3_SERIAL_TO_VIEW as FR3_SERIALS
 from mvropose_torch.cli.main import (
     KINDS,
@@ -785,6 +799,14 @@ INT8_CASES = [
     ("t1", 3, 1, 2, None, "proj"),
     ("all_masked_t300", 3, 300, 2, "all", "strided"),
     ("t2305", 1, 2305, 2, "random", "proj"),  # T > 1536: the quantization in two rounds
+    # `cli eval --int8-backbone --int8-attention`'s backbone attentions (no
+    # RoPE, no key mask): the FR3 capture's ViT-B/16 at 512 px, 2 groups x 8
+    # views (`phase_cli_eval_capture`); the DREAM twin's 192-wide ViT/16 at
+    # 128 px (3 heads of 64) at eval batch 16 (`phase_cli_eval_small`) and
+    # 50 (`scripts/torch_int8_receipt.py`).
+    ("eval_capture", 16, 1025, 12, None, "proj"),
+    ("eval_twin", 16, 65, 3, None, "proj"),
+    ("eval_twin_receipt", 50, 65, 3, None, "proj"),
 ]
 INT8_SERVE = (4, 1025, 12, 64)  # the int8 serve step's attention: 4 views at 512 px
 INT8_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -950,13 +972,23 @@ def phase_int8_attention() -> dict:
 # tokens): (name, Din, Dout, calls a block). q, k, v and out are 768 -> 768.
 INT8_MM_ROWS = 4 * 1025
 INT8_MM_SERVE = [("qkv_out", 768, 768, 4), ("fc1", 768, 3072, 1), ("fc2", 3072, 768, 1)]
+# The int8 eval's products: the FR3 capture's ViT-B/16 (M = 16 views x 1025
+# tokens) and the DREAM twin's 192-wide blocks (M = 16 x 65 in
+# `phase_cli_eval_small`, 50 x 65 in the receipt): (name, M, Din, Dout).
+INT8_MM_EVAL = [
+    *[(f"eval_capture_{name}", 16 * 1025, din, dout) for name, din, dout, _ in INT8_MM_SERVE],
+    *[(f"eval_twin{tag}_{name}", B * 65, din, dout) for tag, B in (("", 16), ("_receipt", 50))
+      for name, din, dout in (("qkv_out", 192, 192), ("fc1", 192, 768), ("fc2", 768, 192))],
+]
 # The kernels against the plain version: the serve products, then few rows
 # (M = 1, 37, 51) at the serve widths and the small int8 model's (hidden 128,
-# MLP 512, `phase_small_reference`). Every x has an all-zero row (M > 1).
+# MLP 512, `phase_small_reference`), then the eval's. Every x has an all-zero
+# row (M > 1).
 INT8_MM_CASES = [
     *[(name, INT8_MM_ROWS, din, dout) for name, din, dout, _ in INT8_MM_SERVE],
     ("m1", 1, 768, 768), ("m37_fc1", 37, 768, 3072), ("m37_fc2", 37, 3072, 768),
     ("m51_small", 51, 128, 128), ("m51_small_fc1", 51, 128, 512), ("m51_small_fc2", 51, 512, 128),
+    *INT8_MM_EVAL,
 ]
 
 
@@ -3695,6 +3727,9 @@ def phase_cli_train(device: dict) -> dict:
         served = _serve(["--params", str(run / "best_params.npz")], "trained FR3 checkpoint",
                         ["peak_decode"], 3.0)
         launches["peak_decode"] += served["peak_decode"]
+        t_eval = time.perf_counter()
+        _add_launches(launches, phase_cli_eval_capture(capture, run))
+        eval_s = time.perf_counter() - t_eval
         cfg, size, kind = cli_main.read_model_config(run / "best_params.npz")
         check((kind, size, cfg.max_views, cfg.vit.hidden_size) == ("multi_view", 512, 8, 768),
               f"cli train: model_config.json {kind}, {size}, {cfg}")
@@ -3720,7 +3755,222 @@ def phase_cli_train(device: dict) -> dict:
     print(f"cli train: capture written in {write_s:.1f} s; a frame's host load: cv2 decode "
           f"{load_parts[0]:.2f} ms, cv2.remap {load_parts[1]:.2f} ms (medians of 8); first "
           f"batch's GT heatmaps within {err:.3g} of the plain render; phase "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s (cli eval of the run {eval_s:.1f} s)")
+    return launches
+
+
+# cli eval's report keys in the reference's order (mvropose_tpu/cli/main.py:1429-1480):
+# the first nine always, the others where the run has their data.
+EVAL_KEYS = [
+    "pck@5.0px", "kp_px_err_mean", "kp_px_err_rms", "angle_mae", "angle_mae_per_joint", "add_m",
+    "add_auc@10cm", "samples", "occlusion_masks", "triangulated_add_m", "triangulated_obs_rate",
+    "pose_success_rate", "pose_rot_err_deg", "pose_trans_err_m", "pnp_add_m_converged",
+    "pnp_add_pass@10cm", "pnp_add_auc@10cm", "pose_rot_err_deg_gt_angles",
+    "pose_trans_err_m_gt_angles", "pnp_add_m_converged_gt_angles", "pnp_add_pass@10cm_gt_angles",
+    "pnp_add_auc@10cm_gt_angles", "pose_rot_err_deg_refined", "pose_trans_err_m_refined",
+    "refined_angle_mae", "pnp_add_m_converged_refined", "pnp_add_pass@10cm_refined",
+    "pnp_add_auc@10cm_refined",
+]
+_REFINED = EVAL_KEYS[22:25]
+# Per configuration: (the keys the reference always reports, the keys it may report).
+EVAL_KEY_SETS = {
+    # FR3 multi-view (calibrated extrinsics, no camera-frame keypoints).
+    "multi_view": (EVAL_KEYS[:9] + ["pose_success_rate"], EVAL_KEYS[:14]),
+    "multi_view_refine": (EVAL_KEYS[:9] + ["pose_success_rate", *_REFINED],
+                          EVAL_KEYS[:14] + _REFINED),
+    # DREAM (the GT pose by alignment, the _gt_angles variant) with --refine-pose.
+    "dream_refine": ([*EVAL_KEYS[:9], "pose_success_rate", "pnp_add_pass@10cm",
+                      "pnp_add_auc@10cm", "pnp_add_pass@10cm_gt_angles",
+                      "pnp_add_auc@10cm_gt_angles", *_REFINED, *EVAL_KEYS[25:]],
+                     EVAL_KEYS[:9] + EVAL_KEYS[11:]),
+}
+# An int8 eval forward's launches a transformer block: the attention and its
+# values' quantization, q/k/v/out/fc1/fc2's GEMMs, and the row quantizations
+# of q/k/v's shared input, out's, fc1's and fc2's.
+INT8_EVAL_PER_BLOCK = {"int8_attention": 1, "int8_quantize_v": 1, "int8_matmul": 6,
+                       "int8_quantize_rows": 4}
+# The int8 receipt's model (runs/dream_synth_real_geom/model_config.json):
+# a 192-wide, 4-layer ViT/16 at 128 px, 3 heads of 64.
+TWIN_ARGV = ["--image-hw", "128", "128", "--model-size", "128", "--hidden-size", "192",
+             "--num-layers", "4", "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def _instrumented_eval(log: dict):
+    """Count `cli eval`'s preprocessed batches and any call of the plain render."""
+    real_pre, real_plain = cli_eval.make_device_preprocessor, heatmap_render.render_heatmaps_reference
+
+    def make_pre(*a, **kw):
+        pre = real_pre(*a, **kw)
+
+        def counted(*args, **kw2):
+            log["batches"] += 1
+            return pre(*args, **kw2)
+        return counted
+
+    def plain(*a, **kw):
+        log["plain_renders"] += 1
+        return real_plain(*a, **kw)
+
+    cli_eval.make_device_preprocessor = make_pre
+    heatmap_render.render_heatmaps_reference = plain
+    try:
+        yield
+    finally:
+        cli_eval.make_device_preprocessor = real_pre
+        heatmap_render.render_heatmaps_reference = real_plain
+
+
+@contextlib.contextmanager
+def _int8_shapes(seen: set):
+    """Record the (B, T, H) of each int8 attention and the (M, Din, Dout) of
+    each int8 product a `cli eval` forward runs."""
+    real_attn, real_mm = vit_module.int8_prob_attention, quantize_module.int8_matmul
+
+    def attention(q, k, v, key_mask=None):
+        seen.add(("int8_attention", *q.shape[:3]))
+        return real_attn(q, k, v, key_mask=key_mask)
+
+    def matmul(x, kernel_q, scale, bias, out_dtype):
+        x0 = x[0] if isinstance(x, tuple) else x
+        seen.add(("int8_matmul", x0.numel() // x0.shape[-1], *kernel_q.shape))
+        return real_mm(x, kernel_q, scale, bias, out_dtype)
+
+    vit_module.int8_prob_attention, quantize_module.int8_matmul = attention, matmul
+    try:
+        yield
+    finally:
+        vit_module.int8_prob_attention, quantize_module.int8_matmul = real_attn, real_mm
+
+
+def _finite(value) -> bool:
+    if isinstance(value, dict):
+        return all(_finite(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(_finite(v) for v in value)
+    return not isinstance(value, float) or bool(np.isfinite(value))
+
+
+def _cli_eval_run(argv: list, label: str, keys: str | None, layers: int = 0,
+                  pose: bool = True) -> dict:
+    """One `cli eval` call through the CLI's parser -> its launches. `keys`
+    names the configuration's key sets (None: the mixed report); `layers`
+    > 0 expects an int8 backbone of that depth, whose attentions and
+    products run only at shapes that phase_int8_attention and
+    phase_int8_matmul hold against the plain version (INT8_CASES,
+    INT8_MM_CASES); `pose` expects SVD launches."""
+    log = {"batches": 0, "plain_renders": 0}
+    args = build_parser().parse_args(["eval", *argv])
+    shapes: set = set()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _instrumented_eval(log), _int8_shapes(shapes):
+        report = cli_eval.evaluate(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    if keys is None:
+        robots = args.robot.split(",")
+        check(list(report) == ["robots", "samples", *robots] and report["robots"] == robots
+              and all(list(report[r]) == ["pck@5.0px", "angle_mae_native", "angle_unit",
+                                          "add_m", "samples"] for r in robots),
+              f"cli eval [{label}]: report keys {report}")
+    else:
+        required, allowed = EVAL_KEY_SETS[keys]
+        got = list(report)
+        check(got == [k for k in EVAL_KEYS if k in report] and set(required) <= set(got)
+              <= set(allowed), f"cli eval [{label}]: report keys {got}")
+    check(_finite(report), f"cli eval [{label}]: a value is not finite: {report}")
+    check(log["batches"] > 0 and launches["heatmap_render"] == log["batches"],
+          f"cli eval [{label}]: {log['batches']} preprocessed batches, launches {launches}")
+    check(log["plain_renders"] == 0, f"cli eval [{label}]: the plain render ran")
+    check((launches["small_svd"] > 0) == pose, f"cli eval [{label}]: SVD launches {launches}")
+    held = ({("int8_attention", B, T, H) for _, B, T, H, _, _ in INT8_CASES}
+            | {("int8_matmul", M, din, dout) for _, M, din, dout in INT8_MM_CASES})
+    check(bool(shapes) == (layers > 0) and shapes <= held,
+          f"cli eval [{label}]: int8 shapes not held against the plain version: "
+          f"{sorted(shapes - held)} (all: {sorted(shapes)})")
+    int8 = {k: n * layers * log["batches"] for k, n in INT8_EVAL_PER_BLOCK.items()}
+    check(all(launches[k] == int8.get(k, launches[k] if k in ("heatmap_render", "small_svd",
+                                                              "peak_decode") else 0)
+              for k in KERNELS), f"cli eval [{label}]: launches {launches}, int8 expected {int8}")
+    print(f"cli eval [{label}]: {wall:.2f} s for the call, {log['batches']} batches; int8 "
+          f"shapes {sorted(shapes)}, each held against the plain version; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; report {json.dumps(report)}")
+    return launches
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_cli_eval_capture(capture_argv: list, run: Path) -> dict:
+    """`cli eval` of phase_cli_train's run on its own capture (ViT-B/16 at
+    512 px, 8 views of 1080x1920): float with --refine-pose
+    --occlusion-masks 2, then --int8-backbone --int8-attention. -> launches."""
+    argv = ["--robot", "fr3", *capture_argv, "--params",
+            str(run / "best_params.npz"), "--image-hw", "1080", "1920", "--batch-size", "2",
+            "--device", "cuda"]
+    launches = {}
+    _add_launches(launches, _cli_eval_run([*argv, "--refine-pose", "--occlusion-masks", "2"],
+                                          "FR3 capture, float, refine, occlusion",
+                                          "multi_view_refine"))
+    _add_launches(launches, _cli_eval_run([*argv, "--int8-backbone", "--int8-attention"],
+                                          "FR3 capture, int8 + int8 attention", "multi_view",
+                                          layers=12))
+    return launches
+
+
+def phase_cli_eval_small(device: dict) -> dict:
+    """A DREAM pass and a mixed pass on sets the port's generators write
+    under build/: `cli sync dream`, `cli train` (2 epochs at the int8
+    receipt's architecture; the three robots 1 epoch) and `cli eval`. -> launches."""
+    launches = {}
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        work = Path(work)
+        gen = _script("torch_make_dream_synthetic")
+        for name, n, seed in (("dream_train", 96, 0), ("dream_eval", 32, 77)):
+            check(gen.main(["--out-dir", str(work / name), "--n-samples", str(n), "--image-hw",
+                            "128", "128", "--focal-scale", "0.96", "--seed", str(seed)]) == 0,
+                  f"generator {name}")
+            check(cli_main.main(["sync", "dream", "--base-dirs", str(work / name / "panda_synth"),
+                                 "--out", str(work / f"{name}.csv"), "--strict"]) == 0,
+                  f"cli sync dream {name}")
+        check(_script("torch_make_mixed_synthetic").main(
+            ["--out-dir", str(work / "mixed"), "--robots", "fr5", "fr3", "meca_insertion",
+             "--n-samples", "8", "--image-hw", "128", "128"]) == 0, "mixed generator")
+        gen_s = time.perf_counter() - t0
+        dream = lambda name: ["--robot", "dream", "--single-view", "--csv",  # noqa: E731
+                              str(work / f"{name}.csv"), "--dream-dirs",
+                              str(work / name / "panda_synth")]
+        run = work / "dream_run"
+        got, _ = _cli_train_run([*dream("dream_train"), "--workdir", str(run), "--epochs", "2",
+                                 "--batch-size", "32", *TWIN_ARGV], "DREAM twin, 2 epochs")
+        _add_launches(launches, got)
+        eval_argv = [*dream("dream_eval"), "--params", str(run / "best_params.npz"),
+                     "--batch-size", "16", "--refine-pose", *TWIN_ARGV]
+        _add_launches(launches, _cli_eval_run(eval_argv, "DREAM twin, float", "dream_refine"))
+        _add_launches(launches, _cli_eval_run([*eval_argv, "--int8-backbone", "--int8-attention"],
+                                              "DREAM twin, int8 + int8 attention",
+                                              "dream_refine", layers=4))
+        mixed, robots = work / "mixed", ("fr5", "fr3", "meca_insertion")
+        prefix = {"fr3": "pose1"}
+        mixed_argv = ["--robot", ",".join(robots), "--csv",
+                      *(str(mixed / f"{r}.csv") for r in robots), "--calib-dir",
+                      str(mixed / "calib"), "--aruco-summary",
+                      *(str(mixed / f"{prefix.get(r, r)}_aruco_pose_summary.json")
+                        for r in robots)]
+        got, _ = _cli_train_run([*mixed_argv, "--workdir", str(work / "mixed_run"), "--epochs",
+                                 "1", "--batch-size", "8", *TWIN_ARGV], "fr5 + fr3 + meca, 1 epoch")
+        _add_launches(launches, got)
+        _add_launches(launches, _cli_eval_run(
+            [*mixed_argv, "--params", str(work / "mixed_run" / "best_params.npz"),
+             "--batch-size", "8", *TWIN_ARGV], "fr5 + fr3 + meca", None, pose=False))
+    print(f"cli eval [{device['nvidia_smi']}]: small passes {time.perf_counter() - t0:.1f} s "
+          f"(data written in {gen_s:.1f} s)")
     return launches
 
 
@@ -3788,8 +4038,10 @@ def main() -> int:
     launches["heatmap_render"] += geometric["heatmap_render"]
     launches["small_svd"] += geometric["small_svd"]
     captured = phase_cli_train(device)
-    launches["heatmap_render"] += captured["heatmap_render"]
-    launches["peak_decode"] += captured["peak_decode"]
+    _add_launches(captured, phase_cli_eval_small(device))
+    for name in ("heatmap_render", "peak_decode", "small_svd", "int8_matmul",
+                 "int8_quantize_rows", "int8_attention", "int8_quantize_v"):
+        launches[name] += captured.get(name, 0)
     train_768 = phase_train_768()
     train_768_f32 = phase_train_768(UNFROZEN_768_F32, TRAIN_768_F32_GROUPS)
     phase_fusion()

@@ -1,6 +1,10 @@
-"""Command line for the torch port: `python -m mvropose_torch.cli serve|train ...`.
+"""Command line for the torch port: `python -m mvropose_torch.cli sync|group|train|eval|serve ...`.
 
-`train` is the port of the reference's `cli train` for one robot
+`sync` and `group` are the reference's (`mvropose_tpu/cli/main.py::_cmd_sync`,
+`_cmd_group`) on `data/sync.py` and `data/grouping.py`: the same flags, the
+same printed lines, the CSV bytes pandas writes, and `--strict`'s exit 1.
+
+`train` is the port of the reference's `cli train`
 (`mvropose_tpu/cli/main.py::_cmd_train`): the synced CSVs (read without
 pandas, `data/table.py`) -> the rig (`calib/registry.py`) -> the robot's
 dataset and its seeded split (`data/builders.py`) -> per batch the host's
@@ -8,9 +12,14 @@ decode and undistortion and the device preprocessing (`data/dataset.py`:
 resize, augmentation, normalization, the GT render on the card's kernel) ->
 `train/loop.py::fit` (two-group AdamW steps, logs/metrics.jsonl,
 best_params.npz beside model_config.json, so `serve --params` reads the
-run; checkpoints to resume from). It runs on the card in bf16 unless
-`--device cpu` (f32). Mixed robots, `--num-workers` > 0, `--backbone-ckpt`,
-`--mesh` and `--wandb` exit naming their ROADMAP.md item.
+run; checkpoints to resume from). `--robot a,b` trains one single-view model
+on several robots (`data/mixed.py`: batches padded to the widest robot, every
+robot's angles in radians). It runs on the card in bf16 unless `--device cpu`
+(f32). `--num-workers` > 0 (one robot), `--backbone-ckpt`, `--mesh` and
+`--wandb` exit naming their ROADMAP.md item.
+
+`eval` (`cli/eval.py`) is the port of the reference's `cli eval`, for one
+robot and for a mixed-robot checkpoint.
 
 `serve` is the port of the reference's `cli serve` (`mvropose_tpu/cli/main.py::_cmd_serve`)
 for every checkpoint kind it serves: the multi-view estimator with the
@@ -63,6 +72,8 @@ from mvropose_torch.calib.registry import (
 from mvropose_torch.data import IMAGENET_MEAN, IMAGENET_STD, builders
 from mvropose_torch.data.augment import AugmentConfig
 from mvropose_torch.data.dataset import make_device_preprocessor
+from mvropose_torch.data.grouping import group_by_time_tolerance, tolerance_grid_search
+from mvropose_torch.data.mixed import MixedRobotDataset
 from mvropose_torch.data.table import concat, read_csv
 from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.geometry.camera import RemapTaps, undistort_map
@@ -556,12 +567,53 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_sync(args) -> int:
+    """Sync a robot's images with its joint log into one CSV."""
+    from mvropose_torch.data import sync as S
+
+    cfg = S.SyncConfig(tolerance_s=args.tolerance, image_delay_s=args.image_delay)
+    if args.robot == "fr3" and importlib.util.find_spec("yaml") is None:
+        raise SystemExit("cli sync fr3 reads the ROS2 joint streams with PyYAML, which cannot "
+                         "be imported here")
+    table = {
+        "fr5": lambda: S.sync_fr5(args.base_dirs, cfg),
+        "fr3": lambda: S.sync_fr3(args.base_dirs, args.joint_dir, cfg),
+        "dream": lambda: concat(S.sync_dream(d) for d in args.base_dirs),
+        "meca500": lambda: S.sync_meca500(args.base_dirs[0], args.joint_dir),
+        "meca_insertion": lambda: S.sync_meca_insertion(args.base_dirs, args.joint_dir, cfg),
+    }[args.robot]()
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    table.to_csv(args.out)
+    print(f"synced {len(table)} rows -> {args.out}")
+    if args.strict and len(table) == 0:
+        print("error: --strict and no rows matched (check paths/tolerance)", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_group(args) -> int:
+    """The grouping's tolerance grid (0.05 to 0.10 s), then the groups at
+    --tolerance."""
+    df = read_csv(args.csv)
+    cands = np.round(np.arange(0.05, 0.101, 0.01), 2)
+    best, dist = tolerance_grid_search(df, cands, args.max_views, ts_col=args.ts_col)
+    for tol, counts in dist.items():
+        print(f"tolerance {tol:.2f}: {dict(sorted(counts.items(), reverse=True))}")
+    print(f"recommended tolerance: {best}")
+    groups = group_by_time_tolerance(df, args.tolerance, args.max_views, ts_col=args.ts_col,
+                                     min_views=args.min_views)
+    print(f"final: {len(groups)} groups at tolerance {args.tolerance}")
+    if args.out:
+        Path(args.out).write_text(json.dumps(groups, default=str))
+        print(f"wrote {args.out}")
+    return 0
+
+
 # cli train: the flags that exit, each naming the ROADMAP.md item that ports it.
 UNPORTED_TRAIN_FLAGS = (
-    (lambda a: "," in a.robot, "--robot with several robots (mixed-robot training, "
-     "data/mixed.py)", "queue 1, item 12"),
-    (lambda a: a.num_workers > 0, "--num-workers > 0 (the grain loader's worker processes, "
-     "data/grain_loader.py; 0 loads in-process)", "queue 1, item 12"),
+    (lambda a: a.num_workers > 0 and "," not in a.robot,
+     "--num-workers > 0 (the grain loader's worker processes, data/grain_loader.py; 0 loads "
+     "in-process)", "queue 1, item 12"),
     (lambda a: a.backbone_ckpt is not None, "--backbone-ckpt (models/dino_convert.py)",
      "queue 1, item 11"),
     (lambda a: a.mesh is not None, "--mesh (multi-device training)", "queue 1, item 10"),
@@ -606,32 +658,72 @@ def load_rig_from_args(args) -> RigSpec:
                     calib_dir=args.calib_dir, aruco_summary_paths=aruco, sigma=args.sigma)
 
 
+def check_runtime(args, command: str) -> torch.device:
+    """Exit, before anything is read, where the captured images cannot be
+    decoded (no cv2) or the card asked for is missing -> the device."""
+    if importlib.util.find_spec("cv2") is None:
+        raise SystemExit(f"cli {command} decodes the captured images with cv2, which cannot "
+                         "be imported here")
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available (pass "
+                         "--device cpu for an f32 run on the CPU)")
+    return torch.device(args.device)
+
+
 def _check_train_flags(args) -> None:
     """Exit, before anything is read, on a flag the port does not run yet, on
     a missing image decoder or a missing card."""
     for hit, flag, item in UNPORTED_TRAIN_FLAGS:
         if hit(args):
             raise SystemExit(f"{flag} is not ported yet (ROADMAP.md {item})")
-    if importlib.util.find_spec("cv2") is None:
-        raise SystemExit("cli train decodes the captured images with cv2, which cannot be "
-                         "imported here")
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is available (pass "
-                         "--device cpu for an f32 run on the CPU)")
+    check_runtime(args, "train")
 
 
-def _build_dataset(args, rig: RigSpec, image_hw):
-    """(dataset, multi_view) of the synced CSVs for one robot."""
+SINGLE_VIEW_BUILDERS = {
+    "fr5": builders.build_fr5_single_view,
+    "fr3": builders.build_fr3_single_view,
+    "dream": builders.build_dream_single_view,
+    "meca500": builders.build_meca500_single_view,
+    "meca_insertion": builders.build_meca_insertion_single_view,
+}
+
+
+def build_single_robot_dataset(args, rig: RigSpec, image_hw):
+    """(dataset, multi_view) of the synced CSVs for one robot: FR3's
+    multi-view groups unless --single-view, else the robot's single-view
+    samples."""
     df = concat(read_csv(c) for c in args.csv)
     if args.robot == "fr3" and not args.single_view:
         return builders.build_fr3_multi_view(df, rig, image_hw, tolerance_s=args.tolerance), True
-    build = {
-        "dream": builders.build_dream_single_view,
-        "fr5": builders.build_fr5_single_view,
-        "meca500": builders.build_meca500_single_view,
-        "meca_insertion": builders.build_meca_insertion_single_view,
-    }.get(args.robot, builders.build_fr3_single_view)
-    return build(df, rig, image_hw), False
+    return SINGLE_VIEW_BUILDERS[args.robot](df, rig, image_hw), False
+
+
+def build_mixed_dataset(args, image_hw) -> MixedRobotDataset:
+    """The mixed-robot dataset of `--robot a,b,..`: each robot's single-view
+    samples from its own --csv (in --robot order) on its own rig, the
+    calibration and ArUco files shared."""
+    robots = args.robot.split(",")
+    children = []
+    for name, csv_path in zip(robots, args.csv):
+        sub = argparse.Namespace(**{**vars(args), "robot": name})
+        children.append(SINGLE_VIEW_BUILDERS[name](read_csv(csv_path), load_rig_from_args(sub),
+                                                   image_hw))
+    return MixedRobotDataset(children, robots)
+
+
+def _mixed_refusals(args) -> None:
+    """The reference's exits of a mixed-robot run."""
+    robots = args.robot.split(",")
+    if len(args.csv) != len(robots):
+        raise SystemExit(f"--robot {args.robot} needs exactly {len(robots)} --csv files (one per "
+                         "robot, in order)")
+    if args.fk_loss_weight > 0:
+        # The term would need a per-robot FK chain and per-robot extrinsics
+        # in the padded batches.
+        raise SystemExit("--fk-loss-weight is not supported with mixed robots")
+    if args.angle_head == "geometric3d":
+        raise SystemExit("mixed-robot training supports --angle-head query or geometric "
+                         "(geometric3d is multi-view only)")
 
 
 def _train_refusals(args, rig: RigSpec, ds, multi_view: bool) -> None:
@@ -651,7 +743,7 @@ def _train_refusals(args, rig: RigSpec, ds, multi_view: bool) -> None:
                          "camera frame)")
 
 
-def _host_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+def host_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(x))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -672,9 +764,20 @@ def train(args):
     device = torch.device(args.device)
     dtype = "float32" if device.type == "cpu" else "bfloat16"
     image_hw = tuple(args.image_hw)
-    rig = load_rig_from_args(args)
-    ds, multi_view = _build_dataset(args, rig, image_hw)
-    _train_refusals(args, rig, ds, multi_view)
+    mixed = "," in args.robot
+    if mixed:
+        _mixed_refusals(args)
+        ds, multi_view = build_mixed_dataset(args, image_hw), False
+        for name, child in zip(ds.robot_names, ds.children):
+            print(f"  {name}: {len(child)} samples")
+        rig = ds.children[0].geometry.rig  # the image, heatmap and sigma of the batches
+        if args.num_workers > 0:
+            print("note: --num-workers parallel loading needs a non-mixed dataset with >= 1 "
+                  "full batch; using in-process loading")
+    else:
+        rig = load_rig_from_args(args)
+        ds, multi_view = build_single_robot_dataset(args, rig, image_hw)
+        _train_refusals(args, rig, ds, multi_view)
     if args.fk_loss_weight > 0 or (multi_view and args.angle_head == "geometric3d"):
         ds.with_extrinsics = True  # per-sample cameras: the FK term's or the DLT's
     train_ds, val_ds = builders.train_val_split(ds, args.val_split)
@@ -689,8 +792,10 @@ def train(args):
         dtype=dtype, use_rope=args.rope, layer_norm_eps=1e-5 if args.rope else 1e-6,
     )
     freeze = not args.no_freeze_backbone
+    # A mixed run's heads are as wide as its widest robot.
     cfg = EstimatorConfig(
-        vit=vit, num_joints=rig.num_keypoints, num_angles=rig.robot.n_joints,
+        vit=vit, num_joints=ds.num_keypoints if mixed else rig.num_keypoints,
+        num_angles=ds.num_angles if mixed else rig.robot.n_joints,
         heatmap_size=rig.heatmap_size, max_views=2 * len(rig.serial_to_view),
         freeze_backbone=freeze, dtype=dtype, angle_head=args.angle_head,
     )
@@ -715,7 +820,7 @@ def train(args):
                                    augment_cfg=aug_cfg, device=device)
 
     def to_device(batch: dict, generator=None) -> dict:
-        put = functools.partial(_host_to_device, device=device)
+        put = functools.partial(host_to_device, device=device)
         imgs, hms = pre(put(batch["images_u8"]), put(batch["cam_idx"]),
                         put(batch["keypoints_2d"]), generator)
         out = {"images": imgs, "heatmaps": hms, "angles": put(batch["angles"])}
@@ -729,8 +834,8 @@ def train(args):
                     image_hw, rig.heatmap_size).reshape(B, V, 3, 4)
         else:
             out["sample_weight"] = put(batch["sample_weight"])
-            out.update((k, put(batch[k])) for k in ("rvec", "tvec", "K", "base_rotation")
-                       if k in batch)
+            out.update((k, put(batch[k]))
+                       for k in ("rvec", "tvec", "K", "base_rotation", "angle_mask") if k in batch)
             if args.fk_loss_weight > 0:
                 out["keypoints_2d"] = put(batch["keypoints_2d"])
         return out
@@ -782,11 +887,37 @@ def _cmd_train(args) -> int:
     return 0
 
 
+def _cmd_eval(args) -> int:
+    from mvropose_torch.cli.eval import cmd_eval
+
+    return cmd_eval(args)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mvropose_torch", description="MvRoPose on PyTorch/CUDA"
     )
     sub = p.add_subparsers(dest="cmd", required=True)
+    robots = ["fr5", "fr3", "dream", "meca500", "meca_insertion"]
+    ps = sub.add_parser("sync", help="synchronize images with joint logs")
+    ps.add_argument("robot", choices=robots)
+    ps.add_argument("--base-dirs", nargs="+", required=True)
+    ps.add_argument("--joint-dir", default=None)
+    ps.add_argument("--out", required=True)
+    ps.add_argument("--tolerance", type=float, default=0.05)
+    ps.add_argument("--image-delay", type=float, default=0.0333)
+    ps.add_argument("--strict", action="store_true", help="exit nonzero when 0 rows matched")
+    ps.set_defaults(fn=_cmd_sync)
+
+    pg = sub.add_parser("group", help="multi-view temporal grouping + grid search")
+    pg.add_argument("--csv", required=True)
+    pg.add_argument("--ts-col", default="robot_timestamp")
+    pg.add_argument("--tolerance", type=float, default=0.07)
+    pg.add_argument("--max-views", type=int, default=8)
+    pg.add_argument("--min-views", type=int, default=2)
+    pg.add_argument("--out", default=None)
+    pg.set_defaults(fn=_cmd_group)
+
     pv = sub.add_parser("serve", help="realtime streaming rig inference")
     pv.add_argument("--replay-dir", default=None)
     pv.add_argument("--views", type=int, default=4)
@@ -840,8 +971,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     pt = sub.add_parser("train", help="train an estimator on captured images")
     pt.add_argument("--robot", type=robot_arg, required=True,
-                    help="fr5|fr3|dream|meca500|meca_insertion (a comma list, mixed-robot "
-                         "training, is not ported yet)")
+                    help="fr5|fr3|dream|meca500|meca_insertion, or a comma list for "
+                         "mixed-robot training, e.g. --robot fr5,fr3 with one --csv per robot")
     pt.add_argument("--csv", nargs="+", required=True)
     pt.add_argument("--calib-dir", default=None)
     pt.add_argument("--aruco-summary", nargs="*", default=None)
@@ -880,9 +1011,52 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--wandb", action="store_true", help="not ported yet")
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--num-workers", type=int, default=0,
-                    help="0: in-process loading (worker processes are not ported yet)")
+                    help="0: in-process loading (worker processes are not ported yet; a mixed "
+                         "run loads in-process whatever this says)")
     pt.add_argument("--device", default="cuda", help="torch device (default cuda)")
     pt.set_defaults(fn=_cmd_train)
+
+    pe = sub.add_parser("eval", help="evaluate a trained model (PCK/ADD/MAE)")
+    pe.add_argument("--robot", type=robot_arg, required=True,
+                    help="robot name, or a comma list to evaluate a mixed-robot checkpoint "
+                         "per robot")
+    pe.add_argument("--csv", nargs="+", required=True)
+    pe.add_argument("--params", required=True, help="best_params.npz")
+    pe.add_argument("--angle-head", choices=["query", "geometric", "geometric3d"],
+                    default="query")
+    pe.add_argument("--calib-dir", default=None)
+    pe.add_argument("--aruco-summary", nargs="*", default=None)
+    pe.add_argument("--dream-dirs", nargs="*", default=None,
+                    help="DREAM subset dirs with _camera_settings.json (robot=dream)")
+    pe.add_argument("--image-hw", type=int, nargs=2, default=[1080, 1920])
+    pe.add_argument("--model-size", type=int, default=224)
+    pe.add_argument("--hidden-size", type=int, default=768)
+    pe.add_argument("--num-layers", type=int, default=12)
+    pe.add_argument("--patch-size", type=int, default=16)
+    pe.add_argument("--register-tokens", type=int, default=0)
+    pe.add_argument("--rope", action="store_true")
+    pe.add_argument("--backbone-native-size", type=int, default=None,
+                    help="(arch flags are only consulted when the params dir has no "
+                         "model_config.json)")
+    pe.add_argument("--batch-size", type=int, default=16)
+    pe.add_argument("--sigma", type=float, default=5.0)
+    pe.add_argument("--tolerance", type=float, default=0.07)
+    pe.add_argument("--pck-px", type=float, default=5.0)
+    pe.add_argument("--occlusion-masks", type=int, default=0,
+                    help="occlusion-robustness probe: N random solid rectangles per image")
+    pe.add_argument("--int8-backbone", action="store_true",
+                    help="quantize the loaded checkpoint's backbone to int8 before evaluating")
+    pe.add_argument("--int8-attention", action="store_true",
+                    help="with --int8-backbone: also run the int8-probability attention")
+    pe.add_argument("--refine-pose", action="store_true",
+                    help="the joint (pose, angles) refinement on top of the predicted-angle "
+                         "PnP; adds the *_refined pose and ADD metrics")
+    pe.add_argument("--refine-sigma-px", type=float, default=1.2)
+    pe.add_argument("--refine-sigma-prior", type=float, default=0.2,
+                    help="angle-prior std in the robot's native unit")
+    pe.add_argument("--single-view", action="store_true")
+    pe.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    pe.set_defaults(fn=_cmd_eval)
     return p
 
 

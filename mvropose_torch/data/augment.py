@@ -182,6 +182,22 @@ def _rect_draws(u, B: int, scale, ratio) -> RectDraws:
     return RectDraws(u(B, lo=scale[0], hi=scale[1]), u(B, lo=lo, hi=hi), u(B), u(B))
 
 
+def draw_masking(gen: torch.Generator, B: int, num_masks: int) -> tuple[list, list]:
+    """The occlusion probe's draws for `random_masking` over B images: per
+    mask a rectangle (area a share in [0.1^2, 0.3^2) of the image, aspect in
+    [0.5, 2) log-uniform) and a uniform colour (B, 3), as the reference's
+    `random_masking` draws them, on the generator's device."""
+    def u(*size, lo=0.0, hi=1.0):
+        return torch.rand(size, generator=gen, device=gen.device) * (hi - lo) + lo
+
+    area = (MASK_RATIO[0] ** 2, MASK_RATIO[1] ** 2)
+    rects, colors = [], []
+    for _ in range(num_masks):
+        rects.append(_rect_draws(u, B, area, MASK_ASPECT))
+        colors.append(u(B, 3))
+    return rects, colors
+
+
 def draw_augment(gen: torch.Generator, shape, cfg: AugmentConfig) -> AugmentDraws:
     """One batch's draws for images of `shape` (B, H, W, 3), on the
     generator's device: uniforms in [lo, hi), flags as uniform < prob."""

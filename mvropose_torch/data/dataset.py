@@ -259,6 +259,23 @@ class SingleViewDataset:
     def __len__(self) -> int:
         return len(self.samples)
 
+    def prepared(self, i: int) -> tuple[np.ndarray, np.ndarray] | None:
+        """Sample i's image at image_hw and its GT keypoints in that frame:
+        loaded, ROI-cropped, undistorted on the host and shape-gated
+        (`_apply_roi_and_undistort`), or None where the image fails to load
+        or prepare. The per-sample preparation of `batches` and of the
+        mixed-robot batches (the reference's grain `_SampleMap`,
+        `mvropose_tpu/data/grain_loader.py:29`)."""
+        s = self.samples[i]
+        img = _load_image_rgb(s.image_path)
+        if img is None:
+            return None
+        kp = self._kp_cache.get(id(s))
+        if kp is None:
+            kp = self.geometry.gt_keypoints(s, self.extr_key_fn(s) if self.extr_key_fn else None)
+            self._kp_cache[id(s)] = kp
+        return _apply_roi_and_undistort(self.geometry, s, img, kp, self.undistort_on_host)
+
     def batches(
         self, batch_size: int, shuffle: bool = False, seed: int = 0, drop_last: bool = False
     ) -> Iterator[dict]:
@@ -288,29 +305,18 @@ class SingleViewDataset:
                 Ks = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
                 base_rots = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
             for slot, i in enumerate(idxs):
-                s = self.samples[i]
-                img = _load_image_rgb(s.image_path)
-                if img is None:
-                    continue  # weight stays 0
-                ek = self.extr_key_fn(s) if self.extr_key_fn else None
-                kp = self._kp_cache.get(id(s))
-                if kp is None:
-                    kp = self.geometry.gt_keypoints(s, ek)
-                    self._kp_cache[id(s)] = kp
-                prepared = _apply_roi_and_undistort(
-                    self.geometry, s, img, kp, self.undistort_on_host
-                )
+                prepared = self.prepared(i)
                 if prepared is None:
-                    continue
-                img, kp = prepared
-                images[slot] = img
+                    continue  # weight stays 0
+                s = self.samples[i]
+                images[slot], kpts[slot] = prepared
                 cam_idx[slot] = self.geometry.key_to_idx[s.camera_key]
                 angles[slot] = s.angles
-                kpts[slot] = kp
                 if kp3d is not None:
                     kp3d[slot] = s.keypoints_3d_cam
                 weight[slot] = 1.0
                 if self.with_extrinsics:
+                    ek = self.extr_key_fn(s) if self.extr_key_fn else None
                     extr = rig.extrinsics.get(ek or s.camera_key)
                     if extr is not None:
                         rvecs[slot] = extr.rvec

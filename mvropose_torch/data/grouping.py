@@ -1,5 +1,6 @@
-"""Multi-view temporal grouping: port of `mvropose_tpu/data/grouping.py:19`
-`group_by_time_tolerance` on the port's CSV `Table`.
+"""Multi-view temporal grouping: port of `mvropose_tpu/data/grouping.py`
+(`group_by_time_tolerance` and `tolerance_grid_search`) on the port's CSV
+`Table`.
 
 Rows are ordered by timestamp as pandas orders them (`Table.sort_values`:
 numpy's unstable quicksort, so tied timestamps, the rule for FR3 rows synced
@@ -12,7 +13,9 @@ from its first row.
 from __future__ import annotations
 
 import re
-from typing import Sequence
+from typing import Mapping, Sequence
+
+import numpy as np
 
 from mvropose_torch.data.table import Table
 
@@ -51,3 +54,24 @@ def group_by_time_tolerance(
     if min_views > 1:
         groups = [g for g in groups if len(g["views"]) >= min_views]
     return groups
+
+
+def tolerance_grid_search(
+    df: Table,
+    candidates: Sequence[float],
+    max_views: int,
+    ts_col: str = "robot_timestamp",
+    angle_cols: Sequence[str] | None = None,
+) -> tuple[float, dict[float, Mapping[int, int]]]:
+    """The tolerance with the most FULL (`max_views`) groups, the first on a
+    tie -> (best tolerance, {tolerance: {group size: count}})."""
+    distributions: dict[float, Mapping[int, int]] = {}
+    best_tol, best_full = float(candidates[0]), -1
+    for tol in candidates:
+        groups = group_by_time_tolerance(df, tol, max_views, ts_col, angle_cols)
+        sizes, counts = np.unique([len(g["views"]) for g in groups], return_counts=True)
+        distributions[tol] = {int(k): int(v) for k, v in zip(sizes, counts)}
+        full = distributions[tol].get(max_views, 0)
+        if full > best_full:
+            best_full, best_tol = full, float(tol)
+    return best_tol, distributions

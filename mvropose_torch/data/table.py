@@ -7,6 +7,10 @@ for what the builders and the grouping ask of a DataFrame:
 
   * `read_csv(path)` and `concat(tables)` (`pd.concat([...], ignore_index=True)`:
     columns in order of appearance, a column one table lacks reads as NaN);
+  * `Table.from_records(dicts)` (`pd.DataFrame(records)`) and
+    `to_csv(path)`, which writes the bytes of pandas' `to_csv(path,
+    index=False)`: ints as they are, float64 as their shortest repr, NaN as
+    an empty field, fields quoted only where they must be;
   * column types as pandas' C parser infers them: int64 where every value is
     an integer and none is missing, float64 where every value is a number or
     missing, else strings (object, missing values NaN);
@@ -15,8 +19,9 @@ for what the builders and the grouping ask of a DataFrame:
     9- and 17-digit values);
   * `table["col"]` (a numpy array: `.astype(str).tolist()` as the reference
     calls it), `table[[cols]].to_numpy(dtype)`, `table.columns`, `len`,
-    `empty`, and `sort_values(col)` (pandas' unstable quicksort order with
-    NaN last, which sets the order of tied timestamps).
+    `empty`, `take(rows)` (`.iloc[rows]`), and `sort_values(col)` (pandas'
+    unstable quicksort order with NaN last, which sets the order of tied
+    timestamps).
 """
 
 from __future__ import annotations
@@ -87,6 +92,37 @@ def _infer(values: Sequence[str]) -> np.ndarray:
     return np.array([np.nan if na else v for v, na in zip(values, missing)], dtype=object)
 
 
+def _column(values: Sequence) -> np.ndarray:
+    """One column of Python values -> int64, float64 or object, as
+    `pd.DataFrame(records)` types it; None and NaN are missing."""
+    missing = [v is None or (isinstance(v, float) and v != v) for v in values]
+    present = [v for v, na in zip(values, missing) if not na]
+    numbers = all(isinstance(v, (int, float, np.integer, np.floating))
+                  and not isinstance(v, (bool, np.bool_)) for v in present)
+    if (numbers and present and not any(missing)
+            and all(isinstance(v, (int, np.integer)) for v in present)):
+        return np.array(values, np.int64)
+    if numbers:
+        return np.array([np.nan if na else float(v) for v, na in zip(values, missing)],
+                        np.float64)
+    out = np.empty(len(values), dtype=object)
+    out[:] = [np.nan if na else v for v, na in zip(values, missing)]
+    return out
+
+
+def _csv_fields(values: np.ndarray) -> list:
+    """A column as pandas' `to_csv` writes its fields."""
+    if values.dtype.kind == "f":
+        # float64 as Python's repr (the shortest that reads back), narrower
+        # floats as numpy's shortest of their own type.
+        fmt = (lambda v: repr(float(v))) if values.dtype == np.float64 else str
+        return ["" if v != v else fmt(v) for v in values]
+    if values.dtype.kind == "O":
+        return ["" if v is None or (isinstance(v, float) and v != v) else str(v)
+                for v in values]
+    return [str(v) for v in values.tolist()]
+
+
 class Table:
     """Named numpy columns of equal length, in order."""
 
@@ -96,6 +132,13 @@ class Table:
         if len(lengths) > 1:
             raise ValueError(f"columns of unequal length {sorted(lengths)}")
         self._len = lengths.pop() if lengths else 0
+
+    @classmethod
+    def from_records(cls, records: Sequence[Mapping]) -> "Table":
+        """`pd.DataFrame(records)`: columns in order of first appearance, a
+        key a record lacks is NaN there, types as `_column`."""
+        names = list(dict.fromkeys(k for r in records for k in r))
+        return cls({k: _column([r.get(k) for r in records]) for k in names})
 
     @property
     def columns(self) -> list[str]:
@@ -130,6 +173,23 @@ class Table:
             return np.zeros((self._len, 0), dtype or np.float64)
         return np.stack([np.asarray(v).astype(dtype) if dtype is not None else v
                          for v in self._cols.values()], axis=1)
+
+    def take(self, rows) -> "Table":
+        """The rows at integer positions `rows`, in that order (`.iloc`)."""
+        rows = np.asarray(rows, np.int64)
+        return Table({k: v[rows] for k, v in self._cols.items()})
+
+    def to_csv(self, path: str | Path) -> None:
+        """Write the table as pandas' `to_csv(path, index=False)` does, byte
+        for byte: the header, then the rows; a table without columns is one
+        empty line."""
+        with open(path, "w", newline="") as f:
+            if not self._cols:
+                f.write("\n")
+                return
+            writer = csv.writer(f, lineterminator="\n")
+            writer.writerow(self.columns)
+            writer.writerows(zip(*(_csv_fields(v) for v in self._cols.values())))
 
     def sort_values(self, name: str) -> "Table":
         """Rows ordered by column `name` as pandas' `sort_values(name,

@@ -164,6 +164,13 @@ def test_port_imports_no_jax():
     files = sorted([*PORT_ROOT.rglob("*.py"), root_dir / "chip_smoke.py",
                     *(root_dir / "scripts").glob("torch_*.py")])
     assert len(files) > 10
+    # The modules of cli eval, sync and group and of the mixed-robot data,
+    # and the port's data generators and its int8 receipt.
+    for new in ("mvropose_torch/cli/eval.py", "mvropose_torch/data/sync.py",
+                "mvropose_torch/data/mixed.py", "mvropose_torch/data/grouping.py",
+                "mvropose_torch/data/table.py", "scripts/torch_make_dream_synthetic.py",
+                "scripts/torch_make_mixed_synthetic.py", "scripts/torch_int8_receipt.py"):
+        assert root_dir / new in files, new
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]

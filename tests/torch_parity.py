@@ -74,6 +74,17 @@ def jax_refine_draws(key, views: int, n_points: int, n_angles: int, n_starts: in
     return starts, jax_rig_gumbel(jax.random.fold_in(key, 1), views, 16, n_points)
 
 
+def load_script(name: str):
+    """`scripts/<name>.py` as a module (its `main(argv)` runs it in-process)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 NOMINAL_K = np.array([[737.0, 0.0, 640.0], [0.0, 737.0, 360.0], [0.0, 0.0, 1.0]], np.float32)
 
 

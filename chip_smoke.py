@@ -22,12 +22,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          against the kernel pair they replace (the LayerNorm kernel, then
          the row quantization kernel) beside their bytes' bound;
        * the fused int8 attention and its values' quantization, bf16 and
-         f32 (`phase_int8_attention`: the serve shape (4, 1025, 12, 64),
-         T = 37, 129, 1, 2305, masked keys, an all-masked batch element,
-         RoPE's and strided layouts): the quantized values equal, the output
-         within one value step (plus a bf16 ulp in bf16) of the plain
-         version, planted rows bit-equal, two calls bit-identical; timed in
-         turns plain/fused/fused/plain, beside SDPA in the same dtype;
+         f32, at every head width (`phase_int8_attention`: the serve shape
+         (4, 1025, 12, 64), T = 37, 129, 1, 2305, masked keys, an
+         all-masked batch element, RoPE's and strided layouts; at d = 32,
+         48, 96 and 128 the serve-like (2, 1025, 768 / d, d) and a masked
+         case, and the DINO run's d = 48 shapes): the quantized values
+         equal, the output within one value step (plus a bf16 ulp in bf16)
+         of the plain version, planted rows bit-equal, two calls
+         bit-identical; timed in turns plain/fused/fused/plain, beside SDPA
+         in the same dtype, at the serve shape and at each width's
+         serve-like shape;
        * the int8 matmul's quantization and GEMM (`phase_int8_matmul`: the
          serve step's products at M = 4100, 768 -> 768, 768 -> 3072 and
          3072 -> 768, and M = 1, 37, 51 at the serve and small widths, each
@@ -140,6 +144,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          launch per preprocessed batch and no plain render, SVD launches
          where pose runs, per forward the int8 run's attention, GEMM and row
          quantization launches (12, 72 and 48 at ViT-B);
+       * the DINO checkpoint at d = 48 (`phase_dino_d48`):
+         `scripts/torch_train_synthetic.py --freeze-backbone --backbone-ckpt
+         runs/synth_sv_frozen/dino_192x4.npz` (the synthetic trainer's
+         single-view fr5 model at 128 px, 4 heads of 48) for a few steps, a
+         frozen drift of exactly 0; `cli serve --params RUN/best_params.npz
+         --int8-backbone --int8-attention` on its run directory in bf16 and
+         in f32 (the fused int8 attention's launches at d = 48, 4 a tick,
+         by the width counters), `cli eval --int8-backbone
+         --int8-attention` on a small fr5 set, and `cli train
+         --backbone-ckpt` of the same file (3 heads of 64) for one epoch;
   7. the flash-attention path (T >= 2048), each run's launches counted:
        * the three kernels against the plain branch (bf16 against f32, 8
          shapes: the 768-px serve and train backbones, the fusion bench, the
@@ -203,7 +217,9 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          kernel;
   8. a JSON line per kernel (the flash kernels also, for f32 and f16
      operands, `f32_ms`, `f16_ms` and their bounds, the bf16 kernels' times
-     at the other widths under `widths`, the f16 kernels' at every width
+     at the other widths under `widths` (the int8 attention's too, and its
+     f32 instantiations' under `f32_widths`, each with its launches on the
+     main paths: d = 48's in the DINO phase), the f16 kernels' at every width
      under `f16_widths`; the forward's bound the larger of its products' and
      its exponentials'; the f32 kernels' source, launches on their main
      paths (the forward: the f32 serve run; dK/dV and dQ: the f32 train
@@ -361,6 +377,8 @@ SERVE_KERNELS_F32 = [k if k != "int8_attention" else "int8_attention_f32" for k 
 # The same run directory served in bf16 (no --int8-backbone): the float LayerNorms.
 FUSED_LN_KERNELS = ["peak_decode", "layernorm", "residual_layernorm"]
 FLASH_KERNELS = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"]
+# The int8 attention's head widths besides the serve step's 64.
+INT8_WIDTHS = tuple(d for d in attention.HEAD_DIMS if d != 64)
 # The least time the card could take: the H100 SXM's published dense rates
 # at 700 W (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
@@ -512,15 +530,18 @@ def spilled_bytes(log: str) -> dict:
 
 
 # The Hopper kernels of the build: the flash forward, dK/dV and dQ at every
-# head width in bf16, in f16 and (split TF32) in f32, the int8 attention in
-# bf16 and f32, and the int8 GEMM.
+# head width in bf16, in f16 and (split TF32) in f32, the int8 attention at
+# every head width in bf16 and f32, and the int8 GEMM.
 FLASH_PARTS = attention.FLASH_PARTS
-# The flash kernels' instantiations by element type: the parts it has, and
-# the pattern of one's mangled name (`part` filled in; the width its group).
+# The width-templated kernels' instantiations by element type: the parts it
+# has, and the pattern of one's mangled name (`part` filled in; the width its
+# group).
 HOPPER_TYPES = {"bf16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E13__nv_bfloat16E"),
                 "f16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E6__halfE"),
-                "tf32": (FLASH_PARTS, r"flash_{part}_tf32_sm90_kernelILi(\d+)EE")}
-HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 3
+                "tf32": (FLASH_PARTS, r"flash_{part}_tf32_sm90_kernelILi(\d+)EE"),
+                "int8 bf16": (("attention",), r"int8_{part}_sm90_kernelILi(\d+)E13__nv_bfloat16E"),
+                "int8 f32": (("attention",), r"int8_{part}_sm90_kernelILi(\d+)EfE")}
+HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 1
 
 
 def phase_build() -> None:
@@ -542,7 +563,7 @@ def phase_build() -> None:
         check(len(hopper) == HOPPER_KERNELS and not any(hopper.values()) and
               all(w == list(attention.HEAD_DIMS) for w in widths.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
-        print(f"Hopper kernels: {len(hopper)}, none spills; flash instantiations at "
+        print(f"Hopper kernels: {len(hopper)}, none spills; instantiations at "
               + ", ".join(f"d = {w} ({kind}, {ty})" for (kind, ty), w in widths.items()))
 
 
@@ -785,42 +806,55 @@ def phase_layernorm_int8() -> dict:
     return out
 
 
-# Fused int8 attention cases: (name, B, T, H, mask, layout), each in bf16
-# and f32. Masks as `_flash_mask` ("random" drops 30 % of the keys, "all"
+# Fused int8 attention cases: (name, B, T, H, d, mask, layout), each in
+# bf16 and f32. Masks as `_flash_mask` ("random" drops 30 % of the keys, "all"
 # also every key of batch element 1); layouts: "proj" q, k, v views of their
 # projections (B, T, H, d), the serve path's; "rope" q and k (B, H, T, d)
 # storage seen as (B, T, H, d), as RoPE leaves them; "strided" q, k, v
 # slices of one (B, T, 3, H, d) tensor.
 INT8_CASES = [
-    ("serve", 4, 1025, 12, None, "proj"),
-    ("serve_masked_rope", 4, 1025, 12, "all", "rope"),
-    ("t37", 2, 37, 3, "random", "proj"),
-    ("t129_strided", 2, 129, 2, "random", "strided"),
-    ("t1", 3, 1, 2, None, "proj"),
-    ("all_masked_t300", 3, 300, 2, "all", "strided"),
-    ("t2305", 1, 2305, 2, "random", "proj"),  # T > 1536: the quantization in two rounds
+    ("serve", 4, 1025, 12, 64, None, "proj"),
+    ("serve_masked_rope", 4, 1025, 12, 64, "all", "rope"),
+    ("t37", 2, 37, 3, 64, "random", "proj"),
+    ("t129_strided", 2, 129, 2, 64, "random", "strided"),
+    ("t1", 3, 1, 2, 64, None, "proj"),
+    ("all_masked_t300", 3, 300, 2, 64, "all", "strided"),
+    ("t2305", 1, 2305, 2, 64, "random", "proj"),  # T > 1536: the quantization in two rounds
     # `cli eval --int8-backbone --int8-attention`'s backbone attentions (no
     # RoPE, no key mask): the FR3 capture's ViT-B/16 at 512 px, 2 groups x 8
     # views (`phase_cli_eval_capture`); the DREAM twin's 192-wide ViT/16 at
     # 128 px (3 heads of 64) at eval batch 16 (`phase_cli_eval_small`) and
     # 50 (`scripts/torch_int8_receipt.py`).
-    ("eval_capture", 16, 1025, 12, None, "proj"),
-    ("eval_twin", 16, 65, 3, None, "proj"),
-    ("eval_twin_receipt", 50, 65, 3, None, "proj"),
+    ("eval_capture", 16, 1025, 12, 64, None, "proj"),
+    ("eval_twin", 16, 65, 3, 64, None, "proj"),
+    ("eval_twin_receipt", 50, 65, 3, 64, None, "proj"),
+    # The other head widths: the serve-like (2, 1025, 768 / d, d), and a
+    # masked case in the RoPE or the strided layout (T = 300: a last key tile
+    # of 44 keys at 128 a tile, 44 at 64 and 12 at 32).
+    *[case for d in INT8_WIDTHS for case in (
+        (f"d{d}_serve", 2, 1025, 768 // d, d, None, "proj"),
+        (f"d{d}_masked", 3, 300, 2, d, "all" if d in (48, 128) else "random",
+         "rope" if d in (32, 96) else "strided"),
+    )],
+    # The synthetic trainer's 192-wide ViT/16 at 128 px with the DINO
+    # checkpoint's 4 heads of 48 (`phase_dino_d48`): its serve step (4
+    # cameras, T = 65) and `cli eval`'s batches of 16.
+    ("d48_twin_serve", 4, 65, 4, 48, None, "proj"),
+    ("d48_twin_eval", 16, 65, 4, 48, None, "proj"),
 ]
 INT8_SERVE = (4, 1025, 12, 64)  # the int8 serve step's attention: 4 views at 512 px
 INT8_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def _int8_operands(B: int, T: int, H: int, layout: str, seed: int, mask_kind=None,
-                   planted: bool = False, dtype=torch.bfloat16):
-    """(B, T, H, 64) q, k, v of `dtype` on the card in `layout` and a mask.
+                   planted: bool = False, dtype=torch.bfloat16, d: int = 64):
+    """(B, T, H, d) q, k, v of `dtype` on the card in `layout` and a mask.
     Random: q, k ~ 2 N(0, 1), v ~ N(0, 1) (the CPU tests' scales). Planted:
     only channel 0 of q and k is nonzero, q in {0, +-512}, k in {+-1}, so
-    every logit is the row's max or 128 below it (e in {0, 1}, z an exact
-    count), and q = 0 rows are uniform."""
+    every logit is the row's max or far below it (e in {0, 1} but for a
+    subnormal e at d = 128 that rounds out of pq and z), and q = 0 rows are
+    uniform."""
     gen = torch.Generator().manual_seed(seed)
-    d = 64
     if planted:
         q, k = torch.zeros(B, T, H, d), torch.zeros(B, T, H, d)
         q[..., 0] = 512.0 * torch.randint(-1, 2, (B, T, H), generator=gen)
@@ -838,7 +872,7 @@ def _int8_operands(B: int, T: int, H: int, layout: str, seed: int, mask_kind=Non
 
 def _int8_bound(out: torch.Tensor, want: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
     """The CPU tests' bound: one value step sv of the channel, plus, for a
-    bf16 output, 2^-7 of |want| (its ulp); sv (B H, 64) -> (B, T, H, 64)."""
+    bf16 output, 2^-7 of |want| (its ulp); sv (B H, d) -> (B, T, H, d)."""
     B, T, H, d = want.shape
     step = sv.reshape(B, 1, H, d)
     if out.dtype == torch.float32:
@@ -865,106 +899,127 @@ def int8_attention_bound(B: int, T: int, H: int, d: int, dtype) -> dict:
     return with_exp_floor(bound(nbytes, ops), pairs)
 
 
-def phase_int8_attention() -> dict:
-    """The fused int8 attention on the card against its plain versions, and
-    the values' quantization kernel against its own, bf16 and f32. Per
-    INT8_CASES shape and dtype: vt and sv of `int8_quantize_v_cuda` equal
+def int8_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind, layout: str,
+              dname: str) -> float:
+    """One INT8_CASES case in one dtype -> the kernel's largest gap from the
+    plain version: vt and sv of `int8_quantize_v_cuda` equal
     `quantize_v_plain`'s; the fused kernel (f32: its pre-pass and kernel) on
     those values within `_int8_bound` of `int8_attention_reference` (the
-    non-bit-equal outputs counted), and the whole `int8_prob_attention`
-    (quantization + kernel) of `int8_prob_attention_reference`; planted rows
-    (e in {0, 1}) bit-equal; two calls bit-identical. Then, at INT8_SERVE in
-    each dtype, CUDA-graph replays of the whole function in turns
-    plain/fused/fused/plain, each kernel alone against its plain version,
-    and SDPA in the same dtype (a near relative: float probabilities)."""
-    max_err = {name: 0.0 for name in INT8_DTYPES}  # the kernels'; the quantized values equal
-    for dname, dtype in INT8_DTYPES.items():
-        for i, (name, B, T, H, mask_kind, layout) in enumerate(INT8_CASES):
-            q, k, v, mask = _int8_operands(B, T, H, layout, seed=100 + i, mask_kind=mask_kind,
-                                           dtype=dtype)
-            Tp = int8_attention._fused_tp(T)
-            runs = [int8_attention.int8_quantize_v_cuda(v) for _ in range(2)]
-            vt, sv = runs[0]
-            outs = [int8_attention.int8_attention_cuda(q, k, vt, sv, mask) for _ in range(2)]
-            whole = int8_attention.int8_prob_attention(q, k, v, mask)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(*runs)) and torch.equal(*outs),
-                  f"int8 {dname} {name}: two calls on the same inputs differ")
-            vt_ref, sv_ref = int8_attention.quantize_v_plain(v, Tp)
-            check(torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref),
-                  f"int8 {dname} {name}: {int((vt != vt_ref).sum())} quantized values and "
-                  f"{int((sv != sv_ref).sum())} scales differ from the plain version")
-            vq, _ = int8_attention.quantize_v_reference(v)
-            want = int8_attention.int8_attention_reference(q, k, vq, sv, mask)
-            want_whole = int8_attention.int8_prob_attention_reference(q, k, v, mask)
-            out = outs[0]
-            check(out.dtype == dtype and out.shape == (B, T, H, 64) and
-                  bool(torch.isfinite(out).all()), f"int8 {dname} {name}: output {out.dtype} "
-                                                   f"{out.shape}")
-            gap = (out.float() - want.float()).abs()
-            gap_whole = (whole.float() - want_whole.float()).abs()
-            bound_ = _int8_bound(out, want, sv)
-            check(bool((gap <= bound_).all()) and bool((gap_whole <= bound_).all()),
-                  f"int8 {dname} {name}: {float((gap / bound_).max())} and "
-                  f"{float((gap_whole / bound_).max())} of the bound from the plain version")
-            differ = int((out != want).sum())
-            max_err[dname] = max(max_err[dname], float(gap.max()))
-            print(f"fused int8 attention vs plain [{dname} {name} (B, T, H, d) = {(B, T, H, 64)} "
-                  f"mask {mask_kind}, {layout}]: quantized values and scales equal; kernel on them "
-                  f"max abs err {float(gap.max()):.4g} ({float((gap / bound_).max()):.3f} of the "
-                  f"bound), {differ} of {out.numel()} outputs not bit-equal; whole function max "
-                  f"abs err {float(gap_whole.max()):.4g}; two calls bit-identical")
-            q, k, v, mask = _int8_operands(B, T, H, layout, seed=200 + i, mask_kind=mask_kind,
-                                           planted=True, dtype=dtype)
-            vt, sv = int8_attention.int8_quantize_v_cuda(v)
-            out = int8_attention.int8_attention_cuda(q, k, vt, sv, mask)
-            torch.cuda.synchronize()
-            want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
-            check(torch.equal(out, want), f"int8 {dname} {name} planted: "
-                                          f"{int((out != want).sum())} outputs differ from the "
-                                          f"plain version")
-            print(f"fused int8 attention planted rows [{dname} {name}]: bit-equal to the plain "
-                  f"version")
-            del q, k, v, vt, sv, out, outs, want, want_whole, whole
+    non-bit-equal outputs counted), the whole `int8_prob_attention`
+    (quantization + kernel) of `int8_prob_attention_reference`; planted
+    rows bit-equal; two calls bit-identical."""
+    dtype = INT8_DTYPES[dname]
+    shape = (B, T, H, d)
+    q, k, v, mask = _int8_operands(B, T, H, layout, seed=100 + i, mask_kind=mask_kind,
+                                   dtype=dtype, d=d)
+    Tp = int8_attention._fused_tp(T)
+    runs = [int8_attention.int8_quantize_v_cuda(v) for _ in range(2)]
+    vt, sv = runs[0]
+    outs = [int8_attention.int8_attention_cuda(q, k, vt, sv, mask) for _ in range(2)]
+    whole = int8_attention.int8_prob_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)) and torch.equal(*outs),
+          f"int8 {dname} {name}: two calls on the same inputs differ")
+    vt_ref, sv_ref = int8_attention.quantize_v_plain(v, Tp)
+    check(torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref),
+          f"int8 {dname} {name}: {int((vt != vt_ref).sum())} quantized values and "
+          f"{int((sv != sv_ref).sum())} scales differ from the plain version")
+    vq, _ = int8_attention.quantize_v_reference(v)
+    want = int8_attention.int8_attention_reference(q, k, vq, sv, mask)
+    want_whole = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+    out = outs[0]
+    check(out.dtype == dtype and out.shape == shape and bool(torch.isfinite(out).all()),
+          f"int8 {dname} {name}: output {out.dtype} {out.shape}")
+    gap = (out.float() - want.float()).abs()
+    gap_whole = (whole.float() - want_whole.float()).abs()
+    bound_ = _int8_bound(out, want, sv)
+    check(bool((gap <= bound_).all()) and bool((gap_whole <= bound_).all()),
+          f"int8 {dname} {name}: {float((gap / bound_).max())} and "
+          f"{float((gap_whole / bound_).max())} of the bound from the plain version")
+    differ = int((out != want).sum())
+    print(f"fused int8 attention vs plain [{dname} {name} (B, T, H, d) = {shape} mask "
+          f"{mask_kind}, {layout}]: quantized values and scales equal; kernel on them max abs "
+          f"err {float(gap.max()):.4g} ({float((gap / bound_).max()):.3f} of the bound), "
+          f"{differ} of {out.numel()} outputs not bit-equal; whole function max abs err "
+          f"{float(gap_whole.max()):.4g}; two calls bit-identical")
+    q, k, v, mask = _int8_operands(B, T, H, layout, seed=200 + i, mask_kind=mask_kind,
+                                   planted=True, dtype=dtype, d=d)
+    vt, sv = int8_attention.int8_quantize_v_cuda(v)
+    out = int8_attention.int8_attention_cuda(q, k, vt, sv, mask)
+    torch.cuda.synchronize()
+    want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+    check(torch.equal(out, want), f"int8 {dname} {name} planted: "
+                                  f"{int((out != want).sum())} outputs differ from the plain "
+                                  f"version")
+    print(f"fused int8 attention planted rows [{dname} {name}]: bit-equal to the plain version")
+    return float(gap.max())
+
+
+def int8_times(B: int, T: int, H: int, d: int, dname: str, timer) -> tuple:
+    """At (B, T, H, d) in one dtype, CUDA-graph replays: the whole function
+    in turns plain/fused/fused/plain, each kernel alone against its plain
+    version, and SDPA in the same dtype (a near relative: float
+    probabilities) -> (the kernel's entry, the values' quantization's)."""
+    dtype = INT8_DTYPES[dname]
+    q, k, v, _ = _int8_operands(B, T, H, "proj", seed=300, dtype=dtype, d=d)
+    Tp = int8_attention._fused_tp(T)
+    vt, sv = int8_attention.int8_quantize_v_cuda(v)
+    vq, _ = int8_attention.quantize_v_reference(v)
+    fused, plain = _in_turns(
+        timer, lambda: int8_attention.int8_prob_attention_reference(q, k, v),
+        lambda: int8_attention.int8_prob_attention(q, k, v))
+    kernel, kernel_plain = _in_turns(
+        timer, lambda: int8_attention.int8_attention_reference(q, k, vq, sv),
+        lambda: int8_attention.int8_attention_cuda(q, k, vt, sv))
+    quant, quant_plain = _in_turns(timer, lambda: int8_attention.quantize_v_plain(v, Tp),
+                                   lambda: int8_attention.int8_quantize_v_cuda(v))
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+    kb = int8_attention_bound(B, T, H, d, dtype)
+    qb = bound(v.element_size() * v.numel() + vt.numel() + 4 * sv.numel())
+    alone = "fused kernel alone" if dtype == torch.bfloat16 else "pre-pass + fused kernel"
+    print(f"int8 attention {(B, T, H, d)} {dname}, ms per call, CUDA-graph replay, in turns "
+          f"plain/fused/fused/plain: whole function fused {fused:.4f}, plain {plain:.4f}; "
+          f"{alone} {kernel:.4f} (plain {kernel_plain:.4f}), bound {fmt_bound(kb)} (ex2 at "
+          f"{exp_per_s():.4g}/s), at {kb['bound_ms'] / kernel:.3f} of it; values' quantization "
+          f"kernel {quant:.4f} (plain {quant_plain:.4f}, bound {qb['bound_ms']:.4f}), "
+          f"{100 * quant / fused:.1f} % of the fused route; SDPA {dname} (float probabilities, "
+          f"a near relative) {sdpa:.4f}")
+    entry = {"ms": kernel, "plain_ms": kernel_plain, "bound_ms": kb["bound_ms"],
+             "bound_by": kb["bound_by"], "library_ms": None, "fused_route_ms": fused,
+             "plain_route_ms": plain, "sdpa_ms": sdpa}
+    return entry, {"ms": quant, "plain_ms": quant_plain, **qb}
+
+
+def phase_int8_attention() -> dict:
+    """The fused int8 attention on the card against its plain versions, and
+    the values' quantization kernel against its own, bf16 and f32, every
+    INT8_CASES case (`int8_case`, every head width). Then, at INT8_SERVE in
+    each dtype and at the serve-like (2, 1025, 768 / d, d) of each other
+    width (under "widths" and "f32_widths"), `int8_times`."""
+    max_err = {name: {} for name in INT8_DTYPES}  # by width; the quantized values equal
+    for dname in INT8_DTYPES:
+        for i, (name, B, T, H, d, mask_kind, layout) in enumerate(INT8_CASES):
+            gap = int8_case(i, name, B, T, H, d, mask_kind, layout, dname)
+            max_err[dname][d] = max(max_err[dname].get(d, 0.0), gap)
 
     def timer(fn):
         return graph_ms(fn, iters=5, samples=20)
 
     result = {}
-    B, T, H, d = INT8_SERVE
-    for dname, dtype in INT8_DTYPES.items():
-        q, k, v, _ = _int8_operands(B, T, H, "proj", seed=300, dtype=dtype)
-        Tp = int8_attention._fused_tp(T)
-        vt, sv = int8_attention.int8_quantize_v_cuda(v)
-        vq, _ = int8_attention.quantize_v_reference(v)
-        fused, plain = _in_turns(
-            timer, lambda: int8_attention.int8_prob_attention_reference(q, k, v),
-            lambda: int8_attention.int8_prob_attention(q, k, v))
-        kernel, kernel_plain = _in_turns(
-            timer, lambda: int8_attention.int8_attention_reference(q, k, vq, sv),
-            lambda: int8_attention.int8_attention_cuda(q, k, vt, sv))
-        quant, quant_plain = _in_turns(timer, lambda: int8_attention.quantize_v_plain(v, Tp),
-                                       lambda: int8_attention.int8_quantize_v_cuda(v))
-        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
-        kb = int8_attention_bound(B, T, H, d, dtype)
-        qb = bound(v.element_size() * v.numel() + vt.numel() + 4 * sv.numel())
-        kname = "int8_attention" if dtype == torch.bfloat16 else "int8_attention_f32"
-        alone = "fused kernel alone" if dtype == torch.bfloat16 else "pre-pass + fused kernel"
-        print(f"int8 attention {INT8_SERVE} {dname}, ms per call, CUDA-graph replay, in turns "
-              f"plain/fused/fused/plain: whole function fused {fused:.4f}, plain {plain:.4f}; "
-              f"{alone} {kernel:.4f} (plain {kernel_plain:.4f}), bound {fmt_bound(kb)} (ex2 at "
-              f"{exp_per_s():.4g}/s); values' quantization kernel {quant:.4f} (plain "
-              f"{quant_plain:.4f}, bound {qb['bound_ms']:.4f}), {100 * quant / fused:.1f} % of "
-              f"the fused route; SDPA {dname} (float probabilities, a near relative) {sdpa:.4f}")
-        result[kname] = {"max_abs_err": max_err[dname], "ms": kernel, "plain_ms": kernel_plain,
-                         "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
-                         "library_ms": None, "fused_route_ms": fused, "plain_route_ms": plain,
-                         "sdpa_ms": sdpa}
-        result.setdefault("int8_quantize_v", {"max_abs_err": 0.0, "ms": quant,
-                                              "plain_ms": quant_plain, **qb, "library_ms": None})
-        result["int8_quantize_v"][f"{dname}_ms"] = quant
-        del q, k, v, vt, sv, vq
+    for dname in INT8_DTYPES:
+        kname = "int8_attention" if dname == "bf16" else "int8_attention_f32"
+        entry, quant = int8_times(*INT8_SERVE, dname, timer)
+        result[kname] = {"max_abs_err": max_err[dname][64], **entry}
+        result.setdefault("int8_quantize_v", {"max_abs_err": 0.0, **quant, "library_ms": None})
+        result["int8_quantize_v"][f"{dname}_ms"] = quant["ms"]
+        widths = {}
+        for d in INT8_WIDTHS:
+            entry, quant = int8_times(2, 1025, 768 // d, d, dname, timer)
+            widths[str(d)] = {"shape": [2, 1025, 768 // d, d], "max_abs_err": max_err[dname][d],
+                              **entry, "quantize_v_ms": quant["ms"],
+                              "quantize_v_bound_ms": quant["bound_ms"]}
+        result[kname]["widths" if dname == "bf16" else "f32_widths"] = widths
     return result
 
 
@@ -1762,6 +1817,7 @@ def _reset_launches() -> None:
         if module is not attention:
             setattr(module, counter, 0)
     attention.route_launches.clear()
+    int8_attention.width_launches.clear()
 
 
 def _read_launches() -> dict:
@@ -2107,9 +2163,11 @@ def phase_replay() -> None:
             print(f"serve --replay-dir with cv2: {stats.ticks} ticks from 4 PNG frames")
 
 
-def _serve(argv: list, label: str, kernels: list, seconds: float = SERVE_SECONDS) -> dict:
+def _serve(argv: list, label: str, kernels: list, seconds: float = SERVE_SECONDS,
+           outputs: tuple = ((4, 8, 2), (4, 8), (1, 7))) -> dict:
     """`cli serve` through the CLI's parser for `seconds` -> every kernel's
-    launches in that run."""
+    launches in that run; `outputs` the shapes of a tick's keypoints,
+    confidences and angles (the serve default's: 4 cameras, J = 8, A = 7)."""
     args = build_parser().parse_args(["serve", "--views", "4", "--duration", str(seconds),
                                       *argv])
     _reset_launches()
@@ -2119,7 +2177,7 @@ def _serve(argv: list, label: str, kernels: list, seconds: float = SERVE_SECONDS
     pose = "--recover-pose" in argv
     check(len(last) == (6 if pose else 3), f"{label}: serve returned {len(last)} outputs")
     xy, conf, ang = last[:3]
-    check(xy.shape == (4, 8, 2) and conf.shape == (4, 8) and ang.shape == (1, 7),
+    check((xy.shape, conf.shape, ang.shape) == tuple(outputs),
           f"{label}: serve output shapes {xy.shape}, {conf.shape}, {ang.shape}")
     if pose:  # per-camera rvec, tvec and a boolean success, as the reference's infer
         rvec, tvec, success = last[3:]
@@ -2864,8 +2922,11 @@ def fr3_ransac_dlt(device: str = "cuda") -> torch.Tensor:
 
 
 # The geometric3d head's DLT, (B J, 2V, 4): a serve tick (fr3, J = 8, 4
-# views, B = 1) and a trainer batch (fr5, J = 7, 3 views, B = 16).
-TRI_GROUPS = [("tri_serve", "fr3", 1, 4), ("tri_trainer", "fr5", 16, 3)]
+# views, B = 1), a trainer batch (fr5, J = 7, 3 views, B = 16) and `cli
+# eval`'s FR3 batches on 8 view slots (J = 8, B = 8: (16, 4) systems, the
+# kernel's <N = 4, W = 16>).
+TRI_GROUPS = [("tri_serve", "fr3", 1, 4), ("tri_trainer", "fr5", 16, 3),
+              ("tri_eval_8v", "fr3", 8, 8)]
 TRI_TOL = 1e-3  # m, the triangulated points where 2 or more views weigh
 
 
@@ -3776,6 +3837,8 @@ _REFINED = EVAL_KEYS[22:25]
 EVAL_KEY_SETS = {
     # FR3 multi-view (calibrated extrinsics, no camera-frame keypoints).
     "multi_view": (EVAL_KEYS[:9] + ["pose_success_rate"], EVAL_KEYS[:14]),
+    # A single-view fr5 set (calibrated extrinsics): no triangulation.
+    "single_view": (EVAL_KEYS[:9] + ["pose_success_rate"], EVAL_KEYS[:9] + EVAL_KEYS[11:14]),
     "multi_view_refine": (EVAL_KEYS[:9] + ["pose_success_rate", *_REFINED],
                           EVAL_KEYS[:14] + _REFINED),
     # DREAM (the GT pose by alignment, the _gt_angles variant) with --refine-pose.
@@ -3823,12 +3886,12 @@ def _instrumented_eval(log: dict):
 
 @contextlib.contextmanager
 def _int8_shapes(seen: set):
-    """Record the (B, T, H) of each int8 attention and the (M, Din, Dout) of
-    each int8 product a `cli eval` forward runs."""
+    """Record the (B, T, H, d) of each int8 attention and the (M, Din, Dout)
+    of each int8 product a `cli eval` forward runs."""
     real_attn, real_mm = vit_module.int8_prob_attention, quantize_module.int8_matmul
 
     def attention(q, k, v, key_mask=None):
-        seen.add(("int8_attention", *q.shape[:3]))
+        seen.add(("int8_attention", *q.shape))
         return real_attn(q, k, v, key_mask=key_mask)
 
     def matmul(x, kernel_q, scale, bias, out_dtype):
@@ -3885,7 +3948,7 @@ def _cli_eval_run(argv: list, label: str, keys: str | None, layers: int = 0,
           f"cli eval [{label}]: {log['batches']} preprocessed batches, launches {launches}")
     check(log["plain_renders"] == 0, f"cli eval [{label}]: the plain render ran")
     check((launches["small_svd"] > 0) == pose, f"cli eval [{label}]: SVD launches {launches}")
-    held = ({("int8_attention", B, T, H) for _, B, T, H, _, _ in INT8_CASES}
+    held = ({("int8_attention", B, T, H, d) for _, B, T, H, d, _, _ in INT8_CASES}
             | {("int8_matmul", M, din, dout) for _, M, din, dout in INT8_MM_CASES})
     check(bool(shapes) == (layers > 0) and shapes <= held,
           f"cli eval [{label}]: int8 shapes not held against the plain version: "
@@ -3974,6 +4037,116 @@ def phase_cli_eval_small(device: dict) -> dict:
     return launches
 
 
+# The DINO checkpoint's path at d = 48 (`phase_dino_d48`): the synthetic
+# trainer's single-view fr5 model at 128 px (192 wide, 4 layers, 4 heads of
+# 48, LayerScale) with runs/synth_sv_frozen/dino_192x4.npz grafted and frozen.
+DINO_192X4 = ROOT / "runs" / "synth_sv_frozen" / "dino_192x4.npz"
+DINO_STEPS = 20
+DINO_SERVE_SECONDS = 4.0
+DINO_LAYERS = 4
+# A tick of the single-view fr5 run served on 4 cameras: keypoints,
+# confidences and the cameras' mean angles.
+DINO_SERVE_OUTPUTS = ((4, 7, 2), (4, 7), (1, 6))
+DINO_SERVE_KERNELS = ["peak_decode", "int8_quantize_v", "int8_matmul", "int8_quantize_rows"]
+
+
+def phase_dino_d48(device: dict) -> dict:
+    """The int8 attention at d = 48 end to end, from the DINO checkpoint:
+      * `scripts/torch_train_synthetic.py --freeze-backbone --backbone-ckpt
+        runs/synth_sv_frozen/dino_192x4.npz` for DINO_STEPS steps on the card
+        (bf16): finite losses, a frozen backbone's drift of exactly 0, the
+        run directory it writes (best_params.npz from `export_jax_params`
+        beside model_config.json, the reference's layouts) with 4 heads of 48;
+      * `cli serve --params RUN/best_params.npz --int8-backbone
+        --int8-attention` on that directory (bf16) and on a copy whose
+        model_config.json says float32: per tick 4 launches of the fused int8
+        attention at d = 48 ("fused", then "fused_f32": the width counters),
+        its values' quantization, the int8 GEMMs and row quantizations;
+      * `cli eval --single-view --int8-backbone --int8-attention` of the run
+        on a small fr5 set of `scripts/torch_make_mixed_synthetic.py`: the
+        report's keys, finite values, the int8 attention at d = 48 at shapes
+        phase_int8_attention holds;
+      * `cli train --backbone-ckpt` of the same file into `cli train`'s
+        192-wide, 4-layer ViT (3 heads of 64, as the reference's CLI
+        reshapes it) on that set: at least one step, finite losses.
+    -> launches."""
+    launches: dict = {}
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        work = Path(work)
+        run = work / "dino_run"
+        _reset_launches()
+        final = _script("torch_train_synthetic").main(
+            ["--freeze-backbone", "--backbone-ckpt", str(DINO_192X4), "--steps", str(DINO_STEPS),
+             "--batch", "16", "--image-size", "128", "--eval-every", str(DINO_STEPS),
+             "--eval-batches", "1", "--workdir", str(run)])
+        trained = _read_launches()
+        records = [json.loads(line) for line in
+                   (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+        check(final["frozen_backbone_max_drift"] == 0.0 and final["backbone_ckpt"]
+              == str(DINO_192X4) and all(np.isfinite(r["loss"]) for r in records),
+              f"DINO trainer: {final}, {records}")
+        # The render a batch; the SVD kernel in its closing pose evaluation.
+        check(trained["heatmap_render"] > 0 and trained["small_svd"] > 0 and
+              sum(trained.values()) == trained["heatmap_render"] + trained["small_svd"],
+              f"DINO trainer: launches {trained}")
+        _add_launches(launches, trained)
+        cfg, size, kind = cli_main.read_model_config(run / "best_params.npz")
+        check(kind == "single_view" and size == 128 and cfg.vit.num_heads == 4
+              and cfg.vit.hidden_size == 192 and cfg.vit.layerscale_init == 1e-5,
+              f"DINO run directory: {kind}, {size}, {cfg.vit}")
+        print(f"DINO trainer: {DINO_STEPS} steps, graft of {DINO_192X4.name} frozen (drift "
+              f"{final['frozen_backbone_max_drift']}), losses {[r['loss'] for r in records]}; "
+              f"{trained['heatmap_render']} render launches; run directory {kind}, {cfg.vit}")
+        run_f32 = work / "dino_run_f32"
+        with np.load(run / "best_params.npz") as data:
+            flat = {k: data[k] for k in data.files}
+        write_run_dir(run_f32, dataclasses.replace(
+            cfg, vit=dataclasses.replace(cfg.vit, dtype="float32")), size, flat, kind)
+        for label, r, route, kname in (("bf16", run, "fused", "int8_attention"),
+                                       ("f32", run_f32, "fused_f32", "int8_attention_f32")):
+            got = _serve(["--params", str(r / "best_params.npz"), "--int8-backbone",
+                          "--int8-attention"], f"DINO d = 48, int8 + int8 attention, {label}",
+                         [*DINO_SERVE_KERNELS, kname], DINO_SERVE_SECONDS, DINO_SERVE_OUTPUTS)
+            at48 = int8_attention.width_launches[route, 48]
+            check(at48 == got[kname] == DINO_LAYERS * got["peak_decode"] > 0,
+                  f"DINO serve {label}: {at48} {route} launches at d = 48 of {got[kname]}, "
+                  f"{got['peak_decode']} ticks")
+            print(f"DINO serve [{label}]: {at48} launches of {kname} at d = 48 in "
+                  f"{got['peak_decode']} ticks ({DINO_LAYERS} a tick)")
+            _add_launches(launches, got)
+        fr5 = work / "fr5"
+        check(_script("torch_make_mixed_synthetic").main(
+            ["--out-dir", str(fr5), "--robots", "fr5", "--n-samples", "20", "--image-hw", "128",
+             "128"]) == 0, "fr5 generator")
+        data = ["--robot", "fr5", "--single-view", "--csv", str(fr5 / "fr5.csv"), "--calib-dir",
+                str(fr5 / "calib"), "--aruco-summary", str(fr5 / "fr5_aruco_pose_summary.json"),
+                "--image-hw", "128", "128", "--device", "cuda"]
+        got = _cli_eval_run([*data, "--params", str(run / "best_params.npz"), "--batch-size",
+                             "16", "--int8-backbone", "--int8-attention"],
+                            "DINO d = 48, fr5, int8 + int8 attention", "single_view",
+                            layers=DINO_LAYERS)
+        at48 = int8_attention.width_launches["fused", 48]
+        check(at48 == got["int8_attention"] > 0,
+              f"DINO eval: {at48} launches at d = 48 of {got['int8_attention']}")
+        _add_launches(launches, got)
+        cli_run = work / "cli_run"
+        got, _ = _cli_train_run([*data, "--workdir", str(cli_run), "--epochs", "1",
+                                 "--batch-size", "8", "--model-size", "128", "--hidden-size",
+                                 "192", "--num-layers", "4", "--backbone-ckpt", str(DINO_192X4)],
+                                "cli train --backbone-ckpt, 3 heads of 64")
+        records = [json.loads(line) for line in
+                   (cli_run / "logs" / "metrics.jsonl").read_text().splitlines()]
+        check(records and records[-1]["step"] >= 1 and np.isfinite(records[-1]["loss"]),
+              f"cli train --backbone-ckpt: {records}")
+        print(f"cli train --backbone-ckpt: {records[-1]['step']} steps, loss "
+              f"{records[-1]['loss']:.4f}, val loss {records[-1]['val_loss']:.4f}")
+        _add_launches(launches, got)
+    print(f"DINO d = 48 path [{device['nvidia_smi']}]: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU")
@@ -4039,9 +4212,14 @@ def main() -> int:
     launches["small_svd"] += geometric["small_svd"]
     captured = phase_cli_train(device)
     _add_launches(captured, phase_cli_eval_small(device))
+    dino = phase_dino_d48(device)  # every int8 attention of it at d = 48
+    _add_launches(captured, dino)
     for name in ("heatmap_render", "peak_decode", "small_svd", "int8_matmul",
-                 "int8_quantize_rows", "int8_attention", "int8_quantize_v"):
+                 "int8_quantize_rows", "int8_attention", "int8_attention_f32", "int8_quantize_v"):
         launches[name] += captured.get(name, 0)
+    for name, widths in (("int8_attention", "widths"), ("int8_attention_f32", "f32_widths")):
+        for d, entry in measured[name][widths].items():
+            entry["launches"] = dino[name] if d == "48" else 0  # no main path runs the others
     train_768 = phase_train_768()
     train_768_f32 = phase_train_768(UNFROZEN_768_F32, TRAIN_768_F32_GROUPS)
     phase_fusion()

@@ -14,9 +14,11 @@ resize, augmentation, normalization, the GT render on the card's kernel) ->
 best_params.npz beside model_config.json, so `serve --params` reads the
 run; checkpoints to resume from). `--robot a,b` trains one single-view model
 on several robots (`data/mixed.py`: batches padded to the widest robot, every
-robot's angles in radians). It runs on the card in bf16 unless `--device cpu`
-(f32). `--num-workers` > 0 (one robot), `--backbone-ckpt`, `--mesh` and
-`--wandb` exit naming their ROADMAP.md item.
+robot's angles in radians). `--backbone-ckpt` grafts a DINO checkpoint
+(timm, HF DINOv2 or DINOv3 naming; `.pth`, `.pt`, `.bin` or `.npz`) into
+the backbone before training (`models/dino_convert.py`). It runs on the
+card in bf16 unless `--device cpu` (f32). `--num-workers` > 0 (one robot),
+`--mesh` and `--wandb` exit naming their ROADMAP.md item.
 
 `eval` (`cli/eval.py`) is the port of the reference's `cli eval`, for one
 robot and for a mixed-robot checkpoint.
@@ -85,6 +87,7 @@ from mvropose_torch.models import (
     SingleViewPoseEstimator,
     ViTConfig,
 )
+from mvropose_torch.models.dino_convert import graft_backbone_ckpt
 from mvropose_torch.models.heads import resize_bilinear
 from mvropose_torch.models.vit import device_constant
 from mvropose_torch.pose import PoseDraws, recover_pose_batch
@@ -614,8 +617,6 @@ UNPORTED_TRAIN_FLAGS = (
     (lambda a: a.num_workers > 0 and "," not in a.robot,
      "--num-workers > 0 (the grain loader's worker processes, data/grain_loader.py; 0 loads "
      "in-process)", "queue 1, item 12"),
-    (lambda a: a.backbone_ckpt is not None, "--backbone-ckpt (models/dino_convert.py)",
-     "queue 1, item 11"),
     (lambda a: a.mesh is not None, "--mesh (multi-device training)", "queue 1, item 10"),
     (lambda a: a.wandb, "--wandb (the metrics go to logs/metrics.jsonl)", "queue 1, item 12"),
 )
@@ -805,6 +806,12 @@ def train(args):
     except ValueError as e:  # a single-view geometric3d model, as the reference
         raise SystemExit(f"{kind}: {e}") from e
     model.load_state_dict(flax_init_state(model, seed=0))
+    if args.backbone_ckpt:
+        try:
+            graft_backbone_ckpt(model.backbone, args.backbone_ckpt)
+        except (KeyError, ValueError) as e:  # a config the checkpoint does not fit
+            raise SystemExit(str(e)) from e
+        print(f"loaded backbone weights from {args.backbone_ckpt}")
     write_model_config(args.workdir, cfg, args.model_size, kind)
 
     tcfg = TrainConfig(
@@ -994,8 +1001,9 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--single-view", action="store_true")
     pt.add_argument("--no-augment", action="store_true")
     pt.add_argument("--fk-loss-weight", type=float, default=0.0)
-    pt.add_argument("--backbone-ckpt", default=None, help="not ported yet (ROADMAP.md queue 1, "
-                                                          "item 11)")
+    pt.add_argument("--backbone-ckpt", default=None,
+                    help="graft a DINO checkpoint (.pth/.pt/.bin or .npz, timm or HF naming) "
+                         "into the backbone before training")
     pt.add_argument("--no-freeze-backbone", action="store_true",
                     help="train the backbone too (default: frozen)")
     pt.add_argument("--angle-head", choices=["query", "geometric", "geometric3d"],

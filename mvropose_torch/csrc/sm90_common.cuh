@@ -2,7 +2,8 @@
 // and TMA: csrc/flash_attention.cu (the flash forward, dK/dV and dQ at every
 // head width, bf16 and f16), csrc/flash_attention_tf32.cu (the f32 flash
 // forward, dK/dV and dQ on split-TF32 products), csrc/int8_attention.cu
-// (int8-probability attention, d = 64) and csrc/int8_gemm.cu (the int8 GEMM).
+// (int8-probability attention at every head width) and csrc/int8_gemm.cu (the
+// int8 GEMM).
 //
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on a
 //     phase parity) for the rings that one producer warp fills with TMA, and

@@ -8,53 +8,65 @@ channel, an exact integer P@V, and the softmax's 1/Z folded into the dequant.
 
 Routes (`int8_route`), one rule:
   * CPU operands: the plain version (`int8_prob_attention_reference`);
-  * CUDA bf16 at d = 64 (every int8 serve step): "fused", the two kernels of
-    `csrc/int8_attention.cu`: `int8_quantize_v_cuda` quantizes the values,
+  * CUDA bf16 at a head width of `HEAD_DIMS` (32, 48, 64, 96, 128; every
+    int8 serve step): "fused", the two kernels of `csrc/int8_attention.cu`,
+    instantiated per width: `int8_quantize_v_cuda` quantizes the values,
     `int8_attention_cuda` does the rest in one pass over the queries (the
     logits, exponents and probabilities never reach device memory);
-  * CUDA f32 at d = 64 (an f32 backbone's int8 serve step): "fused_f32", the
-    same two kernels instantiated for f32, the logits on split-TF32 wgmma
-    after a pre-pass that splits q and k, and pass 2 at the reference's f32
-    rounding points;
+  * CUDA f32 at those widths (an f32 backbone's int8 serve step):
+    "fused_f32", the same two kernels instantiated for f32, the logits on
+    split-TF32 wgmma after a pre-pass that splits q and k, and pass 2 at
+    the reference's f32 rounding points;
   * anything else on CUDA raises. No route falls back to another.
+The kernels scale q by 1/sqrt(d) rounded to q's dtype (`sm_scale`), in q's
+dtype, before the product, as the reference does.
 The sources' notes say what bounds each kernel.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
 
 from mvropose_torch.ops._build import current_stream, device_context, load_library
+from mvropose_torch.ops.attention import HEAD_DIMS, mask_bytes
 from mvropose_torch.ops.attention import _kernel_layout as _operand_layout
-from mvropose_torch.ops.attention import mask_bytes
 
 # Kernel launches: the fused attention kernel for bf16 (`int8_attention_cuda`)
 # and for f32 (its pre-pass and kernel, one entry point), and the values'
-# quantization (`int8_quantize_v_cuda`, both types).
+# quantization (`int8_quantize_v_cuda`, both types); `width_launches` the
+# same attention launches by (route, head width).
 launches_fused = 0
 launches_fused_f32 = 0
 quantize_v_launches = 0
+width_launches: collections.Counter = collections.Counter()
 
-HEAD_DIM = 64  # the kernels' one head width (every ViT the repo configures)
-FUSED_KEY_TILE = 128  # the fused kernel streams tiles of 128 keys
+FUSED_KEY_TILE = 128  # the values' keys are padded to a multiple of 128 (Tp)
 _FUSED_ROUTES = {torch.bfloat16: "fused", torch.float32: "fused_f32"}
 
 
 def int8_route(device_type: str, dtype: torch.dtype, d: int) -> str:
     """The route of operands on this device type, of this dtype and head
     width: "plain" on the CPU; on CUDA "fused" for bf16 and "fused_f32" for
-    f32 at d = 64; raises for any other."""
+    f32 at every d of `HEAD_DIMS`; raises for any other."""
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":
         raise ValueError(f"int8_prob_attention runs on the CPU or on CUDA, got {device_type}")
-    if d != HEAD_DIM or dtype not in _FUSED_ROUTES:
-        raise ValueError(f"the int8 attention kernels take bf16 or f32 operands of head width "
-                         f"{HEAD_DIM}, got {dtype} at d = {d}")
+    if d not in HEAD_DIMS or dtype not in _FUSED_ROUTES:
+        raise ValueError(f"the int8 attention kernels take bf16 or f32 operands of a head width "
+                         f"in {HEAD_DIMS}, got {dtype} at d = {d}")
     return _FUSED_ROUTES[dtype]
+
+
+@functools.cache
+def sm_scale(d: int, dtype: torch.dtype) -> float:
+    """The reference's 1/sqrt(d) as it multiplies q: a weakly typed Python
+    float, so rounded to q's dtype first (1/8 at d = 64 in every dtype)."""
+    return torch.tensor(1.0 / d**0.5, dtype=dtype).item()
 
 
 # ----------------------------------------------------------- plain versions
@@ -125,10 +137,8 @@ def _probabilities(q, k, key_mask):
     by step in q's dtype: -> (pq (B H, T, T) int8, z (B H, T) f32)."""
     B, T, H, d = q.shape
     qh, kh = q.transpose(1, 2), k.transpose(1, 2)  # (B, H, T, d) views
-    # q * 1/sqrt(d) in q's dtype: the reference's weakly typed scale is
-    # rounded to that dtype first.
-    sm_scale = torch.tensor(1.0 / d**0.5, dtype=q.dtype).item()
-    logits = (qh * sm_scale) @ kh.transpose(-2, -1)  # (B, H, T, T) in q's dtype
+    # q * 1/sqrt(d) in q's dtype, the scale rounded to that dtype first.
+    logits = (qh * sm_scale(d, q.dtype)) @ kh.transpose(-2, -1)  # (B, H, T, T) in q's dtype
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask[:, None, None, :], torch.finfo(logits.dtype).min)
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))  # in [0, 1], q's dtype
@@ -164,12 +174,12 @@ def _kernels():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     quantize, fused = lib.int8_quantize_v, lib.int8_attention_sm90
     fused_f32 = lib.int8_attention_f32_sm90
-    quantize.argtypes = [ptr] + [i32] * 3 + [ptr] * 3 + [i32, i32, ptr]
-    fused.argtypes = [ptr] * 6 + [i32] * 4 + [ptr, ptr]
-    fused_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr, ptr, ptr]
+    quantize.argtypes = [ptr] + [i32] * 4 + [ptr] * 3 + [i32, i32, ptr]
+    fused.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, ctypes.c_float, ptr]
+    fused_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, ctypes.c_float, ptr, ptr]
     for fn in (quantize, fused, fused_f32):
         fn.restype = ctypes.c_int
-    lib.int8_attention_f32_scratch.argtypes = [i32] * 3
+    lib.int8_attention_f32_scratch.argtypes = [i32] * 4
     lib.int8_attention_f32_scratch.restype = ctypes.c_int64
     return quantize, fused, fused_f32, lib.int8_attention_f32_scratch
 
@@ -190,9 +200,9 @@ def _check_fused(name: str, t: torch.Tensor, like) -> None:
     if t.dtype not in _FUSED_ROUTES:
         raise ValueError(f"the fused int8 attention takes bf16 or f32 operands, got {name} "
                          f"{t.dtype}")
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the fused int8 attention takes (B, T, H, {HEAD_DIM}) operands, got "
-                         f"{name} of shape {tuple(t.shape)}")
+    if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the fused int8 attention takes (B, T, H, d) operands with a head "
+                         f"width d in {HEAD_DIMS}, got {name} of shape {tuple(t.shape)}")
     if like is not None and (t.shape != like.shape or t.dtype != like.dtype):
         raise ValueError(f"q, k, v must share one (B, T, H, d) shape and dtype, got {name} "
                          f"{tuple(t.shape)} {t.dtype} beside {tuple(like.shape)} {like.dtype}")
@@ -208,9 +218,9 @@ def _check_fused(name: str, t: torch.Tensor, like) -> None:
 
 
 def int8_quantize_v_cuda(v):
-    """Launch the values' quantization on a CUDA bf16 or f32 (B, T, H, 64) v,
-    read through its strides -> (vt (B H, 64, Tp) int8 in
-    `fused_values_layout`, Tp = T rounded up to 128, sv (B H, 64) f32)."""
+    """Launch the values' quantization on a CUDA bf16 or f32 (B, T, H, d) v
+    (d in `HEAD_DIMS`), read through its strides -> (vt (B H, d, Tp) int8 in
+    `fused_values_layout`, Tp = T rounded up to 128, sv (B H, d) f32)."""
     global quantize_v_launches
     _check_fused("v", v, None)
     B, T, H, d = v.shape
@@ -221,19 +231,19 @@ def int8_quantize_v_cuda(v):
         dev = v.get_device()
         with device_context(dev):
             strides = (ctypes.c_int64 * 3)(*v.stride()[:3])
-            err = _kernels()[0](v.data_ptr(), B, H, T, strides, vt.data_ptr(), sv.data_ptr(), Tp,
-                                int(v.dtype == torch.float32), current_stream(dev))
+            err = _kernels()[0](v.data_ptr(), B, H, T, d, strides, vt.data_ptr(), sv.data_ptr(),
+                                Tp, int(v.dtype == torch.float32), current_stream(dev))
         _raise_on(err, "int8_quantize_v")
         quantize_v_launches += 1
     return vt, sv
 
 
 def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
-    """Launch the fused kernel: CUDA bf16 or f32 (B, T, H, 64) q, k read
-    through their strides, the values as `int8_quantize_v_cuda` gives them,
-    an optional (B, T) bool key mask -> (B, T, H, 64) in q's dtype,
-    contiguous. f32 launches the pre-pass and the kernel, on a scratch
-    buffer of q and k split into TF32 parts."""
+    """Launch the fused kernel: CUDA bf16 or f32 (B, T, H, d) q, k (d in
+    `HEAD_DIMS`) read through their strides, the values as
+    `int8_quantize_v_cuda` gives them, an optional (B, T) bool key mask ->
+    (B, T, H, d) in q's dtype, contiguous. f32 launches the pre-pass and the
+    kernel, on a scratch buffer of q scaled and k split into TF32 parts."""
     global launches_fused, launches_fused_f32
     _check_fused("q", q, None)
     _check_fused("k", k, q)
@@ -257,9 +267,11 @@ def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
         with device_context(dev):
             strides = (ctypes.c_int64 * 6)(*q.stride()[:3], *k.stride()[:3])
             args = (q.data_ptr(), k.data_ptr(), None if mask_u8 is None else mask_u8.data_ptr(),
-                    vt.data_ptr(), sv.data_ptr(), out.data_ptr(), B, H, T, Tp, strides)
+                    vt.data_ptr(), sv.data_ptr(), out.data_ptr(), B, H, T, d, Tp, strides,
+                    sm_scale(d, q.dtype))
             if f32:
-                scratch = torch.empty(scratch_size(B, H, Tp), dtype=torch.float32, device=q.device)
+                scratch = torch.empty(scratch_size(B, H, Tp, d), dtype=torch.float32,
+                                      device=q.device)
                 err = fused_f32(*args, scratch.data_ptr(), current_stream(dev))
             else:
                 err = fused(*args, current_stream(dev))
@@ -268,6 +280,7 @@ def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
             launches_fused_f32 += 1
         else:
             launches_fused += 1
+        width_launches[_FUSED_ROUTES[q.dtype], d] += 1
     return out
 
 

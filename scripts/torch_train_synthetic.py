@@ -12,7 +12,13 @@ adds the FK-consistency term), and writes `logs/metrics.jsonl` and
 errors included (RANSAC PnP per view on the refined decode, against the
 rig's true extrinsics, with the predicted and with the true angles). The
 backbone is a small ViT trained from flax-style random init unless
---freeze-backbone.
+--freeze-backbone; --backbone-ckpt grafts a DINO checkpoint into it first
+(`models/dino_convert.py`; the model then has LayerScale, as DINO does), and
+a frozen graft's drift (0 by construction) goes into final_metrics.json.
+The final weights go to `best_params.npz` beside `model_config.json` (the
+reference's layouts), so `cli serve --params` and `cli eval --params` read
+the run; --int8-eval also scores them under the reference's
+`--int8-backbone --int8-attention` on the same held-out batches.
 
 On a CUDA GPU compute runs in bf16, as the reference on an accelerator; with
 --cpu it runs in f32 on the CPU. Without --cpu and without a GPU it exits.
@@ -22,6 +28,8 @@ Usage:
   python scripts/torch_train_synthetic.py --mode single --steps 1500 --workdir runs/torch_synth_sv
   python scripts/torch_train_synthetic.py --mode multi --steps 4000 --batch 16 \\
       --workdir runs/torch_synth_mv
+  python scripts/torch_train_synthetic.py --steps 8000 --batch 64 --freeze-backbone \\
+      --backbone-ckpt runs/synth_sv_frozen/dino_192x4.npz --int8-eval --workdir RUN
 """
 
 from __future__ import annotations
@@ -48,12 +56,14 @@ from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.geometry.heatmap import argmax_decode
 from mvropose_torch.geometry.robots import forward_kinematics, get_robot
 from mvropose_torch.geometry.triangulation import projection_matrix, triangulate_keypoints
+from mvropose_torch.cli.main import write_run_dir
 from mvropose_torch.models import (
     EstimatorConfig,
     MultiViewPoseEstimator,
     SingleViewPoseEstimator,
     ViTConfig,
 )
+from mvropose_torch.models.dino_convert import graft_backbone_ckpt
 from mvropose_torch.pose import PoseDraws, recover_pose_batch
 from mvropose_torch.train import (
     TrainConfig,
@@ -68,7 +78,7 @@ from mvropose_torch.train import (
     pose_translation_err_m,
 )
 from mvropose_torch.utils.metrics_writer import MetricWriter
-from mvropose_torch.utils.weights import flax_init_state
+from mvropose_torch.utils.weights import export_jax_params, flax_init_state, int8ify
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fk-loss-weight", type=float, default=0.0)
     p.add_argument("--freeze-backbone", action="store_true",
                    help="frozen backbone, heads-only optimization")
-    p.add_argument("--backbone-ckpt", default=None)
+    p.add_argument("--backbone-ckpt", default=None,
+                   help="graft a DINO checkpoint (.npz/.pth, timm or HF naming) into the "
+                        "backbone before training")
     p.add_argument("--render", choices=("blob", "link"), default="blob")
     p.add_argument("--views", type=int, default=3)
     p.add_argument("--image-size", type=int, default=128)
@@ -94,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--workdir", default="runs/synth_sv")
     p.add_argument("--cpu", action="store_true", help="run on the CPU in f32")
+    p.add_argument("--int8-eval", action="store_true",
+                   help="also score the final weights with an int8 backbone and the int8 "
+                        "attention (the reference's --int8-backbone --int8-attention)")
     return p
 
 
@@ -101,8 +116,6 @@ def check_ported(args) -> None:
     """Exit, naming the ROADMAP item, for every flag value not ported yet."""
     unported = [
         (args.render == "link", "--render link", "queue 1, item 11: link rendering"),
-        (args.backbone_ckpt is not None, "--backbone-ckpt",
-         "queue 1, item 11: models/dino_convert.py"),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -132,11 +145,13 @@ def check_flags(args, robot) -> None:
 
 
 def build_model(mode: str, robot, image_size: int, dtype: str, n_views: int,
-                freeze_backbone: bool, angle_head: str, device):
-    """The reference script's model: a 4-layer 192-wide ViT/16 under the
-    single- or multi-view estimator."""
+                freeze_backbone: bool, angle_head: str, device, with_layerscale: bool = False):
+    """The reference script's model: a 4-layer 192-wide ViT/16 (4 heads of
+    48) under the single- or multi-view estimator; LayerScale where a DINO
+    checkpoint is grafted, whose blocks carry it."""
     vit = ViTConfig(image_size=image_size, patch_size=16, hidden_size=192, num_layers=4,
-                    num_heads=4, layerscale_init=None, dtype=dtype)
+                    num_heads=4, layerscale_init=1e-5 if with_layerscale else None,
+                    dtype=dtype)
     cfg = EstimatorConfig(
         vit=vit, num_joints=robot.n_keypoints, num_angles=robot.n_joints,
         heatmap_size=(image_size // 2, image_size // 2), max_views=max(4, n_views),
@@ -238,8 +253,11 @@ def main(argv=None) -> dict:
         pool = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
     model = build_model(args.mode, robot, size, dtype, V, args.freeze_backbone, args.angle_head,
-                        device)
+                        device, with_layerscale=args.backbone_ckpt is not None)
     model.load_state_dict(flax_init_state(model, seed=1))
+    if args.backbone_ckpt:
+        graft_backbone_ckpt(model.backbone, args.backbone_ckpt)
+        print(f"grafted backbone weights from {args.backbone_ckpt}", flush=True)
     tcfg = TrainConfig(num_epochs=1, steps_per_epoch=args.steps, lr_kpt=args.lr,
                        lr_ang=args.lr_ang if args.lr_ang is not None else args.lr,
                        loss_weight_kpt=100.0, loss_weight_fk=args.fk_loss_weight,
@@ -332,12 +350,15 @@ def main(argv=None) -> dict:
             res.append((xy - gt).reshape(-1, xy.shape[-2], 2).cpu().numpy())
     np.save(workdir / "decode_residuals.npy", np.concatenate(res))
 
-    pe = pose_eval(model, robot, eval_batches, rig_arrs, size, use_gt_angles=False)
-    pe_gt = pose_eval(model, robot, eval_batches, rig_arrs, size, use_gt_angles=True)
-    final.update(pose_rot_err_deg=pe["rot_err_deg"], pose_trans_err_m=pe["trans_err_m"],
-                 pose_success_rate=pe["success_rate"],
-                 pose_rot_err_deg_gt_angles=pe_gt["rot_err_deg"],
-                 pose_trans_err_m_gt_angles=pe_gt["trans_err_m"])
+    def pose_metrics() -> dict:
+        pe = pose_eval(model, robot, eval_batches, rig_arrs, size, use_gt_angles=False)
+        pe_gt = pose_eval(model, robot, eval_batches, rig_arrs, size, use_gt_angles=True)
+        return dict(pose_rot_err_deg=pe["rot_err_deg"], pose_trans_err_m=pe["trans_err_m"],
+                    pose_success_rate=pe["success_rate"],
+                    pose_rot_err_deg_gt_angles=pe_gt["rot_err_deg"],
+                    pose_trans_err_m_gt_angles=pe_gt["trans_err_m"])
+
+    final.update(pose_metrics())
 
     if pool is not None:
         n_pool = min(args.eval_batches, args.dataset_size // args.batch)
@@ -354,6 +375,17 @@ def main(argv=None) -> dict:
         wall_s=round(wall, 1), train_samples_per_sec=round(samples / wall, 1), held_out=True,
     )
     writer.close()
+    write_run_dir(workdir, model.cfg, size, export_jax_params(model),
+                  "single_view" if single else "multi_view")
+    if args.int8_eval:
+        # The reference's --int8-backbone --int8-attention on the final
+        # weights (in place: the float model is not used after this), and
+        # each scalar's gap from the float score.
+        int8ify(model, attn=True)
+        q = {**run_eval(eval_batches), **pose_metrics()}
+        final["int8_backbone_attention"] = q
+        final["int8_gap"] = {k: v - final[k] for k, v in q.items()
+                             if isinstance(v, float) and isinstance(final.get(k), float)}
     (workdir / "final_metrics.json").write_text(json.dumps(final, indent=2))
     print("FINAL " + json.dumps(final), flush=True)
     return final

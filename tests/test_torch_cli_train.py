@@ -197,12 +197,15 @@ def test_fk_loss_weight_trains_single_view_and_refuses_what_the_reference_refuse
 
 
 # flag values that are not ported yet: (extra argv, the message's ROADMAP item);
-# mixed robots run since they were ported, and a mixed run with one --csv for
-# two robots exits as the reference's does.
+# mixed robots and --backbone-ckpt run since they were ported: a mixed run with
+# one --csv for two robots, and a DINO checkpoint whose grid the model size
+# does not fit, exit as the reference's do.
+DINO_192X4 = Path(__file__).resolve().parents[1] / "runs" / "synth_sv_frozen" / "dino_192x4.npz"
 UNPORTED = {
     "mixed_robots": (["--robot", "fr3,fr5"], "fr3,fr5 needs exactly 2 --csv files"),
     "num_workers": (["--num-workers", "2"], "grain loader.*queue 1, item 12"),
-    "backbone_ckpt": (["--backbone-ckpt", "dino.pth"], "dino_convert.*queue 1, item 11"),
+    "backbone_ckpt": (["--backbone-ckpt", str(DINO_192X4), "--hidden-size", "192"],
+                      r"backbone checkpoint shape mismatch at \['pos_embed'\]"),
     "mesh": (["--mesh", "2", "1"], "--mesh.*queue 1, item 10"),
     "wandb": (["--wandb"], "--wandb.*queue 1, item 12"),
 }
@@ -214,6 +217,33 @@ def test_cli_train_refuses_unported_flags(cap, tmp_path, name):
     with pytest.raises(SystemExit, match=message):
         main(train_argv(cap, tmp_path / "run", *extra))  # the last --robot wins
     assert not (tmp_path / "run").exists()
+
+
+def test_cli_train_grafts_a_dino_checkpoint(cap, tmp_path):
+    """--backbone-ckpt: a seeded timm checkpoint of the run's ViT (hidden 64,
+    one layer, LayerScale, the model size's 4 x 4 grid) grafted before
+    training; the backbone is frozen (the default), so the run's weights
+    hold the checkpoint's exactly (a drift of 0)."""
+    from mvropose_tpu.models.vit import ViTConfig as JaxVit
+    from mvropose_torch.models.dino_convert import convert_dino_state_dict
+    from mvropose_torch.utils.weights import load_jax_params
+    from test_dino_convert import make_timm_state_dict
+
+    sd = make_timm_state_dict(np.random.default_rng(5), JaxVit(
+        image_size=64, patch_size=16, hidden_size=64, num_layers=1, num_register_tokens=0))
+    del sd["reg_token"]
+    ckpt = tmp_path / "dino.pth"
+    torch.save({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}, ckpt)
+    run = tmp_path / "run"
+    assert main(train_argv(cap, run, "--backbone-ckpt", str(ckpt))) == 0
+    cfg, _, kind = read_model_config(run / "best_params.npz")
+    model = MultiViewPoseEstimator(cfg)
+    load_jax_params(model, run / "best_params.npz")
+    want = convert_dino_state_dict(sd, 1, 1, 64)
+    got = model.backbone.state_dict()
+    assert got.keys() == want.keys()
+    for name, t in got.items():
+        np.testing.assert_array_equal(t.numpy(), np.asarray(want[name], np.float32), err_msg=name)
 
 
 def test_cli_train_without_cv2_or_card_names_them(cap, tmp_path, monkeypatch):

@@ -12,6 +12,10 @@ Same numpy-seeded inputs in both packages. What is compared, and how closely:
     bound of `test_torch_int8.py::test_int8_prob_attention_matches_jax`),
     except in the few bf16 rows whose logits the two packages round apart
     (bound stated at the test);
+  * the other head widths (d = 32, 48, 96, 128) at T = 65, masked and not,
+    f32 and bf16: the same bound, with q scaled by 1/sqrt(d) rounded to q's
+    dtype (not a power of two there, so the scaled q rounds); planted rows
+    bit-equal at d = 48;
   * `int8_route`, the one routing rule; the wrappers' refusals;
   * the fused kernel's value layout: the plain `quantize_v_plain` holds the
     reference's quantized values in the key order that makes each thread's
@@ -52,14 +56,15 @@ def _both(arrays, jdt):
     return jax_arrays, [torch.from_numpy(np.array(np32(a))).to(TORCH[jdt]) for a in jax_arrays]
 
 
-def _planted(B, T, H, seed):
+def _planted(B, T, H, seed, d=64):
     """q, k nonzero in channel 0 only: q in {0, +-512}, k in {+-1}, so every
-    logit (q k / 8) is +-64 or 0: a row's max, or 128 below it."""
+    logit (q k / sqrt(d)) is 0 or +-512 s (+-64 at d = 64, +-74 at d = 48):
+    a row's max, or so far below it that its exponent is 0."""
     rng = np.random.default_rng(seed)
-    q, k = np.zeros((B, T, H, 64)), np.zeros((B, T, H, 64))
+    q, k = np.zeros((B, T, H, d)), np.zeros((B, T, H, d))
     q[..., 0] = 512.0 * rng.integers(-1, 2, size=(B, T, H))
     k[..., 0] = rng.choice([-1.0, 1.0], size=(B, T, H))
-    v = rng.normal(size=(B, T, H, 64))
+    v = rng.normal(size=(B, T, H, d))
     return q, k, v, rng
 
 
@@ -112,12 +117,67 @@ def test_serve_t_1025_matches_jax(dtype, masked):
     assert (gap <= bound).all(), (gap / bound).max()
 
 
+WIDTHS = (32, 48, 96, 128)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", WIDTHS)
+def test_other_widths_match_jax(d, dtype, masked):
+    """B = 2, H = 3 at T = 65 (the 128-px ViT/16's token count) at each
+    other head width: the bound of `test_serve_t_1025_matches_jax`. The
+    scale 1/sqrt(d) is rounded to q's dtype and q * scale rounds in it, in
+    both packages (`int8_attention.sm_scale`); the rows whose bf16 logits
+    the two packages' f32 sums round apart get that test's wider bound."""
+    rng = np.random.default_rng(20 + d)
+    q, k, v = (s * rng.normal(size=(2, 65, 3, d)) for s in (2.0, 2.0, 1.0))
+    mask = rng.uniform(size=(2, 65)) > 0.3 if masked else None
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), DTYPES[dtype])
+    want = np32(jax_int8_attention(jq, jk, jv,
+                                   key_mask=None if mask is None else jnp.asarray(mask)))
+    got = int8_prob_attention(tq, tk, tv, key_mask=None if mask is None else torch.from_numpy(mask))
+    assert got.dtype == TORCH[DTYPES[dtype]] and got.shape == (2, 65, 3, d)
+    scale = int8_attention.sm_scale(d, TORCH[DTYPES[dtype]])
+    assert scale == float(jnp.asarray(1.0 / d**0.5, DTYPES[dtype]))
+    jax_logits = jnp.einsum("bqhd,bkhd->bhqk", jq * (1.0 / d**0.5), jk)
+    port_logits = (tq.transpose(1, 2) * scale) @ tk.permute(0, 2, 3, 1)
+    apart = (np32(jax_logits) != np32(port_logits)).any(-1).transpose(0, 2, 1)[..., None]
+    apart &= dtype == "bf16"
+    assert apart.mean() < 0.2, apart.mean()
+    step = (np.abs(np32(jv)).max(axis=1) / 127.0)[:, None]
+    ulp = np.exp2(np.floor(np.log2(np.abs(want) + 1e-30)) - 7) if dtype == "bf16" else 0.0
+    bound = np.where(apart, 8 * step + 0.125 * np.abs(want), step + ulp)
+    gap = np.abs(np32(got) - want)
+    assert (gap <= bound).all(), (gap / bound).max()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_planted_rows_equal_jax_bit_for_bit_at_d48(dtype):
+    """d = 48, the DINO checkpoint's 4 heads over 192 channels: scale
+    bf16(1/sqrt(48)) = 0.14453125 (f32: 0.14433756), so q * scale rounds in
+    q's dtype; planted logits 0 or +-74 (bf16) stay exact, and the port
+    equals the reference bit for bit, masked, with one batch element all
+    masked."""
+    q, k, v, rng = _planted(3, 65, 4, seed=21, d=48)
+    mask = rng.uniform(size=(3, 65)) > 0.3
+    mask[1] = False
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), DTYPES[dtype])
+    for m in (None, mask):
+        want = jax_int8_attention(jq, jk, jv, key_mask=None if m is None else jnp.asarray(m))
+        got = int8_prob_attention(tq, tk, tv, key_mask=None if m is None else torch.from_numpy(m))
+        np.testing.assert_array_equal(np32(got), np32(want))
+
+
 ROUTES = [
     ("cpu", torch.bfloat16, 64, "plain"),
     ("cpu", torch.float32, 64, "plain"),
     ("cpu", torch.float16, 48, "plain"),  # the plain version takes any dtype and width
+    ("cpu", torch.bfloat16, 80, "plain"),
     ("cuda", torch.bfloat16, 64, "fused"),  # every int8 serve step
     ("cuda", torch.float32, 64, "fused_f32"),  # the same kernels for f32: split-TF32 logits
+    # every other width of HEAD_DIMS, each instantiated in both types
+    *[("cuda", dtype, d, route) for d in (32, 48, 96, 128)
+      for dtype, route in ((torch.bfloat16, "fused"), (torch.float32, "fused_f32"))],
 ]
 
 
@@ -127,7 +187,7 @@ def test_int8_route(device, dtype, d, route):
 
 
 @pytest.mark.parametrize("device, dtype, d", [
-    ("cuda", torch.float16, 64), ("cuda", torch.bfloat16, 48), ("cuda", torch.float32, 48),
+    ("cuda", torch.float16, 64), ("cuda", torch.bfloat16, 80), ("cuda", torch.float32, 80),
     ("meta", torch.bfloat16, 64),
 ])
 def test_int8_route_raises_for_what_no_kernel_takes(device, dtype, d):
@@ -152,11 +212,12 @@ def test_cpu_operands_take_the_plain_version_and_launch_nothing():
 @pytest.mark.parametrize("make, match", [
     (lambda: torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16), "CUDA tensors"),
     (lambda: torch.zeros(1, 5, 2, 64, dtype=torch.float16), "bf16 or f32"),
-    (lambda: torch.zeros(1, 5, 2, 48, dtype=torch.bfloat16), "64"),
+    (lambda: torch.zeros(1, 5, 2, 80, dtype=torch.bfloat16), "head width"),
 ])
 def test_fused_entry_points_refuse(make, match):
     """The kernels' wrappers raise on CPU tensors (bf16 or f32), another
-    dtype or another head width: they never fall back to the plain version."""
+    dtype or a head width outside HEAD_DIMS: they never fall back to the
+    plain version."""
     x = make()
     with pytest.raises(ValueError, match=match):
         int8_attention.int8_quantize_v_cuda(x)
@@ -292,8 +353,8 @@ def test_fused_kernel_matches_plain_on_card(cuda_device, T, masked):
     assert bool(((got[0].float() - want).abs() <= bound).all())
 
 
-def _planted_on(device, B, T, H, seed, masked, dtype):
-    q, k, v, rng = _planted(B, T, H, seed)
+def _planted_on(device, B, T, H, seed, masked, dtype, d=64):
+    q, k, v, rng = _planted(B, T, H, seed, d)
     mask = None
     if masked:
         mask = torch.from_numpy(rng.uniform(size=(B, T)) > 0.3).to(device)
@@ -326,6 +387,40 @@ def test_fused_f32_kernel_matches_plain_on_card(cuda_device, T, masked):
     step = sv.reshape(2, 1, 4, 64)
     assert bool(((got[0] - want).abs() <= step).all())
     q, k, v, mask = _planted_on(cuda_device, 3, T, 2, seed=18, masked=masked, dtype=torch.float32)
+    got = int8_prob_attention(q, k, v, mask)
+    want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("T", [65, 1025])
+def test_fused_kernels_at_every_width_on_card(cuda_device, T, d, dtype):
+    """The other head widths on the card, bf16 and f32, masked: the values'
+    quantization equal to its plain version; the whole route within one
+    value step (plus a bf16 ulp in bf16) of the plain route, the launch
+    counted under its width; planted operands bit-equal."""
+    gen = torch.Generator().manual_seed(22)
+    H = 768 // d
+    q, k, v = (s * torch.randn(2, T, H, d, generator=gen) for s in (2.0, 2.0, 1.0))
+    q, k, v = (t.to(cuda_device, dtype) for t in (q, k, v))
+    mask = (torch.rand(2, T, generator=gen) > 0.3).to(cuda_device)
+    route = "fused" if dtype == torch.bfloat16 else "fused_f32"
+    before = int8_attention.width_launches[route, d]
+    got = int8_prob_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert int8_attention.width_launches[route, d] == before + 1
+    vt, sv = int8_attention.int8_quantize_v_cuda(v)
+    vt_ref, sv_ref = quantize_v_plain(v, int8_attention._fused_tp(T))
+    assert torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref)
+    want = int8_attention.int8_prob_attention_reference(q, k, v, mask).float()
+    bound = sv.reshape(2, 1, H, d).expand(2, T, H, d)
+    if dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
+    assert bool(((got.float() - want).abs() <= bound).all())
+    q, k, v, mask = _planted_on(cuda_device, 2, T, 3, seed=23, masked=True, dtype=dtype, d=d)
     got = int8_prob_attention(q, k, v, mask)
     want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
     torch.cuda.synchronize()

@@ -311,9 +311,10 @@ def test_camera_functions_match_jax():
 # ------------------------------------------------------------ the SVD kernel
 
 # The tick's shapes: the DLT (2N, 12), the plane fit (N, 3), the homography
-# (2N, 9), the rotation projection (3, 3), N = 8 (fr3) and 7; and the
-# kernel's largest.
-SVD_SHAPES = [(16, 12), (14, 12), (8, 3), (7, 3), (16, 9), (14, 9), (3, 3), (32, 16)]
+# (2N, 9), the rotation projection (3, 3), N = 8 (fr3) and 7; the
+# geometric3d head's triangulation on cli eval's 8 views, (2V, 4) with V = 8
+# (W = 16 lanes a matrix for 4 columns); and the kernel's largest.
+SVD_SHAPES = [(16, 12), (14, 12), (8, 3), (7, 3), (16, 9), (14, 9), (3, 3), (16, 4), (32, 16)]
 
 
 def _svd_inputs(m: int, n: int, seed: int) -> np.ndarray:

@@ -12,6 +12,7 @@ operations in another order).
 """
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -312,3 +313,31 @@ def test_trainer_refuses_flag_values_that_cannot_train(argv, message, tmp_path):
     with pytest.raises(SystemExit, match=message):
         _trainer().main([*argv, "--cpu", "--workdir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+def test_trainer_grafts_the_dino_checkpoint_frozen(tmp_path):
+    """--backbone-ckpt runs/synth_sv_frozen/dino_192x4.npz --freeze-backbone
+    (the reference's runs/synth_sv_frozen at toy length): the model has
+    LayerScale and the checkpoint's 4 heads of 48; after the steps the
+    backbone drifted by exactly 0, in final_metrics.json and in the run's
+    best_params.npz (the reference's layout, beside model_config.json);
+    --int8-eval scores the same weights with the int8 backbone and attention."""
+    from mvropose_torch.cli.main import read_model_config
+    from mvropose_torch.models.dino_convert import convert_dino_state_dict, load_torch_checkpoint
+
+    ckpt = Path(__file__).resolve().parents[1] / "runs" / "synth_sv_frozen" / "dino_192x4.npz"
+    final = _trainer().main(["--freeze-backbone", "--backbone-ckpt", str(ckpt), "--int8-eval",
+                             "--cpu", "--steps", "2", "--batch", "2", "--image-size", "128",
+                             "--eval-every", "2", "--eval-batches", "1", "--workdir",
+                             str(tmp_path)])
+    assert final["frozen_backbone"] and final["frozen_backbone_max_drift"] == 0.0
+    assert final["backbone_ckpt"] == str(ckpt) and final["params_m"] == 5.612  # the reference's
+    assert set(final["int8_gap"]) >= {"pck5", "angle_mae", "add_m"}
+    cfg, size, kind = read_model_config(tmp_path / "best_params.npz")
+    assert (kind, size, cfg.vit.num_heads, cfg.vit.layerscale_init) == ("single_view", 128, 4,
+                                                                         1e-5)
+    model = SingleViewPoseEstimator(cfg)
+    load_jax_params(model, tmp_path / "best_params.npz")
+    want = convert_dino_state_dict(load_torch_checkpoint(ckpt), 4, 4, 192)
+    for name, t in model.backbone.state_dict().items():
+        np.testing.assert_array_equal(t.numpy(), want[name], err_msg=name)

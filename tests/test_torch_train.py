@@ -613,7 +613,7 @@ def test_pose_eval_matches_the_reference_script(monkeypatch):
 
 @pytest.mark.parametrize("argv, item", [
     (["--mode", "multi", "--render", "link"], "item 11"),
-    (["--mode", "multi", "--backbone-ckpt", "x.npz"], "item 11"),
+    (["--mode", "single", "--render", "link"], "item 11"),
 ])
 def test_trainer_rejects_unported_flags(argv, item, tmp_path):
     """The trainer's flag values left to port (the single-view mode, the

@@ -342,9 +342,9 @@ KERNELS = {
                                 "mvropose_tpu/models/quantize.py:37"),
     # int8_prob_attention whole (logits to the dequantized P V), bf16 and f32
     # (its pre-pass and kernel), and its values' quantization (both types).
-    "int8_attention": (int8_attention, "launches_fused", "mvropose_torch/csrc/int8_attention.cu",
+    "int8_attention": (int8_attention, "fused", "mvropose_torch/csrc/int8_attention.cu",
                        "mvropose_tpu/ops/attention.py:29"),
-    "int8_attention_f32": (int8_attention, "launches_fused_f32",
+    "int8_attention_f32": (int8_attention, "fused_f32",
                            "mvropose_torch/csrc/int8_attention.cu",
                            "mvropose_tpu/ops/attention.py:29"),
     "int8_quantize_v": (int8_attention, "quantize_v_launches",
@@ -881,21 +881,20 @@ def _int8_bound(out: torch.Tensor, want: torch.Tensor, sv: torch.Tensor) -> torc
     return step + torch.exp2(torch.floor(torch.log2(w.clamp_min(1e-30))) - 7)
 
 
-def int8_attention_bound(B: int, T: int, H: int, d: int, dtype) -> dict:
-    """The least time of the int8 attention at (B, T, H, d): bf16, one QK^T
-    (bf16) and one P V (int8), 2 B H T^2 d operations each, q, k, the int8
-    values and their scales read once and O written once; f32, the logits
-    as three TF32 products in each of the kernel's two passes and the int8
-    P V, q, k, v read once, O written once and the pre-pass's four split
-    parts of q and k written once; both with the B H T^2 exponentials."""
+def int8_attention_bound(B: int, T: int, H: int, d: int, dtype, passes: int = 1) -> dict:
+    """The least time of the int8 attention at (B, T, H, d): the logits
+    QK^T once (bf16; f32 as three TF32 products, the split that holds f32's
+    rounding) and the int8 P V, 2 B H T^2 d operations a product; q and k
+    read once in their type, the int8 values and their scales read once, O
+    written once; with the B H T^2 exponentials' floor. `passes` = 2 counts
+    the logits' products twice, as the kernel computes them (its two passes
+    over the keys): a reading of the design, not of the function's work."""
     pairs, elems = B * H * T * T, B * T * H * d
-    if dtype == torch.float32:
-        ops = {"tf32": 2 * 3 * 2 * pairs * d, "int8": 2 * pairs * d}
-        nbytes = 4 * 4 * elems + 4 * 4 * elems
-    else:
-        Tp = int8_attention._fused_tp(T)
-        ops = {"bf16": 2 * pairs * d, "int8": 2 * pairs * d}
-        nbytes = 2 * 2 * elems + B * H * d * Tp + 4 * B * H * d + 2 * elems
+    f32 = dtype == torch.float32
+    ops = {"tf32" if f32 else "bf16": passes * (3 if f32 else 1) * 2 * pairs * d,
+           "int8": 2 * pairs * d}
+    nbytes = (3 * (4 if f32 else 2) * elems + B * H * d * int8_attention._fused_tp(T)
+              + 4 * B * H * d)
     return with_exp_floor(bound(nbytes, ops), pairs)
 
 
@@ -976,18 +975,20 @@ def int8_times(B: int, T: int, H: int, d: int, dname: str, timer) -> tuple:
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
     kb = int8_attention_bound(B, T, H, d, dtype)
+    design = int8_attention_bound(B, T, H, d, dtype, passes=2)["bound_ms"]
     qb = bound(v.element_size() * v.numel() + vt.numel() + 4 * sv.numel())
     alone = "fused kernel alone" if dtype == torch.bfloat16 else "pre-pass + fused kernel"
     print(f"int8 attention {(B, T, H, d)} {dname}, ms per call, CUDA-graph replay, in turns "
           f"plain/fused/fused/plain: whole function fused {fused:.4f}, plain {plain:.4f}; "
           f"{alone} {kernel:.4f} (plain {kernel_plain:.4f}), bound {fmt_bound(kb)} (ex2 at "
-          f"{exp_per_s():.4g}/s), at {kb['bound_ms'] / kernel:.3f} of it; values' quantization "
+          f"{exp_per_s():.4g}/s), at {kb['bound_ms'] / kernel:.3f} of it (the kernel's two "
+          f"passes of logits: {design:.4f}, at {design / kernel:.3f}); values' quantization "
           f"kernel {quant:.4f} (plain {quant_plain:.4f}, bound {qb['bound_ms']:.4f}), "
           f"{100 * quant / fused:.1f} % of the fused route; SDPA {dname} (float probabilities, "
           f"a near relative) {sdpa:.4f}")
     entry = {"ms": kernel, "plain_ms": kernel_plain, "bound_ms": kb["bound_ms"],
-             "bound_by": kb["bound_by"], "library_ms": None, "fused_route_ms": fused,
-             "plain_route_ms": plain, "sdpa_ms": sdpa}
+             "bound_by": kb["bound_by"], "two_pass_bound_ms": design, "library_ms": None,
+             "fused_route_ms": fused, "plain_route_ms": plain, "sdpa_ms": sdpa}
     return entry, {"ms": quant, "plain_ms": quant_plain, **qb}
 
 
@@ -1812,16 +1813,22 @@ def phase_flash_f16() -> dict:
     return result
 
 
+# The counters kept by route, each read as a sum: the flash kernels' parts
+# over their routes, the int8 attention's routes over the head widths.
+_ROUTED = {**{(attention, p): attention.part_launches for p in ("fwd", "dkv", "dq")},
+           **{(int8_attention, r): int8_attention.route_launches for r in ("fused", "fused_f32")}}
+
+
 def _reset_launches() -> None:
     for module, counter, _, _ in KERNELS.values():
-        if module is not attention:
+        if (module, counter) not in _ROUTED:
             setattr(module, counter, 0)
     attention.route_launches.clear()
     int8_attention.width_launches.clear()
 
 
 def _read_launches() -> dict:
-    return {name: attention.part_launches(counter) if module is attention
+    return {name: _ROUTED[module, counter](counter) if (module, counter) in _ROUTED
             else getattr(module, counter) for name, (module, counter, _, _) in KERNELS.items()}
 
 

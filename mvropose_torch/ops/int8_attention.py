@@ -35,17 +35,21 @@ from mvropose_torch.ops._build import current_stream, device_context, load_libra
 from mvropose_torch.ops.attention import HEAD_DIMS, mask_bytes
 from mvropose_torch.ops.attention import _kernel_layout as _operand_layout
 
-# Kernel launches: the fused attention kernel for bf16 (`int8_attention_cuda`)
-# and for f32 (its pre-pass and kernel, one entry point), and the values'
-# quantization (`int8_quantize_v_cuda`, both types); `width_launches` the
-# same attention launches by (route, head width).
-launches_fused = 0
-launches_fused_f32 = 0
-quantize_v_launches = 0
+# Kernel launches: the fused attention kernel (`int8_attention_cuda`) by
+# (route, head width), "fused" for bf16 and "fused_f32" for f32 (its pre-pass
+# and kernel, one entry point); the values' quantization
+# (`int8_quantize_v_cuda`, both types).
 width_launches: collections.Counter = collections.Counter()
+quantize_v_launches = 0
 
 FUSED_KEY_TILE = 128  # the values' keys are padded to a multiple of 128 (Tp)
 _FUSED_ROUTES = {torch.bfloat16: "fused", torch.float32: "fused_f32"}
+
+
+def route_launches(route: str) -> int:
+    """Launches of the fused kernel on `route` ("fused" or "fused_f32") over
+    every head width."""
+    return sum(n for (r, _), n in width_launches.items() if r == route)
 
 
 def int8_route(device_type: str, dtype: torch.dtype, d: int) -> str:
@@ -244,7 +248,6 @@ def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
     `int8_quantize_v_cuda` gives them, an optional (B, T) bool key mask ->
     (B, T, H, d) in q's dtype, contiguous. f32 launches the pre-pass and the
     kernel, on a scratch buffer of q scaled and k split into TF32 parts."""
-    global launches_fused, launches_fused_f32
     _check_fused("q", q, None)
     _check_fused("k", k, q)
     B, T, H, d = q.shape
@@ -276,10 +279,6 @@ def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
             else:
                 err = fused(*args, current_stream(dev))
         _raise_on(err, "int8_attention_f32" if f32 else "int8_attention")
-        if f32:
-            launches_fused_f32 += 1
-        else:
-            launches_fused += 1
         width_launches[_FUSED_ROUTES[q.dtype], d] += 1
     return out
 

@@ -1,7 +1,7 @@
 """The DREAM twin's gt-angle pose tail: does the port's `cli train` make it?
 
-`python scripts/torch_dream_gap.py [--work DIR] [--out FILE] [--n-train N]
-[--n-eval N] [--epochs E] [--batch B] [--seeds S ...]`
+`python scripts/torch_dream_gap.py` (no options: the sizes, seeds and
+paths are the module's constants)
 
 A CPU comparison of the two packages' `cli train`. The port runs in this
 process; the JAX package runs in subprocesses (its command line, `python
@@ -9,7 +9,7 @@ process; the JAX package runs in subprocesses (its command line, `python
 script imports none of it and runs only where both are installed. On the
 DREAM twin's data (the port's `scripts/torch_make_dream_synthetic.py` at
 --focal-scale 0.96, 128 x 128:
---n-train samples from seed 0, --n-eval held out from seed 77) and
+N_TRAIN samples from seed 0, N_EVAL held out from seed 77) and
 architecture (a 192-wide, 4-layer ViT/16 at 128 px, the query head, a
 frozen backbone, augmentation on), cut in samples and epochs to fit the CPU:
   1. the reference's initial weights: its `SingleViewPoseEstimator` from
@@ -17,24 +17,23 @@ frozen backbone, augmentation on), cut in samples and epochs to fit the CPU:
      command does (`model.init(jax.random.PRNGKey(0), zeros)`), saved by
      its `save_params_npz` (`REFERENCE_INIT`, run as `python -c` in a
      subprocess);
-  2. for each --seed, the reference's `cli train --robot dream
+  2. for each of SEEDS, the reference's `cli train --robot dream
      --single-view` and the port's with the same flags on the same CSV, the
      port starting from those weights (`utils/weights.py::load_jax_params`
      in place of its own seed-0 init), both loading in-process: the same
      data, split, shuffle order and batches; the dropout and augmentation
-     draws are each package's own, as --seed sets them;
+     draws are each package's own, as its --seed sets them;
   3. every checkpoint scored by one eval, the port's `cli eval` on the
      held-out set (`cli.eval.evaluate(..., frames=)` gives the per-frame
      rotation errors behind the gt-angle pose mean), so the run-to-run
      spread of each package stands beside the gap between them.
 It writes one JSON (per run: the report's keys, the gt-angle rotation
 errors' mean, median, p90, largest and count over 30 degrees; the gaps and
-spreads) to --out and prints it. The data and runs go under --work.
+spreads) to OUT and prints it. The data and runs go under WORK.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -49,6 +48,10 @@ sys.path.insert(0, str(ROOT))
 
 ARCH = ["--image-hw", "128", "128", "--model-size", "128", "--hidden-size", "192",
         "--num-layers", "4"]
+# The cut that fits the CPU: samples, epochs, batch and the seeds of the
+# run-to-run spread.
+N_TRAIN, N_EVAL, EPOCHS, BATCH, SEEDS = 960, 150, 30, 48, (0, 1)
+WORK, OUT = ROOT / "build" / "dream_gap", ROOT / "build" / "dream_gap.json"
 GT_KEY = "pose_rot_err_deg_gt_angles"
 REPORT_KEYS = ("pck@5.0px", "kp_px_err_mean", "angle_mae", "pose_rot_err_deg",
                GT_KEY, "pose_trans_err_m_gt_angles", "pose_success_rate")
@@ -126,38 +129,27 @@ def port_train(argv: list, init_path: Path):
         cli_main.flax_init_state = real
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--work", default=str(ROOT / "build" / "dream_gap"))
-    p.add_argument("--out", default=str(ROOT / "build" / "dream_gap.json"))
-    p.add_argument("--n-train", type=int, default=960)
-    p.add_argument("--n-eval", type=int, default=150)
-    p.add_argument("--epochs", type=int, default=30)
-    p.add_argument("--batch", type=int, default=48)
-    p.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
-    args = p.parse_args(argv)
-
+def main() -> int:
     from mvropose_torch.cli import eval as cli_eval
     from mvropose_torch.cli import main as cli_main
 
-    work = Path(args.work)
-    work.mkdir(parents=True, exist_ok=True)
+    WORK.mkdir(parents=True, exist_ok=True)
     gen = _script("torch_make_dream_synthetic")
-    for name, n, seed in (("train", args.n_train, 0), ("eval", args.n_eval, 77)):
-        if not (work / f"{name}.csv").exists():
-            gen.main(["--out-dir", str(work / name), "--n-samples", str(n), "--seed", str(seed),
+    for name, n, seed in (("train", N_TRAIN, 0), ("eval", N_EVAL, 77)):
+        if not (WORK / f"{name}.csv").exists():
+            gen.main(["--out-dir", str(WORK / name), "--n-samples", str(n), "--seed", str(seed),
                       "--image-hw", "128", "128", "--focal-scale", "0.96", "--device", "cpu"])
-            cli_main.main(["sync", "dream", "--base-dirs", str(work / name / "panda_synth"),
-                           "--out", str(work / f"{name}.csv"), "--strict"])
-    common = ["--robot", "dream", "--single-view", "--csv", str(work / "train.csv"),
-              "--dream-dirs", str(work / "train" / "panda_synth"), *ARCH, "--batch-size",
-              str(args.batch)]
-    init = work / "reference_init.npz"
+            cli_main.main(["sync", "dream", "--base-dirs", str(WORK / name / "panda_synth"),
+                           "--out", str(WORK / f"{name}.csv"), "--strict"])
+    common = ["--robot", "dream", "--single-view", "--csv", str(WORK / "train.csv"),
+              "--dream-dirs", str(WORK / "train" / "panda_synth"), *ARCH, "--batch-size",
+              str(BATCH)]
+    init = WORK / "reference_init.npz"
     runs = {}
-    for seed in args.seeds:
+    for seed in SEEDS:
         for package in ("reference", "port"):
-            run = work / f"{package}_seed{seed}"
-            argv = [*common, "--epochs", str(args.epochs), "--seed", str(seed), "--workdir",
+            run = WORK / f"{package}_seed{seed}"
+            argv = [*common, "--epochs", str(EPOCHS), "--seed", str(seed), "--workdir",
                     str(run)]
             t0 = time.perf_counter()
             if package == "reference":
@@ -168,8 +160,8 @@ def main(argv=None) -> int:
                 port_train(argv, init)
             frames: dict = {}
             report = cli_eval.evaluate(cli_main.build_parser().parse_args(
-                ["eval", "--robot", "dream", "--single-view", "--csv", str(work / "eval.csv"),
-                 "--dream-dirs", str(work / "eval" / "panda_synth"), "--params",
+                ["eval", "--robot", "dream", "--single-view", "--csv", str(WORK / "eval.csv"),
+                 "--dream-dirs", str(WORK / "eval" / "panda_synth"), "--params",
                  str(run / "best_params.npz"), "--image-hw", "128", "128", "--batch-size", "50",
                  "--device", "cpu"]), frames=frames)
             runs[f"{package}_seed{seed}"] = {
@@ -180,17 +172,17 @@ def main(argv=None) -> int:
                   flush=True)
     means = {k: v[GT_KEY] if v[GT_KEY] is not None else float("nan") for k, v in runs.items()}
     out = {
-        "setup": {"n_train": args.n_train, "n_eval": args.n_eval, "epochs": args.epochs,
-                  "batch": args.batch, "seeds": args.seeds, "arch": " ".join(ARCH),
+        "setup": {"n_train": N_TRAIN, "n_eval": N_EVAL, "epochs": EPOCHS, "batch": BATCH,
+                  "seeds": list(SEEDS), "arch": " ".join(ARCH),
                   "device": "cpu", "eval": "the port's cli eval on both checkpoints"},
         "runs": runs,
         "gap_port_minus_reference": {s: means[f"port_seed{s}"] - means[f"reference_seed{s}"]
-                                     for s in args.seeds},
-        "spread_between_seeds": {pkg: max(means[f"{pkg}_seed{s}"] for s in args.seeds)
-                                 - min(means[f"{pkg}_seed{s}"] for s in args.seeds)
+                                     for s in SEEDS},
+        "spread_between_seeds": {pkg: max(means[f"{pkg}_seed{s}"] for s in SEEDS)
+                                 - min(means[f"{pkg}_seed{s}"] for s in SEEDS)
                                  for pkg in ("reference", "port")},
     }
-    Path(args.out).write_text(json.dumps(out, indent=2))
+    OUT.write_text(json.dumps(out, indent=2))
     print(json.dumps(out, indent=2))
     return 0
 

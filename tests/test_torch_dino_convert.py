@@ -14,7 +14,7 @@ shapes of each scheme, saved in the formats the graft reads:
     the same weights: float heatmaps and angles within 1e-4, and under
     `--int8-backbone --int8-attention` (each package's int8ify on its own
     graft) heatmaps within 1e-3, the int8 estimator test's bound
-    (`test_torch_int8.py`), angles as stated at the test.
+    (`test_torch_int8.py`), angles within INT8_ANGLE_TOL (see the test).
 """
 
 import dataclasses
@@ -235,15 +235,24 @@ def test_dino_192x4_estimator_matches_jax(dino_estimators):
     np.testing.assert_allclose(np32(ang), np32(ang_ref), atol=1e-4, rtol=1e-4)
 
 
+# The int8 angles' bound: 1.2 x the largest gap between the packages over
+# six draws of images and heads (image seeds 9, 1, 2, 3, 4, 5 with head
+# seeds one above; the fixture's is the first): 2.06e-3, 1.77e-3, 1.50e-3,
+# 1.85e-3, 1.01e-3, 1.95e-3.
+INT8_ANGLE_TOL = 2.5e-3
+
+
 def test_dino_192x4_int8_estimator_matches_jax(dino_estimators):
     """`--int8-backbone --int8-attention` on the grafted estimator: the
     int8 attention at d = 48 in both packages (the plain version here).
-    Heatmaps within 1e-3. Angles within 1e-3 plus the reference's own int8
-    change of the angles: the packages' f32 sums differ in their last bits,
-    which now and then moves an activation across an int8 rounding boundary
-    in one and not the other, and the angle head reads every token of the
-    backbone, so such a step moves an angle by up to what the quantization
-    moves it (~2e-3 of ~4e-3 here)."""
+    Heatmaps within 1e-3. Angles (up to 1.56 here, 0.72 on average) within
+    INT8_ANGLE_TOL: the packages' f32 sums differ in their last bits, which
+    now and then moves an activation across an int8 rounding boundary in one
+    and not the other, and the angle head reads every token of the backbone,
+    so their gap (2.06e-3 here) is wider than the heatmaps' (3.1e-4). The
+    quantization's own change of the angles here (4.1e-3; 2.5e-3 to 7.5e-3
+    over the six draws) is asserted to exceed the bound, so a port whose
+    angles missed the int8 path would fail on this draw."""
     variables, (_, ang_float), port, images = dino_estimators
     qmodel, _, qvars = _int8ify(JaxSingleView, EST, variables, attn=True)
     hm_ref, ang_ref = jax.jit(qmodel.apply)(qvars, jnp.asarray(images))
@@ -252,5 +261,5 @@ def test_dino_192x4_int8_estimator_matches_jax(dino_estimators):
     with torch.no_grad():
         hm, ang = port(torch.from_numpy(images))
     np.testing.assert_allclose(np32(hm), np32(hm_ref), atol=1e-3, rtol=1e-3)
-    own = np.abs(np32(ang_ref) - np32(ang_float)).max()
-    np.testing.assert_allclose(np32(ang), np32(ang_ref), atol=1e-3 + own, rtol=0)
+    assert np.abs(np32(ang_ref) - np32(ang_float)).max() > INT8_ANGLE_TOL
+    np.testing.assert_allclose(np32(ang), np32(ang_ref), atol=INT8_ANGLE_TOL, rtol=0)

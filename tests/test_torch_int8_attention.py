@@ -196,8 +196,7 @@ def test_int8_route_raises_for_what_no_kernel_takes(device, dtype, d):
 
 
 def _counters():
-    return (int8_attention.launches_fused, int8_attention.launches_fused_f32,
-            int8_attention.quantize_v_launches)
+    return dict(int8_attention.width_launches), int8_attention.quantize_v_launches
 
 
 def test_cpu_operands_take_the_plain_version_and_launch_nothing():
@@ -375,10 +374,10 @@ def test_fused_f32_kernel_matches_plain_on_card(cuda_device, T, masked):
     q, k, v = (s * torch.randn(2, T, 4, 64, generator=gen) for s in (2.0, 2.0, 1.0))
     q, k, v = (t.to(cuda_device) for t in (q, k, v))
     mask = (torch.rand(2, T, generator=gen) > 0.3).to(cuda_device) if masked else None
-    before = int8_attention.launches_fused_f32
+    before = int8_attention.route_launches("fused_f32")
     got = [int8_prob_attention(q, k, v, mask) for _ in range(2)]
     torch.cuda.synchronize()
-    assert int8_attention.launches_fused_f32 == before + 2
+    assert int8_attention.route_launches("fused_f32") == before + 2
     assert got[0].dtype == torch.float32 and torch.equal(got[0], got[1])
     vt, sv = int8_attention.int8_quantize_v_cuda(v)
     vt_ref, sv_ref = quantize_v_plain(v, int8_attention._fused_tp(T))

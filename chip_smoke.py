@@ -234,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import ctypes
 import dataclasses
 import functools
 import importlib.util
@@ -1045,6 +1046,10 @@ INT8_MM_CASES = [
     ("m1", 1, 768, 768), ("m37_fc1", 37, 768, 3072), ("m37_fc2", 37, 3072, 768),
     ("m51_small", 51, 128, 128), ("m51_small_fc1", 51, 128, 512), ("m51_small_fc2", 51, 512, 128),
     *INT8_MM_EVAL,
+    # The GEMM's cluster schedule at its edges: 5 row tiles by 3 column tiles
+    # (an odd row tile left over, and an odd column in its pairs); the
+    # narrowest and widest operands the route takes.
+    ("odd_tiles", 519, 768, 576), ("k16_n8", 200, 16, 8), ("k4096_n4104", 300, 4096, 4104),
 ]
 
 
@@ -1130,6 +1135,58 @@ def host_costs() -> dict:
     return out
 
 
+class _CUgraphEdgeData(ctypes.Structure):
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+def gemm_graph_edges() -> dict:
+    """Whether a CUDA graph captured from the stream keeps the GEMM's
+    programmatic dependent launch: a block's six products (768 -> 768 four
+    times, fc1, fc2 at M = 4100, bf16) captured in one torch CUDA graph, its
+    edges read with the driver's cuGraphGetEdges_v2 (type 1: programmatic),
+    and the replayed outputs held bit-equal to the eager ones."""
+    cases = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    ops = [_int8_mm_operands(INT8_MM_ROWS, din, dout, torch.bfloat16, seed=900 + i)
+           for i, (din, dout) in enumerate(cases)]
+    pairs = [int8_matmul.int8_quantize_rows_cuda(x) for x, *_ in ops]
+
+    def block():
+        return [int8_matmul.int8_gemm_cuda(xq, sx, kq, scale, bias, torch.bfloat16)
+                for (xq, sx), (_, kq, scale, bias) in zip(pairs, ops)]
+
+    eager = block()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        captured = block()
+    driver = ctypes.CDLL("libcuda.so.1")
+    if not hasattr(driver, "cuGraphGetEdges_v2"):  # a driver before CUDA 12.3
+        print("int8 GEMM in a CUDA graph: the driver has no cuGraphGetEdges_v2; edges not read")
+        return {"edges": None}
+    get_edges = driver.cuGraphGetEdges_v2
+    get_edges.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    check(get_edges(raw, None, None, None, ctypes.byref(n)) == 0, "cuGraphGetEdges_v2 failed")
+    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    data = (_CUgraphEdgeData * n.value)()
+    check(get_edges(raw, src, dst, data, ctypes.byref(n)) == 0, "cuGraphGetEdges_v2 failed")
+    kinds = [(e.type, e.from_port) for e in data]
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    out = {"edges": len(kinds), "programmatic": sum(t == 1 for t, _ in kinds),
+           "edge_types_ports": kinds, "replay_bit_equal": equal}
+    print(f"int8 GEMM in a CUDA graph (a block's six products captured from the stream): "
+          f"{out['edges']} edges, {out['programmatic']} of them programmatic (type, port: "
+          f"{kinds}); replayed outputs bit-equal to the eager ones: {equal}")
+    check(equal, "int8 GEMM: a graph replay differs from the eager calls")
+    return out
+
+
 def phase_int8_matmul() -> dict:
     """The int8 matmul's two kernels on the card against the plain version
     (`quantize_rows`, `int8_gemm_reference`: `torch._int_mm` and the plain
@@ -1183,6 +1240,10 @@ def phase_int8_matmul() -> dict:
         return graph_ms(fn, iters=10, samples=20)
 
     host = host_costs()
+    clusters = int8_matmul.gemm_clusters()
+    print(f"int8 GEMM grid: at most {clusters} clusters of 2 blocks resident on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    edges = gemm_graph_edges()
     per, block = {}, {k: 0.0 for k in ("quantize", "quantize_plain", "gemm", "gemm_plain",
                                        "whole", "whole_plain", "int_mm")}
     work = {k: 0.0 for k in ("q_bytes", "g_bytes", "one_bytes", "ops", "int_mm_bytes")}
@@ -1212,6 +1273,13 @@ def phase_int8_matmul() -> dict:
                      "whole_bound": bound(w["q_bytes"] + w["g_bytes"], w["ops"],
                                           "int8")["bound_ms"],
                      "one_pass_bound": bound(w["one_bytes"], w["ops"], "int8")["bound_ms"]}
+        l2 = {"l2_bytes": int8_matmul.gemm_l2_bytes(M, din, dout),
+              "l2_bytes_unshared": int8_matmul.gemm_l2_bytes(M, din, dout, shared=False)}
+        per[name].update(l2)
+        print(f"int8 GEMM {name} ({M}, {din}) -> {dout}: operand bytes from L2 under the cluster "
+              f"schedule {l2['l2_bytes'] / 1e6:.2f} MB (each tile alone "
+              f"{l2['l2_bytes_unshared'] / 1e6:.2f} MB; a design reading), beside the bound "
+              f"{1e3 * per[name]['gemm_bound']:.2f} us")
         print(f"int8 matmul {name} ({M}, {din}) -> {dout} bf16, us per call, CUDA-graph replay "
               f"in turns plain/kernel/kernel/plain: quantization {1e3 * t['quantize']:.2f} (plain "
               f"{1e3 * t['quantize_plain']:.2f}, bound {1e3 * per[name]['quantize_bound']:.2f}); "
@@ -1256,7 +1324,8 @@ def phase_int8_matmul() -> dict:
                         "per_product": per, "one_pass_bound_ms": one["bound_ms"],
                         "step_ms": 12 * (quant_block + block["gemm"]),
                         "step_two_pass_bound_ms": two / 1e3,
-                        "step_plain_chain_ms": 12 * block["whole_plain"], "host_us": host},
+                        "step_plain_chain_ms": 12 * block["whole_plain"], "host_us": host,
+                        "clusters": clusters, "graph_edges": edges},
         "int8_quantize_rows": {"max_abs_err": err["quantize"], "ms": quant_block,
                                "plain_ms": quant_plain_block, **qb, "library_ms": None,
                                "work": "one block's two quantizations at M = 4100: "

@@ -219,8 +219,15 @@ def _card_operands(M: int, din: int, dout: int, dtype, device, seed: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M, din, dout", [(4100, 768, 768), (4100, 768, 3072), (4100, 3072, 768),
-                                          (37, 768, 768), (37, 128, 512), (1, 512, 128)])
+@pytest.mark.parametrize("M, din, dout", [
+    (4100, 768, 768), (4100, 768, 3072), (4100, 3072, 768),  # the serve step (33 row tiles)
+    (37, 768, 768), (37, 128, 512), (1, 512, 128),
+    (16400, 768, 768), (16400, 768, 3072), (16400, 3072, 768),  # the eval capture (129)
+    (1040, 192, 192), (1040, 192, 768), (1040, 768, 192),  # the DREAM twin's eval (9)
+    (3250, 192, 192), (3250, 192, 768), (3250, 768, 192),  # its receipt (26)
+    (519, 768, 576),  # 5 row tiles by 3 column tiles: pairs left over in both
+    (200, 16, 8), (300, 4096, 4104),  # the narrowest and widest operands the route takes
+])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernels_bit_equal_to_plain_on_card(cuda_device, dtype, M, din, dout):
     x, kq, scale, bias = _card_operands(M, din, dout, dtype, cuda_device, seed=M + din)

@@ -1240,9 +1240,6 @@ def phase_int8_matmul() -> dict:
         return graph_ms(fn, iters=10, samples=20)
 
     host = host_costs()
-    clusters = int8_matmul.gemm_clusters()
-    print(f"int8 GEMM grid: at most {clusters} clusters of 2 blocks resident on "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     edges = gemm_graph_edges()
     per, block = {}, {k: 0.0 for k in ("quantize", "quantize_plain", "gemm", "gemm_plain",
                                        "whole", "whole_plain", "int_mm")}
@@ -1273,13 +1270,10 @@ def phase_int8_matmul() -> dict:
                      "whole_bound": bound(w["q_bytes"] + w["g_bytes"], w["ops"],
                                           "int8")["bound_ms"],
                      "one_pass_bound": bound(w["one_bytes"], w["ops"], "int8")["bound_ms"]}
-        l2 = {"l2_bytes": int8_matmul.gemm_l2_bytes(M, din, dout),
-              "l2_bytes_unshared": int8_matmul.gemm_l2_bytes(M, din, dout, shared=False)}
-        per[name].update(l2)
-        print(f"int8 GEMM {name} ({M}, {din}) -> {dout}: operand bytes from L2 under the cluster "
-              f"schedule {l2['l2_bytes'] / 1e6:.2f} MB (each tile alone "
-              f"{l2['l2_bytes_unshared'] / 1e6:.2f} MB; a design reading), beside the bound "
-              f"{1e3 * per[name]['gemm_bound']:.2f} us")
+        per[name]["l2_bytes"] = int8_matmul.gemm_l2_bytes(M, din, dout)
+        print(f"int8 GEMM {name} ({M}, {din}) -> {dout}: operand bytes from L2 into shared memory "
+              f"{per[name]['l2_bytes'] / 1e6:.2f} MB (a design reading: each tile's A and B "
+              f"panels), beside the bound {1e3 * per[name]['gemm_bound']:.2f} us")
         print(f"int8 matmul {name} ({M}, {din}) -> {dout} bf16, us per call, CUDA-graph replay "
               f"in turns plain/kernel/kernel/plain: quantization {1e3 * t['quantize']:.2f} (plain "
               f"{1e3 * t['quantize_plain']:.2f}, bound {1e3 * per[name]['quantize_bound']:.2f}); "
@@ -1325,7 +1319,7 @@ def phase_int8_matmul() -> dict:
                         "step_ms": 12 * (quant_block + block["gemm"]),
                         "step_two_pass_bound_ms": two / 1e3,
                         "step_plain_chain_ms": 12 * block["whole_plain"], "host_us": host,
-                        "clusters": clusters, "graph_edges": edges},
+                        "graph_edges": edges},
         "int8_quantize_rows": {"max_abs_err": err["quantize"], "ms": quant_block,
                                "plain_ms": quant_plain_block, **qb, "library_ms": None,
                                "work": "one block's two quantizations at M = 4100: "

@@ -61,7 +61,6 @@
 //     warp dequantizes into a padded staging tile of its own rows, then
 //     writes whole rows in 16-byte stores, masked by row and column.
 
-#include <climits>
 #include <cstdint>
 
 #include <cuda.h>
@@ -195,41 +194,34 @@ constexpr int kGN = 192;                           // columns of a block tile
 constexpr int kGK = 128;                           // int8 K of a stage: a 128-byte swizzle row
 constexpr int kGStages = 4;                        // ring depth
 constexpr int kGThreads = 128 * (kGConsumers + 1);  // + the producer warpgroup
-constexpr int kGCluster = 2;                       // blocks of a thread-block cluster
-constexpr int kGLag = 0;                           // K-tiles consumer warpgroup 1 starts behind 0
-constexpr int kAHalf = kGM / 2 * kGK;              // 8 KB: a 64-row box of A
-constexpr int kBHalf = kGN / 2 * kGK;              // 12 KB: a 96-row box of B
-constexpr int kATile = 2 * kAHalf;                 // 16 KB
-constexpr int kBTile = 2 * kBHalf;                 // 24 KB
-constexpr int kGStage = kATile + kBTile;           // every offset a 1024-byte multiple
-static_assert(kAHalf % 1024 == 0 && kBHalf % 1024 == 0, "boxes start on a swizzle period");
-static_assert(kGLag < kGStages, "warpgroup 0 runs ahead on stages the ring holds");
-// A consumer warp's staging of its output rows for the TMA store, as boxes
-// of 128-byte rows with the 128-byte swizzle (16-byte chunk j of row r at
-// chunk j ^ (r % 8)): bf16, its 16 rows as 3 boxes of 16 x 64 values; f32,
-// 8 rows at a time as 6 boxes of 8 x 32 values. 6 KB either way.
-constexpr int kBox16 = 16 * 128, kBox32 = 8 * 128;
-constexpr int kWarpStage = 3 * kBox16;
-static_assert(6 * kBox32 == kWarpStage, "8 f32 rows fill a warp's staging");
+constexpr int kATile = kGM * kGK;                  // 16 KB
+constexpr int kBTile = kGN * kGK;                  // 24 KB
+constexpr int kGStage = kATile + kBTile;           // both 1024-byte multiples
+// A consumer warp's staging of its output rows for the TMA store: 3 boxes
+// of 16 rows of 128 bytes (bf16: 64 columns; f32: 32 columns, 8 rows), each
+// 1024-byte aligned and laid out with the 128-byte swizzle (16-byte chunk j
+// of box row r at chunk j ^ (r % 8)), so that the warp's writes are free of
+// bank conflicts. A tile's 16 rows a warp go out in 1 pass (bf16) or 2 (f32:
+// 8 rows a pass, as 6 boxes of 8 rows x 32).
+constexpr int kOutBox = 16 * 128;
+constexpr int kWarpStage = 3 * kOutBox;
 struct GSmem {
   static constexpr int kRing = 0;
-  static constexpr int kStaging = kRing + kGStages * kGStage;  // one per consumer warp
-  static constexpr int kScales = kStaging + 4 * kGConsumers * kWarpStage;  // [wg][s_w, b]
-  static constexpr int kBars = kScales + kGConsumers * 2 * kGN * 4;
+  static constexpr int kStaging = kRing + kGStages * kGStage;              // one per consumer warp
+  static constexpr int kScales = kStaging + 4 * kGConsumers * kWarpStage;  // s_w, b of the tile
+  static constexpr int kBars = kScales + 2 * kGN * 4;
   static constexpr int kAlloc = kBars + 2 * kGStages * 8 + 1024;  // + room to align to 1024
 };
 static_assert(GSmem::kAlloc <= kMaxSmem, "the block's shared memory fits an SM");
 
 struct GemmParams {
-  CUtensorMap a;      // x_q (M, K) int8, boxes of 64 rows x 128 bytes
-  CUtensorMap b;      // W_q as (N, K) int8, boxes of 96 rows x 128 bytes
-  CUtensorMap c;      // out (M, N): bf16 boxes of 16 rows x 64, f32 of 8 rows x 32
+  CUtensorMap a;      // x_q (M, K) int8, boxes of 128 rows x 128 bytes
+  CUtensorMap b;      // W_q as (N, K) int8, boxes of 192 rows x 128 bytes
+  CUtensorMap c;      // out (M, N), boxes of 128 bytes (bf16: 16 rows x 64; f32: 8 x 32)
   const float* sx;    // (M,)
   const float* sw;    // (N,)
   const float* bias;  // (N,) or null
-  void* out;          // (M, N) contiguous, bf16 or f32
   int M, N, K, out_f32;
-  int m_tiles, n_tiles, units;  // output tiles of 128 x 192 by row and column; pairs of them
 };
 
 #define WGMMA_N192_S32                                                                          \
@@ -274,117 +266,22 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw, float b, b
   return has_bias ? __fadd_rn(y, b) : y;
 }
 
-__device__ __forceinline__ void consumers_sync(int wg) {  // the 128 threads of warpgroup wg
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+__device__ __forceinline__ void consumers_sync() {  // the 256 threads of both consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
-// Named barrier 3, once: warpgroup 1 starts its first tile when warpgroup 0
-// has issued kGLag K-tiles of it (lag_pass), so that from then on one
-// warpgroup's epilogue runs under the other's products.
-__device__ __forceinline__ void lag_wait() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
-__device__ __forceinline__ void lag_pass() { asm volatile("bar.arrive 3, 256;\n" ::: "memory"); }
 
-// ---- the cluster, its multicast and programmatic dependent launch (PTX ISA 8.0)
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// Every thread of both blocks: the barriers initialized before any block
-// writes into the other's shared memory, and (at the end) no block leaving
-// while the other may still arrive on its barriers.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// One arrival on the barrier at `bar`'s offset in block `cta` of the cluster.
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
-      "r"(cta)
-      : "memory");
-}
-// One box of a 2-D map into the same offset of the shared memory of every
-// block in `mask`, each block's barrier at `bar`'s offset counting its bytes.
-__device__ __forceinline__ void tma_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                                 int x, int y, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar)), "h"(mask)
-      : "memory");
-}
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
-// Wait until the kernels this one was launched behind have finished and
-// their writes are visible (a no-op without programmatic dependent launch).
+// Programmatic dependent launch (PTX ISA 7.8): wait until the kernels this
+// one was launched behind have finished and their writes are visible (a
+// no-op without it), and let the next kernel, if launched so, be scheduled
+// now: it takes the SMs this grid leaves and waits in griddep_wait.
 __device__ __forceinline__ void griddep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
-// Let the next kernel, if launched as a programmatic dependent, be scheduled
-// now: it takes the SMs this grid leaves and waits in griddep_wait.
 __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-// One tile of a unit: output rows m0 .. + 128 and columns n0 .. + 192, which
-// operand the cluster's two blocks share (each then loads half of it for
-// both), and whether this block stores it.
-struct UnitTile {
-  int m0, n0;
-  bool share_a, share_b, store;
-};
-
-// Unit u, the tiles of the cluster's two blocks (rank 0, 1): row tiles 2j
-// and 2j + 1 of one column (they share B, the weight panel) for u below
-// (m_tiles / 2) n_tiles, in row-major order of the row pairs; then, where
-// the row tiles are odd in number, the last row tile two columns a unit
-// (sharing A); an odd last column pairs with itself: both blocks compute it,
-// sharing both operands, and rank 1 stores nothing.
-__device__ __forceinline__ UnitTile unit_tile(int u, uint32_t rank, int m_tiles, int n_tiles) {
-  const int pairs = m_tiles / 2 * n_tiles;
-  if (u < pairs) {
-    return {(2 * (u / n_tiles) + static_cast<int>(rank)) * kGM, u % n_tiles * kGN, false, true,
-            true};
-  }
-  const int c = 2 * (u - pairs);
-  const bool alone = c + 1 == n_tiles;  // both blocks decide it alike: their shares must agree
-  return {(m_tiles - 1) * kGM, (alone ? c : c + static_cast<int>(rank)) * kGN, true, alone,
-          !alone || rank == 0};
-}
-
-// Stage i of tile t's K-tiles: A (128 rows) and B (192 rows) as two boxes
-// each; a shared operand's box `rank` by this block, to both blocks.
-__device__ __forceinline__ void load_a(unsigned char* st, const GemmParams& p, uint64_t* bar,
-                                       int i, const UnitTile& t, uint32_t rank) {
-  if (t.share_a) {
-    tma_2d_multicast(st + rank * kAHalf, &p.a, bar, i * kGK, t.m0 + rank * (kGM / 2), 0x3);
-  } else {
-    tma_2d(st, &p.a, bar, i * kGK, t.m0);
-    tma_2d(st + kAHalf, &p.a, bar, i * kGK, t.m0 + kGM / 2);
-  }
-}
-__device__ __forceinline__ void load_b(unsigned char* st, const GemmParams& p, uint64_t* bar,
-                                       int i, const UnitTile& t, uint32_t rank) {
-  unsigned char* b = st + kATile;
-  if (t.share_b) {
-    tma_2d_multicast(b + rank * kBHalf, &p.b, bar, i * kGK, t.n0 + rank * (kGN / 2), 0x3);
-  } else {
-    tma_2d(b, &p.b, bar, i * kGK, t.n0);
-    tma_2d(b + kBHalf, &p.b, bar, i * kGK, t.n0 + kGN / 2);
-  }
-}
-
-// A consumer warp is done with a stage: one arrival on its barrier in each
-// block of the cluster (either block's producer may refill it, by multicast).
-__device__ __forceinline__ void release_stage(uint64_t* bar, uint32_t peer, int lane) {
-  __syncwarp();
-  if (lane == 0) {
-    mbar_arrive(bar);
-  } else if (lane == 1) {
-    mbar_arrive_remote(bar, peer);
-  }
 }
 
 // One box of the output from shared memory (laid out as the map's box,
@@ -410,12 +307,32 @@ __device__ __forceinline__ void fence_to_tma() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// A persistent grid of two-block clusters: cluster c takes the units c, c +
-// clusters, ...; in each, its block of rank r computes tile r of the unit
-// (unit_tile). Both blocks walk the same units, so their rings stay in step:
-// stage s of a unit's K-tile i is stage s in both, filled by both producers
-// (a shared operand by multicast) and released when the 16 consumer warps of
-// both blocks are done with it.
+// One pass of a warp's epilogue: its kBoxes staged boxes (kBoxBytes apart)
+// to out at columns x0, x0 + box_cols, .. (those before N) and rows y .. (if
+// y < M), by lane 0 after every lane's writes.
+template <int kBoxes, int kBoxBytes>
+__device__ __forceinline__ void store_pass(const GemmParams& p, const unsigned char* staged, int x0,
+                                           int box_cols, int y, int lane) {
+  fence_to_tma();
+  __syncwarp();
+  if (lane == 0 && y < p.M) {
+#pragma unroll
+    for (int box = 0; box < kBoxes; ++box) {
+      const int x = x0 + box * box_cols;
+      if (x < p.N) tma_store_2d(&p.c, staged + box * kBoxBytes, x, y);
+    }
+    store_commit();
+  }
+}
+__device__ __forceinline__ void staging_free(int lane) {  // the last pass's stores have read it
+  if (lane == 0) store_wait();
+  __syncwarp();
+}
+
+// A persistent grid, one block an SM: block b takes the output tiles b, b +
+// gridDim.x, ... (tile t at row tile t / n_tiles, column tile t % n_tiles),
+// one producer lane streaming every tile's K-tiles through the ring without
+// a break, so that the next tile's loads run under the consumers' epilogue.
 __global__ void __launch_bounds__(kGThreads, 1)
     int8_gemm_sm90_kernel(const __grid_constant__ GemmParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -425,76 +342,70 @@ __global__ void __launch_bounds__(kGThreads, 1)
   uint64_t* empty = full + kGStages;
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
-  const int cluster = blockIdx.x / kGCluster, clusters = gridDim.x / kGCluster;
-  const int k_tiles = (p.K + kGK - 1) / kGK;
+  const int k_tiles = (p.K + kGK - 1) / kGK, n_tiles = (p.N + kGN - 1) / kGN;
+  const int tiles = (p.M + kGM - 1) / kGM * n_tiles;
   if (threadIdx.x == 0) {
     prefetch_map(&p.a);
     prefetch_map(&p.b);
     prefetch_map(&p.c);
     for (int s = 0; s < kGStages; ++s) {
-      mbar_init(&full[s], 1);                              // this block's producer, with the bytes
-      mbar_init(&empty[s], kGCluster * 4 * kGConsumers);  // the consumer warps of both blocks
+      mbar_init(&full[s], 1);                 // the producer's lane 0, with the bytes
+      mbar_init(&empty[s], 4 * kGConsumers);  // the consumer warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     griddep_launch_dependents();
   }
-  cluster_sync();
+  __syncthreads();
 
   if (wg == kGConsumers) {  // producer: one lane issues every copy
-    if (warp == 0 && lane == 0) {
-      // The weights' first stages go out before the wait for the kernel
-      // before (none writes W_q); x_q's after it. The grid has at most
-      // `units` clusters, so unit `cluster` exists.
-      const int pre = k_tiles < kGStages ? k_tiles : kGStages;
-      const UnitTile first = unit_tile(cluster, rank, p.m_tiles, p.n_tiles);
-      for (int i = 0; i < pre; ++i) {
-        mbar_arrive_expect_tx(&full[i], kGStage);
-        load_b(ring + i * kGStage, p, &full[i], i, first, rank);
-      }
-      griddep_wait();
-      for (int i = 0; i < pre; ++i) load_a(ring + i * kGStage, p, &full[i], i, first, rank);
-      int it = pre;  // K-tiles issued, over all of this block's units
-      for (int u = cluster; u < p.units; u += clusters) {
-        const UnitTile t = unit_tile(u, rank, p.m_tiles, p.n_tiles);
-        for (int i = u == cluster ? pre : 0; i < k_tiles; ++i, ++it) {
-          const int stage = it % kGStages;
-          mbar_wait(&empty[stage], ((it / kGStages) & 1) ^ 1);  // round 0 passes
-          unsigned char* st = ring + stage * kGStage;
-          mbar_arrive_expect_tx(&full[stage], kGStage);
-          load_a(st, p, &full[stage], i, t, rank);
-          load_b(st, p, &full[stage], i, t, rank);
-        }
+    if (warp != 0 || lane != 0) return;
+    // The weights' first stages go out before the wait for the kernel
+    // before (none writes W_q); x_q's after it. The grid has at most
+    // `tiles` blocks, so tile blockIdx.x exists.
+    const int pre = k_tiles < kGStages ? k_tiles : kGStages;
+    const int n0 = blockIdx.x % n_tiles * kGN;
+    for (int i = 0; i < pre; ++i) {
+      mbar_arrive_expect_tx(&full[i], kGStage);
+      tma_2d(ring + i * kGStage + kATile, &p.b, &full[i], i * kGK, n0);
+    }
+    griddep_wait();
+    const int m0 = blockIdx.x / n_tiles * kGM;
+    for (int i = 0; i < pre; ++i) tma_2d(ring + i * kGStage, &p.a, &full[i], i * kGK, m0);
+    int it = pre;  // K-tiles issued, over all of this block's tiles
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
+      for (int i = tile == blockIdx.x ? pre : 0; i < k_tiles; ++i, ++it) {
+        const int stage = it % kGStages;
+        mbar_wait(&empty[stage], ((it / kGStages) & 1) ^ 1);  // round 0 passes
+        unsigned char* st = ring + stage * kGStage;
+        mbar_arrive_expect_tx(&full[stage], kGStage);
+        tma_2d(st, &p.a, &full[stage], i * kGK, m0);
+        tma_2d(st + kATile, &p.b, &full[stage], i * kGK, n0);
       }
     }
-    __syncwarp();
-    cluster_sync();
     return;
   }
 
   // Consumer warpgroup wg: rows m0 + 64 wg .. + 64 of each tile. s_x comes
   // from the kernel before, and `out` may be memory that kernel still reads.
   griddep_wait();
-  const int g = lane >> 2, q = lane & 3, tid = threadIdx.x % 128;
-  float* scales = reinterpret_cast<float*>(smem + GSmem::kScales) + wg * 2 * kGN;  // s_w, b
+  const int g = lane >> 2, q = lane & 3, tid = threadIdx.x;  // tid < 256
+  float* scales = reinterpret_cast<float*>(smem + GSmem::kScales);  // s_w, b
   unsigned char* staged = smem + GSmem::kStaging + (wg * 4 + warp) * kWarpStage;
   const bool has_bias = p.bias != nullptr;
-  const int lag = k_tiles < kGLag ? k_tiles : kGLag;
   int it = 0;  // K-tiles consumed
-  for (int u = cluster; u < p.units; u += clusters) {
-    const UnitTile t = unit_tile(u, rank, p.m_tiles, p.n_tiles);
-    const bool first = u == cluster;
-    const int row0 = t.m0 + wg * 64 + warp * 16;  // the warp's 16 rows; the thread's g and g + 8
-    // The tile's column scales and bias (three a thread) and the thread's two
-    // row scales, loaded into registers under the products: nothing waits
-    // for them before the epilogue, where the column values go to this
-    // warpgroup's copy in shared memory.
-    float col_vals[2 * kGN / 128], sx[2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
+    const int row0 = m0 + wg * 64 + warp * 16;  // the warp's 16 rows; the thread's g and g + 8
+    // The tile's column scales and bias (one or two a thread) and the
+    // thread's two row scales, loaded into registers under the products:
+    // nothing waits for them before the epilogue.
+    float col_vals[2], sx[2];
 #pragma unroll
-    for (int v = 0; v < 2 * kGN / 128; ++v) {
-      const int c = tid + 128 * v, col = t.n0 + c % kGN;
+    for (int v = 0; v < 2; ++v) {
+      const int c = tid + 256 * v, col = n0 + c % kGN;
       const float* src = c < kGN ? p.sw : p.bias;
-      col_vals[v] = col < p.N && src != nullptr ? src[col] : 0.f;
+      col_vals[v] = c < 2 * kGN && col < p.N && src != nullptr ? src[col] : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) sx[r] = row0 + g + 8 * r < p.M ? p.sx[row0 + g + 8 * r] : 0.f;
@@ -502,7 +413,6 @@ __global__ void __launch_bounds__(kGThreads, 1)
     int acc[24][4];
 #pragma unroll
     for (int n = 0; n < 24; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
-    if (kGLag > 0 && first && wg == 1) lag_wait();
     for (int i = 0; i < k_tiles; ++i, ++it) {
       const int stage = it % kGStages;
       mbar_wait(&full[stage], (it / kGStages) & 1);
@@ -515,25 +425,30 @@ __global__ void __launch_bounds__(kGThreads, 1)
       wgmma_commit();
       wgmma_wait<1>();  // the products of the K-tile before are done: release its stage
       fence_acc(acc);
-      if (i > 0) release_stage(&empty[(it - 1) % kGStages], peer, lane);
-      if (kGLag > 0 && first && wg == 0 && i + 1 == lag) lag_pass();
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
+      }
     }
     wgmma_wait<0>();
     fence_acc(acc);
-    release_stage(&empty[(it - 1) % kGStages], peer, lane);
-    if (!t.store) continue;
-    consumers_sync(wg);  // the warpgroup's last epilogue has read its copy of the scales
-#pragma unroll
-    for (int v = 0; v < 2 * kGN / 128; ++v) scales[tid + 128 * v] = col_vals[v];
-    consumers_sync(wg);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
 
-    // Dequantize into the warp's staging (the tile's scales two columns at
-    // a time, four column groups a batch), then one lane stores it by TMA.
+    // The scales into shared memory, once both warpgroups' last epilogue has
+    // read them; then each warp dequantizes its rows into its staging, the
+    // scales two columns at a time and four column groups a batch, and lane
+    // 0 stores them by TMA.
+    consumers_sync();
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      if (tid + 256 * v < 2 * kGN) scales[tid + 256 * v] = col_vals[v];
+    }
+    consumers_sync();
     const float2* s_w = reinterpret_cast<const float2*>(scales) + q;  // columns 8 n + 2 q, + 1
     const float2* s_b = reinterpret_cast<const float2*>(scales + kGN) + q;
-    if (lane == 0) store_wait();  // the last tile's stores have read the staging
-    __syncwarp();
     if (!p.out_f32) {
+      staging_free(lane);
 #pragma unroll
       for (int n4 = 0; n4 < 24; n4 += 4) {
         float2 w[4], b[4];
@@ -544,32 +459,21 @@ __global__ void __launch_bounds__(kGThreads, 1)
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int n = n4 + j;  // box n / 8, 16-byte chunk n % 8 of the box's row
+          const int n = n4 + j;  // box n / 8, chunk n % 8 of rows g and g + 8
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            *reinterpret_cast<__nv_bfloat162*>(staged + n / 8 * kBox16 + (g + 8 * r) * 128 +
+            *reinterpret_cast<__nv_bfloat162*>(staged + n / 8 * kOutBox + (g + 8 * r) * 128 +
                                                ((n % 8) ^ g) * 16 + 4 * q) =
                 __floats2bfloat162_rn(dequant(acc[n][2 * r], sx[r], w[j].x, b[j].x, has_bias),
                                       dequant(acc[n][2 * r + 1], sx[r], w[j].y, b[j].y, has_bias));
           }
         }
       }
-      fence_to_tma();
-      __syncwarp();
-      if (lane == 0 && row0 < p.M) {
-#pragma unroll
-        for (int box = 0; box < 3; ++box) {
-          if (t.n0 + 64 * box < p.N) tma_store_2d(&p.c, staged + box * kBox16, t.n0 + 64 * box, row0);
-        }
-        store_commit();
-      }
+      store_pass<3, kOutBox>(p, staged, n0, 64, row0, lane);
     } else {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {  // rows g, then g + 8
-        if (r == 1) {
-          if (lane == 0) store_wait();
-          __syncwarp();
-        }
+        staging_free(lane);
 #pragma unroll
         for (int n4 = 0; n4 < 24; n4 += 4) {
           float2 w[4], b[4];
@@ -580,29 +484,18 @@ __global__ void __launch_bounds__(kGThreads, 1)
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int n = n4 + j;  // box n / 4, 16-byte chunk 2 (n % 4) + q / 2 of its row
-            *reinterpret_cast<float2*>(staged + n / 4 * kBox32 + g * 128 +
+            const int n = n4 + j;  // box n / 4 (8 rows x 32), chunk 2 (n % 4) + q / 2 of row g
+            *reinterpret_cast<float2*>(staged + n / 4 * (kOutBox / 2) + g * 128 +
                                        ((2 * (n % 4) + q / 2) ^ g) * 16 + 8 * (q % 2)) =
                 make_float2(dequant(acc[n][2 * r], sx[r], w[j].x, b[j].x, has_bias),
                             dequant(acc[n][2 * r + 1], sx[r], w[j].y, b[j].y, has_bias));
           }
         }
-        fence_to_tma();
-        __syncwarp();
-        if (lane == 0 && row0 + 8 * r < p.M) {
-#pragma unroll
-          for (int box = 0; box < 6; ++box) {
-            if (t.n0 + 32 * box < p.N) {
-              tma_store_2d(&p.c, staged + box * kBox32, t.n0 + 32 * box, row0 + 8 * r);
-            }
-          }
-          store_commit();
-        }
+        store_pass<6, kOutBox / 2>(p, staged, n0, 32, row0 + 8 * r, lane);
       }
     }
   }
-  if (lane == 0) store_wait();
-  cluster_sync();
+  staging_free(lane);
 }
 
 // A tensor map over a (rows, K) row-major int8 matrix: dims (K, rows), boxes
@@ -621,9 +514,9 @@ int make_int8_map(CUtensorMap* map, const void* base, int rows, int K, int box_r
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// A tensor map over out (M, N) row-major, bf16 (boxes of 16 rows x 64) or
-// f32 (8 rows x 32): 128-byte box rows, 128-byte swizzle; TMA stores
-// nothing past the ends. -> 0 or the CUresult of the encoding.
+// A tensor map over out (M, N) row-major, bf16 or f32: boxes of 128 bytes
+// by 16 rows (bf16) or 8 (f32), 128-byte swizzle; TMA stores nothing past
+// the ends. -> 0 or the CUresult of the encoding.
 int make_out_map(CUtensorMap* map, void* base, int M, int N, int out_f32) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
@@ -638,39 +531,23 @@ int make_out_map(CUtensorMap* map, void* base, int M, int N, int out_f32) {
       CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// The current device's count of clusters of int8_gemm_sm90_kernel that fit
-// on it at once (one block an SM, clusters within a GPC), queried once a
-// device; the kernel's shared-memory size set with it.
-cudaError_t resident_clusters(int* clusters) {
+// The current device's SM count, queried once a device, with the kernel's
+// shared-memory size set for it.
+cudaError_t device_sms(int* sms) {
   constexpr int kDevices = 64;
   static int known[kDevices] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device < kDevices && known[device] > 0) {
-    *clusters = known[device];
+    *sms = known[device];
     return cudaSuccess;
   }
   e = cudaFuncSetAttribute(int8_gemm_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            GSmem::kAlloc);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kGCluster);
-  config.blockDim = dim3(kGThreads);
-  config.dynamicSmemBytes = GSmem::kAlloc;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kGCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, int8_gemm_sm90_kernel, &config);
-  if (e != cudaSuccess) return e;
-  if (n < 1) return cudaErrorInvalidConfiguration;  // a cluster of two such blocks never fits
-  if (device < kDevices) known[device] = n;
-  *clusters = n;
+  if (device < kDevices) known[device] = *sms;
   return cudaSuccess;
 }
 
@@ -693,57 +570,39 @@ extern "C" int int8_quantize_rows(const void* x, int64_t ld, int M, int K, int x
 // weight's K-major layout); K a multiple of 16, N of 8; 16-byte aligned
 // bases; sx (M,), sw (N,) and bias (N,) f32 (bias may be null; sw and bias
 // 8-byte aligned); out (M, N) contiguous, bf16 (out_f32 = 0) or f32. Every
-// pointer on the device of `stream`. Launched as two-block clusters with
-// programmatic dependent launch: the kernel waits for the kernels before it
-// (griddepcontrol.wait) before it reads x_q or s_x or writes out. Returns
-// cudaGetLastError() after the launch (a refused cluster launch included),
-// or minus the CUresult of a tensor map that cannot be encoded.
+// pointer on the device of `stream`. Launched with programmatic dependent
+// launch: the kernel waits for the kernels before it (griddepcontrol.wait)
+// before it reads x_q or s_x or writes out. Returns the launch's error, or
+// minus the CUresult of a tensor map that cannot be encoded.
 extern "C" int int8_gemm_sm90(const void* xq, const void* wq, const float* sx, const float* sw,
                               const float* bias, void* out, int M, int N, int K, int out_f32,
                               void* stream) {
   GemmParams p{};
-  int err = make_int8_map(&p.a, xq, M, K, kGM / 2);
-  if (!err) err = make_int8_map(&p.b, wq, N, K, kGN / 2);
+  int err = make_int8_map(&p.a, xq, M, K, kGM);
+  if (!err) err = make_int8_map(&p.b, wq, N, K, kGN);
   if (!err) err = make_out_map(&p.c, out, M, N, out_f32);
   if (err) return -err;
   p.sx = sx;
   p.sw = sw;
   p.bias = bias;
-  p.out = out;
   p.M = M;
   p.N = N;
   p.K = K;
   p.out_f32 = out_f32;
-  p.m_tiles = (M + kGM - 1) / kGM;
-  p.n_tiles = (N + kGN - 1) / kGN;
-  const int64_t units = static_cast<int64_t>(p.m_tiles / 2) * p.n_tiles +
-                        (p.m_tiles % 2) * static_cast<int64_t>((p.n_tiles + 1) / 2);
-  if (units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  p.units = static_cast<int>(units);
-  int clusters = 0;
-  const cudaError_t e = resident_clusters(&clusters);
+  int sms = 0;
+  const cudaError_t e = device_sms(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t tiles = static_cast<int64_t>((M + kGM - 1) / kGM) * ((N + kGN - 1) / kGN);
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kGCluster * (p.units < clusters ? p.units : clusters));
+  config.gridDim = dim3(static_cast<unsigned>(tiles < sms ? tiles : sms));  // one block an SM at most
   config.blockDim = dim3(kGThreads);
   config.dynamicSmemBytes = GSmem::kAlloc;
   config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kGCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   config.attrs = attr;
-  config.numAttrs = 2;
+  config.numAttrs = 1;
   const cudaError_t launched = cudaLaunchKernelEx(&config, int8_gemm_sm90_kernel, p);
   return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
-}
-
-// The grid's cluster count at most on the current device (what
-// cudaOccupancyMaxActiveClusters reports for the GEMM's two-block clusters),
-// into *clusters. Returns the query's error.
-extern "C" int int8_gemm_sm90_clusters(int* clusters) {
-  return static_cast<int>(resident_clusters(clusters));
 }

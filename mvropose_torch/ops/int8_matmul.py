@@ -96,44 +96,25 @@ def quantize_rows(x: torch.Tensor):
 def _kernels():
     lib = load_library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    quantize, gemm, clusters = lib.int8_quantize_rows, lib.int8_gemm_sm90, lib.int8_gemm_sm90_clusters
+    quantize, gemm = lib.int8_quantize_rows, lib.int8_gemm_sm90
     quantize.argtypes = [ptr, ctypes.c_int64, i32, i32, i32, ptr, ptr, ptr]
     gemm.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    for fn in (quantize, gemm, clusters):
+    for fn in (quantize, gemm):
         fn.restype = ctypes.c_int
-    return quantize, gemm, clusters
-
-
-def gemm_clusters(device: int = 0) -> int:
-    """How many of the GEMM's two-block clusters fit on CUDA device `device`
-    at once (`cudaOccupancyMaxActiveClusters`): its persistent grid has at
-    most twice as many blocks."""
-    n = ctypes.c_int(0)
-    with device_context(device):
-        _raise_on(_kernels()[2](ctypes.byref(n)), "int8_gemm_sm90_clusters")
-    return n.value
+    return quantize, gemm
 
 
 GEMM_TILE = (128, 192, 128)  # the GEMM's output tile (rows, columns) and its K-tile (bytes)
 
 
-def gemm_l2_bytes(M: int, K: int, N: int, shared: bool = True) -> int:
+def gemm_l2_bytes(M: int, K: int, N: int) -> int:
     """The operand bytes the int8 GEMM's blocks take from L2 into shared
-    memory for (M, K) x (K, N), counted in whole boxes as issued (a row or
-    K past the end is zero-filled by TMA but counted): a design reading of
-    the schedule of `csrc/int8_gemm.cu` (`unit_tile`). Two row tiles of a
-    column share B (the weight panel: read once for both); the last row
-    tile's column pairs, where the row tiles are odd in number, share A; an
-    odd last column is computed by both blocks and read once. shared=False:
-    every tile reads its own A and B (the kernel before clusters)."""
+    memory for (M, K) x (K, N): each 128 x 192 output tile streams its A row
+    panel and B column panel, counted in whole boxes as issued (rows or K past
+    the end are zero-filled by TMA but counted). A design reading of the
+    schedule of `csrc/int8_gemm.cu`."""
     tm, tn, tk = GEMM_TILE
-    m_tiles, n_tiles, kp = -(-M // tm), -(-N // tn), -(-K // tk) * tk
-    if not shared:
-        return m_tiles * n_tiles * (tm + tn) * kp
-    pairs = m_tiles // 2 * n_tiles
-    tail_pairs, alone = m_tiles % 2 * (n_tiles // 2), m_tiles % 2 * (n_tiles % 2)
-    return kp * (pairs * (2 * tm + tn) + tail_pairs * (tm + 2 * tn) + alone * (tm + tn))
+    return -(-M // tm) * -(-N // tn) * (tm + tn) * -(-K // tk) * tk
 
 
 def _raise_on(err: int, kernel: str) -> None:

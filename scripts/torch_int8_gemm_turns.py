@@ -188,8 +188,6 @@ def main() -> int:
     device = chip_smoke.phase_device()
     _build.load_library()
     lib = other_library(args.other.resolve())
-    print(f"int8 GEMM grid: at most {int8_matmul.gemm_clusters()} clusters of 2 blocks resident "
-          f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
 
     def timer(fn):
         return chip_smoke.graph_ms(fn, iters=10, samples=20)
@@ -217,15 +215,14 @@ def main() -> int:
         ops = sum(pr.work()[1] for pr in products)
         b = chip_smoke.bound(nbytes, ops, "int8")
         l2 = sum(int8_matmul.gemm_l2_bytes(*pr.shape) for pr in products)
-        l2_old = sum(int8_matmul.gemm_l2_bytes(*pr.shape, shared=False) for pr in products)
         rows.append({"case": name, "ms": new, "other_ms": old, "int_mm_ms": int_mm,
                      "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bit_equal": equal,
-                     "plain_equal": plain, "l2_bytes": l2, "other_l2_bytes": l2_old})
+                     "plain_equal": plain, "l2_bytes": l2})
         print(f"int8 GEMM {name}, us per call (CUDA-graph replay, in turns other/this/this/"
               f"other): this {1e3 * new:.2f}, other {1e3 * old:.2f} ({old / new:.3f}x); bound "
               f"{1e3 * b['bound_ms']:.2f} ({b['bound_by']}), this at {b['bound_ms'] / new:.3f} of "
-              f"it; torch._int_mm alone {1e3 * int_mm:.2f}; operand bytes from L2 {l2 / 1e6:.1f} "
-              f"MB (other {l2_old / 1e6:.1f}); outputs bit-equal between the checkouts: {equal}, "
+              f"it; torch._int_mm alone {1e3 * int_mm:.2f}; operand bytes from L2 (this) "
+              f"{l2 / 1e6:.1f} MB; outputs bit-equal between the checkouts: {equal}, "
               f"to the plain version: {plain}", flush=True)
         chip_smoke.check(equal and plain, f"{name}: the outputs differ")
     edges = chip_smoke.gemm_graph_edges()

@@ -24,7 +24,14 @@
 // row (bf16 in, int8 and a scale out): 11.3 us at (4100, 3072), 2.8 us at
 // (4100, 768). The GEMM reads x_q and W_q and writes bf16 y: 3.0 us (bytes)
 // for each of the four 768 -> 768 products of a block, 9.8 us (int8
-// operations) for fc1 (768 -> 3072) and for fc2 (3072 -> 768).
+// operations) for fc1 (768 -> 3072) and for fc2 (3072 -> 768). What paces
+// the GEMM below that on the card is the stream of operand tiles into shared
+// memory: a 128 x 192 tile takes its A row panel and B column panel, (128 +
+// 192) K bytes (32.4 MB from L2 at 768 -> 768, 129.8 MB at fc1 and at fc2,
+// `ops/int8_matmul.py::gemm_l2_bytes`), and the ring's round trip (a stage
+// released, refilled by TMA, landed) bounds how fast they come: with the
+// products and the epilogue left out the loads alone take ~14 us at fc2,
+// and half the ring's stages make them 1.5x slower (PERF.md, row 7a).
 //
 // The design:
 //   * the quantization (since the LayerNorm kernels quantize the rows of
@@ -39,27 +46,49 @@
 //     reciprocal (csrc/int8_quantize.cuh: five operations a value, the
 //     division's bits). x_q comes out row-major, K-major as wgmma's A
 //     operand wants it;
-//   * the GEMM: a block computes 128 x 192 output tiles, two consumer
-//     warpgroups of 64 rows each issuing wgmma m64n192k32 s8 x s8 -> s32
-//     with both operands in shared memory. 8-bit operands are K-major only:
-//     x_q is; W_q is held (N, K) contiguous by `Int8Linear`, which is the B
-//     operand's K-major layout as it stands. One producer lane streams
-//     K-tiles of 128 bytes (one 128-byte swizzle row) of A (128 rows) and
-//     B (192 rows) by TMA through a 4-stage ring of full/empty mbarriers;
-//     each consumer keeps one group of products in flight while it releases
-//     the stage of the one before. Rows past M and K past the end are
+//   * the GEMM's products: 128 x 192 output tiles, wgmma m64n192k32 s8 x s8
+//     -> s32 with both operands in shared memory. 8-bit operands are K-major
+//     only: x_q is; W_q is held (N, K) contiguous by `Int8Linear`, which is
+//     the B operand's K-major layout as it stands. One producer lane streams
+//     K-tiles of 128 bytes (one 128-byte swizzle row) of A (128 rows) and B
+//     (192 rows) by TMA through a 4-stage ring of full/empty mbarriers (a
+//     fifth stage made it slower); rows past M and K past the end are
 //     zero-filled by TMA;
-//   * the tile: M = 4100 = 32 x 128 + 4 gives 33 row tiles, and N = 768 =
-//     4 x 192 gives 132 tiles, one wave on the 132 SMs (128 x 128 tiles
-//     would give 198, 1.5 waves); fc1's N = 3072 gives 528, four a block:
-//     the grid is persistent (one block an SM), and the producer streams
-//     the next tile's K-tiles while the consumers finish the last one;
-//   * the epilogue: each thread holds columns 8 i + 2 t and + 1 of rows g
-//     and g + 8 of its warp's 16. The column scales and the bias come from
-//     shared memory (a warpgroup's copy, loaded under the products; read
-//     from device memory between the stores they cost ~9 us a tile); each
-//     warp dequantizes into a padded staging tile of its own rows, then
-//     writes whole rows in 16-byte stores, masked by row and column.
+//   * the tile and the grid: M = 4100 = 32 x 128 + 4 gives 33 row tiles, and
+//     N = 768 = 4 x 192 gives 132 tiles, one wave on the 132 SMs (128 x 128
+//     tiles would give 198, 1.5 waves); fc1's N = 3072 gives 528, four a
+//     block. The grid is persistent, one block an SM (the SM count queried
+//     once a device), and the producer streams the next tile's K-tiles
+//     while the consumers finish the last one;
+//   * the epilogue under the products (ping-pong): each of the two consumer
+//     warpgroups owns whole tiles, the block's tiles 0, 2, .. and 1, 3, ..,
+//     all 128 rows as two m64 products (192 s32 sums a thread; setmaxnreg
+//     gives the consumers 232 registers and the producer warpgroup 40). They
+//     take turns at the products (named barriers): one issues its tile's
+//     K-tiles while the other dequantizes and stores its last tile, so the
+//     ring keeps flowing through an epilogue, which with both warpgroups on
+//     one tile stopped it (fc1's four tiles a block). The turns also keep a
+//     warpgroup, which skips the other's K-tiles in the ring, from waiting
+//     on a stage more than one phase ahead;
+//   * the epilogue: each thread holds columns 8 n + 2 t and + 1 of rows g
+//     and g + 8 of its warp's 16 in each m64 half. The column scales and the
+//     bias are loaded into registers under the products and put in shared
+//     memory (a warpgroup's copy) after them; each warp dequantizes 16 rows
+//     (bf16; f32 8) into a staging of 128-byte-swizzled boxes (no bank
+//     conflicts) and one lane stores them by TMA, which leaves out rows past
+//     M and columns past N and lets the warp go on before the bytes land;
+//   * the launch: programmatic dependent launch (the kernel waits in
+//     griddepcontrol.wait for the kernels before it, which a CUDA graph
+//     captured from the stream keeps as programmatic edges), with the
+//     barrier set-up, the three tensor maps' prefetch and the weights' first
+//     stages ahead of the wait and the next launch let in at once
+//     (griddepcontrol.launch_dependents);
+//   * not kept: thread-block clusters of two blocks sharing an operand
+//     panel by TMA multicast (B for two row tiles of a column: 30 % fewer L2
+//     reads, 91.2 MB at fc1 and fc2). A shared stage can be refilled only
+//     when both blocks' consumers have released it, which lengthens the
+//     ring's round trip, and the round trip, not L2, paces the loads: they
+//     were slower with multicast than without (PERF.md, row 7a).
 
 #include <cstdint>
 
@@ -188,28 +217,29 @@ cudaError_t quantize_rows(const void* x, int64_t ld, int M, int K, void* xq, flo
 
 // -------------------------------------------------------------------- GEMM
 
-constexpr int kGConsumers = 2;                     // consumer warpgroups of 64 rows
-constexpr int kGM = 64 * kGConsumers;              // rows of a block tile: 128
-constexpr int kGN = 192;                           // columns of a block tile
+constexpr int kGConsumers = 2;                     // consumer warpgroups, a tile each in turn
+constexpr int kGM = 128;                           // rows of a tile: two m64 products
+constexpr int kGN = 192;                           // columns of a tile
 constexpr int kGK = 128;                           // int8 K of a stage: a 128-byte swizzle row
 constexpr int kGStages = 4;                        // ring depth
 constexpr int kGThreads = 128 * (kGConsumers + 1);  // + the producer warpgroup
+constexpr int kGConsumerRegs = 232, kGProducerRegs = 40;  // setmaxnreg: 256 x 232 + 128 x 40
 constexpr int kATile = kGM * kGK;                  // 16 KB
 constexpr int kBTile = kGN * kGK;                  // 24 KB
 constexpr int kGStage = kATile + kBTile;           // both 1024-byte multiples
 // A consumer warp's staging of its output rows for the TMA store: 3 boxes
-// of 16 rows of 128 bytes (bf16: 64 columns; f32: 32 columns, 8 rows), each
-// 1024-byte aligned and laid out with the 128-byte swizzle (16-byte chunk j
-// of box row r at chunk j ^ (r % 8)), so that the warp's writes are free of
-// bank conflicts. A tile's 16 rows a warp go out in 1 pass (bf16) or 2 (f32:
-// 8 rows a pass, as 6 boxes of 8 rows x 32).
+// of 16 rows of 128 bytes (bf16: 64 columns), or 6 of 8 rows (f32: 32
+// columns), each 1024-byte aligned and laid out with the 128-byte swizzle
+// (16-byte chunk j of box row r at chunk j ^ (r % 8)), so that the warp's
+// writes are free of bank conflicts. A warp's 32 rows of a tile (16 in each
+// m64 half) go out in 2 passes (bf16) or 4 (f32).
 constexpr int kOutBox = 16 * 128;
 constexpr int kWarpStage = 3 * kOutBox;
 struct GSmem {
   static constexpr int kRing = 0;
   static constexpr int kStaging = kRing + kGStages * kGStage;              // one per consumer warp
-  static constexpr int kScales = kStaging + 4 * kGConsumers * kWarpStage;  // s_w, b of the tile
-  static constexpr int kBars = kScales + 2 * kGN * 4;
+  static constexpr int kScales = kStaging + 4 * kGConsumers * kWarpStage;  // [wg][s_w, b]
+  static constexpr int kBars = kScales + kGConsumers * 2 * kGN * 4;
   static constexpr int kAlloc = kBars + 2 * kGStages * 8 + 1024;  // + room to align to 1024
 };
 static_assert(GSmem::kAlloc <= kMaxSmem, "the block's shared memory fits an SM");
@@ -266,8 +296,8 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw, float b, b
   return has_bias ? __fadd_rn(y, b) : y;
 }
 
-__device__ __forceinline__ void consumers_sync() {  // the 256 threads of both consumer warpgroups
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+__device__ __forceinline__ void consumers_sync(int wg) {  // the 128 threads of warpgroup wg
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -331,8 +361,12 @@ __device__ __forceinline__ void staging_free(int lane) {  // the last pass's sto
 
 // A persistent grid, one block an SM: block b takes the output tiles b, b +
 // gridDim.x, ... (tile t at row tile t / n_tiles, column tile t % n_tiles),
-// one producer lane streaming every tile's K-tiles through the ring without
-// a break, so that the next tile's loads run under the consumers' epilogue.
+// its j-th by consumer warpgroup j % 2, one producer lane streaming every
+// tile's K-tiles through the ring without a break. The warpgroups take
+// turns at the products (turn_wait / turn_pass, sm90_common.cuh): one
+// starts its tile's K-tiles when the other has issued its last, so that
+// one warpgroup's epilogue runs under the other's products, and a
+// warpgroup never waits on a stage more than one phase ahead of it.
 __global__ void __launch_bounds__(kGThreads, 1)
     int8_gemm_sm90_kernel(const __grid_constant__ GemmParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -349,8 +383,8 @@ __global__ void __launch_bounds__(kGThreads, 1)
     prefetch_map(&p.b);
     prefetch_map(&p.c);
     for (int s = 0; s < kGStages; ++s) {
-      mbar_init(&full[s], 1);                 // the producer's lane 0, with the bytes
-      mbar_init(&empty[s], 4 * kGConsumers);  // the consumer warps
+      mbar_init(&full[s], 1);   // the producer's lane 0, with the bytes
+      mbar_init(&empty[s], 4);  // the warps of the warpgroup whose tile the stage holds
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     griddep_launch_dependents();
@@ -358,6 +392,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
   __syncthreads();
 
   if (wg == kGConsumers) {  // producer: one lane issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kGProducerRegs));
     if (warp != 0 || lane != 0) return;
     // The weights' first stages go out before the wait for the kernel
     // before (none writes W_q); x_q's after it. The grid has at most
@@ -386,112 +421,137 @@ __global__ void __launch_bounds__(kGThreads, 1)
     return;
   }
 
-  // Consumer warpgroup wg: rows m0 + 64 wg .. + 64 of each tile. s_x comes
-  // from the kernel before, and `out` may be memory that kernel still reads.
+  // Consumer warpgroup wg: the block's tiles j = wg, wg + 2, ..., all 128
+  // rows, as two m64 products (h = 0, 1: rows 64 h ..). s_x comes from the
+  // kernel before, and `out` may be memory that kernel still reads.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kGConsumerRegs));
   griddep_wait();
-  const int g = lane >> 2, q = lane & 3, tid = threadIdx.x;  // tid < 256
-  float* scales = reinterpret_cast<float*>(smem + GSmem::kScales);  // s_w, b
+  if (wg == 1) turn_pass(1);  // warpgroup 0 has the first turn
+  const int g = lane >> 2, q = lane & 3, tid = threadIdx.x % 128;
+  float* scales = reinterpret_cast<float*>(smem + GSmem::kScales) + wg * 2 * kGN;  // s_w, b
   unsigned char* staged = smem + GSmem::kStaging + (wg * 4 + warp) * kWarpStage;
   const bool has_bias = p.bias != nullptr;
-  int it = 0;  // K-tiles consumed
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int j = wg;; j += kGConsumers) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile >= tiles) break;
     const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
-    const int row0 = m0 + wg * 64 + warp * 16;  // the warp's 16 rows; the thread's g and g + 8
-    // The tile's column scales and bias (one or two a thread) and the
-    // thread's two row scales, loaded into registers under the products:
-    // nothing waits for them before the epilogue.
-    float col_vals[2], sx[2];
+    const int row0 = m0 + warp * 16;  // the warp's rows: row0 + 64 h + g + 8 r
+    // The tile's column scales and bias (three a thread) and the thread's
+    // row scales, loaded into registers under the products: nothing waits
+    // for them before the epilogue.
+    float col_vals[2 * kGN / 128], sx[2][2];
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int c = tid + 256 * v, col = n0 + c % kGN;
+    for (int v = 0; v < 2 * kGN / 128; ++v) {
+      const int c = tid + 128 * v, col = n0 + c % kGN;
       const float* src = c < kGN ? p.sw : p.bias;
-      col_vals[v] = c < 2 * kGN && col < p.N && src != nullptr ? src[col] : 0.f;
+      col_vals[v] = col < p.N && src != nullptr ? src[col] : 0.f;
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) sx[r] = row0 + g + 8 * r < p.M ? p.sx[row0 + g + 8 * r] : 0.f;
-
-    int acc[24][4];
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int n = 0; n < 24; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 64 * h + g + 8 * r;
+        sx[h][r] = row < p.M ? p.sx[row] : 0.f;
+      }
+    }
+
+    int acc[2][24][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int n = 0; n < 24; ++n) acc[h][n][0] = acc[h][n][1] = acc[h][n][2] = acc[h][n][3] = 0;
+    }
+    int it = j * k_tiles;  // the ring position of the tile's first K-tile
+    turn_wait(wg);
     for (int i = 0; i < k_tiles; ++i, ++it) {
       const int stage = it % kGStages;
       mbar_wait(&full[stage], (it / kGStages) & 1);
       const unsigned char* st = ring + stage * kGStage;
-      const uint64_t a = sw_desc<false>(st + wg * 64 * kGK), b = sw_desc<false>(st + kATile);
-      fence_acc(acc);
+      const uint64_t a0 = sw_desc<false>(st), a1 = sw_desc<false>(st + 64 * kGK);
+      const uint64_t b = sw_desc<false>(st + kATile);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kGK / 32; ++kk) wgmma_ss192_s8(acc, a + 2 * kk, b + 2 * kk);
+      for (int kk = 0; kk < kGK / 32; ++kk) {
+        wgmma_ss192_s8(acc[0], a0 + 2 * kk, b + 2 * kk);
+        wgmma_ss192_s8(acc[1], a1 + 2 * kk, b + 2 * kk);
+      }
       wgmma_commit();
       wgmma_wait<1>();  // the products of the K-tile before are done: release its stage
-      fence_acc(acc);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
       if (i > 0) {
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
       }
     }
+    turn_pass(wg);  // every product of the tile issued: the other warpgroup's turn
     wgmma_wait<0>();
-    fence_acc(acc);
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
 
-    // The scales into shared memory, once both warpgroups' last epilogue has
-    // read them; then each warp dequantizes its rows into its staging, the
-    // scales two columns at a time and four column groups a batch, and lane
-    // 0 stores them by TMA.
-    consumers_sync();
+    // The scales into this warpgroup's copy, once its last epilogue has read
+    // them; then each warp dequantizes its rows into its staging, 16 rows a
+    // pass (bf16; f32 8), the scales two columns at a time and four column
+    // groups a batch, and lane 0 stores the pass by TMA.
+    consumers_sync(wg);
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      if (tid + 256 * v < 2 * kGN) scales[tid + 256 * v] = col_vals[v];
-    }
-    consumers_sync();
+    for (int v = 0; v < 2 * kGN / 128; ++v) scales[tid + 128 * v] = col_vals[v];
+    consumers_sync(wg);
     const float2* s_w = reinterpret_cast<const float2*>(scales) + q;  // columns 8 n + 2 q, + 1
     const float2* s_b = reinterpret_cast<const float2*>(scales + kGN) + q;
-    if (!p.out_f32) {
-      staging_free(lane);
 #pragma unroll
-      for (int n4 = 0; n4 < 24; n4 += 4) {
-        float2 w[4], b[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w[j] = s_w[4 * (n4 + j)];
-          b[j] = s_b[4 * (n4 + j)];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n4 + j;  // box n / 8, chunk n % 8 of rows g and g + 8
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            *reinterpret_cast<__nv_bfloat162*>(staged + n / 8 * kOutBox + (g + 8 * r) * 128 +
-                                               ((n % 8) ^ g) * 16 + 4 * q) =
-                __floats2bfloat162_rn(dequant(acc[n][2 * r], sx[r], w[j].x, b[j].x, has_bias),
-                                      dequant(acc[n][2 * r + 1], sx[r], w[j].y, b[j].y, has_bias));
-          }
-        }
-      }
-      store_pass<3, kOutBox>(p, staged, n0, 64, row0, lane);
-    } else {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {  // rows g, then g + 8
+    for (int h = 0; h < 2; ++h) {
+      if (!p.out_f32) {
         staging_free(lane);
 #pragma unroll
         for (int n4 = 0; n4 < 24; n4 += 4) {
           float2 w[4], b[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            w[j] = s_w[4 * (n4 + j)];
-            b[j] = s_b[4 * (n4 + j)];
+          for (int u = 0; u < 4; ++u) {
+            w[u] = s_w[4 * (n4 + u)];
+            b[u] = s_b[4 * (n4 + u)];
           }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n4 + j;  // box n / 4 (8 rows x 32), chunk 2 (n % 4) + q / 2 of row g
-            *reinterpret_cast<float2*>(staged + n / 4 * (kOutBox / 2) + g * 128 +
-                                       ((2 * (n % 4) + q / 2) ^ g) * 16 + 8 * (q % 2)) =
-                make_float2(dequant(acc[n][2 * r], sx[r], w[j].x, b[j].x, has_bias),
-                            dequant(acc[n][2 * r + 1], sx[r], w[j].y, b[j].y, has_bias));
+          for (int u = 0; u < 4; ++u) {
+            const int n = n4 + u;  // box n / 8, chunk n % 8 of rows g and g + 8
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              *reinterpret_cast<__nv_bfloat162*>(staged + n / 8 * kOutBox + (g + 8 * r) * 128 +
+                                                 ((n % 8) ^ g) * 16 + 4 * q) =
+                  __floats2bfloat162_rn(
+                      dequant(acc[h][n][2 * r], sx[h][r], w[u].x, b[u].x, has_bias),
+                      dequant(acc[h][n][2 * r + 1], sx[h][r], w[u].y, b[u].y, has_bias));
+            }
           }
         }
-        store_pass<6, kOutBox / 2>(p, staged, n0, 32, row0 + 8 * r, lane);
+        store_pass<3, kOutBox>(p, staged, n0, 64, row0 + 64 * h, lane);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // rows g, then g + 8
+          staging_free(lane);
+#pragma unroll
+          for (int n4 = 0; n4 < 24; n4 += 4) {
+            float2 w[4], b[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              w[u] = s_w[4 * (n4 + u)];
+              b[u] = s_b[4 * (n4 + u)];
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int n = n4 + u;  // box n / 4 (8 rows x 32), chunk 2 (n % 4) + q / 2 of row g
+              *reinterpret_cast<float2*>(staged + n / 4 * (kOutBox / 2) + g * 128 +
+                                         ((2 * (n % 4) + q / 2) ^ g) * 16 + 8 * (q % 2)) =
+                  make_float2(dequant(acc[h][n][2 * r], sx[h][r], w[u].x, b[u].x, has_bias),
+                              dequant(acc[h][n][2 * r + 1], sx[h][r], w[u].y, b[u].y, has_bias));
+            }
+          }
+          store_pass<6, kOutBox / 2>(p, staged, n0, 32, row0 + 64 * h + 8 * r, lane);
+        }
       }
     }
   }

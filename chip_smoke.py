@@ -1046,9 +1046,9 @@ INT8_MM_CASES = [
     ("m1", 1, 768, 768), ("m37_fc1", 37, 768, 3072), ("m37_fc2", 37, 3072, 768),
     ("m51_small", 51, 128, 128), ("m51_small_fc1", 51, 128, 512), ("m51_small_fc2", 51, 512, 128),
     *INT8_MM_EVAL,
-    # The GEMM's cluster schedule at its edges: 5 row tiles by 3 column tiles
-    # (an odd row tile left over, and an odd column in its pairs); the
-    # narrowest and widest operands the route takes.
+    # The GEMM's tiles ragged in both directions (5 row tiles by 3 column
+    # tiles, 15 tiles: the warpgroups' turns end unevenly); the narrowest
+    # and widest operands the route takes.
     ("odd_tiles", 519, 768, 576), ("k16_n8", 200, 16, 8), ("k4096_n4104", 300, 4096, 4104),
 ]
 
@@ -1161,11 +1161,7 @@ def gemm_graph_edges() -> dict:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=side):
         captured = block()
-    driver = ctypes.CDLL("libcuda.so.1")
-    if not hasattr(driver, "cuGraphGetEdges_v2"):  # a driver before CUDA 12.3
-        print("int8 GEMM in a CUDA graph: the driver has no cuGraphGetEdges_v2; edges not read")
-        return {"edges": None}
-    get_edges = driver.cuGraphGetEdges_v2
+    get_edges = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2  # CUDA 12.3 on
     get_edges.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
     n = ctypes.c_size_t(0)
     raw = ctypes.c_void_p(graph.raw_cuda_graph())

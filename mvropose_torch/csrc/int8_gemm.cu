@@ -24,14 +24,15 @@
 // row (bf16 in, int8 and a scale out): 11.3 us at (4100, 3072), 2.8 us at
 // (4100, 768). The GEMM reads x_q and W_q and writes bf16 y: 3.0 us (bytes)
 // for each of the four 768 -> 768 products of a block, 9.8 us (int8
-// operations) for fc1 (768 -> 3072) and for fc2 (3072 -> 768). What paces
-// the GEMM below that on the card is the stream of operand tiles into shared
-// memory: a 128 x 192 tile takes its A row panel and B column panel, (128 +
-// 192) K bytes (32.4 MB from L2 at 768 -> 768, 129.8 MB at fc1 and at fc2,
+// operations) for fc1 (768 -> 3072) and for fc2 (3072 -> 768). Beside the
+// products, the GEMM streams its operand tiles into shared memory: a 128 x
+// 192 tile takes its A row panel and B column panel, (128 + 192) K bytes
+// (32.4 MB from L2 at 768 -> 768, 129.8 MB at fc1 and at fc2,
 // `ops/int8_matmul.py::gemm_l2_bytes`), and the ring's round trip (a stage
-// released, refilled by TMA, landed) bounds how fast they come: with the
-// products and the epilogue left out the loads alone take ~14 us at fc2,
-// and half the ring's stages make them 1.5x slower (PERF.md, row 7a).
+// released, refilled by TMA, landed), not L2's bandwidth, bounds how fast
+// they come: with the products and the epilogue cut out, the loads alone
+// take about as long as the products at their peak at fc2, and a ring of 2
+// stages in place of 4 makes them 1.4x slower (PERF.md, row 7a).
 //
 // The design:
 //   * the quantization (since the LayerNorm kernels quantize the rows of
@@ -51,9 +52,8 @@
 //     only: x_q is; W_q is held (N, K) contiguous by `Int8Linear`, which is
 //     the B operand's K-major layout as it stands. One producer lane streams
 //     K-tiles of 128 bytes (one 128-byte swizzle row) of A (128 rows) and B
-//     (192 rows) by TMA through a 4-stage ring of full/empty mbarriers (a
-//     fifth stage made it slower); rows past M and K past the end are
-//     zero-filled by TMA;
+//     (192 rows) by TMA through a 4-stage ring of full/empty mbarriers;
+//     rows past M and K past the end are zero-filled by TMA;
 //   * the tile and the grid: M = 4100 = 32 x 128 + 4 gives 33 row tiles, and
 //     N = 768 = 4 x 192 gives 132 tiles, one wave on the 132 SMs (128 x 128
 //     tiles would give 198, 1.5 waves); fc1's N = 3072 gives 528, four a

@@ -2,9 +2,11 @@
 """Variants of the int8 GEMM's source, built side by side and timed in turns on one card.
 
     python3 scripts/torch_int8_gemm_variants.py VARIANTS_JSON [--rounds 2] [--other LABEL=DIR ...]
+        [--source CSRC_DIR]
 
 VARIANTS_JSON maps a label to a list of [regex, replacement] pairs applied
-in order to a copy of `mvropose_torch/csrc/int8_gemm.cu` (a pattern that
+in order to a copy of `mvropose_torch/csrc/int8_gemm.cu` (or of CSRC_DIR's,
+another checkout's sources, with its headers; a pattern that
 matches nothing stops the script; a label ending in `_x` marks a variant
 whose outputs are not expected to be right, e.g. one without its epilogue:
 its outputs are not checked). `{"as_is": []}` builds the source unchanged.
@@ -47,8 +49,9 @@ OUT = ROOT / "build" / "gemm_variants"
 HEADERS = ("sm90_common.cuh", "int8_quantize.cuh")
 
 
-def build_variants(variants: dict) -> dict:
-    """label -> the path of its library, compiled in parallel."""
+def build_variants(variants: dict, csrc: Path) -> dict:
+    """label -> the path of its library, compiled in parallel from csrc's
+    int8_gemm.cu, patched."""
     shutil.rmtree(OUT, ignore_errors=True)
     nvcc, procs, libs = _build.find_nvcc(), {}, {}
     flags = [f for f in _build.COMPILE_FLAGS if f != "-c"]
@@ -56,8 +59,8 @@ def build_variants(variants: dict) -> dict:
         d = OUT / label
         d.mkdir(parents=True)
         for name in HEADERS:
-            shutil.copy(_build.CSRC_DIR / name, d / name)
-        src = (_build.CSRC_DIR / "int8_gemm.cu").read_text()
+            shutil.copy(csrc / name, d / name)
+        src = (csrc / "int8_gemm.cu").read_text()
         for pattern, replacement in subs:
             new = re.sub(pattern, replacement, src)
             if new == src:
@@ -83,10 +86,12 @@ def main() -> int:
     p.add_argument("variants", type=json.loads)
     p.add_argument("--rounds", type=int, default=2)
     p.add_argument("--other", action="append", default=[], help="LABEL=DIR of another checkout")
+    p.add_argument("--source", type=Path, default=_build.CSRC_DIR,
+                   help="the csrc directory whose int8_gemm.cu the variants patch")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_int8_gemm_variants: needs a CUDA GPU")
-    libs = build_variants(args.variants)
+    libs = build_variants(args.variants, args.source.resolve())
     device = chip_smoke.phase_device()
     impl = {}
     for spec in args.other or ["parent=build/parent"]:

@@ -32,7 +32,7 @@
 // released, refilled by TMA, landed), not L2's bandwidth, bounds how fast
 // they come: with the products and the epilogue cut out, the loads alone
 // take about as long as the products at their peak at fc2, and a ring of 2
-// stages in place of 4 makes them 1.4x slower (PERF.md, row 7a).
+// stages in place of 4 makes them 1.4x slower (PERF.md, the int8 GEMM's findings).
 //
 // The design:
 //   * the quantization (since the LayerNorm kernels quantize the rows of
@@ -88,7 +88,7 @@
 //     reads, 91.2 MB at fc1 and fc2). A shared stage can be refilled only
 //     when both blocks' consumers have released it, which lengthens the
 //     ring's round trip, and the round trip, not L2, paces the loads: they
-//     were slower with multicast than without (PERF.md, row 7a).
+//     were slower with multicast than without (PERF.md, the int8 GEMM's findings).
 
 #include <cstdint>
 

@@ -1047,8 +1047,9 @@ INT8_MM_CASES = [
     ("m51_small", 51, 128, 128), ("m51_small_fc1", 51, 128, 512), ("m51_small_fc2", 51, 512, 128),
     *INT8_MM_EVAL,
     # The GEMM's tiles ragged in both directions (5 row tiles by 3 column
-    # tiles, 15 tiles: the warpgroups' turns end unevenly); the narrowest
-    # and widest operands the route takes.
+    # tiles); the narrowest and widest operands the route takes. (The eval
+    # capture's M = 16400 gives blocks of 3 and 4 tiles: the warpgroups'
+    # turns end unevenly.)
     ("odd_tiles", 519, 768, 576), ("k16_n8", 200, 16, 8), ("k4096_n4104", 300, 4096, 4104),
 ]
 

@@ -225,7 +225,7 @@ def _card_operands(M: int, din: int, dout: int, dtype, device, seed: int):
     (16400, 768, 768), (16400, 768, 3072), (16400, 3072, 768),  # the eval capture (129)
     (1040, 192, 192), (1040, 192, 768), (1040, 768, 192),  # the DREAM twin's eval (9)
     (3250, 192, 192), (3250, 192, 768), (3250, 768, 192),  # its receipt (26)
-    (519, 768, 576),  # 5 x 3 ragged tiles: the warpgroups' turns end unevenly
+    (519, 768, 576),  # 5 x 3 tiles, ragged in both directions
     (200, 16, 8), (300, 4096, 4104),  # the narrowest and widest operands the route takes
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -83,12 +83,15 @@
 //     barrier set-up, the three tensor maps' prefetch and the weights' first
 //     stages ahead of the wait and the next launch let in at once
 //     (griddepcontrol.launch_dependents);
-//   * not kept: thread-block clusters of two blocks sharing an operand
-//     panel by TMA multicast (B for two row tiles of a column: 30 % fewer L2
-//     reads, 91.2 MB at fc1 and fc2). A shared stage can be refilled only
-//     when both blocks' consumers have released it, which lengthens the
-//     ring's round trip, and the round trip, not L2, paces the loads: they
-//     were slower with multicast than without (PERF.md, the int8 GEMM's findings).
+//   * thread-block clusters of two blocks (5da0a62's, on this schedule):
+//     the cluster's blocks walk the same units, two row tiles of one column
+//     sharing B (or, with an odd row-tile count, the last row tile's two
+//     columns sharing A), each block issuing half of a shared box to both by
+//     TMA multicast; a stage is refilled once the owning warpgroups of both
+//     blocks have released it (a local and a remote arrive), so its empty
+//     barrier counts 8 warps; the grid is sized by
+//     cudaOccupancyMaxActiveClusters. A variant to measure against the
+//     schedule without clusters (PERF.md, the int8 GEMM's findings).
 
 #include <cstdint>
 
@@ -224,8 +227,12 @@ constexpr int kGK = 128;                           // int8 K of a stage: a 128-b
 constexpr int kGStages = 4;                        // ring depth
 constexpr int kGThreads = 128 * (kGConsumers + 1);  // + the producer warpgroup
 constexpr int kGConsumerRegs = 232, kGProducerRegs = 40;  // setmaxnreg: 256 x 232 + 128 x 40
-constexpr int kATile = kGM * kGK;                  // 16 KB
-constexpr int kBTile = kGN * kGK;                  // 24 KB
+constexpr int kGCluster = 2;                       // blocks of a thread-block cluster
+constexpr int kAHalf = kGM / 2 * kGK;              // 8 KB: a 64-row box of A
+constexpr int kBHalf = kGN / 2 * kGK;              // 12 KB: a 96-row box of B
+constexpr int kATile = 2 * kAHalf;                 // 16 KB
+constexpr int kBTile = 2 * kBHalf;                 // 24 KB
+static_assert(kAHalf % 1024 == 0 && kBHalf % 1024 == 0, "boxes start on a swizzle period");
 constexpr int kGStage = kATile + kBTile;           // both 1024-byte multiples
 // A consumer warp's staging of its output rows for the TMA store: 3 boxes
 // of 16 rows of 128 bytes (bf16: 64 columns), or 6 of 8 rows (f32: 32
@@ -252,6 +259,7 @@ struct GemmParams {
   const float* sw;    // (N,)
   const float* bias;  // (N,) or null
   int M, N, K, out_f32;
+  int m_tiles, n_tiles, units;  // output tiles by row and column; pairs of them
 };
 
 #define WGMMA_N192_S32                                                                          \
@@ -312,6 +320,77 @@ __device__ __forceinline__ void griddep_wait() {
 }
 __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// ---- the cluster and its multicast
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+__device__ __forceinline__ void tma_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                 int x, int y, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+struct UnitTile {
+  int m0, n0;
+  bool share_a, share_b, store;
+};
+// Unit u: row tiles 2j and 2j + 1 of one column sharing B; then, with an
+// odd row-tile count, the last row tile two columns a unit sharing A; an
+// odd last column pairs with itself (both compute it, rank 1 stores nothing).
+__device__ __forceinline__ UnitTile unit_tile(int u, uint32_t rank, int m_tiles, int n_tiles) {
+  const int pairs = m_tiles / 2 * n_tiles;
+  if (u < pairs) {
+    return {(2 * (u / n_tiles) + static_cast<int>(rank)) * kGM, u % n_tiles * kGN, false, true,
+            true};
+  }
+  const int c = 2 * (u - pairs);
+  const bool alone = c + 1 == n_tiles;
+  return {(m_tiles - 1) * kGM, (alone ? c : c + static_cast<int>(rank)) * kGN, true, alone,
+          !alone || rank == 0};
+}
+__device__ __forceinline__ void load_a(unsigned char* st, const GemmParams& p, uint64_t* bar,
+                                       int i, const UnitTile& t, uint32_t rank) {
+  if (t.share_a) {
+    tma_2d_multicast(st + rank * kAHalf, &p.a, bar, i * kGK, t.m0 + rank * (kGM / 2), 0x3);
+  } else {
+    tma_2d(st, &p.a, bar, i * kGK, t.m0);
+    tma_2d(st + kAHalf, &p.a, bar, i * kGK, t.m0 + kGM / 2);
+  }
+}
+__device__ __forceinline__ void load_b(unsigned char* st, const GemmParams& p, uint64_t* bar,
+                                       int i, const UnitTile& t, uint32_t rank) {
+  unsigned char* b = st + kATile;
+  if (t.share_b) {
+    tma_2d_multicast(b + rank * kBHalf, &p.b, bar, i * kGK, t.n0 + rank * (kGN / 2), 0x3);
+  } else {
+    tma_2d(b, &p.b, bar, i * kGK, t.n0);
+    tma_2d(b + kBHalf, &p.b, bar, i * kGK, t.n0 + kGN / 2);
+  }
+}
+__device__ __forceinline__ void release_stage(uint64_t* bar, uint32_t peer, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(bar);
+  } else if (lane == 1) {
+    mbar_arrive_remote(bar, peer);
+  }
 }
 
 // One box of the output from shared memory (laid out as the map's box,
@@ -376,48 +455,48 @@ __global__ void __launch_bounds__(kGThreads, 1)
   uint64_t* empty = full + kGStages;
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int k_tiles = (p.K + kGK - 1) / kGK, n_tiles = (p.N + kGN - 1) / kGN;
-  const int tiles = (p.M + kGM - 1) / kGM * n_tiles;
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
+  const int cluster = blockIdx.x / kGCluster, clusters = gridDim.x / kGCluster;
+  const int k_tiles = (p.K + kGK - 1) / kGK;
   if (threadIdx.x == 0) {
     prefetch_map(&p.a);
     prefetch_map(&p.b);
     prefetch_map(&p.c);
     for (int s = 0; s < kGStages; ++s) {
       mbar_init(&full[s], 1);   // the producer's lane 0, with the bytes
-      mbar_init(&empty[s], 4);  // the warps of the warpgroup whose tile the stage holds
+      mbar_init(&empty[s], kGCluster * 4);  // the owning warpgroup's warps, both blocks
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     griddep_launch_dependents();
   }
-  __syncthreads();
+  cluster_sync();
 
   if (wg == kGConsumers) {  // producer: one lane issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kGProducerRegs));
-    if (warp != 0 || lane != 0) return;
-    // The weights' first stages go out before the wait for the kernel
-    // before (none writes W_q); x_q's after it. The grid has at most
-    // `tiles` blocks, so tile blockIdx.x exists.
-    const int pre = k_tiles < kGStages ? k_tiles : kGStages;
-    const int n0 = blockIdx.x % n_tiles * kGN;
-    for (int i = 0; i < pre; ++i) {
-      mbar_arrive_expect_tx(&full[i], kGStage);
-      tma_2d(ring + i * kGStage + kATile, &p.b, &full[i], i * kGK, n0);
-    }
-    griddep_wait();
-    const int m0 = blockIdx.x / n_tiles * kGM;
-    for (int i = 0; i < pre; ++i) tma_2d(ring + i * kGStage, &p.a, &full[i], i * kGK, m0);
-    int it = pre;  // K-tiles issued, over all of this block's tiles
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
-      for (int i = tile == blockIdx.x ? pre : 0; i < k_tiles; ++i, ++it) {
-        const int stage = it % kGStages;
-        mbar_wait(&empty[stage], ((it / kGStages) & 1) ^ 1);  // round 0 passes
-        unsigned char* st = ring + stage * kGStage;
-        mbar_arrive_expect_tx(&full[stage], kGStage);
-        tma_2d(st, &p.a, &full[stage], i * kGK, m0);
-        tma_2d(st + kATile, &p.b, &full[stage], i * kGK, n0);
+    if (warp == 0 && lane == 0) {
+      const int pre = k_tiles < kGStages ? k_tiles : kGStages;
+      const UnitTile first = unit_tile(cluster, rank, p.m_tiles, p.n_tiles);
+      for (int i = 0; i < pre; ++i) {
+        mbar_arrive_expect_tx(&full[i], kGStage);
+        load_b(ring + i * kGStage, p, &full[i], i, first, rank);
+      }
+      griddep_wait();
+      for (int i = 0; i < pre; ++i) load_a(ring + i * kGStage, p, &full[i], i, first, rank);
+      int it = pre;
+      for (int u = cluster; u < p.units; u += clusters) {
+        const UnitTile t = unit_tile(u, rank, p.m_tiles, p.n_tiles);
+        for (int i = u == cluster ? pre : 0; i < k_tiles; ++i, ++it) {
+          const int stage = it % kGStages;
+          mbar_wait(&empty[stage], ((it / kGStages) & 1) ^ 1);
+          unsigned char* st = ring + stage * kGStage;
+          mbar_arrive_expect_tx(&full[stage], kGStage);
+          load_a(st, p, &full[stage], i, t, rank);
+          load_b(st, p, &full[stage], i, t, rank);
+        }
       }
     }
+    __syncwarp();
+    cluster_sync();
     return;
   }
 
@@ -432,9 +511,10 @@ __global__ void __launch_bounds__(kGThreads, 1)
   unsigned char* staged = smem + GSmem::kStaging + (wg * 4 + warp) * kWarpStage;
   const bool has_bias = p.bias != nullptr;
   for (int j = wg;; j += kGConsumers) {
-    const int tile = blockIdx.x + j * gridDim.x;
-    if (tile >= tiles) break;
-    const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
+    const int u = cluster + j * clusters;
+    if (u >= p.units) break;
+    const UnitTile t = unit_tile(u, rank, p.m_tiles, p.n_tiles);
+    const int m0 = t.m0, n0 = t.n0;
     const int row0 = m0 + warp * 16;  // the warp's rows: row0 + 64 h + g + 8 r
     // The tile's column scales and bias (three a thread) and the thread's
     // row scales, loaded into registers under the products: nothing waits
@@ -481,17 +561,14 @@ __global__ void __launch_bounds__(kGThreads, 1)
       wgmma_wait<1>();  // the products of the K-tile before are done: release its stage
       fence_acc(acc[0]);
       fence_acc(acc[1]);
-      if (i > 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
-      }
+      if (i > 0) release_stage(&empty[(it - 1) % kGStages], peer, lane);
     }
     turn_pass(wg);  // every product of the tile issued: the other warpgroup's turn
     wgmma_wait<0>();
     fence_acc(acc[0]);
     fence_acc(acc[1]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
+    release_stage(&empty[(it - 1) % kGStages], peer, lane);
+    if (!t.store) continue;
 
     // The scales into this warpgroup's copy, once its last epilogue has read
     // them; then each warp dequantizes its rows into its staging, 16 rows a
@@ -556,6 +633,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
     }
   }
   staging_free(lane);
+  cluster_sync();
 }
 
 // A tensor map over a (rows, K) row-major int8 matrix: dims (K, rows), boxes
@@ -591,23 +669,38 @@ int make_out_map(CUtensorMap* map, void* base, int M, int N, int out_f32) {
       CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// The current device's SM count, queried once a device, with the kernel's
-// shared-memory size set for it.
-cudaError_t device_sms(int* sms) {
+// The current device's count of resident two-block clusters of the
+// kernel, queried once a device, with its shared-memory size set.
+cudaError_t resident_clusters(int* clusters) {
   constexpr int kDevices = 64;
   static int known[kDevices] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device < kDevices && known[device] > 0) {
-    *sms = known[device];
+    *clusters = known[device];
     return cudaSuccess;
   }
   e = cudaFuncSetAttribute(int8_gemm_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            GSmem::kAlloc);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  if (device < kDevices) known[device] = *sms;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kGCluster);
+  config.blockDim = dim3(kGThreads);
+  config.dynamicSmemBytes = GSmem::kAlloc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kGCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, int8_gemm_sm90_kernel, &config);
+  if (e != cudaSuccess) return e;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  if (device < kDevices) known[device] = n;
+  *clusters = n;
   return cudaSuccess;
 }
 
@@ -638,8 +731,8 @@ extern "C" int int8_gemm_sm90(const void* xq, const void* wq, const float* sx, c
                               const float* bias, void* out, int M, int N, int K, int out_f32,
                               void* stream) {
   GemmParams p{};
-  int err = make_int8_map(&p.a, xq, M, K, kGM);
-  if (!err) err = make_int8_map(&p.b, wq, N, K, kGN);
+  int err = make_int8_map(&p.a, xq, M, K, kGM / 2);
+  if (!err) err = make_int8_map(&p.b, wq, N, K, kGN / 2);
   if (!err) err = make_out_map(&p.c, out, M, N, out_f32);
   if (err) return -err;
   p.sx = sx;
@@ -649,20 +742,35 @@ extern "C" int int8_gemm_sm90(const void* xq, const void* wq, const float* sx, c
   p.N = N;
   p.K = K;
   p.out_f32 = out_f32;
-  int sms = 0;
-  const cudaError_t e = device_sms(&sms);
+  p.m_tiles = (M + kGM - 1) / kGM;
+  p.n_tiles = (N + kGN - 1) / kGN;
+  const int64_t units = static_cast<int64_t>(p.m_tiles / 2) * p.n_tiles +
+                        (p.m_tiles % 2) * static_cast<int64_t>((p.n_tiles + 1) / 2);
+  p.units = static_cast<int>(units);
+  int clusters = 0;
+  const cudaError_t e = resident_clusters(&clusters);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t tiles = static_cast<int64_t>((M + kGM - 1) / kGM) * ((N + kGN - 1) / kGN);
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(tiles < sms ? tiles : sms));  // one block an SM at most
+  config.gridDim = dim3(kGCluster * static_cast<unsigned>(units < clusters ? units : clusters));
   config.blockDim = dim3(kGThreads);
   config.dynamicSmemBytes = GSmem::kAlloc;
   config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = kGCluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
   config.attrs = attr;
-  config.numAttrs = 1;
+  config.numAttrs = 2;
   const cudaError_t launched = cudaLaunchKernelEx(&config, int8_gemm_sm90_kernel, p);
   return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
+}
+
+// The count of resident clusters the launcher sizes its grid by.
+extern "C" int int8_gemm_resident_clusters() {
+  int n = 0;
+  const cudaError_t e = resident_clusters(&n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -60,7 +60,8 @@
 //     block. The grid is persistent, one block an SM (the SM count queried
 //     once a device), and the producer streams the next tile's K-tiles
 //     while the consumers finish the last one;
-//   * the epilogue under the products (ping-pong): each of the two consumer
+//   * the epilogue under the products (ping-pong), where a block has more
+//     than one tile (fc1, the eval's M = 16400): each of the two consumer
 //     warpgroups owns whole tiles, the block's tiles 0, 2, .. and 1, 3, ..,
 //     all 128 rows as two m64 products (192 s32 sums a thread; setmaxnreg
 //     gives the consumers 232 registers and the producer warpgroup 40). They
@@ -70,6 +71,11 @@
 //     one tile stopped it (fc1's four tiles a block). The turns also keep a
 //     warpgroup, which skips the other's K-tiles in the ring, from waiting
 //     on a stage more than one phase ahead;
+//   * where no block has a second tile (tiles <= SMs: 768 -> 768 and fc2 at
+//     M = 4100, 132 tiles), there is no next tile to hide an epilogue under,
+//     and one warpgroup alone would dequantize and store all 128 rows: so
+//     both warpgroups work on the tile, 64 rows each (kSplit), and share its
+//     epilogue;
 //   * the epilogue: each thread holds columns 8 n + 2 t and + 1 of rows g
 //     and g + 8 of its warp's 16 in each m64 half. The column scales and the
 //     bias are loaded into registers under the products and put in shared
@@ -83,15 +89,14 @@
 //     barrier set-up, the three tensor maps' prefetch and the weights' first
 //     stages ahead of the wait and the next launch let in at once
 //     (griddepcontrol.launch_dependents);
-//   * thread-block clusters of two blocks (5da0a62's, on this schedule):
-//     the cluster's blocks walk the same units, two row tiles of one column
-//     sharing B (or, with an odd row-tile count, the last row tile's two
-//     columns sharing A), each block issuing half of a shared box to both by
-//     TMA multicast; a stage is refilled once the owning warpgroups of both
-//     blocks have released it (a local and a remote arrive), so its empty
-//     barrier counts 8 warps; the grid is sized by
-//     cudaOccupancyMaxActiveClusters. A variant to measure against the
-//     schedule without clusters (PERF.md, the int8 GEMM's findings).
+//   * not kept: thread-block clusters of two blocks sharing an operand
+//     panel by TMA multicast (B for two row tiles of a column: 30 % fewer L2
+//     reads, 91.2 MB at fc1 and fc2). A shared stage can be refilled only
+//     when both blocks' consumers have released it, which lengthens the
+//     ring's round trip, and the round trip, not L2, paces the loads: they
+//     were slower with multicast than without, and the ping-pong schedule
+//     with that multicast on top was slower than without it at every serve
+//     and eval product (PERF.md, the int8 GEMM's findings).
 
 #include <cstdint>
 
@@ -227,12 +232,8 @@ constexpr int kGK = 128;                           // int8 K of a stage: a 128-b
 constexpr int kGStages = 4;                        // ring depth
 constexpr int kGThreads = 128 * (kGConsumers + 1);  // + the producer warpgroup
 constexpr int kGConsumerRegs = 232, kGProducerRegs = 40;  // setmaxnreg: 256 x 232 + 128 x 40
-constexpr int kGCluster = 2;                       // blocks of a thread-block cluster
-constexpr int kAHalf = kGM / 2 * kGK;              // 8 KB: a 64-row box of A
-constexpr int kBHalf = kGN / 2 * kGK;              // 12 KB: a 96-row box of B
-constexpr int kATile = 2 * kAHalf;                 // 16 KB
-constexpr int kBTile = 2 * kBHalf;                 // 24 KB
-static_assert(kAHalf % 1024 == 0 && kBHalf % 1024 == 0, "boxes start on a swizzle period");
+constexpr int kATile = kGM * kGK;                  // 16 KB
+constexpr int kBTile = kGN * kGK;                  // 24 KB
 constexpr int kGStage = kATile + kBTile;           // both 1024-byte multiples
 // A consumer warp's staging of its output rows for the TMA store: 3 boxes
 // of 16 rows of 128 bytes (bf16: 64 columns), or 6 of 8 rows (f32: 32
@@ -259,7 +260,6 @@ struct GemmParams {
   const float* sw;    // (N,)
   const float* bias;  // (N,) or null
   int M, N, K, out_f32;
-  int m_tiles, n_tiles, units;  // output tiles by row and column; pairs of them
 };
 
 #define WGMMA_N192_S32                                                                          \
@@ -322,77 +322,6 @@ __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// ---- the cluster and its multicast
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
-      "r"(cta)
-      : "memory");
-}
-__device__ __forceinline__ void tma_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                                 int x, int y, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar)), "h"(mask)
-      : "memory");
-}
-struct UnitTile {
-  int m0, n0;
-  bool share_a, share_b, store;
-};
-// Unit u: row tiles 2j and 2j + 1 of one column sharing B; then, with an
-// odd row-tile count, the last row tile two columns a unit sharing A; an
-// odd last column pairs with itself (both compute it, rank 1 stores nothing).
-__device__ __forceinline__ UnitTile unit_tile(int u, uint32_t rank, int m_tiles, int n_tiles) {
-  const int pairs = m_tiles / 2 * n_tiles;
-  if (u < pairs) {
-    return {(2 * (u / n_tiles) + static_cast<int>(rank)) * kGM, u % n_tiles * kGN, false, true,
-            true};
-  }
-  const int c = 2 * (u - pairs);
-  const bool alone = c + 1 == n_tiles;
-  return {(m_tiles - 1) * kGM, (alone ? c : c + static_cast<int>(rank)) * kGN, true, alone,
-          !alone || rank == 0};
-}
-__device__ __forceinline__ void load_a(unsigned char* st, const GemmParams& p, uint64_t* bar,
-                                       int i, const UnitTile& t, uint32_t rank) {
-  if (t.share_a) {
-    tma_2d_multicast(st + rank * kAHalf, &p.a, bar, i * kGK, t.m0 + rank * (kGM / 2), 0x3);
-  } else {
-    tma_2d(st, &p.a, bar, i * kGK, t.m0);
-    tma_2d(st + kAHalf, &p.a, bar, i * kGK, t.m0 + kGM / 2);
-  }
-}
-__device__ __forceinline__ void load_b(unsigned char* st, const GemmParams& p, uint64_t* bar,
-                                       int i, const UnitTile& t, uint32_t rank) {
-  unsigned char* b = st + kATile;
-  if (t.share_b) {
-    tma_2d_multicast(b + rank * kBHalf, &p.b, bar, i * kGK, t.n0 + rank * (kGN / 2), 0x3);
-  } else {
-    tma_2d(b, &p.b, bar, i * kGK, t.n0);
-    tma_2d(b + kBHalf, &p.b, bar, i * kGK, t.n0 + kGN / 2);
-  }
-}
-__device__ __forceinline__ void release_stage(uint64_t* bar, uint32_t peer, int lane) {
-  __syncwarp();
-  if (lane == 0) {
-    mbar_arrive(bar);
-  } else if (lane == 1) {
-    mbar_arrive_remote(bar, peer);
-  }
-}
-
 // One box of the output from shared memory (laid out as the map's box,
 // swizzled), at columns x, rows y of out; TMA leaves out what lies past M or
 // N. Issued by one lane after the warp's writes and a proxy fence; its
@@ -440,12 +369,16 @@ __device__ __forceinline__ void staging_free(int lane) {  // the last pass's sto
 
 // A persistent grid, one block an SM: block b takes the output tiles b, b +
 // gridDim.x, ... (tile t at row tile t / n_tiles, column tile t % n_tiles),
-// its j-th by consumer warpgroup j % 2, one producer lane streaming every
-// tile's K-tiles through the ring without a break. The warpgroups take
-// turns at the products (turn_wait / turn_pass, sm90_common.cuh): one
-// starts its tile's K-tiles when the other has issued its last, so that
-// one warpgroup's epilogue runs under the other's products, and a
-// warpgroup never waits on a stage more than one phase ahead of it.
+// one producer lane streaming every tile's K-tiles through the ring without
+// a break. With kSplit (no block has a second tile), both consumer
+// warpgroups work on each tile, warpgroup w on its rows 64 w .. + 64, so
+// that the one epilogue is shared. Else the block's j-th tile is consumer
+// warpgroup j % 2's, all 128 rows, and the warpgroups take turns at the
+// products (turn_wait / turn_pass, sm90_common.cuh): one starts its tile's
+// K-tiles when the other has issued its last, so that one warpgroup's
+// epilogue runs under the other's products, and a warpgroup never waits on
+// a stage more than one phase ahead of it.
+template <bool kSplit>
 __global__ void __launch_bounds__(kGThreads, 1)
     int8_gemm_sm90_kernel(const __grid_constant__ GemmParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -455,71 +388,74 @@ __global__ void __launch_bounds__(kGThreads, 1)
   uint64_t* empty = full + kGStages;
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
-  const int cluster = blockIdx.x / kGCluster, clusters = gridDim.x / kGCluster;
-  const int k_tiles = (p.K + kGK - 1) / kGK;
+  const int k_tiles = (p.K + kGK - 1) / kGK, n_tiles = (p.N + kGN - 1) / kGN;
+  const int tiles = (p.M + kGM - 1) / kGM * n_tiles;
   if (threadIdx.x == 0) {
     prefetch_map(&p.a);
     prefetch_map(&p.b);
     prefetch_map(&p.c);
     for (int s = 0; s < kGStages; ++s) {
       mbar_init(&full[s], 1);   // the producer's lane 0, with the bytes
-      mbar_init(&empty[s], kGCluster * 4);  // the owning warpgroup's warps, both blocks
+      mbar_init(&empty[s], kSplit ? 8 : 4);  // the warps of the warpgroups that read the stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     griddep_launch_dependents();
   }
-  cluster_sync();
+  __syncthreads();
 
   if (wg == kGConsumers) {  // producer: one lane issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kGProducerRegs));
-    if (warp == 0 && lane == 0) {
-      const int pre = k_tiles < kGStages ? k_tiles : kGStages;
-      const UnitTile first = unit_tile(cluster, rank, p.m_tiles, p.n_tiles);
-      for (int i = 0; i < pre; ++i) {
-        mbar_arrive_expect_tx(&full[i], kGStage);
-        load_b(ring + i * kGStage, p, &full[i], i, first, rank);
-      }
-      griddep_wait();
-      for (int i = 0; i < pre; ++i) load_a(ring + i * kGStage, p, &full[i], i, first, rank);
-      int it = pre;
-      for (int u = cluster; u < p.units; u += clusters) {
-        const UnitTile t = unit_tile(u, rank, p.m_tiles, p.n_tiles);
-        for (int i = u == cluster ? pre : 0; i < k_tiles; ++i, ++it) {
-          const int stage = it % kGStages;
-          mbar_wait(&empty[stage], ((it / kGStages) & 1) ^ 1);
-          unsigned char* st = ring + stage * kGStage;
-          mbar_arrive_expect_tx(&full[stage], kGStage);
-          load_a(st, p, &full[stage], i, t, rank);
-          load_b(st, p, &full[stage], i, t, rank);
-        }
+    if (warp != 0 || lane != 0) return;
+    // The weights' first stages go out before the wait for the kernel
+    // before (none writes W_q); x_q's after it. The grid has at most
+    // `tiles` blocks, so tile blockIdx.x exists.
+    const int pre = k_tiles < kGStages ? k_tiles : kGStages;
+    const int n0 = blockIdx.x % n_tiles * kGN;
+    for (int i = 0; i < pre; ++i) {
+      mbar_arrive_expect_tx(&full[i], kGStage);
+      tma_2d(ring + i * kGStage + kATile, &p.b, &full[i], i * kGK, n0);
+    }
+    griddep_wait();
+    const int m0 = blockIdx.x / n_tiles * kGM;
+    for (int i = 0; i < pre; ++i) tma_2d(ring + i * kGStage, &p.a, &full[i], i * kGK, m0);
+    int it = pre;  // K-tiles issued, over all of this block's tiles
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
+      for (int i = tile == blockIdx.x ? pre : 0; i < k_tiles; ++i, ++it) {
+        const int stage = it % kGStages;
+        mbar_wait(&empty[stage], ((it / kGStages) & 1) ^ 1);  // round 0 passes
+        unsigned char* st = ring + stage * kGStage;
+        mbar_arrive_expect_tx(&full[stage], kGStage);
+        tma_2d(st, &p.a, &full[stage], i * kGK, m0);
+        tma_2d(st + kATile, &p.b, &full[stage], i * kGK, n0);
       }
     }
-    __syncwarp();
-    cluster_sync();
     return;
   }
 
-  // Consumer warpgroup wg: the block's tiles j = wg, wg + 2, ..., all 128
-  // rows, as two m64 products (h = 0, 1: rows 64 h ..). s_x comes from the
-  // kernel before, and `out` may be memory that kernel still reads.
+  // Consumer warpgroup wg: with kSplit rows 64 wg .. + 64 of every tile of
+  // the block, one m64 product (kHalves = 1, h0 = wg); else the block's
+  // tiles j = wg, wg + 2, ..., all 128 rows, as two m64 products (h = 0, 1:
+  // rows 64 h ..). s_x comes from the kernel before, and `out` may be memory
+  // that kernel still reads.
+  constexpr int kHalves = kSplit ? 1 : 2;
+  const int h0 = kSplit ? wg : 0;
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kGConsumerRegs));
   griddep_wait();
-  if (wg == 1) turn_pass(1);  // warpgroup 0 has the first turn
+  if (!kSplit && wg == 1) turn_pass(1);  // warpgroup 0 has the first turn
   const int g = lane >> 2, q = lane & 3, tid = threadIdx.x % 128;
   float* scales = reinterpret_cast<float*>(smem + GSmem::kScales) + wg * 2 * kGN;  // s_w, b
   unsigned char* staged = smem + GSmem::kStaging + (wg * 4 + warp) * kWarpStage;
   const bool has_bias = p.bias != nullptr;
-  for (int j = wg;; j += kGConsumers) {
-    const int u = cluster + j * clusters;
-    if (u >= p.units) break;
-    const UnitTile t = unit_tile(u, rank, p.m_tiles, p.n_tiles);
-    const int m0 = t.m0, n0 = t.n0;
-    const int row0 = m0 + warp * 16;  // the warp's rows: row0 + 64 h + g + 8 r
+  for (int j = kSplit ? 0 : wg;; j += kSplit ? 1 : kGConsumers) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile >= tiles) break;
+    const int m0 = tile / n_tiles * kGM, n0 = tile % n_tiles * kGN;
+    const int row0 = m0 + 64 * h0 + warp * 16;  // the warp's rows: row0 + 64 h + g + 8 r
     // The tile's column scales and bias (three a thread) and the thread's
     // row scales, loaded into registers under the products: nothing waits
     // for them before the epilogue.
-    float col_vals[2 * kGN / 128], sx[2][2];
+    float col_vals[2 * kGN / 128], sx[kHalves][2];
 #pragma unroll
     for (int v = 0; v < 2 * kGN / 128; ++v) {
       const int c = tid + 128 * v, col = n0 + c % kGN;
@@ -527,7 +463,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
       col_vals[v] = col < p.N && src != nullptr ? src[col] : 0.f;
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kHalves; ++h) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 64 * h + g + 8 * r;
@@ -535,40 +471,45 @@ __global__ void __launch_bounds__(kGThreads, 1)
       }
     }
 
-    int acc[2][24][4];
+    int acc[kHalves][24][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kHalves; ++h) {
 #pragma unroll
       for (int n = 0; n < 24; ++n) acc[h][n][0] = acc[h][n][1] = acc[h][n][2] = acc[h][n][3] = 0;
     }
     int it = j * k_tiles;  // the ring position of the tile's first K-tile
-    turn_wait(wg);
+    if (!kSplit) turn_wait(wg);
     for (int i = 0; i < k_tiles; ++i, ++it) {
       const int stage = it % kGStages;
       mbar_wait(&full[stage], (it / kGStages) & 1);
       const unsigned char* st = ring + stage * kGStage;
-      const uint64_t a0 = sw_desc<false>(st), a1 = sw_desc<false>(st + 64 * kGK);
+      uint64_t a[kHalves];  // the A rows of product h: 64 (h0 + h) ..
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) a[h] = sw_desc<false>(st + 64 * (h0 + h) * kGK);
       const uint64_t b = sw_desc<false>(st + kATile);
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) fence_acc(acc[h]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kGK / 32; ++kk) {
-        wgmma_ss192_s8(acc[0], a0 + 2 * kk, b + 2 * kk);
-        wgmma_ss192_s8(acc[1], a1 + 2 * kk, b + 2 * kk);
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) wgmma_ss192_s8(acc[h], a[h] + 2 * kk, b + 2 * kk);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the products of the K-tile before are done: release its stage
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      if (i > 0) release_stage(&empty[(it - 1) % kGStages], peer, lane);
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) fence_acc(acc[h]);
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
+      }
     }
-    turn_pass(wg);  // every product of the tile issued: the other warpgroup's turn
+    if (!kSplit) turn_pass(wg);  // every product of the tile issued: the other warpgroup's turn
     wgmma_wait<0>();
-    fence_acc(acc[0]);
-    fence_acc(acc[1]);
-    release_stage(&empty[(it - 1) % kGStages], peer, lane);
-    if (!t.store) continue;
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) fence_acc(acc[h]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % kGStages]);
 
     // The scales into this warpgroup's copy, once its last epilogue has read
     // them; then each warp dequantizes its rows into its staging, 16 rows a
@@ -581,7 +522,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
     const float2* s_w = reinterpret_cast<const float2*>(scales) + q;  // columns 8 n + 2 q, + 1
     const float2* s_b = reinterpret_cast<const float2*>(scales + kGN) + q;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kHalves; ++h) {
       if (!p.out_f32) {
         staging_free(lane);
 #pragma unroll
@@ -633,7 +574,6 @@ __global__ void __launch_bounds__(kGThreads, 1)
     }
   }
   staging_free(lane);
-  cluster_sync();
 }
 
 // A tensor map over a (rows, K) row-major int8 matrix: dims (K, rows), boxes
@@ -669,38 +609,27 @@ int make_out_map(CUtensorMap* map, void* base, int M, int N, int out_f32) {
       CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// The current device's count of resident two-block clusters of the
-// kernel, queried once a device, with its shared-memory size set.
-cudaError_t resident_clusters(int* clusters) {
+// The current device's SM count, queried once a device, with the kernels'
+// shared-memory size set for it.
+cudaError_t device_sms(int* sms) {
   constexpr int kDevices = 64;
   static int known[kDevices] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device < kDevices && known[device] > 0) {
-    *clusters = known[device];
+    *sms = known[device];
     return cudaSuccess;
   }
-  e = cudaFuncSetAttribute(int8_gemm_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           GSmem::kAlloc);
+  e = cudaFuncSetAttribute(int8_gemm_sm90_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, GSmem::kAlloc);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(int8_gemm_sm90_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, GSmem::kAlloc);
+  }
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kGCluster);
-  config.blockDim = dim3(kGThreads);
-  config.dynamicSmemBytes = GSmem::kAlloc;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kGCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, int8_gemm_sm90_kernel, &config);
-  if (e != cudaSuccess) return e;
-  if (n < 1) return cudaErrorInvalidConfiguration;
-  if (device < kDevices) known[device] = n;
-  *clusters = n;
+  if (device < kDevices) known[device] = *sms;
   return cudaSuccess;
 }
 
@@ -731,8 +660,8 @@ extern "C" int int8_gemm_sm90(const void* xq, const void* wq, const float* sx, c
                               const float* bias, void* out, int M, int N, int K, int out_f32,
                               void* stream) {
   GemmParams p{};
-  int err = make_int8_map(&p.a, xq, M, K, kGM / 2);
-  if (!err) err = make_int8_map(&p.b, wq, N, K, kGN / 2);
+  int err = make_int8_map(&p.a, xq, M, K, kGM);
+  if (!err) err = make_int8_map(&p.b, wq, N, K, kGN);
   if (!err) err = make_out_map(&p.c, out, M, N, out_f32);
   if (err) return -err;
   p.sx = sx;
@@ -742,35 +671,23 @@ extern "C" int int8_gemm_sm90(const void* xq, const void* wq, const float* sx, c
   p.N = N;
   p.K = K;
   p.out_f32 = out_f32;
-  p.m_tiles = (M + kGM - 1) / kGM;
-  p.n_tiles = (N + kGN - 1) / kGN;
-  const int64_t units = static_cast<int64_t>(p.m_tiles / 2) * p.n_tiles +
-                        (p.m_tiles % 2) * static_cast<int64_t>((p.n_tiles + 1) / 2);
-  p.units = static_cast<int>(units);
-  int clusters = 0;
-  const cudaError_t e = resident_clusters(&clusters);
+  int sms = 0;
+  const cudaError_t e = device_sms(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t tiles = static_cast<int64_t>((M + kGM - 1) / kGM) * ((N + kGN - 1) / kGN);
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kGCluster * static_cast<unsigned>(units < clusters ? units : clusters));
+  config.gridDim = dim3(static_cast<unsigned>(tiles < sms ? tiles : sms));  // one block an SM at most
   config.blockDim = dim3(kGThreads);
   config.dynamicSmemBytes = GSmem::kAlloc;
   config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[2];
+  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = kGCluster;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
   config.attrs = attr;
-  config.numAttrs = 2;
-  const cudaError_t launched = cudaLaunchKernelEx(&config, int8_gemm_sm90_kernel, p);
+  config.numAttrs = 1;
+  // No block has a second tile: both warpgroups on each tile (kSplit).
+  const cudaError_t launched = tiles <= sms
+                                   ? cudaLaunchKernelEx(&config, int8_gemm_sm90_kernel<true>, p)
+                                   : cudaLaunchKernelEx(&config, int8_gemm_sm90_kernel<false>, p);
   return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
-}
-
-// The count of resident clusters the launcher sizes its grid by.
-extern "C" int int8_gemm_resident_clusters() {
-  int n = 0;
-  const cudaError_t e = resident_clusters(&n);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

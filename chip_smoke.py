@@ -1181,6 +1181,9 @@ def gemm_graph_edges() -> dict:
           f"{out['edges']} edges, {out['programmatic']} of them programmatic (type, port: "
           f"{kinds}); replayed outputs bit-equal to the eager ones: {equal}")
     check(equal, "int8 GEMM: a graph replay differs from the eager calls")
+    check(len(kinds) == len(cases) - 1 and all(k == (1, 1) for k in kinds),
+          f"int8 GEMM: the captured block lost its programmatic dependent launch: edges (type, "
+          f"port) {kinds}, want {len(cases) - 1} of (1, 1)")
     return out
 
 

@@ -6,10 +6,10 @@
 OTHER_DIR is another checkout of the port (unpack it with `git archive`
 under build/). Builds both checkouts' kernels (the other's in a process of
 its own, from its own root) and loads the other's library beside this one's:
-its `int8_gemm_sm90` takes the same C arguments in both. By CUDA-graph
-replay in turns other/this/this/other, each product's output compared bit
-for bit between the two checkouts and held to the plain version
-(`int8_gemm_reference`):
+its `int8_gemm_sm90` takes the same C arguments in both. Each product's
+output is compared bit for bit between the two checkouts and held to the
+plain version (`int8_gemm_reference`), and each is timed by CUDA-graph
+replay in turns other/this/this/other:
   * the int8 serve step's products at M = 4100 token rows (ViT-B/16 at 512
     px, 4 views), bf16 out: 768 -> 768 (q, k, v, out), fc1 768 -> 3072, fc2
     3072 -> 768, and a block's six (4 x 768 -> 768, fc1, fc2) in one graph;
@@ -17,7 +17,16 @@ for bit between the two checkouts and held to the plain version
   * the eval capture's products at M = 16400 (16 views), bf16 out;
 each beside its bound (the larger of the bytes, each input read once and the
 output written once, over 3.35 TB/s and the int8 operations over 1979 TOP/s)
-and `torch._int_mm` alone (int32 out). Then the int8 + fused-LN serve step
+and `torch._int_mm` alone (int32 out). Two timings a case:
+  * back to back: ten calls in one graph. A kernel launched with
+    programmatic dependent launch runs its set-up and its weights' first
+    loads under the call before, which on the main path is mostly not a
+    GEMM: so this favours such a kernel;
+  * in the main path's order: each product after the kernel that writes
+    its x_q and s_x (`int8_quantize_rows_cuda` on its x; in the block, q,
+    out, fc1 and fc2 after one, k and v straight after q and k, as the
+    serve step runs them), less the quantizations timed alone: the GEMM's
+    own time, with no more overlap than the main path gives it. Then the int8 + fused-LN serve step
 (ViT-B/16, 512 px, 4 resident 720x1280 frames, seed-0 weights, bf16), in
 processes of their own from each root, in turns other/this/this/other: its
 device time by CUDA-graph replay, the GEMM's launches a step, and the
@@ -50,6 +59,10 @@ PTR, I32 = ctypes.c_void_p, ctypes.c_int
 SERVE_M, EVAL_M = 4 * 1025, 16 * 1025
 PRODUCTS = {"768->768": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
 BLOCK = ["768->768"] * 4 + ["fc1", "fc2"]  # a block's six products, in the order it runs them
+# Which of them the serve step runs straight after the kernel that writes
+# their x_q (an int8 LayerNorm or the rows quantization): all but k and v,
+# which follow q's and k's GEMMs on q's x_q.
+BLOCK_QUANTIZED = [True, False, False, True, True, True]
 
 # The bf16 int8 + fused-LN serve step, timed by a process from a checkout's
 # root with that checkout's package: only names both checkouts have.
@@ -128,19 +141,23 @@ class Product:
     once, with an output buffer for the other checkout's kernel."""
 
     def __init__(self, M: int, din: int, dout: int, out_dtype, seed: int):
-        x, self.kq, self.scale, self.bias = chip_smoke._int8_mm_operands(
+        self.x, self.kq, self.scale, self.bias = chip_smoke._int8_mm_operands(
             M, din, dout, torch.bfloat16, seed)
-        self.xq, self.sx = int8_matmul.int8_quantize_rows_cuda(x)
+        self.xq, self.sx = int8_matmul.int8_quantize_rows_cuda(self.x)
         self.out_dtype, self.shape = out_dtype, (M, din, dout)
         self.out = torch.empty(M, dout, dtype=out_dtype, device="cuda")
 
-    def this(self) -> torch.Tensor:
-        return int8_matmul.int8_gemm_cuda(self.xq, self.sx, self.kq, self.scale, self.bias,
-                                          self.out_dtype)
+    def quantize(self) -> tuple:
+        return int8_matmul.int8_quantize_rows_cuda(self.x)
 
-    def other(self, lib) -> torch.Tensor:
+    def this(self, xs=None) -> torch.Tensor:
+        xq, sx = xs or (self.xq, self.sx)
+        return int8_matmul.int8_gemm_cuda(xq, sx, self.kq, self.scale, self.bias, self.out_dtype)
+
+    def other(self, lib, xs=None) -> torch.Tensor:
         M, din, dout = self.shape
-        err = lib.int8_gemm_sm90(self.xq.data_ptr(), self.kq.data_ptr(), self.sx.data_ptr(),
+        xq, sx = xs or (self.xq, self.sx)
+        err = lib.int8_gemm_sm90(xq.data_ptr(), self.kq.data_ptr(), sx.data_ptr(),
                                  self.scale.data_ptr(), self.bias.data_ptr(), self.out.data_ptr(),
                                  M, dout, din, int(self.out_dtype == torch.float32),
                                  torch.cuda.current_stream().cuda_stream)
@@ -202,8 +219,27 @@ def main() -> int:
         cases[f"{name} M={EVAL_M}"] = [Product(EVAL_M, din, dout, bf16, seed=720 + i)]
     rows = []
     for name, products in cases.items():
+        quantized = BLOCK_QUANTIZED if len(products) > 1 else [True]
+
+        def in_order(gemm, products=products, quantized=quantized):
+            """The products in the main path's order, each quantized x_q
+            written by the kernel just before its GEMM (or k's and v's, q's)."""
+            for pr, fresh in zip(products, quantized):
+                xs = pr.quantize() if fresh else xs
+                gemm(pr, xs)
+
+        def quantizations(products=products, quantized=quantized):
+            for pr, fresh in zip(products, quantized):
+                if fresh:
+                    pr.quantize()
+
         new, old = chip_smoke._in_turns(
             timer, lambda: [pr.other(lib) for pr in products], lambda: [pr.this() for pr in products])
+        new_seq, old_seq = chip_smoke._in_turns(
+            timer, lambda: in_order(lambda pr, xs: pr.other(lib, xs)),
+            lambda: in_order(lambda pr, xs: pr.this(xs)))
+        quant = timer(quantizations)
+        new_own, old_own = new_seq - quant, old_seq - quant
         equal = plain = True
         for pr in products:
             mine, theirs, want = pr.this(), pr.other(lib).clone(), pr.plain()
@@ -215,15 +251,20 @@ def main() -> int:
         ops = sum(pr.work()[1] for pr in products)
         b = chip_smoke.bound(nbytes, ops, "int8")
         l2 = sum(int8_matmul.gemm_l2_bytes(*pr.shape) for pr in products)
-        rows.append({"case": name, "ms": new, "other_ms": old, "int_mm_ms": int_mm,
-                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bit_equal": equal,
-                     "plain_equal": plain, "l2_bytes": l2})
+        rows.append({"case": name, "ms": new_own, "other_ms": old_own, "back_to_back_ms": new,
+                     "other_back_to_back_ms": old, "in_order_ms": new_seq,
+                     "other_in_order_ms": old_seq, "quantizations_ms": quant,
+                     "int_mm_ms": int_mm, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                     "bit_equal": equal, "plain_equal": plain, "l2_bytes": l2})
         print(f"int8 GEMM {name}, us per call (CUDA-graph replay, in turns other/this/this/"
-              f"other): this {1e3 * new:.2f}, other {1e3 * old:.2f} ({old / new:.3f}x); bound "
-              f"{1e3 * b['bound_ms']:.2f} ({b['bound_by']}), this at {b['bound_ms'] / new:.3f} of "
-              f"it; torch._int_mm alone {1e3 * int_mm:.2f}; operand bytes from L2 (this) "
-              f"{l2 / 1e6:.1f} MB; outputs bit-equal between the checkouts: {equal}, "
-              f"to the plain version: {plain}", flush=True)
+              f"other): in the main path's order this {1e3 * new_own:.2f}, other "
+              f"{1e3 * old_own:.2f} ({old_own / new_own:.3f}x; with the quantizations "
+              f"{1e3 * new_seq:.2f} / {1e3 * old_seq:.2f}, they alone {1e3 * quant:.2f}); back to "
+              f"back this {1e3 * new:.2f}, other {1e3 * old:.2f} ({old / new:.3f}x); bound "
+              f"{1e3 * b['bound_ms']:.2f} ({b['bound_by']}), this at {b['bound_ms'] / new_own:.3f} "
+              f"of it in the main path's order; torch._int_mm alone {1e3 * int_mm:.2f}; operand "
+              f"bytes from L2 (this) {l2 / 1e6:.1f} MB; outputs bit-equal between the checkouts: "
+              f"{equal}, to the plain version: {plain}", flush=True)
         chip_smoke.check(equal and plain, f"{name}: the outputs differ")
     edges = chip_smoke.gemm_graph_edges()
     result = {"card": device["nvidia_smi"], "gemm_turns": rows, "graph_edges": edges}

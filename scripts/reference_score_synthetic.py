@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
 """Score a single-view synthetic run's checkpoint with the reference's own held-out evaluation.
 
-    python scripts/reference_score_synthetic.py RUN_DIR [--image-size 128] [--eval-batches 4]
-        [--batch 64] [--dtype bfloat16] [--out FILE]
+    python scripts/reference_score_synthetic.py RUN_DIR [--dtype bfloat16]
 
 RUN_DIR holds `best_params.npz` (the reference's flat layout, as
-`scripts/torch_train_synthetic.py` or the reference's trainer writes it) of
-the single-view fr5 model that `scripts/train_synthetic.py --backbone-ckpt`
+`scripts/torch_train_synthetic.py` or the reference's trainer writes it)
+and `final_metrics.json` (its `image_size` and `batch` are read) of the
+single-view fr5 model that `scripts/train_synthetic.py --backbone-ckpt`
 builds (a 192-wide, 4-layer ViT/16 with LayerScale, the query head). This
 script runs the JAX package only, on the CPU: it builds that model with
 `scripts/train_synthetic.py::build_model`, loads the checkpoint's params and
 BatchNorm statistics, and repeats `train_synthetic.py`'s final evaluation on
-its own held-out pool (`make_batch(PRNGKey(20_000 + i))`, i < eval_batches):
+its own held-out pool (`make_batch(PRNGKey(20_000 + i))`, i < 4, the
+trainer's default `--eval-batches`):
 PCK@5 and the tight PCK on the argmax decode, angle MAE, ADD, AUC@10cm, then
 the 6D camera pose by `recover_pose_batch` on the refined decode (keys
 split from PRNGKey(3)) with the predicted and with the true angles, errors
-over the successful recoveries. It prints and (with --out) writes one JSON
-object with `final_metrics.json`'s keys. So a checkpoint trained by the port
+over the successful recoveries. It prints one JSON object with
+`final_metrics.json`'s keys. So a checkpoint trained by the port
 is scored with the same data draws, decode and PnP as the reference's run.
 """
 
@@ -37,16 +38,13 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+EVAL_BATCHES = 4  # scripts/train_synthetic.py's default --eval-batches
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("run_dir", type=Path)
-    p.add_argument("--image-size", type=int, default=128)
-    p.add_argument("--eval-batches", type=int, default=4)
-    p.add_argument("--batch", type=int, default=64)
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                    help="the model's compute type (bfloat16: as the reference's run on a TPU)")
-    p.add_argument("--out", type=Path, default=None)
     args = p.parse_args()
 
     from mvropose_tpu.cli.main import _load_variables_checked
@@ -59,8 +57,10 @@ def main() -> int:
         pose_rotation_err_deg, pose_translation_err_m
     from scripts.train_synthetic import build_model
 
+    run = json.loads((args.run_dir / "final_metrics.json").read_text())
     robot = get_robot("fr5")
-    size, hm = args.image_size, args.image_size // 2
+    size, n_batch = run["image_size"], run["batch"]
+    hm = size // 2
     rig = rig_tuple(make_rig(n_views=1, image_hw=(size, size)))
     model, _ = build_model("single", robot, size, on_tpu=args.dtype == "bfloat16", n_views=1,
                            freeze_backbone=True, with_layerscale=True)
@@ -69,9 +69,9 @@ def main() -> int:
 
     def make_batch(key):
         return single_view_batch(synthesize_multiview_batch(
-            robot, rig, key, args.batch, image_hw=(size, size), heatmap_hw=(hm, hm)))
+            robot, rig, key, n_batch, image_hw=(size, size), heatmap_hw=(hm, hm)))
 
-    batches = [make_batch(jax.random.PRNGKey(20_000 + i)) for i in range(args.eval_batches)]
+    batches = [make_batch(jax.random.PRNGKey(20_000 + i)) for i in range(EVAL_BATCHES)]
     apply = jax.jit(model.apply)
 
     def metrics(batch):
@@ -118,11 +118,8 @@ def main() -> int:
                  pose_success_rate=pe["success"], pose_rot_err_deg_gt_angles=pe_gt["rot"],
                  pose_trans_err_m_gt_angles=pe_gt["trans"], scored_by="reference",
                  checkpoint=str(args.run_dir / "best_params.npz"), dtype=args.dtype,
-                 held_out_samples=args.batch * args.eval_batches)
-    text = json.dumps(final, indent=2)
-    print(text)
-    if args.out is not None:
-        args.out.write_text(text + "\n")
+                 held_out_samples=n_batch * EVAL_BATCHES)
+    print(json.dumps(final, indent=2))
     return 0
 
 

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Variants of the int8 GEMM's source, built side by side and timed in turns on one card.
 
-    python3 scripts/torch_int8_gemm_variants.py VARIANTS_JSON [--rounds 2] [--other LABEL=DIR ...]
-        [--source CSRC_DIR]
+    python3 scripts/torch_int8_gemm_variants.py VARIANTS_JSON [--source CSRC_DIR]
 
 VARIANTS_JSON maps a label to a list of [regex, replacement] pairs applied
 in order to a copy of `mvropose_torch/csrc/int8_gemm.cu` (or of CSRC_DIR's,
@@ -11,14 +10,14 @@ matches nothing stops the script; a label ending in `_x` marks a variant
 whose outputs are not expected to be right, e.g. one without its epilogue:
 its outputs are not checked). `{"as_is": []}` builds the source unchanged.
 Each variant is compiled with the build's nvcc flags into a library of its
-own under build/gemm_variants/ (all compiles started together); each --other
-checkout's library is built from its own root, and OTHER_DIR defaults to
-`parent=build/parent`. Every library is called through `int8_gemm_sm90`,
+own under build/gemm_variants/ (all compiles started together), beside the
+parent's library, built from its own root at build/parent (unpack the
+parent commit there with `git archive`). Every library is called through `int8_gemm_sm90`,
 whose C arguments are the same in all. At M = 4100 (bf16 out unless named):
 768 -> 768, fc1, fc2, a block's six, fc1 f32 out; at M = 16400: fc2 and fc1.
 Each case's outputs are held bit-equal to the plain version
 (`int8_gemm_reference`), then each library is timed by CUDA-graph replay,
-`rounds` times in turns (the order reversed every other round); the median
+twice in turns (the order reversed the second time); the median
 a call in us is printed, one line a case, then a JSON line of them all.
 Needs a CUDA GPU.
 """
@@ -47,6 +46,8 @@ from mvropose_torch.ops import _build  # noqa: E402
 
 OUT = ROOT / "build" / "gemm_variants"
 HEADERS = ("sm90_common.cuh", "int8_quantize.cuh")
+PARENT = ROOT / "build" / "parent"
+ROUNDS = 2
 
 
 def build_variants(variants: dict, csrc: Path) -> dict:
@@ -84,8 +85,6 @@ def build_variants(variants: dict, csrc: Path) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("variants", type=json.loads)
-    p.add_argument("--rounds", type=int, default=2)
-    p.add_argument("--other", action="append", default=[], help="LABEL=DIR of another checkout")
     p.add_argument("--source", type=Path, default=_build.CSRC_DIR,
                    help="the csrc directory whose int8_gemm.cu the variants patch")
     args = p.parse_args()
@@ -93,10 +92,7 @@ def main() -> int:
         raise SystemExit("torch_int8_gemm_variants: needs a CUDA GPU")
     libs = build_variants(args.variants, args.source.resolve())
     device = chip_smoke.phase_device()
-    impl = {}
-    for spec in args.other or ["parent=build/parent"]:
-        label, path = spec.split("=", 1)
-        impl[label] = turns.other_library((ROOT / path).resolve())
+    impl = {"parent": turns.other_library(PARENT)}
     for label, path in libs.items():
         lib = ctypes.CDLL(str(path))
         lib.int8_gemm_sm90.argtypes = [turns.PTR] * 6 + [turns.I32] * 4 + [turns.PTR]
@@ -124,11 +120,11 @@ def main() -> int:
                 chip_smoke.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                                  f"{case}: {label}'s outputs differ from the plain version")
         times = {label: [] for label in impl}
-        for r in range(args.rounds):
+        for r in range(ROUNDS):
             for label in list(impl) if r % 2 == 0 else list(impl)[::-1]:
                 times[label].append(timer(lambda lib=impl[label]: [pr.other(lib) for pr in products]))
         result[case] = {label: 1e3 * statistics.median(t) for label, t in times.items()}
-        print(f"{case}, us a call (CUDA-graph replay, {args.rounds} rounds in turns): "
+        print(f"{case}, us a call (CUDA-graph replay, {ROUNDS} rounds in turns): "
               + ", ".join(f"{label} {us:.2f}" for label, us in result[case].items()), flush=True)
     print(json.dumps({"card": device["nvidia_smi"], "variants": args.variants, "us": result}))
     return 0

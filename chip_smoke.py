@@ -532,7 +532,8 @@ def spilled_bytes(log: str) -> dict:
 
 # The Hopper kernels of the build: the flash forward, dK/dV and dQ at every
 # head width in bf16, in f16 and (split TF32) in f32, the int8 attention at
-# every head width in bf16 and f32, and the int8 GEMM.
+# every head width in bf16 and f32, and the int8 GEMM's two schedules
+# (`int8_gemm_sm90_kernel<kSplit>`).
 FLASH_PARTS = attention.FLASH_PARTS
 # The width-templated kernels' instantiations by element type: the parts it
 # has, and the pattern of one's mangled name (`part` filled in; the width its
@@ -542,7 +543,7 @@ HOPPER_TYPES = {"bf16": (FLASH_PARTS, r"flash_{part}_sm90_kernelILi(\d+)E13__nv_
                 "tf32": (FLASH_PARTS, r"flash_{part}_tf32_sm90_kernelILi(\d+)EE"),
                 "int8 bf16": (("attention",), r"int8_{part}_sm90_kernelILi(\d+)E13__nv_bfloat16E"),
                 "int8 f32": (("attention",), r"int8_{part}_sm90_kernelILi(\d+)EfE")}
-HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 1
+HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.values()) + 2
 
 
 def phase_build() -> None:

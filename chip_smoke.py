@@ -1146,7 +1146,7 @@ def gemm_graph_edges() -> dict:
     """Whether a CUDA graph captured from the stream keeps the GEMM's
     programmatic dependent launch: a block's six products (768 -> 768 four
     times, fc1, fc2 at M = 4100, bf16) captured in one torch CUDA graph, its
-    edges read with the driver's cuGraphGetEdges_v2 (type 1: programmatic),
+    edges read with libcuda's cuGraphGetEdges_v2 (type 1: programmatic),
     and the replayed outputs held bit-equal to the eager ones."""
     cases = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
     ops = [_int8_mm_operands(INT8_MM_ROWS, din, dout, torch.bfloat16, seed=900 + i)

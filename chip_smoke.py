@@ -63,6 +63,14 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
      kernel's launches counted over that run only:
        * `serve` at its defaults (4 synthetic 720x1280 cameras, ViT-B/16 at
          512 px, random weights from seed 0, bf16): the peak decode;
+       * the same with `--display dir` (`phase_serve_display`): a canvas each
+         few ticks, named and sized as the reference's viewer makes them;
+       * `cli profile` at its defaults (`phase_profile`: ViT-B/16, 4 views,
+         512 px, zero weights): each stage's device ms between CUDA events,
+         one peak decode a decode stage;
+       * `cli calibrate extrinsics` and `corners` (`phase_cli_calibrate`) on
+         ArUco detections written for `write_capture`'s ring of cameras,
+         held to the poses the ring drew; `python -m mvropose_torch`;
        * the pose step alone (`phase_pose`: `recover_pose_batch` on a clean
          fr3 rig at the serve shapes, V = 1 and 4, refine off and on) on the
          card against the CPU route (success equal; poses from the exact
@@ -127,12 +135,16 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          writes under build/ with the stdlib csv, cv2 and json (an FR3 rig
          of 4 serials x left and right cameras, 1080x1920 JPEGs of 8 views
          a group, the sync CSV, calibration files with distortion, a pose1
-         ArUco summary), trained at ViT-B/16 512 px, batch 2, one epoch and
-         then a resumed second epoch (it must start at epoch 2): one render
-         launch per preprocessed batch, no plain render, a batch's GT
-         heatmaps against `render_heatmaps_reference`, finite losses,
-         best_params.npz read by `serve --params`; groups/s, host load and
-         device step times per batch;
+         ArUco summary), trained at ViT-B/16 512 px, batch 2, 4 worker
+         processes loading, one epoch and then a resumed second epoch (it
+         must start at epoch 2, its stream reseeded): one render launch per
+         preprocessed batch, no plain render, the first epoch's worker
+         batches bit-equal to the in-process prep of the same groups, a
+         batch's GT heatmaps against `render_heatmaps_reference`, finite
+         losses, best_params.npz read by `serve --params`, `cli visualize`'s
+         group panels; groups/s, host load and device step times per batch;
+         then 16 groups in turns of 0, 4, 4, 0 workers (`cli_train_turns`):
+         host load a train batch and groups/s an epoch, beside the CPUs;
        * `cli eval` (`phase_cli_eval`): on the same capture and run, float
          with --refine-pose --occlusion-masks 2, and --int8-backbone
          --int8-attention; then a DREAM set and an fr5 + fr3 +
@@ -233,12 +245,14 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import ctypes
 import dataclasses
 import functools
 import importlib.util
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -277,7 +291,11 @@ from mvropose_torch.data.synthetic import (
 from mvropose_torch.geometry import pnp
 from mvropose_torch.geometry.camera import project_points, undistort_map
 from mvropose_torch.geometry.robots import forward_kinematics, get_robot
-from mvropose_torch.geometry.rotations import matrix_to_rodrigues, rodrigues_to_matrix
+from mvropose_torch.geometry.rotations import (
+    matrix_to_quat,
+    matrix_to_rodrigues,
+    rodrigues_to_matrix,
+)
 from mvropose_torch.geometry.triangulation import dlt_system, heatmap_projection_matrices
 from mvropose_torch.models import (
     EstimatorConfig,
@@ -3624,35 +3642,35 @@ def phase_geometric_trainer() -> dict:
 
 # `cli train` on a captured FR3 rig at full width: 4 serials x left and right
 # cameras (max_views = 8), 1080x1920 frames, CLI_TRAIN_GROUPS groups of 8
-# views; ViT-B/16 at 512 px (the query head), batch 2.
+# views; ViT-B/16 at 512 px (the query head), batch 2, the host loading in
+# CLI_TRAIN_WORKERS worker processes (the reference's default).
 CLI_TRAIN_HW = (1080, 1920)
 CLI_TRAIN_GROUPS = 8
 CLI_TRAIN_VAL_SPLIT = 0.25  # 6 train groups (3 steps an epoch) and 2 val groups
+CLI_TRAIN_WORKERS = 4
 CLI_TRAIN_ARGV = ["--robot", "fr3", "--image-hw", "1080", "1920", "--model-size", "512",
                   "--hidden-size", "768", "--num-layers", "12", "--batch-size", "2",
-                  "--val-split", str(CLI_TRAIN_VAL_SPLIT), "--viz-every", "1", "--device", "cuda"]
+                  "--val-split", str(CLI_TRAIN_VAL_SPLIT), "--viz-every", "1", "--device", "cuda",
+                  "--num-workers", str(CLI_TRAIN_WORKERS)]
+# The timed turns of 0 and CLI_TRAIN_WORKERS workers: 3 steps an epoch are
+# too few to time a warm stream (its first batch waits for the workers to
+# start and decode), so these runs read 16 groups (12 train, 6 steps an
+# epoch) over 2 epochs, whose stream stays warm across the epoch boundary.
+CLI_TURN_GROUPS = 16
+CLI_TURN_WORKERS = (0, CLI_TRAIN_WORKERS, CLI_TRAIN_WORKERS, 0)
 
 
-def write_capture(root: Path, groups: int = CLI_TRAIN_GROUPS, seed: int = 0) -> dict:
-    """A capture as `cli sync fr3` and `cli calibrate` leave one, written
-    with the stdlib csv, cv2 and json: per group one joint record (radians)
-    and 8 JPEGs pose1/zed_<serial>_<left|right>_<epoch>.jpg within 5 ms of
-    it (so the group's rows tie on robot_timestamp), the sync CSV schema,
-    `{view}_{serial}_{cam}_calib.json` (ZED-like K, some distortion) and
-    `pose1_aruco_pose_summary.json`: a ring of 8 cameras 2.2 m from the
-    robot, in radians (fr3's unit), composed with each view's base rotation
-    so that the robot projects into every frame -> CLI argv pieces."""
-    import cv2
-
+def write_ring_calibration(root: Path) -> list:
+    """The capture's calibration, as `cli calibrate` leaves it:
+    `calib/{view}_{serial}_{cam}_calib.json` (ZED-like K, some distortion)
+    and `pose1_aruco_pose_summary.json`, a ring of 8 cameras 2.2 m from the
+    robot in radians (fr3's unit), composed with each view's base rotation
+    so that the robot projects into every frame -> the summary's records."""
     robot = get_robot("fr3")
-    H, W = CLI_TRAIN_HW
     rig = make_rig(n_views=8, image_hw=CLI_TRAIN_HW, distance_m=2.2)
-    rng = np.random.default_rng(seed)
-    (root / "pose1").mkdir(parents=True)
-    (root / "calib").mkdir()
-    serials = list(FR3_SERIALS)
+    (root / "calib").mkdir(parents=True)
     records = []
-    for i, serial in enumerate(serials):
+    for i, serial in enumerate(FR3_SERIALS):
         view = FR3_SERIALS[serial]
         base = torch.from_numpy(robot.base_rotation(view)).double()
         for c, cam in enumerate(("leftcam", "rightcam")):
@@ -3666,8 +3684,24 @@ def write_capture(root: Path, groups: int = CLI_TRAIN_GROUPS, seed: int = 0) -> 
                             **dict(zip(("rvec_x", "rvec_y", "rvec_z"), rvec)),
                             **dict(zip(("tvec_x", "tvec_y", "tvec_z"),
                                        map(float, rig.tvecs[v])))})
+    (root / "pose1_aruco_pose_summary.json").write_text(json.dumps(records, indent=2))
+    return records
+
+
+def write_capture(root: Path, groups: int = CLI_TRAIN_GROUPS, seed: int = 0) -> dict:
+    """A capture as `cli sync fr3` and `cli calibrate` leave one, written
+    with the stdlib csv, cv2 and json: per group one joint record (radians)
+    and 8 JPEGs pose1/zed_<serial>_<left|right>_<epoch>.jpg within 5 ms of
+    it (so the group's rows tie on robot_timestamp), the sync CSV schema and
+    the ring's calibration (`write_ring_calibration`) -> CLI argv pieces."""
+    import cv2
+
+    H, W = CLI_TRAIN_HW
+    rng = np.random.default_rng(seed)
+    (root / "pose1").mkdir(parents=True)
+    write_ring_calibration(root)
+    serials = list(FR3_SERIALS)
     summary = root / "pose1_aruco_pose_summary.json"
-    summary.write_text(json.dumps(records, indent=2))
     joints = [f"position_fr3_joint{j}" for j in range(1, 8)]
     rows = []
     for g in range(groups):
@@ -3697,9 +3731,14 @@ def _instrumented_train(log: dict):
     preprocessed batch (its render launches must match; the first one's
     keypoints and heatmaps are kept), any call of the plain render (there
     must be none), each step's host and device (CUDA events) time, and the
-    host time of each batch's load (decode, undistortion, padding)."""
+    host time of each batch's load (decode, undistortion, padding): a train
+    batch's under "train_load_s" (in-process, or the wait for the worker
+    stream's next batch), a validation batch's under "val_load_s". The
+    worker stream's first `log["keep"]` batches are kept with their
+    indices, and its dataset."""
     real_pre, real_step = cli_main.make_device_preprocessor, cli_main.make_multi_view_train_step
     real_split, real_plain = cli_main.builders.train_val_split, heatmap_render.render_heatmaps_reference
+    real_loader = cli_main.make_worker_loader
 
     def make_pre(*a, **kw):
         pre = real_pre(*a, **kw)
@@ -3734,20 +3773,40 @@ def _instrumented_train(log: dict):
 
     def split(ds, frac):
         parts = real_split(ds, frac)
-        for part in parts:
+        for part, key in zip(parts, ("train_load_s", "val_load_s")):
             batches = part.batches
 
-            def timed_batches(*a, _batches=batches, **kw):
+            def timed_batches(*a, _batches=batches, _key=key, **kw):
                 it = _batches(*a, **kw)
                 while True:
                     t0 = time.perf_counter()
                     b = next(it, None)
                     if b is None:
                         return
-                    log["load_s"].append(time.perf_counter() - t0)
+                    log[_key].append(time.perf_counter() - t0)
                     yield b
             part.batches = timed_batches
         return parts
+
+    class TimedStream:
+        def __init__(self, stream):
+            self.stream = stream
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            b = next(self.stream)
+            log["train_load_s"].append(time.perf_counter() - t0)
+            if len(log["stream_batches"]) < log["keep"]:
+                log["stream_batches"].append(
+                    (self.stream.indices.copy(), {k: v.clone() for k, v in b.items()}))
+            return b
+
+        def close(self):
+            self.stream.close()
+
+    def make_loader(ds, batch_size, **kw):
+        log["stream"] = (ds, batch_size, kw)
+        return TimedStream(real_loader(ds, batch_size, **kw))
 
     def plain(*a, **kw):
         log["plain_renders"] += 1
@@ -3756,6 +3815,7 @@ def _instrumented_train(log: dict):
     cli_main.make_device_preprocessor = make_pre
     cli_main.make_multi_view_train_step = make_step
     cli_main.builders.train_val_split = split
+    cli_main.make_worker_loader = make_loader
     heatmap_render.render_heatmaps_reference = plain
     try:
         yield
@@ -3763,16 +3823,19 @@ def _instrumented_train(log: dict):
         cli_main.make_device_preprocessor = real_pre
         cli_main.make_multi_view_train_step = real_step
         cli_main.builders.train_val_split = real_split
+        cli_main.make_worker_loader = real_loader
         heatmap_render.render_heatmaps_reference = real_plain
 
 
-def _cli_train_run(argv: list, label: str, profiled: bool = False) -> tuple:
+def _cli_train_run(argv: list, label: str, profiled: bool = False, keep: int = 0) -> tuple:
     """One `cli train` call through the CLI's parser -> (its launches, its
     log). `profiled` adds the device's busy time over the call, a train
     step's device time (`torch.profiler`) and the check that no step but the
-    first synchronizes, all of which slow the host."""
+    first synchronizes, all of which slow the host; `keep` keeps the worker
+    stream's first batches."""
     log = {"batches": 0, "plain_renders": 0, "step_host_s": [], "step_events": [],
-           "load_s": [], "check_syncs": profiled}
+           "train_load_s": [], "val_load_s": [], "stream_batches": [], "keep": keep,
+           "check_syncs": profiled}
     args = build_parser().parse_args(["train", *argv])
     _reset_launches()
     t0 = time.perf_counter()
@@ -3817,14 +3880,36 @@ def host_load_parts(capture: Path, n: int = 8) -> tuple:
     return 1e3 * statistics.median(decode), 1e3 * statistics.median(remap)
 
 
+def check_stream_batches(log: dict, label: str) -> int:
+    """The worker stream's kept batches against the in-process sample prep
+    of the same groups (`batches()` of a dataset holding just them): every
+    field bit-equal -> the batches checked."""
+    ds, batch_size, _ = log["stream"]
+    for idx, got in log["stream_batches"]:
+        sub = copy.copy(ds)
+        sub.groups = [ds.groups[i] for i in idx]
+        # The class's batches: the instance's is the timed wrapper of the
+        # whole split's.
+        want = next(type(ds).batches(sub, batch_size))
+        check(list(got) == list(want), f"{label}: stream keys {list(got)} vs {list(want)}")
+        for k, v in want.items():
+            check(np.array_equal(got[k].numpy(), v),
+                  f"{label}: the worker batch of groups {idx.tolist()} differs at {k}")
+    return len(log["stream_batches"])
+
+
 def phase_cli_train(device: dict) -> dict:
     """`cli train` on a capture written under build/ (`write_capture`), one
-    epoch, then the same run resumed to a second epoch: render launches equal
-    to the preprocessed batches and no plain render in each run; the first
-    batch's GT heatmaps equal to `render_heatmaps_reference` of its scaled
-    keypoints (bound 1e-6, as phase 3's render check); finite losses; the
-    resumed run's one record at epoch 2 and a step count that goes on; the
-    trained best_params.npz served by `serve --params`. -> launches."""
+    epoch, then the same run resumed to a second epoch, both loading in
+    CLI_TRAIN_WORKERS worker processes: render launches equal to the
+    preprocessed batches and no plain render in each run; the first
+    epoch's worker batches bit-equal to the in-process sample prep of the
+    same groups; the first batch's GT heatmaps equal to
+    `render_heatmaps_reference` of its scaled keypoints (bound 1e-6, as
+    phase 3's render check); finite losses; the resumed run's one record at
+    epoch 2, a step count that goes on and a reseeded stream; the trained
+    best_params.npz served by `serve --params`; `cli visualize` of the
+    capture. Then `cli_train_turns`. -> launches."""
     launches = dict.fromkeys(KERNELS, 0)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
@@ -3832,17 +3917,24 @@ def phase_cli_train(device: dict) -> dict:
         write_s = time.perf_counter() - t0
         run = Path(work) / "run"
         argv = [*CLI_TRAIN_ARGV, *capture, "--workdir", str(run)]
+        steps = int(CLI_TRAIN_GROUPS * (1 - CLI_TRAIN_VAL_SPLIT)) // 2
         logs = []
         for epochs in (1, 2):
             got, log = _cli_train_run([*argv, "--epochs", str(epochs)], f"epochs {epochs}",
-                                      profiled=epochs == 2)
+                                      profiled=epochs == 2, keep=steps if epochs == 1 else 0)
             logs.append(log)
             launches["heatmap_render"] += got["heatmap_render"]
+        seeds = [log["stream"][2]["seed"] for log in logs]
+        check(seeds == [0, 1000003] and all(log["stream"][2]["num_workers"] == CLI_TRAIN_WORKERS
+                                            for log in logs),
+              f"cli train: the worker streams' seeds {seeds}")
+        kept = check_stream_batches(logs[0], "cli train, first epoch")
+        check(kept == steps, f"cli train: {kept} worker batches checked, not {steps}")
         recs = [json.loads(line) for line in (run / "logs" / "metrics.jsonl").read_text()
                 .splitlines()]
         check([r["epoch"] for r in recs] == [1, 2] and logs[1]["result"].epochs_run == 1,
               f"cli train: the resumed run did not start at epoch 2: {recs}")
-        check(recs[1]["step"] == 2 * recs[0]["step"] > 0, f"cli train: steps {recs}")
+        check(recs[1]["step"] == 2 * recs[0]["step"] == 2 * steps, f"cli train: steps {recs}")
         check(all(np.isfinite(r[k]) for r in recs for k in ("loss", "val_loss")),
               f"cli train: a loss is not finite: {recs}")
         kp, hms = logs[0]["first"]
@@ -3856,6 +3948,14 @@ def phase_cli_train(device: dict) -> dict:
         images = list((run / "logs" / "images").glob("val_predictions_step*.png"))
         check(len(images) == 2, f"cli train: panels {images}")
         load_parts = host_load_parts(Path(work) / "capture")
+        panels = Path(work) / "panels"
+        check(cli_main.main(["visualize", "--robot", "fr3", "--multi-view", *capture,
+                             "--image-hw", *map(str, CLI_TRAIN_HW), "--out-dir", str(panels),
+                             "--num-samples", "1"]) == 0,
+              "cli visualize failed")
+        shapes = {cv2_shape(f) for f in panels.glob("group*view_*.png")}
+        check(shapes == {(CLI_TRAIN_HW[0], 8 * CLI_TRAIN_HW[1], 3)},
+              f"cli visualize: panels of shapes {shapes}")
         served = _serve(["--params", str(run / "best_params.npz")], "trained FR3 checkpoint",
                         ["peak_decode"], 3.0)
         launches["peak_decode"] += served["peak_decode"]
@@ -3867,27 +3967,225 @@ def phase_cli_train(device: dict) -> dict:
               f"cli train: model_config.json {kind}, {size}, {cfg}")
     train_groups = int(CLI_TRAIN_GROUPS * (1 - CLI_TRAIN_VAL_SPLIT))
     for log, rec in zip(logs, recs):
-        steps = [e[0].elapsed_time(e[1]) for e in log["step_events"]]
+        steps_ms = [e[0].elapsed_time(e[1]) for e in log["step_events"]]
         profiled = ("" if "busy_s" not in log else
                     f"; under the profiler: a train step's kernels {log['step_device_ms']:.3f} "
                     f"ms of device time, the device busy {log['busy_s']:.3f} s of the call's "
                     f"{log['wall_s']:.2f} s; no host-device sync in a step after the first")
         print(f"cli train [{device['nvidia_smi']}; FR3 capture, {CLI_TRAIN_GROUPS} groups x 8 "
               f"views of {CLI_TRAIN_HW[0]}x{CLI_TRAIN_HW[1]}, frozen ViT-B/16 at 512 px, bf16, "
-              f"batch 2] epoch {int(rec['epoch'])}: {log['wall_s']:.2f} s for the call "
-              f"({rec['epoch_time_s']:.3f} s the epoch with its validation: "
-              f"{train_groups / rec['epoch_time_s']:.3f} train groups/s); host load "
-              f"{1e3 * statistics.median(log['load_s']):.1f} ms a batch (median of "
-              f"{len(log['load_s'])}: decode, undistortion, padding); train step "
-              f"{statistics.median(steps):.3f} ms between CUDA events (median of {len(steps)}), "
-              f"{1e3 * statistics.median(log['step_host_s']):.1f} ms on the host{profiled}; "
-              f"{log['batches']} preprocessed batches, "
+              f"batch 2, {CLI_TRAIN_WORKERS} workers] epoch {int(rec['epoch'])}: "
+              f"{log['wall_s']:.2f} s for the call ({rec['epoch_time_s']:.3f} s the epoch with "
+              f"its validation: {train_groups / rec['epoch_time_s']:.3f} train groups/s); "
+              f"waits for the worker stream {_ms_list(log['train_load_s'])} ms a batch, "
+              f"in-process validation load {_ms_list(log['val_load_s'])} ms; train step "
+              f"{statistics.median(steps_ms):.3f} ms between CUDA events (median of "
+              f"{len(steps_ms)}), {1e3 * statistics.median(log['step_host_s']):.1f} ms on the "
+              f"host{profiled}; {log['batches']} preprocessed batches, "
               f"{log['batches']} render launches, {log['plain_renders']} plain renders; loss "
               f"{rec['loss']:.4f}, val_loss {rec['val_loss']:.4f}, val_pck5 {rec['val_pck5']:.4f}")
     print(f"cli train: capture written in {write_s:.1f} s; a frame's host load: cv2 decode "
           f"{load_parts[0]:.2f} ms, cv2.remap {load_parts[1]:.2f} ms (medians of 8); first "
-          f"batch's GT heatmaps within {err:.3g} of the plain render; phase "
-          f"{time.perf_counter() - t0:.1f} s (cli eval of the run {eval_s:.1f} s)")
+          f"batch's GT heatmaps within {err:.3g} of the plain render; {kept} worker batches "
+          f"bit-equal to the in-process prep; phase {time.perf_counter() - t0:.1f} s (cli eval "
+          f"of the run {eval_s:.1f} s)")
+    _add_launches(launches, cli_train_turns(device))
+    return launches
+
+
+DISPLAY_EVERY = 5
+
+
+def phase_serve_display() -> int:
+    """`serve --display dir` at the serve defaults (4 synthetic 720x1280
+    cameras, ViT-B/16 at 512 px, bf16) for a few seconds: one canvas each
+    DISPLAY_EVERY ticks, named canvas_<n>.png from tick 1 (a tick is one
+    peak-decode launch, and each is fetched and drawn), each the 2-over-2
+    tiling of the frames scaled to fit 1800x950. -> peak-decode launches."""
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        launches = _serve(["--display", "dir", "--display-dir", d, "--display-every",
+                           str(DISPLAY_EVERY)], "bf16 + display dir", ["peak_decode"], 4.0)
+        ticks = launches["peak_decode"]
+        files = sorted(p.name for p in Path(d).iterdir())
+        want = [f"canvas_{n:06d}.png" for n in range(1, ticks + 1, DISPLAY_EVERY)]
+        check(files == want, f"serve --display dir: {ticks} ticks, canvases {files}")
+        w, h = 2 * 1280, 2 * 720
+        scale = min(1800 / w, 950 / h)
+        shapes = {cv2_shape(Path(d) / f) for f in files}
+        check(shapes == {(int(h * scale), int(w * scale), 3)},
+              f"serve --display dir: canvases of shapes {shapes}")
+    print(f"serve --display dir: {len(files)} canvases of {shapes.pop()} for {ticks} ticks")
+    return ticks
+
+
+PROFILE_ITERS = 20
+
+
+def phase_profile(device: dict) -> int:
+    """`cli profile` at its defaults (ViT-B/16, 4 views, 512 px, bf16, zero
+    weights): each stage's device ms between CUDA events, the peak decode's
+    launches (one a decode stage and the warm-up's) and no other kernel.
+    -> peak-decode launches."""
+    args = build_parser().parse_args(["profile", "--iters", str(PROFILE_ITERS)])
+    check((args.views, args.model_size, args.hidden_size, args.num_layers) == (4, 512, 768, 12),
+          f"cli profile defaults {args}")
+    _reset_launches()
+    timer = cli_main.profile(args)
+    report = timer.report()
+    launches = _read_launches()
+    check(launches == {k: PROFILE_ITERS + 1 if k == "peak_decode" else 0 for k in KERNELS},
+          f"cli profile: launches {launches}")
+    check(sorted(report) == ["backbone", "decode", "full_forward"]
+          and all(r["count"] == PROFILE_ITERS and 0 < r["mean_s"] < 1 for r in report.values()),
+          f"cli profile: {report}")
+    rate = 1.0 / (report["full_forward"]["mean_s"] + report["decode"]["mean_s"])
+    print(f"cli profile [{device['nvidia_smi']}; ViT-B/16, 4 views, 512 px, bf16, zero weights, "
+          f"mean of {PROFILE_ITERS}, CUDA events]: "
+          + ", ".join(f"{k} {1e3 * r['mean_s']:.3f} ms" for k, r in sorted(report.items()))
+          + f"; estimated frame-sets/s (forward+decode): {rate:.2f}")
+    print(timer.summary())
+    return launches["peak_decode"]
+
+
+ARUCO_MARKERS = {"3": (0.25, -0.1, 0.05), "7": (-0.2, 0.15, 0.0), "12": (0.05, 0.2, -0.1)}
+ARUCO_SIZE_M = 0.2
+EXTRINSICS_TOL = 2e-5  # m and rad: f32 quaternion means of equal detections
+CORNERS_TOL = 1e-4  # m and rad: an f32 PnP + LM of each marker's 4 corners
+
+
+def write_aruco_detections(root: Path, records: list) -> dict:
+    """ArUco capture files for the ring's cameras (`write_ring_calibration`'s
+    records): per camera 3 files `{view}_{serial}_{cam}_<i>.json` of 3
+    markers placed so that marker pose + board offset is the camera's drawn
+    pose (position t - R offset, rotation R), their corners projected
+    through the camera's K and distortion; in file 1 marker 7 is 11 degrees
+    off, an outlier. -> the calibrate arguments' files."""
+    import cv2
+
+    serial_of = {v: s for s, v in FR3_SERIALS.items()}
+    (root / "aruco").mkdir(parents=True)
+    obj = np.array([[0, 0, 0], [ARUCO_SIZE_M, 0, 0], [ARUCO_SIZE_M, ARUCO_SIZE_M, 0],
+                    [0, ARUCO_SIZE_M, 0]], np.float64)
+    for rec in records:
+        view, cam = rec["view"], rec["cam"]
+        serial = serial_of[view]
+        calib = json.loads((root / "calib" / f"{view}_{serial}_{cam}_calib.json").read_text())
+        K, dist = np.asarray(calib["camera_matrix"]), np.asarray(calib["distortion_coeffs"])
+        rvec = np.array([rec[f"rvec_{c}"] for c in "xyz"])
+        tvec = np.array([rec[f"tvec_{c}"] for c in "xyz"])
+        R, _ = cv2.Rodrigues(rvec)
+        for i in range(3):
+            dets = {}
+            for m, offset in ARUCO_MARKERS.items():
+                r = rvec + (0.2 if (i, m) == (1, "7") else 0.0)
+                t = tvec - R @ np.asarray(offset)
+                px, _ = cv2.projectPoints(obj, r, t, K, dist)
+                q = matrix_to_quat(torch.from_numpy(cv2.Rodrigues(r)[0])).tolist()
+                dets[m] = {"position_m": dict(zip("xyz", map(float, t))),
+                           "rotation_quat": dict(zip("xyzw", q)),
+                           "corners_pixel": px[:, 0].tolist()}
+            (root / "aruco" / f"{view}_{serial}_{cam}_{i:03d}.json").write_text(json.dumps(dets))
+    (root / "offsets.json").write_text(json.dumps(
+        {v: {m: list(o) for m, o in ARUCO_MARKERS.items()} for v in serial_of}))
+    (root / "serials.json").write_text(json.dumps(serial_of))
+    return {"aruco": root / "aruco", "offsets": root / "offsets.json",
+            "serials": root / "serials.json", "calib": root / "calib"}
+
+
+def phase_cli_calibrate() -> None:
+    """`cli calibrate extrinsics` and `corners` on the ring's ArUco
+    detections (`write_aruco_detections`), held to the poses the ring drew:
+    within EXTRINSICS_TOL averaging the detections, CORNERS_TOL re-solving
+    each marker from its corners; `python -m mvropose_torch --help`."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        root = Path(work)
+        records = write_ring_calibration(root)
+        files = write_aruco_detections(root, records)
+        args = {"extrinsics": ["--offsets", str(files["offsets"])],
+                "corners": ["--calib-dir", str(files["calib"]), "--serial-map",
+                            str(files["serials"]), "--offsets", str(files["offsets"]),
+                            "--marker-size", str(ARUCO_SIZE_M)]}
+        errs = {}
+        for cmd, tol in (("extrinsics", EXTRINSICS_TOL), ("corners", CORNERS_TOL)):
+            out = root / f"{cmd}.json"
+            check(cli_main.main(["calibrate", cmd, "--aruco-dir", str(files["aruco"]),
+                                 *args[cmd], "--out", str(out)]) == 0, f"calibrate {cmd}")
+            got = {(r["view"], r["cam"]): r for r in json.loads(out.read_text())}
+            check(sorted(got) == sorted((r["view"], r["cam"]) for r in records)
+                  and all(r["rvec_unit"] == "rad" for r in got.values()),
+                  f"calibrate {cmd}: records {sorted(got)}")
+            err = 0.0
+            for rec in records:
+                g = got[rec["view"], rec["cam"]]
+                R = [rodrigues_to_matrix(torch.tensor([r[f"rvec_{c}"] for c in "xyz"],
+                                                      dtype=torch.float64)) for r in (rec, g)]
+                angle = float(matrix_to_rodrigues(R[0].T @ R[1]).norm())
+                dt = max(abs(g[f"tvec_{c}"] - rec[f"tvec_{c}"]) for c in "xyz")
+                err = max(err, angle, dt)
+            check(err <= tol, f"calibrate {cmd}: {err:.3g} from the drawn poses (bound {tol})")
+            errs[cmd] = err
+    help_out = subprocess.run([sys.executable, "-m", "mvropose_torch", "--help"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=120)
+    check(help_out.returncode == 0 and help_out.stdout.startswith("usage: mvropose_torch"),
+          f"python -m mvropose_torch --help: {help_out.returncode} {help_out.stderr[-500:]}")
+    print(f"cli calibrate on the ring's 8 cameras x 3 markers x 3 detections (one outlier a "
+          f"camera): extrinsics within {errs['extrinsics']:.3g}, corners within "
+          f"{errs['corners']:.3g} (m and rad) of the drawn poses; python -m mvropose_torch "
+          f"runs; {time.perf_counter() - t0:.1f} s")
+
+
+def cv2_shape(path: Path) -> tuple:
+    import cv2
+
+    return cv2.imread(str(path)).shape
+
+
+def _ms_list(seconds: list) -> str:
+    return "[" + ", ".join(f"{1e3 * s:.1f}" for s in seconds) + "]"
+
+
+def cli_train_turns(device: dict) -> dict:
+    """`cli train` on a capture of CLI_TURN_GROUPS groups, 2 epochs a run,
+    in turns of CLI_TURN_WORKERS worker processes (0: in-process): each
+    run's train-batch load (the in-process decode and undistortion, or the
+    wait for the worker stream's next batch) a batch and in all an epoch,
+    its train step's time and groups/s an epoch, beside os.cpu_count().
+    -> launches."""
+    launches = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    cpus = os.cpu_count()
+    train_groups = int(CLI_TURN_GROUPS * (1 - CLI_TRAIN_VAL_SPLIT))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        capture = write_capture(Path(work) / "capture", groups=CLI_TURN_GROUPS, seed=1)
+        for turn, workers in enumerate(CLI_TURN_WORKERS):
+            run = Path(work) / f"run{turn}"
+            got, log = _cli_train_run([*CLI_TRAIN_ARGV, *capture, "--workdir", str(run),
+                                       "--epochs", "2", "--viz-every", "10", "--num-workers",
+                                       str(workers)], f"turn {turn}, {workers} workers")
+            _add_launches(launches, got)
+            recs = [json.loads(line) for line in (run / "logs" / "metrics.jsonl").read_text()
+                    .splitlines()]
+            check(all(np.isfinite(r["loss"]) for r in recs) and len(recs) == 2,
+                  f"cli train turn {turn}: {recs}")
+            loads = log["train_load_s"]
+            half = len(loads) // 2
+            epoch_s = [r["epoch_time_s"] for r in recs]
+            rates = [train_groups / t for t in epoch_s]
+            steps_ms = [e[0].elapsed_time(e[1]) for e in log["step_events"]]
+            print(f"cli train turn {turn} [{device['nvidia_smi']}; os.cpu_count() {cpus}; "
+                  f"{CLI_TURN_GROUPS} groups x 8 views of {CLI_TRAIN_HW[0]}x{CLI_TRAIN_HW[1]}, "
+                  f"ViT-B/16 at 512 px, batch 2, 2 epochs] {workers} workers: host load a "
+                  f"train batch median {1e3 * statistics.median(loads):.1f} ms (first "
+                  f"{1e3 * loads[0]:.1f}, then {_ms_list(loads[1:])}; in all "
+                  f"{1e3 * sum(loads[:half]):.1f}, {1e3 * sum(loads[half:]):.1f} ms an epoch); "
+                  f"train step median {statistics.median(steps_ms):.3f} ms between CUDA "
+                  f"events, {1e3 * statistics.median(log['step_host_s']):.1f} ms on the host; "
+                  f"groups/s a epoch "
+                  f"{', '.join(f'{r:.3f}' for r in rates)} (the epoch with its validation "
+                  f"{', '.join(f'{t:.3f}' for t in epoch_s)} s); "
+                  f"{log['wall_s']:.2f} s for the call")
+    print(f"cli train turns: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4082,7 +4380,8 @@ def phase_cli_eval_small(device: dict) -> dict:
                               str(work / name / "panda_synth")]
         run = work / "dream_run"
         got, _ = _cli_train_run([*dream("dream_train"), "--workdir", str(run), "--epochs", "2",
-                                 "--batch-size", "32", *TWIN_ARGV], "DREAM twin, 2 epochs")
+                                 "--batch-size", "32", "--num-workers", "0", *TWIN_ARGV],
+                                "DREAM twin, 2 epochs")
         _add_launches(launches, got)
         eval_argv = [*dream("dream_eval"), "--params", str(run / "best_params.npz"),
                      "--batch-size", "16", "--refine-pose", *TWIN_ARGV]
@@ -4098,7 +4397,8 @@ def phase_cli_eval_small(device: dict) -> dict:
                       *(str(mixed / f"{prefix.get(r, r)}_aruco_pose_summary.json")
                         for r in robots)]
         got, _ = _cli_train_run([*mixed_argv, "--workdir", str(work / "mixed_run"), "--epochs",
-                                 "1", "--batch-size", "8", *TWIN_ARGV], "fr5 + fr3 + meca, 1 epoch")
+                                 "1", "--batch-size", "8", "--num-workers", "0", *TWIN_ARGV],
+                                "fr5 + fr3 + meca, 1 epoch")
         _add_launches(launches, got)
         _add_launches(launches, _cli_eval_run(
             [*mixed_argv, "--params", str(work / "mixed_run" / "best_params.npz"),
@@ -4204,6 +4504,7 @@ def phase_dino_d48(device: dict) -> dict:
         _add_launches(launches, got)
         cli_run = work / "cli_run"
         got, _ = _cli_train_run([*data, "--workdir", str(cli_run), "--epochs", "1",
+                                 "--num-workers", "0",
                                  "--batch-size", "8", "--model-size", "128", "--hidden-size",
                                  "192", "--num-layers", "4", "--backbone-ckpt", str(DINO_192X4)],
                                 "cli train --backbone-ckpt, 3 heads of 64")
@@ -4235,7 +4536,9 @@ def main() -> int:
         measured[name]["f16_widths"] = by_width
     phase_counters()
     phase_replay()
-    launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]}
+    launches = {"peak_decode": _serve([], "bf16", ["peak_decode"])["peak_decode"]
+                + phase_serve_display() + phase_profile(device)}
+    phase_cli_calibrate()
     phase_pose()
     # Pose recovery on the tick: 5 SVD launches a tick, 10 with refine.
     pose_launches = _serve(["--recover-pose"], "bf16 + pose", ["peak_decode", "small_svd"])

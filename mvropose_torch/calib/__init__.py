@@ -1,7 +1,13 @@
 """Calibration layer of the port: ZED .conf intrinsics (a copy of the
-reference's `calib/zed_conf.py`) and the rig registry (`calib/registry.py`,
-on the port's robots). The reference's ArUco averaging (`calib/aruco.py`)
-is not ported (ROADMAP.md queue 1, item 11)."""
+reference's `calib/zed_conf.py`), the ArUco extrinsic averaging
+(`calib/aruco.py`, on the port's rotations) and the rig registry
+(`calib/registry.py`, on the port's robots)."""
+
+from mvropose_torch.calib.aruco import (
+    average_marker_detections,
+    compute_view_pose,
+    stereo_right_from_left,
+)
 
 from mvropose_torch.calib.registry import (
     CameraCalib,
@@ -17,6 +23,9 @@ from mvropose_torch.calib.zed_conf import (
 )
 
 __all__ = [
+    "average_marker_detections",
+    "compute_view_pose",
+    "stereo_right_from_left",
     "CameraCalib",
     "CameraExtrinsic",
     "RigSpec",

@@ -1,4 +1,4 @@
-"""Command line for the torch port: `python -m mvropose_torch.cli sync|group|train|eval|serve ...`.
+"""Command line for the torch port: `python -m mvropose_torch sync|group|calibrate|train|eval|visualize|profile|serve ...`.
 
 `sync` and `group` are the reference's (`mvropose_tpu/cli/main.py::_cmd_sync`,
 `_cmd_group`) on `data/sync.py` and `data/grouping.py`: the same flags, the
@@ -17,8 +17,17 @@ on several robots (`data/mixed.py`: batches padded to the widest robot, every
 robot's angles in radians). `--backbone-ckpt` grafts a DINO checkpoint
 (timm, HF DINOv2 or DINOv3 naming; `.pth`, `.pt`, `.bin` or `.npz`) into
 the backbone before training (`models/dino_convert.py`). It runs on the
-card in bf16 unless `--device cpu` (f32). `--num-workers` > 0 (one robot),
-`--mesh` and `--wandb` exit naming their ROADMAP.md item.
+card in bf16 unless `--device cpu` (f32). The train batches are decoded and
+undistorted in `--num-workers` worker processes (default 4, or
+MVROPOSE_NUM_WORKERS; `data/worker_loader.py`, the reference's grain
+stream: an epoch is the floor of the batches, a resumed run reseeds), or
+in-process at 0 and for a mixed dataset. `--wandb` also logs to wandb where
+it imports. `--mesh` exits naming its ROADMAP.md item.
+
+`calibrate` (intrinsics, manual, extrinsics, corners, stereo-transfer;
+`calib/aruco.py`), `visualize` (GT skeleton panels) and `profile` (the
+serve model's stages between CUDA events, `utils/timing.py`) are the
+reference's commands.
 
 `eval` (`cli/eval.py`) is the port of the reference's `cli eval`, for one
 robot and for a mixed-robot checkpoint.
@@ -42,10 +51,11 @@ No step waits for the device.
 as the reference's flags do; a checkpoint whose model_config.json says
 `fused_ln` runs the fused LayerNorm. At `--model-size` 736 and above the
 backbone has T >= 2048 tokens and its attention runs the flash kernel on the
-card (`ops/attention.py`), as the reference's does on a TPU. `--display`,
-whose viewer is not ported yet, exits naming its ROADMAP.md item;
-`--replay-dir` decodes its frames with cv2 and exits naming it where cv2
-cannot be imported.
+card (`ops/attention.py`), as the reference's does on a TPU. `--display
+window|dir` draws each tick's keypoints on its frames (`rig/viewer.py`) and
+shows the canvas or writes every `--display-every`-th under
+`--display-dir`; `--replay-dir` decodes its frames with cv2 and exits
+naming it where cv2 cannot be imported.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import os
 import re
 import sys
 import time
@@ -77,6 +88,7 @@ from mvropose_torch.data.dataset import make_device_preprocessor
 from mvropose_torch.data.grouping import group_by_time_tolerance, tolerance_grid_search
 from mvropose_torch.data.mixed import MixedRobotDataset
 from mvropose_torch.data.table import concat, read_csv
+from mvropose_torch.data.worker_loader import make_worker_loader
 from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.geometry.camera import RemapTaps, undistort_map
 from mvropose_torch.geometry.robots import get_robot
@@ -91,7 +103,13 @@ from mvropose_torch.models.dino_convert import graft_backbone_ckpt
 from mvropose_torch.models.heads import resize_bilinear
 from mvropose_torch.models.vit import device_constant
 from mvropose_torch.pose import PoseDraws, recover_pose_batch
-from mvropose_torch.rig import FileReplaySource, StreamingPipeline, SyntheticSource
+from mvropose_torch.rig import (
+    FileReplaySource,
+    StreamingPipeline,
+    SyntheticSource,
+    draw_keypoints_overlay,
+    tile_frames,
+)
 from mvropose_torch.train import (
     TrainConfig,
     create_train_state,
@@ -440,9 +458,6 @@ def _serve_model(args):
 
 def _check_flags(args) -> None:
     """Exit on flags that cannot run together, before anything is made."""
-    if args.display != "off":
-        raise SystemExit(f"--display {args.display} is not ported yet (ROADMAP.md queue 1, "
-                         "item 7: the serve viewer)")
     if args.int8_attention and not args.int8_backbone:
         raise SystemExit("--int8-attention runs only with --int8-backbone")
     if args.refine_pose and not args.recover_pose:
@@ -456,6 +471,46 @@ def _check_flags(args) -> None:
                          "of the calibrated cameras")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
+
+
+def make_display(mode: str, names: list, links, frame_hw, display_dir, every: int):
+    """The serve loop's live view, as the reference's (`mvropose_tpu/cli/
+    main.py:1778-1830`, the original project's cv2.imshow canvas loop): each
+    camera's frame with its keypoints and links drawn where their confidence
+    is at least 0.6, a placeholder panel for a camera without a frame, the
+    cameras tiled in one row (two rows from 3 cameras). `mode` "window"
+    shows the canvas (cv2.imshow; 'q' quits), "dir" writes every `every`-th
+    canvas from the first as `display_dir/canvas_<n>.png`. -> (on_result(
+    result, frames), a dict whose "q" turns True on 'q'). Two faults of the
+    reference are mended: its row of 2 cameras holds only the first, and
+    at `every` 1 it writes no canvas (`ROADMAP.md`, deliberate differences)."""
+    import cv2
+
+    half = (len(names) + 1) // 2
+    layout = ((tuple(names),) if len(names) <= 2
+              else (tuple(names[:half]), tuple(names[half:])))
+    display_dir = Path(display_dir)
+    if mode == "dir":
+        display_dir.mkdir(parents=True, exist_ok=True)
+    quit_flag = {"q": False}
+    ticks = {"n": 0}
+
+    def on_result(result, frames):
+        xy, conf = np.asarray(result[0]), np.asarray(result[1])
+        panels = {}
+        for i, f in enumerate(frames):
+            panels[names[i]] = (None if f is None else draw_keypoints_overlay(
+                f.image, xy[i], links, scores=conf[i], min_score=0.6))
+        canvas = tile_frames(panels, layout=layout, frame_hw=frame_hw)
+        ticks["n"] += 1
+        if mode == "window":
+            cv2.imshow("mvropose_torch serve", canvas[:, :, ::-1])
+            if (cv2.waitKey(1) & 0xFF) == ord("q"):
+                quit_flag["q"] = True
+        elif (ticks["n"] - 1) % every == 0:
+            cv2.imwrite(str(display_dir / f"canvas_{ticks['n']:06d}.png"), canvas[:, :, ::-1])
+
+    return on_result, quit_flag
 
 
 def serve(args):
@@ -514,10 +569,19 @@ def serve(args):
         remap=None if calib is None else calib.remap(hw, args.device), proj_mats=proj_mats,
         single_view=kind == "single_view")
     runner = ServeRunner(step, args.views, hw, args.device)
+    on_result, quit_flag = None, {"q": False}
+    if args.display != "off":
+        # The pose robot's links with --recover-pose, else a chain over the
+        # checkpoint's keypoints (not the default robot's).
+        links = (get_robot(args.pose_robot).links if args.recover_pose
+                 else tuple((i, i + 1) for i in range(model.cfg.num_joints - 1)))
+        on_result, quit_flag = make_display(args.display, [src.serial for src in sources], links,
+                                            hw, args.display_dir, args.display_every)
     if args.no_overlap:
-        pipe = StreamingPipeline(sources, runner.infer, frame_hw=hw, max_skew_s=args.max_skew)
+        pipe = StreamingPipeline(sources, runner.infer, on_result=on_result, frame_hw=hw,
+                                 max_skew_s=args.max_skew)
     else:
-        pipe = StreamingPipeline(sources, runner.dispatch, frame_hw=hw,
+        pipe = StreamingPipeline(sources, runner.dispatch, on_result=on_result, frame_hw=hw,
                                  max_skew_s=args.max_skew, fetch_fn=runner.fetch)
     last = None
     pipe.start()
@@ -536,11 +600,13 @@ def serve(args):
                     f"matching --frame-hw {hw}"
                 )
             time.sleep(0.0005)
+        if quit_flag["q"]:  # 'q' in the window during the warm-up
+            return pipe.stats, last
         pipe.stats = type(pipe.stats)(
             start_time_s=time.perf_counter(), overlapped=pipe.fetch_fn is not None
         )
         end = time.perf_counter() + args.duration
-        while time.perf_counter() < end:
+        while time.perf_counter() < end and not quit_flag["q"]:
             before = pipe.stats.ticks
             out = pipe.tick()
             if out is not None:
@@ -553,6 +619,10 @@ def serve(args):
         return pipe.stats, last
     finally:
         pipe.stop()
+        if args.display == "window":
+            import cv2
+
+            cv2.destroyAllWindows()
 
 
 def _cmd_serve(args) -> int:
@@ -614,11 +684,7 @@ def _cmd_group(args) -> int:
 
 # cli train: the flags that exit, each naming the ROADMAP.md item that ports it.
 UNPORTED_TRAIN_FLAGS = (
-    (lambda a: a.num_workers > 0 and "," not in a.robot,
-     "--num-workers > 0 (the grain loader's worker processes, data/grain_loader.py; 0 loads "
-     "in-process)", "queue 1, item 12"),
     (lambda a: a.mesh is not None, "--mesh (multi-device training)", "queue 1, item 10"),
-    (lambda a: a.wandb, "--wandb (the metrics go to logs/metrics.jsonl)", "queue 1, item 12"),
 )
 SERIAL_MAPS = {
     "fr5": FR5_SERIAL_TO_VIEW,
@@ -744,10 +810,12 @@ def _train_refusals(args, rig: RigSpec, ds, multi_view: bool) -> None:
                          "camera frame)")
 
 
-def host_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x))
+def host_to_device(x, device: torch.device) -> torch.Tensor:
+    """A host array or CPU tensor on `device`; to a card through pinned
+    memory (pinned here unless the loader pinned it), without waiting."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
     return t
 
 
@@ -772,9 +840,6 @@ def train(args):
         for name, child in zip(ds.robot_names, ds.children):
             print(f"  {name}: {len(child)} samples")
         rig = ds.children[0].geometry.rig  # the image, heatmap and sigma of the batches
-        if args.num_workers > 0:
-            print("note: --num-workers parallel loading needs a non-mixed dataset with >= 1 "
-                  "full batch; using in-process loading")
     else:
         rig = load_rig_from_args(args)
         ds, multi_view = build_single_robot_dataset(args, rig, image_hw)
@@ -785,6 +850,14 @@ def train(args):
     print(f"dataset: {len(train_ds)} train / {len(val_ds)} val")
     if len(train_ds) == 0:
         raise SystemExit("no training samples: check --csv, --calib-dir and --aruco-summary")
+    # Worker processes decode and undistort (`data/worker_loader.py`) where
+    # the dataset is one robot's and holds a full batch, as the reference's
+    # grain loader: its stream drops the last partial batch. A mixed
+    # dataset's batches pad each robot's samples: in-process.
+    use_workers = args.num_workers > 0 and not mixed and len(train_ds) >= args.batch_size
+    if args.num_workers > 0 and not use_workers:
+        print("note: --num-workers parallel loading needs a non-mixed dataset with >= 1 "
+              "full batch; using in-process loading")
 
     vit = ViTConfig(
         image_size=args.backbone_native_size or args.model_size, patch_size=args.patch_size,
@@ -816,9 +889,11 @@ def train(args):
 
     tcfg = TrainConfig(
         num_epochs=args.epochs,
-        # The datasets pad the last batch, so an epoch is ceil(len / batch)
-        # steps; a floor would end the cosine schedule early.
-        steps_per_epoch=max(1, -(-len(train_ds) // args.batch_size)),
+        # The datasets pad the last batch, so in-process an epoch is
+        # ceil(len / batch) steps (a floor would end the cosine schedule
+        # early); the workers' stream drops it: floor.
+        steps_per_epoch=(len(train_ds) // args.batch_size if use_workers
+                         else max(1, -(-len(train_ds) // args.batch_size))),
         lr_kpt=args.lr_kpt, lr_ang=args.lr_ang, loss_weight_kpt=args.loss_weight_kpt,
         loss_weight_fk=args.fk_loss_weight, freeze_backbone=freeze,
     )
@@ -847,11 +922,31 @@ def train(args):
                 out["keypoints_2d"] = put(batch["keypoints_2d"])
         return out
 
+    stream = None
+
     def train_batches(epoch: int):
+        nonlocal stream
         # Augmentation draws of an epoch come from (seed, epoch), as dropout's.
         gen = epoch_generator(args.seed, epoch, device, stream=1) if aug_cfg else None
-        for b in train_ds.batches(args.batch_size, shuffle=True, seed=epoch):
-            yield to_device(b, gen)
+        if not use_workers:
+            for b in train_ds.batches(args.batch_size, shuffle=True, seed=epoch):
+                yield to_device(b, gen)
+            return
+        # One endless stream, its workers warm across epochs; an epoch is
+        # steps_per_epoch of its batches. It starts at the first epoch this
+        # call trains, seeded from that epoch, so a resumed run draws a new
+        # order rather than replaying epoch 0's.
+        if stream is None:
+            if epoch > 0:
+                print(f"grain: resuming at epoch {epoch}; stream reseeded with seed "
+                      f"{args.seed} + epoch (sample order differs from an uninterrupted run, "
+                      "matching the serial path's per-epoch reshuffle semantics)")
+            stream = make_worker_loader(train_ds, args.batch_size,
+                                        seed=args.seed + 1000003 * epoch,
+                                        num_workers=args.num_workers, num_epochs=None,
+                                        pin_memory=device.type == "cuda")
+        for _ in range(tcfg.steps_per_epoch):
+            yield to_device(next(stream), gen)
 
     def val_batches():
         for b in val_ds.batches(args.batch_size):
@@ -861,7 +956,7 @@ def train(args):
             else make_single_view_train_step(tcfg, robot=rig.robot))
     state = create_train_state(model, tcfg)
     eval_step = make_eval_step(tcfg, multi_view)
-    writer = MetricWriter(Path(args.workdir) / "logs")
+    writer = MetricWriter(Path(args.workdir) / "logs", use_wandb=args.wandb)
 
     def on_epoch_end(epoch, state_, record):
         """Every `--viz-every` epochs a panel of the first val batch's
@@ -885,6 +980,8 @@ def train(args):
                      writer, seed=args.seed, on_epoch_end=on_epoch_end)
     finally:
         writer.close()
+        if stream is not None:
+            stream.close()
     print(f"done: best val loss {result.best_val_loss:.6f} over {result.epochs_run} epochs")
     return result
 
@@ -898,6 +995,301 @@ def _cmd_eval(args) -> int:
     from mvropose_torch.cli.eval import cmd_eval
 
     return cmd_eval(args)
+
+
+def _detections_by_camera(aruco_dir) -> dict:
+    """{(view, cam): {marker id: [detections]}} from the capture files
+    `view_*_cam_*.json` of `aruco_dir`, in name order."""
+    from collections import defaultdict
+
+    per_cam: dict = defaultdict(lambda: defaultdict(list))
+    for f in sorted(Path(aruco_dir).glob("*.json")):
+        parts = f.name.split("_")
+        for mid, det in json.loads(f.read_text()).items():
+            per_cam[(parts[0], parts[2])][mid].append(det)
+    return per_cam
+
+
+def _pose_record(view: str, cam: str, pose: dict) -> dict:
+    """A summary record of `compute_view_pose`'s radians."""
+    return {
+        "view": view, "cam": cam,
+        "tvec_x": float(pose["tvec"][0]), "tvec_y": float(pose["tvec"][1]),
+        "tvec_z": float(pose["tvec"][2]),
+        "rvec_x": float(pose["rvec"][0]), "rvec_y": float(pose["rvec"][1]),
+        "rvec_z": float(pose["rvec"][2]),
+        "rvec_unit": "rad",
+        "n_markers": pose["n_markers"],
+    }
+
+
+def _view_offsets(offsets: dict, view: str) -> dict:
+    return {mid: np.asarray(v) for mid, v in offsets.get(view, {}).items()}
+
+
+def _cmd_calibrate(args) -> int:
+    """The reference's `cli calibrate` (`mvropose_tpu/cli/main.py:80-289`):
+    intrinsics (ZED .conf -> `{view}_{serial}_{cam}_calib.json`), manual (a
+    summary record in degrees, tagged), extrinsics (per-marker averaging and
+    board offsets -> radians), corners (the Meca-insertion corner pipeline)
+    and stereo-transfer (the right cameras from the left through the ZED
+    stereo transform), with its files, schema, units and printed lines."""
+    from mvropose_torch.calib import aruco
+    from mvropose_torch.calib.zed_conf import load_stereo_params, load_zed_intrinsics
+    from mvropose_torch.geometry.rotations import matrix_to_quat, rodrigues_to_matrix
+
+    if args.calib_cmd == "intrinsics":
+        out_dir = Path(args.out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for side, name in (("LEFT", "leftcam"), ("RIGHT", "rightcam")):
+            intr = load_zed_intrinsics(args.conf, side, args.resolution)
+            path = out_dir / f"{args.view}_{args.serial}_{name}_calib.json"
+            path.write_text(json.dumps(intr.to_json_dict(), indent=4))
+            print(f"wrote {path}")
+        return 0
+
+    if args.calib_cmd == "manual":
+        # A precomputed extrinsic (Meca500's), rvec in degrees with an
+        # explicit unit tag, which the rig loader honours over the robot's.
+        rec = {
+            "view": args.view, "cam": args.cam,
+            "tvec_x": args.tvec[0], "tvec_y": args.tvec[1], "tvec_z": args.tvec[2],
+            "rvec_x": args.rvec_deg[0], "rvec_y": args.rvec_deg[1], "rvec_z": args.rvec_deg[2],
+            "rvec_unit": "deg",
+        }
+        out = Path(args.out)
+        records = json.loads(out.read_text()) if out.exists() else []
+        records = [r for r in records if not (r["view"] == args.view and r["cam"] == args.cam)]
+        records.append(rec)
+        out.write_text(json.dumps(records, indent=2))
+        print(f"wrote {out} ({len(records)} records)")
+        return 0
+
+    if args.calib_cmd == "extrinsics":
+        offsets = json.loads(Path(args.offsets).read_text())  # {view: {mid: [x, y, z]}}
+        records = []
+        for (view, cam), markers in _detections_by_camera(args.aruco_dir).items():
+            averaged = {}
+            for mid, dets in markers.items():
+                avg = aruco.average_marker_detections(
+                    dets, angular_outlier_deg=args.outlier_deg,
+                    position_outlier_m=args.outlier_pos)
+                if avg is not None:
+                    averaged[mid] = avg
+            pose = aruco.compute_view_pose(averaged, _view_offsets(offsets, view))
+            if pose is None:
+                print(f"[{view}/{cam}] no usable markers, skipped")
+                continue
+            records.append(_pose_record(view, cam, pose))
+            print(f"[{view}/{cam}] pose from {pose['n_markers']} markers")
+        Path(args.out).write_text(json.dumps(records, indent=2))
+        print(f"wrote {args.out}")
+        return 0
+
+    if args.calib_cmd == "corners":
+        # Stage 1 averaging with the corners, stage 2 a PnP of each marker
+        # from its averaged corners, stage 3 the offsets and the summary.
+        offsets = json.loads(Path(args.offsets).read_text())
+        serial_map = json.loads(Path(args.serial_map).read_text())  # {view: serial}
+        records = []
+        for (view, cam), markers in sorted(_detections_by_camera(args.aruco_dir).items()):
+            serial = serial_map.get(view)
+            calib_path = Path(args.calib_dir) / f"{view}_{serial}_{cam}_calib.json"
+            if serial is None or not calib_path.exists():
+                print(f"[{view}/{cam}] no calib file, skipped")
+                continue
+            calib = json.loads(calib_path.read_text())
+            K = np.asarray(calib["camera_matrix"], np.float64)
+            dist = np.asarray(calib["distortion_coeffs"], np.float64).reshape(-1)
+            resolved = {}
+            for mid, dets in markers.items():
+                avg = aruco.average_detections_with_corners(dets)
+                if avg is None or "corners_pixel" not in avg:
+                    continue
+                solved = aruco.solve_marker_pose_from_corners(
+                    np.asarray(avg["corners_pixel"], np.float32), args.marker_size, K, dist)
+                q = matrix_to_quat(rodrigues_to_matrix(
+                    torch.as_tensor(solved["rvec"], dtype=torch.float32))).numpy()
+                resolved[mid] = {
+                    "position_m": dict(zip("xyz", (float(v) for v in solved["tvec"]))),
+                    "rotation_quat": dict(zip("xyzw", (float(v) for v in q))),
+                }
+            pose = aruco.compute_view_pose(resolved, _view_offsets(offsets, view))
+            if pose is None:
+                print(f"[{view}/{cam}] no usable markers, skipped")
+                continue
+            records.append(_pose_record(view, cam, pose))
+            print(f"[{view}/{cam}] pose from {pose['n_markers']} corner-resolved markers")
+        Path(args.out).write_text(json.dumps(records, indent=2))
+        print(f"wrote {args.out}")
+        return 0
+
+    if args.calib_cmd == "stereo-transfer":
+        serial_map = json.loads(Path(args.serial_map).read_text())  # {view: serial}
+        records = json.loads(Path(args.summary).read_text())
+        by_key = {(r["view"], r["cam"]): r for r in records}
+        added = 0
+        for (view, cam), rec in list(by_key.items()):
+            if cam != "leftcam" or (view, "rightcam") in by_key:
+                continue
+            serial = serial_map.get(view)
+            if serial is None:
+                continue
+            conf = Path(args.conf_dir) / f"SN{serial}.conf"
+            if not conf.exists():
+                print(f"[{view}] no conf for serial {serial}, skipped")
+                continue
+            stereo = load_stereo_params(conf, args.resolution)
+            rvec_l = np.array([rec["rvec_x"], rec["rvec_y"], rec["rvec_z"]])
+            # The transform takes radians: the record's tag, else --rvec-unit.
+            if rec.get("rvec_unit", args.rvec_unit) == "deg":
+                rvec_l = np.deg2rad(rvec_l)
+            tvec_l = np.array([rec["tvec_x"], rec["tvec_y"], rec["tvec_z"]])
+            offset = (np.asarray(args.correction_offset, np.float64)
+                      if args.correction_offset is not None else None)
+            rvec_r, tvec_r = aruco.stereo_right_from_left(rvec_l, tvec_l, stereo,
+                                                          correction_offset=offset)
+            records.append({
+                "view": view, "cam": "rightcam",
+                "tvec_x": float(tvec_r[0]), "tvec_y": float(tvec_r[1]),
+                "tvec_z": float(tvec_r[2]),
+                "rvec_x": float(rvec_r[0]), "rvec_y": float(rvec_r[1]),
+                "rvec_z": float(rvec_r[2]),
+                "rvec_unit": "rad",
+                "derived_from": "stereo_baseline",
+            })
+            added += 1
+        Path(args.summary).write_text(json.dumps(records, indent=2))
+        print(f"derived {added} rightcam extrinsics -> {args.summary}")
+        return 0
+    raise SystemExit("unknown calibrate subcommand")
+
+
+def _overlay_png(path: Path, panel: np.ndarray) -> None:
+    import cv2
+
+    cv2.imwrite(str(path), panel[:, :, ::-1])
+
+
+def _cmd_visualize(args) -> int:
+    """GT sanity panels, the reference's `cli visualize` (`mvropose_tpu/cli/
+    main.py:1894-1990`) on `data/table.py`: FK + projection skeletons drawn
+    on the undistorted images of random single-view samples, or with FR3's
+    `--multi-view` one panel a sampled group per group size, its views side
+    by side."""
+    import cv2
+
+    from mvropose_torch.data.dataset import SingleViewSample, _load_image_rgb
+
+    rig = load_rig_from_args(args)
+    df = concat(read_csv(c) for c in args.csv)
+    image_hw = tuple(args.image_hw)
+    out_dir = Path(args.out_dir)
+    rng = np.random.default_rng(args.seed)
+    written = 0
+    if args.robot == "fr3" and args.multi_view:
+        ds = builders.build_fr3_multi_view(df, rig, image_hw, tolerance_s=args.tolerance)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        by_size: dict[int, list[int]] = {}
+        for gi, g in enumerate(ds.groups):
+            by_size.setdefault(len(g["views"]), []).append(gi)
+        for size, idxs in sorted(by_size.items()):
+            chosen = rng.choice(len(idxs), size=min(args.num_samples, len(idxs)), replace=False)
+            for c in chosen:
+                g = ds.groups[idxs[int(c)]]
+                angles = np.asarray(g["joint_angles"], np.float32)[: rig.robot.n_joints]
+                tiles = []
+                for rv in ds.resolve_group_views(g):
+                    img = _load_image_rgb(rv["image_path"])
+                    if img is None:
+                        continue
+                    img = ds.geometry.undistort_host(img, ds.geometry.key_to_idx[rv["camera_key"]])
+                    s = SingleViewSample(image_path=rv["image_path"], camera_key=rv["camera_key"],
+                                         view=rv["view"], angles=angles)
+                    kps = ds.geometry.gt_keypoints(s, rv["extr_key"])
+                    tiles.append(draw_keypoints_overlay(img, kps, rig.robot.links))
+                if not tiles:
+                    continue
+                min_h = min(t.shape[0] for t in tiles)
+                tiles = [cv2.resize(t, (int(t.shape[1] * min_h / t.shape[0]), min_h))
+                         for t in tiles]
+                _overlay_png(out_dir / f"group{size}view_{idxs[int(c)]:05d}.png", np.hstack(tiles))
+                written += 1
+        print(f"wrote {written} multi-view GT group panels to {out_dir}")
+        return 0
+    ds = SINGLE_VIEW_BUILDERS[args.robot](df, rig, image_hw)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    idxs = rng.choice(len(ds.samples), size=min(args.num_samples, len(ds.samples)), replace=False)
+    for i in idxs:
+        s = ds.samples[int(i)]
+        img = _load_image_rgb(s.image_path)
+        if img is None:
+            continue
+        # The GT keypoints live on the undistorted image.
+        if img.shape[:2] == tuple(ds.geometry.image_hw):
+            img = ds.geometry.undistort_host(img, ds.geometry.key_to_idx[s.camera_key])
+        panel = draw_keypoints_overlay(img, ds.geometry.gt_keypoints(s), rig.robot.links)
+        _overlay_png(out_dir / f"gt_overlay_{Path(s.image_path).stem}.png", panel)
+        written += 1
+    print(f"wrote {written} GT overlay panels to {out_dir}")
+    return 0
+
+
+def profile(args) -> "StageTimer":
+    """The reference's `cli profile` (`mvropose_tpu/cli/main.py:1993-2040`):
+    the multi-view estimator with all-zero weights at --views x
+    --model-size, one frame set of N(0, 1) images, then --iters times its
+    backbone, its full forward and the peak decode of its heatmaps (to
+    720x1280 pixels), each timed as a stage: CUDA events on the card (bf16),
+    the wall clock on the CPU (f32). -> the StageTimer."""
+    from mvropose_torch.utils.timing import StageTimer
+
+    device = torch.device(args.device)
+    vit = ViTConfig(
+        image_size=args.model_size, patch_size=16, hidden_size=args.hidden_size,
+        num_layers=args.num_layers, num_heads=args.hidden_size // 64,
+        dtype="float32" if device.type == "cpu" else "bfloat16",
+    )
+    cfg = EstimatorConfig(vit=vit, num_joints=8, num_angles=7, max_views=args.views,
+                          dtype=vit.dtype)
+    model = MultiViewPoseEstimator(cfg, device=device).eval()
+    model.load_state_dict({k: torch.zeros_like(v) for k, v in model.state_dict().items()})
+    B, V, S = 1, args.views, args.model_size
+    gen = torch.Generator(device).manual_seed(0)
+    images = torch.randn((B, V, S, S, 3), generator=gen, device=device)
+    vids = torch.arange(V, device=device).repeat(B, 1)
+    mask = torch.ones((B, V), dtype=torch.bool, device=device)
+    flat = images.reshape(B * V, S, S, 3).permute(0, 3, 1, 2)
+
+    def backbone(x):
+        return model.backbone(x)["patch_tokens"]
+
+    def decode(h):
+        return decode_keypoints(h, image_hw=(720, 1280))
+
+    timer = StageTimer(device)
+    with torch.inference_mode():
+        hm, _ = model(images, vids, mask)  # warm-up
+        backbone(flat)
+        decode(hm)
+        for _ in range(args.iters):
+            timer.timed("backbone", backbone, flat)
+            hm, _ = timer.timed("full_forward", model, images, vids, mask)
+            timer.timed("decode", decode, hm)
+    return timer
+
+
+def _cmd_profile(args) -> int:
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available (pass "
+                         "--device cpu for the wall clock on the CPU)")
+    timer = profile(args)
+    print(timer.summary())
+    report = timer.report()
+    full = report["full_forward"]["mean_s"]
+    print(f"\nestimated frame-sets/s (forward+decode): "
+          f"{1.0 / (full + report['decode']['mean_s']):.2f}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -924,6 +1316,76 @@ def build_parser() -> argparse.ArgumentParser:
     pg.add_argument("--min-views", type=int, default=2)
     pg.add_argument("--out", default=None)
     pg.set_defaults(fn=_cmd_group)
+
+    pc = sub.add_parser("calibrate", help="camera calibration tools")
+    csub = pc.add_subparsers(dest="calib_cmd", required=True)
+    ci = csub.add_parser("intrinsics")
+    ci.add_argument("--conf", required=True)
+    ci.add_argument("--serial", required=True)
+    ci.add_argument("--view", required=True)
+    ci.add_argument("--resolution", default="FHD")
+    ci.add_argument("--out-dir", required=True)
+    cm = csub.add_parser("manual")
+    cm.add_argument("--view", required=True)
+    cm.add_argument("--cam", required=True)
+    cm.add_argument("--tvec", type=float, nargs=3, required=True)
+    cm.add_argument("--rvec-deg", type=float, nargs=3, required=True)
+    cm.add_argument("--out", required=True)
+    ce = csub.add_parser("extrinsics")
+    ce.add_argument("--aruco-dir", required=True)
+    ce.add_argument("--offsets", required=True, help="JSON {view: {marker_id: [x,y,z]}}")
+    ce.add_argument("--outlier-deg", type=float, default=1.0)
+    ce.add_argument("--outlier-pos", type=float, default=None,
+                    help="position outlier threshold in meters (Meca-insertion used 0.001)")
+    ce.add_argument("--out", required=True)
+    cs = csub.add_parser("stereo-transfer")
+    cs.add_argument("--summary", required=True, help="aruco summary JSON to extend in place")
+    cs.add_argument("--serial-map", required=True, help="JSON {view: serial}")
+    cs.add_argument("--conf-dir", required=True)
+    cs.add_argument("--resolution", default="FHD1200")
+    cs.add_argument("--rvec-unit", choices=["rad", "deg"], default="rad",
+                    help="unit of untagged source records (records written by this CLI carry "
+                         "an explicit rvec_unit tag)")
+    cs.add_argument("--correction-offset", type=float, nargs=3, default=None,
+                    help="manual tvec correction added to the derived rightcam pose "
+                         "(the original project's RIGHT_CAM_CORRECTION_OFFSET = -0.025 0 0)")
+    cc = csub.add_parser("corners", help="Meca-insertion 3-stage corner pipeline")
+    cc.add_argument("--aruco-dir", required=True,
+                    help="dir of view_*_cam_*.json capture files with corners_pixel")
+    cc.add_argument("--calib-dir", required=True)
+    cc.add_argument("--serial-map", required=True, help="JSON {view: serial}")
+    cc.add_argument("--offsets", required=True, help="JSON {view: {marker_id: [x,y,z]}}")
+    cc.add_argument("--marker-size", type=float, default=0.05,
+                    help="marker side length in meters (MARKER_REAL_SIZE_M)")
+    cc.add_argument("--out", required=True)
+    pc.set_defaults(fn=_cmd_calibrate)
+
+    pz = sub.add_parser("visualize", help="GT skeleton overlay panels (pipeline sanity check)")
+    pz.add_argument("--robot", choices=robots, required=True)
+    pz.add_argument("--multi-view", action="store_true",
+                    help="fr3: grouped multi-view panels by group size")
+    pz.add_argument("--tolerance", type=float, default=0.07,
+                    help="fr3 multi-view grouping tolerance (s)")
+    pz.add_argument("--csv", nargs="+", required=True)
+    pz.add_argument("--calib-dir", default=None)
+    pz.add_argument("--aruco-summary", nargs="*", default=None)
+    pz.add_argument("--dream-dirs", nargs="*", default=None,
+                    help="DREAM subset dirs with _camera_settings.json (robot=dream)")
+    pz.add_argument("--image-hw", type=int, nargs=2, default=[1080, 1920])
+    pz.add_argument("--out-dir", required=True)
+    pz.add_argument("--num-samples", type=int, default=6)
+    pz.add_argument("--sigma", type=float, default=5.0)
+    pz.add_argument("--seed", type=int, default=0)
+    pz.set_defaults(fn=_cmd_visualize)
+
+    pp = sub.add_parser("profile", help="per-stage pipeline timing")
+    pp.add_argument("--views", type=int, default=4)
+    pp.add_argument("--model-size", type=int, default=512)
+    pp.add_argument("--hidden-size", type=int, default=768)
+    pp.add_argument("--num-layers", type=int, default=12)
+    pp.add_argument("--iters", type=int, default=20)
+    pp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    pp.set_defaults(fn=_cmd_profile)
 
     pv = sub.add_parser("serve", help="realtime streaming rig inference")
     pv.add_argument("--replay-dir", default=None)
@@ -973,7 +1435,12 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--summary", default=None,
                     help="aruco_pose_summary.json: ArUco fallback extrinsics on PnP failure")
     pv.add_argument("--display", choices=["off", "window", "dir"], default="off",
-                    help="tiled live view: not ported yet (ROADMAP.md queue 1, item 7)")
+                    help="tiled live view: 'window' = cv2.imshow ('q' quits), 'dir' = write "
+                         "canvas PNGs")
+    pv.add_argument("--display-dir", default="serve_display",
+                    help="output directory for --display dir")
+    pv.add_argument("--display-every", type=int, default=10,
+                    help="write every Nth canvas in --display dir mode")
     pv.set_defaults(fn=_cmd_serve)
 
     pt = sub.add_parser("train", help="train an estimator on captured images")
@@ -1016,11 +1483,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported yet (ROADMAP.md queue 1, item 10)")
     pt.add_argument("--viz-every", type=int, default=10,
                     help="save prediction panels every N epochs")
-    pt.add_argument("--wandb", action="store_true", help="not ported yet")
+    pt.add_argument("--wandb", action="store_true",
+                    help="also log to wandb where it imports (logs/metrics.jsonl always)")
     pt.add_argument("--seed", type=int, default=0)
-    pt.add_argument("--num-workers", type=int, default=0,
-                    help="0: in-process loading (worker processes are not ported yet; a mixed "
-                         "run loads in-process whatever this says)")
+    pt.add_argument("--num-workers", type=int,
+                    default=int(os.environ.get("MVROPOSE_NUM_WORKERS", "4")),
+                    help="worker processes that decode and undistort the train batches (0: "
+                         "in-process; a mixed run loads in-process). Env MVROPOSE_NUM_WORKERS "
+                         "overrides the default")
     pt.add_argument("--device", default="cuda", help="torch device (default cuda)")
     pt.set_defaults(fn=_cmd_train)
 

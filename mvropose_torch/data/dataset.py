@@ -157,6 +157,213 @@ class _RigGeometry:
         return px.numpy()
 
 
+class _HostTables:
+    """What the per-sample preparation needs of a `_RigGeometry`, and no
+    more, so that a sample map pickles to worker processes: the image size,
+    the camera indices and the host undistortion's cv2 remap tables (None
+    where nothing is undistorted on the host)."""
+
+    def __init__(self, geometry: _RigGeometry, undistort: bool):
+        self.image_hw = geometry.image_hw
+        self.key_to_idx = geometry.key_to_idx
+        self.cv2_maps = geometry.cv2_maps if undistort else None
+
+    undistort_host = _RigGeometry.undistort_host
+
+
+def stack_samples(samples: Sequence[dict]) -> dict:
+    """Sample dicts -> one batch of numpy arrays, each key stacked."""
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def _batch_orders(n: int, batch_size: int, shuffle: bool, seed: int,
+                  drop_last: bool) -> Iterator[np.ndarray]:
+    """The indices of each batch: in order, or in the order of
+    `np.random.default_rng(seed).shuffle`; the last may be short, or
+    dropped with `drop_last`."""
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for start in range(0, n, batch_size):
+        idxs = order[start : start + batch_size]
+        if len(idxs) < batch_size and drop_last:
+            return
+        yield idxs
+
+
+class SampleMap:
+    """Index -> fixed-shape single-view sample dict, the one per-sample
+    preparation of the port: `SingleViewDataset.batches`, the mixed
+    batches and the worker processes (`data/worker_loader.py`) all call it.
+    Load, ROI crop with clamping, host undistortion and shape gate
+    (`_apply_roi_and_undistort`); the GT keypoints and extrinsic fields are
+    resolved when the map is made, so it pickles without the rig. A sample
+    that fails keeps its angles and extrinsics with weight 0. The
+    reference's grain `_SampleMap` (`mvropose_tpu/data/grain_loader.py:29`)."""
+
+    def __init__(self, dataset: "SingleViewDataset"):
+        self.samples = dataset.samples
+        geometry, rig = dataset.geometry, dataset.geometry.rig
+        self.num_keypoints, self.num_angles = rig.num_keypoints, rig.robot.n_joints
+        self.undistort_on_host = dataset.undistort_on_host
+        self.has_kp3d = dataset.has_kp3d
+        self.with_extrinsics = dataset.with_extrinsics
+        self.kp_raw = [dataset.gt_keypoints(i) for i in range(len(self.samples))]
+        if self.with_extrinsics:
+            self.extr = []
+            for s in self.samples:
+                extr = rig.extrinsics.get(dataset.extr_key(s) or s.camera_key)
+                rvec = (np.asarray(extr.rvec, np.float32) if extr is not None
+                        else np.zeros(3, np.float32))
+                tvec = (np.asarray(extr.tvec, np.float32) if extr is not None
+                        else np.array([0, 0, 1], np.float32))
+                self.extr.append((rvec, tvec,
+                                  np.asarray(rig.calibs[s.camera_key].camera_matrix, np.float32),
+                                  np.asarray(rig.robot.base_rotation(s.view), np.float32)))
+        self.geometry = _HostTables(geometry, self.undistort_on_host
+                                    and any(s.roi is None for s in self.samples))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def blank(self) -> dict:
+        """A padding slot: weight 0, every field zero but the identity
+        matrices and tvec (0, 0, 1)."""
+        H, W = self.geometry.image_hw
+        J = self.num_keypoints
+        out = {
+            "images_u8": np.zeros((H, W, 3), np.uint8),
+            "cam_idx": np.int32(0),
+            "angles": np.zeros(self.num_angles, np.float32),
+            "keypoints_2d": np.zeros((J, 2), np.float32),
+            "sample_weight": np.float32(0.0),
+        }
+        if self.has_kp3d:
+            out["keypoints_3d_cam"] = np.zeros((J, 3), np.float32)
+        if self.with_extrinsics:
+            out.update(rvec=np.zeros(3, np.float32), tvec=np.array([0, 0, 1], np.float32),
+                       K=np.eye(3, dtype=np.float32), base_rotation=np.eye(3, dtype=np.float32))
+        return out
+
+    def __call__(self, idx: int) -> dict:
+        s = self.samples[idx]
+        out = self.blank()
+        out["angles"] = np.asarray(s.angles, np.float32)
+        if self.with_extrinsics:
+            rvec, tvec, K, base = self.extr[idx]
+            out.update(rvec=rvec, tvec=tvec, K=K, base_rotation=base)
+        img = _load_image_rgb(s.image_path)
+        if img is None:
+            return out
+        prepared = _apply_roi_and_undistort(self.geometry, s, img, self.kp_raw[idx],
+                                            self.undistort_on_host)
+        if prepared is None:
+            return out
+        out["images_u8"], kp = prepared
+        out["cam_idx"] = np.int32(self.geometry.key_to_idx[s.camera_key])
+        out["keypoints_2d"] = np.asarray(kp, np.float32)
+        out["sample_weight"] = np.float32(1.0)
+        if self.has_kp3d:
+            out["keypoints_3d_cam"] = np.asarray(s.keypoints_3d_cam, np.float32)
+        return out
+
+
+class GroupSampleMap:
+    """Index -> fixed-shape multi-view group dict, the one per-group
+    preparation of the port: `MultiViewDataset.batches` and the worker
+    processes call it. The views' resolution, GT keypoints and extrinsics
+    are done when the map is made; a call loads each resolved view, gates
+    its shape and undistorts it on the host. A view that does not resolve
+    or load leaves its slot masked. The reference's grain
+    `_GroupSampleMap`."""
+
+    def __init__(self, dataset: "MultiViewDataset"):
+        geometry, rig = dataset.geometry, dataset.geometry.rig
+        self.max_views = dataset.max_views
+        self.num_keypoints = rig.num_keypoints
+        self.undistort_on_host = dataset.undistort_on_host
+        self.with_extrinsics = dataset.with_extrinsics
+        A = rig.robot.n_joints
+        self.angles = np.zeros((len(dataset.groups), A), np.float32)
+        self.views = []
+        for gi, g in enumerate(dataset.groups):
+            raw = np.asarray(g["joint_angles"], np.float32)
+            if dataset.angles_transform:
+                raw = dataset.angles_transform(raw)
+            self.angles[gi] = raw[:A]
+            slots = []
+            for v, vd in enumerate(g["views"][: self.max_views]):
+                rv = dataset._resolve_view(vd["image_path"])
+                if rv is None:
+                    slots.append(None)
+                    continue
+                slot = {
+                    "image_path": rv["image_path"],
+                    "cam_idx": geometry.key_to_idx[rv["camera_key"]],
+                    "view_id": rig.view_index(rv["serial"], rv["cam"]),
+                    "kp": dataset.gt_keypoints(g, v, rv, self.angles[gi]),
+                }
+                if self.with_extrinsics:
+                    extr = rig.extrinsics[rv["extr_key"]]
+                    slot.update(
+                        rvec=np.asarray(extr.rvec, np.float32),
+                        tvec=np.asarray(extr.tvec, np.float32),
+                        K=np.asarray(rig.calibs[rv["camera_key"]].camera_matrix, np.float32),
+                        base=np.asarray(rig.robot.base_rotation(rv["view"]), np.float32))
+                slots.append(slot)
+            self.views.append(slots)
+        self.geometry = _HostTables(geometry, self.undistort_on_host)
+
+    def __len__(self) -> int:
+        return len(self.views)
+
+    def blank(self) -> dict:
+        """A padding slot: no view, weight 0, angles 0."""
+        H, W = self.geometry.image_hw
+        V, J = self.max_views, self.num_keypoints
+        out = {
+            "images_u8": np.zeros((V, H, W, 3), np.uint8),
+            "view_ids": np.zeros((V,), np.int32),
+            "view_mask": np.zeros((V,), bool),
+            "cam_idx": np.zeros((V,), np.int32),
+            "angles": np.zeros(self.angles.shape[1], np.float32),
+            "keypoints_2d": np.zeros((V, J, 2), np.float32),
+            "sample_weight": np.float32(0.0),
+        }
+        if self.with_extrinsics:
+            out["rvec"] = np.zeros((V, 3), np.float32)
+            out["tvec"] = np.zeros((V, 3), np.float32)
+            out["tvec"][:, 2] = 1.0
+            out["K"] = np.tile(np.eye(3, dtype=np.float32), (V, 1, 1))
+            out["base_rotation"] = np.tile(np.eye(3, dtype=np.float32), (V, 1, 1))
+        return out
+
+    def __call__(self, idx: int) -> dict:
+        H, W = self.geometry.image_hw
+        out = self.blank()
+        out["angles"] = self.angles[idx]
+        for v, slot in enumerate(self.views[idx]):
+            if slot is None:
+                continue
+            img = _load_image_rgb(slot["image_path"])
+            if img is None or img.shape[:2] != (H, W):
+                continue
+            if self.undistort_on_host:
+                img = self.geometry.undistort_host(img, slot["cam_idx"])
+            out["images_u8"][v] = img
+            out["view_ids"][v] = slot["view_id"]
+            out["cam_idx"][v] = slot["cam_idx"]
+            out["keypoints_2d"][v] = slot["kp"]
+            out["view_mask"][v] = True
+            if self.with_extrinsics:
+                out["rvec"][v] = slot["rvec"]
+                out["tvec"][v] = slot["tvec"]
+                out["K"][v] = slot["K"]
+                out["base_rotation"][v] = slot["base"]
+        out["sample_weight"] = np.float32(out["view_mask"].any())
+        return out
+
+
 def _imagenet_stats():
     return IMAGENET_MEAN, IMAGENET_STD
 
@@ -259,81 +466,33 @@ class SingleViewDataset:
     def __len__(self) -> int:
         return len(self.samples)
 
-    def prepared(self, i: int) -> tuple[np.ndarray, np.ndarray] | None:
-        """Sample i's image at image_hw and its GT keypoints in that frame:
-        loaded, ROI-cropped, undistorted on the host and shape-gated
-        (`_apply_roi_and_undistort`), or None where the image fails to load
-        or prepare. The per-sample preparation of `batches` and of the
-        mixed-robot batches (the reference's grain `_SampleMap`,
-        `mvropose_tpu/data/grain_loader.py:29`)."""
+    def extr_key(self, s: SingleViewSample) -> str | None:
+        return self.extr_key_fn(s) if self.extr_key_fn else None
+
+    def gt_keypoints(self, i: int) -> np.ndarray:
+        """Sample i's GT keypoints in raw-image pixels (f32), computed once
+        per sample."""
         s = self.samples[i]
-        img = _load_image_rgb(s.image_path)
-        if img is None:
-            return None
         kp = self._kp_cache.get(id(s))
         if kp is None:
-            kp = self.geometry.gt_keypoints(s, self.extr_key_fn(s) if self.extr_key_fn else None)
+            kp = np.asarray(self.geometry.gt_keypoints(s, self.extr_key(s)), np.float32)
             self._kp_cache[id(s)] = kp
-        return _apply_roi_and_undistort(self.geometry, s, img, kp, self.undistort_on_host)
+        return kp
 
     def batches(
         self, batch_size: int, shuffle: bool = False, seed: int = 0, drop_last: bool = False
     ) -> Iterator[dict]:
-        n = len(self.samples)
-        order = np.arange(n)
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        H, W = self.geometry.image_hw
-        rig = self.geometry.rig
-        J = rig.num_keypoints
-        A = rig.robot.n_joints
-        for start in range(0, n, batch_size):
-            idxs = order[start : start + batch_size]
-            if len(idxs) < batch_size and drop_last:
-                break
-            B = batch_size
-            images = np.zeros((B, H, W, 3), np.uint8)
-            cam_idx = np.zeros((B,), np.int32)
-            angles = np.zeros((B, A), np.float32)
-            kpts = np.zeros((B, J, 2), np.float32)
-            weight = np.zeros((B,), np.float32)
-            kp3d = np.zeros((B, J, 3), np.float32) if self.has_kp3d else None
-            if self.with_extrinsics:
-                rvecs = np.zeros((B, 3), np.float32)
-                tvecs = np.zeros((B, 3), np.float32)
-                tvecs[:, 2] = 1.0  # harmless default for padded slots
-                Ks = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
-                base_rots = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
-            for slot, i in enumerate(idxs):
-                prepared = self.prepared(i)
-                if prepared is None:
-                    continue  # weight stays 0
-                s = self.samples[i]
-                images[slot], kpts[slot] = prepared
-                cam_idx[slot] = self.geometry.key_to_idx[s.camera_key]
-                angles[slot] = s.angles
-                if kp3d is not None:
-                    kp3d[slot] = s.keypoints_3d_cam
-                weight[slot] = 1.0
-                if self.with_extrinsics:
-                    ek = self.extr_key_fn(s) if self.extr_key_fn else None
-                    extr = rig.extrinsics.get(ek or s.camera_key)
-                    if extr is not None:
-                        rvecs[slot] = extr.rvec
-                        tvecs[slot] = extr.tvec
-                    Ks[slot] = rig.calibs[s.camera_key].camera_matrix
-                    base_rots[slot] = rig.robot.base_rotation(s.view)
-            batch = {
-                "images_u8": images,
-                "cam_idx": cam_idx,
-                "angles": angles,
-                "keypoints_2d": kpts,
-                "sample_weight": weight,
-            }
-            if self.with_extrinsics:
-                batch.update(rvec=rvecs, tvec=tvecs, K=Ks, base_rotation=base_rots)
-            if kp3d is not None:
-                batch["keypoints_3d_cam"] = kp3d
+        """Batches of `SampleMap` samples, the last padded with blank slots.
+        A sample that fails to load or prepare leaves its slot blank too, as
+        the reference's batches do (its map keeps the angles and
+        extrinsics)."""
+        fn = SampleMap(self)
+        blank = fn.blank()
+        for idxs in _batch_orders(len(self.samples), batch_size, shuffle, seed, drop_last):
+            items = [item if item["sample_weight"] else blank for item in map(fn, idxs)]
+            batch = stack_samples(items + [blank] * (batch_size - len(items)))
+            if self.has_kp3d:  # last, as the reference's batches have it
+                batch["keypoints_3d_cam"] = batch.pop("keypoints_3d_cam")
             yield batch
 
 
@@ -393,85 +552,35 @@ class MultiViewDataset:
             "view": view, "serial": serial, "cam": cam,
         }
 
+    def resolve_group_views(self, group: Mapping) -> list[dict]:
+        """A group's views that resolve (`_resolve_view`), in slot order:
+        what `cli visualize --multi-view` draws."""
+        out = []
+        for vd in group["views"][: self.max_views]:
+            rv = self._resolve_view(vd["image_path"])
+            if rv is not None:
+                out.append(rv)
+        return out
+
+    def gt_keypoints(self, group: Mapping, v: int, rv: dict, angles: np.ndarray) -> np.ndarray:
+        """The GT keypoints (f32) of view slot v of `group`, resolved as
+        `rv` (`_resolve_view`) at the group's model `angles`, computed once
+        per group view."""
+        kp = self._kp_cache.get((id(group), v))
+        if kp is None:
+            sample = SingleViewSample(image_path=rv["image_path"], camera_key=rv["camera_key"],
+                                      view=rv["view"], angles=angles)
+            kp = np.asarray(self.geometry.gt_keypoints(sample, rv["extr_key"]), np.float32)
+            self._kp_cache[(id(group), v)] = kp
+        return kp
+
     def batches(
         self, batch_size: int, shuffle: bool = False, seed: int = 0, drop_last: bool = False
     ) -> Iterator[dict]:
-        n = len(self.groups)
-        order = np.arange(n)
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        H, W = self.geometry.image_hw
-        rig = self.geometry.rig
-        V = self.max_views
-        J = rig.num_keypoints
-        A = rig.robot.n_joints
-        for start in range(0, n, batch_size):
-            idxs = order[start : start + batch_size]
-            if len(idxs) < batch_size and drop_last:
-                break
-            B = batch_size
-            images = np.zeros((B, V, H, W, 3), np.uint8)
-            view_ids = np.zeros((B, V), np.int32)
-            view_mask = np.zeros((B, V), bool)
-            cam_idx = np.zeros((B, V), np.int32)
-            angles = np.zeros((B, A), np.float32)
-            kpts = np.zeros((B, V, J, 2), np.float32)
-            weight = np.zeros((B,), np.float32)
-            if self.with_extrinsics:
-                rvecs = np.zeros((B, V, 3), np.float32)
-                tvecs = np.zeros((B, V, 3), np.float32)
-                tvecs[:, :, 2] = 1.0
-                Ks = np.tile(np.eye(3, dtype=np.float32), (B, V, 1, 1))
-                base_rots = np.tile(np.eye(3, dtype=np.float32), (B, V, 1, 1))
-            for slot, i in enumerate(idxs):
-                g = self.groups[i]
-                raw_angles = np.asarray(g["joint_angles"], np.float32)
-                if self.angles_transform:
-                    raw_angles = self.angles_transform(raw_angles)
-                angles[slot] = raw_angles[:A]
-                any_view = False
-                for v, vd in enumerate(g["views"][:V]):
-                    # Resolve before decoding: a view that cannot resolve
-                    # costs dict lookups, not an image read.
-                    rv = self._resolve_view(vd["image_path"])
-                    if rv is None:
-                        continue
-                    img = _load_image_rgb(rv["image_path"])
-                    if img is None or img.shape[:2] != (H, W):
-                        continue
-                    ckey, ekey, view = rv["camera_key"], rv["extr_key"], rv["view"]
-                    sample = SingleViewSample(
-                        image_path=rv["image_path"], camera_key=ckey, view=view,
-                        angles=angles[slot],
-                    )
-                    if self.undistort_on_host:
-                        img = self.geometry.undistort_host(img, self.geometry.key_to_idx[ckey])
-                    images[slot, v] = img
-                    view_ids[slot, v] = rig.view_index(rv["serial"], rv["cam"])
-                    cam_idx[slot, v] = self.geometry.key_to_idx[ckey]
-                    kp = self._kp_cache.get((id(g), v))
-                    if kp is None:
-                        kp = self.geometry.gt_keypoints(sample, ekey)
-                        self._kp_cache[(id(g), v)] = kp
-                    kpts[slot, v] = kp
-                    view_mask[slot, v] = True
-                    any_view = True
-                    if self.with_extrinsics:
-                        extr = rig.extrinsics[ekey]
-                        rvecs[slot, v] = extr.rvec
-                        tvecs[slot, v] = extr.tvec
-                        Ks[slot, v] = rig.calibs[ckey].camera_matrix
-                        base_rots[slot, v] = rig.robot.base_rotation(view)
-                weight[slot] = 1.0 if any_view else 0.0
-            batch = {
-                "images_u8": images,
-                "view_ids": view_ids,
-                "view_mask": view_mask,
-                "cam_idx": cam_idx,
-                "angles": angles,
-                "keypoints_2d": kpts,
-                "sample_weight": weight,
-            }
-            if self.with_extrinsics:
-                batch.update(rvec=rvecs, tvec=tvecs, K=Ks, base_rotation=base_rots)
-            yield batch
+        """Batches of `GroupSampleMap` groups, the last padded with blank
+        slots."""
+        fn = GroupSampleMap(self)
+        blank = fn.blank()
+        for idxs in _batch_orders(len(self.groups), batch_size, shuffle, seed, drop_last):
+            items = [fn(i) for i in idxs]
+            yield stack_samples(items + [blank] * (batch_size - len(items)))

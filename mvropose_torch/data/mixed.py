@@ -21,7 +21,7 @@ from typing import Sequence
 
 import numpy as np
 
-from mvropose_torch.data.dataset import SingleViewDataset
+from mvropose_torch.data.dataset import SampleMap, SingleViewDataset, _batch_orders
 
 # Far outside any frame: the render's gaussian at this centre underflows to
 # exactly 0.0 over the whole map (f32 exp of about -1e12).
@@ -67,13 +67,10 @@ class MixedRobotDataset:
         (B, A) and robot_id (B,). A sample whose image fails to load or
         prepare keeps its angles, with weight 0 and angle_mask 0, as the
         reference's per-sample map leaves it."""
-        n = len(self.samples)
-        order = np.arange(n)
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
         H, W = self.geometry.image_hw
         J, A = self.num_keypoints, self.num_angles
-        for start in range(0, n, batch_size):
+        maps = [SampleMap(child) for child in self.children]
+        for idxs in _batch_orders(len(self.samples), batch_size, shuffle, seed, False):
             B = batch_size
             batch = {
                 "images_u8": np.zeros((B, H, W, 3), np.uint8),
@@ -84,19 +81,17 @@ class MixedRobotDataset:
                 "angle_mask": np.zeros((B, A), np.float32),
                 "robot_id": np.zeros((B,), np.int32),
             }
-            for slot, gi in enumerate(order[start:start + batch_size]):
+            for slot, gi in enumerate(idxs):
                 ci, si = self.samples[gi]
-                child = self.children[ci]
-                angles = np.asarray(child.samples[si].angles, np.float32)
-                a = angles.shape[0]
-                batch["angles"][slot, :a] = angles * self.angle_scale[ci]
+                item = maps[ci](si)
+                a = item["angles"].shape[0]
+                batch["angles"][slot, :a] = item["angles"] * self.angle_scale[ci]
                 batch["robot_id"][slot] = ci
-                prepared = child.prepared(si)
-                if prepared is None:
+                if not item["sample_weight"]:
                     continue
-                img, kp = prepared
-                batch["images_u8"][slot] = img
-                batch["cam_idx"][slot] = child.geometry.key_to_idx[child.samples[si].camera_key]
+                kp = item["keypoints_2d"]
+                batch["images_u8"][slot] = item["images_u8"]
+                batch["cam_idx"][slot] = item["cam_idx"]
                 batch["keypoints_2d"][slot, :kp.shape[0]] = kp
                 batch["sample_weight"][slot] = 1.0
                 batch["angle_mask"][slot, :a] = 1.0

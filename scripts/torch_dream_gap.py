@@ -124,7 +124,7 @@ def port_train(argv: list, init_path: Path):
     cli_main.flax_init_state = from_reference
     try:
         return cli_main.train(cli_main.build_parser().parse_args(["train", *argv, "--device",
-                                                                   "cpu"]))
+                                                                   "cpu", "--num-workers", "0"]))
     finally:
         cli_main.flax_init_state = real
 

@@ -165,7 +165,7 @@ def main(argv=None) -> int:
     result = timed("train", lambda: cli_main.train(cli_main.build_parser().parse_args(
         ["train", "--robot", "dream", "--single-view", "--csv", str(work / "dream5.csv"),
          "--dream-dirs", str(work / "dream5" / "panda_synth"), "--workdir", str(run),
-         *ARCH, "--batch-size", str(BATCH), "--epochs", str(EPOCHS), *DEVICE,
+         *ARCH, "--batch-size", str(BATCH), "--epochs", str(EPOCHS), *DEVICE, "--num-workers", "0",
          *(["--no-freeze-backbone"] if args.no_freeze_backbone else [])])))
     records = [json.loads(line) for line in (run / "logs" / "metrics.jsonl").read_text()
                .splitlines()]
@@ -225,7 +225,7 @@ def main(argv=None) -> int:
         timed("train mixed3", lambda: cli_main.train(cli_main.build_parser().parse_args(
             ["train", *common, "--csv", *(str(mixed / f"{r}.csv") for r in robots),
              "--workdir", str(mrun), "--batch-size", str(MIXED_BATCH), "--epochs",
-             str(MIXED_EPOCHS), *DEVICE])))
+             str(MIXED_EPOCHS), *DEVICE, "--num-workers", "0"])))
         out["mixed3"] = timed("eval mixed3", lambda: evaluate(
             [*common, "--csv", *(str(held / f"{r}.csv") for r in robots), "--params",
              str(mrun / "best_params.npz"), "--batch-size", "50"]))

@@ -6,9 +6,13 @@ and, with `--single-view`, the single-view one at toy size (hidden 64, one
 layer). Each run writes logs/metrics.jsonl with a finite val_loss,
 best_params.npz and model_config.json; the reference's `load_params_npz`
 reads that file and its forward agrees with the port's within 1e-4 (f32).
-Two epochs and one epoch plus one resumed give bit-equal states. The
-flags that are not ported exit naming their ROADMAP item, as do the
-reference's own refusals; `serve --params` reads the trained run.
+Two epochs and one epoch plus one resumed give bit-equal states. The runs
+held against the reference's load in-process (`--num-workers 0`); with
+worker processes an epoch is the floor of the batches and a resumed run
+reseeds its stream, as the reference's grain path; `--wandb` logs where
+wandb imports and runs on the JSONL file where it does not. The flag that
+is not ported exits naming its ROADMAP item, as do the reference's own
+refusals; `serve --params` reads the trained run.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -51,7 +56,7 @@ def train_argv(cap, workdir, *extra) -> list:
             str(cap["calib_dir"]), "--aruco-summary", str(cap["summary"]), "--workdir",
             str(workdir), "--image-hw", "60", "80", "--model-size", "64", "--hidden-size", "64",
             "--num-layers", "1", "--batch-size", "2", "--epochs", "1", "--val-split", "0.34",
-            "--tolerance", "0.05", "--device", "cpu", *extra]
+            "--tolerance", "0.05", "--device", "cpu", "--num-workers", "0", *extra]
 
 
 def _records(workdir) -> list:
@@ -203,11 +208,9 @@ def test_fk_loss_weight_trains_single_view_and_refuses_what_the_reference_refuse
 DINO_192X4 = Path(__file__).resolve().parents[1] / "runs" / "synth_sv_frozen" / "dino_192x4.npz"
 UNPORTED = {
     "mixed_robots": (["--robot", "fr3,fr5"], "fr3,fr5 needs exactly 2 --csv files"),
-    "num_workers": (["--num-workers", "2"], "grain loader.*queue 1, item 12"),
     "backbone_ckpt": (["--backbone-ckpt", str(DINO_192X4), "--hidden-size", "192"],
                       r"backbone checkpoint shape mismatch at \['pos_embed'\]"),
     "mesh": (["--mesh", "2", "1"], "--mesh.*queue 1, item 10"),
-    "wandb": (["--wandb"], "--wandb.*queue 1, item 12"),
 }
 
 
@@ -217,6 +220,73 @@ def test_cli_train_refuses_unported_flags(cap, tmp_path, name):
     with pytest.raises(SystemExit, match=message):
         main(train_argv(cap, tmp_path / "run", *extra))  # the last --robot wins
     assert not (tmp_path / "run").exists()
+
+
+def test_cli_train_in_worker_processes_follows_the_reference_stream(cap, tmp_path, monkeypatch,
+                                                                   capsys):
+    """--num-workers 2 on the FR3 groups (3 train groups, batches of 2): the
+    worker stream (2 worker processes, seeded seed + 1000003 x the first
+    epoch the call trains, endless), floor(3 / 2) = 1 step an epoch; the
+    same run stopped after its first epoch and called again resumes at
+    epoch 2 with the reference's `grain:` line and a stream reseeded from
+    epoch 1."""
+    import mvropose_torch.cli.main as cli
+
+    made = []
+    real = cli.make_worker_loader
+
+    def spy(ds, batch_size, **kw):
+        made.append((len(ds), batch_size, kw))
+        return real(ds, batch_size, **kw)
+
+    monkeypatch.setattr(cli, "make_worker_loader", spy)
+    argv = train_argv(cap, tmp_path / "run", "--epochs", "2", "--no-augment",
+                      "--num-workers", "2")
+    fit = cli.fit
+
+    def fit_stopped_after_one_epoch(*args, on_epoch_end, **kw):
+        def stop(*a):
+            on_epoch_end(*a)
+            raise Interrupted
+        return fit(*args, on_epoch_end=stop, **kw)
+
+    monkeypatch.setattr(cli, "fit", fit_stopped_after_one_epoch)
+    with pytest.raises(Interrupted):
+        main(argv)
+    monkeypatch.setattr(cli, "fit", fit)
+    capsys.readouterr()
+    assert main(argv) == 0
+    printed = capsys.readouterr().out
+    assert ("grain: resuming at epoch 1; stream reseeded with seed 0 + epoch (sample order "
+            "differs from an uninterrupted run") in printed
+    recs = _records(tmp_path / "run")
+    assert [r["epoch"] for r in recs] == [1, 2] and [r["step"] for r in recs] == [1, 2]
+    assert all(np.isfinite(r["val_loss"]) for r in recs)
+    want = dict(num_workers=2, num_epochs=None, pin_memory=False)
+    assert made == [(3, 2, {**want, "seed": 0}), (3, 2, {**want, "seed": 1000003})]
+
+
+def test_cli_train_wandb_logs_where_it_imports(cap, tmp_path, monkeypatch):
+    """--wandb: without wandb the run logs to logs/metrics.jsonl alone, as
+    the reference's writer; with a wandb module each record, panel and the
+    finish go to it too."""
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb fails
+    assert main(train_argv(cap, tmp_path / "plain", "--wandb", "--no-augment")) == 0
+    assert len(_records(tmp_path / "plain")) == 1
+    calls = []
+    fake = types.ModuleType("wandb")
+    fake.init = lambda **kw: calls.append(("init", kw))
+    fake.log = lambda rec, step: calls.append(("log", sorted(rec), step))
+    fake.Image = lambda image: ("image", image.shape)
+    fake.finish = lambda: calls.append(("finish",))
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    assert main(train_argv(cap, tmp_path / "logged", "--wandb", "--no-augment", "--viz-every",
+                           "1")) == 0
+    rec = _records(tmp_path / "logged")[0]
+    assert calls[0] == ("init", {}) and calls[-1] == ("finish",)  # wandb.init()
+    logged = [c for c in calls if c[0] == "log"]
+    assert ("log", ["val_predictions"], rec["step"]) in logged
+    assert any(c[2] == rec["step"] and "val_loss" in c[1] for c in logged)
 
 
 def test_cli_train_grafts_a_dino_checkpoint(cap, tmp_path):

@@ -27,6 +27,7 @@ from mvropose_torch.decode import decode_keypoints
 from mvropose_torch.geometry import heatmap
 from mvropose_torch.ops import peak_decode
 from mvropose_torch.ops.peak_decode import fused_peak_decode, peak_decode_reference
+import torch_parity  # noqa: F401  (one torch thread a test process)
 
 FIXTURES = Path(__file__).parent / "fixtures" / "decode_fixtures.npz"
 

@@ -23,6 +23,7 @@ from mvropose_torch.ops.heatmap_render import (
     render_heatmaps_cuda,
     render_heatmaps_reference,
 )
+import torch_parity  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=0, atol=1e-6)
 

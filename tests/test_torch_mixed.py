@@ -110,7 +110,7 @@ def _train_argv(out: Path, workdir: Path, *extra) -> list:
             str(out / "fr5_aruco_pose_summary.json"), str(out / "pose1_aruco_pose_summary.json"),
             "--workdir", str(workdir), "--image-hw", "64", "64", "--model-size", "64",
             "--hidden-size", "64", "--num-layers", "1", "--batch-size", "4", "--epochs", "1",
-            "--val-split", "0.25", "--no-augment", "--device", "cpu", *extra]
+            "--val-split", "0.25", "--no-augment", "--device", "cpu", "--num-workers", "0", *extra]
 
 
 def test_cli_train_mixed_and_the_reference_reads_its_checkpoint(fixture, tmp_path, capsys):

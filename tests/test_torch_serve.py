@@ -165,11 +165,17 @@ def test_port_imports_no_jax():
                     *(root_dir / "scripts").glob("torch_*.py")])
     assert len(files) > 10
     # The modules of cli eval, sync and group and of the mixed-robot data,
-    # and the port's data generators and its int8 receipt.
+    # the port's data generators and its int8 receipt; the worker loader,
+    # the viewer, the stage timer, the ArUco calibration, IK, the probe and
+    # the package's entry point.
     for new in ("mvropose_torch/cli/eval.py", "mvropose_torch/data/sync.py",
                 "mvropose_torch/data/mixed.py", "mvropose_torch/data/grouping.py",
                 "mvropose_torch/data/table.py", "scripts/torch_make_dream_synthetic.py",
-                "scripts/torch_make_mixed_synthetic.py", "scripts/torch_int8_receipt.py"):
+                "scripts/torch_make_mixed_synthetic.py", "scripts/torch_int8_receipt.py",
+                "mvropose_torch/data/worker_loader.py", "mvropose_torch/rig/viewer.py",
+                "mvropose_torch/utils/timing.py", "mvropose_torch/calib/aruco.py",
+                "mvropose_torch/geometry/ik.py", "mvropose_torch/utils/probe.py",
+                "mvropose_torch/__main__.py"):
         assert root_dir / new in files, new
     for f in files:
         for mod in _imports(f):
@@ -271,18 +277,33 @@ def test_cli_serve_with_params(checkpoint, capsys):
     assert served >= 1
 
 
-@pytest.mark.parametrize(
-    "extra, item",
-    [
-        (["--display", "window"], "item 7"),
-        (["--display", "dir"], "item 7"),
-    ],
-)
-def test_cli_serve_rejects_unported(extra, item):
-    """The serve viewer is the one serve flag left to port (the calibrated
-    rig and the geometric heads run: test_torch_calibrated_serve.py)."""
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
-        main(SERVE_TINY + extra)
+@pytest.mark.parametrize("mode", ["window", "dir"])
+def test_cli_serve_display(mode, tmp_path, monkeypatch):
+    """The serve viewer on the real loop (synthetic sources, the tiny model
+    on the CPU): `dir` writes every 2nd canvas from tick 1 as
+    canvas_<n>.png, each the 2 cameras' frames in one row (the reference's
+    layout shows names[:1] of 2 cameras); `window` shows each canvas until 'q'
+    (cv2.imshow stubbed: this machine has no display), draws the set still
+    in flight, then closes the window. The planted-result comparison with the
+    reference's viewer is tests/test_torch_cli_tools.py's."""
+    import cv2
+
+    shown = []
+    monkeypatch.setattr(cv2, "imshow", lambda title, img: shown.append(img.shape))
+    monkeypatch.setattr(cv2, "waitKey", lambda ms: ord("q") if len(shown) == 2 else -1)
+    monkeypatch.setattr(cv2, "destroyAllWindows", lambda: shown.append("closed"))
+    out = tmp_path / "canvases"
+    assert main(SERVE_TINY + ["--display", mode, "--display-dir", str(out),
+                              "--display-every", "2"]) == 0
+    H, W = 32, 48  # SERVE_TINY's frames
+    if mode == "window":
+        assert shown[-1] == "closed" and not out.exists()
+        assert 2 <= len(shown) - 1 <= 3 and set(shown[:-1]) == {(H, 2 * W, 3)}
+        return
+    names = sorted(p.name for p in out.iterdir())
+    assert names and names == [f"canvas_{n:06d}.png" for n in range(1, 2 * len(names), 2)]
+    assert {cv2.imread(str(out / n)).shape for n in names} == {(H, 2 * W, 3)}
+    assert shown == []
 
 
 def test_cli_serve_recover_pose_refine_pose(capsys):

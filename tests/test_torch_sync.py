@@ -25,6 +25,7 @@ from mvropose_torch.cli.main import main
 from mvropose_torch.data import sync as tsync
 from mvropose_torch.data.grouping import tolerance_grid_search
 from mvropose_torch.data.table import Table, read_csv
+import torch_parity  # noqa: F401  (one torch thread a test process)
 
 jax_cli = importlib.import_module("mvropose_tpu.cli.main")  # the package exports main()
 

@@ -15,6 +15,12 @@ import torch
 
 from mvropose_tpu.train.checkpoint import save_params_npz
 
+# pytest-xdist runs the suite's files in several processes at once, and on
+# tiny tensors torch's CPU ops keep their OpenMP threads spinning: at eight
+# threads a process on eight cores, six processes made a `cli train` test
+# ~20x slower than alone (698 s against 34 s). One thread a test process.
+torch.set_num_threads(1)
+
 
 def random_variables(shapes, seed: int = 0):
     """numpy-seeded variables for an eval_shape tree, scaled to keep

@@ -29,9 +29,12 @@ Phases, in order; any failure exits non-zero and no phase's failure is caught:
          case, and the DINO run's d = 48 shapes): the quantized values
          equal, the output within one value step (plus a bf16 ulp in bf16)
          of the plain version, planted rows bit-equal, two calls
-         bit-identical; timed in turns plain/fused/fused/plain, beside SDPA
-         in the same dtype, at the serve shape and at each width's
-         serve-like shape;
+         bit-identical; at the serve shape in each dtype the route captured
+         in a CUDA graph, whose edge into the attention must be
+         programmatic (`attention_graph_edges`); timed in turns
+         plain/fused/fused/plain, beside SDPA in the same dtype, with the
+         attention's time after the values' kernel in the main path's
+         order, at the serve shape and at each width's serve-like shape;
        * the int8 matmul's quantization and GEMM (`phase_int8_matmul`: the
          serve step's products at M = 4100, 768 -> 768, 768 -> 3072 and
          3072 -> 768, and M = 1, 37, 51 at the serve and small widths, each
@@ -247,7 +250,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
-import ctypes
 import dataclasses
 import functools
 import importlib.util
@@ -330,6 +332,7 @@ from mvropose_torch.train import (
     make_single_view_train_step,
 )
 from mvropose_torch.train.state import ANG_MODULES, KPT_MODULES
+from mvropose_torch.utils import graphs
 from mvropose_torch.utils.weights import (
     flax_init_state,
     int8ify,
@@ -359,8 +362,8 @@ KERNELS = {
     "residual_layernorm_int8": (layernorm, "residual_int8_launches",
                                 "mvropose_torch/csrc/layernorm.cu",
                                 "mvropose_tpu/models/quantize.py:37"),
-    # int8_prob_attention whole (logits to the dequantized P V), bf16 and f32
-    # (its pre-pass and kernel), and its values' quantization (both types).
+    # int8_prob_attention whole (logits to the dequantized P V), bf16 and f32,
+    # and its values' quantization (both types).
     "int8_attention": (int8_attention, "fused", "mvropose_torch/csrc/int8_attention.cu",
                        "mvropose_tpu/ops/attention.py:29"),
     "int8_attention_f32": (int8_attention, "fused_f32",
@@ -566,7 +569,8 @@ HOPPER_KERNELS = len(attention.HEAD_DIMS) * sum(len(p) for p, _ in HOPPER_TYPES.
 
 def phase_build() -> None:
     """Build the kernels; the Hopper kernels (`*_sm90_kernel`, each flash
-    instantiation) must all be there and must not spill."""
+    instantiation) must all be there and must not spill, and ptxas must not
+    have serialized any kernel's wgmma products (its C75xx notes)."""
     t0 = time.perf_counter()
     _build.load_library()
     seconds = time.perf_counter() - t0
@@ -583,6 +587,10 @@ def phase_build() -> None:
         check(len(hopper) == HOPPER_KERNELS and not any(hopper.values()) and
               all(w == list(attention.HEAD_DIMS) for w in widths.values()),
               f"the Hopper kernels' spilled bytes: {hopper}")
+        serialized = [line for line in text.splitlines()
+                      if "wgmma.mma_async instructions are serialized" in line]
+        check(not serialized, "ptxas serialized the wgmma products of a Hopper kernel:\n"
+              + "\n".join(serialized))
         print(f"Hopper kernels: {len(hopper)}, none spills; instantiations at "
               + ", ".join(f"d = {w} ({kind}, {ty})" for (kind, ty), w in widths.items()))
 
@@ -922,8 +930,7 @@ def int8_case(i: int, name: str, B: int, T: int, H: int, d: int, mask_kind, layo
               dname: str) -> float:
     """One INT8_CASES case in one dtype -> the kernel's largest gap from the
     plain version: vt and sv of `int8_quantize_v_cuda` equal
-    `quantize_v_plain`'s; the fused kernel (f32: its pre-pass and kernel) on
-    those values within `_int8_bound` of `int8_attention_reference` (the
+    `quantize_v_plain`'s; the fused kernel on those values within `_int8_bound` of `int8_attention_reference` (the
     non-bit-equal outputs counted), the whole `int8_prob_attention`
     (quantization + kernel) of `int8_prob_attention_reference`; planted
     rows bit-equal; two calls bit-identical."""
@@ -997,10 +1004,11 @@ def int8_times(B: int, T: int, H: int, d: int, dname: str, timer) -> tuple:
     kb = int8_attention_bound(B, T, H, d, dtype)
     design = int8_attention_bound(B, T, H, d, dtype, passes=2)["bound_ms"]
     qb = bound(v.element_size() * v.numel() + vt.numel() + 4 * sv.numel())
-    alone = "fused kernel alone" if dtype == torch.bfloat16 else "pre-pass + fused kernel"
     print(f"int8 attention {(B, T, H, d)} {dname}, ms per call, CUDA-graph replay, in turns "
           f"plain/fused/fused/plain: whole function fused {fused:.4f}, plain {plain:.4f}; "
-          f"{alone} {kernel:.4f} (plain {kernel_plain:.4f}), bound {fmt_bound(kb)} (ex2 at "
+          f"the attention after the values' kernel, in the main path's order (the whole "
+          f"function less that kernel alone, with the programmatic edge) {fused - quant:.4f}; "
+          f"fused kernel alone {kernel:.4f} (plain {kernel_plain:.4f}), bound {fmt_bound(kb)} (ex2 at "
           f"{exp_per_s():.4g}/s), at {kb['bound_ms'] / kernel:.3f} of it (the kernel's two "
           f"passes of logits: {design:.4f}, at {design / kernel:.3f}); values' quantization "
           f"kernel {quant:.4f} (plain {quant_plain:.4f}, bound {qb['bound_ms']:.4f}), "
@@ -1008,16 +1016,49 @@ def int8_times(B: int, T: int, H: int, d: int, dname: str, timer) -> tuple:
           f"a near relative) {sdpa:.4f}")
     entry = {"ms": kernel, "plain_ms": kernel_plain, "bound_ms": kb["bound_ms"],
              "bound_by": kb["bound_by"], "two_pass_bound_ms": design, "library_ms": None,
-             "fused_route_ms": fused, "plain_route_ms": plain, "sdpa_ms": sdpa}
+             "fused_route_ms": fused, "in_order_ms": fused - quant, "plain_route_ms": plain,
+             "sdpa_ms": sdpa}
     return entry, {"ms": quant, "plain_ms": quant_plain, **qb}
+
+
+def attention_graph_edges(dname: str) -> dict:
+    """Whether a CUDA graph captured from the stream keeps the attention's
+    programmatic dependent launch behind the values' kernel (f32: behind the
+    pre-pass that splits k, which follows the values' kernel): the whole
+    `int8_prob_attention` at INT8_SERVE in one dtype captured in one torch
+    CUDA graph, its edges read through the driver (`utils/graphs.py`), the
+    edge into the attention required programmatic, the replayed output held
+    bit-equal to the eager one."""
+    q, k, v, _ = _int8_operands(*INT8_SERVE[:3], "proj", seed=301, dtype=INT8_DTYPES[dname])
+    eager = int8_attention.int8_prob_attention(q, k, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        captured = int8_attention.int8_prob_attention(q, k, v)
+    edges = graphs.kernel_edges(graph)
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    into = [(src, kind) for src, dst, kind, _ in edges if "int8_attention_sm90_kernel" in dst]
+    before = "int8_quantize_v_kernel" if dname == "bf16" else "int8_split_k_kernel"
+    equal = torch.equal(captured, eager)
+    print(f"int8 attention {dname} in a CUDA graph (the values' kernel and the attention captured "
+          f"from the stream): edges (from, to, type, port) {edges}; replayed output bit-equal "
+          f"to the eager one: {equal}")
+    check(equal, f"int8 attention {dname}: a graph replay differs from the eager call")
+    check(len(into) == 1 and before in into[0][0] and into[0][1] == graphs.PROGRAMMATIC,
+          f"int8 attention {dname}: no programmatic edge from {before}: {edges}")
+    return {"edges": edges, "replay_bit_equal": equal}
 
 
 def phase_int8_attention() -> dict:
     """The fused int8 attention on the card against its plain versions, and
     the values' quantization kernel against its own, bf16 and f32, every
     INT8_CASES case (`int8_case`, every head width). Then, at INT8_SERVE in
-    each dtype and at the serve-like (2, 1025, 768 / d, d) of each other
-    width (under "widths" and "f32_widths"), `int8_times`."""
+    each dtype, `attention_graph_edges`, and there and at the serve-like (2,
+    1025, 768 / d, d) of each other width (under "widths" and "f32_widths"),
+    `int8_times`."""
     max_err = {name: {} for name in INT8_DTYPES}  # by width; the quantized values equal
     for dname in INT8_DTYPES:
         for i, (name, B, T, H, d, mask_kind, layout) in enumerate(INT8_CASES):
@@ -1030,8 +1071,11 @@ def phase_int8_attention() -> dict:
     result = {}
     for dname in INT8_DTYPES:
         kname = "int8_attention" if dname == "bf16" else "int8_attention_f32"
+        edges = attention_graph_edges(dname)
         entry, quant = int8_times(*INT8_SERVE, dname, timer)
-        result[kname] = {"max_abs_err": max_err[dname][64], **entry}
+        result[kname] = {"max_abs_err": max_err[dname][64], **entry,
+                         "graph_edge": [e for e in edges["edges"]
+                                        if "int8_attention_sm90_kernel" in e[1]]}
         result.setdefault("int8_quantize_v", {"max_abs_err": 0.0, **quant, "library_ms": None})
         result["int8_quantize_v"][f"{dname}_ms"] = quant["ms"]
         widths = {}
@@ -1155,16 +1199,11 @@ def host_costs() -> dict:
     return out
 
 
-class _CUgraphEdgeData(ctypes.Structure):
-    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
-                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
-
-
 def gemm_graph_edges() -> dict:
     """Whether a CUDA graph captured from the stream keeps the GEMM's
     programmatic dependent launch: a block's six products (768 -> 768 four
     times, fc1, fc2 at M = 4100, bf16) captured in one torch CUDA graph, its
-    edges read with libcuda's cuGraphGetEdges_v2 (type 1: programmatic),
+    edges read through the driver (`utils/graphs.py`; type 1: programmatic),
     and the replayed outputs held bit-equal to the eager ones."""
     cases = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
     ops = [_int8_mm_operands(INT8_MM_ROWS, din, dout, torch.bfloat16, seed=900 + i)
@@ -1181,15 +1220,7 @@ def gemm_graph_edges() -> dict:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=side):
         captured = block()
-    get_edges = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2  # CUDA 12.3 on
-    get_edges.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
-    n = ctypes.c_size_t(0)
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    check(get_edges(raw, None, None, None, ctypes.byref(n)) == 0, "cuGraphGetEdges_v2 failed")
-    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
-    data = (_CUgraphEdgeData * n.value)()
-    check(get_edges(raw, src, dst, data, ctypes.byref(n)) == 0, "cuGraphGetEdges_v2 failed")
-    kinds = [(e.type, e.from_port) for e in data]
+    kinds = [(kind, port) for _, _, kind, port in graphs.kernel_edges(graph)]
     graph.instantiate()
     graph.replay()
     torch.cuda.synchronize()

@@ -28,22 +28,70 @@
 // one QK^T (6.46 GFLOP, 6.5 us at the bf16 tensor-core rate) and the int8
 // P@V (6.46 G operations, 3.3 us at the int8 rate); ~22 MB of q, k, vq and
 // out (6.6 us at 3.35 TB/s); but 50.4 M exponentials, ~13.6 us at 16 a
-// clock per SM, and ~16 ALU instructions per logit around them (two bf16
-// roundings, the accurate expf, the row sum, the int8 rounding and the byte
-// packing). The elementwise work per logit, not the products or the bytes,
-// sets the pace, at every width: the logits' count does not depend on d.
-// The plain chain it replaces writes and rereads the (B H, T, T) logits,
-// exponents and probabilities in device memory: ~2.2 GB a layer.
+// clock per SM, and ~15 ALU instructions per logit around them (two bf16
+// roundings, the accurate expf's eight, the row sum, the int8 rounding and
+// the byte packing). The elementwise work per logit, not the products or
+// the bytes, sets the pace, at every width: the logits' count does not
+// depend on d. The plain chain it replaces writes and rereads the (B H, T,
+// T) logits, exponents and probabilities in device memory: ~2.2 GB a layer.
 //
-// The design (the flash forward's, csrc/flash_attention.cu, on the helpers
+// Where the time of the first design went (PR 7's; 93 us at the serve
+// shape; patched copies timed in turns by
+// scripts/torch_int8_attention_variants.py, PERF.md): its 48 single-query
+// blocks of T = 1025 cost 17 us (each issued both warpgroups' products, and
+// they ran last), pass 1 17 us (each warpgroup waited for every S before its
+// max), the exponent 23 us, all of pass 2's per-logit work 45 us. So:
+//   * a warpgroup with no query below T (warpgroup 1 of T = 1025's
+//     single-query tiles) issues no product: it only passes the stages on;
+//   * pass 1 by pairs of tiles where the ring has three stages or more (see
+//     the kernel);
+//   * programmatic dependent launch: int8_quantize_v_kernel lets the
+//     attention in at its start and the attention is launched with the
+//     programmatic attribute (a CUDA graph captured from the stream keeps
+//     the edge). Only pass 2 reads the values' kernel's output: the
+//     producer waits (griddepcontrol.wait) before the first values tile,
+//     and the consumers before their pass 2 (sv, the stores), so a block's
+//     set-up, its Q and its whole first pass can run under the values'
+//     kernel. q and k are read before that wait, and they are complete:
+//     the values' kernel is launched without the attribute, so it starts
+//     only when every kernel before it has finished and its writes are
+//     visible (in the int8 block: the q, k and v GEMMs, themselves launched
+//     programmatically, each waiting for the one before; RoPE where the
+//     model has it), and no attention block starts before every block of
+//     the values' kernel has started. A caller that launches the attention
+//     straight after the kernel that writes q or k would break this, which
+//     is why the mask, written by the wrapper between the two kernels, is
+//     read only after the wait. The attention lets the next kernel in at its
+//     own start;
+//   * the two consumer warpgroups no longer take turns at the products:
+//     the turns measured the same either way, and without them a warpgroup
+//     with no query can leave the other alone.
+// Tried and dropped, each measured in turns with the first design (PERF.md):
+// a persistent grid of one block an SM walking the (query tile, b, h)
+// items, whose static share of the uneven items (the single-query tiles)
+// lost more than the overlap of one item's set-up with the last one's end
+// won, where the hardware's own block scheduler balances them; products
+// of 64-key slabs kept one slab ahead of the per-logit work (ptxas
+// serialized every product of the kernel when an accumulator stayed in
+// flight across the loop's iterations, C7518, and the slab pairs that
+// avoid that were slower); pass 2 by pairs of tiles (slower in both types,
+// and it spills at d = 32 and 64 in f32); f32's K split in shared memory by
+// the producer warpgroup's other warps (47 us against the pre-pass's 25:
+// the split sits on the ring's critical path).
+// The per-logit arithmetic is that of the first design, in the same order,
+// so every e, pq, z and output is the first design's, bit for bit.
+//
+// The layout (the flash forward's, csrc/flash_attention.cu, on the helpers
 // of csrc/sm90_common.cuh):
-//   * a block owns 128 queries, in two consumer warpgroups of 64, Q loaded
-//     once by TMA; one producer warp streams tiles of N keys (`Int8Plan`:
-//     128, fewer for f32 at d >= 96) through a ring of up to 4 stages of
-//     full/empty mbarriers: K alone in pass 1, K and a tile of values (d
-//     channels x N keys of int8) in pass 2. Both passes run through the
-//     ring as one sequence of 2 n tiles, so a stage's phase parity carries
-//     over from the first pass to the second;
+//   * a block owns 128 queries of one (b, h), in two consumer warpgroups of
+//     64, Q loaded once by TMA; one producer warp streams tiles of N keys
+//     (`Int8Plan`: 128, fewer for f32 at d >= 96) through a ring of up to 4
+//     stages of full/empty mbarriers: K alone in pass 1, K and a tile of
+//     values (d channels x N keys of int8) in pass 2. Both passes run
+//     through the ring as one sequence of 2 n tiles, so a stage's phase
+//     parity carries over from the first pass to the second. Blocks run in
+//     order of their query tile, so the nearly empty blocks of the last one
+//     (a single query at T = 1025) run after the full ones;
 //   * a row of d bf16 is 2d bytes, one 128-byte swizzle atom only at d = 64:
 //     Q and K tiles are stored as column chunks of one atom each, the widest
 //     of 64, 32 or 16 columns dividing d (the flash kernels' `Sm90Tiles`),
@@ -53,7 +101,7 @@
 //     warpgroup rounds bf16(q * s) over its 64 rows in place (the swizzle
 //     moves whole elements, so the layout does not matter), then a
 //     fence.proxy.async makes the stores visible to the tensor cores;
-//   * pass 1: S = Q' K^T (wgmma m64n128k16 bf16, both operands in shared
+//   * pass 1: S = Q' K^T (wgmma m64nNk16 bf16, both operands in shared
 //     memory, f32 sums) and the row max. bf16 rounding is monotonic, so m =
 //     bf16(max S) equals the max of the rounded logits, taken on raw S. A
 //     one-pass online softmax would quantize against a running max: other
@@ -74,45 +122,49 @@
 //     fragment. No byte moves between threads or through shared memory:
 //     `tile_probs` leaves each probability in the low byte of an f32 in
 //     place, and `pack_probs` gathers four into a register (three byte
-//     permutes) once the previous tile's P V has finished with the registers;
-//   * the two consumer warpgroups take turns to issue their products, and
-//     each issues S of tile j with P V of tile j - 1, so the elementwise
-//     work of one tile runs under the products of the other warpgroup and
-//     of its own previous tile;
+//     permutes) once the previous tile's P V has finished with the
+//     registers;
+//   * pass 2 issues S of tile j with P V of tile j - 1, so the elementwise
+//     work of tile j runs under P V and under the other warpgroup's
+//     products;
 //   * masks without per-element branches: the producer writes a code per key
 //     (attended, masked, past T) and a flag per tile; a tile of attended keys
 //     only (all but the last at T = 1025 without a mask, whose last tile
 //     holds 1 key of 128) takes the path that reads no code;
 //   * the tail of T = 1025 = 8 x 128 + 1: the last key tile's probabilities
 //     skip its column tiles past T; a warp with no query below T skips its
-//     elementwise work; and blocks run in order
-//     of their query tile, so the nearly empty blocks of the last one (a
-//     single query) fill the last wave. Without these, T = 1025 costs far
-//     more than its 1/1024 more keys: 9 key tiles, not 8, and 432 blocks in
-//     4 waves of 132, not 384 in 3.
+//     elementwise work (its warpgroup's products run all the same).
 // q and k are read through their (B, T, H, d) strides by TMA tensor maps
 // built on the host per call (a CUDA graph captures them as parameters).
 //
 // f32 q, k and v (int8_attention_sm90_kernel<d, float>, int8_quantize_v_kernel<
 // d, float>): the reference's f32 route, the logits, exponents and
 // probabilities in f32. What the f32 instantiation changes, on the same plan
-// (two passes, the ring, the turns, the codes, P V and the dequant):
+// (two passes, the ring, the codes, P V and the dequant):
 //   * S on split-TF32 wgmma (csrc/flash_attention_tf32.cu's three-product
-//     form): a pre-pass (int8_split_qk_kernel<d>, launched by the same entry
-//     point) writes fl(q * s) (the reference's q * sm_scale in f32, rounded
-//     before the split) and k as their big and small TF32 parts in row
-//     order, (B H, Tp, d) each, into a scratch buffer the wrapper allocates;
-//     S = Q_big K_small + Q_small K_big, then Q_big K_big (the small terms
-//     first: the tensor cores round each partial sum toward zero, so only
-//     the big term's k-steps round at the sum's full magnitude), m64nNk8,
-//     both operands K-major in shared memory (TF32 reads K-major only; Q and
-//     K are both K-major in Q K^T), in column chunks of 32 f32 (16 at d =
-//     48: 64 bytes, the 64-byte swizzle). Q's two parts take 1 KB a channel
-//     and a stage's K parts 8 N bytes a channel, so the plan (`Int8Plan`)
-//     streams 128 keys a tile at d <= 64 (4, 3 and 2 stages at d = 32, 48,
-//     64), 64 at d = 96 and 32 at d = 128 (2 stages each): 128 keys leave
-//     room for one stage only there, and the ring needs two (a tile's P V
-//     runs after the next tile's S was issued);
+//     form): fl(q * s) (the reference's q * sm_scale in f32, rounded
+//     before the split) and k as their big and small TF32 parts; S = Q_big
+//     K_small + Q_small K_big, then Q_big K_big (the small terms first: the
+//     tensor cores round each partial sum toward zero, so only the big
+//     term's k-steps round at the sum's full magnitude), m64nNk8, both
+//     operands K-major in shared memory (TF32 reads K-major only; Q and K
+//     are both K-major in Q K^T), in column chunks of 32 f32 (16 at d = 48:
+//     64 bytes, the 64-byte swizzle). Q is split in shared memory: TMA
+//     brings f32 q through its strides into the big part's place and each
+//     consumer warpgroup splits its 64 rows there (`split_q`); k is split by
+//     a pre-pass (int8_split_k_kernel<d>, launched by the same entry point)
+//     into a scratch buffer the wrapper allocates, its two parts in row
+//     order, (B H, Tp, d) each, which the producer streams. Both are the
+//     bits of the first design's pre-pass, which wrote Q's parts too (75.6
+//     MB at the serve shape, now 37.8); its K half stays, since a split in
+//     the kernel measured slower (above). The kernel waits for the pre-pass
+//     before its first K tile, so in f32 only its set-up and Q run under
+//     the kernels before it. Q's two
+//     parts take 1 KB a channel and a stage's K parts 8 N bytes a channel,
+//     so the plan (`Int8Plan`) streams 128 keys a tile at d <= 64 (4, 3 and
+//     2 stages at d = 32, 48, 64), 64 at d = 96 and 32 at d = 128 (2 stages
+//     each): 128 keys leave room for one stage only there, and the ring
+//     needs two;
 //   * the masked logit is f32's lowest finite value, and pass 2 follows the
 //     reference's f32 rounding points: e = expf(s - m) (the accurate expf
 //     that torch's f32 exp uses on CUDA), z += e, pq = rint(fl(127 e)):
@@ -124,8 +176,8 @@
 //   * the output in f32. The values' kernel reads 8 f32 channels a key as
 //     two 16-byte words.
 // Bound at the serve shape (4, 1025, 12, 64): three TF32 S products in each
-// of two passes, 78.2 us at 495 TFLOP/s, and P V in int8, 3.3 us; the pre-
-// pass's 75.6 MB of reads and writes, 22.6 us at 3.35 TB/s; the 50.4 M
+// of two passes, 78.2 us at 495 TFLOP/s, and P V in int8, 3.3 us; the
+// pre-pass's 37.8 MB of reads and writes, 11.3 us at 3.35 TB/s; the 50.4 M
 // exponentials 12.1 us beside the products.
 
 #include <algorithm>
@@ -139,7 +191,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_quantize.cuh"  // Divisor, quantized_byte, pack4
-#include "sm90_common.cuh"  // mbarriers, TMA maps and boxes, the wgmma wrappers, turns
+#include "sm90_common.cuh"  // mbarriers, TMA maps and boxes, the wgmma wrappers, griddep
 
 namespace {
 
@@ -147,18 +199,20 @@ constexpr int kConsumers = 2;                     // consumer warpgroups of kHRo
 constexpr int kBlockQ = kConsumers * kHRows;      // queries of a block: 128
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kSplitRows = 16;           // rows of a pre-pass block
 constexpr int kInnerQ = 1, kInnerK = 2;  // bits of heads_inner
 constexpr float kRound = 12582912.0f;    // 1.5 * 2^23: x + kRound rounds x to an integer
-constexpr int kSplitRows = 16;  // rows of a pre-pass block
 constexpr int kTpUnit = 128;    // Tp, the values' padded key count, is a multiple of this
 
 // The tiles of the kernel at head width D for operands of E: the column
-// chunks of Q and K (one swizzle atom each), the keys of a streamed tile, and
-// the shared memory of Q, of a stage (K, both TF32 parts for f32, and the
-// values) and the ring depth that fits. bf16: chunks of 64, 32 or 16 bf16
-// (the widest dividing D), 128 keys a tile; f32: big and small parts, chunks
-// of 32 f32 (16 at d = 48), the widest key tile of 128, 64 or 32 that leaves
-// room for two stages.
+// chunks of Q and K (one swizzle atom each), the keys of a streamed tile,
+// and the shared memory of Q, of a stage (K, both TF32 parts for f32, and
+// the values) and the ring depth that fits. bf16: chunks of 64, 32 or 16
+// bf16 (the widest dividing D), 128 keys a tile; f32: big and small parts,
+// chunks of 32 f32 (16 at d = 48), a key tile of 128 where three stages fit
+// (d = 32, 48), else of 64 or 32, the widest that leaves room for two (d =
+// 64: 64 keys in 4 stages, which measured faster than 128 in 2; d = 96: 64,
+// d = 128: 32, 2 stages each).
 // Stages of `keys` keys that fit beside Q's q_bytes: each holds K (`elem`
 // bytes a channel and key: 2 for bf16, 8 for f32's two TF32 parts), the int8
 // values and a code byte per key; 1024 + 256 bytes for the base's alignment,
@@ -180,7 +234,7 @@ struct Int8Plan {
   static constexpr int kQBytes = kParts * kBlockQ * D * kElem;
   static constexpr int kFit128 = int8_stages_fit(kQBytes, kParts * kElem, D, 128);
   static constexpr int kFit64 = int8_stages_fit(kQBytes, kParts * kElem, D, 64);
-  static constexpr int kKeys = kFit128 >= 2 ? 128 : kFit64 >= 2 ? 64 : 32;
+  static constexpr int kKeys = kFit128 >= 3 ? 128 : kFit64 >= 2 ? 64 : 32;
   static constexpr int kFit = int8_stages_fit(kQBytes, kParts * kElem, D, kKeys);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kKTile = kParts * kKeys * D * kElem;  // bytes of a K tile (both parts)
@@ -202,6 +256,7 @@ struct Smem {
   static constexpr int kCodes = kRing + kStages * kStage;  // a code per key and stage
   static constexpr int kFlags = kCodes + kStages * P::kKeys;  // a flag per stage
   static constexpr int kBars = (kFlags + kStages + 7) / 8 * 8;
+  // full and empty a stage; own.
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 bytes
   static_assert(kAlloc <= kMaxSmem, "more shared memory than a block can have");
@@ -209,17 +264,17 @@ struct Smem {
 };
 
 struct Int8Params {
-  // bf16: q, k (B, T, H, d) through their strides (make_map), boxes of 64
-  // rows x a chunk. f32: q, k the big parts and qs, ks the small parts of the
-  // pre-pass, (B H Tp) rows of d f32 (make_map_2d), boxes of a chunk x 128
-  // rows (Q) or x the key tile (K).
-  CUtensorMap q, k, qs, ks;
+  // q (B, T, H, d) in the operands' type through its strides (make_map),
+  // boxes of 64 rows x a chunk. bf16: k the same way; f32: k and ks the big
+  // and small TF32 parts of k from the pre-pass, (B H Tp) rows of d f32
+  // (make_map_2d), boxes of a chunk x the key tile.
+  CUtensorMap q, k, ks;
   CUtensorMap vt;    // (B H, d, Tp) int8 values, boxes of a key tile x d channels
   int heads_inner;   // bits kInnerQ, kInnerK: the map's dims are (d, H, T, B)
   const uint8_t* mask;  // (B, T), 0 = key not attended; null: every key attended
   const float* sv;      // (B H, d) the values' scales
   void* out;            // (B, T, H, d) contiguous, in the operands' type
-  float scale;          // 1/sqrt(d) rounded to bf16 (the bf16 kernel scales Q with it)
+  float scale;          // 1/sqrt(d) rounded to the operands' type
   int B, H, T, Tp;
 };
 
@@ -307,16 +362,16 @@ __device__ __forceinline__ void tile_max(const float (&s)[N / 8][4], float (&mx)
   }
 }
 
-// Pass 2 on a tile, in place: each logit becomes fma(e, 127, kRound) with
-// e = bf16(expf(bf16(s - m))), whose low byte is rint(127 e); z += e.
-// negm: -m of rows g and g + 8 as bf16 pairs. A coded tile skips its column
-// tiles of keys past T (the last tile: `keys` of them exist), which the
-// values' zeros cancel in P V and which add nothing to z.
-template <bool Coded>
-__device__ __forceinline__ void tile_probs(float (&s)[16][4], const __nv_bfloat162 (&negm)[2],
+// Pass 2 on a tile of N keys, in place: each logit becomes fma(e, 127,
+// kRound) with e = bf16(expf(bf16(s - m))), whose low byte is rint(127 e);
+// z += e. negm: -m of rows g and g + 8 as bf16 pairs. A coded tile skips its
+// column tiles of keys past T (the last tile: `keys` of them exist), which
+// the values' zeros cancel in P V and which add nothing to z.
+template <bool Coded, int N>
+__device__ __forceinline__ void tile_probs(float (&s)[N / 8][4], const __nv_bfloat162 (&negm)[2],
                                            float (&z)[2], const uint8_t* code, int t, int keys) {
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < N / 8; ++n) {
     if (Coded && 8 * n >= keys) break;
     const uint32_t kc = Coded ? *reinterpret_cast<const uint16_t*>(code + n * 8 + 2 * t) : 0;
 #pragma unroll
@@ -387,28 +442,19 @@ __device__ __forceinline__ void pack_probs(const float (&s)[N / 8][4], uint32_t 
 template <int D, typename P>
 __device__ __forceinline__ void product_split(float (&s)[P::kKeys / 8][4], uint64_t q_big,
                                               uint64_t q_small, uint64_t k_big, uint64_t k_small) {
-  constexpr int C = P::kCols, N = P::kKeys;
+  constexpr int C = P::kCols, M = P::kKeys;
   auto at = [](int kk, int chunk) {
     return static_cast<uint64_t>((kk * 8 / C * chunk + kk * 8 % C * 4) >> 4);
   };
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
-    wgmma_tf32_ss<N>(s, q_big + at(kk, P::kQChunk), k_small + at(kk, P::kKChunk), kk > 0);
-    wgmma_tf32_ss<N>(s, q_small + at(kk, P::kQChunk), k_big + at(kk, P::kKChunk), 1);
+    wgmma_tf32_ss<M>(s, q_big + at(kk, P::kQChunk), k_small + at(kk, P::kKChunk), kk > 0);
+    wgmma_tf32_ss<M>(s, q_small + at(kk, P::kQChunk), k_big + at(kk, P::kKChunk), 1);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
-    wgmma_tf32_ss<N>(s, q_big + at(kk, P::kQChunk), k_big + at(kk, P::kKChunk), 1);
+    wgmma_tf32_ss<M>(s, q_big + at(kk, P::kQChunk), k_big + at(kk, P::kKChunk), 1);
   }
-}
-
-// `rows` rows from `row` on of one part (big or small) of a pre-pass
-// operand, as its D / C column chunks of C f32.
-template <int D, int C>
-__device__ __forceinline__ void tma_f32_rows(unsigned char* dst, const CUtensorMap* map,
-                                             uint64_t* bar, int rows, int row) {
-#pragma unroll
-  for (int c = 0; c < D / C; ++c) tma_2d(dst + c * rows * C * 4, map, bar, c * C, row);
 }
 
 // Q' = bf16(q * scale) in place: the warpgroup's 64 rows of each chunk of
@@ -436,14 +482,51 @@ __device__ __forceinline__ void scale_q(unsigned char* sQ, int wg, float scale) 
   asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
 }
 
+__device__ __forceinline__ float4 tf32_bigs(float4 v) {
+  return make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
+}
+__device__ __forceinline__ float4 tf32_smalls(float4 v) {
+  return make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
+}
+
+// f32: fl(q * scale) split into its TF32 parts in place, the warpgroup's 64
+// rows of each chunk of C f32: the big part where the f32 rows landed, the
+// small part as far on as Q's big part is long (`half` bytes); then made
+// visible to the tensor cores as in `scale_q`.
+template <int D, int C>
+__device__ __forceinline__ void split_q(unsigned char* sQ, int wg, float scale, int half) {
+  constexpr int kPart = kHRows * C * 4;
+  constexpr int kWords = D / C * kPart / 16;
+  for (int i = threadIdx.x % 128; i < kWords; i += 128) {
+    const int c = i / (kPart / 16), w = i % (kPart / 16);
+    float4* big = reinterpret_cast<float4*>(sQ + c * kBlockQ * C * 4 + wg * kPart + 16 * w);
+    float4 x = *big;
+    x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale), __fmul_rn(x.z, scale),
+                    __fmul_rn(x.w, scale));
+    *reinterpret_cast<float4*>(reinterpret_cast<unsigned char*>(big) + half) = tf32_smalls(x);
+    *big = tf32_bigs(x);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+}
+
+// `rows` rows from `row` on of one part (big or small) of the pre-pass's
+// K, as its D / C column chunks of C f32.
+template <int D, int C>
+__device__ __forceinline__ void tma_f32_rows(unsigned char* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int rows, int row) {
+#pragma unroll
+  for (int c = 0; c < D / C; ++c) tma_2d(dst + c * rows * C * 4, map, bar, c * C, row);
+}
+
 template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_attention_sm90_kernel(const __grid_constant__ Int8Params p) {
   using P = Int8Plan<D, E>;
   using L = Smem<D, E>;
   constexpr bool kF32 = P::kF32;
-  constexpr int N = P::kKeys, C = P::kCols, kStages = L::kStages, kKTile = P::kKTile;
-  constexpr int kHalf = kKTile / 2;
+  constexpr int N = P::kKeys, C = P::kCols, kStages = L::kStages;
+  constexpr int kKTile = P::kKTile, kHalf = kKTile / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem + L::kQ;      // 128 query rows in chunks (f32: big, then small)
@@ -462,248 +545,262 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int n_tiles = (T + N - 1) / N;
   if (threadIdx.x == 0) {
+    prefetch_map(&p.q);
+    prefetch_map(&p.k);
+    if constexpr (kF32) prefetch_map(&p.ks);
+    prefetch_map(&p.vt);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);                // the producer warp's lanes, lane 0 with the bytes
       mbar_init(&empty[s], 4 * kConsumers);  // the consumer warps
     }
     mbar_init(own, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    griddep_launch_dependents();
   }
   __syncthreads();
 
   if (wg == kConsumers) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (warp != 0) return;
-    if (lane == 0) {
-      mbar_arrive_expect_tx(own, P::kQBytes);
-      if constexpr (kF32) {
-        tma_f32_rows<D, C>(sQ, &p.q, own, kBlockQ, bh * p.Tp + q0);
-        tma_f32_rows<D, C>(sQ + P::kQBytes / 2, &p.qs, own, kBlockQ, bh * p.Tp + q0);
-      } else {
-        tma_rows<D, C>(reinterpret_cast<bf16*>(sQ), &p.q, own, kBlockQ, q0, h, b,
+    if (warp == 0) {
+      // The mask is written between the two kernels, f32's K parts by the
+      // pre-pass just before this kernel (see the source note).
+      bool waited = kF32 || p.mask != nullptr;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(own, P::kQBytes / P::kParts);  // f32: the big part's place
+        tma_rows<D, C>(reinterpret_cast<E*>(sQ), &p.q, own, kBlockQ, q0, h, b,
                        p.heads_inner & kInnerQ);
       }
+      if (waited) griddep_wait();
+      const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
+      // Tiles 0 .. n - 1 are pass 1's (K), n .. 2 n - 1 pass 2's (K and V).
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int stage = i % kStages, second = i >= n_tiles;
+        const int k0 = (second ? i - n_tiles : i) * N;
+        mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);  // round 0 passes
+        bool any = false;
+        for (int r = lane; r < N; r += 32) {
+          const int key = k0 + r;
+          const uint8_t c = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
+          codes[stage * N + r] = c;
+          any |= c != 0;
+        }
+        any = __any_sync(0xffffffffu, any);
+        if (second && !waited) {  // the values' kernel has finished
+          griddep_wait();
+          waited = true;
+        }
+        if (lane == 0) {
+          coded[stage] = any;
+          unsigned char* st = ring + stage * L::kStage;
+          mbar_arrive_expect_tx(&full[stage], kKTile + (second ? P::kVTile : 0));
+          if constexpr (kF32) {
+            tma_f32_rows<D, C>(st, &p.k, &full[stage], N, bh * p.Tp + k0);
+            tma_f32_rows<D, C>(st + kHalf, &p.ks, &full[stage], N, bh * p.Tp + k0);
+          } else {
+            tma_rows<D, C>(reinterpret_cast<bf16*>(st), &p.k, &full[stage], N, k0, h, b,
+                           p.heads_inner & kInnerK);
+          }
+          if (second) tma_values(st + kKTile, &p.vt, &full[stage], k0, bh);
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+      }
     }
-    const uint8_t* mask = p.mask ? p.mask + static_cast<int64_t>(b) * T : nullptr;
-    // Tiles 0 .. n - 1 are pass 1's (K), n .. 2 n - 1 pass 2's (K and V).
+    return;
+  }
+
+  // Consumer warpgroup wg: queries q0 + 64 wg ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int g = lane >> 2, t = lane & 3;
+  auto wait_ready = [&](int i) { mbar_wait(&full[i % kStages], (i / kStages) & 1); };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % kStages]);
+  };
+  if (q0 + wg * kHRows >= T) {  // no query here: every stage passed on, nothing issued
     for (int i = 0; i < 2 * n_tiles; ++i) {
-      const int stage = i % kStages, second = i >= n_tiles;
-      const int k0 = (second ? i - n_tiles : i) * N;
-      mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);  // round 0 passes
-      bool any = false;
-      for (int r = lane; r < N; r += 32) {
-        const int key = k0 + r;
-        const uint8_t c = key >= T ? 2 : (mask != nullptr && mask[key] == 0 ? 1 : 0);
-        codes[stage * N + r] = c;
-        any |= c != 0;
-      }
-      any = __any_sync(0xffffffffu, any);
-      if (lane == 0) {
-        coded[stage] = any;
-        unsigned char* st = ring + stage * L::kStage;
-        mbar_arrive_expect_tx(&full[stage], kKTile + (second ? P::kVTile : 0));
-        if constexpr (kF32) {
-          tma_f32_rows<D, C>(st, &p.k, &full[stage], N, bh * p.Tp + k0);
-          tma_f32_rows<D, C>(st + kHalf, &p.ks, &full[stage], N, bh * p.Tp + k0);
-        } else {
-          tma_rows<D, C>(reinterpret_cast<bf16*>(st), &p.k, &full[stage], N, k0, h, b,
-                         p.heads_inner & kInnerK);
-        }
-        if (second) tma_values(st + kKTile, &p.vt, &full[stage], k0, bh);
-      } else {
-        mbar_arrive(&full[stage]);
-      }
+      wait_ready(i);
+      release(i);
     }
-  } else {  // consumer warpgroup wg: queries q0 + 64 wg ..
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int g = lane >> 2, t = lane & 3;
-    const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
-    // A warp with no query below T does no elementwise work. (Its warpgroup
-    // issues every product all the same: skipping them made ptxas serialize
-    // the products of every block.)
-    const bool idle = row0 >= T;
-    // The warpgroup's 64 rows of Q in each chunk (of each part).
-    const uint64_t q_desc = sw_desc<false, P::kAtom>(sQ + wg * kHRows * P::kRowBytes);
-    const uint64_t qs_desc =
-        sw_desc<false, P::kAtom>(sQ + P::kQBytes / 2 + wg * kHRows * P::kRowBytes);
-    auto v_tile = [&](int stage) {
-      return sw_desc<false, P::kVAtom>(ring + stage * L::kStage + kKTile);
-    };
-    mbar_wait(own, 0);
-    if constexpr (!kF32) scale_q<D, C>(sQ, wg, p.scale);
-    float s[N / 8][4];
-    auto product_s = [&](int stage) {  // S of a stage's K tile into s
-      const unsigned char* st = ring + stage * L::kStage;
-      if constexpr (kF32) {
-        product_split<D, P>(s, q_desc, qs_desc, sw_desc<false, P::kAtom>(st),
-                            sw_desc<false, P::kAtom>(st + kHalf));
-      } else {
-        product_kmajor<N, D, C, P::kQChunk, P::kKChunk>(s, q_desc, sw_desc<false, C>(st));
-      }
-    };
+    return;
+  }
+  const int row0 = q0 + wg * kHRows + warp * 16;  // the warp's 16 queries
+  // A warp with no query below T does no elementwise work. (Its warpgroup
+  // issues every product all the same: skipping them made ptxas serialize
+  // the products of every block.)
+  const bool idle = row0 >= T;
+  // The warpgroup's 64 rows of Q in each chunk (of each part).
+  const uint64_t q_desc = sw_desc<false, P::kAtom>(sQ + wg * kHRows * P::kRowBytes);
+  const uint64_t qs_desc =
+      sw_desc<false, P::kAtom>(sQ + P::kQBytes / 2 + wg * kHRows * P::kRowBytes);
+  auto v_tile = [&](int i) {
+    return sw_desc<false, P::kVAtom>(ring + i % kStages * L::kStage + kKTile);
+  };
+  // S of ring tile i's K into s.
+  auto product_s = [&](float (&s)[N / 8][4], int i) {
+    const unsigned char* st = ring + i % kStages * L::kStage;
+    if constexpr (kF32) {
+      product_split<D, P>(s, q_desc, qs_desc, sw_desc<false, P::kAtom>(st),
+                          sw_desc<false, P::kAtom>(st + kHalf));
+    } else {
+      product_kmajor<N, D, C, P::kQChunk, P::kKChunk>(s, q_desc, sw_desc<false, C>(st));
+    }
+  };
+  mbar_wait(own, 0);
+  if constexpr (kF32) {
+    split_q<D, C>(sQ, wg, p.scale, P::kQBytes / 2);
+  } else {
+    scale_q<D, C>(sQ, wg, p.scale);
+  }
+  float s[N / 8][4];
 
-    // Pass 1: the row max (the codes are read before the stage is released).
-    float mx[2] = {-INFINITY, -INFINITY};
-    for (int j = 0; j < n_tiles; ++j) {
-      const int stage = j % kStages;
-      mbar_wait(&full[stage], (j / kStages) & 1);
-      wgmma_fence();
-      product_s(stage);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(s);
-      if (idle) {
-      } else if (coded[stage]) {
-        tile_max<true, N>(s, mx, codes + stage * N, t, P::kMaskedLogit);
-      } else {
-        tile_max<false, N>(s, mx, nullptr, t, P::kMaskedLogit);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
+  // Pass 1: the row max (the codes are read before the stage is released).
+  // Where the ring holds three tiles or more, by pairs of tiles: both S
+  // issued at once, the first's max under the second's S, and the next
+  // tile streaming in meanwhile. A pair's products are done before the next
+  // pair's: ptxas serializes every product of a kernel whose accumulators
+  // stay in flight across its loop's iterations. On a ring of two stages a
+  // pair would hold both, and each pair would wait for its second tile's
+  // load: there, a tile at a time.
+  float mx[2] = {-INFINITY, -INFINITY};
+  auto tile_maxes = [&](const float (&sm)[N / 8][4], int i) {
+    const int stage = i % kStages;
+    if (idle) {
+    } else if (coded[stage]) {
+      tile_max<true, N>(sm, mx, codes + stage * N, t, P::kMaskedLogit);
+    } else {
+      tile_max<false, N>(sm, mx, nullptr, t, P::kMaskedLogit);
     }
-    float m[2];  // the row max, finite: key 0 exists
-    __nv_bfloat162 negm[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      m[r] = kF32 ? x : __bfloat162float(__float2bfloat16_rn(x));
-      negm[r] = __floats2bfloat162_rn(-m[r], -m[r]);
-    }
-
-    // Pass 2: S again, the probabilities, and P V (ring tiles n .. 2 n - 1).
-    int o[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0;
-    float z[2] = {0.f, 0.f};  // this thread's part of the row sums
-    uint32_t pa[N / 32][4];
-    auto probs = [&](int stage, int j) {  // tile j's probabilities, packed
-      if (idle) return;
-      const bool c = coded[stage];
-      const uint8_t* code = codes + stage * N;
-      if constexpr (kF32) {
-        if (c) {
-          tile_probs_f32<true, N>(s, m, z, code, t, T - j * N);
-        } else {
-          tile_probs_f32<false, N>(s, m, z, nullptr, t, N);
-        }
-      } else {
-        if (c) {
-          tile_probs<true>(s, negm, z, code, t, T - j * N);
-        } else {
-          tile_probs<false>(s, negm, z, nullptr, t, N);
-        }
-      }
-    };
-    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
-    {  // tile 0: S alone
-      const int i = n_tiles, stage = i % kStages;
-      mbar_wait(&full[stage], (i / kStages) & 1);
-      turn_wait(wg);
+    release(i);
+  };
+  auto single = [&](int i) {
+    wait_ready(i);
+    wgmma_fence();
+    product_s(s, i);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    tile_maxes(s, i);
+  };
+  if constexpr (kStages > 2) {
+    float s2[N / 8][4];
+    for (int i = 0; i + 1 < n_tiles; i += 2) {
+      wait_ready(i);
+      wait_ready(i + 1);
       wgmma_fence();
-      product_s(stage);
+      product_s(s, i);
       wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<0>();
-      fence_acc(s);
-      probs(stage, 0);
-      if (!idle) pack_probs<N>(s, pa);
-    }
-    // Tile j: S of tile j and P V of tile j - 1 in one turn; the
-    // probabilities of tile j while P V runs.
-    for (int j = 1; j < n_tiles; ++j) {
-      const int i = n_tiles + j, stage = i % kStages, prev = (i - 1) % kStages;
-      mbar_wait(&full[stage], (i / kStages) & 1);
-      fence_acc(o);
-      turn_wait(wg);
-      wgmma_fence();
-      product_s(stage);
+      product_s(s2, i + 1);
       wgmma_commit();
-      product_pv<D, N>(o, pa, v_tile(prev));
-      wgmma_commit();
-      turn_pass(wg);
       wgmma_wait<1>();
       fence_acc(s);
-      probs(stage, j);
+      tile_maxes(s, i);
       wgmma_wait<0>();
-      fence_acc(o);
-      fence_a(pa);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[prev]);
-      if (!idle) pack_probs<N>(s, pa);
+      fence_acc(s2);
+      tile_maxes(s2, i + 1);
     }
-    // P V of the last tile.
-    const int last = (2 * n_tiles - 1) % kStages;
+    if (n_tiles % 2) single(n_tiles - 1);  // the last tile alone
+  } else {
+    for (int i = 0; i < n_tiles; ++i) single(i);
+  }
+  float m[2];  // the row max, finite: key 0 exists
+  __nv_bfloat162 negm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    m[r] = kF32 ? x : __bfloat162float(__float2bfloat16_rn(x));
+    negm[r] = __floats2bfloat162_rn(-m[r], -m[r]);
+  }
+  griddep_wait();  // sv and the stores: after the values' kernel
+
+  // Pass 2: S again, the probabilities, and P V (ring tiles n .. 2 n - 1).
+  int o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0;
+  float z[2] = {0.f, 0.f};  // this thread's part of the row sums
+  uint32_t pa[N / 32][4];
+  // Ring tile i's (tile j of pass 2) probabilities, in place in its S, sj.
+  auto probs = [&](float (&sj)[N / 8][4], int i) {
+    if (idle) return;
+    const int stage = i % kStages, j = i - n_tiles;
+    const uint8_t* code = codes + stage * N;
+    if constexpr (kF32) {
+      if (coded[stage]) {
+        tile_probs_f32<true, N>(sj, m, z, code, t, T - j * N);
+      } else {
+        tile_probs_f32<false, N>(sj, m, z, nullptr, t, N);
+      }
+    } else {
+      if (coded[stage]) {
+        tile_probs<true, N>(sj, negm, z, code, t, T - j * N);
+      } else {
+        tile_probs<false, N>(sj, negm, z, nullptr, t, N);
+      }
+    }
+  };
+  auto pack = [&](const float (&sj)[N / 8][4], uint32_t (&a)[N / 32][4]) {
+    if (!idle) pack_probs<N>(sj, a);
+  };
+  // S of tile j and P V of tile j - 1 issued together, the probabilities of
+  // tile j while P V runs.
+  wait_ready(n_tiles);
+  wgmma_fence();
+  product_s(s, n_tiles);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+  probs(s, n_tiles);
+  pack(s, pa);
+  for (int i = n_tiles + 1; i < 2 * n_tiles; ++i) {
+    wait_ready(i);
     fence_acc(o);
-    turn_wait(wg);
     wgmma_fence();
-    product_pv<D, N>(o, pa, v_tile(last));
+    product_s(s, i);
     wgmma_commit();
-    turn_pass(wg);
+    product_pv<D, N>(o, pa, v_tile(i - 1));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(s);
+    probs(s, i);
     wgmma_wait<0>();
     fence_acc(o);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[last]);
-    if (wg == 0) turn_wait(wg);  // the other warpgroup's last pass
+    fence_a(pa);
+    release(i - 1);
+    pack(s, pa);  // P V of tile i - 1 has finished with pa
+  }
+  fence_acc(o);
+  wgmma_fence();
+  product_pv<D, N>(o, pa, v_tile(2 * n_tiles - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+  release(2 * n_tiles - 1);
 
-    // out = (f32(acc) * (1 / (127 z))) * sv, rows past T (zero-filled Q) not stored.
-    const float* sv = p.sv + static_cast<int64_t>(bh) * D;
+  // out = (f32(acc) * (1 / (127 z))) * sv, rows past T (zero-filled Q) not stored.
+  const float* sv = p.sv + static_cast<int64_t>(bh) * D;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      z[r] += __shfl_xor_sync(0xffffffffu, z[r], 1);
-      z[r] += __shfl_xor_sync(0xffffffffu, z[r], 2);
-      const int row = row0 + g + 8 * r;
-      if (row >= T) continue;
-      const float rz = 1.f / (127.f * z[r]);
-      E* dst = static_cast<E*>(p.out) + (static_cast<int64_t>(b) * T + row) * p.H * D +
-               static_cast<int64_t>(h) * D;
+  for (int r = 0; r < 2; ++r) {
+    z[r] += __shfl_xor_sync(0xffffffffu, z[r], 1);
+    z[r] += __shfl_xor_sync(0xffffffffu, z[r], 2);
+    const int row = row0 + g + 8 * r;
+    if (row >= T) continue;
+    const float rz = 1.f / (127.f * z[r]);
+    E* dst = static_cast<E*>(p.out) + (static_cast<int64_t>(b) * T + row) * p.H * D +
+             static_cast<int64_t>(h) * D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int c = n * 8 + 2 * t;
-        const float2 sc = *reinterpret_cast<const float2*>(sv + c);
-        const float lo = static_cast<float>(o[n][2 * r]) * rz * sc.x;
-        const float hi = static_cast<float>(o[n][2 * r + 1]) * rz * sc.y;
-        if constexpr (kF32) {
-          *reinterpret_cast<float2*>(dst + c) = make_float2(lo, hi);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(lo, hi);
-        }
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 sc = *reinterpret_cast<const float2*>(sv + c);
+      const float lo = static_cast<float>(o[n][2 * r]) * rz * sc.x;
+      const float hi = static_cast<float>(o[n][2 * r + 1]) * rz * sc.y;
+      if constexpr (kF32) {
+        *reinterpret_cast<float2*>(dst + c) = make_float2(lo, hi);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(lo, hi);
       }
     }
   }
-}
-
-// The f32 kernel's pre-pass: for rows [16 x, 16 x + 16) of head h of batch
-// element b, fl(q * scale) (the reference's q * sm_scale in f32) and k as
-// their TF32 big and small parts, (B H, Tp, D) each, zero past T. A thread
-// one float4 of a row.
-template <int D>
-__global__ void __launch_bounds__(kSplitRows * D / 4)
-    int8_split_qk_kernel(const float* __restrict__ q, const float* __restrict__ k, Strides sq,
-                         Strides sk, int H, int T, int Tp, float scale, float* __restrict__ qb,
-                         float* __restrict__ qs, float* __restrict__ kb, float* __restrict__ ks) {
-  constexpr int kRowThreads = D / 4;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * kSplitRows + threadIdx.x / kRowThreads;
-  const int c = 4 * (threadIdx.x % kRowThreads);
-  const int64_t at = ((static_cast<int64_t>(b) * H + h) * Tp + row) * D + c;
-  float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-  if (row < T) {
-    x = *reinterpret_cast<const float4*>(q + b * sq.b + row * sq.t + h * sq.h + c);
-    y = *reinterpret_cast<const float4*>(k + b * sk.b + row * sk.t + h * sk.h + c);
-  }
-  x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale), __fmul_rn(x.z, scale),
-                  __fmul_rn(x.w, scale));
-  auto big = [](float4 v) {
-    return make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
-  };
-  auto small = [](float4 v) {
-    return make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
-  };
-  *reinterpret_cast<float4*>(qb + at) = big(x);
-  *reinterpret_cast<float4*>(qs + at) = small(x);
-  *reinterpret_cast<float4*>(kb + at) = big(y);
-  *reinterpret_cast<float4*>(ks + at) = small(y);
 }
 
 // ------------------------------------------------------ values, quantized
@@ -730,7 +827,9 @@ __global__ void __launch_bounds__(kSplitRows * D / 4)
 // meet in distributed shared memory, gives more blocks but was slower: the
 // cluster's barrier cost more than the whole kernel takes without it; 8
 // channels a block, 384 blocks at the serve shape, was no faster either:
-// PERF.md.) f32 values: the same plan, 8 channels of a key two 16-byte loads
+// PERF.md.) It lets the attention launched behind it start at once (the
+// attention's source note says why that is safe). f32 values: the same
+// plan, 8 channels of a key two 16-byte loads
 // (12.6 MB read at the serve shape, 4.8 us). At head width d a (b, h) has
 // d / 16 blocks, every width of HEAD_DIMS a multiple of 16.
 
@@ -760,6 +859,9 @@ __global__ void __launch_bounds__(kVMaxThreads)
   constexpr int W = kVWords<E>;
   __shared__ float s_warp[kVMaxWarps][kVChannels];
   __shared__ Divisor s_div[kVChannels];
+  // The attention, launched behind this kernel, may start now: it reads what
+  // this kernel writes only after its griddepcontrol.wait.
+  if (threadIdx.x == 0) griddep_launch_dependents();
 
   const int c16 = blockIdx.y * kVChannels, bh = blockIdx.x, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
@@ -867,8 +969,9 @@ int quantize_v(const void* v, int B, int H, int T, const int64_t* strides, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel's values map, its shared memory, its launch: grid a block a
-// (query tile, b, h), query tile outermost.
+// The kernel's values map, its shared memory, its launch: a block a
+// (query tile, b, h), query tile outermost, launched with programmatic
+// dependent launch (the source note).
 template <int D, typename E>
 int launch_attention(Int8Params& p, const void* vt, int B, int H, int T, int Tp,
                      cudaStream_t stream) {
@@ -882,9 +985,36 @@ int launch_attention(Int8Params& p, const void* vt, int B, int H, int T, int Tp,
   static const cudaError_t configured = cudaFuncSetAttribute(
       int8_attention_sm90_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (configured != cudaSuccess) return static_cast<int>(configured);
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ * H * B);
-  int8_attention_sm90_kernel<D, E><<<grid, kThreads, L::kAlloc, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((T + kBlockQ - 1) / kBlockQ * H * B);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = L::kAlloc;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&config, int8_attention_sm90_kernel<D, E>, p);
+  return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
+}
+
+// The f32 kernel's pre-pass: for rows [16 x, 16 x + 16) of head h of batch
+// element b, k as its TF32 big and small parts, (B H, Tp, D) each, zero past
+// T. A thread one float4 of a row.
+template <int D>
+__global__ void __launch_bounds__(kSplitRows * D / 4)
+    int8_split_k_kernel(const float* __restrict__ k, Strides sk, int H, int T, int Tp,
+                        float* __restrict__ kb, float* __restrict__ ks) {
+  constexpr int kRowThreads = D / 4;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row = blockIdx.x * kSplitRows + threadIdx.x / kRowThreads;
+  const int c = 4 * (threadIdx.x % kRowThreads);
+  const int64_t at = ((static_cast<int64_t>(b) * H + h) * Tp + row) * D + c;
+  float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < T) y = *reinterpret_cast<const float4*>(k + b * sk.b + row * sk.t + h * sk.h + c);
+  *reinterpret_cast<float4*>(kb + at) = tf32_bigs(y);
+  *reinterpret_cast<float4*>(ks + at) = tf32_smalls(y);
 }
 
 // The bf16 kernel at width D: q, k through their strides, Q scaled in the kernel.
@@ -901,23 +1031,23 @@ int attention_bf16(const void* q, const void* k, Int8Params& p, const void* vt, 
   return launch_attention<D, bf16>(p, vt, B, H, T, Tp, stream);
 }
 
-// The f32 pre-pass and kernel at width D on `scratch` (four (B H Tp, D) parts).
+// The f32 pre-pass and kernel at width D: q through its strides (split in
+// the kernel), k's parts on `scratch` (two (B H Tp, D) parts).
 template <int D>
 int attention_f32(const void* q, const void* k, Int8Params& p, const void* vt, int B, int H,
-                  int T, int Tp, const int64_t* strides, float scale, float* scratch,
-                  cudaStream_t stream) {
+                  int T, int Tp, const int64_t* strides, float* scratch, cudaStream_t stream) {
   using P = Int8Plan<D, float>;
   const int64_t n = static_cast<int64_t>(B) * H * Tp * D, rows = static_cast<int64_t>(B) * H * Tp;
-  float *qb = scratch, *qs = scratch + n, *kb = scratch + 2 * n, *ks = scratch + 3 * n;
-  int err = make_map_2d(&p.q, qb, D, rows, P::kCols, kBlockQ);
-  if (!err) err = make_map_2d(&p.qs, qs, D, rows, P::kCols, kBlockQ);
+  float *kb = scratch, *ks = scratch + n;
+  const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]};
+  const bool q_inner = sq.h < sq.t;
+  int err = make_map<float>(&p.q, q, sq, B, H, T, q_inner, D, P::kCols);
   if (!err) err = make_map_2d(&p.k, kb, D, rows, P::kCols, P::kKeys);
   if (!err) err = make_map_2d(&p.ks, ks, D, rows, P::kCols, P::kKeys);
   if (err) return -err;
-  const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]};
-  int8_split_qk_kernel<D><<<dim3(Tp / kSplitRows, H, B), kSplitRows * D / 4, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), sq, sk, H, T, Tp, scale, qb, qs,
-      kb, ks);
+  p.heads_inner = q_inner ? kInnerQ : 0;
+  int8_split_k_kernel<D><<<dim3(Tp / kSplitRows, H, B), kSplitRows * D / 4, 0, stream>>>(
+      static_cast<const float*>(k), sk, H, T, Tp, kb, ks);
   const cudaError_t split = cudaGetLastError();
   if (split != cudaSuccess) return static_cast<int>(split);
   return launch_attention<D, float>(p, vt, B, H, T, Tp, stream);
@@ -960,10 +1090,13 @@ extern "C" int int8_quantize_v(const void* v, int B, int H, int T, int D, const 
 // aligned bases), D in {32, 48, 64, 96, 128}; mask: (B, T) bytes, 0 = key
 // not attended, or null; vt, sv from int8_quantize_v; out: (B, T, H, D) bf16
 // contiguous; scale: 1/sqrt(D) rounded to bf16 (the reference's sm_scale
-// in q's dtype). Every pointer on the device of `stream`. Returns
-// cudaGetLastError() after the launch, cudaErrorInvalidValue (1) for a Tp or
-// a D it does not take, or minus the CUresult of a tensor map that cannot be
-// encoded.
+// in q's dtype). Every pointer on the device of `stream`. Launched with
+// programmatic dependent launch: the kernel reads q and k before the kernel
+// launched before it on the stream has finished (the values' quantization,
+// whose output it waits for), so q and k must be complete when that kernel
+// starts; the mask is read after the wait. Returns the launch's error,
+// cudaErrorInvalidValue (1) for a Tp or a D it does not take, or minus the
+// CUresult of a tensor map that cannot be encoded.
 extern "C" int int8_attention_sm90(const void* q, const void* k, const uint8_t* mask,
                                    const void* vt, const float* sv, void* out, int B, int H, int T,
                                    int D, int Tp, const int64_t* strides, float scale,
@@ -980,18 +1113,19 @@ extern "C" int int8_attention_sm90(const void* q, const void* k, const uint8_t* 
   });
 }
 
-// f32 elements of the f32 kernel's scratch at (B, H, Tp, D): fl(q * scale)
-// and k, each as big and small TF32 parts, (B H, Tp, D) each.
+// f32 elements of the f32 kernel's scratch at (B, H, Tp, D): k's big and
+// small TF32 parts, (B H, Tp, D) each.
 extern "C" int64_t int8_attention_f32_scratch(int B, int H, int Tp, int D) {
-  return 4 * static_cast<int64_t>(B) * H * Tp * D;
+  return 2 * static_cast<int64_t>(B) * H * Tp * D;
 }
 
 // The same for f32 q, k (strides as int8_attention_sm90's, each a multiple
 // of 4 elements), values from int8_quantize_v(.., f32 = 1), out (B, T, H,
 // D) f32 contiguous, scale 1/sqrt(D) in f32, and scratch:
 // int8_attention_f32_scratch(B, H, Tp, D) f32, 16-byte aligned. Launches
-// the pre-pass (int8_split_qk_kernel<D>) and the kernel; returns as
-// int8_attention_sm90 does.
+// the pre-pass (int8_split_k_kernel<D>) and the kernel, which reads q early
+// as int8_attention_sm90 does and waits for the pre-pass before its K;
+// returns as int8_attention_sm90 does.
 extern "C" int int8_attention_f32_sm90(const void* q, const void* k, const uint8_t* mask,
                                        const void* vt, const float* sv, void* out, int B, int H,
                                        int T, int D, int Tp, const int64_t* strides, float scale,
@@ -1001,8 +1135,9 @@ extern "C" int int8_attention_f32_sm90(const void* q, const void* k, const uint8
   p.mask = mask;
   p.sv = sv;
   p.out = out;
+  p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return at_width(D, [&](auto d) {
-    return attention_f32<d.value>(q, k, p, vt, B, H, T, Tp, strides, scale, scratch, s);
+    return attention_f32<d.value>(q, k, p, vt, B, H, T, Tp, strides, scratch, s);
   });
 }

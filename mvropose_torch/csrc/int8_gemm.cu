@@ -105,7 +105,8 @@
 #include <cuda_runtime.h>
 
 #include "int8_quantize.cuh"  // Divisor, quantized_byte, pack4
-#include "sm90_common.cuh"  // mbarriers, the swizzled descriptor, wgmma fences, the map encoder
+#include "sm90_common.cuh"  // mbarriers, the swizzled descriptor, wgmma fences, the map encoder,
+                             // programmatic dependent launch
 
 namespace {
 
@@ -306,20 +307,6 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw, float b, b
 
 __device__ __forceinline__ void consumers_sync(int wg) {  // the 128 threads of warpgroup wg
   asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-// Programmatic dependent launch (PTX ISA 7.8): wait until the kernels this
-// one was launched behind have finished and their writes are visible (a
-// no-op without it), and let the next kernel, if launched so, be scheduled
-// now: it takes the SMs this grid leaves and waits in griddep_wait.
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // One box of the output from shared memory (laid out as the map's box,

@@ -18,7 +18,11 @@
 //     columns (64, 32 or 16: 128-, 64- or 32-byte swizzle), a tile stored as
 //     its column chunks one after another, the layout wgmma's descriptors
 //     (`sw_desc`) name; at d = 64 one chunk, 64 x 64 boxes, 128-byte swizzle;
-//     and one box of any 2-D map (`tma_2d`);
+//     and one box of any 2-D map (`tma_2d`); the f32 int8 attention's map
+//     over f32 q the same way (`Elem<float>`);
+//   * programmatic dependent launch (`griddep_wait`,
+//     `griddep_launch_dependents`: the int8 GEMM, the int8 attention and
+//     its values' quantization);
 //   * the wgmma wrappers, bf16 or f16 operands into f32: S = A B^T of two
 //     K-major shared tiles (m64nNk16, N = 64 or 128), D += A B with A in
 //     registers and B MN-major in shared memory (N = 32 .. 128), fences and
@@ -69,6 +73,12 @@ struct Elem<__half> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
+// f32 operands are read by TMA only (the f32 int8 attention splits q in
+// shared memory).
+template <>
+struct Elem<float> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
 template <typename E>
 constexpr bool kIsHalf = std::is_same_v<E, __half>;
 
@@ -113,6 +123,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Brings a tensor map (a kernel parameter) into the TMA unit's cache.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // One box of a (B, T, H, d) operand: columns [col, col + the map's box
 // width) of rows [row, row + 64) of head h of batch element b, into shared
 // memory (swizzled as the map says); rows past T are zero-filled and still
@@ -140,13 +155,11 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64
       : "memory");
 }
 
-// `rows` rows (whole boxes) of a D-wide operand of 2-byte elements from row
-// `row` on, as a tile of D / C column chunks of `rows` x C each (chunk c at
-// dst + c rows C).
+// `rows` rows (whole boxes) of a D-wide operand from row `row` on, as a
+// tile of D / C column chunks of `rows` x C each (chunk c at dst + c rows C).
 template <int D = kHD, int C = kHD, typename E>
 __device__ __forceinline__ void tma_rows(E* dst, const CUtensorMap* map, uint64_t* bar, int rows,
                                          int row, int h, int b, int heads_inner) {
-  static_assert(sizeof(E) == 2, "2-byte elements");
 #pragma unroll
   for (int c = 0; c < D / C; ++c) {
     for (int r = 0; r < rows; r += kHRows) {
@@ -170,6 +183,17 @@ __device__ __forceinline__ uint64_t sw_desc(const void* tile, int chunk = 1024) 
   const uint64_t lbo = MnMajor ? static_cast<uint64_t>(chunk) >> 4 : 1, sbo = 16 * C >> 4;
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | lbo << 16 | sbo << 32 |
          mode << 62;
+}
+
+// Programmatic dependent launch (PTX ISA 7.8): wait until the kernels this
+// one was launched behind have finished and their writes are visible (a
+// no-op without it), and let the next kernel, if launched so, be scheduled
+// now: it takes the SMs this grid leaves and waits in griddep_wait.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -516,24 +540,27 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a (B, T, H, d) operand of E (bf16 or f16) through its
-// element strides: dims (d, T, H, B), or (d, H, T, B) when `heads_inner`;
-// boxes of 64 rows x `cols` (64, 32 or 16: one 128-, 64- or 32-byte swizzle
-// atom), rows past T zero-filled. -> 0 or the CUresult of the encoding.
+// A tensor map over a (B, T, H, d) operand of E (bf16, f16 or f32) through
+// its element strides: dims (d, T, H, B), or (d, H, T, B) when
+// `heads_inner`; boxes of 64 rows x `cols` (one 128-, 64- or 32-byte
+// swizzle atom: 64, 32 or 16 2-byte columns, 32 or 16 f32), rows past T
+// zero-filled. -> 0 or the CUresult of the encoding.
 template <typename E = bf16>
 int make_map(CUtensorMap* map, const void* base, Strides s, int B, int H, int T, bool heads_inner,
              int d = kHD, int cols = kHD) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  constexpr cuuint64_t kBytes = sizeof(E);
+  const CUtensorMapSwizzle swizzle = cols * kBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols * kBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t t = static_cast<cuuint64_t>(T), hh = static_cast<cuuint64_t>(H);
-  const cuuint64_t st = static_cast<cuuint64_t>(s.t) * 2, sh = static_cast<cuuint64_t>(s.h) * 2;
+  const cuuint64_t st = static_cast<cuuint64_t>(s.t) * kBytes;
+  const cuuint64_t sh = static_cast<cuuint64_t>(s.h) * kBytes;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), heads_inner ? hh : t,
                               heads_inner ? t : hh, static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {heads_inner ? sh : st, heads_inner ? st : sh,
-                                 static_cast<cuuint64_t>(s.b) * 2};
+                                 static_cast<cuuint64_t>(s.b) * kBytes};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), heads_inner ? 1u : kHRows,
                              heads_inner ? kHRows : 1u, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};

@@ -15,11 +15,14 @@ Routes (`int8_route`), one rule:
     logits, exponents and probabilities never reach device memory);
   * CUDA f32 at those widths (an f32 backbone's int8 serve step):
     "fused_f32", the same two kernels instantiated for f32, the logits on
-    split-TF32 wgmma after a pre-pass that splits q and k, and pass 2 at
-    the reference's f32 rounding points;
+    split-TF32 wgmma (q split into its TF32 parts in the kernel's shared
+    memory, k by a pre-pass into a scratch buffer), and pass 2 at the
+    reference's f32 rounding points;
   * anything else on CUDA raises. No route falls back to another.
 The kernels scale q by 1/sqrt(d) rounded to q's dtype (`sm_scale`), in q's
-dtype, before the product, as the reference does.
+dtype, before the product, as the reference does. The attention kernel is
+launched behind the values' kernel with programmatic dependent launch: it
+reads q and k while that kernel still runs (`int8_attention_cuda`).
 The sources' notes say what bounds each kernel.
 """
 
@@ -36,8 +39,8 @@ from mvropose_torch.ops.attention import HEAD_DIMS, mask_bytes
 from mvropose_torch.ops.attention import _kernel_layout as _operand_layout
 
 # Kernel launches: the fused attention kernel (`int8_attention_cuda`) by
-# (route, head width), "fused" for bf16 and "fused_f32" for f32 (its pre-pass
-# and kernel, one entry point); the values' quantization
+# (route, head width), "fused" for bf16 and "fused_f32" for f32; the values'
+# quantization
 # (`int8_quantize_v_cuda`, both types).
 width_launches: collections.Counter = collections.Counter()
 quantize_v_launches = 0
@@ -246,8 +249,12 @@ def int8_attention_cuda(q, k, vt, sv, key_mask=None) -> torch.Tensor:
     """Launch the fused kernel: CUDA bf16 or f32 (B, T, H, d) q, k (d in
     `HEAD_DIMS`) read through their strides, the values as
     `int8_quantize_v_cuda` gives them, an optional (B, T) bool key mask ->
-    (B, T, H, d) in q's dtype, contiguous. f32 launches the pre-pass and the
-    kernel, on a scratch buffer of q scaled and k split into TF32 parts."""
+    (B, T, H, d) in q's dtype, contiguous. f32 launches a pre-pass that
+    splits k into TF32 parts on a scratch buffer first. The kernel is launched with
+    programmatic dependent launch: it reads q and k (not the values or the
+    mask) before the kernel launched just before it on the stream has
+    finished, so q and k must be complete when that kernel starts, as they
+    are after `int8_quantize_v_cuda` (`int8_prob_attention`)."""
     _check_fused("q", q, None)
     _check_fused("k", k, q)
     B, T, H, d = q.shape

@@ -6,8 +6,8 @@
 The test files import JAX and the JAX package at module level, for their
 CPU comparisons with the reference; the tests marked `cuda` use neither.
 This runs pytest with `-m cuda` and without `tests/conftest.py` (which sets
-JAX up), each module of jax, jaxlib, flax, optax, orbax and mvropose_tpu
-standing in as an empty package whose every attribute is a MagicMock (and
+JAX up), each module of jax, jaxlib, flax, optax, orbax, grain (the
+reference's loader) and mvropose_tpu standing in as an empty package whose every attribute is a MagicMock (and
 `dataclasses.replace` of such a MagicMock giving another, for the
 reference's configurations that the files derive at module level). Needs a
 CUDA GPU: without one the tests skip.
@@ -26,7 +26,7 @@ from unittest import mock
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-STUBBED = ("jax", "jaxlib", "flax", "optax", "orbax", "mvropose_tpu")
+STUBBED = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "mvropose_tpu")
 
 
 class Stub(types.ModuleType):

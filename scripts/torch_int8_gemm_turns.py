@@ -30,7 +30,8 @@ and `torch._int_mm` alone (int32 out). Two timings a case:
 (ViT-B/16, 512 px, 4 resident 720x1280 frames, seed-0 weights, bf16), in
 processes of their own from each root, in turns other/this/this/other: its
 device time by CUDA-graph replay, the GEMM's launches a step, and the
-GEMM's share of the step's kernel time (torch.profiler over replays).
+GEMM's, the int8 attention's and the values' quantization's shares of the
+step's kernel time (torch.profiler over replays).
 Prints one line a comparison, then a JSON line of them all. Needs a CUDA GPU.
 """
 
@@ -117,9 +118,12 @@ with torch.inference_mode():
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_time_total > 0 and e.key != "cudaGraphLaunch"]
     busy = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
-    gemm = sum(e.self_device_time_total for e in kernels if "int8_gemm_sm90" in e.key) / 10 / 1e3
-print("step " + json.dumps({"ms": statistics.median(times), "busy_ms": busy, "gemm_ms": gemm,
-                            "gemm_launches": launches}))
+    def kernel_ms(name):
+        return sum(e.self_device_time_total for e in kernels if name in e.key) / 10 / 1e3
+print("step " + json.dumps({"ms": statistics.median(times), "busy_ms": busy,
+                            "gemm_ms": kernel_ms("int8_gemm_sm90"), "gemm_launches": launches,
+                            "attention_ms": kernel_ms("int8_attention_sm90"),
+                            "quantize_v_ms": kernel_ms("int8_quantize_v")}))
 """
 
 
@@ -191,7 +195,9 @@ def step_times(other: Path, timeout: float) -> dict:
         print(f"[{label}] int8 + fused-LN serve step (bf16, ViT-B/16 512 px, 4 views), "
               f"CUDA-graph replay: {reading['ms']:.4f} ms; profiler: kernels "
               f"{reading['busy_ms']:.4f} ms a step, int8 GEMM {reading['gemm_ms']:.4f} ms "
-              f"({reading['gemm_launches']} launches)", flush=True)
+              f"({reading['gemm_launches']} launches), int8 attention "
+              f"{reading['attention_ms']:.4f} ms, values' quantization "
+              f"{reading['quantize_v_ms']:.4f} ms", flush=True)
     return runs
 
 

@@ -50,33 +50,41 @@ PARENT = ROOT / "build" / "parent"
 ROUNDS = 2
 
 
-def build_variants(variants: dict, csrc: Path) -> dict:
+def build_variants(variants: dict, csrc: Path, source: str = "int8_gemm.cu",
+                   kernel: str = "int8_gemm_sm90_kernel", out: Path = OUT) -> dict:
     """label -> the path of its library, compiled in parallel from csrc's
-    int8_gemm.cu, patched."""
-    shutil.rmtree(OUT, ignore_errors=True)
+    `source`, patched; nvcc's registers and spills of `kernel` printed, and
+    how many of its instantiations ptxas serialized the wgmma products of."""
+    shutil.rmtree(out, ignore_errors=True)
     nvcc, procs, libs = _build.find_nvcc(), {}, {}
     flags = [f for f in _build.COMPILE_FLAGS if f != "-c"]
     for label, subs in variants.items():
-        d = OUT / label
+        d = out / label
         d.mkdir(parents=True)
         for name in HEADERS:
             shutil.copy(csrc / name, d / name)
-        src = (csrc / "int8_gemm.cu").read_text()
+        src = (csrc / source).read_text()
         for pattern, replacement in subs:
             new = re.sub(pattern, replacement, src)
             if new == src:
                 raise SystemExit(f"variant {label}: {pattern!r} matches nothing")
             src = new
-        (d / "int8_gemm.cu").write_text(src)
+        (d / source).write_text(src)
         libs[label] = d / "lib.so"
         procs[label] = subprocess.Popen(
-            [nvcc, *flags, "-shared", "-o", str(libs[label]), str(d / "int8_gemm.cu")],
+            [nvcc, *flags, "-shared", "-o", str(libs[label]), str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for label, proc in procs.items():
         log = proc.communicate()[0]
-        kernel = log.split("int8_gemm_sm90_kernel")[-1][:400]
-        print(f"variant {label}: nvcc rc {proc.returncode}; "
-              + "; ".join(re.findall(r"Used \d+ registers|\d+ bytes spill stores", kernel)), flush=True)
+        used = [(name.split(kernel)[1][:24], re.findall(r"Used \d+ registers|\d+ bytes spill "
+                                                         r"stores", part))
+                for name, part in (p.split("'", 1) for p in log.split("entry function '")[1:])
+                if kernel in name]
+        serialized = sum(kernel in line for line in log.splitlines()
+                         if "wgmma.mma_async instructions are serialized" in line)
+        print(f"variant {label}: nvcc rc {proc.returncode}; {serialized} instantiations with "
+              f"serialized wgmma; " + " | ".join(f"{args} {'; '.join(found)}" for args, found in used),
+              flush=True)
         if proc.returncode:
             raise SystemExit(log[-4000:])
     return libs

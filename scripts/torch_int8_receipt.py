@@ -1,7 +1,7 @@
 """The int8 accuracy receipt on the card: PCK parity of `--int8-backbone` (and
 `--int8-attention`) against float, on a checkpoint the port trains.
 
-`python3 scripts/torch_int8_receipt.py [--no-freeze-backbone] [--mixed3] [--work DIR] [--out FILE]`
+`python3 scripts/torch_int8_receipt.py [--seed S] [--num-workers N] [--no-freeze-backbone] [--mixed3] [--work DIR] [--out FILE]`
 
 The twin of the reference's receipt (`runs/int8_bench.json` and
 `runs/attn8_ln_bench.json`, `pck_parity`, on the converged
@@ -14,7 +14,10 @@ The twin of the reference's receipt (`runs/int8_bench.json` and
      192-wide, 4-layer ViT/16 at 128 px, query head, frozen backbone, the
      flags' defaults otherwise) for 100 epochs; batch 66 gives the
      reference's 33 steps an epoch over the 2,160 training samples (the
-     port pads the last batch: ceil(2160 / 66) = 33);
+     port pads the last batch: ceil(2160 / 66) = 33); `--seed` is cli
+     train's (the sample order, augmentation and dropout draws; default 0)
+     and `--num-workers` its loader's worker processes (default 0, the
+     batches made in-process);
   4. `cli eval` on the held-out set at --batch-size 50, four times: float,
      --int8-backbone, --int8-backbone --int8-attention, and float with
      --occlusion-masks 2; for the first three also the spread of the
@@ -121,7 +124,10 @@ def main(argv=None) -> int:
     p.add_argument("--no-freeze-backbone", action="store_true",
                    help="train the twin's backbone too")
     p.add_argument("--mixed3", action="store_true", help="also the twin of runs/mixed3")
+    p.add_argument("--seed", type=int, default=0, help="cli train's --seed")
+    p.add_argument("--num-workers", type=int, default=0, help="cli train's --num-workers")
     args = p.parse_args(argv)
+    train_flags = ["--seed", str(args.seed), "--num-workers", str(args.num_workers)]
 
     import torch
 
@@ -165,7 +171,7 @@ def main(argv=None) -> int:
     result = timed("train", lambda: cli_main.train(cli_main.build_parser().parse_args(
         ["train", "--robot", "dream", "--single-view", "--csv", str(work / "dream5.csv"),
          "--dream-dirs", str(work / "dream5" / "panda_synth"), "--workdir", str(run),
-         *ARCH, "--batch-size", str(BATCH), "--epochs", str(EPOCHS), *DEVICE, "--num-workers", "0",
+         *ARCH, "--batch-size", str(BATCH), "--epochs", str(EPOCHS), *DEVICE, *train_flags,
          *(["--no-freeze-backbone"] if args.no_freeze_backbone else [])])))
     records = [json.loads(line) for line in (run / "logs" / "metrics.jsonl").read_text()
                .splitlines()]
@@ -190,7 +196,8 @@ def main(argv=None) -> int:
         "torch": torch.__version__,
         "checkpoint": f"{run / 'best_params.npz'} (cli train, {result.epochs_run} epochs run "
                       f"in this call, {len(records)} recorded)",
-        "train": {"epochs": EPOCHS, "batch_size": BATCH,
+        "train": {"epochs": EPOCHS, "batch_size": BATCH, "seed": args.seed,
+                  "num_workers": args.num_workers,
                   "backbone": "trained" if args.no_freeze_backbone else "frozen",
                   "layerscale_gamma_max": _gamma_max(run / "best_params.npz"),
                   "steps_per_epoch": records[0]["step"] if records else None,
@@ -225,7 +232,7 @@ def main(argv=None) -> int:
         timed("train mixed3", lambda: cli_main.train(cli_main.build_parser().parse_args(
             ["train", *common, "--csv", *(str(mixed / f"{r}.csv") for r in robots),
              "--workdir", str(mrun), "--batch-size", str(MIXED_BATCH), "--epochs",
-             str(MIXED_EPOCHS), *DEVICE, "--num-workers", "0"])))
+             str(MIXED_EPOCHS), *DEVICE, *train_flags])))
         out["mixed3"] = timed("eval mixed3", lambda: evaluate(
             [*common, "--csv", *(str(held / f"{r}.csv") for r in robots), "--params",
              str(mrun / "best_params.npz"), "--batch-size", "50"]))

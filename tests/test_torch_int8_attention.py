@@ -424,3 +424,107 @@ def test_fused_kernels_at_every_width_on_card(cuda_device, T, d, dtype):
     want = int8_attention.int8_prob_attention_reference(q, k, v, mask)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _route_on_card(q, k, v, mask):
+    """The whole route twice on the card (bit-identical), its quantized values
+    equal to the plain version's, its output within one value step (plus a
+    bf16 ulp in bf16) of the plain route."""
+    B, T, H, d = q.shape
+    got = [int8_prob_attention(q, k, v, mask) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert got[0].dtype == q.dtype and torch.equal(got[0], got[1])
+    vt, sv = int8_attention.int8_quantize_v_cuda(v)
+    vt_ref, sv_ref = quantize_v_plain(v, int8_attention._fused_tp(T))
+    assert torch.equal(vt, vt_ref) and torch.equal(sv, sv_ref)
+    want = int8_attention.int8_prob_attention_reference(q, k, v, mask).float()
+    bound = sv.reshape(B, 1, H, d).expand(B, T, H, d)
+    if q.dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
+    assert bool(torch.isfinite(got[0]).all())
+    assert bool(((got[0].float() - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128])
+@pytest.mark.parametrize("T", [1, 37, 129, 1025, 2305])
+def test_fused_kernels_at_every_t_on_card(cuda_device, T, d, masked, dtype):
+    """Every T of the persistent grid's cases (one key, a partial key tile,
+    one key past a tile, the serve's 8 tiles + 1, the flash serve's T), every
+    width, both dtypes; masked: a random mask and a batch element whose keys
+    are all masked."""
+    gen = torch.Generator().manual_seed(1000 + T + d)
+    q, k, v = (s * torch.randn(2, T, 2, d, generator=gen) for s in (2.0, 2.0, 1.0))
+    q, k, v = (t.to(cuda_device, dtype) for t in (q, k, v))
+    mask = None
+    if masked:
+        mask = (torch.rand(2, T, generator=gen) > 0.3).to(cuda_device)
+        mask[1] = False
+    _route_on_card(q, k, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B, T, H, d", [(3, 1025, 7, 64), (1, 65, 2, 48)])
+def test_fused_kernels_on_an_uneven_persistent_grid(cuda_device, B, T, H, d, dtype):
+    """Work items (query tile, b, h) that the SMs do not divide: 9 x 21 = 189
+    items (a second round on 57 of 132 blocks, single-query items among
+    them), and 2 items (two blocks, one with no query in its second
+    warpgroup)."""
+    gen = torch.Generator().manual_seed(41)
+    q, k, v = (s * torch.randn(B, T, H, d, generator=gen) for s in (2.0, 2.0, 1.0))
+    _route_on_card(*(t.to(cuda_device, dtype) for t in (q, k, v)), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_captured_int8_block_keeps_the_programmatic_edge(cuda_device, dtype):
+    """An int8 + fused-LN ViT-B block (768 wide, 12 heads, int8 attention) on
+    4 x 1025 tokens captured in a CUDA graph: the replay bit-equal to the
+    eager call, and the attention's node reached by a programmatic edge
+    (programmatic dependent launch kept in the graph) from the values'
+    kernel, in f32 from the pre-pass that splits k, which follows the
+    values' kernel."""
+    from mvropose_torch.models.quantize import Int8Linear
+    from mvropose_torch.models.vit import Block, ViTConfig
+    from mvropose_torch.utils import graphs
+
+    cfg = ViTConfig(image_size=512, patch_size=16, hidden_size=768, num_layers=1, num_heads=12,
+                    dtype=dtype, quant="int8", quant_attn="int8", fused_ln=True,
+                    layerscale_init=0.5)
+    block = Block(cfg, device=cuda_device).eval()
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    with torch.no_grad():
+        for layer in block.modules():
+            if isinstance(layer, Int8Linear):
+                layer.kernel_q.copy_(torch.randint(-127, 128, layer.kernel_q.shape, generator=gen,
+                                                   device=cuda_device, dtype=torch.int8))
+                layer.scale.copy_(0.02 / 127 * torch.ones_like(layer.scale))
+                layer.bias.copy_(0.1 * torch.randn(layer.bias.shape, generator=gen,
+                                                   device=cuda_device))
+    x = torch.randn(4, 1025, 768, generator=gen, device=cuda_device).to(cfg.compute_dtype)
+    with torch.inference_mode():
+        eager = block(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=side):
+            captured = block(x)
+        edges = graphs.kernel_edges(graph)
+        graph.instantiate()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+    def into(kernel):
+        return [(src, kind) for src, dst, kind, _ in edges if kernel in dst]
+
+    attention = into("int8_attention_sm90_kernel")
+    before = "int8_quantize_v_kernel" if dtype == "bfloat16" else "int8_split_k_kernel"
+    assert len(attention) == 1 and before in attention[0][0], edges
+    assert attention[0][1] == graphs.PROGRAMMATIC, edges
+    if dtype == "float32":
+        assert [src for src, _ in into("int8_split_k_kernel")] == [
+            src for src, _, _, _ in edges if "int8_quantize_v_kernel" in src], edges
